@@ -1,0 +1,13 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
+
+The JAX package ``paddle_tpu`` stays the reference; this package runs on
+an NVIDIA Hopper GPU with PyTorch and hand-written CUDA kernels, and
+imports nothing of JAX or of ``paddle_tpu``. Module paths mirror the JAX
+package's. Entry points take ``device=`` (default "cuda") and raise
+without a GPU unless the caller asks for the CPU.
+
+Slice 1 covers paged continuous-batching serving: ``inference`` (the
+engine), ``incubate.nn`` (the fused decoder op and the scheduler),
+``ops`` (paged attention and the int4 weight-only matmul, with their
+kernels under ``csrc/``), ``observability`` and ``core``.
+"""

@@ -1,0 +1,402 @@
+"""Fused decoder-stack op of the PyTorch port (counterpart of
+``paddle_tpu/incubate/nn/functional/__init__.py``: ``fused_multi_transformer``
+and its helpers).
+
+``fused_multi_transformer`` keeps the JAX package's three branches and
+its cast points:
+
+* dense prefill (no ``time_step``): causal attention over the prompt,
+  caches [2, B, KVH, S_max, D] filled from position 0;
+* dense decode (``time_step`` given, contiguous caches): one token per
+  sequence at a shared time step, or at per-sequence ``seq_lens``;
+* paged (``block_tables`` given): the continuous-batching step. New K/V
+  append into [2, KVH, NB, BS, D] caches through the host-filtered write
+  set, and attention runs ``ops.paged_attention.ragged_paged_attention``
+  (the CUDA kernel on the card). ``chunk_lens`` switches from one decode
+  token per row to chunked prefill.
+
+Caches are updated IN PLACE; the function returns the output hidden
+states. The TPU work-list arguments of the JAX signature (``ragged_work``,
+``ragged_pack``, ``kv_buffer_depth``) have no counterpart: the CUDA
+kernel walks the block tables. Dropout, ``pre_caches``, ``attn_mask``,
+``beam_offset`` and the tensor-parallel ``_tp_reduce`` hook belong to a
+later slice and raise ``NotImplementedError`` when passed.
+"""
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...ops import paged_attention as _pa
+
+NEG_INF_F = -1e30
+
+__all__ = ["fused_multi_transformer", "quantize_int4"]
+
+
+def _ln(h, eps, scale=None, bias=None):
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    out = (h - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * scale
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _rms(h, eps, scale=None):
+    out = h * torch.rsqrt((h * h).mean(-1, keepdim=True) + eps)
+    return out * scale if scale is not None else out
+
+
+def _apply_rope_pair(q, k, cos, sin, neox):
+    """q/k: [B, S, H, D]; cos/sin broadcastable [B, S, 1, D]."""
+    if neox:
+        half = q.shape[-1] // 2
+
+        def rot(t):
+            return torch.cat([-t[..., half:], t[..., :half]], dim=-1)
+    else:
+        def rot(t):
+            t2 = t.reshape(*t.shape[:-1], -1, 2)
+            r = torch.stack([-t2[..., 1], t2[..., 0]], dim=-1)
+            return r.reshape(t.shape)
+    return q * cos + rot(q) * sin, k * cos + rot(k) * sin
+
+
+def _ragged_group_q(qkv_weights, gqa_group_size, trans_qkvw):
+    """Queries per kv head, recovered from the packed qkv weight layout."""
+    shape = qkv_weights[0].shape
+    if gqa_group_size and gqa_group_size > 0:
+        ht = shape[0] if trans_qkvw else shape[1]
+        return (ht - 2 * gqa_group_size) // gqa_group_size
+    return 1
+
+
+def quantize_int4(w, axis=-1, group_size=None):
+    """Pack a float weight into (packed int8 nibbles, scales): symmetric
+    per-channel (or per-group) absmax quantization along the INPUT axis
+    `axis`; two consecutive int4 values pack into one int8 byte (low
+    nibble first) along that axis. Returns numpy (packed, scales): packed
+    has `axis` halved; scales broadcast over `axis`."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().float().cpu().numpy()
+    a = np.asarray(w, np.float32)
+    a = np.moveaxis(a, axis, -1)
+    n = a.shape[-1]
+    if n % 2:
+        raise ValueError("int4 packing needs an even axis length")
+    g = group_size or n
+    if n % g:
+        raise ValueError("group_size must divide the quantized axis")
+    grp = a.reshape(*a.shape[:-1], n // g, g)
+    sc = np.abs(grp).max(-1, keepdims=True) / 7.0 + 1e-9
+    q = np.clip(np.round(grp / sc), -8, 7).astype(np.int8)
+    q = q.reshape(*a.shape[:-1], n)
+    lo, hi = q[..., 0::2], q[..., 1::2]
+    packed = ((hi.astype(np.uint8) << 4) |
+              (lo.astype(np.uint8) & 0x0F)).astype(np.int8)
+    packed = np.moveaxis(packed, -1, axis % a.ndim if axis >= 0 else axis)
+    scales = np.moveaxis(sc[..., 0], -1, axis % a.ndim if axis >= 0
+                         else axis)
+    return packed, scales.astype(np.float32)
+
+
+def _unpack_int4(p, axis=-1):
+    """int8-packed nibbles (torch) -> int4 values (sign-extended, int8),
+    `axis` doubled, low nibble first."""
+    m = torch.movedim(p, axis, -1)
+    u = m.to(torch.int16) & 0xFF
+    lo = u & 0x0F
+    hi = u >> 4
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    out = torch.stack([lo, hi], -1).reshape(*m.shape[:-1], m.shape[-1] * 2)
+    return torch.movedim(out.to(torch.int8), -1, axis)
+
+
+def _paged_inputs(block_tables, seq_lens, chunk_lens, chunk, num_blocks,
+                  block_size, device):
+    """Everything the paged branch needs from the host, computed and
+    uploaded ONCE per call (not per layer): the block tables, the
+    attention lengths (seq_lens + span), the query spans, the rope
+    positions and the cache write set."""
+    tables = _pa._host_array(block_tables, np.int32)
+    lens = _pa._host_array(seq_lens).reshape(-1)
+    if chunk_lens is None:
+        qls = np.ones_like(lens)
+    else:
+        qls = _pa._host_array(chunk_lens).reshape(-1)
+    src, dst = _pa.paged_write_index(tables, lens, qls, chunk, num_blocks,
+                                     block_size)
+
+    up = _pa._on_device
+    return {"tables": up(tables, device, torch.int32),
+            "attn_lens": up(lens + qls, device, torch.int32),
+            "q_lens": None if chunk_lens is None
+            else up(qls, device, torch.int32),
+            "lens": up(lens, device, torch.long),
+            "src": up(src, device, torch.long),
+            "dst": up(dst, device, torch.long)}
+
+
+def fused_multi_transformer(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
+        linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+        ffn1_biases, ffn2_weights, ffn2_biases, pre_layer_norm=True,
+        epsilon=1e-5, residual_alpha=1.0, cache_kvs=None, beam_offset=None,
+        pre_caches=None, seq_lens=None, rotary_embs=None, time_step=None,
+        attn_mask=None, dropout_rate=0.0, rotary_emb_dims=0,
+        activation="gelu", training=False, mode="upscale_in_train",
+        trans_qkvw=True, ring_id=-1, norm_type="layernorm",
+        use_neox_rotary_style=False, gqa_group_size=-1, name=None,
+        block_tables=None, chunk_lens=None, _dequant=None, _mm=None,
+        _tp_reduce=None):
+    """Whole-decoder-stack fused transformer: [LN -> QKV proj (+rope) ->
+    cached attention -> out proj + residual -> LN -> FFN -> residual] x
+    n_layers, one call for every layer.
+
+    Shapes (trans_qkvw=True): x [B, S, E]; qkv_weight [3, H, D, E] (or
+    [H + 2G, D, E] under GQA: H query heads, then G key heads, then G
+    value heads); linear_weight [H*D, E]; ffn1_weight [E, F] (or [E, 2F]
+    for *glu activations); ffn2 [F, E]; dense caches [2, B, KVH, S_max, D];
+    paged caches [2, KVH, num_blocks, block_size, D] with block_tables
+    [B, max_blocks] and per-sequence seq_lens; rotary_embs
+    [2, B, 1, S_rope, D] (cos, sin); time_step: decode position (decode
+    mode when given).
+
+    Paged mode: x [B, 1, E] appends one token per row at slot seq_lens;
+    with ``chunk_lens`` [B], x [B, C, E] appends chunk_lens[b] tokens at
+    seq_lens[b].. and each attends causally to its own prefix
+    (chunk_lens[b] == 0 parks the row: nothing written, output zero).
+    Block tables and lengths are host data (numpy or tensors).
+
+    ``_mm(z2d, w, kind, li)`` (with ``_mm.qkv_out``) replaces the four
+    projection matmuls (the weight-only-quantized GEMM); ``_dequant(w,
+    kind, li)`` maps a stored weight to its float form.
+
+    Returns the output hidden states [B, S, E]; caches are updated in
+    place."""
+    if beam_offset is not None:
+        raise NotImplementedError("fused_multi_transformer: beam_offset is "
+                                  "a later slice")
+    if pre_caches is not None:
+        raise NotImplementedError("fused_multi_transformer: pre_caches is a "
+                                  "later slice")
+    if attn_mask is not None:
+        raise NotImplementedError("fused_multi_transformer: attn_mask is a "
+                                  "later slice")
+    if training and dropout_rate:
+        raise NotImplementedError("fused_multi_transformer: dropout is a "
+                                  "later slice")
+    if _tp_reduce is not None:
+        raise NotImplementedError("fused_multi_transformer: tensor-parallel "
+                                  "reduction is a later slice")
+    if chunk_lens is not None and block_tables is None:
+        raise ValueError(
+            "fused_multi_transformer: chunk_lens (chunked prefill) is a "
+            "paged-cache feature — pass block_tables too")
+    caches = list(cache_kvs) if cache_kvs is not None else []
+    b, s, e = x.shape
+    paged = None
+    if block_tables is not None:
+        if time_step is None or seq_lens is None:
+            raise ValueError(
+                "fused_multi_transformer: the paged-cache path is decode-"
+                "only — pass time_step and per-sequence seq_lens with "
+                "block_tables")
+        if not caches:
+            raise ValueError(
+                "fused_multi_transformer: block_tables without cache_kvs "
+                "— the paged path needs the per-layer paged caches")
+        if s != 1 and chunk_lens is None:
+            raise ValueError(
+                "fused_multi_transformer: paged decode takes one token "
+                f"per sequence (x [B, 1, E]); got {list(x.shape)} — a "
+                "multi-token chunk slab needs per-sequence chunk_lens")
+        _, _, nb, bs, _ = caches[0].shape
+        paged = _paged_inputs(block_tables, seq_lens, chunk_lens, s, nb, bs,
+                              x.device)
+    G = gqa_group_size if gqa_group_size and gqa_group_size > 0 else 0
+    n_layers = len(qkv_weights)
+    dq = _dequant or (lambda w, kind, li: w)
+    if norm_type == "rmsnorm":
+        def norm(h, sc, bi):
+            return _rms(h, epsilon, sc)
+    else:
+        def norm(h, sc, bi):
+            return _ln(h, epsilon, sc, bi)
+
+    def item(lst, li):
+        return lst[li] if lst else None
+
+    slens = None
+    if paged is not None:
+        slens = paged["lens"]
+    elif isinstance(seq_lens, torch.Tensor):
+        slens = seq_lens.to(device=x.device, dtype=torch.long).reshape(-1)
+    elif seq_lens is not None:
+        slens = torch.as_tensor(np.asarray(seq_lens), dtype=torch.long) \
+            .to(x.device).reshape(-1)
+    h = x
+    for li in range(n_layers):
+        resid = h
+        z = norm(h, ln_scales[li], item(ln_biases, li)) \
+            if pre_layer_norm else h
+        if _mm is not None and trans_qkvw:
+            qkv = _mm(z.reshape(b * s, e), qkv_weights[li], "qkv",
+                      li).reshape((b, s) + tuple(_mm.qkv_out))
+            if item(qkv_biases, li) is not None:
+                qkv = qkv + qkv_biases[li][None, None]
+            if G:
+                ht, hd = _mm.qkv_out
+                nh = ht - 2 * G
+                q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + G], \
+                    qkv[:, :, nh + G:]
+            else:
+                nh, hd = _mm.qkv_out[1], _mm.qkv_out[2]
+                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        elif G:
+            w = dq(qkv_weights[li], "qkv", li)
+            if not trans_qkvw:
+                w = w.permute(1, 2, 0)                # [E,H+2G,D] packed
+            ht, hd = w.shape[0], w.shape[1]
+            nh = ht - 2 * G
+            qkv = torch.matmul(z.to(w.dtype), w.reshape(ht * hd, e).t()) \
+                .reshape(b, s, ht, hd)
+            if item(qkv_biases, li) is not None:
+                qkv = qkv + qkv_biases[li][None, None]
+            q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + G], qkv[:, :, nh + G:]
+        else:
+            w = dq(qkv_weights[li], "qkv", li)
+            if not trans_qkvw:
+                w = w.permute(1, 2, 3, 0)             # [E,3,H,D] -> [3,H,D,E]
+            nh, hd = w.shape[1], w.shape[2]
+            qkv = torch.matmul(z.to(w.dtype), w.reshape(3 * nh * hd, e).t()) \
+                .reshape(b, s, 3, nh, hd)
+            if item(qkv_biases, li) is not None:
+                qkv = qkv + qkv_biases[li][None, None]
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if rotary_embs is not None:
+            cos = rotary_embs[0][:, 0][:, :, None, :]  # [B, S_rope, 1, D]
+            sin = rotary_embs[1][:, 0][:, :, None, :]
+            if time_step is not None and slens is not None:
+                # ragged decode: each sequence rotates at its own length
+                bidx = torch.arange(cos.shape[0], device=x.device) \
+                    if cos.shape[0] > 1 else torch.zeros_like(slens)
+                if s == 1:
+                    cos = cos[bidx, slens][:, None]
+                    sin = sin[bidx, slens][:, None]
+                else:
+                    posr = torch.clamp(
+                        slens[:, None] + torch.arange(s, device=x.device),
+                        max=cos.shape[1] - 1)
+                    cos = cos[bidx[:, None], posr]
+                    sin = sin[bidx[:, None], posr]
+            elif time_step is not None:
+                t0 = int(time_step)
+                cos, sin = cos[:, t0:t0 + 1], sin[:, t0:t0 + 1]
+            else:
+                cos, sin = cos[:, :s], sin[:, :s]
+            q, k = _apply_rope_pair(q, k, cos, sin, use_neox_rotary_style)
+        scale = 1.0 / math.sqrt(hd)
+        g_eff = G or nh
+        r = nh // g_eff
+        if paged is not None:
+            cache = caches[li]                        # [2, KVH, NB, BS, D]
+            _pa.write_paged_kv(cache[0], k, paged["src"], paged["dst"])
+            _pa.write_paged_kv(cache[1], v, paged["src"], paged["dst"])
+            qa = q.contiguous() if chunk_lens is not None \
+                else q[:, 0].contiguous()
+            ctx = _pa.ragged_paged_attention(
+                qa, cache[0], cache[1], paged["tables"], paged["attn_lens"],
+                scale=scale, q_lens=paged["q_lens"])
+            if chunk_lens is None:
+                ctx = ctx[:, None]
+            ctx = ctx.to(x.dtype)                     # [B, S, H, D]
+        elif time_step is not None and caches:
+            cache = caches[li]                        # [2, B, g, S_max, D]
+            smax = cache.shape[3]
+            if slens is not None:
+                bidx = torch.arange(b, device=x.device)
+                cache[0][bidx, :, slens] = k[:, 0].to(cache.dtype)
+                cache[1][bidx, :, slens] = v[:, 0].to(cache.dtype)
+                posm = (torch.arange(smax, device=x.device)
+                        [None, None, None, None, :]
+                        <= slens[:, None, None, None, None])
+            else:
+                t0 = int(time_step)
+                cache[0][:, :, t0:t0 + s] = k.transpose(1, 2).to(cache.dtype)
+                cache[1][:, :, t0:t0 + s] = v.transpose(1, 2).to(cache.dtype)
+                posm = torch.arange(smax, device=x.device)[
+                    None, None, None, None, :] <= t0
+            qg = q.reshape(b, s, g_eff, r, hd)
+            logits = torch.einsum("bsgrd,bgtd->bgrst", qg.float(),
+                                  cache[0].float()) * scale
+            logits = torch.where(posm, logits, NEG_INF_F)
+            p = torch.softmax(logits, dim=-1)
+            ctx = torch.einsum("bgrst,bgtd->bsgrd", p, cache[1].float()) \
+                .reshape(b, s, nh, hd).to(x.dtype)
+        else:
+            # context/prefill: causal attention, fill cache [0:S]
+            qg = q.reshape(b, s, g_eff, r, hd)
+            logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                                  k.float()) * scale
+            causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                           device=x.device))[None, None, None]
+            if slens is not None:
+                # padded batch: keys at/after each row's length are out
+                valid = (torch.arange(s, device=x.device)[None, :]
+                         < slens[:, None])
+                causal = causal & valid[:, None, None, None, :]
+            logits = torch.where(causal, logits, NEG_INF_F)
+            p = torch.softmax(logits, dim=-1)
+            ctx = torch.einsum("bgrst,btgd->bsgrd", p, v.float()) \
+                .reshape(b, s, nh, hd).to(x.dtype)
+            if caches:
+                cache = caches[li]
+                cache[0][:, :, :s] = k.transpose(1, 2).to(cache.dtype)
+                cache[1][:, :, :s] = v.transpose(1, 2).to(cache.dtype)
+        if _mm is not None:
+            attn = _mm(ctx.reshape(b * s, nh * hd), linear_weights[li],
+                       "lin", li).reshape(b, s, -1)
+        else:
+            attn = ctx.reshape(b, s, nh * hd) @ dq(linear_weights[li],
+                                                   "lin", li)
+        if item(linear_biases, li) is not None:
+            attn = attn + linear_biases[li]
+        h = resid * residual_alpha + attn
+        if not pre_layer_norm:
+            h = norm(h, ln_scales[li], item(ln_biases, li))
+        resid2 = h
+        z2 = norm(h, ffn_ln_scales[li], item(ffn_ln_biases, li)) \
+            if pre_layer_norm else h
+        if _mm is not None:
+            f1 = _mm(z2.reshape(b * s, -1), ffn1_weights[li], "f1",
+                     li).reshape(b, s, -1)
+        else:
+            f1 = z2 @ dq(ffn1_weights[li], "f1", li)
+        if item(ffn1_biases, li) is not None:
+            f1 = f1 + ffn1_biases[li]
+        if activation.endswith("glu"):
+            a, gate = f1.chunk(2, dim=-1)
+            act = F.silu if activation == "swiglu" else \
+                (lambda t: F.gelu(t, approximate="tanh"))
+            f1 = act(a) * gate
+        elif activation == "relu":
+            f1 = F.relu(f1)
+        else:
+            f1 = F.gelu(f1, approximate="tanh")
+        if _mm is not None:
+            f2 = _mm(f1.reshape(b * s, -1), ffn2_weights[li], "f2",
+                     li).reshape(b, s, -1)
+        else:
+            f2 = f1 @ dq(ffn2_weights[li], "f2", li)
+        if item(ffn2_biases, li) is not None:
+            f2 = f2 + ffn2_biases[li]
+        h = resid2 * residual_alpha + f2
+        if not pre_layer_norm:
+            h = norm(h, ffn_ln_scales[li], item(ffn_ln_biases, li))
+    return h

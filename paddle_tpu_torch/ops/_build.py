@@ -1,0 +1,119 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one source under ``paddle_tpu_torch/csrc/`` with a plain C
+interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library in ``paddle_tpu_torch/_build/`` at first use and loaded
+with ``ctypes``. The library's file name carries a hash of the source and
+the flags, so an edited source builds anew and an unchanged one loads
+from the build directory. A failed build raises.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine without ``nvcc``.
+
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits
+for them together; it returns the seconds spent, and ``build_logs`` keeps
+each compiler's output (register and spill counts from ``-Xptxas -v``).
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("ragged_paged_attention", "weight_only_matmul")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs = {}
+build_logs = {}     # source name -> compiler output of this process's build
+
+
+def nvcc_path():
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the default toolkit location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the port's CUDA kernels are built "
+        "from source at first use")
+
+
+def _lib_path(name):
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start(name):
+    """Launch nvcc for ``name`` unless its library is already built.
+    Returns (process or None, target path, temp path)."""
+    src, out = _lib_path(name)
+    if os.path.exists(out):
+        return None, out, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, tmp
+
+
+def _finish(name, proc, out, tmp, timeout):
+    if proc is None:
+        return
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"nvcc timed out building {name}")
+    build_logs[name] = log
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed building {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=SOURCES, timeout=600):
+    """Build every named source in parallel (one nvcc each) and load the
+    libraries. Returns the wall seconds the builds took."""
+    import time
+    t0 = time.perf_counter()
+    with _lock:
+        started = [(n, *_start(n)) for n in names if n not in _libs]
+        errors = []
+        for n, proc, out, tmp in started:
+            try:
+                _finish(n, proc, out, tmp, timeout)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n, _, out, _ in started:
+            _libs[n] = ctypes.CDLL(out)
+    return time.perf_counter() - t0
+
+
+def load(name):
+    """The loaded ctypes library for csrc/``name``.cu, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _libs[name]
+    return lib

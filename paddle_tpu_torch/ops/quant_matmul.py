@@ -1,0 +1,173 @@
+"""Weight-only int4 matmul for the PyTorch port (counterpart of
+``paddle_tpu/ops/pallas/quant_matmul.py``).
+
+Layout contract (unchanged from the JAX package):
+  x        [M, K]     float32 / bfloat16 / float16 activations
+  w_packed [K, N//2]  int8, BLOCK-HALVED nibbles from ``pack_int4_blocked``:
+                      within each block_n output-column block, the low
+                      nibbles carry the first block_n/2 columns and the
+                      high nibbles the second half
+  scales   [N]        float32 per-output-channel scales
+  out      [M, N]     x's dtype (or ``out_dtype``)
+
+``weight_only_matmul`` launches the CUDA kernel of
+``csrc/weight_only_matmul.cu`` for a CUDA tensor and runs the plain
+``weight_only_matmul_plain`` for a CPU tensor. Only int4 has a kernel in
+this slice; the int8 mode raises.
+"""
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+DEFAULT_BLOCK_N = 512
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def pick_block_n(n, quant="int8", prefer=DEFAULT_BLOCK_N):
+    """Largest lane-aligned block that divides N (int4 packs two columns
+    per byte, so its block must be a multiple of 256). None if N fits no
+    legal block."""
+    step = 256 if quant == "int4" else 128
+    b = min(prefer, n)
+    b -= b % step
+    while b >= step:
+        if n % b == 0:
+            return b
+        b -= step
+    return None
+
+
+def kernel_block_n(n, prefer=DEFAULT_BLOCK_N):
+    """Largest block the CUDA int4 kernel takes for N: a multiple of 128
+    (each half-block holds whole 64-byte tiles) that divides N and is at
+    most ``prefer``. None if N is not a multiple of 128. The TPU's rule,
+    ``pick_block_n(n, "int4")``, wants multiples of 256."""
+    b = min(prefer, n)
+    b -= b % 128
+    while b >= 128:
+        if n % b == 0:
+            return b
+        b -= 128
+    return None
+
+
+def pack_int4_blocked(w, block_n=DEFAULT_BLOCK_N):
+    """Quantize a float [K, N] weight to the kernel's packed int4 layout:
+    per-output-channel symmetric scales, nibbles packed block-halved (see
+    module docstring). Returns (packed [K, N//2] int8, scales [N] f32),
+    both numpy."""
+    w = np.asarray(w, np.float32)
+    k, n = w.shape
+    if n % block_n or block_n % 2:
+        raise ValueError(f"block_n={block_n} must divide N={n} (and be even)")
+    scales = np.abs(w).max(axis=0) / 7.0
+    scales = np.where(scales == 0, 1.0, scales).astype(np.float32)
+    q = np.clip(np.round(w / scales[None, :]), -8, 7).astype(np.int8)
+    half = block_n // 2
+    packed = np.empty((k, n // 2), np.int8)
+    for j in range(n // block_n):
+        blk = q[:, j * block_n:(j + 1) * block_n]
+        lo, hi = blk[:, :half], blk[:, half:]
+        packed[:, j * half:(j + 1) * half] = (
+            (hi.astype(np.uint8) << 4) |
+            (lo.astype(np.uint8) & 0x0F)).astype(np.int8)
+    return packed, scales
+
+
+def unpack_int4_blocked(w_packed, block_n=DEFAULT_BLOCK_N):
+    """[K, N//2] block-halved int8 nibbles -> [K, N] int8 values in
+    [-8, 7] (torch, on w_packed's device)."""
+    k, nh = w_packed.shape
+    half = block_n // 2
+    u = w_packed.to(torch.int16) & 0xFF
+    lo = ((u & 0x0F) ^ 8) - 8
+    hi = ((u >> 4) ^ 8) - 8
+    nblk = nh // half
+    full = torch.cat([lo.reshape(k, nblk, half), hi.reshape(k, nblk, half)],
+                     dim=2)
+    return full.reshape(k, nh * 2).to(torch.int8)
+
+
+def weight_only_matmul_plain(x, w_packed, scales, quant="int4",
+                             block_n=DEFAULT_BLOCK_N, out_dtype=None):
+    """x @ dequant(w_packed) * scales in plain PyTorch, on any device: the
+    products and their sum in float32, the per-column scale after the sum,
+    the result cast to ``out_dtype`` (default x's dtype)."""
+    if quant == "int4":
+        w = unpack_int4_blocked(w_packed, block_n)
+    elif quant == "int8":
+        w = w_packed
+    else:
+        raise ValueError(f"quant must be int8/int4, got {quant!r}")
+    acc = x.float() @ w.float()
+    return (acc * scales.float()[None, :]).to(out_dtype or x.dtype)
+
+
+def weight_only_matmul(x, w_packed, scales, quant="int4",
+                       block_n=DEFAULT_BLOCK_N, out_dtype=None):
+    """x @ dequant(w_packed) * scales, the quantized weights never expanded
+    to float in device memory. A CPU tensor runs the plain version; a CUDA
+    tensor launches the int4 kernel (counted in
+    ``weight_only_matmul.launches``) or raises."""
+    if x.device.type == "cpu":
+        return weight_only_matmul_plain(x, w_packed, scales, quant=quant,
+                                        block_n=block_n, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"weight_only_matmul: unsupported device {x.device}")
+    if quant != "int4":
+        raise NotImplementedError(
+            "weight_only_matmul: the int8 kernel is a later slice (the "
+            "engine's int8 path dequantizes instead)")
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 2 or w_packed.dim() != 2 or x.shape[1] != w_packed.shape[0]:
+        raise ValueError(f"weight_only_matmul: x {tuple(x.shape)} and packed "
+                         f"w {tuple(w_packed.shape)} must be [M, K], [K, N/2]")
+    m, k = x.shape
+    n = w_packed.shape[1] * 2
+    if x.dtype not in _DTYPE_CODE or out_dtype != x.dtype:
+        raise ValueError(f"weight_only_matmul: x dtype {x.dtype} (out "
+                         f"{out_dtype}) must be float32/bfloat16/float16 "
+                         "and equal the output dtype")
+    if w_packed.dtype != torch.int8 or scales.dtype != torch.float32 \
+            or scales.shape != (n,):
+        raise ValueError("weight_only_matmul: w_packed must be int8 and "
+                         f"scales float32 [{n}]")
+    if block_n % 128 or n % block_n:
+        raise ValueError(f"weight_only_matmul: block_n={block_n} must be a "
+                         f"multiple of 128 dividing N={n}")
+    for name, t in (("x", x), ("w_packed", w_packed), ("scales", scales)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"weight_only_matmul: {name} must be a "
+                             f"contiguous tensor on {x.device}")
+    if w_packed.data_ptr() % 4:
+        raise ValueError("weight_only_matmul: w_packed must be 4-byte "
+                         "aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    rc = _launcher()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_packed.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), m, k, n, int(block_n),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"weight_only_matmul: kernel launch failed with "
+                           f"CUDA error {rc}")
+    weight_only_matmul.launches += 1
+    return out
+
+
+weight_only_matmul.launches = 0
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point with its prototype bound, built and
+    loaded on the first launch."""
+    from . import _build
+    fn = _build.load("weight_only_matmul").weight_only_int4_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn

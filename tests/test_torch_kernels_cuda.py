@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at edge shapes the serving smoke run does not reach: every head
+dim and dtype the attention kernel takes, odd group sizes and block
+sizes, and GEMM rows and depths that are not tile multiples.
+
+These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
+machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+
+
+def _tol(ref, dtype):
+    """Two units in the last place of the output type at the largest
+    reference magnitude: both sides sum in f32, then round once. For f32
+    outputs the unit is 2**-16, room for sums of up to a few thousand
+    terms taken in another order."""
+    eps = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -8,
+           torch.float16: 2.0 ** -11}[dtype]
+    return 2.0 * eps * max(1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,kvh,bs", [(8, 8, 8), (8, 2, 16), (12, 3, 32)])
+def test_ragged_attention_kernel_matches_plain(dtype, d, h, kvh, bs):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(d + h + bs)
+    b, c, max_nb, nb = 5, 7, 6, 40
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    kc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    vc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    tables = np.stack([rng.choice(nb, max_nb, replace=False)
+                       for _ in range(b)]).astype(np.int32)
+    tables[0, -1] = -1                      # a free-slot id, clamped
+    lens = np.array([0, 1, bs * max_nb + 3, 2 * bs, 9], np.int32)
+    qls = np.array([0, 1, c, 5, 2], np.int32)
+    for q_lens, cc in ((None, 1), (qls, c)):
+        shape = (b, h, d) if q_lens is None else (b, cc, h, d)
+        q = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+        before = pa.ragged_paged_attention.launches
+        out = pa.ragged_paged_attention(q, kc, vc, tables, lens,
+                                        q_lens=q_lens)
+        ref = pa.ragged_paged_attention_plain(q, kc, vc, tables, lens,
+                                              q_lens=q_lens)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= _tol(ref, dtype), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m,k,n,bn", [(1, 64, 256, 256), (17, 100, 512, 256),
+                                      (70, 33, 1024, 512),
+                                      (16, 1024, 768, 256),
+                                      (5, 64, 384, 384), (9, 96, 640, 128)])
+def test_int4_kernel_matches_plain(dtype, m, k, n, bn):
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rng = np.random.default_rng(m + k + n)
+    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
+    packed, sc = qm.pack_int4_blocked(w, bn)
+    pk = torch.as_tensor(packed).cuda()
+    sc = torch.as_tensor(sc).cuda()
+    x = torch.as_tensor(rng.standard_normal((m, k)).astype(
+        np.float32)).to(dtype).cuda()
+    before = qm.weight_only_matmul.launches
+    out = qm.weight_only_matmul(x, pk, sc, "int4", bn)
+    ref = qm.weight_only_matmul_plain(x, pk, sc, "int4", bn)
+    torch.cuda.synchronize()
+    assert qm.weight_only_matmul.launches == before + 1
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(ref, dtype), err
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    q = torch.zeros(2, 4, 48, device="cuda")            # head dim 48
+    kc = torch.zeros(2, 4, 8, 48, device="cuda")
+    with pytest.raises(ValueError):
+        pa.ragged_paged_attention(q, kc, kc, np.zeros((2, 1), np.int32),
+                                  np.ones(2, np.int32))
+    x = torch.zeros(4, 64, device="cuda")
+    pk = torch.zeros(64, 128, dtype=torch.int8, device="cuda")
+    sc = torch.ones(256, device="cuda")
+    with pytest.raises(NotImplementedError):
+        qm.weight_only_matmul(x, pk, sc, "int8")
+    with pytest.raises(ValueError):                     # not contiguous
+        qm.weight_only_matmul(x.t().contiguous().t(), pk, sc, "int4", 256)
+
+
+def test_int4_engine_refuses_widths_the_kernel_does_not_take():
+    from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
+                                            engine_weights_from_numpy)
+    rng = np.random.default_rng(0)
+    e, h, g, d, f = 96, 4, 2, 32, 64          # output widths 96: no block
+
+    def mk(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    w = dict(ln_scales=[np.ones(e, np.float32)], qkv_weights=[mk(h + 2 * g,
+                                                                 d, e)],
+             linear_weights=[mk(h * d, e)],
+             ffn_ln_scales=[np.ones(e, np.float32)],
+             ffn1_weights=[mk(e, 2 * f)], ffn2_weights=[mk(f, e)],
+             embedding=mk(32, e), lm_head=mk(e, 32))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        FusedMultiTransformerEngine(
+            engine_weights_from_numpy(w, "cuda", "float32"), num_heads=h,
+            head_dim=d, max_seq_len=16, dtype="float32", norm_type="rmsnorm",
+            activation="swiglu", gqa_group_size=g, weight_quant="int4",
+            device="cuda")

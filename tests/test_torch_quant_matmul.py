@@ -1,0 +1,205 @@
+"""The PyTorch port's int4 weight-only matmul held against the JAX
+package on the CPU: the packing helpers must be byte-identical, the plain
+int4 ``weight_only_matmul`` must match the Pallas kernel in interpret
+mode (atol 1e-4), and the quantized serving engines must decode the
+reference tokens.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import paddle_tpu.ops.pallas.quant_matmul as QM  # noqa: E402
+from paddle_tpu.incubate.nn import functional as JF  # noqa: E402
+from paddle_tpu_torch.incubate.nn import functional as TF  # noqa: E402
+from paddle_tpu_torch.ops import quant_matmul as tqm  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    old = QM._INTERPRET
+    QM._INTERPRET = True
+    yield
+    QM._INTERPRET = old
+
+
+class TestPacking:
+    def test_pick_block_n_identical(self):
+        for n in (100, 256, 384, 512, 768, 1024, 2048, 2816, 5632, 4096):
+            for quant in ("int8", "int4"):
+                for prefer in (256, 512, 1024):
+                    assert tqm.pick_block_n(n, quant, prefer) == \
+                        QM.pick_block_n(n, quant, prefer)
+
+    def test_kernel_block_n_is_the_cuda_kernels_rule(self):
+        # a multiple of 128 that divides N, at most `prefer`; the TPU's
+        # int4 rule (multiples of 256) would refuse 384 and 640
+        ns = (128, 384, 640, 1024, 2816, 5632, 96, 200)
+        assert [tqm.kernel_block_n(n) for n in ns] == \
+            [128, 384, 128, 512, 256, 512, None, None]
+        assert tqm.kernel_block_n(1024, prefer=256) == 256
+        assert QM.pick_block_n(384, "int4") is None
+
+    @pytest.mark.parametrize("k,n,bn", [(64, 512, 256), (32, 1024, 512),
+                                        (16, 768, 256), (8, 256, 256)])
+    def test_pack_int4_blocked_byte_identical(self, k, n, bn):
+        rng = np.random.default_rng(k + n)
+        w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+        w[:, 3] = 0.0                           # an all-zero column
+        gp, gs = tqm.pack_int4_blocked(w, block_n=bn)
+        rp, rs = QM.pack_int4_blocked(w, block_n=bn)
+        assert gp.dtype == rp.dtype == np.int8
+        np.testing.assert_array_equal(gp, rp)
+        np.testing.assert_array_equal(gs, rs)
+
+    def test_unpack_blocked_inverts_pack(self):
+        rng = np.random.default_rng(1)
+        w = (rng.standard_normal((16, 512)) * 0.1).astype(np.float32)
+        packed, sc = tqm.pack_int4_blocked(w, block_n=256)
+        q = np.clip(np.round(w / sc[None, :]), -8, 7).astype(np.int8)
+        got = tqm.unpack_int4_blocked(torch.from_numpy(packed), 256)
+        np.testing.assert_array_equal(got.numpy(), q)
+
+    @pytest.mark.parametrize("shape,axis,group", [
+        ((6, 8), -1, None), ((8, 6), 0, None), ((3, 4, 16), -1, None),
+        ((16, 5), 0, 4), ((4, 6, 12), 1, None)])
+    def test_quantize_int4_byte_identical(self, shape, axis, group):
+        rng = np.random.default_rng(len(shape) + shape[0])
+        w = rng.standard_normal(shape).astype(np.float32)
+        gp, gs = TF.quantize_int4(w, axis=axis, group_size=group)
+        rp, rs = JF.quantize_int4(w, axis=axis, group_size=group)
+        np.testing.assert_array_equal(gp, rp)
+        np.testing.assert_array_equal(gs, rs)
+        # and back: the port's unpack equals the JAX unpack exactly
+        got = TF._unpack_int4(torch.from_numpy(gp), axis=axis)
+        ref = JF._unpack_int4(jnp.asarray(rp), axis=axis)
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+class TestPlainInt4Matmul:
+    @pytest.mark.parametrize("m,k,n,bn", [(4, 64, 512, 256),
+                                          (8, 128, 1024, 512),
+                                          (3, 32, 768, 256)])
+    def test_matches_pallas_interpret(self, m, k, n, bn):
+        rng = np.random.default_rng(m * k)
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+        packed, sc = QM.pack_int4_blocked(w, block_n=bn)
+        ref = QM.weight_only_matmul(jnp.asarray(x), jnp.asarray(packed),
+                                    jnp.asarray(sc), "int4", block_n=bn)
+        got = tqm.weight_only_matmul(torch.from_numpy(x),
+                                     torch.from_numpy(packed),
+                                     torch.from_numpy(sc), "int4",
+                                     block_n=bn)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-4)
+
+    def test_cpu_wrapper_does_not_count_and_keeps_dtype(self):
+        rng = np.random.default_rng(2)
+        w = (rng.standard_normal((32, 256)) * 0.1).astype(np.float32)
+        packed, sc = tqm.pack_int4_blocked(w, block_n=256)
+        x = torch.from_numpy(rng.standard_normal((2, 32)).astype(
+            np.float32)).bfloat16()
+        before = tqm.weight_only_matmul.launches
+        out = tqm.weight_only_matmul(x, torch.from_numpy(packed),
+                                     torch.from_numpy(sc), "int4",
+                                     block_n=256)
+        assert out.dtype == torch.bfloat16 and out.shape == (2, 256)
+        assert tqm.weight_only_matmul.launches == before
+
+
+def _weights(V, E, H, G, D, L, F, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(ln_scales=[np.ones(E, np.float32) for _ in range(L)],
+                qkv_weights=[mk(H + 2 * G, D, E) for _ in range(L)],
+                linear_weights=[mk(H * D, E) for _ in range(L)],
+                ffn_ln_scales=[np.ones(E, np.float32) for _ in range(L)],
+                ffn1_weights=[mk(E, 2 * F) for _ in range(L)],
+                ffn2_weights=[mk(F, E) for _ in range(L)],
+                embedding=mk(V, E), lm_head=mk(E, V))
+
+
+def _port_engine(w, **kw):
+    from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
+                                            engine_weights_from_numpy)
+    return FusedMultiTransformerEngine(
+        engine_weights_from_numpy(w, "cpu", "float32"), device="cpu", **kw)
+
+
+class TestQuantizedEngines:
+    def test_int4_kernel_path_token_exact_vs_dequantized_float(self):
+        """The int4 engine (the _mm hook over pack_int4_blocked bytes,
+        plain version on the CPU) decodes the SAME tokens as a float
+        engine built from the dequantized int4 weights."""
+        V, E, H, G, D, L, F = 500, 256, 8, 4, 32, 2, 512
+        w = _weights(V, E, H, G, D, L, F)
+
+        def deq(kind, a):
+            m = a.reshape(-1, a.shape[-1]).T if kind == "qkv" else a
+            packed, sc = QM.pack_int4_blocked(
+                m, block_n=QM.pick_block_n(m.shape[1], "int4"))
+            q = np.clip(np.round(m / sc[None, :]), -8, 7)
+            dq = (q * sc[None, :]).astype(np.float32)
+            return dq.T.reshape(a.shape) if kind == "qkv" else dq
+
+        wd = dict(w)
+        for kind, key in (("qkv", "qkv_weights"), ("lin", "linear_weights"),
+                          ("f1", "ffn1_weights"), ("f2", "ffn2_weights")):
+            wd[key] = [deq(kind, a) for a in w[key]]
+        kw = dict(num_heads=H, head_dim=D, max_seq_len=64, dtype="float32",
+                  norm_type="rmsnorm", activation="swiglu", gqa_group_size=G)
+        eng4 = _port_engine(w, weight_quant="int4", **kw)
+        assert "_mm" in eng4._kw                # the kernel path
+        assert eng4._w["ffn1_weights"][0].dtype == torch.int8
+        ids = np.random.default_rng(0).integers(0, V, (2, 8)).astype(
+            np.int32)
+        ref = _port_engine(wd, **kw).generate(ids, max_new_tokens=8)
+        got = eng4.generate(ids, max_new_tokens=8)
+        np.testing.assert_array_equal(got, ref)
+
+    @pytest.mark.parametrize("quant", ["int8", "int4"])
+    def test_dequant_path_token_exact_vs_jax(self, quant):
+        # widths with no legal int4 kernel block: both engines take the
+        # dequantize-per-use path (quantize_int4 for int4)
+        from paddle_tpu.inference import FusedMultiTransformerEngine as JE
+        V, E, H, G, D, L, F = 128, 64, 4, 2, 16, 2, 96
+        w = _weights(V, E, H, G, D, L, F, seed=1)
+        kw = dict(num_heads=H, head_dim=D, max_seq_len=32, dtype="float32",
+                  norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
+                  weight_quant=quant)
+        eng = _port_engine(w, **kw)
+        assert "_dequant" in eng._kw
+        ids = np.random.default_rng(1).integers(0, V, (2, 6)).astype(
+            np.int32)
+        ref = JE(w, **kw).generate(ids, max_new_tokens=6)
+        np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=6),
+                                      ref)
+
+    def test_int4_blocks_follow_the_kernel_and_refuse_on_the_card(self):
+        """The int4 engine picks each projection's block by the CUDA
+        kernel's rule. A width that fits no block falls back to the dequant
+        path only on the CPU; on the card it raises."""
+        from paddle_tpu_torch.inference import _int4_blocks
+        cpu, card = torch.device("cpu"), torch.device("cuda")
+        V, H, G, D, L = 64, 4, 2, 32, 1
+        w = _weights(V, 384, H, G, D, L, 192)   # widths 256, 384, 384, 384
+        want = {"qkv": 256, "lin": 384, "f1": 384, "f2": 384}
+        assert _int4_blocks(w, cpu) == want
+        assert _int4_blocks(w, card) == want
+        w = _weights(V, 96, H, G, D, L, 64)     # lin/ffn2 width 96
+        assert _int4_blocks(w, cpu) is None
+        with pytest.raises(ValueError, match="multiple of 128"):
+            _int4_blocks(w, card)
+        eng = _port_engine(_weights(V, 384, H, G, D, L, 192),
+                           num_heads=H, head_dim=D, max_seq_len=16,
+                           dtype="float32", norm_type="rmsnorm",
+                           activation="swiglu", gqa_group_size=G,
+                           weight_quant="int4")
+        assert eng._kw["_mm"].blocks == want
