@@ -22,13 +22,31 @@ Phases (any failure exits non-zero and prints no result line):
   4. int4 serving at full width in bf16: first-step logits against a
      float engine built from the dequantized int4 weights, then 4
      requests served with 96 int4-kernel launches per paged step;
-  5. a ``{"kernels": [...]}`` line, then the result line.
+  5. the flash-attention forward and backward kernels against their plain
+     versions in bf16: the flagship training shape (B=8, S=2048, H=16,
+     D=64, causal), the forward entry's shape (B=4, S=128, H=8, KVH=4,
+     D=32), a length off the tile and a non-causal case; each prints its
+     worst element against its tolerance and the kernel, plain, bound and
+     SDPA times;
+  6. the Llama forward at the forward entry's shape (bf16, 4 layers):
+     logits through the kernels against the plain attention path;
+  7. flagship pretraining (V=32000, E=1024, F=2816, L=24, 16 heads, bf16
+     AMP-O2, B=8, S=2048): 2 warm-up and 3 timed steps on fresh seeded
+     batches, tokens/s, ms/step, MFU, loss and grad norm, 24 forward and
+     24 backward flash launches per step, then a profiled step (device
+     busy share and time by kernel class);
+  8. f32 training parity at full width, L=2: 3 steps through the kernels
+     against the plain attention path (loss and grad norm), then the loss
+     falls over 10 steps on one repeated batch;
+  then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Nothing here imports JAX or the JAX package.
 """
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -56,16 +74,20 @@ ATTN_ATOL = 1e-5                 # f32 summation noise where |ref| ~ 0
 INT4_ATOL = 1e-4
 
 
-def bf16_agreement(out, ref, atol):
+def bf16_agreement(out, ref, atol, extra=None):
     """Per element, |out - ref| may be atol plus two bf16 ulps of |ref| at
-    that element: the kernel and its plain version sum in f32 from the
-    same bf16 inputs and differ by summation order, then each rounds to
-    bf16. Returns (max abs error, largest error over its allowance); the
-    outputs agree when the second is at most 1."""
+    that element (plus ``extra`` there, where the two round inputs of the
+    sum differently): the kernel and its plain version sum in f32 from
+    the same bf16 inputs and differ by summation order, then each rounds
+    to bf16. Returns (max abs error, largest error over its allowance);
+    the outputs agree when the second is at most 1."""
     r = ref.float()
     err = (out.float() - r).abs()
     ulp = (r.abs().clamp_min(2.0 ** -126).log2().floor() - 7).exp2()
-    return float(err.max()), float((err / (atol + 2 * ulp)).max())
+    allowed = atol + 2 * ulp
+    if extra is not None:
+        allowed = allowed + extra
+    return float(err.max()), float((err / allowed).max())
 
 
 def time_ms(fn, iters=25, warmup=3):
@@ -329,10 +351,13 @@ def phase_kernels(torch):
 # -- phases 2-4 --------------------------------------------------------------
 
 def reset_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     pa.ragged_paged_attention.launches = 0
     qm.weight_only_matmul.launches = 0
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches = 0
 
 
 def read_counts():
@@ -340,6 +365,11 @@ def read_counts():
     from paddle_tpu_torch.ops import quant_matmul as qm
     return (pa.ragged_paged_attention.launches,
             qm.weight_only_matmul.launches)
+
+
+def read_flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return fa.flash_fwd.launches, fa.flash_bwd.launches
 
 
 def phase_serve(torch):
@@ -367,7 +397,9 @@ def phase_serve(torch):
           f"phases of the last step (s): {hs['phases']}; segments reused "
           f"{hs['segments_reused']} rebuilt {hs['segments_rebuilt']}",
           flush=True)
-    profile = profile_serving(torch, eng, requests(7, 4, new=(16, 16)))
+    reqs = requests(7, 4, new=(16, 16))
+    profile = profile_window(torch, lambda: serve(eng, reqs)[2],
+                             "paged steps")
     del eng, cb
     torch.cuda.empty_cache()
     return {"steps": steps, "tokens": toks, "wall_s": wall,
@@ -381,23 +413,27 @@ def _kernel_class(name):
         return "ragged_attention"
     if "int4_kernel" in n:
         return "int4_gemm"
+    if "flash_fwd_kernel" in n:
+        return "flash_fwd"
+    if "flash_bwd" in n:
+        return "flash_bwd"
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "cublas",
-                            "splitk")):
+                            "splitk", "nvjet")):
         return "library_gemm"
     return "other"
 
 
-def profile_serving(torch, eng, reqs):
-    """A separate traced serving run (torch.profiler, CPU + CUDA): device
-    time by kernel class and the device's busy share of the window's
-    wall time. Run after the timed run, so the timed numbers carry no
-    tracing cost."""
+def profile_window(torch, work, unit):
+    """A separate traced run of ``work()``, which returns its step count
+    (torch.profiler, CPU + CUDA): device time by kernel class and the
+    device's busy share of the window's wall time. Run after the timed
+    run, so the timed numbers carry no tracing cost."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, steps, _ = serve(eng, reqs)
+        steps = work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_class, by_name = {}, []
@@ -417,7 +453,7 @@ def profile_serving(torch, eng, reqs):
         print("  profiled window: device time not measured (the profiler "
               "returned no CUDA events)", flush=True)
         return {"wall_s": wall, "steps": steps, "device_busy_s": None}
-    print(f"  profiled window: {steps} paged steps, wall {wall:.3f} s, "
+    print(f"  profiled window: {steps} {unit}, wall {wall:.3f} s, "
           f"device busy {busy:.3f} s ({busy / wall:.1%}), idle "
           f"{1 - busy / wall:.1%}", flush=True)
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
@@ -520,6 +556,331 @@ def phase_int4(torch):
             toks / wall}
 
 
+# -- phases 5-8: flash attention and training ------------------------------
+
+FLASH_O_ATOL = 1e-5     # o: f32 summation noise; on top of it each
+                        # element may differ by 2**-8 * (p @ |v|) / l, the
+                        # bound of rounding every p to bf16 at the running
+                        # max of a 64-key tile (kernel) and at the row's
+                        # final max (plain version), half an ulp each
+FLASH_GRAD_ATOL = 1e-4  # dq/dk/dv: same p, dp and ds to f32 rounding,
+                        # summed in another order (dq with atomics)
+LSE_ATOL = 1e-4         # lse in f32: the same row sums in another order
+TRAIN_RTOL = 1e-4       # f32 loss / grad norm, kernels vs plain attention
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the flash autograd function through the plain versions on the
+    card (the reference path of phases 6 and 8); restores the kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    saved = fa.flash_fwd, fa.flash_bwd
+    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd = saved
+
+
+def flash_work(bh, sq, sk, d, causal):
+    """(fwd bytes, fwd flops, bwd bytes, bwd flops) a bf16 case's data
+    needs: each input read once and each output written once; 4*D flops
+    per visible (row, key) pair forward (two products), 10*D backward
+    (five)."""
+    if causal:
+        pairs = sum(min(r + 1, sk) for r in range(sq))
+    else:
+        pairs = sq * sk
+    pairs *= bh
+    qo = bh * sq * d * 2
+    kv = bh * sk * d * 2
+    lse = bh * sq * 4
+    fwd_bytes = 2 * qo + 2 * kv + lse            # q, k, v in; o, lse out
+    bwd_bytes = 4 * qo + 4 * kv + lse            # q,k,v,o,do,lse; dq,dk,dv
+    return fwd_bytes, 4 * d * pairs, bwd_bytes, 10 * d * pairs
+
+
+def flash_cases(torch):
+    """(name, q, k, v, do, causal) at [BH, S, D] in bf16; the GQA case is
+    folded as flash_attention_bshd folds it (kv heads repeated)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+
+    def bshd(b, s, h, d):
+        return torch.randn(b, s, h, d, device="cuda",
+                           generator=gen).bfloat16()
+
+    def fold(x, rep=1):
+        b, s, h, d = x.shape
+        x = torch.repeat_interleave(x, rep, dim=2) if rep > 1 else x
+        return x.transpose(1, 2).reshape(b * h * rep, s, d).contiguous()
+
+    cases = []
+    for name, b, s, h, kvh, d, causal in (
+            ("flagship_b8_s2048_h16_d64", 8, 2048, 16, 16, 64, True),
+            ("entry_b4_s128_h8_kvh4_d32", 4, 128, 8, 4, 32, True),
+            ("off_tile_b2_s2000_h16_d64", 2, 2000, 16, 16, 64, True),
+            ("full_b2_s1000_h8_d128", 2, 1000, 8, 8, 128, False)):
+        rep = h // kvh
+        q, k, v, do = bshd(b, s, h, d), bshd(b, s, kvh, d), \
+            bshd(b, s, kvh, d), bshd(b, s, h, d)
+        cases.append((name, fold(q), fold(k, rep), fold(v, rep), fold(do),
+                      causal))
+    return cases
+
+
+def phase_flash(torch):
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rows = {"fwd": [], "bwd": []}
+    for name, q, k, v, do, causal in flash_cases(torch):
+        bh, s, d = q.shape
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal)
+        refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse) + tuple(grads))
+        p_abs_v = fa.flash_fwd_plain(q, k, v.abs(), scale, causal)[0]
+        err_o, ratio_o = bf16_agreement(o, ro, FLASH_O_ATOL,
+                                        2.0 ** -8 * p_abs_v.float())
+        err_l = float((lse - rlse).abs().max())
+        gerr, gratio, worst = 0.0, 0.0, "dq"
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+            if ratio >= gratio:
+                worst = gname
+            gerr, gratio = max(gerr, e), max(gratio, ratio)
+        print(f"  flash[{name}]: fwd o err {err_o:.3e} (worst {ratio_o:.3f} "
+              f"of its allowance: atol {FLASH_O_ATOL:g} + 2**-8 (p @ |v|) / l "
+              f"+ 2 bf16 ulps), lse err {err_l:.2e}; bwd err {gerr:.3e} "
+              f"(worst {gratio:.3f}, in {worst}, of atol {FLASH_GRAD_ATOL:g} "
+              f"+ 2 bf16 ulps)", flush=True)
+        check(finite, f"flash {name}: non-finite output")
+        check(ratio_o <= 1.0, f"flash fwd {name}: o max abs err {err_o}, an "
+              f"element off by {ratio_o:.2f}x its allowance")
+        check(err_l <= LSE_ATOL, f"flash fwd {name}: lse err {err_l}")
+        check(gratio <= 1.0, f"flash bwd {name}: {worst} max abs err {gerr},"
+              f" an element off by {gratio:.2f}x its allowance")
+        del p_abs_v
+        big = bh * s >= 65536
+        it = 10 if big else 25
+        ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), iters=it)
+        ms_b = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
+                                            causal), iters=it)
+        pl_f = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
+                       iters=5 if big else 20)
+        pl_b = time_ms(lambda: fa.flash_bwd_plain(q, k, v, ro, rlse, do,
+                                                  scale, causal),
+                       iters=5 if big else 20)
+        # library yardstick (timed only; the port never calls it): SDPA on
+        # the same [B*H, 1, S, D] data, forward and forward + backward
+        q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
+        lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale), iters=it)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q4, k4, v4)]
+
+        def sdpa_fb():
+            out = Fn.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                  scale=scale)
+            torch.autograd.grad(out, leaves, do4)
+
+        lib_fb = time_ms(sdpa_fb, iters=it)
+        fb, ff, bb, bf = flash_work(bh, s, s, d, causal)
+        bf_ms, bf_by = bound(fb, ff)
+        bb_ms, bb_by = bound(bb, bf)
+        rows["fwd"].append(dict(
+            case=name, max_abs_err=err_o, lse_err=err_l, atol=FLASH_O_ATOL,
+            worst_err_over_allowed=ratio_o, ms=ms_f, plain_ms=pl_f,
+            bound_ms=bf_ms, bound_by=bf_by, library_ms=lib_f,
+            tflops=ff / ms_f / 1e9))
+        rows["bwd"].append(dict(
+            case=name, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
+            worst_err_over_allowed=gratio, ms=ms_b, plain_ms=pl_b,
+            bound_ms=bb_ms, bound_by=bb_by, library_ms=lib_fb - lib_f,
+            sdpa_fwd_bwd_ms=lib_fb, tflops=bf / ms_b / 1e9))
+        print(f"    fwd kernel {ms_f:.4f} ms ({ff / ms_f / 1e9:.2f} TFLOP/s) "
+              f"plain {pl_f:.4f} ms bound {bf_ms:.4f} ms ({bf_by}) sdpa "
+              f"{lib_f:.4f} ms; bwd kernel {ms_b:.4f} ms "
+              f"({bf / ms_b / 1e9:.2f} TFLOP/s) plain {pl_b:.4f} ms bound "
+              f"{bb_ms:.4f} ms ({bb_by}) sdpa fwd+bwd {lib_fb:.4f} ms",
+              flush=True)
+        del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
+def to_bf16_matrices(model):
+    """The AMP-O2 forward cast: parameters with ndim >= 2 to bf16 (norm
+    scales stay f32 and are cast down inside rms_norm)."""
+    import torch
+    for p in model.parameters():
+        if p.dim() >= 2:
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
+def phase_forward(torch):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=688,
+                      num_hidden_layers=4, num_attention_heads=8,
+                      num_key_value_heads=4, max_position_embeddings=128,
+                      dtype="bfloat16")
+    model = to_bf16_matrices(LlamaForCausalLM(cfg, device="cuda", seed=0))
+    model.eval()
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 1024, (4, 128))).cuda()
+    with torch.no_grad():
+        reset_counts()
+        logits = model(ids)
+        torch.cuda.synchronize()
+        fwd, bwd = read_flash_counts()
+        with plain_attention():
+            ref = model(ids)
+    check(tuple(logits.shape) == (4, 128, 1024) and bool(
+        torch.isfinite(logits).all()), "forward logits malformed")
+    check((fwd, bwd) == (4, 0), f"forward launched flash fwd {fwd} / bwd "
+          f"{bwd} times (want 4 / 0)")
+    err = float((logits.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    # bf16 through 4 layers: the attention outputs differ in the last bf16
+    # bit here and there (see FLASH_O_ATOL); allow 1% of the logit range
+    tol = 0.01 * scale
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"  forward B=4 S=128 (bf16, 4 layers): logits {tuple(logits.shape)}"
+          f" {logits.dtype}, kernel vs plain max abs diff {err:.3e} (tol "
+          f"{tol:.3e}, logit max {scale:.3e}), argmax agreement {agree:.4f}, "
+          f"flash fwd launches {fwd}", flush=True)
+    check(err <= tol, f"forward logits differ by {err} > {tol}")
+    return {"max_abs_diff": err, "tol": tol, "argmax_agreement": agree}
+
+
+def phase_train(torch):
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    cfg, batch, seq = pretrain.flagship_config()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    params, opt_state, meta = pretrain.make_train_state(model)
+    step = pretrain.make_train_step(model, meta)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"  model built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params / 1e6:.1f}M params", flush=True)
+    rng = np.random.default_rng(0)
+
+    def fresh_batch():
+        # a different random batch every step (bench.py's rule): the loss
+        # is a true random-data loss near ln V
+        return pretrain.batch_to_device(
+            {"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
+             "labels": rng.integers(0, cfg.vocab_size, (batch, seq))})
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms = [], []
+    for _ in range(2):                                    # warm-up
+        params, opt_state, loss, gnorm = step(params, opt_state,
+                                              fresh_batch())
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+    timed = 3
+    batches = [fresh_batch() for _ in range(timed)]       # pre-staged
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = []
+    for b in batches:
+        params, opt_state, loss, gnorm = step(params, opt_state, b)
+        out.append((loss, gnorm))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = read_flash_counts()
+    losses += [float(x) for x, _ in out]
+    gnorms += [float(g) for _, g in out]
+    check((fwd, bwd) == (cfg.num_hidden_layers * timed,) * 2,
+          f"flash launched fwd {fwd} / bwd {bwd} times in {timed} steps "
+          f"(want {cfg.num_hidden_layers} each per step)")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"non-finite loss / grad norm: {losses} {gnorms}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0,
+          f"step-0 loss {losses[0]} not within 1.0 of ln V = "
+          f"{math.log(cfg.vocab_size):.3f}")
+    tokens_per_s = batch * seq * timed / wall
+    flops_per_token = 6 * n_params + \
+        12 * cfg.num_hidden_layers * cfg.hidden_size * seq   # bench.py:85-87
+    mfu = flops_per_token * tokens_per_s / BF16_FLOPS_PER_S
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  train B={batch} S={seq} L={cfg.num_hidden_layers}: "
+          f"{tokens_per_s:.1f} tokens/s, {wall / timed * 1e3:.1f} ms/step, "
+          f"MFU {mfu:.4f} (bench.py's flops per token vs 989 TFLOP/s), "
+          f"peak memory {peak_gb:.1f} GB", flush=True)
+    print(f"  losses {['%.4f' % x for x in losses]} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}), grad norms "
+          f"{['%.4f' % x for x in gnorms]}; flash launches fwd {fwd} bwd "
+          f"{bwd} = {cfg.num_hidden_layers} x {timed} steps each", flush=True)
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, loss, _ = step(params, opt_state, fresh_batch())
+        float(loss)
+        return 1
+
+    prof = profile_window(torch, one_step, "train step")
+    del model, params, opt_state, batches, out
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": tokens_per_s, "ms_per_step": wall / timed * 1e3,
+            "mfu": mfu, "losses": losses, "grad_norms": gnorms,
+            "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+            "peak_memory_gb": peak_gb, "profile": prof}
+
+
+def phase_train_parity(torch):
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch, seq = pretrain.flagship_config()
+    cfg.num_hidden_layers = 2
+    cfg.dtype = "float32"
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    states = [pretrain.make_train_state(model) for _ in range(2)]
+    step = pretrain.make_train_step(model, states[0][2])
+    rng = np.random.default_rng(1)
+    batches = [pretrain.batch_to_device(
+        {"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
+         "labels": rng.integers(0, cfg.vocab_size, (batch, seq))})
+        for _ in range(3)]
+    runs = []
+    for path, (params, opt, _) in zip(("kernel", "plain"), states):
+        ctx = plain_attention() if path == "plain" else contextlib.nullcontext()
+        rows = []
+        with ctx:
+            for b in batches:
+                params, opt, loss, gnorm = step(params, opt, b)
+                rows.append((float(loss), float(gnorm)))
+        runs.append(np.array(rows))
+    rel = np.abs(runs[0] - runs[1]) / np.abs(runs[1])
+    print(f"  f32 L=2 B={batch} S={seq}: kernel (loss, gnorm) "
+          f"{runs[0].tolist()} vs plain {runs[1].tolist()}; worst relative "
+          f"difference {float(rel.max()):.2e} (rtol {TRAIN_RTOL:g})",
+          flush=True)
+    check(float(rel.max()) <= TRAIN_RTOL,
+          f"f32 training diverges from the plain path: {rel.tolist()}")
+    params, opt, _ = states[0]
+    b = batches[0]
+    losses = []
+    for _ in range(10):
+        params, opt, loss, _ = step(params, opt, b)
+        losses.append(float(loss))
+    print(f"  one repeated batch, 10 steps: losses "
+          f"{['%.4f' % x for x in losses]}", flush=True)
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    del model, states, batches
+    torch.cuda.empty_cache()
+    return {"kernel": runs[0].tolist(), "plain": runs[1].tolist(),
+            "worst_rel": float(rel.max()), "repeated_batch": losses}
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -568,6 +929,19 @@ def main():
         print("phase 4: int4 serving, full width, bf16", flush=True)
         int4_stats = phase_int4(torch)
 
+    # training needs autograd: phases 5-8 run outside no_grad
+    print("phase 5: flash kernels against their plain versions (bf16)",
+          flush=True)
+    flash_rows = phase_flash(torch)
+    print("phase 6: Llama forward at the forward entry's shape, bf16",
+          flush=True)
+    fwd_stats = phase_forward(torch)
+    print("phase 7: flagship pretraining, bf16 AMP-O2, B=8 S=2048",
+          flush=True)
+    train_stats = phase_train(torch)
+    print("phase 8: f32 training parity, full width, L=2", flush=True)
+    parity_stats = phase_train_parity(torch)
+
     kernels = [
         kernel_entry("ragged_paged_attention",
                      "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -578,9 +952,22 @@ def main():
                      "paddle_tpu/ops/pallas/quant_matmul.py:77",
                      int4_stats["int4_launches"], rows["int4"],
                      f"M8_K{E}_N{2 * F}"),
+        kernel_entry("flash_attention_fwd",
+                     "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "paddle_tpu/ops/pallas/flash_attention.py:78",
+                     train_stats["flash_fwd_launches"], flash_rows["fwd"],
+                     "flagship_b8_s2048_h16_d64"),
+        kernel_entry("flash_attention_bwd",
+                     "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "paddle_tpu/ops/pallas/flash_attention.py:223",
+                     train_stats["flash_bwd_launches"], flash_rows["bwd"],
+                     "flagship_b8_s2048_h16_d64"),
     ]
     print(f"card: {card}; serve: {json.dumps(serve_stats)}; int4 serve: "
           f"{json.dumps(int4_stats)}", flush=True)
+    print(f"card: {card}; forward: {json.dumps(fwd_stats)}; train: "
+          f"{json.dumps(train_stats)}; f32 parity: "
+          f"{json.dumps(parity_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,4 +10,9 @@ Slice 1 covers paged continuous-batching serving: ``inference`` (the
 engine), ``incubate.nn`` (the fused decoder op and the scheduler),
 ``ops`` (paged attention and the int4 weight-only matmul, with their
 kernels under ``csrc/``), ``observability`` and ``core``.
+
+Slice 2 covers the Llama forward and the single-device pretraining step:
+``models`` (``LlamaForCausalLM``, ``pretrain``), ``nn`` (the layers and
+functionals the model calls) and flash attention in ``ops`` with its
+forward and fused backward kernels.
 """

@@ -1,0 +1,492 @@
+// Flash attention forward and fused backward for Hopper (sm_90a), plain C
+// interface for ctypes.
+//
+// Replaces two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+//   `_fwd_kernel` (:78, reached through `_flash_fwd` :169, pallas_call
+//   :195): causal or full softmax(q k^T * scale) v with online softmax,
+//   saving the row logsumexp;
+//   `_bwd_fused_kernel` (:223, reached through `_flash_bwd` :430,
+//   pallas_call :458): dq, dk and dv from (q, k, v, o, lse, do) in one
+//   pass over the (k tile, q tile) pairs.
+//
+// Layouts (the JAX package's kernel contract, heads folded into batch):
+//   q, o, do   [BH, Sq, D]     float32 / bfloat16 / float16
+//   k, v       [BH, Sk, D]
+//   lse        [BH, Sq] f32    (the TPU's [BH, 8, S] is a lane-tiling
+//                               artifact; all 8 rows there are equal)
+//   dq_acc     [BH, Sq, D] f32 zeroed by the caller, summed atomically
+//   delta      [BH, Sq] f32    scratch: rowsum(do * o)
+//   dk, dv     [BH, Sk, D]     q's dtype
+// D is 32, 64 or 128. Any Sq, Sk: tiles past the end are zero-filled and
+// masked. The causal mask is top-left aligned (row >= col), as the TPU
+// kernel's (:121).
+//
+// Arithmetic follows the Pallas bodies step for step: products of the
+// input dtype accumulated in f32, scores scaled after the dot, running max
+// and denominator in f32, p rounded to v's dtype before p @ v (:134), and
+// in the backward p rounded to q's dtype before p^T do and ds rounded to
+// q's dtype before ds^T q and ds k (:281-290). Fully masked rows give
+// zeros and lse = NEG_INF (:148).
+//
+// Design. Tiles of 64 query rows by 64 keys, 256 threads as a 16 x 16
+// grid; every thread holds a small register tile of each product and the
+// operands are staged in shared memory as f32 (row padding of 4 floats
+// keeps float4 reads aligned and the column walks free of bank conflicts).
+//   Forward: one block per (bh, q tile) walks the k tiles up to the
+//   diagonal (tiles strictly above it are skipped, :141). A thread's
+//   score rows are also its output rows, so m / l / the [rows, D]
+//   accumulator stay in registers; row reductions are 16-lane shuffles.
+//   Backward (the FA2 layout): one block per (bh, k tile) keeps K and V
+//   and the dk / dv accumulators on chip and walks the q tiles (32 rows
+//   each) from the diagonal down, computing s, p, dp and ds once per
+//   pair and contracting them into dv += p^T do, dk += ds^T q and a dq
+//   contribution ds k that is added into dq_acc with atomicAdd. The TPU
+//   kernel's per-k-tile dq partials [nk, BH, S, D] would cost nk times
+//   dq's bytes (2 GB per layer at the flagship shape); the atomics cost
+//   one f32 buffer, and f32 addition order makes dq non-deterministic in
+//   its last bits. delta = rowsum(do * o) is one small pre-pass kernel.
+//
+// What bounds it: at the flagship shape (S = 2048, D = 64, causal)
+// operations — the forward does about 500 flops per byte it must move,
+// above the ~295 at which the bf16 tensor cores, not memory, are the
+// limit. This first kernel runs its products on CUDA cores in f32
+// (67 TFLOP/s peak, not the 989 of bf16 tensor cores); mma / wgmma tiles
+// are later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;          // threads per block: 16 x 16
+constexpr int BQ = 64;           // forward: query rows per tile
+constexpr int BQB = 32;          // backward: query rows per tile
+constexpr int BK = 64;           // key rows per tile
+constexpr int PAD = 4;           // row padding in floats
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+
+// v rounded to T and back: the value a cast to the dtype leaves
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// rows [row0, row0 + rows) of a [total, D] matrix into dst[r * LD + d]
+// (transpose: dst[d * LD + r]) as f32; rows past the end are zeros
+template <typename T, int D, int LD, bool TRANSPOSE>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int row0, int rows, int total) {
+  for (int i = threadIdx.x; i < rows * D; i += NT) {
+    const int r = i / D, d = i % D, gr = row0 + r;
+    const float v = gr < total ? to_f(src[(size_t)gr * D + d]) : 0.f;
+    if (TRANSPOSE) dst[d * LD + r] = v;
+    else dst[r * LD + d] = v;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = p[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+
+// c[ii][jj] += sum_kk A(i, kk) * B(kk, j) for the thread's rows
+// i = ty * RI + ii and columns j = tx * RJ + jj. B is stored [kk][j] with
+// row stride LDB. A is stored [i][kk] (A_COL false, stride LDA) or
+// [kk][i] (A_COL true).
+template <int RI, int RJ, int KD, int LDA, int LDB, bool A_COL>
+__device__ __forceinline__ void tile_mma(float (&c)[RI][RJ], const float* A,
+                                         const float* B, int ty, int tx) {
+#pragma unroll 4
+  for (int kk = 0; kk < KD; ++kk) {
+    float a[RI], b[RJ];
+    if constexpr (A_COL) {
+      load_vec<RI>(a, A + kk * LDA + ty * RI);
+    } else {
+#pragma unroll
+      for (int ii = 0; ii < RI; ++ii) a[ii] = A[(ty * RI + ii) * LDA + kk];
+    }
+    load_vec<RJ>(b, B + kk * LDB + tx * RJ);
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) c[ii][jj] = fmaf(a[ii], b[jj], c[ii][jj]);
+    }
+  }
+}
+
+// reductions over the 16 threads that share a row (one half-warp)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, float scale,
+                 int causal) {
+  constexpr int LDQ = D + PAD;    // Qs [BQ][LDQ]
+  constexpr int LDK = BK + PAD;   // Kt [D][LDK], Ps [BQ][LDK]
+  constexpr int LDV = D + PAD;    // Vs [BK][LDV]
+  constexpr int RI = BQ / 16;     // rows per thread
+  constexpr int RJ = BK / 16;     // score columns per thread
+  constexpr int RD = D / 16;      // output columns per thread
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Kt = Qs + BQ * LDQ;
+  float* Vs = Kt + D * LDK;
+  float* Ps = Vs + BK * LDV;
+
+  const int bh = blockIdx.y;
+  // the longest causal rows first, so they do not trail the grid
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* kb = k + (size_t)bh * Sk * D;
+  const T* vb = v + (size_t)bh * Sk * D;
+
+  load_tile<T, D, LDQ, false>(Qs, qb, q0, BQ, Sq);
+  float m[RI], l[RI], acc[RI][RD];
+#pragma unroll
+  for (int ii = 0; ii < RI; ++ii) {
+    m[ii] = NEG_INF;
+    l[ii] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < RD; ++dd) acc[ii][dd] = 0.f;
+  }
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();                       // the previous tile is consumed
+    load_tile<T, D, LDK, true>(Kt, kb, k0, BK, Sk);
+    load_tile<T, D, LDV, false>(Vs, vb, k0, BK, Sk);
+    __syncthreads();
+
+    float s[RI][RJ];
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) s[ii][jj] = 0.f;
+    }
+    tile_mma<RI, RJ, D, LDQ, LDK, false>(s, Qs, Kt, ty, tx);
+
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+      const int row = q0 + ty * RI + ii;
+      bool vis[RJ];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const int col = k0 + tx * RJ + jj;
+        vis[jj] = col < Sk && (!causal || row >= col);
+        s[ii][jj] = vis[jj] ? s[ii][jj] * scale : NEG_INF;
+        mx = fmaxf(mx, s[ii][jj]);
+      }
+      const float m_new = fmaxf(m[ii], row_max(mx));
+      const float corr = expf(m[ii] - m_new);
+      float p[RJ], psum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const float e = vis[jj] ? expf(s[ii][jj] - m_new) : 0.f;
+        psum += e;
+        p[jj] = round_to<T>(e);            // p in v's dtype before p @ v
+      }
+      store_vec<RJ>(Ps + (ty * RI + ii) * LDK + tx * RJ, p);
+      l[ii] = corr * l[ii] + row_sum(psum);
+      m[ii] = m_new;
+#pragma unroll
+      for (int dd = 0; dd < RD; ++dd) acc[ii][dd] *= corr;
+    }
+    __syncthreads();
+    tile_mma<RI, RD, BK, LDK, LDV, false>(acc, Ps, Vs, ty, tx);
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < RI; ++ii) {
+    const int row = q0 + ty * RI + ii;
+    if (row >= Sq) continue;
+    const float lz = l[ii] == 0.f ? 1.f : l[ii];   // fully masked rows -> zeros
+    T* orow = o + ((size_t)bh * Sq + row) * D + tx * RD;
+#pragma unroll
+    for (int dd = 0; dd < RD; ++dd) orow[dd] = from_f<T>(acc[ii][dd] / lz);
+    if (tx == 0) lse[(size_t)bh * Sq + row] = m[ii] + logf(lz);
+  }
+}
+
+// delta[r] = sum_d do[r, d] * o[r, d] in f32, one warp per row
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows, int D) {
+  const int row = blockIdx.x * (NT / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    acc += to_f(dout[(size_t)row * D + d]) * to_f(o[(size_t)row * D + d]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const T* __restrict__ dout,
+                 float* __restrict__ dq_acc, T* __restrict__ dk,
+                 T* __restrict__ dv, int Sq, int Sk, float scale, int causal) {
+  constexpr int LDD = D + PAD;    // Qs, dOs [BQB][LDD]; Ks [BK][LDD]
+  constexpr int LDK = BK + PAD;   // Kt, Vt [D][LDK]; Ps, dSs [BQB][LDK]
+  constexpr int RS = BQB / 16;    // score rows per thread
+  constexpr int RJ = BK / 16;     // score columns per thread
+  constexpr int RK = BK / 16;     // dk / dv rows per thread
+  constexpr int RD = D / 16;      // columns of D per thread
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);
+  float* Vt = Kt + D * LDK;
+  float* Ks = Vt + D * LDK;
+  float* Qs = Ks + BK * LDD;
+  float* dOs = Qs + BQB * LDD;
+  float* Ps = dOs + BQB * LDD;
+  float* dSs = Ps + BQB * LDK;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;          // the longest causal walks first
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+
+  load_tile<T, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
+  load_tile<T, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
+  load_tile<T, D, LDD, false>(Ks, k + koff, k0, BK, Sk);
+  float dK[RK][RD], dV[RK][RD];
+#pragma unroll
+  for (int ii = 0; ii < RK; ++ii) {
+#pragma unroll
+    for (int dd = 0; dd < RD; ++dd) { dK[ii][dd] = 0.f; dV[ii][dd] = 0.f; }
+  }
+  const int nq = (Sq + BQB - 1) / BQB;
+  const int qt0 = causal ? k0 / BQB : 0;   // q tiles wholly above the diagonal see no key here
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * BQB;
+    __syncthreads();                       // the previous q tile is consumed
+    load_tile<T, D, LDD, false>(Qs, q + qoff, q0, BQB, Sq);
+    load_tile<T, D, LDD, false>(dOs, dout + qoff, q0, BQB, Sq);
+    __syncthreads();
+
+    float s[RS][RJ], dp[RS][RJ];
+#pragma unroll
+    for (int ii = 0; ii < RS; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) { s[ii][jj] = 0.f; dp[ii][jj] = 0.f; }
+    }
+    tile_mma<RS, RJ, D, LDD, LDK, false>(s, Qs, Kt, ty, tx);
+    tile_mma<RS, RJ, D, LDD, LDK, false>(dp, dOs, Vt, ty, tx);
+#pragma unroll
+    for (int ii = 0; ii < RS; ++ii) {
+      const int row = q0 + ty * RS + ii;
+      const bool live = row < Sq;
+      const float lse_r = live ? lse[(size_t)bh * Sq + row] : 0.f;
+      const float delta_r = live ? delta[(size_t)bh * Sq + row] : 0.f;
+      float p[RJ], ds[RJ];
+#pragma unroll
+      for (int jj = 0; jj < RJ; ++jj) {
+        const int col = k0 + tx * RJ + jj;
+        const bool vis = live && col < Sk && (!causal || row >= col);
+        const float e = vis ? expf(s[ii][jj] * scale - lse_r) : 0.f;
+        p[jj] = round_to<T>(e);                               // p in q's dtype
+        ds[jj] = round_to<T>(e * (dp[ii][jj] - delta_r) * scale);  // ds in q's dtype
+      }
+      store_vec<RJ>(Ps + (ty * RS + ii) * LDK + tx * RJ, p);
+      store_vec<RJ>(dSs + (ty * RS + ii) * LDK + tx * RJ, ds);
+    }
+    __syncthreads();
+    tile_mma<RK, RD, BQB, LDK, LDD, true>(dV, Ps, dOs, ty, tx);    // dv += p^T do
+    tile_mma<RK, RD, BQB, LDK, LDD, true>(dK, dSs, Qs, ty, tx);    // dk += ds^T q
+    float dq[RS][RD];
+#pragma unroll
+    for (int ii = 0; ii < RS; ++ii) {
+#pragma unroll
+      for (int dd = 0; dd < RD; ++dd) dq[ii][dd] = 0.f;
+    }
+    tile_mma<RS, RD, BK, LDK, LDD, false>(dq, dSs, Ks, ty, tx);    // dq += ds k
+#pragma unroll
+    for (int ii = 0; ii < RS; ++ii) {
+      const int row = q0 + ty * RS + ii;
+      if (row >= Sq) continue;
+      float* dst = dq_acc + qoff + (size_t)row * D + tx * RD;
+#pragma unroll
+      for (int dd = 0; dd < RD; ++dd) atomicAdd(dst + dd, dq[ii][dd]);
+    }
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < RK; ++ii) {
+    const int row = k0 + ty * RK + ii;
+    if (row >= Sk) continue;
+    T* dkr = dk + koff + (size_t)row * D + tx * RD;
+    T* dvr = dv + koff + (size_t)row * D + tx * RD;
+#pragma unroll
+    for (int dd = 0; dd < RD; ++dd) {
+      dkr[dd] = from_f<T>(dK[ii][dd]);
+      dvr[dd] = from_f<T>(dV[ii][dd]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int D>
+int fwd_t(const void* q, const void* k, const void* v, void* o, float* lse,
+          int BH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+      (BQ * (D + PAD) + D * (BK + PAD) + BK * (D + PAD) + BQ * (BK + PAD));
+  auto kern = flash_fwd_kernel<T, D>;
+  static const cudaError_t attr = allow_smem(kern, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + BQ - 1) / BQ, BH);
+  kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                   (T*)o, lse, Sq, Sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int bwd_t(const void* q, const void* k, const void* v, const void* o,
+          const float* lse, const void* dout, float* dq_acc, void* dk,
+          void* dv, float* delta, int BH, int Sq, int Sk, float scale,
+          int causal, cudaStream_t stream) {
+  const int rows = BH * Sq;
+  flash_bwd_delta_kernel<T><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, rows, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = sizeof(float) *
+      (2 * D * (BK + PAD) + BK * (D + PAD) + 2 * BQB * (D + PAD) + 2 * BQB * (BK + PAD));
+  auto kern = flash_bwd_kernel<T, D>;
+  static const cudaError_t attr = allow_smem(kern, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sk + BK - 1) / BK, BH);
+  kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
+                                   delta, (const T*)dout, dq_acc, (T*)dk,
+                                   (T*)dv, Sq, Sk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
+          int BH, int Sq, int Sk, int D, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 32: return fwd_t<T, 32>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+    case 64: return fwd_t<T, 64>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+    case 128: return fwd_t<T, 128>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int bwd_d(const void* q, const void* k, const void* v, const void* o,
+          const float* lse, const void* dout, float* dq_acc, void* dk,
+          void* dv, float* delta, int BH, int Sq, int Sk, int D, float scale,
+          int causal, cudaStream_t s) {
+  switch (D) {
+    case 32: return bwd_t<T, 32>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
+    case 64: return bwd_t<T, 64>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
+    case 128: return bwd_t<T, 128>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool bad_shape(int BH, int Sq, int Sk) {
+  return BH < 0 || Sq < 0 || Sk < 0 || BH > 65535;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16, 2 float16. Writes o and lse.
+// Returns the CUDA error code of the launch (0 on success).
+int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
+                               const void* v, void* o, float* lse, int BH,
+                               int Sq, int Sk, int D, float scale, int causal,
+                               void* stream) {
+  if (bad_shape(BH, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (BH == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return fwd_d<float>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
+    case 1: return fwd_d<__nv_bfloat16>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
+    case 2: return fwd_d<__half>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Adds dq into the zeroed f32 dq_acc and writes dk, dv; delta is [BH, Sq]
+// f32 scratch. Two launches (the delta pre-pass, then the backward).
+int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
+                               const void* v, const void* o, const float* lse,
+                               const void* dout, float* dq_acc, void* dk,
+                               void* dv, float* delta, int BH, int Sq, int Sk,
+                               int D, float scale, int causal, void* stream) {
+  if (bad_shape(BH, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (BH == 0 || Sq == 0 || Sk == 0) return 0;   // nothing to add; dk, dv are the caller's
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return bwd_d<float>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
+    case 1: return bwd_d<__nv_bfloat16>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
+    case 2: return bwd_d<__half>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

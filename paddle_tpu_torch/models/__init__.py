@@ -1,0 +1,6 @@
+"""Models of the PyTorch port (counterpart of ``paddle_tpu/models``):
+the Llama family and its single-device pretraining step."""
+from . import pretrain  # noqa: F401
+from .llama import (  # noqa: F401
+    LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion,
+    llama_state_from_numpy, llama_state_to_numpy)

@@ -1,0 +1,323 @@
+"""Llama model family for the PyTorch port (counterpart of
+``paddle_tpu/models/llama.py``).
+
+The same modules, parameter names and arithmetic as the JAX package:
+float32 parameters, hidden states cast to bf16 when ``config.dtype`` is
+"bfloat16", RMSNorm in float32 with its scale cast to the activation's
+dtype, neox RoPE, attention through ``F.flash_attention`` (the CUDA
+kernels on the card) or, with a mask, the plain ``_sdpa_ref``, and a
+float32 cross entropy over the LM head's logits.
+
+Parameter names match ``jit.functional.state_arrays`` of the JAX model
+(``llama.embed_tokens.weight``, ``llama.layers.{i}.self_attn.qkv_proj
+.weight``, ``lm_head.weight`` [hidden, vocab], ...), so
+``llama_state_from_numpy`` loads its arrays directly.
+
+Options of the JAX model that this slice does not port raise
+``NotImplementedError``: recompute, context parallelism, rope inside the
+attention kernels, the fused LM-head loss and the pipeline form.
+``sequence_parallel`` only shards activations over a mesh and has no
+effect on one device, as in the JAX package off-mesh.
+"""
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.random import make_generator
+from .. import nn
+from ..nn import functional as F
+from ..nn.layers.common import normal_
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaLMHead", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "LlamaForCausalLMPipe",
+           "llama_state_from_numpy", "llama_state_to_numpy"]
+
+
+class LlamaConfig:
+    """The JAX package's llama config surface; defaults are llama-2-7b."""
+
+    def __init__(self, vocab_size=32000, hidden_size=4096,
+                 intermediate_size=11008, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=None,
+                 max_position_embeddings=4096, rms_norm_eps=1e-6,
+                 rope_theta=10000.0, initializer_range=0.02,
+                 tie_word_embeddings=False, sequence_parallel=False,
+                 use_flash_attention=True, recompute=False,
+                 dtype="bfloat16", **kwargs):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads or num_attention_heads
+        self.max_position_embeddings = max_position_embeddings
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.initializer_range = initializer_range
+        self.tie_word_embeddings = tie_word_embeddings
+        self.sequence_parallel = sequence_parallel
+        self.use_flash_attention = use_flash_attention
+        self.recompute = recompute
+        self.dtype = dtype
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def tiny(cls, **kw):
+        """Small config for tests."""
+        base = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, max_position_embeddings=128)
+        base.update(kw)
+        return cls(**base)
+
+
+def _refuse_later_slice(config):
+    for opt in ("recompute", "context_parallel", "fuse_rope_in_attention",
+                "fused_lm_loss"):
+        if getattr(config, opt, False):
+            raise NotImplementedError(
+                f"LlamaConfig.{opt} is a later slice of the port")
+
+
+class _Init:
+    """Where a model's layers draw their initial weights: one generator on
+    the model's device, Normal(0, initializer_range)."""
+
+    def __init__(self, config, device, generator):
+        self.std = config.initializer_range
+        self.device = device
+        self.generator = generator
+
+    def linear(self, n_in, n_out):
+        return nn.Linear(n_in, n_out, self.std, self.generator, self.device)
+
+
+class LlamaAttention(torch.nn.Module):
+    """Self-attention with neox RoPE and grouped-query heads; bias-free
+    q/k/v/o projections, q/k/v fused into one when
+    ``config.fuse_attention_qkv``."""
+
+    def __init__(self, config, init):
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        kv_out = self.num_kv_heads * self.head_dim
+        self.fuse_qkv = getattr(config, "fuse_attention_qkv", False)
+        if self.fuse_qkv:
+            self.qkv_proj = init.linear(h, h + 2 * kv_out)
+        else:
+            self.q_proj = init.linear(h, h)
+            self.k_proj = init.linear(h, kv_out)
+            self.v_proj = init.linear(h, kv_out)
+        self.o_proj = init.linear(h, h)
+
+    def forward(self, hidden_states, position_ids=None, attn_mask=None):
+        b, s = hidden_states.shape[0], hidden_states.shape[1]
+        h = self.num_heads * self.head_dim
+        kv_out = self.num_kv_heads * self.head_dim
+        if self.fuse_qkv:
+            qkv = self.qkv_proj(hidden_states)
+            q = qkv[:, :, :h].reshape(b, s, self.num_heads, self.head_dim)
+            k = qkv[:, :, h:h + kv_out].reshape(b, s, self.num_kv_heads,
+                                                self.head_dim)
+            v = qkv[:, :, h + kv_out:].reshape(b, s, self.num_kv_heads,
+                                               self.head_dim)
+        else:
+            q = self.q_proj(hidden_states).reshape(b, s, self.num_heads,
+                                                   self.head_dim)
+            k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads,
+                                                   self.head_dim)
+            v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads,
+                                                   self.head_dim)
+        q, k, v = F.fused_rotary_position_embedding(
+            q, k, v, position_ids=position_ids, use_neox_rotary_style=True,
+            rotary_emb_base=self.config.rope_theta)
+        if attn_mask is None:
+            out, _ = F.flash_attention(q, k, v, causal=True)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                 is_causal=True)
+        return self.o_proj(out.reshape(b, s, h))
+
+
+class LlamaMLP(torch.nn.Module):
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)); gate and up fused into one
+    projection when ``config.fuse_attention_ffn``."""
+
+    def __init__(self, config, init):
+        super().__init__()
+        h, im = config.hidden_size, config.intermediate_size
+        self.im = im
+        self.fuse_ffn = getattr(config, "fuse_attention_ffn", False)
+        if self.fuse_ffn:
+            self.gate_up_fused_proj = init.linear(h, 2 * im)
+        else:
+            self.gate_proj = init.linear(h, im)
+            self.up_proj = init.linear(h, im)
+        self.down_proj = init.linear(im, h)
+
+    def forward(self, x):
+        if self.fuse_ffn:
+            gu = self.gate_up_fused_proj(x)
+            gate, up = gu[..., :self.im], gu[..., self.im:]
+            return self.down_proj(F.silu(gate) * up)
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(torch.nn.Module):
+    def __init__(self, config, init):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, init)
+        self.mlp = LlamaMLP(config, init)
+        self.input_layernorm = nn.RMSNorm(config.hidden_size,
+                                          config.rms_norm_eps, init.device)
+        self.post_attention_layernorm = nn.RMSNorm(
+            config.hidden_size, config.rms_norm_eps, init.device)
+
+    def forward(self, hidden_states, position_ids=None, attn_mask=None):
+        residual = hidden_states
+        hidden_states = self.input_layernorm(hidden_states)
+        hidden_states = self.self_attn(hidden_states, position_ids, attn_mask)
+        hidden_states = residual + hidden_states
+        residual = hidden_states
+        hidden_states = self.post_attention_layernorm(hidden_states)
+        hidden_states = self.mlp(hidden_states)
+        return residual + hidden_states
+
+
+class LlamaModel(torch.nn.Module):
+    def __init__(self, config, init):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size, init.std,
+                                         init.generator, init.device)
+        self.layers = torch.nn.ModuleList(
+            [LlamaDecoderLayer(config, init)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = nn.RMSNorm(config.hidden_size, config.rms_norm_eps,
+                               init.device)
+
+    def forward(self, input_ids, position_ids=None, attn_mask=None):
+        hidden_states = self.embed_tokens(input_ids)
+        if self.config.dtype == "bfloat16":
+            hidden_states = hidden_states.to(torch.bfloat16)
+        for layer in self.layers:
+            hidden_states = layer(hidden_states, position_ids, attn_mask)
+        return self.norm(hidden_states)
+
+
+class LlamaLMHead(torch.nn.Module):
+    """The [hidden, vocab] projection to logits, or the transposed input
+    embedding when ``tie_word_embeddings``."""
+
+    def __init__(self, config, init, embed=None):
+        super().__init__()
+        if config.tie_word_embeddings and embed is not None:
+            # kept off the module tree: the table is the embedding's
+            # parameter and is named (and loaded) there only
+            object.__setattr__(self, "_tied", embed)
+            self.weight = None
+        else:
+            object.__setattr__(self, "_tied", None)
+            self.weight = torch.nn.Parameter(normal_(
+                (config.hidden_size, config.vocab_size), init.std,
+                init.generator, init.device))
+
+    def get_weight(self):
+        """The [hidden, vocab] projection, resolving weight tying."""
+        return self._tied.weight.t() if self._tied is not None \
+            else self.weight
+
+    def forward(self, hidden_states):
+        # the logits product runs in the hidden states' dtype; the
+        # criterion upcasts inside the softmax
+        return F.linear(hidden_states,
+                        self.get_weight().to(hidden_states.dtype))
+
+
+class LlamaPretrainingCriterion(torch.nn.Module):
+    """Mean token cross entropy in float32 over already-shifted labels."""
+
+    def forward(self, logits, labels):
+        v = logits.shape[-1]
+        return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
+                               reduction="mean")
+
+
+class LlamaForCausalLM(torch.nn.Module):
+    """Decoder stack + LM head. ``forward(input_ids, position_ids=None,
+    attn_mask=None, labels=None)`` returns logits, or (logits, loss) with
+    labels. Weights are drawn on ``device`` (default "cuda") from a
+    generator seeded with ``seed``."""
+
+    def __init__(self, config, device="cuda", seed=0):
+        super().__init__()
+        _refuse_later_slice(config)
+        dev = resolve_device(device)
+        init = _Init(config, dev, make_generator(seed, dev))
+        self.config = config
+        self.llama = LlamaModel(config, init)
+        self.lm_head = LlamaLMHead(
+            config, init,
+            embed=self.llama.embed_tokens if config.tie_word_embeddings
+            else None)
+
+    @property
+    def model(self):
+        return self.llama
+
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                labels=None):
+        hidden_states = self.llama(input_ids, position_ids, attn_mask)
+        logits = self.lm_head(hidden_states)
+        if labels is not None:
+            return logits, LlamaPretrainingCriterion()(logits, labels)
+        return logits
+
+
+def LlamaForCausalLMPipe(config, num_stages, loss_fn=None):
+    """The pipeline-parallel model form of the JAX package."""
+    raise NotImplementedError(
+        "LlamaForCausalLMPipe: pipeline parallelism is a later slice")
+
+
+def llama_state_from_numpy(params, config, device="cuda", dtype=None):
+    """A ``LlamaForCausalLM`` holding the JAX model's weights.
+
+    ``params`` is {name: np.ndarray} as ``jit.functional.state_arrays``
+    gives it for the JAX model (names and [in, out] layouts are the
+    same). ``dtype`` casts every weight (default: keep float32). The key
+    sets must match exactly."""
+    model = LlamaForCausalLM(config, device=device)
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(params))
+    extra = sorted(set(params) - set(own))
+    if missing or extra:
+        raise KeyError(f"llama_state_from_numpy: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in own.items():
+            arr = np.array(params[name], dtype=np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"llama_state_from_numpy: {name} has shape "
+                                 f"{arr.shape}, the model {tuple(p.shape)}")
+            p.data = torch.from_numpy(arr).to(device=p.device,
+                                              dtype=dtype or torch.float32)
+    return model
+
+
+def llama_state_to_numpy(model):
+    """{name: float32 np.ndarray} of a port model's parameters, the
+    inverse of ``llama_state_from_numpy``."""
+    return {n: p.detach().to(torch.float32).cpu().numpy()
+            for n, p in model.named_parameters()}

@@ -1,0 +1,11 @@
+"""Functionals of the PyTorch port (counterpart of
+``paddle_tpu/nn/functional``): what the Llama model calls."""
+from .activation import silu  # noqa: F401
+from .attention import (  # noqa: F401
+    flash_attention, scaled_dot_product_attention)
+from .common import embedding, linear  # noqa: F401
+from .loss import cross_entropy  # noqa: F401
+from .norm import rms_norm  # noqa: F401
+from .rope import (  # noqa: F401
+    apply_rotary_pos_emb, fused_rotary_position_embedding,
+    rotary_embedding_cos_sin)

@@ -1,0 +1,74 @@
+"""Attention functionals for the PyTorch port (counterpart of
+``paddle_tpu/nn/functional/attention.py``).
+
+``flash_attention`` goes to ``ops.flash_attention.flash_attention_bshd``
+on every device: its wrappers launch the CUDA kernels for CUDA tensors
+and run the plain versions for CPU tensors. A kernel that fails to build
+or launch raises; there is no quiet fallback to another path.
+``scaled_dot_product_attention`` with a mask runs ``_sdpa_ref`` in plain
+PyTorch, as the JAX package runs it in plain XLA.
+"""
+import math
+
+import torch
+
+from ...ops import flash_attention as _fa
+
+
+def _sdpa_ref(q, k, v, mask=None, causal=False):
+    """Reference attention in plain PyTorch, [B, S, H, D] layout. Scores
+    and the prob @ v product in float32, the output cast to q's dtype.
+    The causal mask is bottom-right aligned (``tril(k=t-s)``), as the JAX
+    package's; it agrees with the kernel's top-left mask when q and k
+    have the same length."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[2] != q.shape[2]:            # GQA: repeat the kv head groups
+        rep = q.shape[2] // k.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    lowest = torch.finfo(torch.float32).min
+    if causal:
+        s, t = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones((s, t), dtype=torch.bool,
+                        device=logits.device).tril(diagonal=t - s)
+        logits = logits.masked_fill(~cm, lowest)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, lowest)
+        else:
+            logits = logits + mask.to(logits.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs, vt.float()).to(q.dtype)
+    return out.transpose(1, 2)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    training=True, rope_cos=None, rope_sin=None):
+    """paddle's flash_attention: inputs [batch, seqlen, num_heads,
+    head_dim]; returns (out, None)."""
+    if dropout > 0.0 or return_softmax:
+        raise NotImplementedError(
+            "flash_attention: dropout and return_softmax are a later slice")
+    if rope_cos is not None or rope_sin is not None:
+        raise NotImplementedError(
+            "flash_attention: rope inside the kernels (rope_cos / rope_sin) "
+            "is a later slice")
+    return _fa.flash_attention_bshd(query, key, value, causal=causal), None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """paddle's scaled_dot_product_attention ([B, S, H, D] layout, bool or
+    additive mask)."""
+    if attn_mask is None:
+        out, _ = flash_attention(query, key, value, dropout=dropout_p,
+                                 causal=is_causal, training=training)
+        return out
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: dropout is a later slice")
+    return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal)

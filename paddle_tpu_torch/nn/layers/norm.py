@@ -1,0 +1,19 @@
+"""RMSNorm layer of the PyTorch port (counterpart of
+``paddle_tpu/nn/layers/norm.py``)."""
+import torch
+
+from .. import functional as F
+
+
+class RMSNorm(torch.nn.Module):
+    """RMSNorm with a float32 scale initialised to 1.0."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, device="cpu"):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.epsilon = epsilon
+        self.weight = torch.nn.Parameter(
+            torch.ones(hidden_size, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)

@@ -1,3 +1,3 @@
 """Ops of the PyTorch port with hand-written CUDA kernels: ragged paged
-attention and the int4 weight-only matmul. Kernels are built at first
-use (``_build``)."""
+attention, the int4 weight-only matmul and flash attention (forward and
+fused backward). Kernels are built at first use (``_build``)."""

@@ -1,0 +1,228 @@
+"""Flash attention for the PyTorch port (counterpart of
+``paddle_tpu/ops/pallas/flash_attention.py``).
+
+Kernel contract (the JAX package's, heads folded into batch):
+  q, o, do  [BH, Sq, D]   float32 / bfloat16 / float16
+  k, v      [BH, Sk, D]
+  lse       [BH, Sq]      float32 row logsumexp of the scaled scores
+The causal mask is top-left aligned (row >= col). The TPU kernel saves
+lse as [BH, 8, S] (eight equal rows, a lane-tiling artifact); the port
+owns both kernels and keeps one row.
+
+``flash_fwd`` and ``flash_bwd`` launch the CUDA kernels of
+``csrc/flash_attention.cu`` for CUDA tensors and run ``flash_fwd_plain``
+/ ``flash_bwd_plain`` for CPU tensors; nothing else chooses between
+them. The plain versions are written from the formulas with the saved
+lse (not through autograd) and take the Pallas bodies' dtype steps: f32
+scores, p cast to v's dtype before p @ v, ds cast to q's dtype before
+the second products, delta = rowsum(do * o) in f32.
+
+``flash_attention_bshd`` is the [B, S, H, D] entry with a
+``torch.autograd.Function`` around the pair. Grouped-query kv heads are
+repeated up to the query heads before the kernel, as the JAX wrapper
+does (:616-620); autograd sums dk / dv over each group.
+"""
+import ctypes
+import functools
+import math
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _visible(sq, sk, causal, device):
+    """[Sq, Sk] bool of the (row, key) pairs a causal row sees, or None."""
+    if not causal:
+        return None
+    rows = torch.arange(sq, device=device)[:, None]
+    cols = torch.arange(sk, device=device)[None, :]
+    return rows >= cols
+
+
+def flash_fwd_plain(q, k, v, scale, causal):
+    """softmax(q k^T * scale) v over [BH, S, D] in plain PyTorch:
+    returns (o in q's dtype, lse [BH, Sq] f32). Fully masked rows give
+    zeros."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if vis is not None:
+        p = p * vis
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    lse = (m + torch.log(l))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, scale, causal):
+    """Gradients (dq, dk, dv) of flash attention from the saved o and lse,
+    in plain PyTorch, each in its input's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    vis = _visible(q.shape[1], k.shape[1], causal, q.device)
+    if vis is not None:
+        p = p * vis
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dv = torch.matmul(p.to(q.dtype).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(name, q, k, v, *more):
+    """Refuse what the kernels do not take: ``more`` are further tensors
+    of q's dtype and device (o and do)."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
+            or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} must be [BH, Sq, D], "
+                         "[BH, Sk, D], [BH, Sk, D]")
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[2]} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {q.dtype} must be float32, "
+                         "bfloat16 or float16")
+    if q.shape[0] > 65535:
+        raise ValueError(f"{name}: batch x heads {q.shape[0]} > 65535")
+    for t in (q, k, v, *more):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """(o, lse) of flash attention over [BH, S, D]. A CPU tensor runs the
+    plain version; a CUDA tensor launches the forward kernel (counted in
+    ``flash_fwd.launches``) or raises."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd: unsupported device {q.device}")
+    _check("flash_fwd", q, k, v)
+    bh, sq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    rc = _launcher("fwd")(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error "
+                           f"{rc}")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, scale, causal):
+    """(dq, dk, dv) of flash attention from the saved o and lse. A CPU
+    tensor runs the plain version; a CUDA tensor launches the backward
+    kernel (counted in ``flash_bwd.launches``) on the current stream, the
+    forward's when autograd calls it, or raises."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    _check("flash_bwd", q, k, v, o, do)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, sq) \
+            or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError("flash_bwd: o and do must be shaped like q and lse "
+                         f"a contiguous float32 [{bh}, {sq}] on {q.device}")
+    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if sq == 0:
+        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    rc = _launcher("bwd")(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh, sq, sk, d,
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd: kernel launch failed with CUDA error "
+                           f"{rc}")
+    flash_bwd.launches += 1
+    return dq.to(q.dtype), dk, dv
+
+
+flash_bwd.launches = 0
+
+
+@functools.cache
+def _launcher(which):
+    """The kernel's C entry point with its prototype bound, built and
+    loaded on the first launch."""
+    from . import _build
+    lib = _build.load("flash_attention")
+    if which == "fwd":
+        fn = lib.flash_attention_fwd_launch
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p]
+    else:
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention over [BH, S, D] with the kernel pair as forward and
+    backward; saves (q, k, v, o, lse). ``flash_fwd`` / ``flash_bwd`` are
+    looked up at call time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale,
+                               ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bshd(q, k, v, causal=True, scale=None):
+    """q [B, Sq, H, D], k / v [B, Sk, KVH, D] (paddle's flash_attention
+    layout) -> out [B, Sq, H, D]. kv heads are repeated up to H."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if hk != h:
+        rep = h // hk
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+
+    def fold(x, s):
+        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    o = FlashAttention.apply(fold(q, sq), fold(k, sk), fold(v, sk),
+                             float(scale), bool(causal))
+    return o.reshape(b, h, sq, d).transpose(1, 2)

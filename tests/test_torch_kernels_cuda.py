@@ -124,3 +124,85 @@ def test_int4_engine_refuses_widths_the_kernel_does_not_take():
             head_dim=d, max_seq_len=16, dtype="float32", norm_type="rmsnorm",
             activation="swiglu", gqa_group_size=g, weight_quant="int4",
             device="cuda")
+
+
+def _flash_inputs(bh, sq, sk, d, dtype, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def mk(s):
+        return torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
+
+    return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (130, 130, False),
+                                          (64, 64, True), (37, 200, False),
+                                          (200, 77, True)])
+def test_flash_kernels_match_plain(dtype, d, sq, sk, causal):
+    """Forward (o, lse) and backward (dq, dk, dv from the same o / lse /
+    do) at lengths on and off the 64-row tile, q and k lengths apart,
+    causal (top-left) and full."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(3, sq, sk, d, dtype, sq + sk + d)
+    scale = d ** -0.5
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert float((o.float() - ro.float()).abs().max()) <= _tol(ro, dtype)
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal)
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+
+
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_matches_plain_autograd(h, kvh, causal):
+    """The autograd function (kernel forward and backward, kv heads
+    repeated and their grads summed) against autograd through plain f32
+    attention, grouped-query groups of 1, 2 and 4."""
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(h + kvh)
+    b, s, d = 2, 150, 64
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    k = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    v = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    g = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    outs = []
+    for fn in (lambda *a: fa.flash_attention_bshd(*a, causal=causal),
+               lambda *a: _sdpa_ref(*a, causal=causal)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        outs.append([out.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        assert got.shape == want.shape, name
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(2, 16, 48, device="cuda")           # head dim 48
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, q, q, 1.0, True)
+    q = torch.zeros(2, 16, 64, device="cuda")
+    with pytest.raises(ValueError):                     # not contiguous
+        fa.flash_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
+                     1.0, True)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        fa.flash_fwd(q, q.half(), q.half(), 1.0, True)

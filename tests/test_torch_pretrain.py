@@ -1,0 +1,160 @@
+"""The PyTorch port's single-device pretraining step held against the JAX
+package on the CPU: one AdamW update against ``pretrain._adamw`` on the
+same numpy inputs, a 5-step loss / grad-norm trajectory of
+``flagship_config``'s CPU form against the JAX ``make_train_step`` on a
+one-device mesh, and three bf16 AMP-O2 steps.
+
+Tolerances: AdamW elementwise 1e-6 (atol, f32 values of O(1)); the f32
+trajectory rtol 1e-5 (losses near ln 128 = 4.85; the two frameworks
+reduce in another order, measured 1.3e-7 apart); the bf16 steps rtol
+1e-3 on the loss and 5e-3 on the grad norm (bf16 rounds at other points
+in XLA's fusions than in eager torch, each rounding 2**-9 relative;
+measured 1.1e-5 and 3.2e-4 apart).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import paddle_tpu as paddle  # noqa: E402
+from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
+from paddle_tpu.models import pretrain as jpre  # noqa: E402
+from paddle_tpu_torch.models import (LlamaForCausalLM,  # noqa: E402
+                                     llama_state_from_numpy)
+from paddle_tpu_torch.models import pretrain as tpre  # noqa: E402
+from paddle_tpu_torch.observability import instrument  # noqa: E402
+
+
+def _adamw_inputs(seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"w2d": (6, 5), "emb": (4, 3), "norm": (5,), "bias": (3,)}
+    params = {n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()}
+    grads = {n: rng.standard_normal(s).astype(np.float32)
+             for n, s in shapes.items()}
+    m = {n: 0.1 * rng.standard_normal(s).astype(np.float32)
+         for n, s in shapes.items()}
+    v = {n: np.abs(0.1 * rng.standard_normal(s)).astype(np.float32)
+         for n, s in shapes.items()}
+    return params, grads, m, v
+
+
+@pytest.mark.parametrize("clip", [0.5, 100.0, 0.0])
+def test_adamw_one_step_matches(clip):
+    """clip 0.5 is active (the grads' norm is ~6), 100 is not, 0 turns it
+    off; decay touches only the ndim >= 2 parameters."""
+    params, grads, m, v = _adamw_inputs(1)
+    hp = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, clip=clip)
+    jp, js, jg = jpre._adamw(
+        {n: jnp.asarray(a) for n, a in params.items()},
+        {n: jnp.asarray(a) for n, a in grads.items()},
+        {"m": {n: jnp.asarray(a) for n, a in m.items()},
+         "v": {n: jnp.asarray(a) for n, a in v.items()},
+         "count": jnp.asarray(3, jnp.int32)}, **hp)
+    t = {n: torch.tensor(a) for n, a in params.items()}
+    state = {"m": {n: torch.tensor(a) for n, a in m.items()},
+             "v": {n: torch.tensor(a) for n, a in v.items()}, "count": 3}
+    tp, ts, tg = tpre._adamw(
+        t, {n: torch.tensor(a) for n, a in grads.items()}, state,
+        hp["lr"], hp["b1"], hp["b2"], hp["eps"], hp["wd"], hp["clip"])
+    assert ts["count"] == int(js["count"]) == 4
+    assert abs(float(tg) - float(jg)) <= 1e-6 * float(jg)
+    for n in params:
+        np.testing.assert_allclose(tp[n].numpy(), np.asarray(jp[n]), rtol=0,
+                                   atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(ts["m"][n].numpy(), np.asarray(js["m"][n]),
+                                   rtol=0, atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(ts["v"][n].numpy(), np.asarray(js["v"][n]),
+                                   rtol=0, atol=1e-6, err_msg=n)
+    assert tp["w2d"] is t["w2d"] and ts is state   # updated in place
+
+
+def _batches(n, batch, seq, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, (batch, seq))
+             .astype(np.int32),
+             "labels": rng.integers(0, vocab, (batch, seq)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def _trajectories(cfg, batch, seq, steps):
+    paddle.seed(21)
+    jm = JLlama(cfg)
+    mesh = jpre.make_mesh(1, dp=1, fsdp=1, mp=1, sp=1)
+    jparams, jopt, jmeta = jpre.make_train_state(jm, mesh)
+    np_params = {n: np.asarray(a) for n, a in jparams.items()}
+    jstep = jpre.make_train_step(jm, mesh, jmeta)
+    tm = llama_state_from_numpy(np_params, cfg, device="cpu")
+    tparams, topt, tmeta = tpre.make_train_state(tm)
+    tstep = tpre.make_train_step(tm, tmeta)
+    want, got = [], []
+    for b in _batches(steps, batch, seq, cfg.vocab_size):
+        jparams, jopt, jl, jg = jstep(jparams, jopt, jpre.shard_batch(b, mesh))
+        want.append((float(jl), float(jg)))
+        tparams, topt, tl, tg = tstep(tparams, topt,
+                                      tpre.batch_to_device(b, "cpu"))
+        got.append((float(tl), float(tg)))
+    return np.array(want), np.array(got), tparams
+
+
+def test_five_step_trajectory_matches_make_train_step():
+    cfg, batch, seq = tpre.flagship_config(full=False)
+    jcfg, jb, js = jpre.flagship_config(on_tpu=False)
+    assert (batch, seq) == (jb, js) == (4, 64)
+    assert vars(cfg) == vars(jcfg)
+    steps0 = instrument.train_steps_total().value
+    tokens0 = instrument.train_tokens_total().value
+    want, got, params = _trajectories(cfg, batch, seq, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    assert all(p.dtype == torch.float32 for p in params.values())
+    assert instrument.train_steps_total().value == steps0 + 5
+    assert instrument.train_tokens_total().value == tokens0 + 5 * batch * seq
+    assert instrument.train_tokens_per_s().value > 0
+
+
+def test_bf16_amp_step_matches():
+    """AMP-O2: ndim >= 2 parameters run the forward in bf16 (norm scales
+    stay f32 and are cast down inside rms_norm), the grads land on the
+    f32 masters."""
+    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg.dtype = "bfloat16"
+    cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
+    want, got, params = _trajectories(cfg, 2, 32, 3)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-3, atol=0)
+    assert all(p.dtype == torch.float32 for p in params.values())
+
+
+def test_flagship_shape_matches_the_jax_package():
+    cfg, batch, seq = tpre.flagship_config()
+    jcfg, jb, js = jpre.flagship_config(on_tpu=True)
+    assert vars(cfg) == vars(jcfg) and (batch, seq) == (jb, js) == (8, 2048)
+
+
+def test_cuda_is_the_default_and_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    cfg, _, _ = tpre.flagship_config(full=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpre.batch_to_device({"input_ids": np.zeros((1, 4), np.int32)})
+
+
+def test_later_slice_options_raise():
+    cfg, _, _ = tpre.flagship_config(full=False)
+    tm = LlamaForCausalLM(cfg, device="cpu")
+    params, opt, meta = tpre.make_train_state(tm)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tpre.make_train_state(tm, mesh=object())
+    for kw in (dict(mesh=object()), dict(telemetry=True),
+               dict(monitor=object())):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tpre.make_train_step(tm, meta, **kw)
+    run = tpre.make_train_step(tm, meta)
+    b = tpre.batch_to_device(_batches(1, 2, 8, cfg.vocab_size)[0], "cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        run(params, opt, b, lr_scale=2.0)
