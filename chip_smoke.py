@@ -38,6 +38,22 @@ Phases (any failure exits non-zero and prints no result line):
   8. f32 training parity at full width, L=2: 3 steps through the kernels
      against the plain attention path (loss and grad norm), then the loss
      falls over 10 steps on one repeated batch;
+  9. the blockwise LM-head cross-entropy kernels (forward, dh, dw) against
+     their plain versions in bf16: the flagship (T = 8 x 2048, H=1024,
+     V=32000), a case off every tile (T=1000, V=32001) with ignored rows,
+     and a quarter of the rows ignored; each prints its worst element
+     against its allowance and the kernel, plain, bound and unfused
+     matmul + cross_entropy times;
+ 10. the flash kernels with the rope operands against their plain
+     versions in bf16: the flagship training shape, a GQA case and a
+     length off the tile;
+ 11. flagship pretraining as phase 7 with the fused LM-head loss and rope
+     inside the flash kernels (``fused_lm_loss``, ``fuse_rope_in_attention``):
+     tokens/s, ms/step, MFU and peak memory beside phase 7's, exactly one
+     launch of each CE kernel and 24 + 24 rope-fused flash launches per
+     step, no logits, peak memory below phase 7's, then a profiled step;
+ 12. f32 training parity at full width, L=2, with both options: 3 steps
+     through the kernels against the plain attention and plain CE paths;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -351,13 +367,15 @@ def phase_kernels(torch):
 # -- phases 2-4 --------------------------------------------------------------
 
 def reset_counts():
+    from paddle_tpu_torch.ops import blockwise_ce as bc
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     pa.ragged_paged_attention.launches = 0
     qm.weight_only_matmul.launches = 0
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd.launches = 0
+    fa.flash_fwd.launches = fa.flash_fwd.rope_launches = 0
+    fa.flash_bwd.launches = fa.flash_bwd.rope_launches = 0
+    bc.ce_fwd.launches = bc.ce_bwd_dh.launches = bc.ce_bwd_dw.launches = 0
 
 
 def read_counts():
@@ -370,6 +388,15 @@ def read_counts():
 def read_flash_counts():
     from paddle_tpu_torch.ops import flash_attention as fa
     return fa.flash_fwd.launches, fa.flash_bwd.launches
+
+
+def read_fused_counts():
+    """(ce_fwd, ce_bwd_dh, ce_bwd_dw, flash fwd with rope, flash bwd with
+    rope) launches."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return (bc.ce_fwd.launches, bc.ce_bwd_dh.launches, bc.ce_bwd_dw.launches,
+            fa.flash_fwd.rope_launches, fa.flash_bwd.rope_launches)
 
 
 def phase_serve(torch):
@@ -409,6 +436,8 @@ def phase_serve(torch):
 
 def _kernel_class(name):
     n = name.lower()
+    if "blockwise_ce" in n:
+        return "blockwise_ce"
     if "ragged_kernel" in n:
         return "ragged_attention"
     if "int4_kernel" in n:
@@ -582,6 +611,20 @@ def plain_attention():
         fa.flash_fwd, fa.flash_bwd = saved
 
 
+@contextlib.contextmanager
+def plain_ce():
+    """Route the blockwise cross entropy through the plain versions on the
+    card (the reference path of phase 12); restores the kernels."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    saved = bc.ce_fwd, bc.ce_bwd_dh, bc.ce_bwd_dw
+    bc.ce_fwd, bc.ce_bwd_dh, bc.ce_bwd_dw = (
+        bc.ce_fwd_plain, bc.ce_bwd_dh_plain, bc.ce_bwd_dw_plain)
+    try:
+        yield
+    finally:
+        bc.ce_fwd, bc.ce_bwd_dh, bc.ce_bwd_dw = saved
+
+
 def flash_work(bh, sq, sk, d, causal):
     """(fwd bytes, fwd flops, bwd bytes, bwd flops) a bf16 case's data
     needs: each input read once and each output written once; 4*D flops
@@ -713,6 +756,263 @@ def phase_flash(torch):
     return rows
 
 
+CE_LOSS_ATOL = 1e-4     # loss / lse in f32: the same H-deep logits and the
+                        # V-term softmax sum taken in another order
+CE_GRAD_ATOL = 1e-5     # dh / dw: f32 sums of the same products in another
+                        # order, then each side rounds to bf16 once (the
+                        # two bf16 ulps of bf16_agreement)
+
+
+def ce_cases(torch):
+    """(name, h, w, labels, g) in bf16 at the LM head's shapes: h of unit
+    RMS as the final norm gives it, w as the model initialises it."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    cases = []
+    for name, t, hid, vocab, ignored in (
+            ("flagship_t16384_h1024_v32000", 16384, 1024, 32000, 0.0),
+            ("off_tile_t1000_h1024_v32001", 1000, 1024, 32001, 0.1),
+            ("quarter_ignored_t2048_h1024_v32000", 2048, 1024, 32000, 0.25)):
+        h = torch.randn(t, hid, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(hid, vocab, device="cuda", generator=gen)
+             * 0.02).bfloat16()
+        lab = torch.randint(0, vocab, (t,), device="cuda", generator=gen)
+        drop = torch.rand(t, device="cuda", generator=gen) < ignored
+        lab = torch.where(drop, torch.full_like(lab, -100), lab)
+        g = torch.ones(t, device="cuda")
+        cases.append((name, h, w, lab, g))
+    return cases
+
+
+def ce_work(t, t_live, hid, vocab):
+    """(fwd bytes, fwd flops, dh bytes, backward flops, dw bytes) a bf16
+    case needs:
+    inputs read once, outputs written once; the forward's 2 T H V flops
+    (every row's lse is an output), each backward kernel's 4 H V flops per
+    row that is not ignored (an ignored row's gradient is zero)."""
+    hw = t * hid * 2 + hid * vocab * 2
+    fwd_bytes = hw + t * 8 + 2 * t * 4              # h, w, labels; loss, lse
+    bwd_in = hw + t * 8 + 2 * t * 4                 # h, w, labels, g, lse
+    return (fwd_bytes, 2 * t * hid * vocab, bwd_in + t * hid * 2,
+            4 * t_live * hid * vocab, bwd_in + hid * vocab * 2)
+
+
+def phase_ce(torch):
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    rows = {"fwd": [], "dh": [], "dw": []}
+    for name, h, w, lab, g in ce_cases(torch):
+        t, hid = h.shape
+        vocab = w.shape[1]
+        loss, lse = bc.ce_fwd(h, w, lab, -100)
+        rloss, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+        dh = bc.ce_bwd_dh(h, w, lab, g, rlse, -100)
+        rdh = bc.ce_bwd_dh_plain(h, w, lab, g, rlse, -100)
+        dw = bc.ce_bwd_dw(h, w, lab, g, rlse, -100)
+        rdw = bc.ce_bwd_dw_plain(h, w, lab, g, rlse, -100)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (loss, lse, dh, dw))
+        err_f = max(float((loss - rloss).abs().max()),
+                    float((lse - rlse).abs().max()))
+        ratio_f = err_f / CE_LOSS_ATOL
+        err_dh, ratio_dh = bf16_agreement(dh, rdh, CE_GRAD_ATOL)
+        err_dw, ratio_dw = bf16_agreement(dw, rdw, CE_GRAD_ATOL)
+        ign = lab == -100
+        n_ign = int(ign.sum())
+        zero_ign = not bool(loss[ign].any()) and not bool(dh[ign].any())
+        print(f"  blockwise_ce[{name}]: {n_ign} rows ignored; loss/lse err "
+              f"{err_f:.3e} (worst {ratio_f:.3f} of atol {CE_LOSS_ATOL:g}), "
+              f"dh err {err_dh:.3e} (worst {ratio_dh:.3f}), dw err "
+              f"{err_dw:.3e} (worst {ratio_dw:.3f}) of atol "
+              f"{CE_GRAD_ATOL:g} + 2 bf16 ulps", flush=True)
+        check(finite, f"blockwise_ce {name}: non-finite output")
+        check(zero_ign, f"blockwise_ce {name}: an ignored row has a loss or "
+              "a gradient")
+        check(ratio_f <= 1.0, f"blockwise_ce fwd {name}: err {err_f}")
+        check(ratio_dh <= 1.0, f"blockwise_ce dh {name}: err {err_dh}, an "
+              f"element off by {ratio_dh:.2f}x its allowance")
+        check(ratio_dw <= 1.0, f"blockwise_ce dw {name}: err {err_dw}, an "
+              f"element off by {ratio_dw:.2f}x its allowance")
+        del rloss, rlse, rdh, rdw
+        big = t >= 8192
+        it, pit = (5, 3) if big else (10, 5)
+        ms_f = time_ms(lambda: bc.ce_fwd(h, w, lab, -100), iters=it, warmup=1)
+        ms_dh = time_ms(lambda: bc.ce_bwd_dh(h, w, lab, g, lse, -100),
+                        iters=it, warmup=1)
+        ms_dw = time_ms(lambda: bc.ce_bwd_dw(h, w, lab, g, lse, -100),
+                        iters=it, warmup=1)
+        pl_f = time_ms(lambda: bc.ce_fwd_plain(h, w, lab, -100), iters=pit,
+                       warmup=1)
+        pl_dh = time_ms(lambda: bc.ce_bwd_dh_plain(h, w, lab, g, lse, -100),
+                        iters=pit, warmup=1)
+        pl_dw = time_ms(lambda: bc.ce_bwd_dw_plain(h, w, lab, g, lse, -100),
+                        iters=pit, warmup=1)
+        # library yardstick (timed only; the port never calls it): the
+        # unfused pair, bf16 logits through cuBLAS then cross_entropy;
+        # forward, and forward + the gradient of h (of w) alone
+        hl, wl = (x.detach().clone().requires_grad_(True) for x in (h, w))
+
+        def lib(wrt=None):
+            out = Fn.cross_entropy(torch.matmul(hl, wl), lab,
+                                   reduction="none", ignore_index=-100)
+            if wrt is not None:
+                torch.autograd.grad(out, [wrt], g)
+
+        with torch.no_grad():
+            lib_f = time_ms(lib, iters=it, warmup=1)
+        lib_fdh = time_ms(lambda: lib(hl), iters=it, warmup=1)
+        lib_fdw = time_ms(lambda: lib(wl), iters=it, warmup=1)
+        del hl, wl
+        fb, ff, dhb, bf, dwb = ce_work(t, t - n_ign, hid, vocab)
+        b_f = bound(fb, ff)
+        b_dh = bound(dhb, bf)
+        b_dw = bound(dwb, bf)
+        for key, err, ratio, ms, pl, (b_ms, b_by), lib_ms, flops in (
+                ("fwd", err_f, ratio_f, ms_f, pl_f, b_f, lib_f, ff),
+                ("dh", err_dh, ratio_dh, ms_dh, pl_dh, b_dh, lib_fdh - lib_f,
+                 bf),
+                ("dw", err_dw, ratio_dw, ms_dw, pl_dw, b_dw, lib_fdw - lib_f,
+                 bf)):
+            rows[key].append(dict(
+                case=name, max_abs_err=err, worst_err_over_allowed=ratio,
+                atol=CE_LOSS_ATOL if key == "fwd" else CE_GRAD_ATOL, ms=ms,
+                plain_ms=pl, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                tflops=flops / ms / 1e9))
+            print(f"    {key}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+                  f"TFLOP/s) plain {pl:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
+                  f"matmul+cross_entropy {lib_ms:.4f} ms", flush=True)
+        print(f"    unfused matmul + cross_entropy: forward {lib_f:.4f} ms, "
+              f"+ dh {lib_fdh:.4f} ms, + dw {lib_fdw:.4f} ms", flush=True)
+        del h, w, lab, g, loss, lse, dh, dw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rope_flash_cases(torch):
+    """(name, q, k, v, do, causal, cos, sin) at [BH, S, D] in bf16 with the
+    model's [S, D/2] f32 tables; the GQA case folded as
+    flash_attention_bshd folds it."""
+    from paddle_tpu_torch.nn.functional import rotary_embedding_cos_sin
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+
+    def bshd(b, s, h, d):
+        return torch.randn(b, s, h, d, device="cuda",
+                           generator=gen).bfloat16()
+
+    def fold(x, rep=1):
+        b, s, h, d = x.shape
+        x = torch.repeat_interleave(x, rep, dim=2) if rep > 1 else x
+        return x.transpose(1, 2).reshape(b * h * rep, s, d).contiguous()
+
+    cases = []
+    for name, b, s, h, kvh, d in (
+            ("rope_flagship_b8_s2048_h16_d64", 8, 2048, 16, 16, 64),
+            ("rope_gqa_b4_s512_h16_kvh4_d64", 4, 512, 16, 4, 64),
+            ("rope_off_tile_b2_s2000_h16_d64", 2, 2000, 16, 16, 64)):
+        rep = h // kvh
+        q, k, v, do = bshd(b, s, h, d), bshd(b, s, kvh, d), \
+            bshd(b, s, kvh, d), bshd(b, s, h, d)
+        cos, sin = rotary_embedding_cos_sin(s, d, device="cuda")
+        cases.append((name, fold(q), fold(k, rep), fold(v, rep), fold(do),
+                      True, cos, sin))
+    return cases
+
+
+def phase_flash_rope(torch):
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rows = {"fwd": [], "bwd": []}
+    for name, q, k, v, do, causal, cos, sin in rope_flash_cases(torch):
+        bh, s, d = q.shape
+        scale = 1.0 / math.sqrt(d)
+        rope = (cos, sin)
+        o, lse = fa.flash_fwd(q, k, v, scale, causal, *rope)
+        ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal, *rope)
+        grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal, *rope)
+        refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal, *rope)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse) + tuple(grads))
+        p_abs_v = fa.flash_fwd_plain(q, k, v.abs(), scale, causal, *rope)[0]
+        err_o, ratio_o = bf16_agreement(o, ro, FLASH_O_ATOL,
+                                        2.0 ** -8 * p_abs_v.float())
+        err_l = float((lse - rlse).abs().max())
+        gerr, gratio, worst = 0.0, 0.0, "dq"
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+            if ratio >= gratio:
+                worst = gname
+            gerr, gratio = max(gerr, e), max(gratio, ratio)
+        print(f"  flash+rope[{name}]: fwd o err {err_o:.3e} (worst "
+              f"{ratio_o:.3f} of its allowance), lse err {err_l:.2e}; bwd "
+              f"err {gerr:.3e} (worst {gratio:.3f}, in {worst}, of atol "
+              f"{FLASH_GRAD_ATOL:g} + 2 bf16 ulps)", flush=True)
+        check(finite, f"flash+rope {name}: non-finite output")
+        check(ratio_o <= 1.0, f"flash+rope fwd {name}: o max abs err {err_o}, "
+              f"an element off by {ratio_o:.2f}x its allowance")
+        check(err_l <= LSE_ATOL, f"flash+rope fwd {name}: lse err {err_l}")
+        check(gratio <= 1.0, f"flash+rope bwd {name}: {worst} max abs err "
+              f"{gerr}, an element off by {gratio:.2f}x its allowance")
+        del p_abs_v
+        big = bh * s >= 65536
+        it = 10 if big else 25
+        ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal, *rope),
+                       iters=it)
+        ms_b = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
+                                            causal, *rope), iters=it)
+        # the same shapes without rope, in the same run: what rope costs
+        ms_f0 = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal),
+                        iters=it)
+        ms_b0 = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
+                                             causal), iters=it)
+        pl_f = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale, causal,
+                                                  *rope),
+                       iters=5 if big else 20)
+        pl_b = time_ms(lambda: fa.flash_bwd_plain(q, k, v, ro, rlse, do,
+                                                  scale, causal, *rope),
+                       iters=5 if big else 20)
+        # library yardstick (timed only): SDPA on the same q, k, v; no one
+        # PyTorch call applies rope inside attention
+        q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
+        lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale), iters=it)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q4, k4, v4)]
+
+        def sdpa_fb():
+            out = Fn.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                  scale=scale)
+            torch.autograd.grad(out, leaves, do4)
+
+        lib_fb = time_ms(sdpa_fb, iters=it)
+        fb, ff, bb, bf = flash_work(bh, s, s, d, causal)
+        tab = 2 * s * (d // 2) * 4                  # the two f32 tables
+        rot = 3 * d * bh * 2 * s                    # 6 ops per (row, pair)
+        bf_ms, bf_by = bound(fb + tab, ff + rot)
+        bb_ms, bb_by = bound(bb + tab, bf + 2 * rot)
+        rows["fwd"].append(dict(
+            case=name, rope=True, max_abs_err=err_o, lse_err=err_l,
+            atol=FLASH_O_ATOL, worst_err_over_allowed=ratio_o, ms=ms_f,
+            ms_without_rope=ms_f0, plain_ms=pl_f, bound_ms=bf_ms,
+            bound_by=bf_by, library_ms=lib_f, tflops=ff / ms_f / 1e9))
+        rows["bwd"].append(dict(
+            case=name, rope=True, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
+            worst_err_over_allowed=gratio, ms=ms_b, ms_without_rope=ms_b0,
+            plain_ms=pl_b, bound_ms=bb_ms, bound_by=bb_by,
+            library_ms=lib_fb - lib_f, sdpa_fwd_bwd_ms=lib_fb,
+            tflops=bf / ms_b / 1e9))
+        print(f"    fwd kernel {ms_f:.4f} ms (without rope {ms_f0:.4f} ms) "
+              f"plain {pl_f:.4f} ms bound {bf_ms:.4f} ms ({bf_by}) sdpa "
+              f"{lib_f:.4f} ms; bwd kernel {ms_b:.4f} ms (without rope "
+              f"{ms_b0:.4f} ms) plain {pl_b:.4f} ms bound {bb_ms:.4f} ms "
+              f"({bb_by}) sdpa fwd+bwd {lib_fb:.4f} ms", flush=True)
+        del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
 def to_bf16_matrices(model):
     """The AMP-O2 forward cast: parameters with ndim >= 2 to bf16 (norm
     scales stay f32 and are cast down inside rms_norm)."""
@@ -758,11 +1058,19 @@ def phase_forward(torch):
     return {"max_abs_diff": err, "tol": tol, "argmax_agreement": agree}
 
 
-def phase_train(torch):
+def phase_train(torch, options=None):
+    """Flagship pretraining (phase 7), or with ``options`` set on the
+    config (phase 11: the fused LM-head loss and rope inside the flash
+    kernels), which adds the CE and rope launch checks."""
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
     cfg, batch, seq = pretrain.flagship_config()
+    for k, v in (options or {}).items():
+        setattr(cfg, k, v)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    outputs = []
+    model.register_forward_hook(
+        lambda mod, args, out: outputs.append(out[0] is None))
     params, opt_state, meta = pretrain.make_train_state(model)
     step = pretrain.make_train_step(model, meta)
     n_params = sum(p.numel() for p in params.values())
@@ -796,11 +1104,19 @@ def phase_train(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = read_flash_counts()
+    fused = read_fused_counts()
     losses += [float(x) for x, _ in out]
     gnorms += [float(g) for _, g in out]
     check((fwd, bwd) == (cfg.num_hidden_layers * timed,) * 2,
           f"flash launched fwd {fwd} / bwd {bwd} times in {timed} steps "
           f"(want {cfg.num_hidden_layers} each per step)")
+    want = (timed,) * 3 + (cfg.num_hidden_layers * timed,) * 2 if options \
+        else (0,) * 5
+    check(fused == want, f"ce fwd / dh / dw and rope flash fwd / bwd "
+          f"launches {fused} in {timed} steps (want {want})")
+    check(outputs == [bool(options)] * (2 + timed),
+          f"the forward returned logits {outputs} (None wanted only with "
+          "the fused loss)")
     check(all(math.isfinite(x) for x in losses + gnorms),
           f"non-finite loss / grad norm: {losses} {gnorms}")
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0,
@@ -811,6 +1127,10 @@ def phase_train(torch):
         12 * cfg.num_hidden_layers * cfg.hidden_size * seq   # bench.py:85-87
     mfu = flops_per_token * tokens_per_s / BF16_FLOPS_PER_S
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if options:
+        print(f"  ce kernel launches fwd / dh / dw {fused[:3]}, rope-fused "
+              f"flash fwd / bwd {fused[3:]} in {timed} steps; the forward "
+              "returned None logits", flush=True)
     print(f"  train B={batch} S={seq} L={cfg.num_hidden_layers}: "
           f"{tokens_per_s:.1f} tokens/s, {wall / timed * 1e3:.1f} ms/step, "
           f"MFU {mfu:.4f} (bench.py's flops per token vs 989 TFLOP/s), "
@@ -832,16 +1152,22 @@ def phase_train(torch):
     return {"tokens_per_s": tokens_per_s, "ms_per_step": wall / timed * 1e3,
             "mfu": mfu, "losses": losses, "grad_norms": gnorms,
             "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+            "ce_launches": list(fused[:3]),
+            "rope_flash_launches": list(fused[3:]),
             "peak_memory_gb": peak_gb, "profile": prof}
 
 
-def phase_train_parity(torch):
+def phase_train_parity(torch, options=None):
+    """f32 training parity (phase 8), or with ``options`` on the config
+    (phase 12), the reference path then also taking the plain CE."""
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, batch, seq = pretrain.flagship_config()
     cfg.num_hidden_layers = 2
     cfg.dtype = "float32"
+    for k, v in (options or {}).items():
+        setattr(cfg, k, v)
     model = LlamaForCausalLM(cfg, device="cuda", seed=1)
     states = [pretrain.make_train_state(model) for _ in range(2)]
     step = pretrain.make_train_step(model, states[0][2])
@@ -852,13 +1178,26 @@ def phase_train_parity(torch):
         for _ in range(3)]
     runs = []
     for path, (params, opt, _) in zip(("kernel", "plain"), states):
-        ctx = plain_attention() if path == "plain" else contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        if path == "plain":
+            ctx.enter_context(plain_attention())
+            ctx.enter_context(plain_ce())
         rows = []
+        reset_counts()
         with ctx:
             for b in batches:
                 params, opt, loss, gnorm = step(params, opt, b)
                 rows.append((float(loss), float(gnorm)))
         runs.append(np.array(rows))
+        if path == "kernel":
+            counts = read_flash_counts() + read_fused_counts()
+            n = len(batches)
+            want = (cfg.num_hidden_layers * n,) * 2 + (
+                (n,) * 3 + (cfg.num_hidden_layers * n,) * 2 if options
+                else (0,) * 5)
+            check(counts == want, f"kernel path launched flash fwd / bwd, ce "
+                  f"fwd / dh / dw, rope flash fwd / bwd {counts} (want "
+                  f"{want})")
     rel = np.abs(runs[0] - runs[1]) / np.abs(runs[1])
     print(f"  f32 L=2 B={batch} S={seq}: kernel (loss, gnorm) "
           f"{runs[0].tolist()} vs plain {runs[1].tolist()}; worst relative "
@@ -879,6 +1218,9 @@ def phase_train_parity(torch):
     torch.cuda.empty_cache()
     return {"kernel": runs[0].tolist(), "plain": runs[1].tolist(),
             "worst_rel": float(rel.max()), "repeated_batch": losses}
+
+
+FUSED_OPTIONS = dict(fused_lm_loss=True, fuse_rope_in_attention=True)
 
 
 def kernel_entry(name, source, replaces, launches, rows, main_case):
@@ -941,6 +1283,28 @@ def main():
     train_stats = phase_train(torch)
     print("phase 8: f32 training parity, full width, L=2", flush=True)
     parity_stats = phase_train_parity(torch)
+    print("phase 9: blockwise cross-entropy kernels against their plain "
+          "versions (bf16)", flush=True)
+    ce_rows = phase_ce(torch)
+    print("phase 10: flash kernels with rope against their plain versions "
+          "(bf16)", flush=True)
+    rope_rows = phase_flash_rope(torch)
+    print("phase 11: flagship pretraining with the fused LM-head loss and "
+          "rope in the flash kernels, bf16 AMP-O2, B=8 S=2048", flush=True)
+    fused_stats = phase_train(torch, FUSED_OPTIONS)
+    print(f"  beside phase 7: tokens/s {fused_stats['tokens_per_s']:.1f} vs "
+          f"{train_stats['tokens_per_s']:.1f}, ms/step "
+          f"{fused_stats['ms_per_step']:.1f} vs "
+          f"{train_stats['ms_per_step']:.1f}, MFU {fused_stats['mfu']:.4f} "
+          f"vs {train_stats['mfu']:.4f}, peak memory "
+          f"{fused_stats['peak_memory_gb']:.2f} GB vs "
+          f"{train_stats['peak_memory_gb']:.2f} GB", flush=True)
+    check(fused_stats["peak_memory_gb"] < train_stats["peak_memory_gb"],
+          f"peak memory with the fused loss {fused_stats['peak_memory_gb']} "
+          f"GB is not below phase 7's {train_stats['peak_memory_gb']} GB")
+    print("phase 12: f32 training parity with both options, full width, L=2",
+          flush=True)
+    fused_parity = phase_train_parity(torch, FUSED_OPTIONS)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -955,19 +1319,35 @@ def main():
         kernel_entry("flash_attention_fwd",
                      "paddle_tpu_torch/csrc/flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:78",
-                     train_stats["flash_fwd_launches"], flash_rows["fwd"],
+                     train_stats["flash_fwd_launches"],
+                     flash_rows["fwd"] + rope_rows["fwd"],
                      "flagship_b8_s2048_h16_d64"),
         kernel_entry("flash_attention_bwd",
                      "paddle_tpu_torch/csrc/flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:223",
-                     train_stats["flash_bwd_launches"], flash_rows["bwd"],
+                     train_stats["flash_bwd_launches"],
+                     flash_rows["bwd"] + rope_rows["bwd"],
                      "flagship_b8_s2048_h16_d64"),
     ]
+    # the rope cases' launches are phase 11's, where every flash launch
+    # carried the tables
+    for entry, n in zip(kernels[2:], fused_stats["rope_flash_launches"]):
+        entry["rope_launches"] = n
+    for i, (key, line) in enumerate((("fwd", 57), ("dh", 179),
+                                     ("dw", 209))):
+        kernels.append(kernel_entry(
+            f"blockwise_ce_{key}", "paddle_tpu_torch/csrc/blockwise_ce.cu",
+            f"paddle_tpu/ops/pallas/blockwise_ce.py:{line}",
+            fused_stats["ce_launches"][i], ce_rows[key],
+            "flagship_t16384_h1024_v32000"))
     print(f"card: {card}; serve: {json.dumps(serve_stats)}; int4 serve: "
           f"{json.dumps(int4_stats)}", flush=True)
     print(f"card: {card}; forward: {json.dumps(fwd_stats)}; train: "
           f"{json.dumps(train_stats)}; f32 parity: "
           f"{json.dumps(parity_stats)}", flush=True)
+    print(f"card: {card}; train with the fused loss and rope: "
+          f"{json.dumps(fused_stats)}; f32 parity with both: "
+          f"{json.dumps(fused_parity)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

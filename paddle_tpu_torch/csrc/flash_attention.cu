@@ -8,6 +8,9 @@
 //   `_bwd_fused_kernel` (:223, reached through `_flash_bwd` :430,
 //   pallas_call :458): dq, dk and dv from (q, k, v, o, lse, do) in one
 //   pass over the (k tile, q tile) pairs.
+// Both take the optional neox rope operands of the TPU kernels
+// (`rope_cos` / `rope_sin`, :58-75): q and k are rotated inside the kernel
+// and the rotated tensors never reach device memory.
 //
 // Layouts (the JAX package's kernel contract, heads folded into batch):
 //   q, o, do   [BH, Sq, D]     float32 / bfloat16 / float16
@@ -17,6 +20,8 @@
 //   dq_acc     [BH, Sq, D] f32 zeroed by the caller, summed atomically
 //   delta      [BH, Sq] f32    scratch: rowsum(do * o)
 //   dk, dv     [BH, Sk, D]     q's dtype
+//   rcos, rsin [S, D/2] f32    rope tables, S >= Sq and Sk, or both null;
+//                              row p rotates the q and k rows at position p
 // D is 32, 64 or 128. Any Sq, Sk: tiles past the end are zero-filled and
 // masked. The causal mask is top-left aligned (row >= col), as the TPU
 // kernel's (:121).
@@ -26,7 +31,9 @@
 // and denominator in f32, p rounded to v's dtype before p @ v (:134), and
 // in the backward p rounded to q's dtype before p^T do and ds rounded to
 // q's dtype before ds^T q and ds k (:281-290). Fully masked rows give
-// zeros and lse = NEG_INF (:148).
+// zeros and lse = NEG_INF (:148). Rope rotates a tile in the input dtype
+// as `_rope_fwd` (:58) does, rounding after each product and each sum, and
+// counter-rotates the f32 dq and dk as `_rope_bwd` (:69) does.
 //
 // Design. Tiles of 64 query rows by 64 keys, 256 threads as a 16 x 16
 // grid; every thread holds a small register tile of each product and the
@@ -45,6 +52,12 @@
 //   dq's bytes (2 GB per layer at the flagship shape); the atomics cost
 //   one f32 buffer, and f32 addition order makes dq non-deterministic in
 //   its last bits. delta = rowsum(do * o) is one small pre-pass kernel.
+//   Rope: the loop-invariant tile is rotated once in shared memory (q in
+//   the forward, k in the backward, as the TPU kernel's scratch, :94-98 and
+//   :245-247) and the walked tile after each load. A dq contribution is
+//   counter-rotated in registers before its atomicAdd, dk once at the end:
+//   the neox partner of a thread's column j is column j +- D/2, held by the
+//   lane tx ^ 8 of the same half-warp.
 //
 // What bounds it: at the flagship shape (S = 2048, D = 64, causal)
 // operations — the forward does about 500 flops per byte it must move,
@@ -81,6 +94,57 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) { return _
 // v rounded to T and back: the value a cast to the dtype leaves
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Neox rotation of a tile held as f32 in shared memory, element (r, d) at
+// X[r * RS + d * DS], for the sequence rows [row0, row0 + rows): each
+// product and each sum is rounded to T, the plain version's arithmetic in
+// the tile's dtype; __fmul_rn / __fadd_rn keep the compiler from
+// contracting them into FMAs. Rows past the end stay zero.
+template <typename T, int D>
+__device__ __forceinline__ void rope_tile(float* X, int RS, int DS,
+                                          const float* __restrict__ rcos,
+                                          const float* __restrict__ rsin,
+                                          int row0, int rows, int total) {
+  constexpr int HALF = D / 2;
+  for (int i = threadIdx.x; i < rows * HALF; i += NT) {
+    const int r = i / HALF, j = i % HALF, gr = row0 + r;
+    if (gr >= total) continue;
+    const float c = round_to<T>(rcos[(size_t)gr * HALF + j]);
+    const float s = round_to<T>(rsin[(size_t)gr * HALF + j]);
+    float* p1 = X + r * RS + j * DS;
+    float* p2 = X + r * RS + (j + HALF) * DS;
+    const float x1 = *p1, x2 = *p2;
+    *p1 = round_to<T>(__fsub_rn(round_to<T>(__fmul_rn(x1, c)),
+                                round_to<T>(__fmul_rn(x2, s))));
+    *p2 = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(x2, c)),
+                                round_to<T>(__fmul_rn(x1, s))));
+  }
+}
+
+// Counter-rotation (the transpose of rope_tile, in f32) of a gradient held
+// in registers: the thread's rows row0 + ii, columns tx * RD + dd. Lanes
+// tx < 8 hold the first half of the row, their partners tx + 8 the second.
+template <int R, int RD, int D>
+__device__ __forceinline__ void rope_bwd_regs(float (&x)[R][RD],
+                                              const float* __restrict__ rcos,
+                                              const float* __restrict__ rsin,
+                                              int row0, int total, int tx) {
+  constexpr int HALF = D / 2;
+  const bool first = tx < 8;
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+    const int row = row0 + ii;
+#pragma unroll
+    for (int dd = 0; dd < RD; ++dd) {
+      const float other = __shfl_xor_sync(0xffffffffu, x[ii][dd], 8);
+      const int j = (tx * RD + dd) % HALF;
+      const float c = row < total ? rcos[(size_t)row * HALF + j] : 1.f;
+      const float s = row < total ? rsin[(size_t)row * HALF + j] : 0.f;
+      x[ii][dd] = first ? __fadd_rn(__fmul_rn(x[ii][dd], c), __fmul_rn(other, s))
+                        : __fsub_rn(__fmul_rn(x[ii][dd], c), __fmul_rn(other, s));
+    }
+  }
 }
 
 // rows [row0, row0 + rows) of a [total, D] matrix into dst[r * LD + d]
@@ -164,7 +228,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, float scale,
+                 float* __restrict__ lse, const float* __restrict__ rcos,
+                 const float* __restrict__ rsin, int Sq, int Sk, float scale,
                  int causal) {
   constexpr int LDQ = D + PAD;    // Qs [BQ][LDQ]
   constexpr int LDK = BK + PAD;   // Kt [D][LDK], Ps [BQ][LDK]
@@ -188,6 +253,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)bh * Sk * D;
 
   load_tile<T, D, LDQ, false>(Qs, qb, q0, BQ, Sq);
+  if (rcos) {                              // the q tile is loop-invariant: rotate once
+    __syncthreads();
+    rope_tile<T, D>(Qs, LDQ, 1, rcos, rsin, q0, BQ, Sq);
+  }
   float m[RI], l[RI], acc[RI][RD];
 #pragma unroll
   for (int ii = 0; ii < RI; ++ii) {
@@ -205,6 +274,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D, LDK, true>(Kt, kb, k0, BK, Sk);
     load_tile<T, D, LDV, false>(Vs, vb, k0, BK, Sk);
     __syncthreads();
+    if (rcos) {
+      rope_tile<T, D>(Kt, 1, LDK, rcos, rsin, k0, BK, Sk);
+      __syncthreads();
+    }
 
     float s[RI][RJ];
 #pragma unroll
@@ -280,7 +353,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ lse,
                  const float* __restrict__ delta, const T* __restrict__ dout,
                  float* __restrict__ dq_acc, T* __restrict__ dk,
-                 T* __restrict__ dv, int Sq, int Sk, float scale, int causal) {
+                 T* __restrict__ dv, const float* __restrict__ rcos,
+                 const float* __restrict__ rsin, int Sq, int Sk, float scale,
+                 int causal) {
   constexpr int LDD = D + PAD;    // Qs, dOs [BQB][LDD]; Ks [BK][LDD]
   constexpr int LDK = BK + PAD;   // Kt, Vt [D][LDK]; Ps, dSs [BQB][LDK]
   constexpr int RS = BQB / 16;    // score rows per thread
@@ -304,6 +379,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
   load_tile<T, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
   load_tile<T, D, LDD, false>(Ks, k + koff, k0, BK, Sk);
+  if (rcos) {                              // the k tile is loop-invariant: rotate once
+    __syncthreads();
+    rope_tile<T, D>(Kt, 1, LDK, rcos, rsin, k0, BK, Sk);
+    rope_tile<T, D>(Ks, LDD, 1, rcos, rsin, k0, BK, Sk);
+  }
   float dK[RK][RD], dV[RK][RD];
 #pragma unroll
   for (int ii = 0; ii < RK; ++ii) {
@@ -319,6 +399,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D, LDD, false>(Qs, q + qoff, q0, BQB, Sq);
     load_tile<T, D, LDD, false>(dOs, dout + qoff, q0, BQB, Sq);
     __syncthreads();
+    if (rcos) {
+      rope_tile<T, D>(Qs, LDD, 1, rcos, rsin, q0, BQB, Sq);
+      __syncthreads();
+    }
 
     float s[RS][RJ], dp[RS][RJ];
 #pragma unroll
@@ -356,6 +440,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int dd = 0; dd < RD; ++dd) dq[ii][dd] = 0.f;
     }
     tile_mma<RS, RD, BK, LDK, LDD, false>(dq, dSs, Ks, ty, tx);    // dq += ds k
+    if (rcos) rope_bwd_regs<RS, RD, D>(dq, rcos, rsin, q0 + ty * RS, Sq, tx);
 #pragma unroll
     for (int ii = 0; ii < RS; ++ii) {
       const int row = q0 + ty * RS + ii;
@@ -366,6 +451,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if (rcos) rope_bwd_regs<RK, RD, D>(dK, rcos, rsin, k0 + ty * RK, Sk, tx);
 #pragma unroll
   for (int ii = 0; ii < RK; ++ii) {
     const int row = k0 + ty * RK + ii;
@@ -388,7 +474,8 @@ cudaError_t allow_smem(K kern, size_t smem) {
 
 template <typename T, int D>
 int fwd_t(const void* q, const void* k, const void* v, void* o, float* lse,
-          int BH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+          const float* rcos, const float* rsin, int BH, int Sq, int Sk,
+          float scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (BQ * (D + PAD) + D * (BK + PAD) + BK * (D + PAD) + BQ * (BK + PAD));
   auto kern = flash_fwd_kernel<T, D>;
@@ -396,15 +483,17 @@ int fwd_t(const void* q, const void* k, const void* v, void* o, float* lse,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, BH);
   kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                   (T*)o, lse, Sq, Sk, scale, causal);
+                                   (T*)o, lse, rcos, rsin, Sq, Sk, scale,
+                                   causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int bwd_t(const void* q, const void* k, const void* v, const void* o,
           const float* lse, const void* dout, float* dq_acc, void* dk,
-          void* dv, float* delta, int BH, int Sq, int Sk, float scale,
-          int causal, cudaStream_t stream) {
+          void* dv, float* delta, const float* rcos, const float* rsin,
+          int BH, int Sq, int Sk, float scale, int causal,
+          cudaStream_t stream) {
   const int rows = BH * Sq;
   flash_bwd_delta_kernel<T><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0, stream>>>(
       (const T*)o, (const T*)dout, delta, rows, D);
@@ -418,17 +507,18 @@ int bwd_t(const void* q, const void* k, const void* v, const void* o,
   dim3 grid((Sk + BK - 1) / BK, BH);
   kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, lse,
                                    delta, (const T*)dout, dq_acc, (T*)dk,
-                                   (T*)dv, Sq, Sk, scale, causal);
+                                   (T*)dv, rcos, rsin, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
-          int BH, int Sq, int Sk, int D, float scale, int causal, cudaStream_t s) {
+          const float* rc, const float* rs, int BH, int Sq, int Sk, int D,
+          float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 32: return fwd_t<T, 32>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
-    case 64: return fwd_t<T, 64>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
-    case 128: return fwd_t<T, 128>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, s);
+    case 32: return fwd_t<T, 32>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
+    case 64: return fwd_t<T, 64>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
+    case 128: return fwd_t<T, 128>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -436,12 +526,12 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
 template <typename T>
 int bwd_d(const void* q, const void* k, const void* v, const void* o,
           const float* lse, const void* dout, float* dq_acc, void* dk,
-          void* dv, float* delta, int BH, int Sq, int Sk, int D, float scale,
-          int causal, cudaStream_t s) {
+          void* dv, float* delta, const float* rc, const float* rs, int BH,
+          int Sq, int Sk, int D, float scale, int causal, cudaStream_t s) {
   switch (D) {
-    case 32: return bwd_t<T, 32>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
-    case 64: return bwd_t<T, 64>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
-    case 128: return bwd_t<T, 128>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, scale, causal, s);
+    case 32: return bwd_t<T, 32>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
+    case 64: return bwd_t<T, 64>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
+    case 128: return bwd_t<T, 128>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -454,37 +544,43 @@ bool bad_shape(int BH, int Sq, int Sk) {
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. Writes o and lse.
+// dtype: 0 float32, 1 bfloat16, 2 float16. Writes o and lse. rcos / rsin
+// are the [S, D/2] f32 rope tables, or both null for no rope.
 // Returns the CUDA error code of the launch (0 on success).
 int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
-                               const void* v, void* o, float* lse, int BH,
+                               const void* v, void* o, float* lse,
+                               const float* rcos, const float* rsin, int BH,
                                int Sq, int Sk, int D, float scale, int causal,
                                void* stream) {
-  if (bad_shape(BH, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, Sq, Sk) || (rcos == nullptr) != (rsin == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return fwd_d<float>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
-    case 1: return fwd_d<__nv_bfloat16>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
-    case 2: return fwd_d<__half>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, s);
+    case 0: return fwd_d<float>(q, k, v, o, lse, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
+    case 1: return fwd_d<__nv_bfloat16>(q, k, v, o, lse, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
+    case 2: return fwd_d<__half>(q, k, v, o, lse, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Adds dq into the zeroed f32 dq_acc and writes dk, dv; delta is [BH, Sq]
-// f32 scratch. Two launches (the delta pre-pass, then the backward).
+// f32 scratch; rcos / rsin as for the forward. Two launches (the delta
+// pre-pass, then the backward).
 int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const float* lse,
                                const void* dout, float* dq_acc, void* dk,
-                               void* dv, float* delta, int BH, int Sq, int Sk,
+                               void* dv, float* delta, const float* rcos,
+                               const float* rsin, int BH, int Sq, int Sk,
                                int D, float scale, int causal, void* stream) {
-  if (bad_shape(BH, Sq, Sk)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, Sq, Sk) || (rcos == nullptr) != (rsin == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0 || Sk == 0) return 0;   // nothing to add; dk, dv are the caller's
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return bwd_d<float>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
-    case 1: return bwd_d<__nv_bfloat16>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
-    case 2: return bwd_d<__half>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, BH, Sq, Sk, D, scale, causal, s);
+    case 0: return bwd_d<float>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
+    case 1: return bwd_d<__nv_bfloat16>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
+    case 2: return bwd_d<__half>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rcos, rsin, BH, Sq, Sk, D, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

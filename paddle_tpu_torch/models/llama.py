@@ -8,30 +8,43 @@ dtype, neox RoPE, attention through ``F.flash_attention`` (the CUDA
 kernels on the card) or, with a mask, the plain ``_sdpa_ref``, and a
 float32 cross entropy over the LM head's logits.
 
+Two opt-in kernel options of the JAX model are ported:
+``fuse_rope_in_attention`` hands ``[S, D/2]`` cos/sin tables to the flash
+kernels, which rotate q and k themselves (only without position ids and
+without a mask; otherwise the model rotates first, as the JAX model
+does), and ``fused_lm_loss`` computes the loss with
+``fused_lm_head_loss``, the blockwise LM-head cross entropy whose
+``[B*S, V]`` logits never exist; the forward then returns ``(None,
+loss)``.
+
 Parameter names match ``jit.functional.state_arrays`` of the JAX model
 (``llama.embed_tokens.weight``, ``llama.layers.{i}.self_attn.qkv_proj
 .weight``, ``lm_head.weight`` [hidden, vocab], ...), so
 ``llama_state_from_numpy`` loads its arrays directly.
 
-Options of the JAX model that this slice does not port raise
-``NotImplementedError``: recompute, context parallelism, rope inside the
-attention kernels, the fused LM-head loss and the pipeline form.
+Options of the JAX model that are not ported yet raise
+``NotImplementedError``: recompute, context parallelism and the pipeline
+form.
 ``sequence_parallel`` only shards activations over a mesh and has no
 effect on one device, as in the JAX package off-mesh.
 """
 import numpy as np
 import torch
+import torch.nn.functional as TF
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from .. import nn
 from ..nn import functional as F
 from ..nn.layers.common import normal_
+from ..ops.blockwise_ce import blockwise_lm_head_ce
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaLMHead", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "LlamaForCausalLMPipe",
-           "llama_state_from_numpy", "llama_state_to_numpy"]
+           "fused_lm_head_loss", "llama_state_from_numpy",
+           "llama_state_to_numpy"]
 
 
 class LlamaConfig:
@@ -78,8 +91,7 @@ class LlamaConfig:
 
 
 def _refuse_later_slice(config):
-    for opt in ("recompute", "context_parallel", "fuse_rope_in_attention",
-                "fused_lm_loss"):
+    for opt in ("recompute", "context_parallel"):
         if getattr(config, opt, False):
             raise NotImplementedError(
                 f"LlamaConfig.{opt} is a later slice of the port")
@@ -138,11 +150,21 @@ class LlamaAttention(torch.nn.Module):
                                                    self.head_dim)
             v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads,
                                                    self.head_dim)
-        q, k, v = F.fused_rotary_position_embedding(
-            q, k, v, position_ids=position_ids, use_neox_rotary_style=True,
-            rotary_emb_base=self.config.rope_theta)
+        rope = {}
+        if getattr(self.config, "fuse_rope_in_attention", False) \
+                and position_ids is None and attn_mask is None:
+            # the flash kernels rotate q and k themselves
+            cos, sin = F.rotary_embedding_cos_sin(
+                s, self.head_dim, base=self.config.rope_theta,
+                device=hidden_states.device)
+            rope = dict(rope_cos=cos, rope_sin=sin)
+        else:
+            q, k, v = F.fused_rotary_position_embedding(
+                q, k, v, position_ids=position_ids,
+                use_neox_rotary_style=True,
+                rotary_emb_base=self.config.rope_theta)
         if attn_mask is None:
-            out, _ = F.flash_attention(q, k, v, causal=True)
+            out, _ = F.flash_attention(q, k, v, causal=True, **rope)
         else:
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                                  is_causal=True)
@@ -257,8 +279,9 @@ class LlamaPretrainingCriterion(torch.nn.Module):
 class LlamaForCausalLM(torch.nn.Module):
     """Decoder stack + LM head. ``forward(input_ids, position_ids=None,
     attn_mask=None, labels=None)`` returns logits, or (logits, loss) with
-    labels. Weights are drawn on ``device`` (default "cuda") from a
-    generator seeded with ``seed``."""
+    labels, or (None, loss) with labels and ``config.fused_lm_loss``.
+    Weights are drawn on ``device`` (default "cuda") from a generator
+    seeded with ``seed``."""
 
     def __init__(self, config, device="cuda", seed=0):
         super().__init__()
@@ -279,10 +302,61 @@ class LlamaForCausalLM(torch.nn.Module):
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 labels=None):
         hidden_states = self.llama(input_ids, position_ids, attn_mask)
+        if labels is not None and getattr(self.config, "fused_lm_loss",
+                                          False):
+            return None, fused_lm_head_loss(
+                hidden_states, self.lm_head.get_weight(), labels)
         logits = self.lm_head(hidden_states)
         if labels is not None:
             return logits, LlamaPretrainingCriterion()(logits, labels)
         return logits
+
+
+def fused_lm_head_loss(hidden_states, weight, labels, ignore_index=-100,
+                       chunk_tokens=1024, mode=None):
+    """Mean token cross entropy of the LM head; the [B*S, V] logits never
+    exist. hidden_states [B, S, H], weight [H, V] (cast to the hidden
+    states' dtype), labels [B, S]; the sum over non-ignored tokens divided
+    by their count (at least 1), in float32.
+
+    mode None or "pallas": the blockwise op (``ops.blockwise_ce``: the CUDA
+    kernels on the card, their plain versions on the CPU). "scan": token
+    chunks of ``chunk_tokens`` in plain PyTorch, each chunk's [chunk, V]
+    logits recomputed in the backward (``torch.utils.checkpoint``), as the
+    JAX package's scan mode; a caller has to name it."""
+    if mode is None:
+        mode = "pallas"
+    if mode not in ("pallas", "scan"):
+        raise ValueError(f"fused_lm_head_loss mode must be 'pallas' or "
+                         f"'scan', got {mode!r}")
+    b, s, hid = hidden_states.shape
+    t = b * s
+    h = hidden_states.reshape(t, hid)
+    lab = labels.reshape(t).to(torch.int64)
+    w = weight.to(hidden_states.dtype)
+    if mode == "pallas":
+        loss = blockwise_lm_head_ce(h, w, lab, ignore_index)
+        cnt = (lab != ignore_index).to(torch.float32).sum()
+        return loss.sum() / cnt.clamp_min(1.0)
+    nch = max(1, -(-t // chunk_tokens))
+    per = -(-t // nch)
+    pad = per * nch - t
+    h = TF.pad(h, (0, 0, 0, pad))
+    lab = TF.pad(lab, (0, pad), value=ignore_index)
+
+    def body(hc, lc):
+        logits = torch.matmul(hc.float(), w.float())
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, 1, lc.clamp(0, w.shape[1] - 1)[:, None])
+        mask = (lc != ignore_index).to(torch.float32)
+        return torch.sum((logz - gold[:, 0]) * mask), torch.sum(mask)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nch):
+        lo, hi = i * per, (i + 1) * per
+        dt, dc = checkpoint(body, h[lo:hi], lab[lo:hi], use_reentrant=False)
+        tot, cnt = tot + dt, cnt + dc
+    return tot / cnt.clamp_min(1.0)
 
 
 def LlamaForCausalLMPipe(config, num_stages, loss_fn=None):

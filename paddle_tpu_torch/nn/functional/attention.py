@@ -48,15 +48,15 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     training=True, rope_cos=None, rope_sin=None):
     """paddle's flash_attention: inputs [batch, seqlen, num_heads,
-    head_dim]; returns (out, None)."""
+    head_dim]; returns (out, None). rope_cos / rope_sin [S, D/2] (neox):
+    applied to q and k inside the kernels, the rotated tensors never in
+    memory."""
     if dropout > 0.0 or return_softmax:
         raise NotImplementedError(
             "flash_attention: dropout and return_softmax are a later slice")
-    if rope_cos is not None or rope_sin is not None:
-        raise NotImplementedError(
-            "flash_attention: rope inside the kernels (rope_cos / rope_sin) "
-            "is a later slice")
-    return _fa.flash_attention_bshd(query, key, value, causal=causal), None
+    return _fa.flash_attention_bshd(query, key, value, causal=causal,
+                                    rope_cos=rope_cos,
+                                    rope_sin=rope_sin), None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

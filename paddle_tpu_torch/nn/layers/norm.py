@@ -2,18 +2,21 @@
 ``paddle_tpu/nn/layers/norm.py``)."""
 import torch
 
+from ...core.device import DEFAULT_DEVICE, resolve_device
 from .. import functional as F
 
 
 class RMSNorm(torch.nn.Module):
-    """RMSNorm with a float32 scale initialised to 1.0."""
+    """RMSNorm with a float32 scale initialised to 1.0, built on ``device``
+    (default "cuda", which raises without a GPU)."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, device="cpu"):
+    def __init__(self, hidden_size, epsilon=1e-6, device=DEFAULT_DEVICE):
         super().__init__()
         self.hidden_size = hidden_size
         self.epsilon = epsilon
         self.weight = torch.nn.Parameter(
-            torch.ones(hidden_size, dtype=torch.float32, device=device))
+            torch.ones(hidden_size, dtype=torch.float32,
+                       device=resolve_device(device)))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

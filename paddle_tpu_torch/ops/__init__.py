@@ -1,3 +1,5 @@
 """Ops of the PyTorch port with hand-written CUDA kernels: ragged paged
-attention, the int4 weight-only matmul and flash attention (forward and
-fused backward). Kernels are built at first use (``_build``)."""
+attention, the int4 weight-only matmul, flash attention (forward and
+fused backward, with optional rope) and the blockwise LM-head cross
+entropy (forward, dh and dw). Kernels are built at first use
+(``_build``)."""

@@ -1,0 +1,261 @@
+"""Blockwise LM-head cross entropy for the PyTorch port (counterpart of
+``paddle_tpu/ops/pallas/blockwise_ce.py``).
+
+The LM-head product ``h @ w`` and the softmax cross entropy are one
+computation: the ``[T, V]`` logits never exist in device memory, forward
+or backward. Kernel contract:
+  h       [T, H]   float32 / bfloat16 / float16, contiguous
+  w       [H, V]   h's dtype, contiguous
+  labels  [T]      int64; rows equal to ``ignore`` count zero
+  loss    [T] f32  lse - logit[label] (0 on ignored rows)
+  lse     [T] f32  row logsumexp of the f32 logits (the backward's residual;
+                   the TPU kernel keeps it as an [8, T] strip, a lane-tiling
+                   artifact)
+
+``ce_fwd``, ``ce_bwd_dh`` and ``ce_bwd_dw`` launch the CUDA kernels of
+``csrc/blockwise_ce.cu`` for CUDA tensors (each counted in its
+``.launches``) and run the plain versions for CPU tensors; any other
+device, and any input the kernels do not take, raises. The plain versions
+take the Pallas bodies' dtype steps: logits are ``h @ w`` with f32
+accumulation of the native operands, the gold logit is read from those
+f32 logits, a label outside ``[0, V)`` that is not ``ignore`` has no gold
+logit (loss = lse), ``dl = (exp(logits - lse) - onehot) * g`` is zero on
+ignored rows, ``dh = dl @ w.float().T`` is cast to h's dtype and
+``dw = h.float().T @ dl`` to w's.
+
+``blockwise_lm_head_ce`` is the public op, a ``torch.autograd.Function``
+saving ``(h, w, labels, lse)`` as the JAX ``_vjp_fwd`` does. A tied LM
+head hands it the transposed ``[H, V]`` view of the ``[V, H]`` embedding:
+the op makes ``w`` contiguous (one copy of the table per forward; the
+copy is what the backward reads) and autograd transposes dw back through
+the view, so the kernels take only the ``[H, V]`` layout.
+"""
+import ctypes
+import functools
+
+import torch
+
+__all__ = ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw", "ce_fwd_plain",
+           "ce_bwd_dh_plain", "ce_bwd_dw_plain", "blockwise_lm_head_ce"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _logits(h, w):
+    return torch.matmul(h.float(), w.float())
+
+
+def ce_fwd_plain(h, w, labels, ignore):
+    """(loss [T] f32, lse [T] f32) in plain PyTorch."""
+    logits = _logits(h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab = w.shape[1]
+    in_range = (labels >= 0) & (labels < vocab)
+    gold = torch.gather(logits, 1, labels.clamp(0, vocab - 1)[:, None])[:, 0]
+    gold = torch.where(in_range, gold, torch.zeros_like(gold))
+    loss = torch.where(labels != ignore, lse - gold, torch.zeros_like(lse))
+    return loss, lse
+
+
+def _dlogits(h, w, labels, g, lse, ignore):
+    """(softmax - onehot(label)) * g in f32, zero on ignored rows."""
+    p = torch.exp(_logits(h, w) - lse[:, None])
+    cols = torch.arange(w.shape[1], device=h.device)
+    hit = (cols[None, :] == labels[:, None]).to(torch.float32)
+    scale = torch.where(labels == ignore, torch.zeros_like(g), g)
+    return (p - hit) * scale[:, None]
+
+
+def ce_bwd_dh_plain(h, w, labels, g, lse, ignore):
+    """dh [T, H] in h's dtype, in plain PyTorch."""
+    dl = _dlogits(h, w, labels, g, lse, ignore)
+    return torch.matmul(dl, w.float().t()).to(h.dtype)
+
+
+def ce_bwd_dw_plain(h, w, labels, g, lse, ignore):
+    """dw [H, V] in w's dtype, in plain PyTorch."""
+    dl = _dlogits(h, w, labels, g, lse, ignore)
+    return torch.matmul(h.float().t(), dl).to(w.dtype)
+
+
+def _check(name, h, w, labels, *strips):
+    """Refuse what the kernels do not take; ``strips`` are [T] f32
+    tensors (g and lse)."""
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[0] \
+            or labels.shape != (h.shape[0],):
+        raise ValueError(f"{name}: h {tuple(h.shape)}, w {tuple(w.shape)}, "
+                         f"labels {tuple(labels.shape)} must be [T, H], "
+                         "[H, V], [T]")
+    if h.dtype not in _DTYPE_CODE or w.dtype != h.dtype:
+        raise ValueError(f"{name}: h {h.dtype} and w {w.dtype} must share "
+                         "one of float32, bfloat16, float16")
+    if labels.dtype != torch.int64:
+        raise ValueError(f"{name}: labels must be int64, got {labels.dtype}")
+    t, hid = h.shape
+    vocab = w.shape[1]
+    if vocab == 0 or hid == 0 or max(t, hid, vocab) >= 2 ** 31:
+        raise ValueError(f"{name}: sizes T={t}, H={hid}, V={vocab} out of "
+                         "range")
+    for s in strips:
+        if s.shape != (t,) or s.dtype != torch.float32:
+            raise ValueError(f"{name}: g and lse must be float32 [{t}]")
+    for x in (h, w, labels, *strips):
+        if x.device != h.device or not x.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             f"on {h.device}")
+
+
+def _device(name, h):
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {h.device}")
+    return h.device.type == "cuda"
+
+
+def _raise_on(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def _splits(t, vocab, device):
+    """Vocab splits of the forward and of dh, chosen by the kernels' own
+    source from their tile sizes and the card's SM count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _launcher("splits")(t, vocab, sms)
+
+
+def ce_fwd(h, w, labels, ignore):
+    """(loss, lse) of the LM-head cross entropy. A CPU tensor runs the
+    plain version; a CUDA tensor launches the forward kernel (counted in
+    ``ce_fwd.launches``) or raises."""
+    if not _device("ce_fwd", h):
+        return ce_fwd_plain(h, w, labels, ignore)
+    _check("ce_fwd", h, w, labels)
+    t, hid = h.shape
+    vocab = w.shape[1]
+    loss = torch.empty(t, dtype=torch.float32, device=h.device)
+    lse = torch.empty(t, dtype=torch.float32, device=h.device)
+    if t == 0:
+        return loss, lse
+    nsplit = _splits(t, vocab, h.device)
+    part = torch.empty((3, nsplit, t), dtype=torch.float32, device=h.device)
+    rc = _launcher("fwd")(
+        _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+        loss.data_ptr(), lse.data_ptr(), part.data_ptr(), t, hid, vocab,
+        nsplit, int(ignore), torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on("ce_fwd", rc)
+    ce_fwd.launches += 1
+    return loss, lse
+
+
+ce_fwd.launches = 0
+
+
+def ce_bwd_dh(h, w, labels, g, lse, ignore):
+    """dh [T, H] in h's dtype. A CPU tensor runs the plain version; a CUDA
+    tensor launches the dh kernel (counted in ``ce_bwd_dh.launches``) or
+    raises."""
+    if not _device("ce_bwd_dh", h):
+        return ce_bwd_dh_plain(h, w, labels, g, lse, ignore)
+    _check("ce_bwd_dh", h, w, labels, g, lse)
+    t, hid = h.shape
+    dh = torch.empty_like(h)
+    if t == 0:
+        return dh
+    nsplit = _splits(t, w.shape[1], h.device)
+    ws = torch.empty((nsplit, t, hid), dtype=torch.float32, device=h.device)
+    rc = _launcher("dh")(
+        _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), ws.data_ptr(), dh.data_ptr(), t, hid,
+        w.shape[1], nsplit, int(ignore),
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on("ce_bwd_dh", rc)
+    ce_bwd_dh.launches += 1
+    return dh
+
+
+ce_bwd_dh.launches = 0
+
+
+def ce_bwd_dw(h, w, labels, g, lse, ignore):
+    """dw [H, V] in w's dtype. A CPU tensor runs the plain version; a CUDA
+    tensor launches the dw kernel (counted in ``ce_bwd_dw.launches``) or
+    raises."""
+    if not _device("ce_bwd_dw", h):
+        return ce_bwd_dw_plain(h, w, labels, g, lse, ignore)
+    _check("ce_bwd_dw", h, w, labels, g, lse)
+    t, hid = h.shape
+    if t == 0:
+        return torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    ws = torch.empty(w.shape, dtype=torch.float32, device=h.device)
+    rc = _launcher("dw")(
+        _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), ws.data_ptr(), dw.data_ptr(), t, hid,
+        w.shape[1], int(ignore),
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on("ce_bwd_dw", rc)
+    ce_bwd_dw.launches += 1
+    return dw
+
+
+ce_bwd_dw.launches = 0
+
+
+@functools.cache
+def _launcher(which):
+    """The kernel's C entry point with its prototype bound, built and
+    loaded on the first launch."""
+    from . import _build
+    lib = _build.load("blockwise_ce")
+    if which == "splits":
+        fn = lib.blockwise_ce_splits
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return fn
+    fn = getattr(lib, f"blockwise_ce_{which}_launch")
+    if which == "fwd":
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    elif which == "dh":
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class BlockwiseCE(torch.autograd.Function):
+    """Per-token LM-head cross entropy with the kernels as forward and
+    backward; saves (h, w, labels, lse). ``ce_fwd`` / ``ce_bwd_dh`` /
+    ``ce_bwd_dw`` are looked up at call time."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, ignore_index):
+        h, w = h.contiguous(), w.contiguous()
+        loss, lse = ce_fwd(h, w, labels, ignore_index)
+        ctx.save_for_backward(h, w, labels, lse)
+        ctx.ignore = ignore_index
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, labels, lse = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = ce_bwd_dh(h, w, labels, g, lse, ctx.ignore)
+        if ctx.needs_input_grad[1]:
+            dw = ce_bwd_dw(h, w, labels, g, lse, ctx.ignore)
+        return dh, dw, None, None
+
+
+def blockwise_lm_head_ce(h, w, labels, ignore_index=-100):
+    """Per-token cross entropy of the LM head, the logits never in memory.
+
+    h [T, H], w [H, V] (h's dtype), labels [T] integers -> loss [T] f32.
+    Tokens whose label is ``ignore_index`` get loss 0 and zero gradient."""
+    return BlockwiseCE.apply(h, w, labels.to(torch.int64).contiguous(),
+                             int(ignore_index))

@@ -5,6 +5,9 @@ Kernel contract (the JAX package's, heads folded into batch):
   q, o, do  [BH, Sq, D]   float32 / bfloat16 / float16
   k, v      [BH, Sk, D]
   lse       [BH, Sq]      float32 row logsumexp of the scaled scores
+  rope_cos, rope_sin [S, D/2] float32 (optional, S >= Sq and Sk): neox
+            rope applied to q and k inside the kernels, the row at position
+            p rotating the q and k rows at p; the tables get no gradient
 The causal mask is top-left aligned (row >= col). The TPU kernel saves
 lse as [BH, 8, S] (eight equal rows, a lane-tiling artifact); the port
 owns both kernels and keeps one row.
@@ -15,12 +18,17 @@ owns both kernels and keeps one row.
 them. The plain versions are written from the formulas with the saved
 lse (not through autograd) and take the Pallas bodies' dtype steps: f32
 scores, p cast to v's dtype before p @ v, ds cast to q's dtype before
-the second products, delta = rowsum(do * o) in f32.
+the second products, delta = rowsum(do * o) in f32. With rope they
+rotate q and k in the input's dtype, as ``_rope_fwd`` (:58-66) does (the
+tables cast to that dtype, a rounding after each product and each sum),
+and counter-rotate the f32 dq and dk before the cast, as ``_rope_bwd``
+(:69-75) does.
 
 ``flash_attention_bshd`` is the [B, S, H, D] entry with a
 ``torch.autograd.Function`` around the pair. Grouped-query kv heads are
 repeated up to the query heads before the kernel, as the JAX wrapper
-does (:616-620); autograd sums dk / dv over each group.
+does (:616-620); autograd sums dk / dv over each group, and the rope
+tables apply per sequence position to q and to the repeated k.
 """
 import ctypes
 import functools
@@ -43,10 +51,31 @@ def _visible(sq, sk, causal, device):
     return rows >= cols
 
 
-def flash_fwd_plain(q, k, v, scale, causal):
+def _rope(x, cos, sin):
+    """Neox rotation of [BH, S, D] by the first S rows of the tables, in
+    x's dtype."""
+    half = x.shape[-1] // 2
+    c = cos[:x.shape[1]].to(x.dtype)
+    s = sin[:x.shape[1]].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _rope_bwd(g, cos, sin):
+    """The transpose of ``_rope`` on an f32 gradient, in f32."""
+    half = g.shape[-1] // 2
+    c = cos[:g.shape[1]].float()
+    s = sin[:g.shape[1]].float()
+    g1, g2 = g[..., :half], g[..., half:]
+    return torch.cat([g1 * c + g2 * s, g2 * c - g1 * s], dim=-1)
+
+
+def flash_fwd_plain(q, k, v, scale, causal, rope_cos=None, rope_sin=None):
     """softmax(q k^T * scale) v over [BH, S, D] in plain PyTorch:
     returns (o in q's dtype, lse [BH, Sq] f32). Fully masked rows give
     zeros."""
+    if rope_cos is not None:
+        q, k = _rope(q, rope_cos, rope_sin), _rope(k, rope_cos, rope_sin)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     vis = _visible(q.shape[1], k.shape[1], causal, q.device)
     if vis is not None:
@@ -62,9 +91,13 @@ def flash_fwd_plain(q, k, v, scale, causal):
     return o.to(q.dtype), lse
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, scale, causal):
+def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos=None,
+                    rope_sin=None):
     """Gradients (dq, dk, dv) of flash attention from the saved o and lse,
     in plain PyTorch, each in its input's dtype."""
+    rope = rope_cos is not None
+    if rope:
+        q, k = _rope(q, rope_cos, rope_sin), _rope(k, rope_cos, rope_sin)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     p = torch.exp(s - lse[..., None])
     vis = _visible(q.shape[1], k.shape[1], causal, q.device)
@@ -76,6 +109,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal):
     dv = torch.matmul(p.to(q.dtype).float().transpose(1, 2), do.float())
     dk = torch.matmul(ds.transpose(1, 2), q.float())
     dq = torch.matmul(ds, k.float())
+    if rope:
+        dq, dk = _rope_bwd(dq, rope_cos, rope_sin), \
+            _rope_bwd(dk, rope_cos, rope_sin)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -102,42 +138,69 @@ def _check(name, q, k, v, *more):
             raise ValueError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
 
 
-def flash_fwd(q, k, v, scale, causal):
-    """(o, lse) of flash attention over [BH, S, D]. A CPU tensor runs the
-    plain version; a CUDA tensor launches the forward kernel (counted in
-    ``flash_fwd.launches``) or raises."""
+def _rope_ptrs(name, q, k, rope_cos, rope_sin):
+    """The tables' device pointers (None, None without rope), after
+    refusing tables the kernels do not take."""
+    if rope_cos is None and rope_sin is None:
+        return None, None
+    rows = max(q.shape[1], k.shape[1])
+    for t in (rope_cos, rope_sin):
+        if t is None or t.dtype != torch.float32 or t.dim() != 2 \
+                or t.shape[0] < rows or t.shape[1] != q.shape[2] // 2 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: rope_cos and rope_sin must both be "
+                             f"contiguous float32 [>= {rows}, "
+                             f"{q.shape[2] // 2}] on {q.device}")
+    return rope_cos.data_ptr(), rope_sin.data_ptr()
+
+
+def flash_fwd(q, k, v, scale, causal, rope_cos=None, rope_sin=None):
+    """(o, lse) of flash attention over [BH, S, D], with rope on q and k
+    when the tables are given. A CPU tensor runs the plain version; a CUDA
+    tensor launches the forward kernel (counted in ``flash_fwd.launches``,
+    and in ``flash_fwd.rope_launches`` when it took the tables) or
+    raises."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale, causal)
+        return flash_fwd_plain(q, k, v, scale, causal, rope_cos, rope_sin)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     _check("flash_fwd", q, k, v)
+    rcos, rsin = _rope_ptrs("flash_fwd", q, k, rope_cos, rope_sin)
     bh, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     rc = _launcher("fwd")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+        o.data_ptr(), lse.data_ptr(), rcos, rsin, bh, sq, k.shape[1], d,
+        float(scale), int(bool(causal)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd: kernel launch failed with CUDA error "
                            f"{rc}")
     flash_fwd.launches += 1
+    flash_fwd.rope_launches += rcos is not None
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.rope_launches = 0
 
 
-def flash_bwd(q, k, v, o, lse, do, scale, causal):
-    """(dq, dk, dv) of flash attention from the saved o and lse. A CPU
-    tensor runs the plain version; a CUDA tensor launches the backward
-    kernel (counted in ``flash_bwd.launches``) on the current stream, the
-    forward's when autograd calls it, or raises."""
+def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
+              rope_sin=None):
+    """(dq, dk, dv) of flash attention from the saved o and lse, the
+    gradients of the unrotated q and k when the rope tables are given. A
+    CPU tensor runs the plain version; a CUDA tensor launches the backward
+    kernel (counted in ``flash_bwd.launches``, and in
+    ``flash_bwd.rope_launches`` when it took the tables) on the current
+    stream, the forward's when autograd calls it, or raises."""
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal)
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos,
+                               rope_sin)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check("flash_bwd", q, k, v, o, do)
+    rcos, rsin = _rope_ptrs("flash_bwd", q, k, rope_cos, rope_sin)
     bh, sq, d = q.shape
     sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, sq) \
@@ -154,17 +217,19 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal):
     rc = _launcher("bwd")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh, sq, sk, d,
-        float(scale), int(bool(causal)),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), rcos, rsin, bh, sq,
+        sk, d, float(scale), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd: kernel launch failed with CUDA error "
                            f"{rc}")
     flash_bwd.launches += 1
+    flash_bwd.rope_launches += rcos is not None
     return dq.to(q.dtype), dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.rope_launches = 0
 
 
 @functools.cache
@@ -175,12 +240,12 @@ def _launcher(which):
     lib = _build.load("flash_attention")
     if which == "fwd":
         fn = lib.flash_attention_fwd_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p]
     else:
         fn = lib.flash_attention_bwd_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 12 \
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -189,28 +254,30 @@ def _launcher(which):
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention over [BH, S, D] with the kernel pair as forward and
-    backward; saves (q, k, v, o, lse). ``flash_fwd`` / ``flash_bwd`` are
-    looked up at call time."""
+    backward; saves (q, k, v, o, lse) and the rope tables, which get no
+    gradient. ``flash_fwd`` / ``flash_bwd`` are looked up at call time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_fwd(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, rope_cos, rope_sin, scale, causal):
+        o, lse = flash_fwd(q, k, v, scale, causal, rope_cos, rope_sin)
+        ctx.save_for_backward(q, k, v, o, lse, rope_cos, rope_sin)
         ctx.scale = scale
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, rope_cos, rope_sin = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale,
-                               ctx.causal)
-        return dq, dk, dv, None, None
+                               ctx.causal, rope_cos, rope_sin)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_bshd(q, k, v, causal=True, scale=None):
+def flash_attention_bshd(q, k, v, causal=True, scale=None, rope_cos=None,
+                         rope_sin=None):
     """q [B, Sq, H, D], k / v [B, Sk, KVH, D] (paddle's flash_attention
-    layout) -> out [B, Sq, H, D]. kv heads are repeated up to H."""
+    layout) -> out [B, Sq, H, D]. kv heads are repeated up to H. rope_cos /
+    rope_sin [S, D/2] f32: neox rope on q and k inside the kernels."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if scale is None:
@@ -224,5 +291,5 @@ def flash_attention_bshd(q, k, v, causal=True, scale=None):
         return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
     o = FlashAttention.apply(fold(q, sq), fold(k, sk), fold(v, sk),
-                             float(scale), bool(causal))
+                             rope_cos, rope_sin, float(scale), bool(causal))
     return o.reshape(b, h, sq, d).transpose(1, 2)

@@ -2,7 +2,10 @@
 CPU: the plain forward (o, lse) and backward (dq, dk, dv) against the
 Pallas kernels ``_flash_fwd`` / ``_flash_bwd`` in interpret mode, and the
 port's autograd function against ``jax.vjp`` of the JAX
-``flash_attention_bshd`` with grouped-query heads.
+``flash_attention_bshd`` with grouped-query heads; each with and without
+the rope operands (``rope_cos`` / ``rope_sin``). With rope, S is a
+multiple of the Pallas tile: the reference reads a padded tail as NaN
+(ROADMAP Queue 3, pinned below).
 
 Tolerance: float32 throughout, atol 2e-5 (both sides sum a few dozen
 f32 products in another order; the largest values are O(10)).
@@ -36,19 +39,30 @@ def _inputs(seed, bh, s, d):
             for _ in range(4)]
 
 
-def _jax_fwd_bwd(q, k, v, do, scale, causal, block):
+def _tables(s, d, base=10000.0):
+    """The model's [S, D/2] f32 neox tables."""
+    inv = 1.0 / base ** (np.arange(0, d, 2, dtype=np.float32) / d)
+    ang = np.outer(np.arange(s, dtype=np.float32), inv).astype(np.float32)
+    return np.cos(ang), np.sin(ang)
+
+
+def _jax_fwd_bwd(q, k, v, do, scale, causal, block, rope=None):
+    rc, rs = (None, None) if rope is None else map(jnp.asarray, rope)
     o, lse = FA._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                           scale, causal, block, block)
+                           scale, causal, block, block, rc, rs)
     dq, dk, dv = FA._flash_bwd(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), o, lse, jnp.asarray(do),
-                               scale, causal, block, block, block, block)
+                               scale, causal, block, block, block, block,
+                               rc, rs)
     return [np.asarray(x) for x in (o, lse[:, 0], dq, dk, dv)]
 
 
-def _port_fwd_bwd(q, k, v, do, scale, causal):
+def _port_fwd_bwd(q, k, v, do, scale, causal, rope=None):
     tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
-    o, lse = tfa.flash_fwd(tq, tk, tv, scale, causal)
-    dq, dk, dv = tfa.flash_bwd(tq, tk, tv, o, lse, tdo, scale, causal)
+    rc, rs = (None, None) if rope is None else map(torch.as_tensor, rope)
+    o, lse = tfa.flash_fwd(tq, tk, tv, scale, causal, rc, rs)
+    dq, dk, dv = tfa.flash_bwd(tq, tk, tv, o, lse, tdo, scale, causal, rc,
+                               rs)
     return [x.numpy() for x in (o, lse, dq, dk, dv)]
 
 
@@ -65,6 +79,30 @@ def test_plain_fwd_bwd_match_the_pallas_kernels(s, d, block, causal):
     got = _port_fwd_bwd(q, k, v, do, scale, causal)
     for name, w, g in zip(("o", "lse", "dq", "dk", "dv"), want, got):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d,block", [(32, 16, 16), (32, 32, 16),
+                                       (48, 16, 48), (64, 32, 32)])
+def test_plain_fwd_bwd_with_rope_match_the_pallas_kernels(s, d, block,
+                                                           causal):
+    """The rope operands: q rotated once per q tile and k per k tile in
+    the forward (k once and q per tile in the backward), dq and dk
+    counter-rotated in f32. Tables longer than S are cut to S by both."""
+    q, k, v, do = _inputs(s + d + 1, 3, s, d)
+    rope = _tables(s, d, base=100.0)
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_fwd_bwd(q, k, v, do, scale, causal, block, rope)
+    got = _port_fwd_bwd(q, k, v, do, scale, causal, rope)
+    for name, w, g in zip(("o", "lse", "dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=name)
+    plain = _port_fwd_bwd(q, k, v, do, scale, causal)
+    assert not np.allclose(plain[0], got[0], atol=1e-3)   # rope did rotate
+    longer = [np.ascontiguousarray(np.concatenate(
+        [r[:s], np.zeros((9, d // 2), np.float32)])) for r in rope]
+    again = _port_fwd_bwd(q, k, v, do, scale, causal, longer)
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(a, g)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -118,6 +156,41 @@ def test_autograd_function_matches_jax_vjp_with_gqa(causal):
     np.testing.assert_allclose(out.detach().numpy(), got[0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_with_rope_matches_jax_vjp_with_gqa(causal):
+    """Rope inside the kernels with H=4 query heads over KVH=2 kv heads:
+    the tables apply per position to q and to the repeated k, and the
+    tables get no gradient."""
+    rng = np.random.default_rng(13)
+    b, s, h, kvh, d = 2, 32, 4, 2, 16
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    g = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    cos, sin = _tables(s, d)
+
+    def f(q_, k_, v_):
+        return FA.flash_attention_bshd(q_, k_, v_, causal=causal,
+                                       block_q=16, block_k=16,
+                                       rope_cos=jnp.asarray(cos),
+                                       rope_sin=jnp.asarray(sin))
+
+    o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(o)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tc, ts = (torch.tensor(x, requires_grad=True) for x in (cos, sin))
+    out, none = TF.flash_attention(tq, tk, tv, causal=causal, rope_cos=tc,
+                                   rope_sin=ts)
+    assert none is None
+    out.backward(torch.as_tensor(g))
+    got = [out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(),
+           tv.grad.numpy()]
+    for name, w, x in zip(("o", "dq", "dk", "dv"), want, got):
+        assert x.shape == w.shape, name
+        np.testing.assert_allclose(x, w, rtol=0, atol=ATOL, err_msg=name)
+    assert tc.grad is None and ts.grad is None
+
+
 def test_plain_versions_take_the_dtype_steps():
     """bf16 inputs: p is rounded to bf16 before p @ v, so the plain
     forward equals an f32 softmax over bf16-rounded probabilities, and
@@ -139,14 +212,23 @@ def test_plain_versions_take_the_dtype_steps():
 
 
 def test_flash_attention_refuses_later_slice_options():
+    """Dropout and return_softmax still raise; the rope tables are taken
+    now and equal rotating q and k before the kernel."""
     x = torch.zeros(1, 8, 2, 32)
     with pytest.raises(NotImplementedError, match="later slice"):
         TF.flash_attention(x, x, x, dropout=0.1)
     with pytest.raises(NotImplementedError, match="later slice"):
         TF.flash_attention(x, x, x, return_softmax=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TF.flash_attention(x, x, x, rope_cos=torch.ones(8, 16),
-                           rope_sin=torch.zeros(8, 16))
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.as_tensor(rng.standard_normal((1, 8, 2, 32))
+                               .astype(np.float32)) for _ in range(3))
+    cos, sin = (torch.as_tensor(t) for t in _tables(8, 32))
+    fused, _ = TF.flash_attention(q, k, v, causal=True, rope_cos=cos,
+                                  rope_sin=sin)
+    rq = TF.apply_rotary_pos_emb(q, cos, sin)
+    rk = TF.apply_rotary_pos_emb(k, cos, sin)
+    ref, _ = TF.flash_attention(rq, rk, v, causal=True)
+    np.testing.assert_allclose(fused.numpy(), ref.numpy(), rtol=0, atol=1e-6)
 
 
 def test_a_raising_kernel_is_not_swallowed(monkeypatch):
@@ -175,3 +257,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_before_launching():
     tfa._check("flash_fwd", q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"), 1.0, True)
+    tab = torch.zeros(8, 16)
+    assert tfa._rope_ptrs("flash_fwd", q, q, None, None) == (None, None)
+    for cos, sin in ((tab, None), (tab.double(), tab), (tab[:7], tab[:7]),
+                     (torch.zeros(8, 8), torch.zeros(8, 8)),
+                     (torch.zeros(16, 8).t(), tab)):
+        with pytest.raises(ValueError, match="rope_cos"):
+            tfa._rope_ptrs("flash_fwd", q, q, cos, sin)

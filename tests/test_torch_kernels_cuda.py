@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at edge shapes the serving smoke run does not reach: every head
-dim and dtype the attention kernel takes, odd group sizes and block
-sizes, and GEMM rows and depths that are not tile multiples.
+card, at edge shapes the smoke run does not reach: every head dim and
+dtype the attention kernels take (with and without rope), odd group
+sizes and block sizes, GEMM rows and depths that are not tile multiples,
+and the blockwise cross entropy at token counts, vocabularies and hidden
+widths off its tiles, with ignored rows.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -206,3 +208,153 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
                      1.0, True)
     with pytest.raises(ValueError):                     # mixed dtypes
         fa.flash_fwd(q, q.half(), q.half(), 1.0, True)
+
+
+def _rope_tables(s, d, base=10000.0):
+    inv = 1.0 / base ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                      device="cuda") / d)
+    ang = torch.outer(torch.arange(s, dtype=torch.float32, device="cuda"),
+                      inv)
+    return torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s,causal", [(100, True), (64, False), (200, True)])
+def test_flash_kernels_with_rope_match_plain(dtype, d, s, causal):
+    """The rope operands: q and k rotated in the input dtype inside both
+    kernels, dq and dk counter-rotated in f32; tables longer than S."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(3, s, s, d, dtype, s + d + 7)
+    cos, sin = _rope_tables(s + 5, d)
+    scale = d ** -0.5
+    r0 = fa.flash_fwd.rope_launches, fa.flash_bwd.rope_launches
+    o, lse = fa.flash_fwd(q, k, v, scale, causal, cos, sin)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal, cos, sin)
+    grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal, cos, sin)
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal, cos, sin)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.rope_launches, fa.flash_bwd.rope_launches) == (
+        r0[0] + 1, r0[1] + 1)
+    assert float((o.float() - ro.float()).abs().max()) <= _tol(ro, dtype)
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+
+
+@pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2)])
+def test_flash_autograd_with_rope_matches_plain_autograd(h, kvh):
+    """Rope inside the kernels with grouped-query groups of 1, 2 and 4
+    against autograd through rotating first and plain f32 attention."""
+    from paddle_tpu_torch.nn.functional import apply_rotary_pos_emb
+    from paddle_tpu_torch.nn.functional.attention import _sdpa_ref
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(h * kvh)
+    b, s, d = 2, 150, 64
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    k = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    v = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    g = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    cos, sin = _rope_tables(s, d)
+
+    def ref(q_, k_, v_):
+        return _sdpa_ref(apply_rotary_pos_emb(q_, cos, sin),
+                         apply_rotary_pos_emb(k_, cos, sin), v_, causal=True)
+
+    outs = []
+    for fn in (lambda *a: fa.flash_attention_bshd(*a, causal=True,
+                                                  rope_cos=cos, rope_sin=sin),
+               ref):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        outs.append([out.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
+
+
+def _ce_inputs(t, hid, vocab, dtype, seed, ignored):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    h = torch.randn(t, hid, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(hid, vocab, device="cuda", generator=gen)
+         * hid ** -0.5).to(dtype)
+    lab = torch.randint(0, vocab, (t,), device="cuda", generator=gen)
+    lab[ignored] = -100
+    g = torch.rand(t, device="cuda", generator=gen) + 0.5
+    return h, w, lab, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hid", [64, 1024, 4096])
+@pytest.mark.parametrize("t,vocab,ignored", [
+    (100, 300, [3, 50]),          # T and V off the tiles
+    (128, 256, []),               # on the tiles
+    (1000, 32001, [0, 999]),      # the forward and dh split the vocabulary
+    (300, 100, [5]),              # one vocab tile: one split
+    (70, 130, slice(None)),       # every row ignored
+])
+def test_blockwise_ce_kernels_match_plain(dtype, hid, t, vocab, ignored):
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h, w, lab, g = _ce_inputs(t, hid, vocab, dtype, t + hid + vocab, ignored)
+    n0 = (bc.ce_fwd.launches, bc.ce_bwd_dh.launches, bc.ce_bwd_dw.launches)
+    loss, lse = bc.ce_fwd(h, w, lab, -100)
+    rloss, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+    dh = bc.ce_bwd_dh(h, w, lab, g, rlse, -100)
+    rdh = bc.ce_bwd_dh_plain(h, w, lab, g, rlse, -100)
+    dw = bc.ce_bwd_dw(h, w, lab, g, rlse, -100)
+    rdw = bc.ce_bwd_dw_plain(h, w, lab, g, rlse, -100)
+    torch.cuda.synchronize()
+    assert (bc.ce_fwd.launches, bc.ce_bwd_dh.launches,
+            bc.ce_bwd_dw.launches) == tuple(n + 1 for n in n0)
+    assert dh.dtype == dw.dtype == dtype and loss.dtype == torch.float32
+    ign = lab == -100
+    assert not bool(loss[ign].any()) and not bool(dh[ign].any())
+    for name, x, r in (("loss", loss, rloss), ("lse", lse, rlse)):
+        err = float((x - r).abs().max())
+        assert err <= 1e-4 * max(1.0, float(r.abs().max())), (name, err)
+    for name, x, r in (("dh", dh, rdh), ("dw", dw, rdw)):
+        err = float((x.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+
+
+def test_blockwise_ce_autograd_takes_a_transposed_head():
+    """The op on the card: a tied head's [H, V] view of the [V, H] table,
+    gradients against the plain versions."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h, w, lab, g = _ce_inputs(300, 256, 1000, torch.float32, 1, [7])
+    table = w.t().contiguous().requires_grad_(True)
+    hl = h.clone().requires_grad_(True)
+    loss = bc.blockwise_lm_head_ce(hl, table.t(), lab)
+    (loss * g).sum().backward()
+    rloss, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+    rdh = bc.ce_bwd_dh_plain(h, w, lab, g, rlse, -100)
+    rdw = bc.ce_bwd_dw_plain(h, w, lab, g, rlse, -100)
+    torch.cuda.synchronize()
+    assert float((loss.detach() - rloss).abs().max()) <= 1e-4
+    assert float((hl.grad - rdh).abs().max()) <= _tol(rdh, torch.float32)
+    assert float((table.grad - rdw.t()).abs().max()) <= _tol(rdw,
+                                                             torch.float32)
+
+
+def test_blockwise_ce_wrappers_refuse_what_the_kernels_do_not_take():
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h = torch.zeros(8, 64, device="cuda")
+    w = torch.zeros(64, 100, device="cuda")
+    lab = torch.zeros(8, dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):                     # mixed dtypes
+        bc.ce_fwd(h, w.bfloat16(), lab, -100)
+    with pytest.raises(ValueError):                     # int32 labels
+        bc.ce_fwd(h, w, lab.int(), -100)
+    with pytest.raises(ValueError):                     # not contiguous
+        bc.ce_fwd(h, w.t().contiguous().t(), lab, -100)
+    with pytest.raises(ValueError):                     # float64
+        bc.ce_bwd_dw(h.double(), w.double(), lab, torch.zeros(8, device="cuda"),
+                     torch.zeros(8, device="cuda"), -100)

@@ -2,7 +2,10 @@
 CPU: rope (neox and GPT-J, position ids, tables passed in), the
 ``rms_norm`` dtype rule, ``cross_entropy`` with ignored rows, and the
 tiny ``LlamaForCausalLM`` — logits, loss and every parameter's gradient
-— with the JAX model's weights loaded through ``llama_state_from_numpy``.
+— with the JAX model's weights loaded through ``llama_state_from_numpy``,
+also with the two kernel options on (``fuse_rope_in_attention``: rope
+inside the flash kernels; ``fused_lm_loss``: the blockwise LM-head loss),
+the JAX model then running its Pallas kernels in interpret mode.
 
 Tolerances: float32 elementwise ops agree to 1e-6; the model's logits
 and loss to 2e-5 and its gradients to 2e-5 (atol; values are O(1) and
@@ -18,6 +21,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import paddle_tpu as paddle  # noqa: E402
+import paddle_tpu.nn.functional.attention as JATT  # noqa: E402
+import paddle_tpu.ops.pallas.blockwise_ce as BC  # noqa: E402
+import paddle_tpu.ops.pallas.flash_attention as FA  # noqa: E402
 from paddle_tpu.jit.functional import pure_call, state_arrays  # noqa: E402
 from paddle_tpu.models import LlamaConfig as JConfig  # noqa: E402
 from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
@@ -27,6 +33,8 @@ from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,  # noqa: E40
                                      llama_state_to_numpy)
 from paddle_tpu_torch.models import llama as tllama  # noqa: E402
 from paddle_tpu_torch.nn import functional as TF  # noqa: E402
+from paddle_tpu_torch.ops import blockwise_ce as tbc  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 
 ATOL = 2e-5
 
@@ -208,6 +216,120 @@ def test_model_logits_loss_and_grads_match(name):
     assert all(np.array_equal(back[n], np_params[n]) for n in np_params)
 
 
+KERNEL_OPTIONS = dict(fuse_rope_in_attention=True, fused_lm_loss=True)
+
+
+@pytest.fixture
+def jax_kernels(monkeypatch):
+    """The JAX model on its kernel path: flash attention and the
+    blockwise loss as Pallas kernels in interpret mode."""
+    monkeypatch.setattr(FA, "_INTERPRET", True)
+    monkeypatch.setattr(BC, "_INTERPRET", True)
+    monkeypatch.setattr(JATT, "_flash_available", lambda: True)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_kernel_options_loss_and_grads_match(name, jax_kernels,
+                                             monkeypatch):
+    """Both options on: the port's forward returns (None, loss), hands the
+    [S, D/2] tables to every flash call and computes the loss blockwise;
+    loss and every gradient agree with the JAX model on its kernel path."""
+    kw = dict(CONFIGS[name], **KERNEL_OPTIONS)
+    jm = _jax_model(kw)
+    params, buffers = state_arrays(jm)
+    ids, labels = _batch(14)
+
+    def loss_fn(p):
+        logits, loss = pure_call(jm, p, buffers, jnp.asarray(ids),
+                                 labels=jnp.asarray(labels))
+        assert logits is None
+        return loss
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    tm = llama_state_from_numpy({n: np.asarray(a) for n, a in params.items()},
+                                LlamaConfig.tiny(dtype="float32", **kw),
+                                device="cpu")
+    seen = []
+    inner = tfa.flash_fwd
+
+    def spy(*a):
+        seen.append(a[5] is not None and a[6] is not None)
+        return inner(*a)
+
+    monkeypatch.setattr(tfa, "flash_fwd", spy)
+    ce0 = tbc.ce_fwd.launches
+    out, loss = tm(_t(ids), labels=_t(labels))
+    assert out is None and loss.dtype == torch.float32
+    assert seen == [True] * tm.config.num_hidden_layers
+    assert tbc.ce_fwd.launches == ce0            # the CPU runs no kernel
+    loss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) <= ATOL
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[n]),
+                                   rtol=0, atol=ATOL, err_msg=n)
+
+
+def test_kernel_options_agree_with_the_default_path():
+    """The options change where the work happens, not the result: loss
+    and gradients within 2e-5 of the same model with both off."""
+    cfg = LlamaConfig.tiny(dtype="float32", tie_word_embeddings=True)
+    base = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    state = llama_state_to_numpy(base)
+    fused = llama_state_from_numpy(
+        state, LlamaConfig.tiny(dtype="float32", tie_word_embeddings=True,
+                                **KERNEL_OPTIONS), device="cpu")
+    ids, labels = _batch(15)
+    _, l0 = base(_t(ids), labels=_t(labels))
+    _, l1 = fused(_t(ids), labels=_t(labels))
+    l0.backward()
+    l1.backward()
+    assert abs(float(l0.detach()) - float(l1.detach())) <= ATOL
+    grads = dict(fused.named_parameters())
+    for n, p in base.named_parameters():
+        np.testing.assert_allclose(grads[n].grad.numpy(), p.grad.numpy(),
+                                   rtol=0, atol=ATOL, err_msg=n)
+
+
+def test_kernel_options_fall_back_with_a_mask_or_position_ids(jax_kernels,
+                                                              monkeypatch):
+    """A mask or position ids send rope back to
+    ``fused_rotary_position_embedding`` before attention (no tables reach
+    the flash kernels), as the JAX model does; with a mask the logits match
+    the JAX model's, and position ids 0..S-1 give the tables' result."""
+    kw = dict(CONFIGS["unfused_gqa"], fuse_rope_in_attention=True)
+    jm = _jax_model(kw)
+    params, buffers = state_arrays(jm)
+    ids, _ = _batch(16, s=12)
+    rng = np.random.default_rng(17)
+    mask = rng.random((2, 1, 12, 12)) > 0.3
+    mask[..., 0] = True
+    want = pure_call(jm, params, buffers, jnp.asarray(ids), None,
+                     jnp.asarray(mask))
+    tm = llama_state_from_numpy({n: np.asarray(a) for n, a in params.items()},
+                                LlamaConfig.tiny(dtype="float32", **kw),
+                                device="cpu")
+    tables = []
+    inner = tfa.flash_fwd
+
+    def spy(*a):
+        tables.append(a[5] is not None)
+        return inner(*a)
+
+    monkeypatch.setattr(tfa, "flash_fwd", spy)
+    pos = torch.arange(12).repeat(2, 1)
+    with torch.no_grad():
+        masked = tm(_t(ids), None, _t(mask))
+        assert tables == []                      # _sdpa_ref, rotated first
+        with_pos = tm(_t(ids), pos)
+        assert tables == [False, False]
+        fused = tm(_t(ids))
+        assert tables == [False, False, True, True]
+    np.testing.assert_allclose(masked.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(with_pos.numpy(), fused.numpy(), rtol=0,
+                               atol=1e-5)
+
+
 def test_attention_mask_and_position_ids_match():
     """A boolean mask sends attention through the plain ``_sdpa_ref`` on
     both sides; explicit position ids 0..S-1 equal the default ones."""
@@ -299,8 +421,7 @@ def test_seeded_init_and_later_slice_options():
     assert not np.array_equal(w, c["llama.layers.0.self_attn.q_proj.weight"])
     assert abs(float(w.std()) - 0.02) < 0.004
     assert (a["llama.norm.weight"] == 1.0).all()
-    for opt in ("recompute", "context_parallel", "fuse_rope_in_attention",
-                "fused_lm_loss"):
+    for opt in ("recompute", "context_parallel"):
         with pytest.raises(NotImplementedError, match="later slice"):
             LlamaForCausalLM(LlamaConfig.tiny(**{opt: True}), device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):

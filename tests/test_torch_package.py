@@ -108,14 +108,27 @@ def test_entry_points_default_to_cuda():
     from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
                                             engine_weights_from_numpy)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.pretrain import batch_to_device
+    from paddle_tpu_torch.nn import RMSNorm
     kw = dict(num_heads=2, head_dim=8, max_seq_len=16, dtype="float32",
               norm_type="rmsnorm", activation="swiglu", gqa_group_size=1)
+    cfg = LlamaConfig.tiny(dtype="float32")
+    batch = {"input_ids": np.zeros((1, 4), np.int32)}
     if torch.cuda.is_available():
         eng = FusedMultiTransformerEngine(_tiny_weights(), **kw)
         assert eng.device.type == "cuda"
+        assert RMSNorm(8).weight.device.type == "cuda"
+        assert next(LlamaForCausalLM(cfg).parameters()).device.type == "cuda"
+        assert batch_to_device(batch)["input_ids"].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FusedMultiTransformerEngine(_tiny_weights(), **kw)
+    for build in (lambda: RMSNorm(8), lambda: LlamaForCausalLM(cfg),
+                  lambda: batch_to_device(batch)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert RMSNorm(8, device="cpu").weight.device.type == "cpu"
     with pytest.raises(RuntimeError):
         engine_weights_from_numpy(_tiny_weights())
     with pytest.raises(RuntimeError):

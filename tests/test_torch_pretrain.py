@@ -2,7 +2,9 @@
 package on the CPU: one AdamW update against ``pretrain._adamw`` on the
 same numpy inputs, a 5-step loss / grad-norm trajectory of
 ``flagship_config``'s CPU form against the JAX ``make_train_step`` on a
-one-device mesh, and three bf16 AMP-O2 steps.
+one-device mesh (also with the fused LM-head loss and rope inside the
+flash kernels, the JAX step then running its Pallas kernels in
+interpret mode), and three bf16 AMP-O2 steps with and without them.
 
 Tolerances: AdamW elementwise 1e-6 (atol, f32 values of O(1)); the f32
 trajectory rtol 1e-5 (losses near ln 128 = 4.85; the two frameworks
@@ -20,11 +22,15 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import paddle_tpu as paddle  # noqa: E402
+import paddle_tpu.nn.functional.attention as JATT  # noqa: E402
+import paddle_tpu.ops.pallas.blockwise_ce as BC  # noqa: E402
+import paddle_tpu.ops.pallas.flash_attention as FA  # noqa: E402
 from paddle_tpu.models import LlamaForCausalLM as JLlama  # noqa: E402
 from paddle_tpu.models import pretrain as jpre  # noqa: E402
 from paddle_tpu_torch.models import (LlamaForCausalLM,  # noqa: E402
                                      llama_state_from_numpy)
 from paddle_tpu_torch.models import pretrain as tpre  # noqa: E402
+from paddle_tpu_torch.ops import blockwise_ce as tbc  # noqa: E402
 from paddle_tpu_torch.observability import instrument  # noqa: E402
 
 
@@ -113,6 +119,51 @@ def test_five_step_trajectory_matches_make_train_step():
     assert instrument.train_steps_total().value == steps0 + 5
     assert instrument.train_tokens_total().value == tokens0 + 5 * batch * seq
     assert instrument.train_tokens_per_s().value > 0
+
+
+@pytest.fixture
+def kernel_options(monkeypatch):
+    """Both kernel options on, and the JAX step on its kernel path (flash
+    attention and the blockwise loss as Pallas kernels in interpret
+    mode)."""
+    monkeypatch.setattr(FA, "_INTERPRET", True)
+    monkeypatch.setattr(BC, "_INTERPRET", True)
+    monkeypatch.setattr(JATT, "_flash_available", lambda: True)
+    return dict(fuse_rope_in_attention=True, fused_lm_loss=True)
+
+
+def test_five_step_trajectory_with_kernel_options_matches(kernel_options,
+                                                          monkeypatch):
+    """The fused LM-head loss and rope inside the flash kernels through
+    five f32 steps: losses and grad norms within 1e-5 of JAX
+    ``make_train_step`` with the same options; the step reaches the
+    blockwise op once forward and once backward per step."""
+    cfg, batch, seq = tpre.flagship_config(full=False)
+    for k, v in kernel_options.items():
+        setattr(cfg, k, v)
+    calls = []
+    for name in ("ce_fwd", "ce_bwd_dh", "ce_bwd_dw"):
+        inner = getattr(tbc, name)
+        monkeypatch.setattr(tbc, name, lambda *a, _n=name, _f=inner: (
+            calls.append(_n), _f(*a))[1])
+    want, got, params = _trajectories(cfg, batch, seq, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    assert calls == ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw"] * 5
+    assert all(p.dtype == torch.float32 for p in params.values())
+
+
+def test_bf16_amp_step_with_kernel_options_matches(kernel_options):
+    """AMP-O2 with both options: the head weight reaches the blockwise op
+    as bf16 and its gradient lands on the f32 master."""
+    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg.dtype = "bfloat16"
+    cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
+    for k, v in kernel_options.items():
+        setattr(cfg, k, v)
+    want, got, params = _trajectories(cfg, 2, 32, 3)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-3, atol=0)
+    assert all(p.dtype == torch.float32 for p in params.values())
 
 
 def test_bf16_amp_step_matches():
