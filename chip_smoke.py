@@ -54,6 +54,20 @@ Phases (any failure exits non-zero and prints no result line):
      step, no logits, peak memory below phase 7's, then a profiled step;
  12. f32 training parity at full width, L=2, with both options: 3 steps
      through the kernels against the plain attention and plain CE paths;
+ 13. the FlashMask kernels (forward, dq, dk / dv) against their plain
+     versions in bf16 at the flagship's attention widths (H=16, D=64):
+     packed causal documents (B=8, S=2048), seeded 2-column bands, GQA
+     16/4, S off the tile, non-causal, rows that see nothing (o, dq and
+     their dk / dv exactly 0) and a long context (S=16384); each prints its
+     worst element against its allowance, the live share of the 64 x 64
+     tiles and the kernel, plain, bound and masked-SDPA times. Then one
+     24-layer step's attention over packed documents through
+     ``incubate.nn.functional.flashmask_attention`` with autograd: exactly
+     24 launches of each kernel, timed beside 24 causal flash calls;
+ 14. the same entry in f32 (B=2): kernels against the plain versions;
+ 15. the two-pass flash backward (the FlashMask backward kernels without
+     the interval) against ``flash_bwd_plain`` at the flagship shape, 24
+     calls counted, timed beside the fused backward and SDPA's;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -369,13 +383,17 @@ def phase_kernels(torch):
 def reset_counts():
     from paddle_tpu_torch.ops import blockwise_ce as bc
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     pa.ragged_paged_attention.launches = 0
     qm.weight_only_matmul.launches = 0
     fa.flash_fwd.launches = fa.flash_fwd.rope_launches = 0
     fa.flash_bwd.launches = fa.flash_bwd.rope_launches = 0
+    fa.flash_bwd_twopass.dq_launches = fa.flash_bwd_twopass.dkv_launches = 0
     bc.ce_fwd.launches = bc.ce_bwd_dh.launches = bc.ce_bwd_dw.launches = 0
+    fm.flashmask_fwd.launches = 0
+    fm.flashmask_bwd.dq_launches = fm.flashmask_bwd.dkv_launches = 0
 
 
 def read_counts():
@@ -388,6 +406,16 @@ def read_counts():
 def read_flash_counts():
     from paddle_tpu_torch.ops import flash_attention as fa
     return fa.flash_fwd.launches, fa.flash_bwd.launches
+
+
+def read_flashmask_counts():
+    """(FlashMask fwd, dq, dk / dv, two-pass dq, two-pass dk / dv)
+    launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
+    return (fm.flashmask_fwd.launches, fm.flashmask_bwd.dq_launches,
+            fm.flashmask_bwd.dkv_launches, fa.flash_bwd_twopass.dq_launches,
+            fa.flash_bwd_twopass.dkv_launches)
 
 
 def read_fused_counts():
@@ -438,6 +466,8 @@ def _kernel_class(name):
     n = name.lower()
     if "blockwise_ce" in n:
         return "blockwise_ce"
+    if "flashmask" in n:
+        return "flashmask"
     if "ragged_kernel" in n:
         return "ragged_attention"
     if "int4_kernel" in n:
@@ -1223,6 +1253,462 @@ def phase_train_parity(torch, options=None):
 FUSED_OPTIONS = dict(fused_lm_loss=True, fuse_rope_in_attention=True)
 
 
+# -- phases 13-15: FlashMask and the two-pass flash backward ----------------
+
+FM_O_ATOL = 1e-5        # o: f32 summation noise; p stays f32 on both sides
+                        # (no bf16 rounding of p, unlike flash's), so only
+                        # the final rounding to bf16 differs (2 ulps)
+FM_F32_RTOL = 1e-4      # f32 phase 14: |err| <= 1e-4 * max(1, max |ref|),
+                        # the same sums in another order
+FM_TILE = 64            # the kernels' tile: q and k tiles of 64 rows
+NEG_INF_F = -1e30       # the lse of a row that sees nothing
+
+
+def documents(rng, s, lo, hi):
+    """[S] int: the end of each column's document, documents of seeded
+    lengths in [lo, hi] packed from position 0 (the last one cut at S)."""
+    ends = np.minimum(np.cumsum(rng.integers(lo, hi + 1, s // lo + 1)), s)
+    ends = ends[:np.searchsorted(ends, s) + 1]
+    return ends[np.searchsorted(ends, np.arange(s), side="right")]
+
+
+def flashmask_specs():
+    """(name, B, S, H, KVH, MH, causal, index builder) of phase 13's cases;
+    the builder takes a numpy Generator and returns (sr, er) [B, MH, S]."""
+    def docs(lo, hi):
+        def build(rng, b, mh, s):
+            sr = np.stack([np.stack([documents(rng, s, lo, hi)
+                                     for _ in range(mh)]) for _ in range(b)])
+            return sr, np.full_like(sr, s)
+        return build
+
+    def band(rng, b, mh, s):          # rows [j + a, j + a + w) masked
+        j = np.arange(s)
+        sr = j + rng.integers(0, 513, (b, mh, s))
+        return sr, sr + rng.integers(0, 1025, (b, mh, s))
+
+    def intervals(rng, b, mh, s):     # non-causal: any [sr, er)
+        sr = rng.integers(0, s + 1, (b, mh, s))
+        return sr, sr + rng.integers(0, s // 2 + 1, (b, mh, s))
+
+    def dead(rng, b, mh, s):          # columns below 64 masked for all rows
+        sr = np.broadcast_to(np.where(np.arange(s) < 64, 0, s), (b, mh, s))
+        return sr.copy(), np.full((b, mh, s), s)
+
+    return [
+        ("doc_b8_s2048_h16", 8, 2048, 16, 16, 1, True, docs(64, 1024)),
+        ("band_b8_s2048_h16_mh16", 8, 2048, 16, 16, 16, True, band),
+        ("gqa_b4_s512_h16_kvh4", 4, 512, 16, 4, 1, True, docs(64, 256)),
+        ("off_tile_b2_s2000_h16", 2, 2000, 16, 16, 1, True, docs(64, 1024)),
+        ("full_b2_s2048_h16_mh4", 2, 2048, 16, 16, 4, False, intervals),
+        ("dead_rows_b2_s1024_h16", 2, 1024, 16, 16, 1, True, dead),
+        ("long_b1_s16384_h16", 1, 16384, 16, 16, 1, True, docs(512, 4096)),
+    ]
+
+
+def flashmask_work(sr, er, h, sq, causal, d):
+    """(visible pairs, live tiles, causal tiles, all tiles) of a case from
+    its [B, MH, Sk] bounds: pairs counted per column (its causal rows less
+    the interval's overlap), tiles by ``_block_live``'s rule at the
+    kernels' 64 x 64 tiles, each mask row counted for its H / MH heads."""
+    b, mh, sk = sr.shape
+    rep = h // mh
+    j = np.arange(sk)
+    lo = j if causal else np.zeros_like(j)
+    over = np.clip(np.minimum(er, sq) - np.maximum(sr, lo), 0, None)
+    pairs = int(((sq - lo) - over).sum()) * rep
+    nq, nk = -(-sq // FM_TILE), -(-sk // FM_TILE)
+    pad = nk * FM_TILE - sk
+    srp = np.pad(sr, ((0, 0), (0, 0), (0, pad))).reshape(b, mh, nk, FM_TILE)
+    erp = np.pad(er, ((0, 0), (0, 0), (0, pad)), constant_values=2 ** 31 - 1)
+    smax = srp.max(-1)
+    emin = erp.reshape(b, mh, nk, FM_TILE).min(-1)
+    rlo = (np.arange(nq) * FM_TILE)[:, None]
+    rhi = rlo + FM_TILE - 1
+    dead = (rlo >= smax[..., None, :]) & (rhi < emin[..., None, :])
+    tri = (np.arange(nk) * FM_TILE)[None, :] <= rhi if causal \
+        else np.ones((nq, nk), bool)
+    live = int((~dead & tri).sum()) * rep
+    return pairs, live, int(tri.sum()) * b * h, nq * nk * b * h
+
+
+def bwd_stage_ms(torch, mode, q, k, v, o, lse, do, sr, er, scale, causal,
+                 iters):
+    """(dq ms, dk / dv ms) of the backward kernels of csrc/flashmask.cu,
+    each launched alone and timed with CUDA events; dq includes the
+    pre-pass (delta, tile extremes) that its launch follows."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    prep = fm._bwd_prep("timing", mode, q, k, o, do, sr, er)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    ms_prep = time_ms(lambda: fm._bwd_prep("timing", mode, q, k, o, do, sr,
+                                           er), iters=iters)
+    ms_dq = time_ms(lambda: fm._bwd_launch(
+        "dq", "timing", mode, q, k, v, lse, do, prep, (dq,), scale, causal),
+        iters=iters)
+    ms_dkv = time_ms(lambda: fm._bwd_launch(
+        "dkv", "timing", mode, q, k, v, lse, do, prep, (dk, dv), scale,
+        causal), iters=iters)
+    return ms_prep + ms_dq, ms_dkv
+
+
+def fm_inputs(torch, gen, b, s, h, kvh, d, dtype):
+    """(q, k, v, do) folded to [B*H, S, D], kv heads repeated as
+    ``flashmask_attention_bshd`` repeats them."""
+    def bshd(hh):
+        return torch.randn(b, s, hh, d, device="cuda", generator=gen) \
+            .to(dtype)
+
+    def fold(x):
+        x = torch.repeat_interleave(x, h // x.shape[2], dim=2)
+        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    return fold(bshd(h)), fold(bshd(kvh)), fold(bshd(kvh)), fold(bshd(h))
+
+
+def phase_flashmask(torch):
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import flashmask as fm
+    rows = {"fwd": [], "dq": [], "dkv": []}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(51)
+    rng = np.random.default_rng(51)
+    d = 64
+    for name, b, s, h, kvh, mh, causal, build in flashmask_specs():
+        sr_np, er_np = (np.minimum(x, 2 ** 31 - 1).astype(np.int32)
+                        for x in build(rng, b, mh, s))
+        sr = torch.as_tensor(sr_np).cuda()
+        er = torch.as_tensor(er_np).cuda()
+        q, k, v, do = fm_inputs(torch, gen, b, s, h, kvh, d, torch.bfloat16)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fm.flashmask_fwd(q, k, v, sr, er, scale, causal)
+        ro, rlse = fm.flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
+        grads = fm.flashmask_bwd(q, k, v, ro, rlse, do, sr, er, scale, causal)
+        refs = fm.flashmask_bwd_plain(q, k, v, ro, rlse, do, sr, er, scale,
+                                      causal)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o,) + tuple(grads))
+        err_o, ratio_o = bf16_agreement(o, ro, FM_O_ATOL)
+        err_l = float((lse - rlse).abs().max())
+        gerr, gratio, worst = 0.0, 0.0, "dq"
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+            if ratio >= gratio:
+                worst = gname
+            gerr, gratio = max(gerr, e), max(gratio, ratio)
+        pairs, live, tri, tiles = flashmask_work(sr_np, er_np, h, s, causal,
+                                                 d)
+        square = b * h * (s * (s + 1) // 2 if causal else s * s)
+        print(f"  flashmask[{name}]: {pairs / (b * h):.0f} visible pairs per "
+              f"head ({pairs / square:.3f} of the "
+              f"{'causal' if causal else 'full'} square), live tiles "
+              f"{live} of {tri} {'causal ' if causal else ''}tiles "
+              f"({live / tri:.3f}); fwd o err {err_o:.3e} (worst "
+              f"{ratio_o:.3f} of atol {FM_O_ATOL:g} + 2 bf16 ulps), lse err "
+              f"{err_l:.2e}; bwd err {gerr:.3e} (worst {gratio:.3f}, in "
+              f"{worst}, of atol {FLASH_GRAD_ATOL:g} + 2 bf16 ulps)",
+              flush=True)
+        check(finite, f"flashmask {name}: non-finite output")
+        check(ratio_o <= 1.0, f"flashmask fwd {name}: o max abs err {err_o}, "
+              f"an element off by {ratio_o:.2f}x its allowance")
+        check(err_l <= LSE_ATOL, f"flashmask fwd {name}: lse err {err_l}")
+        check(gratio <= 1.0, f"flashmask bwd {name}: {worst} max abs err "
+              f"{gerr}, an element off by {gratio:.2f}x its allowance")
+        if name.startswith("dead_rows"):
+            zero = not any(bool(t[:, :64].any())
+                           for t in (o,) + tuple(grads))
+            check(zero and bool((lse[:, :64] == NEG_INF_F).all()),
+                  "flashmask: a row that sees nothing has a non-zero o or "
+                  "dq, a column no row sees a non-zero dk / dv, or lse is "
+                  "not -1e30")
+            print("    rows 0-63 see nothing: o, dq and dk / dv of columns "
+                  "0-63 exactly 0, lse -1e30", flush=True)
+        del refs
+        long = s > 4096
+        big = b * h * s >= 65536
+        it, pit = (5, 1) if long else ((10, 3) if big else (25, 10))
+        ms_f = time_ms(lambda: fm.flashmask_fwd(q, k, v, sr, er, scale,
+                                                causal), iters=it)
+
+        def bwd():
+            return fm.flashmask_bwd(q, k, v, ro, rlse, do, sr, er, scale,
+                                    causal)
+
+        ms_b = time_ms(bwd, iters=it)
+        ms_dq, ms_dkv = bwd_stage_ms(torch, fm.MODE_FLASHMASK, q, k, v, ro,
+                                     rlse, do, sr, er, scale, causal, it)
+        pl_f = time_ms(lambda: fm.flashmask_fwd_plain(q, k, v, sr, er, scale,
+                                                      causal),
+                       iters=pit, warmup=1)
+        pl_b = time_ms(lambda: fm.flashmask_bwd_plain(
+            q, k, v, ro, rlse, do, sr, er, scale, causal), iters=pit,
+            warmup=1)
+        # library yardstick (timed only; the port never calls it): SDPA with
+        # the materialized boolean mask, forward and forward + backward
+        rowi = torch.arange(s, device="cuda")[:, None]
+        keep = ~((rowi >= sr[:, :, None, :]) & (rowi < er[:, :, None, :]))
+        if causal:
+            keep &= rowi >= torch.arange(s, device="cuda")[None, :]
+        if mh not in (1, h):                 # SDPA broadcasts 1 or H heads
+            keep = keep.repeat_interleave(h // mh, dim=1)
+        q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
+        lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=keep, scale=scale), iters=it)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (q4, k4, v4)]
+
+        def sdpa_fb():
+            out = Fn.scaled_dot_product_attention(*leaves, attn_mask=keep,
+                                                  scale=scale)
+            torch.autograd.grad(out, leaves, do4)
+
+        lib_fb = time_ms(sdpa_fb, iters=it)
+        lib_b = lib_fb - lib_f
+        qkv = 3 * b * h * s * d * 2
+        idx = 2 * sr.numel() * 4
+        lse_b = b * h * s * 4
+        f_ms, f_by = bound(qkv + idx + b * h * s * d * 2 + lse_b,
+                           4 * d * pairs)
+        # dq: q k v o do lse and the index in, dq out; dk / dv: the same in,
+        # dk and dv out; each two of the backward's four products
+        bwd_in = qkv + 2 * b * h * s * d * 2 + lse_b + idx
+        dq_ms, dq_by = bound(bwd_in + b * h * s * d * 2, 4 * d * pairs)
+        dkv_ms, dkv_by = bound(bwd_in + 2 * b * h * s * d * 2, 4 * d * pairs)
+        common = dict(case=name, visible_pairs=pairs, live_tiles=live,
+                      causal_tiles=tri, tiles=tiles)
+        rows["fwd"].append(dict(
+            common, max_abs_err=err_o, lse_err=err_l, atol=FM_O_ATOL,
+            worst_err_over_allowed=ratio_o, ms=ms_f, plain_ms=pl_f,
+            bound_ms=f_ms, bound_by=f_by, library_ms=lib_f,
+            tflops=4 * d * pairs / ms_f / 1e9))
+        for key, ms, b_ms, b_by in (("dq", ms_dq, dq_ms, dq_by),
+                                    ("dkv", ms_dkv, dkv_ms, dkv_by)):
+            rows[key].append(dict(
+                common, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
+                worst_err_over_allowed=gratio, ms=ms, bwd_ms=ms_b,
+                plain_ms=pl_b, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_b, sdpa_fwd_bwd_ms=lib_fb,
+                plain_note="plain_ms and library_ms cover dq, dk and dv"))
+        tf = 4 * d * pairs / ms_f / 1e9
+        print(f"    fwd kernel {ms_f:.4f} ms ({tf:.2f} "
+              f"TFLOP/s on visible pairs) plain {pl_f:.4f} ms bound "
+              f"{f_ms:.4f} ms ({f_by}) masked sdpa {lib_f:.4f} ms; bwd "
+              f"kernels {ms_b:.4f} ms (dq {ms_dq:.4f} + dk/dv {ms_dkv:.4f} "
+              "alone; "
+              f"{8 * d * pairs / ms_b / 1e9:.2f} TFLOP/s) plain {pl_b:.4f} ms "
+              f"bound {dq_ms:.4f} + {dkv_ms:.4f} ms masked sdpa fwd+bwd "
+              f"{lib_fb:.4f} ms", flush=True)
+        del q, k, v, do, o, lse, ro, rlse, grads, leaves, keep, q4, k4, v4
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flashmask_step_inputs(torch, dtype, b):
+    """[B, S, H, D] q, k, v leaves, the upstream gradient and a 1-column
+    packed-document index [B, 1, S, 1] at case (a)'s widths (S=2048,
+    H=16, D=64, documents of 64-1024 tokens)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    rng = np.random.default_rng(61)
+    s, h, d = 2048, 16, 64
+    x = [torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+         for _ in range(4)]
+    idx = np.stack([documents(rng, s, 64, 1024) for _ in range(b)])
+    return x, torch.as_tensor(idx[:, None, :, None].astype(np.int32)).cuda()
+
+
+def attention_step(torch, fn, tensors, layers):
+    """Forward and backward of ``layers`` attention calls on one set of
+    leaves, as one step's attention; returns (outputs, leaf grads)."""
+    q, k, v, g = tensors
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    outs = [fn(*leaves) for _ in range(layers)]
+    torch.autograd.backward(outs, [g] * layers)
+    return outs, [t.grad for t in leaves]
+
+
+def phase_flashmask_step(torch):
+    """24 layers' FlashMask attention, forward and backward through the
+    ``incubate`` entry at case (a): the launch gate, then its time beside
+    24 causal flash calls on the same tensors."""
+    from paddle_tpu_torch.incubate.nn import functional as FI
+    from paddle_tpu_torch.ops import flash_attention as fa
+    tensors, idx = flashmask_step_inputs(torch, torch.bfloat16, 8)
+
+    def fm_layer(q, k, v):
+        return FI.flashmask_attention(q, k, v, idx, causal=True)
+
+    def flash_layer(q, k, v):
+        return fa.flash_attention_bshd(q, k, v, causal=True)
+
+    attention_step(torch, fm_layer, tensors, 1)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, grads = attention_step(torch, fm_layer, tensors, L)
+    torch.cuda.synchronize()
+    counts = read_flashmask_counts()
+    check(counts[:3] == (L,) * 3, f"the FlashMask step launched fwd / dq / "
+          f"dk-dv {counts[:3]} times (want {L} each)")
+    check(all(bool(torch.isfinite(t).all()) for t in [outs[0]] + grads),
+          "the FlashMask step gave non-finite values")
+    del outs, grads
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            attention_step(torch, fn, tensors, L)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    fm_ms, flash_ms = wall(fm_layer), wall(flash_layer)
+    fm2 = wall(fm_layer)
+    print(f"  {L} layers of FlashMask attention, fwd + bwd through autograd "
+          f"(B=8 S=2048 H=16 D=64, packed documents): launches fwd / dq / "
+          f"dk-dv {counts[:3]}; {fm_ms:.1f} ms (again {fm2:.1f} ms) vs "
+          f"{flash_ms:.1f} ms for {L} causal flash calls (K1 + K2) on the "
+          f"same tensors", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": list(counts[:3]), "step_ms": fm_ms,
+            "step_ms_again": fm2, "causal_flash_step_ms": flash_ms}
+
+
+@contextlib.contextmanager
+def plain_flashmask():
+    """Route the FlashMask autograd function through the plain versions on
+    the card (the reference path of phase 14); restores the kernels."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    saved = fm.flashmask_fwd, fm.flashmask_bwd
+    fm.flashmask_fwd, fm.flashmask_bwd = (fm.flashmask_fwd_plain,
+                                          fm.flashmask_bwd_plain)
+    try:
+        yield
+    finally:
+        fm.flashmask_fwd, fm.flashmask_bwd = saved
+
+
+def phase_flashmask_f32(torch):
+    from paddle_tpu_torch.incubate.nn import functional as FI
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tensors, idx = flashmask_step_inputs(torch, torch.float32, 2)
+
+    def layer(q, k, v):
+        return FI.flashmask_attention(q, k, v, idx, causal=True)
+
+    reset_counts()
+    got = attention_step(torch, layer, tensors, 1)
+    counts = read_flashmask_counts()
+    with plain_flashmask():
+        want = attention_step(torch, layer, tensors, 1)
+    torch.cuda.synchronize()
+    check(counts == (1, 1, 1, 0, 0), f"f32 FlashMask launched {counts} "
+          "(want one fwd, dq and dk-dv launch)")
+    worst = 0.0
+    for name, x, r in zip(("o", "dq", "dk", "dv"), got[0] + got[1],
+                          want[0] + want[1]):
+        x, r = x.detach(), r.detach()
+        err = float((x - r).abs().max())
+        ratio = err / (FM_F32_RTOL * max(1.0, float(r.abs().max())))
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"f32 FlashMask {name}: err {err} over "
+              f"{FM_F32_RTOL:g} x max(1, max |ref|)")
+    print(f"  f32 B=2 S=2048 H=16 D=64 documents: kernels vs plain o / dq / "
+          f"dk / dv worst {worst:.4f} of {FM_F32_RTOL:g} x max(1, max |ref|);"
+          f" launches {counts[:3]}", flush=True)
+    torch.cuda.empty_cache()
+    return {"worst_over_allowed": worst, "launches": list(counts[:3])}
+
+
+def phase_twopass(torch):
+    """The two-pass backward at the flagship shape: 24 calls counted (one
+    step's worth of attention backward), then each element against
+    ``flash_bwd_plain``, then its time beside the fused backward and SDPA's
+    backward share."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    b, s, h, d = 8, 2048, 16, 64
+    q, k, v, do = fm_inputs(torch, gen, b, s, h, h, d, torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, True)
+    fa.flash_bwd_twopass(q, k, v, ro, rlse, do, scale, True)   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(L):
+        grads = fa.flash_bwd_twopass(q, k, v, ro, rlse, do, scale, True)
+    torch.cuda.synchronize()
+    counts = read_flashmask_counts()
+    check(counts == (0, 0, 0, L, L), f"two-pass launches {counts} (want "
+          f"{L} dq and {L} dk-dv)")
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, True)
+    torch.cuda.synchronize()
+    gerr, gratio, worst = 0.0, 0.0, "dq"
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+        if ratio >= gratio:
+            worst = gname
+        gerr, gratio = max(gerr, e), max(gratio, ratio)
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "two-pass: non-finite gradients")
+    check(gratio <= 1.0, f"two-pass bwd: {worst} max abs err {gerr}, an "
+          f"element off by {gratio:.2f}x its allowance")
+    del refs
+
+    def twopass():
+        return fa.flash_bwd_twopass(q, k, v, ro, rlse, do, scale, True)
+
+    ms = time_ms(twopass, iters=10)
+    ms_dq, ms_dkv = bwd_stage_ms(torch, fm.MODE_TWOPASS, q, k, v, ro, rlse,
+                                 do, None, None, scale, True, 10)
+    ms_fused = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
+                                            True), iters=10)
+    ms2 = time_ms(twopass, iters=10)
+    pl = time_ms(lambda: fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale,
+                                            True), iters=3, warmup=1)
+    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
+    lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale), iters=10)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+
+    def sdpa_fb():
+        out = Fn.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              scale=scale)
+        torch.autograd.grad(out, leaves, do4)
+
+    lib_fb = time_ms(sdpa_fb, iters=10)
+    pairs = b * h * s * (s + 1) // 2
+    qkvo = 4 * b * h * s * d * 2
+    bwd_in = qkvo + b * h * s * d * 2 + b * h * s * 4   # q k v o do, lse
+    dq_ms, dq_by = bound(bwd_in + b * h * s * d * 2, 4 * d * pairs)
+    dkv_ms, dkv_by = bound(bwd_in + 2 * b * h * s * d * 2, 4 * d * pairs)
+    name = "flagship_b8_s2048_h16_d64"
+    print(f"  two-pass bwd[{name}]: err {gerr:.3e} (worst {gratio:.3f}, in "
+          f"{worst}, of atol {FLASH_GRAD_ATOL:g} + 2 bf16 ulps); launches "
+          f"dq / dk-dv {counts[3:]}; kernels {ms:.4f} ms (again {ms2:.4f}; "
+          f"dq {ms_dq:.4f} + dk/dv {ms_dkv:.4f} alone) vs fused backward "
+          f"{ms_fused:.4f} ms; plain {pl:.4f} ms; bound {dq_ms:.4f} + "
+          f"{dkv_ms:.4f} ms; sdpa bwd share {lib_fb - lib_f:.4f} ms",
+          flush=True)
+    rows = {}
+    for key, kms, b_ms, b_by in (("dq", ms_dq, dq_ms, dq_by),
+                                 ("dkv", ms_dkv, dkv_ms, dkv_by)):
+        rows[key] = [dict(
+            case=name, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
+            worst_err_over_allowed=gratio, ms=kms, bwd_ms=ms,
+            bwd_ms_again=ms2, fused_bwd_ms=ms_fused, plain_ms=pl,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_fb - lib_f, sdpa_fwd_bwd_ms=lib_fb,
+            plain_note="plain_ms and library_ms cover dq, dk and dv")]
+    del q, k, v, do, ro, rlse, grads, leaves
+    torch.cuda.empty_cache()
+    return rows, counts[3:]
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -1305,6 +1791,15 @@ def main():
     print("phase 12: f32 training parity with both options, full width, L=2",
           flush=True)
     fused_parity = phase_train_parity(torch, FUSED_OPTIONS)
+    print("phase 13: FlashMask kernels against their plain versions (bf16), "
+          f"then {L} layers' FlashMask attention", flush=True)
+    fm_rows = phase_flashmask(torch)
+    fm_step = phase_flashmask_step(torch)
+    print("phase 14: FlashMask in f32, B=2 S=2048", flush=True)
+    fm_f32 = phase_flashmask_f32(torch)
+    print("phase 15: the two-pass flash backward at the flagship shape (A/B "
+          "against the fused backward)", flush=True)
+    tp_rows, tp_launches = phase_twopass(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -1340,6 +1835,23 @@ def main():
             f"paddle_tpu/ops/pallas/blockwise_ce.py:{line}",
             fused_stats["ce_launches"][i], ce_rows[key],
             "flagship_t16384_h1024_v32000"))
+    fm_main = flashmask_specs()[0][0]
+    for i, (key, line) in enumerate((("fwd", 69), ("dq", 123),
+                                     ("dkv", 170))):
+        kernels.append(kernel_entry(
+            "flashmask_" + ("fwd" if key == "fwd" else f"bwd_{key}"),
+            "paddle_tpu_torch/csrc/flashmask.cu",
+            f"paddle_tpu/ops/pallas/flashmask.py:{line}",
+            fm_step["launches"][i], fm_rows[key], fm_main))
+    for i, (key, line) in enumerate((("dq", 316), ("dkv", 370))):
+        kernels.append(kernel_entry(
+            f"flash_bwd_twopass_{key}", "paddle_tpu_torch/csrc/flashmask.cu",
+            f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            tp_launches[i], tp_rows[key], "flagship_b8_s2048_h16_d64"))
+    check(len(kernels) == 12 and all(e["launches"] > 0 for e in kernels),
+          f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
+    print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
+          f"{json.dumps(fm_f32)}", flush=True)
     print(f"card: {card}; serve: {json.dumps(serve_stats)}; int4 serve: "
           f"{json.dumps(int4_stats)}", flush=True)
     print(f"card: {card}; forward: {json.dumps(fwd_stats)}; train: "

@@ -38,7 +38,8 @@
 // Design. Tiles of 64 query rows by 64 keys, 256 threads as a 16 x 16
 // grid; every thread holds a small register tile of each product and the
 // operands are staged in shared memory as f32 (row padding of 4 floats
-// keeps float4 reads aligned and the column walks free of bank conflicts).
+// keeps float4 reads aligned and the column walks free of bank conflicts;
+// the tile helpers are in flash_tiles.cuh, shared with flashmask.cu).
 //   Forward: one block per (bh, q tile) walks the k tiles up to the
 //   diagonal (tiles strictly above it are skipped, :141). A thread's
 //   score rows are also its output rows, so m / l / the [rows, D]
@@ -66,35 +67,13 @@
 // (67 TFLOP/s peak, not the 989 of bf16 tensor cores); mma / wgmma tiles
 // are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block: 16 x 16
 constexpr int BQ = 64;           // forward: query rows per tile
 constexpr int BQB = 32;          // backward: query rows per tile
 constexpr int BK = 64;           // key rows per tile
-constexpr int PAD = 4;           // row padding in floats
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
-
-// v rounded to T and back: the value a cast to the dtype leaves
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
 
 // Neox rotation of a tile held as f32 in shared memory, element (r, d) at
 // X[r * RS + d * DS], for the sequence rows [row0, row0 + rows): each
@@ -145,83 +124,6 @@ __device__ __forceinline__ void rope_bwd_regs(float (&x)[R][RD],
                         : __fsub_rn(__fmul_rn(x[ii][dd], c), __fmul_rn(other, s));
     }
   }
-}
-
-// rows [row0, row0 + rows) of a [total, D] matrix into dst[r * LD + d]
-// (transpose: dst[d * LD + r]) as f32; rows past the end are zeros
-template <typename T, int D, int LD, bool TRANSPOSE>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int rows, int total) {
-  for (int i = threadIdx.x; i < rows * D; i += NT) {
-    const int r = i / D, d = i % D, gr = row0 + r;
-    const float v = gr < total ? to_f(src[(size_t)gr * D + d]) : 0.f;
-    if (TRANSPOSE) dst[d * LD + r] = v;
-    else dst[r * LD + d] = v;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[i];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) p[i] = v[i];
-  }
-}
-
-// c[ii][jj] += sum_kk A(i, kk) * B(kk, j) for the thread's rows
-// i = ty * RI + ii and columns j = tx * RJ + jj. B is stored [kk][j] with
-// row stride LDB. A is stored [i][kk] (A_COL false, stride LDA) or
-// [kk][i] (A_COL true).
-template <int RI, int RJ, int KD, int LDA, int LDB, bool A_COL>
-__device__ __forceinline__ void tile_mma(float (&c)[RI][RJ], const float* A,
-                                         const float* B, int ty, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < KD; ++kk) {
-    float a[RI], b[RJ];
-    if constexpr (A_COL) {
-      load_vec<RI>(a, A + kk * LDA + ty * RI);
-    } else {
-#pragma unroll
-      for (int ii = 0; ii < RI; ++ii) a[ii] = A[(ty * RI + ii) * LDA + kk];
-    }
-    load_vec<RJ>(b, B + kk * LDB + tx * RJ);
-#pragma unroll
-    for (int ii = 0; ii < RI; ++ii) {
-#pragma unroll
-      for (int jj = 0; jj < RJ; ++jj) c[ii][jj] = fmaf(a[ii], b[jj], c[ii][jj]);
-    }
-  }
-}
-
-// reductions over the 16 threads that share a row (one half-warp)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <typename T, int D>
@@ -328,23 +230,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int dd = 0; dd < RD; ++dd) orow[dd] = from_f<T>(acc[ii][dd] / lz);
     if (tx == 0) lse[(size_t)bh * Sq + row] = m[ii] + logf(lz);
   }
-}
-
-// delta[r] = sum_d do[r, d] * o[r, d] in f32, one warp per row
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int D) {
-  const int row = blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    acc += to_f(dout[(size_t)row * D + d]) * to_f(o[(size_t)row * D + d]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
 }
 
 template <typename T, int D>
@@ -466,12 +351,6 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <typename T, int D>
 int fwd_t(const void* q, const void* k, const void* v, void* o, float* lse,
           const float* rcos, const float* rsin, int BH, int Sq, int Sk,
@@ -494,10 +373,7 @@ int bwd_t(const void* q, const void* k, const void* v, const void* o,
           void* dv, float* delta, const float* rcos, const float* rsin,
           int BH, int Sq, int Sk, float scale, int causal,
           cudaStream_t stream) {
-  const int rows = BH * Sq;
-  flash_bwd_delta_kernel<T><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, rows, D);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = launch_delta<T>(o, dout, delta, BH * Sq, D, stream);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = sizeof(float) *
       (2 * D * (BK + PAD) + BK * (D + PAD) + 2 * BQB * (D + PAD) + 2 * BQB * (BK + PAD));

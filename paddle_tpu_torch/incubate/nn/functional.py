@@ -1,6 +1,6 @@
-"""Fused decoder-stack op of the PyTorch port (counterpart of
-``paddle_tpu/incubate/nn/functional/__init__.py``: ``fused_multi_transformer``
-and its helpers).
+"""Fused decoder-stack op and FlashMask attention of the PyTorch port
+(counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``:
+``fused_multi_transformer`` and its helpers, ``flashmask_attention``).
 
 ``fused_multi_transformer`` keeps the JAX package's three branches and
 its cast points:
@@ -28,11 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops import flashmask as _fm
 from ...ops import paged_attention as _pa
 
 NEG_INF_F = -1e30
 
-__all__ = ["fused_multi_transformer", "quantize_int4"]
+__all__ = ["flashmask_attention", "fused_multi_transformer", "quantize_int4"]
 
 
 def _ln(h, eps, scale=None, bias=None):
@@ -400,3 +401,17 @@ def fused_multi_transformer(
         if not pre_layer_norm:
             h = norm(h, ffn_ln_scales[li], item(ffn_ln_biases, li))
     return h
+
+
+def flashmask_attention(query, key, value, startend_row_indices,
+                        causal=True):
+    """FlashMask attention (paddle's flashmask_attention; the JAX
+    package's :355-395), [B, S, H, D]. Key column j masks the query rows
+    [start_j, end_j) on top of the causal mask: ``startend_row_indices``
+    [B, MH, Sk, 1] gives start with end = S, [B, MH, Sk, 2] both; MH is
+    1, the kv head count or H. Goes to
+    ``ops.flashmask.flashmask_attention_bshd`` on every device: the CUDA
+    kernels for CUDA tensors, the plain versions for CPU tensors. The JAX
+    function's dense fallback (:368-392) computes the same function."""
+    return _fm.flashmask_attention_bshd(query, key, value,
+                                        startend_row_indices, causal=causal)

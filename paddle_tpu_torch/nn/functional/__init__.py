@@ -1,8 +1,9 @@
 """Functionals of the PyTorch port (counterpart of
-``paddle_tpu/nn/functional``): what the Llama model calls."""
+``paddle_tpu/nn/functional``): what the Llama model calls, and
+``flashmask_attention``."""
 from .activation import silu  # noqa: F401
 from .attention import (  # noqa: F401
-    flash_attention, scaled_dot_product_attention)
+    flash_attention, flashmask_attention, scaled_dot_product_attention)
 from .common import embedding, linear  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
 from .norm import rms_norm  # noqa: F401

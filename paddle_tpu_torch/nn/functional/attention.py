@@ -6,7 +6,10 @@ on every device: its wrappers launch the CUDA kernels for CUDA tensors
 and run the plain versions for CPU tensors. A kernel that fails to build
 or launch raises; there is no quiet fallback to another path.
 ``scaled_dot_product_attention`` with a mask runs ``_sdpa_ref`` in plain
-PyTorch, as the JAX package runs it in plain XLA.
+PyTorch, as the JAX package runs it in plain XLA, and so does
+``flashmask_attention`` with an index: the JAX package's form of it here
+materializes the mask and never reaches the FlashMask kernels (those are
+``incubate.nn.functional.flashmask_attention``'s).
 """
 import math
 
@@ -72,3 +75,32 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout is a later slice")
     return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal)
+
+
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=True):
+    """paddle's flashmask_attention as the JAX package's ``nn.functional``
+    has it (attention.py:142-167), [B, S, H, D]. With no index it is
+    ``flash_attention``. Otherwise column c keeps the query rows r <
+    start[c], the first index column ([B, 1 or H, S, 1 or 2]; a second
+    column is not read), ``tril`` is added when causal, and ``_sdpa_ref``
+    runs over the materialized mask, so a row that keeps no column gets
+    the plain softmax over its masked logits. A 2-column index therefore
+    means something else here than in
+    ``incubate.nn.functional.flashmask_attention``, which masks [start,
+    end): the JAX package has both, and so does the port (ROADMAP Queue
+    3)."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "flashmask_attention: dropout is a later slice")
+    if startend_row_indices is None:
+        out, _ = flash_attention(query, key, value, causal=causal)
+        return out
+    s = query.shape[1]
+    rows = torch.arange(s, device=query.device)[:, None]
+    start = startend_row_indices[..., 0].to(query.device)
+    keep = rows[None, None] < start[:, :, None, :]
+    if causal:
+        keep = keep & torch.ones((s, s), dtype=torch.bool,
+                                 device=query.device).tril()
+    return _sdpa_ref(query, key, value, mask=keep, causal=False)

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``paddle_tpu_torch/csrc/`` with a plain C
-interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library in ``paddle_tpu_torch/_build/`` at first use and loaded
-with ``ctypes``. The library's file name carries a hash of the source and
-the flags, so an edited source builds anew and an unchanged one loads
-from the build directory. A failed build raises.
+interface (headers there, ``*.cuh``, are shared between sources). It is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library in
+``paddle_tpu_torch/_build/`` at first use and loaded with ``ctypes``. The
+library's file name carries a hash of the source, the headers and the
+flags, so an edited source or header builds anew and an unchanged one
+loads from the build directory. A failed build raises.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
@@ -25,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("ragged_paged_attention", "weight_only_matmul", "flash_attention",
-           "blockwise_ce")
+           "blockwise_ce", "flashmask")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,8 +55,11 @@ def nvcc_path():
 
 def _lib_path(name):
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -22,7 +22,10 @@ the second products, delta = rowsum(do * o) in f32. With rope they
 rotate q and k in the input's dtype, as ``_rope_fwd`` (:58-66) does (the
 tables cast to that dtype, a rounding after each product and each sum),
 and counter-rotate the f32 dq and dk before the cast, as ``_rope_bwd``
-(:69-75) does.
+(:69-75) does. ``flash_bwd_twopass`` is the two-pass backward (the JAX
+package's A/B entry): the FlashMask backward kernels of
+``csrc/flashmask.cu`` without the interval, with ``flash_bwd_plain`` as
+its plain version.
 
 ``flash_attention_bshd`` is the [B, S, H, D] entry with a
 ``torch.autograd.Function`` around the pair. Grouped-query kv heads are
@@ -138,6 +141,17 @@ def _check(name, q, k, v, *more):
             raise ValueError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
 
 
+def _check_saved(name, q, o, lse, do):
+    """Refuse a saved o / lse or an upstream do the backward kernels do
+    not take."""
+    bh, sq, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, sq) \
+            or lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise ValueError(f"{name}: o and do must be shaped like q and lse a "
+                         f"contiguous float32 [{bh}, {sq}] on {q.device}")
+
+
 def _rope_ptrs(name, q, k, rope_cos, rope_sin):
     """The tables' device pointers (None, None without rope), after
     refusing tables the kernels do not take."""
@@ -200,14 +214,10 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check("flash_bwd", q, k, v, o, do)
+    _check_saved("flash_bwd", q, o, lse, do)
     rcos, rsin = _rope_ptrs("flash_bwd", q, k, rope_cos, rope_sin)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, sq) \
-            or lse.dtype != torch.float32 or lse.device != q.device \
-            or not lse.is_contiguous():
-        raise ValueError("flash_bwd: o and do must be shaped like q and lse "
-                         f"a contiguous float32 [{bh}, {sq}] on {q.device}")
     dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -230,6 +240,36 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
 
 flash_bwd.launches = 0
 flash_bwd.rope_launches = 0
+
+
+def flash_bwd_twopass(q, k, v, o, lse, do, scale, causal, rope_cos=None,
+                      rope_sin=None):
+    """(dq, dk, dv) from the two-pass backward (``_flash_bwd_twopass``
+    :485-550, kept for A/B measurement against ``flash_bwd``): a dq pass
+    over the k tiles and a dk / dv pass over the q tiles, with the same
+    dtype steps as the fused backward, so ``flash_bwd_plain`` is its plain
+    version. Refuses rope, as :491-494 does. A CPU tensor runs the plain
+    version; a CUDA tensor launches the no-interval instantiation of the
+    FlashMask backward kernels (``csrc/flashmask.cu``, counted in
+    ``flash_bwd_twopass.dq_launches`` and ``.dkv_launches``) or raises.
+    Nothing on the training path calls it."""
+    if rope_cos is not None or rope_sin is not None:
+        raise NotImplementedError(
+            "flash_bwd_twopass has no in-kernel rope; A/B with "
+            "fuse_rope_in_attention=False")
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_twopass: unsupported device {q.device}")
+    from . import flashmask as _fm
+    _check("flash_bwd_twopass", q, k, v, o, do)
+    _check_saved("flash_bwd_twopass", q, o, lse, do)
+    return _fm._bwd_kernels(flash_bwd_twopass, _fm.MODE_TWOPASS, q, k, v, o,
+                            lse, do, None, None, scale, causal)
+
+
+flash_bwd_twopass.dq_launches = 0
+flash_bwd_twopass.dkv_launches = 0
 
 
 @functools.cache

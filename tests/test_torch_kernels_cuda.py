@@ -358,3 +358,189 @@ def test_blockwise_ce_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                     # float64
         bc.ce_bwd_dw(h.double(), w.double(), lab, torch.zeros(8, device="cuda"),
                      torch.zeros(8, device="cuda"), -100)
+
+
+def _flashmask_bounds(kind, b, mh, s, seed):
+    """[B, MH, S] int32 (sr, er) of one mask kind: ``document`` (causal
+    packed documents: column j masks the rows past its document),
+    ``random`` (a seeded 2-column interval per column), ``dead`` (columns
+    below 64 masked for every row, so the first rows see nothing) and
+    ``live`` (empty intervals: plain causal attention)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        sr = rng.integers(0, s + 1, (b, mh, s))
+        er = sr + rng.integers(0, s // 2 + 1, (b, mh, s))
+    elif kind == "document":
+        sr = np.empty((b, mh, s), np.int64)
+        for i in range(b):
+            ends = np.cumsum(rng.integers(8, max(9, s // 3), s))
+            ends = np.minimum(ends[: np.searchsorted(ends, s) + 1], s)
+            sr[i] = ends[np.searchsorted(ends, np.arange(s), side="right")]
+        er = np.full_like(sr, s)
+    elif kind == "dead":
+        sr = np.where(np.arange(s) < 64, 0, s)[None, None].repeat(b, 0) \
+            .repeat(mh, 1)
+        er = np.full_like(sr, s)
+    else:
+        sr = np.full((b, mh, s), s)
+        er = sr.copy()
+    return (torch.as_tensor(sr.astype(np.int32)).cuda(),
+            torch.as_tensor(np.minimum(er, 2 ** 31 - 1).astype(np.int32))
+            .cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [64, 200, 1024])
+@pytest.mark.parametrize("kind,mh,causal", [("document", 1, True),
+                                            ("random", 3, False),
+                                            ("dead", 1, True),
+                                            ("live", 3, True)])
+def test_flashmask_kernels_match_plain(dtype, d, s, kind, mh, causal):
+    """Forward (o, lse) and backward (dq, dk, dv from the plain o / lse /
+    do) of the FlashMask kernels against the plain versions, 3 heads over
+    1 or 3 mask heads. Rows that see nothing: o, dq exactly 0, lse -1e30,
+    and the columns no row sees get exactly zero dk / dv. Empty intervals
+    give plain causal flash attention."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
+    q, k, v, do = _flash_inputs(3, s, s, d, dtype, s + d + mh)
+    sr, er = _flashmask_bounds(kind, 1, mh, s, s + d)
+    scale = d ** -0.5
+    n0 = (fm.flashmask_fwd.launches, fm.flashmask_bwd.dq_launches,
+          fm.flashmask_bwd.dkv_launches)
+    o, lse = fm.flashmask_fwd(q, k, v, sr, er, scale, causal)
+    ro, rlse = fm.flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
+    grads = fm.flashmask_bwd(q, k, v, ro, rlse, do, sr, er, scale, causal)
+    refs = fm.flashmask_bwd_plain(q, k, v, ro, rlse, do, sr, er, scale,
+                                  causal)
+    torch.cuda.synchronize()
+    assert (fm.flashmask_fwd.launches, fm.flashmask_bwd.dq_launches,
+            fm.flashmask_bwd.dkv_launches) == tuple(n + 1 for n in n0)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert float((o.float() - ro.float()).abs().max()) <= _tol(ro, dtype)
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+    if kind == "dead":
+        assert not bool(o[:, :64].any()) and not bool(grads[0][:, :64].any())
+        assert not bool(grads[1][:, :64].any())
+        assert not bool(grads[2][:, :64].any())
+        assert bool((lse[:, :64] == -1e30).all())
+    if kind == "live":
+        fo, flse = fa.flash_fwd_plain(q.float(), k.float(), v.float(), scale,
+                                      True)
+        assert float((ro.float() - fo).abs().max()) <= _tol(fo, dtype)
+
+
+def _dense_flashmask(q, k, v, sr, er, causal):
+    """Autograd reference in f32 over [B, S, H, D] with [B, MH, S] bounds,
+    kv heads and mask heads repeated up to H."""
+    b, s, h, d = q.shape
+    k = torch.repeat_interleave(k, h // k.shape[2], dim=2)
+    v = torch.repeat_interleave(v, h // v.shape[2], dim=2)
+    sr = torch.repeat_interleave(sr, h // sr.shape[1], dim=1)
+    er = torch.repeat_interleave(er, h // er.shape[1], dim=1)
+    rows = torch.arange(s, device=q.device)[:, None]
+    vis = ~((rows >= sr[:, :, None, :]) & (rows < er[:, :, None, :]))
+    if causal:
+        vis &= rows >= torch.arange(s, device=q.device)[None, :]
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * d ** -0.5
+    p = torch.softmax(logits.masked_fill(~vis, float("-inf")), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, v)
+
+
+@pytest.mark.parametrize("h,kvh,mh", [(8, 8, 1), (8, 4, 4), (8, 2, 8),
+                                      (8, 2, 1)])
+@pytest.mark.parametrize("two_col", [False, True])
+def test_flashmask_autograd_matches_plain_autograd(h, kvh, mh, two_col):
+    """The [B, S, H, D] entry (kernel forward and backward, kv heads
+    repeated and their grads summed, mask heads read in the kernel, int64
+    indices cast) against autograd through a dense f32 mask."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(h + kvh + mh)
+    b, s, d = 2, 150, 64
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    k = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    v = torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+    g = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    sr, er = _flashmask_bounds("document", b, mh, s, mh)
+    if two_col:                  # the document's rows reopen 40 rows later
+        er = torch.minimum(sr + 40, torch.full_like(sr, s))
+    idx = (torch.stack([sr, er], -1) if two_col else sr[..., None]).long()
+    outs = []
+    for fn in (lambda *a: fm.flashmask_attention_bshd(*a, idx, causal=True),
+               lambda *a: _dense_flashmask(*a, sr, er, True)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(g)
+        outs.append([out.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        assert got.shape == want.shape, name
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (130, 130, False),
+                                          (37, 200, False), (200, 77, True)])
+def test_flash_bwd_twopass_matches_plain(dtype, d, sq, sk, causal):
+    """The two-pass backward (the no-interval instantiation of the
+    FlashMask backward kernels) against ``flash_bwd_plain``, its plain
+    version, from the same o / lse / do."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(3, sq, sk, d, dtype, sq + sk + d + 1)
+    scale = d ** -0.5
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    n0 = fa.flash_bwd_twopass.dq_launches, fa.flash_bwd_twopass.dkv_launches
+    grads = fa.flash_bwd_twopass(q, k, v, ro, rlse, do, scale, causal)
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_twopass.dq_launches,
+            fa.flash_bwd_twopass.dkv_launches) == (n0[0] + 1, n0[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+
+
+def test_flashmask_wrappers_refuse_what_the_kernels_do_not_take():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
+    q = torch.zeros(4, 16, 64, device="cuda")
+    sr = torch.zeros(2, 1, 16, dtype=torch.int32, device="cuda")
+    fm.flashmask_fwd(q, q, q, sr, sr, 1.0, True)
+    with pytest.raises(ValueError):                     # int64 bounds
+        fm.flashmask_fwd(q, q, q, sr.long(), sr.long(), 1.0, True)
+    with pytest.raises(ValueError):                     # [B, MH, Sk + 1]
+        bad = torch.zeros(2, 1, 17, dtype=torch.int32, device="cuda")
+        fm.flashmask_fwd(q, q, q, bad, bad, 1.0, True)
+    with pytest.raises(ValueError):                     # H = 2, MH = 3
+        bad = torch.zeros(2, 3, 16, dtype=torch.int32, device="cuda")
+        fm.flashmask_fwd(q, q, q, bad, bad, 1.0, True)
+    with pytest.raises(ValueError):                     # bounds on the CPU
+        fm.flashmask_fwd(q, q, q, sr.cpu(), sr.cpu(), 1.0, True)
+    q48 = torch.zeros(4, 16, 48, device="cuda")         # head dim 48
+    with pytest.raises(ValueError):
+        fm.flashmask_fwd(q48, q48, q48, sr, sr, 1.0, True)
+    o, lse = fm.flashmask_fwd(q, q, q, sr, sr, 1.0, True)
+    with pytest.raises(ValueError):                     # lse of another shape
+        fm.flashmask_bwd(q, q, q, o, lse[:, :8], o, sr, sr, 1.0, True)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        fm.flashmask_bwd(q, q, q, o.half(), lse, o, sr, sr, 1.0, True)
+    x = torch.zeros(2, 16, 2, 64, device="cuda")
+    with pytest.raises(ValueError):                     # a float index
+        fm.flashmask_attention_bshd(x, x, x, torch.zeros(2, 1, 16, 1,
+                                                         device="cuda"))
+    with pytest.raises(ValueError):                     # 3 columns
+        fm.flashmask_attention_bshd(x, x, x, torch.zeros(
+            2, 1, 16, 3, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):                     # mixed dtypes
+        fa.flash_bwd_twopass(q, q, q, o.half(), lse, o, 1.0, True)

@@ -82,9 +82,28 @@ def test_kernel_sources_and_lazy_build():
             text = f.read()
         assert "sm_90a" in text and 'extern "C"' in text
         assert "paddle_tpu/ops/pallas/" in text   # names the TPU kernel
+    assert "flashmask" in _build.SOURCES
     # importing the ops built nothing
     assert _build._libs == {}
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_an_edited_shared_header_renames_every_library(tmp_path, monkeypatch):
+    """csrc/*.cuh is hashed into each library's file name, so editing a
+    shared header rebuilds every source instead of loading a stale
+    library."""
+    import shutil
+    from paddle_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    before = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    assert (csrc / "flash_tiles.cuh").exists()
+    with open(csrc / "flash_tiles.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._lib_path(n)[1] for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    assert after == {n: _build._lib_path(n)[1] for n in _build.SOURCES}
 
 
 def _tiny_weights():
