@@ -68,6 +68,23 @@ Phases (any failure exits non-zero and prints no result line):
  15. the two-pass flash backward (the FlashMask backward kernels without
      the interval) against ``flash_bwd_plain`` at the flagship shape, 24
      calls counted, timed beside the fused backward and SDPA's;
+ 16. the legacy paged decode kernel against its plain version (bf16, and
+     f32 for one case): serve_bench's ragged-leg shape (B=8, BS=64,
+     lens 1-448), the serving cache (BS=16, 257 blocks), MHA 16/16, and
+     rows at ctx 0 and past the table's capacity with -1 ids past the
+     last used block; then 64 decode steps x 24 layers of
+     ``incubate.nn.functional.block_multihead_attention`` at B=8 over
+     the serving cache (exactly 24 launches per step, the last step's
+     outputs and the caches against a plain-route run), timed beside
+     ``ragged_paged_attention`` on the same caches (serve_bench's legacy
+     A/B tolerance, 2e-2);
+ 17. the int8 weight-only GEMM against its plain version at the serving
+     projections (M = 8, 128, 512); int8 serving at full width in bf16
+     (first-step logits against a bf16 engine built from the dequantized
+     int8 weights, 6 requests with 4 x 24 int8 launches per paged step,
+     a profiled window); dense ``generate()`` at bench.py's int8 leg
+     (B=8, 16-token prompts, 64 new tokens) beside bf16 and int4 on the
+     same weights; f32 int8 tokens at L=2 against the plain route;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -387,7 +404,9 @@ def reset_counts():
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     pa.ragged_paged_attention.launches = 0
+    pa.paged_attention.launches = 0
     qm.weight_only_matmul.launches = 0
+    qm.weight_only_matmul.int8_launches = 0
     fa.flash_fwd.launches = fa.flash_fwd.rope_launches = 0
     fa.flash_bwd.launches = fa.flash_bwd.rope_launches = 0
     fa.flash_bwd_twopass.dq_launches = fa.flash_bwd_twopass.dkv_launches = 0
@@ -401,6 +420,13 @@ def read_counts():
     from paddle_tpu_torch.ops import quant_matmul as qm
     return (pa.ragged_paged_attention.launches,
             qm.weight_only_matmul.launches)
+
+
+def read_decode_counts():
+    """(legacy paged decode, int8 GEMM) launches."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    return pa.paged_attention.launches, qm.weight_only_matmul.int8_launches
 
 
 def read_flash_counts():
@@ -470,8 +496,12 @@ def _kernel_class(name):
         return "flashmask"
     if "ragged_kernel" in n:
         return "ragged_attention"
+    if "paged_decode_kernel" in n:
+        return "paged_decode_attention"
     if "int4_kernel" in n:
         return "int4_gemm"
+    if "int8_kernel" in n:
+        return "int8_gemm"
     if "flash_fwd_kernel" in n:
         return "flash_fwd"
     if "flash_bwd" in n:
@@ -555,8 +585,9 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
-def dequantized_weights(eng_q, weights):
-    """Float weights equal to the int4 engine's dequantized matrices."""
+def dequantized_weights(eng_q, weights, quant="int4"):
+    """Float weights equal to the int4 (or int8) engine's dequantized
+    matrices."""
     from paddle_tpu_torch.inference import _PROJECTIONS
     from paddle_tpu_torch.ops.quant_matmul import unpack_int4_blocked
     mm = eng_q._kw["_mm"]
@@ -564,8 +595,9 @@ def dequantized_weights(eng_q, weights):
     for kind, key in _PROJECTIONS:
         mats = []
         for li, pk in enumerate(eng_q._w[key]):
-            deq = (unpack_int4_blocked(pk, mm.blocks[kind]).float()
-                   * mm.scales[kind][li][None, :]).cpu().numpy()
+            vals = unpack_int4_blocked(pk, mm.blocks[kind]) \
+                if quant == "int4" else pk
+            deq = (vals.float() * mm.scales[kind][li][None, :]).cpu().numpy()
             mats.append(deq.T.reshape(weights[key][li].shape)
                         if kind == "qkv" else deq)
         out[key] = mats
@@ -1709,6 +1741,425 @@ def phase_twopass(torch):
     return rows, counts[3:]
 
 
+# -- phase 16: legacy paged decode attention ---------------------------------
+
+DECODE_ATOL = 1e-5      # f32 summation noise: kernel and plain version take
+                        # the same f32 products, online-softmax steps and
+                        # p @ v in another order; on top of it one unit in
+                        # the last place of the output type at max(|out|,
+                        # |ref|), since each side rounds its f32 result
+                        # once (at most half an ulp each)
+AB_TOL = 2e-2           # legacy vs ragged kernel (serve_bench.py:233-239)
+DECODE_STEPS = 64
+
+
+def ulp_agreement(out, ref, atol):
+    """(max abs error, largest error over its allowance): per element,
+    atol plus one ulp of the output type at max(|out|, |ref|)."""
+    mant = {"torch.float32": 23, "torch.bfloat16": 7,
+            "torch.float16": 10}[str(out.dtype)]
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    mag = o.abs().maximum(r.abs()).clamp_min(2.0 ** -126)
+    allowed = atol + (mag.log2().floor() - mant).exp2()
+    return float(err.max()), float((err / allowed).max())
+
+
+def decode_tables(rng, b, max_nb, nb, lens, bs, free_tail=False):
+    """Distinct blocks 1..nb-1 per row (block 0 parks), [b, max_nb] int32;
+    with ``free_tail`` the entries past each row's last used block are -1."""
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = perm[:b * max_nb].reshape(b, max_nb).copy()
+    if free_tail:
+        used = np.minimum(-(-lens // bs), max_nb)
+        for i in range(b):
+            tables[i, used[i]:] = -1
+    return tables
+
+
+def decode_cases():
+    """(name, B, H, KVH, BS, NB, max_nb, lens, dtype name, free tail) of
+    phase 16's kernel cases."""
+    rng = np.random.default_rng(16)
+    lens_b = rng.integers(1, SMAX + 1, MAX_BATCH).astype(np.int32)
+    maxnb = SMAX // BS
+    return [
+        ("a_serve_bench_bs64", 8, H, KVH, 64, 8 * 7 + 1, 7,
+         np.array([448, 64, 192, 27, 448, 1, 320, 100], np.int32),
+         "bfloat16", False),
+        ("a_serve_bench_bs64_f32", 8, H, KVH, 64, 8 * 7 + 1, 7,
+         np.array([448, 64, 192, 27, 448, 1, 320, 100], np.int32),
+         "float32", False),
+        ("b_serving_cache", MAX_BATCH, H, KVH, BS, NUM_BLOCKS, maxnb,
+         lens_b, "bfloat16", False),
+        ("c_mha_16_16", MAX_BATCH, H, H, BS, NUM_BLOCKS, maxnb, lens_b,
+         "bfloat16", False),
+        ("d_ctx0_and_capacity", MAX_BATCH, H, KVH, BS, NUM_BLOCKS, maxnb,
+         np.array([0, SMAX, SMAX + 88, 33, 1, 250, BS, BS + 1], np.int32),
+         "bfloat16", True),
+    ]
+
+
+def decode_work(lens, bs, max_nb, b, h, kvh, itemsize):
+    """Bytes and flops the case's data needs: the KV of each row's first
+    min(ctx, max_nb * BS) positions read once per kv head, the table
+    entries of the blocks used, q read and out written once; 4*D flops per
+    (query head, key)."""
+    toks = int(np.minimum(lens.astype(np.int64), max_nb * bs).sum())
+    blocks = int(np.minimum(-(-lens.astype(np.int64) // bs), max_nb).sum())
+    nbytes = (toks * kvh * D * itemsize * 2 + 2 * b * h * D * itemsize
+              + blocks * 4 + b * 4)
+    return nbytes, 4 * D * h * toks
+
+
+def phase_paged_decode(torch):
+    """Phase 16: the legacy decode kernel against its plain version, then
+    the fused op at full width. Returns (kernel rows, op stats)."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rows = []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rng = np.random.default_rng(160)
+    for (name, b, h, kvh, bs, nb, max_nb, lens, dt, free_tail) in \
+            decode_cases():
+        dtype = getattr(torch, dt)
+        kc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
+            dtype)
+        vc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
+            dtype)
+        q = torch.randn(b, h, D, device="cuda", generator=gen).to(dtype)
+        tables = decode_tables(rng, b, max_nb, nb, lens, bs, free_tail)
+        tab_d = torch.as_tensor(tables).cuda()
+        lens_d = torch.as_tensor(lens).cuda()
+        out = pa.paged_attention(q, kc, vc, tab_d, lens_d)
+        ref = pa.paged_attention_plain(q, kc, vc, tab_d, lens_d)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"decode {name}: non-finite")
+        zero = lens == 0
+        check(not zero.any() or float(out[torch.as_tensor(zero).cuda()]
+                                      .float().abs().max()) == 0.0,
+              f"decode {name}: a ctx-0 row is not exactly zero")
+        err, ratio = ulp_agreement(out, ref, DECODE_ATOL)
+        check(ratio <= 1.0, f"decode {name}: max abs err {err}, an element "
+              f"off by {ratio:.2f}x its allowance")
+        ms = time_ms(lambda: pa.paged_attention(q, kc, vc, tab_d, lens_d))
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(
+            q, kc, vc, tab_d, lens_d), iters=10)
+        nbytes, flops = decode_work(lens, bs, max_nb, b, h, kvh,
+                                    q.element_size())
+        b_ms, b_by = bound(nbytes, flops)
+        # library yardstick: SDPA over the gathered dense context with the
+        # ctx mask (timed only; the port never calls it)
+        tl = torch.as_tensor(tables, dtype=torch.long).cuda().clamp(0, nb - 1)
+        span = max_nb * bs
+        kg = kc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
+        vg = vc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
+        kg = kg.repeat_interleave(h // kvh, 1).contiguous()
+        vg = vg.repeat_interleave(h // kvh, 1).contiguous()
+        mask = (torch.arange(span, device="cuda")[None, :]
+                < lens_d[:, None])[:, None, None, :]
+        q4 = q[:, :, None]
+        lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask))
+        del kg, vg
+        rows.append(dict(case=name, max_abs_err=err, atol=DECODE_ATOL,
+                         worst_err_over_allowed=ratio, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+        print(f"  paged_decode_attention[{name}]: err {err:.3e} (worst "
+              f"{ratio:.3f} of atol {DECODE_ATOL:g} + 1 ulp) kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+              f"({b_by}) sdpa {lib_ms:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return rows, decode_op_run(torch, pa)
+
+
+def decode_op_run(torch, pa):
+    """64 decode steps x 24 layers of block_multihead_attention at B=8 over
+    the serving cache (case (b)'s tables and starting lengths; rows that
+    reach the table's capacity have their writes dropped and still
+    attend), against a plain-route run and the ragged kernel."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    (_, b, h, kvh, bs, nb, max_nb, lens0, _, _) = decode_cases()[2]
+    rng = np.random.default_rng(161)
+    tables = decode_tables(rng, b, max_nb, nb, lens0, bs)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(161)
+    caches = [(torch.randn(kvh, nb, bs, D, device="cuda",
+                           generator=gen).bfloat16(),
+               torch.randn(kvh, nb, bs, D, device="cuda",
+                           generator=gen).bfloat16()) for _ in range(L)]
+    start = [(k.clone(), v.clone()) for k, v in caches]
+    qkv = torch.randn(DECODE_STEPS, L, b, 3, h, D, device="cuda",
+                      generator=gen).bfloat16()
+
+    def run(cs, steps=DECODE_STEPS):
+        outs = None
+        for step in range(steps):
+            lens = lens0 + step
+            outs = [TF.block_multihead_attention(qkv[step, li], *cs[li],
+                                                 tables, lens)[0]
+                    for li in range(L)]
+        return outs
+
+    TF.block_multihead_attention(qkv[0, 0].clone(), *[c.clone() for c in
+                                                      caches[0]],
+                                 tables, lens0)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = run(caches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k7, int8 = read_decode_counts()
+    attn, int4 = read_counts()
+    check(k7 == L * DECODE_STEPS, f"decode kernel launched {k7} times in "
+          f"{DECODE_STEPS} steps (want {L * DECODE_STEPS})")
+    check((attn, int4, int8) == (0, 0, 0), f"other kernels launched "
+          f"{(attn, int4, int8)} in the decode-op run")
+    saved = pa.paged_attention
+    pa.paged_attention = pa.paged_attention_plain
+    try:
+        t1 = time.perf_counter()
+        refs = run(start)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t1
+    finally:
+        pa.paged_attention = saved
+    check(all(torch.equal(a, c) and torch.equal(bb, d)
+              for (a, bb), (c, d) in zip(caches, start)),
+          "decode op: caches differ from the plain-route run")
+    worst, werr = 0.0, 0.0
+    for o, r in zip(outs, refs):
+        err, ratio = ulp_agreement(o, r, DECODE_ATOL)
+        worst, werr = max(worst, ratio), max(werr, err)
+    check(worst <= 1.0, f"decode op: last step off the plain route by "
+          f"{werr} ({worst:.2f}x the allowance)")
+    # the legacy A/B: the ragged kernel on the same caches and lengths
+    lens_last = lens0 + DECODE_STEPS          # after the last append
+    q_last = qkv[DECODE_STEPS - 1, :, :, 0]   # [L, B, H, D]
+    tab_d = torch.as_tensor(tables).cuda()
+    lens_d = torch.as_tensor(lens_last).cuda()
+    ab = 0.0
+    for li in range(L):
+        kc, vc = caches[li]
+        q = q_last[li].contiguous()
+        rg = pa.ragged_paged_attention(q, kc, vc, tab_d, lens_d).float()
+        lg = pa.paged_attention(q, kc, vc, tab_d, lens_d).float()
+        check(torch.allclose(lg, rg, rtol=AB_TOL, atol=AB_TOL),
+              f"layer {li}: legacy vs ragged off by "
+              f"{float((lg - rg).abs().max())}")
+        ab = max(ab, float((lg - rg).abs().max()))
+    q = q_last[0].contiguous()
+    kc, vc = caches[0]
+    legacy_ms = time_ms(lambda: pa.paged_attention(q, kc, vc, tab_d, lens_d))
+    ragged_ms = time_ms(lambda: pa.ragged_paged_attention(q, kc, vc, tab_d,
+                                                          lens_d))
+    legacy_ms2 = time_ms(lambda: pa.paged_attention(q, kc, vc, tab_d,
+                                                    lens_d))
+    print(f"  block_multihead_attention: {DECODE_STEPS} steps x {L} layers "
+          f"at B={b} in {wall:.3f} s ({wall / DECODE_STEPS * 1e3:.2f} "
+          f"ms/step; plain route {plain_wall:.3f} s); decode kernel "
+          f"launches {k7} = {L} x {DECODE_STEPS}; last step vs plain "
+          f"route err {werr:.3e} (worst {worst:.3f}); caches equal", flush=True)
+    print(f"  legacy vs ragged at the last step: max |diff| {ab:.3e} (tol "
+          f"{AB_TOL:g}); one layer's call: legacy {legacy_ms:.4f} ms (again "
+          f"{legacy_ms2:.4f}), ragged {ragged_ms:.4f} ms", flush=True)
+    n_prof = min(8, DECODE_STEPS)        # the trace's size bounds its cost
+    profile = profile_window(torch, lambda: (run(caches, n_prof), n_prof)[1],
+                             "decode steps")
+    del caches, start, qkv, outs, refs
+    torch.cuda.empty_cache()
+    return {"steps": DECODE_STEPS, "launches": k7, "wall_s": wall,
+            "ms_per_step": wall / DECODE_STEPS * 1e3,
+            "plain_route_wall_s": plain_wall, "worst_over_allowed": worst,
+            "legacy_vs_ragged_max_diff": ab, "legacy_ms": legacy_ms,
+            "legacy_ms_again": legacy_ms2, "ragged_ms": ragged_ms,
+            "profile": profile}
+
+
+# -- phase 17: int8 serving ---------------------------------------------------
+
+INT8_ATOL = 1e-4        # f32 sums of the same exact products in another
+                        # order, then the same f32 scale; two bf16 ulps of
+                        # |ref| on top, as for int4
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route the engine's weight-only GEMM through the plain version on the
+    card (the reference path of phase 17's f32 parity); restores it."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    saved = inference.weight_only_matmul
+    inference.weight_only_matmul = qm.weight_only_matmul_plain
+    try:
+        yield
+    finally:
+        inference.weight_only_matmul = saved
+
+
+def int8_kernel_rows(torch):
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rows = []
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    for m in (8, 128, 512):
+        for k, n in ((E, (H + 2 * KVH) * D), (H * D, E), (E, 2 * F), (F, E)):
+            w = rng.standard_normal((k, n), dtype=np.float32) * 0.02
+            sc = np.abs(w).max(0) / 127.0 + 1e-9
+            q = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+            bn = qm.pick_block_n(n, "int8")
+            w8 = torch.as_tensor(q).cuda()
+            s = torch.as_tensor(sc.astype(np.float32)).cuda()
+            x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+            out = qm.weight_only_matmul(x, w8, s, "int8", bn)
+            ref = qm.weight_only_matmul_plain(x, w8, s, "int8", bn)
+            torch.cuda.synchronize()
+            err, ratio = bf16_agreement(out, ref, INT8_ATOL)
+            name = f"M{m}_K{k}_N{n}"
+            check(ratio <= 1.0, f"int8 {name}: max abs err {err}, an "
+                  f"element off by {ratio:.2f}x its allowance")
+            ms = time_ms(lambda: qm.weight_only_matmul(x, w8, s, "int8", bn))
+            plain_ms = time_ms(lambda: qm.weight_only_matmul_plain(
+                x, w8, s, "int8", bn), iters=20)
+            s16 = s.bfloat16()
+            lib_ms = time_ms(lambda: x @ (w8.to(torch.bfloat16) * s16))
+            wdq = w8.to(torch.bfloat16) * s16
+            mm_ms = time_ms(lambda: torch.matmul(x, wdq))
+            del wdq
+            b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                               2 * m * n * k)
+            rows.append(dict(case=name, max_abs_err=err, atol=INT8_ATOL,
+                             worst_err_over_allowed=ratio, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms, bf16_matmul_ms=mm_ms))
+            print(f"  weight_only_int8[{name}]: err {err:.3e} (worst "
+                  f"{ratio:.3f} of atol {INT8_ATOL:g} + 2 bf16 ulps) kernel "
+                  f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+                  f"({b_by}) dequant+matmul {lib_ms:.4f} ms (matmul on a "
+                  f"bf16 copy {mm_ms:.4f})", flush=True)
+    return rows
+
+
+def decode_tps(eng, ids, new):
+    """Dense greedy generate() tokens/s (host clock; generate returns host
+    tokens, so the device has finished), after one warm-up call."""
+    eng.generate(ids, max_new_tokens=4)
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=new)
+    dt = time.perf_counter() - t0
+    check(out.shape == (ids.shape[0], new), f"generate gave {out.shape}")
+    return ids.shape[0] * new / dt
+
+
+def phase_int8(torch):
+    """Phase 17: kernel rows, int8 serving, dense decode, f32 parity.
+    Returns (kernel rows, stats)."""
+    rows = int8_kernel_rows(torch)
+    w = llama_weights(8, L)
+    eng_q = make_engine(w, "bfloat16", weight_quant="int8")
+    check("_mm" in eng_q._kw, "int8 engine did not take the kernel path")
+    eng_f = make_engine(dequantized_weights(eng_q, w, "int8"), "bfloat16")
+    reqs = requests(9, 6)
+    width = max(len(p) for p, _ in reqs)
+    ids = np.zeros((len(reqs), width), np.int32)
+    for i, (p, _) in enumerate(reqs):
+        ids[i, :len(p)] = p
+    lens = torch.as_tensor([len(p) for p, _ in reqs]).cuda()
+    lq = eng_q._prefill_logits(ids, lens=lens).float()
+    lf = eng_f._prefill_logits(ids, lens=lens).float()
+    err = float((lq - lf).abs().max())
+    scale = float(lf.abs().max())
+    # as phase 4: the kernel scales in its f32 epilogue, the float engine
+    # multiplies bf16-rounded dequantized weights; 24 layers: 5% of the
+    # logit range
+    tol = 0.05 * scale
+    agree = float((lq.argmax(-1) == lf.argmax(-1)).float().mean())
+    print(f"  int8 vs dequantized-float first-step logits: max abs diff "
+          f"{err:.4e} (tol {tol:.4e}, logit max {scale:.4e}), argmax "
+          f"agreement {agree:.2f}", flush=True)
+    check(bool(torch.isfinite(lq).all()), "int8 logits non-finite")
+    check(err <= tol, f"int8 logits differ by {err} > {tol}")
+    del eng_f
+    torch.cuda.empty_cache()
+    serve(eng_q, requests(99, 2, prompt=(16, 80), new=(2, 4)))   # warm-up
+    reset_counts()
+    cb, greqs, steps, wall = serve(eng_q, reqs)
+    attn, int4 = read_counts()
+    k7, int8 = read_decode_counts()
+    check(int8 == 4 * L * steps, f"int8 kernel launched {int8} times in "
+          f"{steps} paged steps (want {4 * L * steps})")
+    check(attn == L * steps and int4 == 0 and k7 == 0,
+          f"ragged / int4 / decode launches {(attn, int4, k7)} in {steps} "
+          f"int8 steps (want {(L * steps, 0, 0)})")
+    toks = sum(len(cb.finished[r.request_id]) for r in greqs)
+    print(f"  int8 serving: {len(greqs)} requests -> {toks} tokens in "
+          f"{steps} paged steps, {wall:.3f} s ({toks / wall:.1f} tokens/s, "
+          f"{wall / steps * 1e3:.2f} ms/step); int8 kernel launches {int8} "
+          f"= 4 x {L} x {steps}", flush=True)
+    profile = profile_window(torch, lambda: serve(
+        eng_q, requests(10, 2, prompt=(16, 64), new=(8, 8)))[2],
+        "paged steps")
+    # dense decode at bench.py's int8 leg (bench.py:149-189)
+    rng = np.random.default_rng(0)
+    dids = rng.integers(0, V, (8, 16)).astype(np.int32)
+    tps = {"int8": decode_tps(eng_q, dids, 64)}
+    del eng_q, cb
+    torch.cuda.empty_cache()
+    for quant in (None, "int4"):
+        eng = make_engine(w, "bfloat16", weight_quant=quant)
+        tps[quant or "bf16"] = decode_tps(eng, dids, 64)
+        del eng
+        torch.cuda.empty_cache()
+    print(f"  dense decode B=8, 16-token prompts, 64 new tokens: tokens/s "
+          f"int8 {tps['int8']:.1f}, bf16 {tps['bf16']:.1f}, int4 "
+          f"{tps['int4']:.1f}", flush=True)
+    parity = int8_f32_parity(torch)
+    return rows, {"steps": steps, "int8_launches": int8, "tokens_per_s":
+                  toks / wall, "ms_per_step": wall / steps * 1e3,
+                  "logit_diff": err, "logit_tol": tol,
+                  "decode_tokens_per_s": tps, "profile": profile,
+                  "f32_parity": parity}
+
+
+def int8_f32_parity(torch):
+    """An f32 L=2 int8 engine's greedy tokens through the kernel against
+    the same engine on the plain route; a divergence must sit at a near
+    tie (top-2 logit gap <= 1e-3, as in phase 3)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = make_engine(llama_weights(11, 2), "float32", weight_quant="int8")
+    check("_mm" in eng._kw, "f32 int8 engine did not take the kernel path")
+    ids = np.random.default_rng(12).integers(1, V, (4, 16)).astype(np.int32)
+    got = eng.generate(ids, max_new_tokens=16)
+    with plain_int8():
+        ref = eng.generate(ids, max_new_tokens=16)
+    worst = 0.0
+    for i in range(ids.shape[0]):
+        if (got[i] == ref[i]).all():
+            continue
+        t = int(np.argmax(got[i] != ref[i]))
+        prefix = np.concatenate([ids[i], ref[i, :t]])[None, :]
+        with plain_int8():
+            lg = eng._prefill_logits(prefix)[0].float()
+        top = torch.topk(lg, 2).values
+        gap = float(top[0] - top[1])
+        worst = max(worst, gap)
+        print(f"  f32 int8 row {i}: first differing token at step {t}, "
+              f"top-2 logit gap {gap:.3e}", flush=True)
+        check(gap <= 1e-3, f"f32 int8 row {i} diverges at step {t} with a "
+              f"top-2 logit gap {gap} > 1e-3")
+    equal = int((got == ref).all(axis=1).sum())
+    print(f"  f32 int8 parity, L=2: {equal} of {ids.shape[0]} rows' 16 "
+          f"tokens equal to the plain route", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return {"rows_equal": equal, "rows": int(ids.shape[0]),
+            "largest_tie_gap": worst}
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -1800,6 +2251,14 @@ def main():
     print("phase 15: the two-pass flash backward at the flagship shape (A/B "
           "against the fused backward)", flush=True)
     tp_rows, tp_launches = phase_twopass(torch)
+    with torch.no_grad():
+        print("phase 16: legacy paged decode attention (bf16; f32 for one "
+              f"case), then {DECODE_STEPS} steps x {L} layers of "
+              "block_multihead_attention", flush=True)
+        decode_rows, decode_stats = phase_paged_decode(torch)
+        print("phase 17: int8 weight-only GEMM, int8 serving, dense decode "
+              "and f32 parity", flush=True)
+        int8_rows, int8_stats = phase_int8(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -1848,7 +2307,16 @@ def main():
             f"flash_bwd_twopass_{key}", "paddle_tpu_torch/csrc/flashmask.cu",
             f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             tp_launches[i], tp_rows[key], "flagship_b8_s2048_h16_d64"))
-    check(len(kernels) == 12 and all(e["launches"] > 0 for e in kernels),
+    kernels.append(kernel_entry(
+        "paged_decode_attention",
+        "paddle_tpu_torch/csrc/paged_decode_attention.cu",
+        "paddle_tpu/ops/pallas/paged_attention.py:74",
+        decode_stats["launches"], decode_rows, "b_serving_cache"))
+    kernels.append(kernel_entry(
+        "weight_only_int8", "paddle_tpu_torch/csrc/weight_only_matmul.cu",
+        "paddle_tpu/ops/pallas/quant_matmul.py:65",
+        int8_stats["int8_launches"], int8_rows, f"M8_K{E}_N{2 * F}"))
+    check(len(kernels) == 14 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -1860,6 +2328,8 @@ def main():
     print(f"card: {card}; train with the fused loss and rope: "
           f"{json.dumps(fused_stats)}; f32 parity with both: "
           f"{json.dumps(fused_parity)}", flush=True)
+    print(f"card: {card}; decode op: {json.dumps(decode_stats)}; int8: "
+          f"{json.dumps(int8_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,9 @@
-"""Fused decoder-stack op and FlashMask attention of the PyTorch port
-(counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``:
-``fused_multi_transformer`` and its helpers, ``flashmask_attention``).
+"""Fused decoder-stack ops, the fused decode-attention ops and FlashMask
+attention of the PyTorch port (counterpart of
+``paddle_tpu/incubate/nn/functional/__init__.py``:
+``fused_multi_transformer`` with its helpers and its int8 / int4
+wrappers, ``masked_multihead_attention``, ``block_multihead_attention``,
+``block_kv_cache_rewind``, ``blha_get_max_len``, ``flashmask_attention``).
 
 ``fused_multi_transformer`` keeps the JAX package's three branches and
 its cast points:
@@ -20,7 +23,17 @@ states. The TPU work-list arguments of the JAX signature (``ragged_work``,
 ``ragged_pack``, ``kv_buffer_depth``) have no counterpart: the CUDA
 kernel walks the block tables. Dropout, ``pre_caches``, ``attn_mask``,
 ``beam_offset`` and the tensor-parallel ``_tp_reduce`` hook belong to a
-later slice and raise ``NotImplementedError`` when passed.
+later slice and raise ``NotImplementedError`` when passed. A stored
+weight whose dequantized form is float32 meets bf16 activations as in
+JAX: the product runs in the promoted dtype.
+
+The fused decode-attention ops keep the JAX signatures and return order.
+``block_multihead_attention`` appends the new token with
+``ops.paged_attention.update_paged_kv_cache`` and attends through
+``ops.paged_attention.paged_attention`` (the legacy decode kernel on the
+card); ``masked_multihead_attention`` is plain torch, as it is plain jnp
+in JAX. Outputs are new tensors; the caches are updated IN PLACE and
+returned.
 """
 import math
 
@@ -33,7 +46,11 @@ from ...ops import paged_attention as _pa
 
 NEG_INF_F = -1e30
 
-__all__ = ["flashmask_attention", "fused_multi_transformer", "quantize_int4"]
+__all__ = ["blha_get_max_len", "block_kv_cache_rewind",
+           "block_multihead_attention", "flashmask_attention",
+           "fused_multi_transformer", "fused_multi_transformer_int4",
+           "fused_multi_transformer_int8", "masked_multihead_attention",
+           "quantize_int4"]
 
 
 def _ln(h, eps, scale=None, bias=None):
@@ -116,6 +133,13 @@ def _unpack_int4(p, axis=-1):
     hi = torch.where(hi >= 8, hi - 16, hi)
     out = torch.stack([lo, hi], -1).reshape(*m.shape[:-1], m.shape[-1] * 2)
     return torch.movedim(out.to(torch.int8), -1, axis)
+
+
+def _matmul(a, w):
+    """a @ w in the promoted dtype of the two (jnp's rule: bf16 activations
+    against a float32 dequantized weight compute in float32)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.matmul(a.to(dt), w.to(dt))
 
 
 def _paged_inputs(block_tables, seq_lens, chunk_lens, chunk, num_blocks,
@@ -364,8 +388,8 @@ def fused_multi_transformer(
             attn = _mm(ctx.reshape(b * s, nh * hd), linear_weights[li],
                        "lin", li).reshape(b, s, -1)
         else:
-            attn = ctx.reshape(b, s, nh * hd) @ dq(linear_weights[li],
-                                                   "lin", li)
+            attn = _matmul(ctx.reshape(b, s, nh * hd),
+                           dq(linear_weights[li], "lin", li))
         if item(linear_biases, li) is not None:
             attn = attn + linear_biases[li]
         h = resid * residual_alpha + attn
@@ -378,7 +402,7 @@ def fused_multi_transformer(
             f1 = _mm(z2.reshape(b * s, -1), ffn1_weights[li], "f1",
                      li).reshape(b, s, -1)
         else:
-            f1 = z2 @ dq(ffn1_weights[li], "f1", li)
+            f1 = _matmul(z2, dq(ffn1_weights[li], "f1", li))
         if item(ffn1_biases, li) is not None:
             f1 = f1 + ffn1_biases[li]
         if activation.endswith("glu"):
@@ -394,13 +418,142 @@ def fused_multi_transformer(
             f2 = _mm(f1.reshape(b * s, -1), ffn2_weights[li], "f2",
                      li).reshape(b, s, -1)
         else:
-            f2 = f1 @ dq(ffn2_weights[li], "f2", li)
+            f2 = _matmul(f1, dq(ffn2_weights[li], "f2", li))
         if item(ffn2_biases, li) is not None:
             f2 = f2 + ffn2_biases[li]
         h = resid2 * residual_alpha + f2
         if not pre_layer_norm:
             h = norm(h, ffn_ln_scales[li], item(ffn_ln_biases, li))
     return h
+
+
+def _scales(sc, like):
+    """A scale list entry (tensor or array) as float32 on like's device."""
+    if not isinstance(sc, torch.Tensor):
+        sc = torch.as_tensor(np.asarray(sc))
+    return sc.to(device=like.device, dtype=torch.float32)
+
+
+def fused_multi_transformer_int8(
+        x, ln_scales, ln_biases, qkv_weights, qkv_scales, qkv_biases,
+        linear_weights, linear_scales, linear_biases, ffn_ln_scales,
+        ffn_ln_biases, ffn1_weights, ffn1_scales, ffn1_biases, ffn2_weights,
+        ffn2_scales, ffn2_biases, **kwargs):
+    """Weight-only-int8 ``fused_multi_transformer`` (the JAX package's
+    :844): int8 weights shaped as the float ones, each with the per-output-
+    channel scale of its weight; every use dequantizes to float32 (qkv
+    scales per (head, dim) row, the others per output column) and runs the
+    float stack. The weight-only GEMM kernel serves the engine's int8 path
+    (``inference``), not this op."""
+    scales = {"qkv": list(qkv_scales), "lin": list(linear_scales),
+              "f1": list(ffn1_scales), "f2": list(ffn2_scales)}
+
+    def dq(w, kind, li):
+        sc = _scales(scales[kind][li], w)
+        if kind == "qkv":
+            return w.float() * sc.reshape(*w.shape[:-1], 1)
+        return w.float() * sc.reshape(-1)[None, :]
+
+    return fused_multi_transformer(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
+        linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+        ffn1_biases, ffn2_weights, ffn2_biases, _dequant=dq, **kwargs)
+
+
+def fused_multi_transformer_int4(
+        x, ln_scales, ln_biases, qkv_weights, qkv_scales, qkv_biases,
+        linear_weights, linear_scales, linear_biases, ffn_ln_scales,
+        ffn_ln_biases, ffn1_weights, ffn1_scales, ffn1_biases, ffn2_weights,
+        ffn2_scales, ffn2_biases, **kwargs):
+    """Weight-only-int4 ``fused_multi_transformer`` (the JAX package's
+    :931): weights are int8 bytes holding two nibbles along the INPUT axis
+    (``quantize_int4``: qkv [3, H, D, E/2], linear [H*D/2, E], ffn1
+    [E/2, F], ffn2 [F/2, E]) with the scales ``quantize_int4`` returns,
+    which broadcast against the unpacked weight; every use unpacks and
+    dequantizes to float32."""
+    scales = {"qkv": list(qkv_scales), "lin": list(linear_scales),
+              "f1": list(ffn1_scales), "f2": list(ffn2_scales)}
+
+    def dq(w, kind, li):
+        full = _unpack_int4(w, axis=-1 if kind == "qkv" else 0)
+        return full.float() * _scales(scales[kind][li], w)
+
+    return fused_multi_transformer(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
+        linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+        ffn1_biases, ffn2_weights, ffn2_biases, _dequant=dq, **kwargs)
+
+
+def masked_multihead_attention(x, cache_kv, seq_lens, src_mask=None,
+                               **kwargs):
+    """Decode-step MHA over a contiguous KV cache (the JAX package's :274).
+    x: [B, 3*H*D] fused qkv of the new token; cache_kv: [2, B, H, S_max, D],
+    written IN PLACE at position seq_lens[b] (a position at or past S_max
+    is dropped, as the JAX scatter drops it); src_mask (optional): additive
+    logits bias broadcastable to [B, H, S_max]. Scores and softmax in
+    float32 over the positions <= seq_lens[b]. Returns (out [B, H*D] in x's
+    dtype, cache_kv)."""
+    _, b, h, smax, d = cache_kv.shape
+    qkv = x.reshape(b, 3, h, d)
+    q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    lens = _pa._on_device(seq_lens, x.device, torch.long).reshape(-1)
+    kc, vc = cache_kv[0], cache_kv[1]
+    rows = torch.nonzero(lens < smax).reshape(-1)
+    kc[rows, :, lens[rows]] = k_new[rows].to(kc.dtype)
+    vc[rows, :, lens[rows]] = v_new[rows].to(vc.dtype)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), kc.float()) \
+        * (1.0 / math.sqrt(d))
+    if src_mask is not None:
+        s = s + src_mask.reshape(b, -1, smax).float()
+    pos = torch.arange(smax, device=x.device)[None, None, :]
+    s = torch.where(pos <= lens[:, None, None], s, NEG_INF_F)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bhsd->bhd", p, vc.float()).to(x.dtype)
+    return out.reshape(b, h * d), cache_kv
+
+
+def block_multihead_attention(qkv, k_cache, v_cache, block_tables,
+                              context_lens, scale=None):
+    """Paged-cache decode attention (the JAX package's :308). qkv:
+    [B, 3, H, D] for the new token; caches [KVH, num_blocks, block_size,
+    D] (KVH == H, or a divisor of H under GQA: the k and v of the new
+    token are the first KVH heads of their qkv slots). Appends the token
+    at position context_lens[b] IN PLACE (a row already at the table's
+    capacity has its write dropped and still attends), then attends over
+    context_lens + 1 positions through ``paged_attention``: the legacy
+    decode kernel on the card, its plain version on the CPU. Returns
+    (out [B, H, D], k_cache, v_cache)."""
+    kvh = k_cache.shape[0]
+    q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    if q.shape[1] != kvh:
+        k_new, v_new = k_new[:, :kvh], v_new[:, :kvh]
+    _pa.update_paged_kv_cache(k_cache, v_cache, k_new, v_new, block_tables,
+                              context_lens)
+    lens = _pa._on_device(context_lens, q.device, torch.int32).reshape(-1)
+    out = _pa.paged_attention(q.contiguous(), k_cache, v_cache, block_tables,
+                              lens + 1, scale=scale)
+    return out, k_cache, v_cache
+
+
+def block_kv_cache_rewind(k_cache, v_cache, block_tables, new_lens,
+                          old_lens, max_span):
+    """Speculative-decode rewind over the paged KV cache (the JAX
+    package's :334): zero positions new_lens[b] .. old_lens[b]-1 IN PLACE
+    (``ops.paged_attention.truncate_paged_kv_cache``); ``max_span`` bounds
+    the widest rewind. Returns (k_cache, v_cache)."""
+    return _pa.truncate_paged_kv_cache(k_cache, v_cache, block_tables,
+                                       new_lens, old_lens, int(max_span))
+
+
+def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size):
+    """Max encoder and decoder lengths for block_multihead_attention (the
+    JAX package's :1221): two int32 tensors of shape [1]."""
+    def peak(lens):
+        t = lens if isinstance(lens, torch.Tensor) \
+            else torch.as_tensor(np.asarray(lens))
+        return t.max().to(torch.int32).reshape(1)
+
+    return peak(seq_lens_encoder), peak(seq_lens_decoder)
 
 
 def flashmask_attention(query, key, value, startend_row_indices,

@@ -11,15 +11,20 @@ on one device and serves them through ``fused_multi_transformer``:
   function wrapped in a host-side dispatch span; caches are updated in
   place and returned, because the scheduler reassigns them.
 
-``weight_quant="int4"`` packs the four projection matrices into the
-block-halved int4 layout and routes them through
-``ops.quant_matmul.weight_only_matmul``: the CUDA kernel on the card, its
-plain version on the CPU. The block of each projection follows the
-kernel's rule (``kernel_block_n``: a multiple of 128 dividing the width).
-On the card a width that fits no block raises; on the CPU such widths are
-served as the JAX engine serves them off the TPU (``quantize_int4``, then
-dequantized per use), so the two engines can be held to each other.
-``weight_quant="int8"`` dequantizes per use, as in JAX.
+``weight_quant="int4"`` and ``"int8"`` route the four projection
+matrices through ``ops.quant_matmul.weight_only_matmul``: the CUDA kernel
+on the card, its plain version on the CPU. int4 packs each [K, N] matrix
+into the block-halved int4 layout, its block by the kernel's rule
+(``kernel_block_n``: a multiple of 128 dividing the width). int8 keeps
+the JAX engine's int8 values and per-output-channel scales (absmax / 127
++ 1e-9) repacked to [K, N] with [N] scales, its block by
+``pick_block_n(n, "int8")``. The JAX engine leaves int8 to XLA, which
+fuses the int8 -> bf16 convert into the matmul's operand load; the int8
+kernel is the port's form of that fusion (no float copy of a weight in
+device memory). On the card a width that fits no block raises; on the
+CPU such widths are served as the JAX engine serves them off the TPU
+(quantized at load, dequantized per use), so the two engines can be
+held to each other.
 
 ``engine_weights_from_numpy`` carries the JAX engine's weight dict
 (numpy arrays) over, so the two engines compute the same thing.
@@ -37,7 +42,7 @@ from ..observability import instrument as _instrument
 from ..observability import tracing as _tracing
 from ..ops import paged_attention as _pa
 from ..ops.quant_matmul import (kernel_block_n, pack_int4_blocked,
-                                weight_only_matmul)
+                                pick_block_n, weight_only_matmul)
 
 __all__ = ["FusedMultiTransformerEngine", "engine_weights_from_numpy",
            "set_dispatch_delay"]
@@ -115,25 +120,45 @@ _PROJECTIONS = (("qkv", "qkv_weights"), ("lin", "linear_weights"),
                 ("f1", "ffn1_weights"), ("f2", "ffn2_weights"))
 
 
-def _int4_blocks(weights, device):
-    """The int4 kernel's block per projection kind ({kind: block_n}) for
-    the float weight dict. When some projection width fits no block
-    (``kernel_block_n`` gives None) this returns None on the CPU, where the
-    dequant path serves, and raises on the card, where the kernel is the
-    only int4 path."""
+def _quant_blocks(weights, device, quant):
+    """The ``quant`` kernel's block per projection kind ({kind: block_n})
+    for the float weight dict: int4 by ``kernel_block_n``, int8 by
+    ``pick_block_n(n, "int8")``, both multiples of 128 dividing the
+    width. When some projection width fits no block this returns None on
+    the CPU, where the dequant path serves, and raises on the card, where
+    the kernel is the only quantized path."""
     blocks = {}
     for kind, key in _PROJECTIONS:
         w0 = weights[key][0]
         n = int(np.prod(w0.shape[:-1])) if kind == "qkv" else w0.shape[1]
-        bn = kernel_block_n(n)
+        bn = kernel_block_n(n) if quant == "int4" else pick_block_n(n, "int8")
         if bn is None:
             if device.type != "cpu":
                 raise ValueError(
-                    f"weight_quant='int4': the {key} output width {n} is not "
-                    "a multiple of 128, which the int4 kernel needs")
+                    f"weight_quant={quant!r}: the {key} output width {n} is "
+                    f"not a multiple of 128, which the {quant} kernel needs")
             return None
         blocks[kind] = bn
     return blocks
+
+
+def _int4_blocks(weights, device):
+    return _quant_blocks(weights, device, "int4")
+
+
+def _int8_blocks(weights, device):
+    return _quant_blocks(weights, device, "int8")
+
+
+def _quantize_int8(a, axis):
+    """The JAX engine's int8 weight quantization (numpy float32 in): per
+    output channel, reducing over the input axis ``axis``, scale =
+    absmax / 127 + 1e-9, values rounded and clipped to [-127, 127].
+    Returns (int8 values shaped as ``a``, scales with ``axis`` of size 1)."""
+    m = np.moveaxis(a, axis, -1)
+    sc = np.abs(m).max(-1, keepdims=True) / 127.0 + 1e-9
+    q = np.clip(np.round(m / sc), -127, 127).astype(np.int8)
+    return np.moveaxis(q, -1, axis), np.moveaxis(sc, -1, axis)
 
 
 class FusedMultiTransformerEngine:
@@ -187,10 +212,10 @@ class FusedMultiTransformerEngine:
                         use_neox_rotary_style=use_neox_rotary_style,
                         gqa_group_size=gqa_group_size)
         self.weight_quant = weight_quant
-        blocks = _int4_blocks(self._w, self.device) \
-            if weight_quant == "int4" else None
+        blocks = _quant_blocks(self._w, self.device, weight_quant) \
+            if weight_quant else None
         if blocks is not None:
-            self._kw["_mm"] = self._build_quant_mm(blocks)
+            self._kw["_mm"] = self._build_quant_mm(blocks, weight_quant)
         elif weight_quant in ("int4", "int8"):
             self._kw["_dequant"] = self._build_dequant(weight_quant)
         self._gen = make_generator(0, self.device)
@@ -202,22 +227,29 @@ class FusedMultiTransformerEngine:
     # -- weight-only quantization -----------------------------------------
     @staticmethod
     def _matrix(kind, a):
-        """Stored weight -> its [K, N] matrix (trans_qkvw layouts): qkv
-        [ht, hd, E] -> [E, ht*hd]; lin [H*D, E]; ffn1 [E, 2F]; ffn2 [F, E]."""
-        a = a.detach().float().cpu().numpy()
+        """Stored weight (numpy) -> its [K, N] matrix (trans_qkvw layouts):
+        qkv [ht, hd, E] -> [E, ht*hd]; lin [H*D, E]; ffn1 [E, 2F]; ffn2
+        [F, E]."""
         return a.reshape(-1, a.shape[-1]).T if kind == "qkv" else a
 
-    def _build_quant_mm(self, blocks):
-        """Repack the projection weights into the int4 kernel's K x N
-        block-halved layout, REPLACING self._w's lists; returns the
-        _mm(z2d, w, kind, li) hook running the weight-only GEMM."""
+    def _build_quant_mm(self, blocks, quant):
+        """Repack the projection weights for the ``quant`` kernel, REPLACING
+        self._w's lists: int4 into the K x N block-halved layout, int8 as
+        the JAX engine's int8 values and scales in [K, N] / [N]. Returns
+        the _mm(z2d, w, kind, li) hook running the weight-only GEMM."""
         qkv_out = tuple(self._w["qkv_weights"][0].shape[:-1])
         scales = {}
         for kind, key in _PROJECTIONS:
             packed_l, sc_l = [], []
             for t in self._w[key]:
-                packed, sc = pack_int4_blocked(self._matrix(kind, t),
-                                               block_n=blocks[kind])
+                a = t.detach().float().cpu().numpy()
+                if quant == "int4":
+                    packed, sc = pack_int4_blocked(self._matrix(kind, a),
+                                                   block_n=blocks[kind])
+                else:
+                    q, sc = _quantize_int8(a, -1 if kind == "qkv" else 0)
+                    packed = np.ascontiguousarray(self._matrix(kind, q))
+                    sc = sc.reshape(-1)
                 packed_l.append(torch.as_tensor(packed).to(self.device))
                 sc_l.append(torch.as_tensor(sc).to(self.device))
             self._w[key] = packed_l
@@ -226,7 +258,7 @@ class FusedMultiTransformerEngine:
 
         def mm(z2d, w, kind, li):
             return weight_only_matmul(z2d.to(dtype).contiguous(), w,
-                                      scales[kind][li], quant="int4",
+                                      scales[kind][li], quant=quant,
                                       block_n=blocks[kind], out_dtype=dtype)
 
         mm.qkv_out = qkv_out
@@ -247,11 +279,7 @@ class FusedMultiTransformerEngine:
                 if weight_quant == "int4":
                     pk, sc = quantize_int4(a, axis=axis)
                 else:
-                    m = np.moveaxis(a, axis, -1)
-                    sc = np.abs(m).max(-1, keepdims=True) / 127.0 + 1e-9
-                    pk = np.clip(np.round(m / sc), -127, 127).astype(np.int8)
-                    pk = np.moveaxis(pk, -1, axis)
-                    sc = np.moveaxis(sc, -1, axis)
+                    pk, sc = _quantize_int8(a, axis)
                 packed.append(torch.as_tensor(pk).to(self.device))
                 scs.append(torch.as_tensor(sc).to(self.device))
             self._w[key] = packed

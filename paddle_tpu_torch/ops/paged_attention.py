@@ -21,6 +21,10 @@ Device part:
   (``csrc/ragged_paged_attention.cu``) for a CUDA tensor, the plain
   ``ragged_paged_attention_plain`` for a CPU tensor. The kernel walks the
   block tables directly; the work list keeps its host role.
+* ``paged_attention``: the legacy one-token decode attention behind
+  ``block_multihead_attention``, the CUDA kernel
+  (``csrc/paged_decode_attention.cu``) for a CUDA tensor and the plain
+  ``paged_attention_plain`` for a CPU tensor.
 """
 import ctypes
 import functools
@@ -619,3 +623,136 @@ def _launcher():
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
         + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     return fn, int(lib.ragged_paged_attention_max_block_size())
+
+
+# ---------------------------------------------------------------------------
+# legacy paged decode attention: plain PyTorch version and the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens,
+                          scale=None):
+    """The Pallas decode kernel's body step by step in PyTorch, on any
+    device. The [G, BS] scores of every (sequence, kv head, block-table
+    column) are taken in f32 up front, positions at or past ctx set to
+    NEG_INF; then, column by column, the running max, the running sum and
+    acc = acc * corr + p @ v. A sequence skips the columns with
+    i * BS >= ctx (its state stands), so a row with ctx 0 keeps l = 0,
+    read as 1, and returns zeros. Block ids are clamped into [0, NB).
+    Shapes as in ``paged_attention``."""
+    b, h, d = q.shape
+    kvh, nb, bs, _ = k_cache.shape
+    g = h // kvh
+    dev = q.device
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    tables = _on_device(block_tables, dev, torch.long).clamp(0, nb - 1)
+    lens = _on_device(context_lens, dev, torch.long).reshape(-1)
+    ncol = tables.shape[1]
+    qf = q.float().reshape(b, kvh, g, d)
+    k = k_cache[:, tables].float()                  # [KVH, B, NC, BS, D]
+    v = v_cache[:, tables].float()
+    s = torch.einsum("bngd,nbcsd->bngcs", qf, k) * scale
+    pos = torch.arange(ncol * bs, device=dev).reshape(ncol, bs)
+    s = torch.where((pos[None] < lens[:, None, None])[:, None, None], s,
+                    NEG_INF)
+    m = torch.full((b, kvh, g, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, kvh, g, 1), device=dev)
+    acc = torch.zeros((b, kvh, g, d), device=dev)
+    for i in range(ncol):
+        si = s[:, :, :, i]
+        m_new = torch.maximum(m, si.amax(-1, keepdim=True))
+        p = torch.exp(si - m_new)
+        corr = torch.exp(m - m_new)
+        live = (i * bs < lens)[:, None, None, None]
+        l = torch.where(live, corr * l + p.sum(-1, keepdim=True), l)
+        acc = torch.where(live, acc * corr + torch.einsum(
+            "bngs,nbsd->bngd", p, v[:, :, i]), acc)
+        m = torch.where(live, m_new, m)
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l).reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
+                    scale=None):
+    """Decode-step attention over a paged KV cache.
+
+    q:            [B, H, D] one query token per sequence; query heads
+                  h*G .. h*G+G-1 (G = H / KVH) read kv head h
+    k/v_cache:    [KVH, num_blocks, block_size, D]
+    block_tables: [B, max_blocks_per_seq] int cache-block ids (int64 is
+                  cast to int32, as the JAX wrapper does)
+    context_lens: [B] valid cache length per sequence (0: the row returns
+                  zeros; past max_blocks * block_size: the table's blocks)
+    returns       [B, H, D] in q's dtype
+
+    A CPU tensor runs ``paged_attention_plain``. A CUDA tensor launches
+    the kernel of ``csrc/paged_decode_attention.cu`` (and counts the
+    launch in ``paged_attention.launches``) or raises."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_cache, v_cache, block_tables,
+                                     context_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"paged_attention: q {tuple(q.shape)} must be [B, H, D] and k/v "
+            f"caches one [KVH, NB, BS, D] shape, got {tuple(k_cache.shape)} "
+            f"/ {tuple(v_cache.shape)}")
+    b, h, d = q.shape
+    kvh, nb, bs, dk = k_cache.shape
+    if dk != d or h % kvh:
+        raise ValueError(f"paged_attention: head dim {d} vs cache {dk}, "
+                         f"heads {h} vs kv heads {kvh}")
+    if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"paged_attention: q/k/v dtypes {q.dtype}/"
+                         f"{k_cache.dtype}/{v_cache.dtype} must agree and be "
+                         "float32, bfloat16 or float16")
+    if d not in (32, 64, 128):
+        raise ValueError(f"paged_attention: head dim {d} not in "
+                         "(32, 64, 128)")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be a contiguous "
+                             f"tensor on {q.device}")
+    tables = _on_device(block_tables, q.device, torch.int32)
+    lens = _on_device(context_lens, q.device, torch.int32).reshape(-1)
+    if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1 \
+            or lens.shape[0] != b:
+        raise ValueError("paged_attention: block_tables must be [B, "
+                         "max_blocks] and context_lens [B]")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    fn, max_bs = _decode_launcher()
+    if bs > max_bs:
+        raise ValueError(f"paged_attention: block size {bs} above the "
+                         f"kernel's {max_bs}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), tables.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), b, h, kvh, nb, bs, tables.shape[1], d,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention: kernel launch failed with CUDA "
+                           f"error {rc}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
+@functools.cache
+def _decode_launcher():
+    """(the decode kernel's C entry point with its prototype bound, the
+    largest cache block size it takes), built and loaded on the first
+    launch."""
+    from . import _build
+    lib = _build.load("paged_decode_attention")
+    fn = lib.paged_decode_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    return fn, int(lib.paged_decode_attention_max_block_size())

@@ -1,19 +1,20 @@
-"""Weight-only int4 matmul for the PyTorch port (counterpart of
+"""Weight-only int8 / int4 matmul for the PyTorch port (counterpart of
 ``paddle_tpu/ops/pallas/quant_matmul.py``).
 
 Layout contract (unchanged from the JAX package):
   x        [M, K]     float32 / bfloat16 / float16 activations
-  w_packed [K, N//2]  int8, BLOCK-HALVED nibbles from ``pack_int4_blocked``:
-                      within each block_n output-column block, the low
-                      nibbles carry the first block_n/2 columns and the
-                      high nibbles the second half
+  w_packed [K, N]     int8 values (int8 mode), or
+           [K, N//2]  int8, BLOCK-HALVED nibbles from ``pack_int4_blocked``
+                      (int4 mode): within each block_n output-column
+                      block, the low nibbles carry the first block_n/2
+                      columns and the high nibbles the second half
   scales   [N]        float32 per-output-channel scales
   out      [M, N]     x's dtype (or ``out_dtype``)
 
-``weight_only_matmul`` launches the CUDA kernel of
-``csrc/weight_only_matmul.cu`` for a CUDA tensor and runs the plain
-``weight_only_matmul_plain`` for a CPU tensor. Only int4 has a kernel in
-this slice; the int8 mode raises.
+``weight_only_matmul`` launches a CUDA kernel of
+``csrc/weight_only_matmul.cu`` for a CUDA tensor (int4 or int8, each
+with its own launch count) and runs the plain
+``weight_only_matmul_plain`` for a CPU tensor.
 """
 import ctypes
 import functools
@@ -111,22 +112,26 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     """x @ dequant(w_packed) * scales, the quantized weights never expanded
     to float in device memory. A CPU tensor runs the plain version; a CUDA
     tensor launches the int4 kernel (counted in
-    ``weight_only_matmul.launches``) or raises."""
+    ``weight_only_matmul.launches``) or the int8 kernel (counted in
+    ``weight_only_matmul.int8_launches``), or raises. Both kernels take
+    contiguous x and w on one device, x in float32 / bfloat16 / float16
+    equal to the output dtype, float32 scales [N], and ``block_n`` a
+    multiple of 128 dividing N."""
     if x.device.type == "cpu":
         return weight_only_matmul_plain(x, w_packed, scales, quant=quant,
                                         block_n=block_n, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"weight_only_matmul: unsupported device {x.device}")
-    if quant != "int4":
-        raise NotImplementedError(
-            "weight_only_matmul: the int8 kernel is a later slice (the "
-            "engine's int8 path dequantizes instead)")
+    if quant not in ("int4", "int8"):
+        raise ValueError(f"quant must be int8/int4, got {quant!r}")
     out_dtype = out_dtype or x.dtype
+    per_byte = 2 if quant == "int4" else 1
     if x.dim() != 2 or w_packed.dim() != 2 or x.shape[1] != w_packed.shape[0]:
-        raise ValueError(f"weight_only_matmul: x {tuple(x.shape)} and packed "
-                         f"w {tuple(w_packed.shape)} must be [M, K], [K, N/2]")
+        want = "[K, N/2]" if quant == "int4" else "[K, N]"
+        raise ValueError(f"weight_only_matmul: x {tuple(x.shape)} and {quant} "
+                         f"w {tuple(w_packed.shape)} must be [M, K], {want}")
     m, k = x.shape
-    n = w_packed.shape[1] * 2
+    n = w_packed.shape[1] * per_byte
     if x.dtype not in _DTYPE_CODE or out_dtype != x.dtype:
         raise ValueError(f"weight_only_matmul: x dtype {x.dtype} (out "
                          f"{out_dtype}) must be float32/bfloat16/float16 "
@@ -148,25 +153,31 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    rc = _launcher()(_DTYPE_CODE[x.dtype], x.data_ptr(), w_packed.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), m, k, n, int(block_n),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _launcher(quant)(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                          w_packed.data_ptr(), scales.data_ptr(),
+                          out.data_ptr(), m, k, n, int(block_n),
+                          torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"weight_only_matmul: kernel launch failed with "
-                           f"CUDA error {rc}")
-    weight_only_matmul.launches += 1
+        raise RuntimeError(f"weight_only_matmul: {quant} kernel launch "
+                           f"failed with CUDA error {rc}")
+    if quant == "int4":
+        weight_only_matmul.launches += 1
+    else:
+        weight_only_matmul.int8_launches += 1
     return out
 
 
-weight_only_matmul.launches = 0
+weight_only_matmul.launches = 0         # int4 kernel launches
+weight_only_matmul.int8_launches = 0    # int8 kernel launches
 
 
 @functools.cache
-def _launcher():
-    """The kernel's C entry point with its prototype bound, built and
-    loaded on the first launch."""
+def _launcher(quant):
+    """The ``quant`` kernel's C entry point with its prototype bound,
+    built and loaded on the first launch."""
     from . import _build
-    fn = _build.load("weight_only_matmul").weight_only_int4_launch
+    lib = _build.load("weight_only_matmul")
+    fn = getattr(lib, f"weight_only_{quant}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]

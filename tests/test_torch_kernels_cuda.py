@@ -2,8 +2,10 @@
 card, at edge shapes the smoke run does not reach: every head dim and
 dtype the attention kernels take (with and without rope), odd group
 sizes and block sizes, GEMM rows and depths that are not tile multiples,
-and the blockwise cross entropy at token counts, vocabularies and hidden
-widths off its tiles, with ignored rows.
+the blockwise cross entropy at token counts, vocabularies and hidden
+widths off its tiles, with ignored rows, and the legacy paged decode
+kernel at ctx 0, past the table's capacity and with free-slot ids past
+the last used block.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -88,6 +90,36 @@ def test_int4_kernel_matches_plain(dtype, m, k, n, bn):
     assert err <= _tol(ref, dtype), err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("m,k,n,bn", [(1, 64, 256, 256), (17, 100, 512, 256),
+                                      (70, 33, 1024, 512),
+                                      (16, 1024, 768, 256),
+                                      (5, 64, 384, 384), (9, 96, 640, 128),
+                                      (0, 64, 256, 128)])
+def test_int8_kernel_matches_plain(dtype, m, k, n, bn):
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rng = np.random.default_rng(m + k + n + 1)
+    q = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(
+        np.int8)).cuda()
+    sc = torch.as_tensor(rng.uniform(1e-3, 1e-2, n).astype(
+        np.float32)).cuda()
+    x = torch.as_tensor(rng.standard_normal((m, k)).astype(
+        np.float32)).to(dtype).cuda()
+    before = qm.weight_only_matmul.int8_launches, qm.weight_only_matmul.launches
+    out = qm.weight_only_matmul(x, q, sc, "int8", bn)
+    ref = qm.weight_only_matmul_plain(x, q, sc, "int8", bn)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    launched = 0 if m == 0 else 1
+    assert (qm.weight_only_matmul.int8_launches,
+            qm.weight_only_matmul.launches) == (before[0] + launched,
+                                                before[1])
+    if m:
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= _tol(ref, dtype), err
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -96,13 +128,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         pa.ragged_paged_attention(q, kc, kc, np.zeros((2, 1), np.int32),
                                   np.ones(2, np.int32))
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, kc, kc, np.zeros((2, 1), np.int32),
+                           np.ones(2, np.int32))
+    q = torch.zeros(2, 4, 64, device="cuda")
+    big = torch.zeros(2, 4, 256, 64, device="cuda")     # block size 256
+    with pytest.raises(ValueError, match="block size"):
+        pa.paged_attention(q, big, big, np.zeros((2, 1), np.int32),
+                           np.ones(2, np.int32))
+    kc = torch.zeros(2, 4, 16, 64, device="cuda")
+    with pytest.raises(ValueError):                     # not contiguous
+        pa.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                           kc, kc, np.zeros((2, 1), np.int32),
+                           np.ones(2, np.int32))
     x = torch.zeros(4, 64, device="cuda")
     pk = torch.zeros(64, 128, dtype=torch.int8, device="cuda")
     sc = torch.ones(256, device="cuda")
-    with pytest.raises(NotImplementedError):
-        qm.weight_only_matmul(x, pk, sc, "int8")
+    with pytest.raises(ValueError):                     # scales [256], N 128
+        qm.weight_only_matmul(x, pk, sc, "int8", 128)
     with pytest.raises(ValueError):                     # not contiguous
         qm.weight_only_matmul(x.t().contiguous().t(), pk, sc, "int4", 256)
+    w8 = torch.zeros(64, 256, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):                     # not contiguous
+        qm.weight_only_matmul(x, w8.t().contiguous().t(), sc, "int8", 256)
+    flat = torch.zeros(64 * 256 + 1, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        qm.weight_only_matmul(x, flat[1:].view(64, 256), sc, "int8", 256)
+    with pytest.raises(ValueError):                     # block not /128
+        qm.weight_only_matmul(x, w8, sc, "int8", 64)
+    with pytest.raises(ValueError):                     # dtype mismatch
+        qm.weight_only_matmul(x, w8, sc, "int8", 256,
+                              out_dtype=torch.bfloat16)
+
+
+def _decode_case(b, h, kvh, d, bs, nb, max_nb, lens, dtype, seed):
+    """q, caches and tables on the card; entries past each row's last used
+    block are -1, as a real allocator may leave them."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    kc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    vc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(dtype)
+    tables = np.stack([rng.choice(nb, max_nb, replace=False)
+                       for _ in range(b)]).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    used = np.minimum(-(-lens // bs), max_nb)
+    for i in range(b):
+        tables[i, used[i]:] = -1
+    return q, kc, vc, tables, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("bs", [16, 64])
+def test_paged_decode_kernel_matches_plain(dtype, d, g, bs):
+    """ctx 0 (exact zeros), 1, a block boundary, the table's capacity and
+    past it, with -1 table entries past each row's last used block."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    kvh, max_nb = 4, 5
+    cap = max_nb * bs
+    lens = [0, 1, bs, cap, cap + 7, 2 * bs + 5]
+    q, kc, vc, tables, lens = _decode_case(len(lens), kvh * g, kvh, d, bs,
+                                           40, max_nb, lens, dtype,
+                                           d + g + bs)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, kc, vc, tables, lens)
+    ref = pa.paged_attention_plain(q, kc, vc, tables, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float(out[0].float().abs().max()) == 0.0
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(ref, dtype), err
+
+
+def test_block_multihead_attention_kernel_route_matches_plain_route():
+    """The fused op on the card: the kernel route's output and caches
+    against the same op with the plain attention, a row at capacity (its
+    write dropped), GQA 8/2."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    from paddle_tpu_torch.ops import paged_attention as pa
+    b, h, kvh, d, bs, max_nb = 4, 8, 2, 64, 16, 4
+    lens = np.array([0, 17, max_nb * bs, 40], np.int32)
+    _, kc, vc, tables, _ = _decode_case(b, h, kvh, d, bs, 30, max_nb,
+                                        [max_nb * bs] * b, torch.bfloat16, 5)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    qkv = torch.randn(b, 3, h, d, device="cuda", generator=gen).bfloat16()
+    kp, vp = kc.clone(), vc.clone()
+    out, k2, v2 = TF.block_multihead_attention(qkv, kc, vc, tables, lens)
+    saved = pa.paged_attention
+    pa.paged_attention = pa.paged_attention_plain
+    try:
+        ref, _, _ = TF.block_multihead_attention(qkv, kp, vp, tables, lens)
+    finally:
+        pa.paged_attention = saved
+    torch.cuda.synchronize()
+    assert k2 is kc and torch.equal(kc, kp) and torch.equal(vc, vp)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(ref, torch.bfloat16), err
 
 
 def test_int4_engine_refuses_widths_the_kernel_does_not_take():

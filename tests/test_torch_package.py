@@ -83,6 +83,8 @@ def test_kernel_sources_and_lazy_build():
         assert "sm_90a" in text and 'extern "C"' in text
         assert "paddle_tpu/ops/pallas/" in text   # names the TPU kernel
     assert "flashmask" in _build.SOURCES
+    assert "paged_decode_attention" in _build.SOURCES
+    assert len(_build.SOURCES) == 6
     # importing the ops built nothing
     assert _build._libs == {}
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -1,8 +1,10 @@
-"""The PyTorch port's int4 weight-only matmul held against the JAX
-package on the CPU: the packing helpers must be byte-identical, the plain
-int4 ``weight_only_matmul`` must match the Pallas kernel in interpret
-mode (atol 1e-4), and the quantized serving engines must decode the
-reference tokens.
+"""The PyTorch port's weight-only matmul held against the JAX package on
+the CPU: the packing helpers must be byte-identical, the plain int4 and
+int8 ``weight_only_matmul`` must match the Pallas kernels in interpret
+mode (int4 atol 1e-4; int8 f32 atol 2e-5 and bf16 one bf16 ulp of the
+largest output), the quantized serving engines must decode the reference
+tokens, and ``fused_multi_transformer_int8`` / ``_int4`` must match the
+JAX ops (atol 1e-4, the fused stack's own tolerance).
 """
 import numpy as np
 import pytest
@@ -111,6 +113,43 @@ class TestPlainInt4Matmul:
         assert tqm.weight_only_matmul.launches == before
 
 
+class TestPlainInt8Matmul:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("m,k,n,bn", [(8, 128, 512, 256),
+                                          (3, 64, 768, 256),
+                                          (5, 96, 768, 384)])
+    def test_matches_pallas_interpret(self, m, k, n, bn, dtype):
+        rng = np.random.default_rng(m + k + n)
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+        sc = (np.abs(w).max(0) / 127.0 + 1e-9).astype(np.float32)
+        q = np.clip(np.round(w / sc[None, :]), -127, 127).astype(np.int8)
+        jdt = getattr(jnp, dtype)
+        ref = np.asarray(QM.weight_only_matmul(
+            jnp.asarray(x, jdt), jnp.asarray(q), jnp.asarray(sc), "int8",
+            block_n=bn).astype(jnp.float32))
+        tx = torch.from_numpy(x).to(getattr(torch, dtype))
+        got = tqm.weight_only_matmul(tx, torch.from_numpy(q),
+                                     torch.from_numpy(sc), "int8",
+                                     block_n=bn)
+        assert got.dtype == tx.dtype and got.shape == (m, n)
+        # f32: the same products summed in another order; bf16: both sides
+        # accumulate in f32 and round once to bf16 (one ulp of the largest
+        # output)
+        atol = 2e-5 if dtype == "float32" else \
+            2.0 ** -8 * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                                   atol=atol)
+
+    def test_cpu_wrapper_counts_no_int8_launch(self):
+        x = torch.zeros(2, 32)
+        w = torch.ones(32, 256, dtype=torch.int8)
+        before = tqm.weight_only_matmul.int8_launches
+        out = tqm.weight_only_matmul(x, w, torch.ones(256), "int8", 256)
+        assert out.shape == (2, 256)
+        assert tqm.weight_only_matmul.int8_launches == before
+
+
 def _weights(V, E, H, G, D, L, F, seed=0):
     rng = np.random.default_rng(seed)
 
@@ -203,3 +242,162 @@ class TestQuantizedEngines:
                            activation="swiglu", gqa_group_size=G,
                            weight_quant="int4")
         assert eng._kw["_mm"].blocks == want
+
+    def test_int8_kernel_route_token_exact_vs_jax(self):
+        """Widths every int8 block fits: the port's int8 engine takes the
+        _mm hook (the plain weight-only matmul on the CPU) over the JAX
+        engine's int8 values and scales, and decodes the JAX int8 engine's
+        tokens exactly (f32)."""
+        from paddle_tpu.inference import FusedMultiTransformerEngine as JE
+        V, E, H, G, D, L, F = 500, 256, 8, 4, 32, 2, 512
+        w = _weights(V, E, H, G, D, L, F, seed=2)
+        kw = dict(num_heads=H, head_dim=D, max_seq_len=64, dtype="float32",
+                  norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
+                  weight_quant="int8")
+        eng = _port_engine(w, **kw)
+        mm = eng._kw["_mm"]
+        assert "_dequant" not in eng._kw
+        assert mm.blocks == {"qkv": 512, "lin": 256, "f1": 512, "f2": 256}
+        # the JAX engine's values, repacked to [K, N] with [N] scales
+        a = w["qkv_weights"][0]
+        m = np.moveaxis(a, -1, -1)
+        sc = np.abs(m).max(-1, keepdims=True) / 127.0 + 1e-9
+        q = np.clip(np.round(m / sc), -127, 127).astype(np.int8)
+        np.testing.assert_array_equal(eng._w["qkv_weights"][0].numpy(),
+                                      q.reshape(-1, E).T)
+        np.testing.assert_array_equal(mm.scales["qkv"][0].numpy(),
+                                      sc.reshape(-1))
+        assert eng._w["ffn2_weights"][0].shape == (F, E)
+        ids = np.random.default_rng(3).integers(0, V, (2, 8)).astype(
+            np.int32)
+        ref = JE(w, **kw).generate(ids, max_new_tokens=8)
+        np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=8),
+                                      ref)
+
+    def test_int8_blocks_keep_dequant_on_the_cpu_and_refuse_on_the_card(self):
+        from paddle_tpu_torch.inference import _int8_blocks
+        cpu, card = torch.device("cpu"), torch.device("cuda")
+        V, H, G, D, L = 64, 4, 2, 32, 1
+        w = _weights(V, 640, H, G, D, L, 320)   # widths 256, 640, 640, 640
+        want = {"qkv": 256, "lin": 128, "f1": 128, "f2": 128}
+        assert _int8_blocks(w, cpu) == want
+        assert _int8_blocks(w, card) == want
+        w = _weights(V, 96, H, G, D, L, 64)     # lin/ffn2 width 96
+        assert _int8_blocks(w, cpu) is None
+        with pytest.raises(ValueError, match="multiple of 128"):
+            _int8_blocks(w, card)
+        eng = _port_engine(w, num_heads=H, head_dim=D, max_seq_len=16,
+                           dtype="float32", norm_type="rmsnorm",
+                           activation="swiglu", gqa_group_size=G,
+                           weight_quant="int8")
+        assert "_dequant" in eng._kw and "_mm" not in eng._kw
+
+
+class TestQuantizedFusedOps:
+    """fused_multi_transformer_int8 / _int4 against the JAX ops, f32, MHA
+    qkv [3, H, D, E], within the fused stack's tolerance (atol 1e-4)."""
+
+    @staticmethod
+    def _float(seed, L=2, E=32, H=4, D=8, F=48):
+        rng = np.random.default_rng(seed)
+
+        def mk(*shape):
+            return (rng.standard_normal(shape) * 0.1).astype(np.float32)
+
+        return rng, dict(
+            ln_scales=[np.ones(E, np.float32)] * L,
+            qkv_weights=[mk(3, H, D, E) for _ in range(L)],
+            linear_weights=[mk(H * D, E) for _ in range(L)],
+            ffn_ln_scales=[np.ones(E, np.float32)] * L,
+            ffn1_weights=[mk(E, F) for _ in range(L)],
+            ffn2_weights=[mk(F, E) for _ in range(L)])
+
+    @staticmethod
+    def _run(fn_j, fn_t, w, x, caches, **kw):
+        import paddle_tpu as paddle
+        T = paddle.to_tensor
+        keys = ("ln_scales", "ln_biases", "qkv_weights", "qkv_scales",
+                "qkv_biases", "linear_weights", "linear_scales",
+                "linear_biases", "ffn_ln_scales", "ffn_ln_biases",
+                "ffn1_weights", "ffn1_scales", "ffn1_biases", "ffn2_weights",
+                "ffn2_scales", "ffn2_biases")
+        jl = [[T(a) for a in w.get(k, [])] if "scales" not in k
+              or k.endswith("ln_scales") else list(w[k]) for k in keys]
+        tl = [[torch.from_numpy(a) for a in w.get(k, [])] for k in keys]
+        jc = [T(c.copy()) for c in caches]
+        tc = [torch.from_numpy(c.copy()) for c in caches]
+        jo = fn_j(T(x), *jl, cache_kvs=jc, **kw)
+        to = fn_t(torch.from_numpy(x), *tl, cache_kvs=tc, **kw)
+        np.testing.assert_allclose(to.numpy(), jo.numpy(), rtol=0,
+                                   atol=1e-4)
+        for a, b in zip(tc, jc):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-5)
+
+    def test_int8_matches_jax(self):
+        rng, w = self._float(0)
+
+        def q8(a, axis):
+            m = np.moveaxis(a, axis, -1)
+            sc = np.abs(m).max(-1) / 127.0 + 1e-9
+            q = np.clip(np.round(m / sc[..., None]), -127, 127)
+            return np.moveaxis(q.astype(np.int8), -1, axis), \
+                sc.astype(np.float32)
+
+        for kind, key, axis in (("qkv", "qkv_weights", -1),
+                                ("linear", "linear_weights", 0),
+                                ("ffn1", "ffn1_weights", 0),
+                                ("ffn2", "ffn2_weights", 0)):
+            pairs = [q8(a, axis) for a in w[key]]
+            w[key] = [p for p, _ in pairs]
+            w[f"{kind}_scales"] = [s for _, s in pairs]
+        x = rng.standard_normal((2, 5, 32)).astype(np.float32)
+        caches = [np.zeros((2, 2, 4, 8, 8), np.float32) for _ in range(2)]
+        self._run(JF.fused_multi_transformer_int8,
+                  TF.fused_multi_transformer_int8, w, x, caches)
+
+    def test_int4_matches_jax(self):
+        rng, w = self._float(1)
+        for kind, key, axis in (("qkv", "qkv_weights", -1),
+                                ("linear", "linear_weights", 0),
+                                ("ffn1", "ffn1_weights", 0),
+                                ("ffn2", "ffn2_weights", 0)):
+            pairs = [JF.quantize_int4(a, axis=axis) for a in w[key]]
+            w[key] = [p for p, _ in pairs]
+            w[f"{kind}_scales"] = [s for _, s in pairs]
+        x = rng.standard_normal((2, 4, 32)).astype(np.float32)
+        caches = [np.zeros((2, 2, 4, 8, 8), np.float32) for _ in range(2)]
+        self._run(JF.fused_multi_transformer_int4,
+                  TF.fused_multi_transformer_int4, w, x, caches,
+                  activation="relu")
+
+    def test_bf16_activations_promote_as_in_jax(self):
+        """bf16 activations against the float32 dequantized weights compute
+        in float32 (jnp's promotion), so the output dtype is JAX's."""
+        import paddle_tpu as paddle
+        rng, w = self._float(2, L=1, E=16, H=2, D=8, F=32)
+        scales = {}
+        for kind, key, axis in (("qkv", "qkv_weights", -1),
+                                ("linear", "linear_weights", 0),
+                                ("ffn1", "ffn1_weights", 0),
+                                ("ffn2", "ffn2_weights", 0)):
+            pk, sc = JF.quantize_int4(w[key][0], axis=axis)
+            w[key] = [pk]
+            scales[kind] = [sc]
+        x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+        T = paddle.to_tensor
+
+        def args(conv):
+            return ([conv(w["ln_scales"][0])], [], [conv(w["qkv_weights"][0])],
+                    scales["qkv"], [], [conv(w["linear_weights"][0])],
+                    scales["linear"], [], [conv(w["ffn_ln_scales"][0])], [],
+                    [conv(w["ffn1_weights"][0])], scales["ffn1"], [],
+                    [conv(w["ffn2_weights"][0])], scales["ffn2"], [])
+
+        jo = JF.fused_multi_transformer_int4(T(x).astype("bfloat16"),
+                                             *args(T))
+        to = TF.fused_multi_transformer_int4(
+            torch.from_numpy(x).bfloat16(), *args(torch.from_numpy))
+        assert str(jo.dtype).endswith("float32")
+        assert to.dtype == torch.float32 and tuple(to.shape) == (2, 3, 16)
+        assert bool(torch.isfinite(to).all())
