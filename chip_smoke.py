@@ -26,8 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
      versions in bf16: the flagship training shape (B=8, S=2048, H=16,
      D=64, causal), the forward entry's shape (B=4, S=128, H=8, KVH=4,
      D=32), a length off the tile and a non-causal case; each prints its
-     worst element against its tolerance and the kernel, plain, bound and
-     SDPA times;
+     worst element against its tolerance (the gradients' includes the
+     one-ulp flips that f32 summation order can cause where p and ds are
+     rounded to bf16, as o's includes p's rounding) and the kernel,
+     plain, bound and SDPA times;
   6. the Llama forward at the forward entry's shape (bf16, 4 layers):
      logits through the kernels against the plain attention path;
   7. flagship pretraining (V=32000, E=1024, F=2816, L=24, 16 heads, bf16
@@ -84,7 +86,10 @@ Phases (any failure exits non-zero and prints no result line):
      int8 weights, 6 requests with 4 x 24 int8 launches per paged step,
      a profiled window); dense ``generate()`` at bench.py's int8 leg
      (B=8, 16-token prompts, 64 new tokens) beside bf16 and int4 on the
-     same weights; f32 int8 tokens at L=2 against the plain route;
+     same weights; f32 int8 tokens at L=2 against the plain route; int8
+     and int4 engines at ``LlamaConfig.tiny``'s widths (E=64), whose 64-wide
+     projections send the whole engine to the dequant route, launching no
+     GEMM kernel;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -607,7 +612,9 @@ def dequantized_weights(eng_q, weights, quant="int4"):
 def phase_int4(torch):
     w = llama_weights(5, L)
     eng_q = make_engine(w, "bfloat16", weight_quant="int4")
-    check("_mm" in eng_q._kw, "int4 engine did not take the kernel path")
+    check(set(eng_q.quant_routes.values()) == {"kernel"},
+          f"int4 engine routes {eng_q.quant_routes}: every flagship width "
+          "fits a kernel block")
     eng_f = make_engine(dequantized_weights(eng_q, w), "bfloat16")
     reqs = requests(6, 4)
     width = max(len(p) for p, _ in reqs)
@@ -660,6 +667,79 @@ LSE_ATOL = 1e-4         # lse in f32: the same row sums in another order
 TRAIN_RTOL = 1e-4       # f32 loss / grad norm, kernels vs plain attention
 
 
+def flash_grad_rounding(torch, fa, q, k, v, o, lse, do, scale, causal,
+                        cos=None, sin=None):
+    """(dq, dk, dv) terms of the gradient allowance for the rounding of p
+    and ds to the input dtype, which both the kernel and the plain version
+    do, from f32 values that agree only to f32 rounding.
+
+    The two reach p and ds by different routes. q k^T and do v^T sum D
+    exact products of 16-bit values in another order: each side is within
+    2 D u sum |q_d k_d| of the exact dot (u = 2**-24; the tensor cores
+    truncate, so 2 D u; f32 summation in any order, D u), 4 D u together
+    with a unit of slack. delta sums do o in f32 on either side (2 D u sum
+    |do o|). Each side rounds s * scale - lse (or fuses it), exp (2 ulps),
+    dp - delta and the two products of ds on its own. That bounds
+    |p_kernel - p_plain| by w_p and |ds_kernel - ds_plain| by w_ds per
+    element. Rounding is monotone, so two values within w of x round to
+    values at most round(x + w) - round(x - w) apart: zero unless a
+    rounding boundary lies within w of x, then one ulp (up to 2**-7 |x|).
+    Each gradient may differ by those flips times its other operand:
+    flip(ds) |k|, flip(ds)^T |q|, flip(p)^T |do|. With rope, over the
+    rotated q and k; the f32 counter-rotation mixes the two halves of a
+    row, so each half gets the sum of both. Computed over slices of BH
+    that keep each [BH, Sq, Sk] f32 temporary near 256 MiB."""
+    if cos is not None:
+        q, k = fa._rope(q, cos, sin), fa._rope(k, cos, sin)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    u = 2.0 ** -24
+    dot_err = 4 * d * u
+    vis = fa._visible(sq, sk, causal, q.device)
+
+    def flip(x, w):
+        return (x + w).to(q.dtype).float() - (x - w).to(q.dtype).float()
+
+    parts = ([], [], [])
+    step = max(1, (1 << 26) // (sq * sk))
+    for b in range(0, bh, step):
+        qf, kf, vf, dof, of = (t[b:b + step].float()
+                               for t in (q, k, v, do, o))
+        lse_b = lse[b:b + step, :, None]
+        s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        w_arg = torch.matmul(qf.abs(), kf.abs().transpose(1, 2)) \
+            * (scale * dot_err) + 4 * u * (s.abs() + lse_b.abs())
+        p = torch.exp(s - lse_b)
+        del s
+        if vis is not None:
+            p = p * vis
+        w_p = p * (torch.expm1(w_arg) + 8 * u)
+        del w_arg
+        dodo = dof * of
+        x = torch.matmul(dof, vf.transpose(1, 2)) - dodo.sum(-1, keepdim=True)
+        w_x = torch.matmul(dof.abs(), vf.abs().transpose(1, 2)) * dot_err \
+            + dodo.abs().sum(-1, keepdim=True) * (2 * d * u) + 4 * u * x.abs()
+        ds = p * x * scale
+        w_ds = scale * (w_p * (x.abs() + w_x) + p * w_x) + 8 * u * ds.abs()
+        del x, w_x, dodo
+        flip_p = flip(p, w_p)
+        del p, w_p
+        flip_ds = flip(ds, w_ds)
+        del ds, w_ds
+        parts[0].append(torch.matmul(flip_ds, kf.abs()))
+        parts[1].append(torch.matmul(flip_ds.transpose(1, 2), qf.abs()))
+        parts[2].append(torch.matmul(flip_p.transpose(1, 2), dof.abs()))
+        del flip_p, flip_ds
+    dq, dk, dv = (torch.cat(t) for t in parts)
+    if cos is not None:
+        def both(x):
+            half = x.shape[-1] // 2
+            t = x[..., :half] + x[..., half:]
+            return torch.cat([t, t], dim=-1)
+        dq, dk = both(dq), both(dk)
+    return dq, dk, dv
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Route the flash autograd function through the plain versions on the
@@ -705,11 +785,11 @@ def flash_work(bh, sq, sk, d, causal):
     return fwd_bytes, 4 * d * pairs, bwd_bytes, 10 * d * pairs
 
 
-def flash_cases(torch):
+def flash_cases(torch, seed=21):
     """(name, q, k, v, do, causal) at [BH, S, D] in bf16; the GQA case is
     folded as flash_attention_bshd folds it (kv heads repeated)."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(21)
+    gen.manual_seed(seed)
 
     def bshd(b, s, h, d):
         return torch.randn(b, s, h, d, device="cuda",
@@ -753,8 +833,10 @@ def phase_flash(torch):
                                         2.0 ** -8 * p_abs_v.float())
         err_l = float((lse - rlse).abs().max())
         gerr, gratio, worst = 0.0, 0.0, "dq"
-        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
-            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+        extras = flash_grad_rounding(torch, fa, q, k, v, ro, rlse, do, scale,
+                                     causal)
+        for gname, g, r, x in zip(("dq", "dk", "dv"), grads, refs, extras):
+            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL, x)
             if ratio >= gratio:
                 worst = gname
             gerr, gratio = max(gerr, e), max(gratio, ratio)
@@ -762,14 +844,14 @@ def phase_flash(torch):
               f"of its allowance: atol {FLASH_O_ATOL:g} + 2**-8 (p @ |v|) / l "
               f"+ 2 bf16 ulps), lse err {err_l:.2e}; bwd err {gerr:.3e} "
               f"(worst {gratio:.3f}, in {worst}, of atol {FLASH_GRAD_ATOL:g} "
-              f"+ 2 bf16 ulps)", flush=True)
+              f"+ flips of p, ds + 2 bf16 ulps)", flush=True)
         check(finite, f"flash {name}: non-finite output")
         check(ratio_o <= 1.0, f"flash fwd {name}: o max abs err {err_o}, an "
               f"element off by {ratio_o:.2f}x its allowance")
         check(err_l <= LSE_ATOL, f"flash fwd {name}: lse err {err_l}")
         check(gratio <= 1.0, f"flash bwd {name}: {worst} max abs err {gerr},"
               f" an element off by {gratio:.2f}x its allowance")
-        del p_abs_v
+        del p_abs_v, extras
         big = bh * s >= 65536
         it = 10 if big else 25
         ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), iters=it)
@@ -951,13 +1033,13 @@ def phase_ce(torch):
     return rows
 
 
-def rope_flash_cases(torch):
+def rope_flash_cases(torch, seed=41):
     """(name, q, k, v, do, causal, cos, sin) at [BH, S, D] in bf16 with the
     model's [S, D/2] f32 tables; the GQA case folded as
     flash_attention_bshd folds it."""
     from paddle_tpu_torch.nn.functional import rotary_embedding_cos_sin
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(41)
+    gen.manual_seed(seed)
 
     def bshd(b, s, h, d):
         return torch.randn(b, s, h, d, device="cuda",
@@ -1002,22 +1084,25 @@ def phase_flash_rope(torch):
                                         2.0 ** -8 * p_abs_v.float())
         err_l = float((lse - rlse).abs().max())
         gerr, gratio, worst = 0.0, 0.0, "dq"
-        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
-            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL)
+        extras = flash_grad_rounding(torch, fa, q, k, v, ro, rlse, do, scale,
+                                     causal, *rope)
+        for gname, g, r, x in zip(("dq", "dk", "dv"), grads, refs, extras):
+            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL, x)
             if ratio >= gratio:
                 worst = gname
             gerr, gratio = max(gerr, e), max(gratio, ratio)
         print(f"  flash+rope[{name}]: fwd o err {err_o:.3e} (worst "
               f"{ratio_o:.3f} of its allowance), lse err {err_l:.2e}; bwd "
               f"err {gerr:.3e} (worst {gratio:.3f}, in {worst}, of atol "
-              f"{FLASH_GRAD_ATOL:g} + 2 bf16 ulps)", flush=True)
+              f"{FLASH_GRAD_ATOL:g} + flips of p, ds + 2 bf16 ulps)",
+              flush=True)
         check(finite, f"flash+rope {name}: non-finite output")
         check(ratio_o <= 1.0, f"flash+rope fwd {name}: o max abs err {err_o}, "
               f"an element off by {ratio_o:.2f}x its allowance")
         check(err_l <= LSE_ATOL, f"flash+rope fwd {name}: lse err {err_l}")
         check(gratio <= 1.0, f"flash+rope bwd {name}: {worst} max abs err "
               f"{gerr}, an element off by {gratio:.2f}x its allowance")
-        del p_abs_v
+        del p_abs_v, extras
         big = bh * s >= 65536
         it = 10 if big else 25
         ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal, *rope),
@@ -1133,8 +1218,8 @@ def phase_train(torch, options=None):
     outputs = []
     model.register_forward_hook(
         lambda mod, args, out: outputs.append(out[0] is None))
-    params, opt_state, meta = pretrain.make_train_state(model)
-    step = pretrain.make_train_step(model, meta)
+    params, opt_state, meta = pretrain.make_train_state(model, None)
+    step = pretrain.make_train_step(model, None, meta)
     n_params = sum(p.numel() for p in params.values())
     print(f"  model built in {time.perf_counter() - t0:.1f} s: "
           f"{n_params / 1e6:.1f}M params", flush=True)
@@ -1231,8 +1316,8 @@ def phase_train_parity(torch, options=None):
     for k, v in (options or {}).items():
         setattr(cfg, k, v)
     model = LlamaForCausalLM(cfg, device="cuda", seed=1)
-    states = [pretrain.make_train_state(model) for _ in range(2)]
-    step = pretrain.make_train_step(model, states[0][2])
+    states = [pretrain.make_train_state(model, None) for _ in range(2)]
+    step = pretrain.make_train_step(model, None, states[0][2])
     rng = np.random.default_rng(1)
     batches = [pretrain.batch_to_device(
         {"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
@@ -2061,7 +2146,9 @@ def phase_int8(torch):
     rows = int8_kernel_rows(torch)
     w = llama_weights(8, L)
     eng_q = make_engine(w, "bfloat16", weight_quant="int8")
-    check("_mm" in eng_q._kw, "int8 engine did not take the kernel path")
+    check(set(eng_q.quant_routes.values()) == {"kernel"},
+          f"int8 engine routes {eng_q.quant_routes}: every flagship width "
+          "fits a kernel block")
     eng_f = make_engine(dequantized_weights(eng_q, w, "int8"), "bfloat16")
     reqs = requests(9, 6)
     width = max(len(p) for p, _ in reqs)
@@ -2118,11 +2205,70 @@ def phase_int8(torch):
           f"int8 {tps['int8']:.1f}, bf16 {tps['bf16']:.1f}, int4 "
           f"{tps['int4']:.1f}", flush=True)
     parity = int8_f32_parity(torch)
+    narrow = narrow_quant_routes(torch)
     return rows, {"steps": steps, "int8_launches": int8, "tokens_per_s":
                   toks / wall, "ms_per_step": wall / steps * 1e3,
                   "logit_diff": err, "logit_tol": tol,
                   "decode_tokens_per_s": tps, "profile": profile,
-                  "f32_parity": parity}
+                  "f32_parity": parity, "narrow_widths": narrow}
+
+
+def narrow_quant_routes(torch):
+    """Quantized engines at ``LlamaConfig.tiny``'s widths (E=64, F=128) on
+    the card: lin and ffn2 (64 wide) fit no 128-column block, so every
+    projection takes the dequant route, as in the JAX engine, and no GEMM
+    kernel launches."""
+    from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
+                                            engine_weights_from_numpy)
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rng = np.random.default_rng(13)
+    v, e, h, g, d, f, layers = 128, 64, 4, 2, 16, 128, 2
+
+    def mk(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    w = dict(ln_scales=[np.ones(e, np.float32)] * layers,
+             qkv_weights=[mk(h + 2 * g, d, e) for _ in range(layers)],
+             linear_weights=[mk(h * d, e) for _ in range(layers)],
+             ffn_ln_scales=[np.ones(e, np.float32)] * layers,
+             ffn1_weights=[mk(e, 2 * f) for _ in range(layers)],
+             ffn2_weights=[mk(f, e) for _ in range(layers)],
+             embedding=mk(v, e), lm_head=mk(e, v))
+    ids = rng.integers(0, v, (2, 8)).astype(np.int32)
+    out = {}
+    for quant, counter in (("int8", "int8_launches"), ("int4", "launches")):
+        eng = FusedMultiTransformerEngine(
+            engine_weights_from_numpy(w, "cuda", "bfloat16"), num_heads=h,
+            head_dim=d, max_seq_len=32, dtype="bfloat16", norm_type="rmsnorm",
+            activation="swiglu", gqa_group_size=g, weight_quant=quant,
+            device="cuda")
+        want = dict.fromkeys(("qkv", "lin", "f1", "f2"), "dequant")
+        check(eng.quant_routes == want, f"{quant} routes at E=64: "
+              f"{eng.quant_routes} (want {want})")
+        calls, inner = [], eng._kw["_mm"]
+
+        def mm(z2d, wt, kind, li, _inner=inner):
+            calls.append(kind)
+            return _inner(z2d, wt, kind, li)
+
+        mm.qkv_out = inner.qkv_out
+        eng._kw["_mm"] = mm
+        before = getattr(qm.weight_only_matmul, counter)
+        toks = eng.generate(ids, max_new_tokens=8)
+        torch.cuda.synchronize()
+        launched = getattr(qm.weight_only_matmul, counter) - before
+        check(launched == 0 and len(calls) > 0,
+              f"{quant} at E=64: {launched} kernel launches for "
+              f"{len(calls)} dequant-routed projections")
+        check(toks.shape == (2, 8) and bool(((toks >= 0) & (toks < v)).all()),
+              f"{quant} at E=64 decoded {toks}")
+        out[quant] = {"kernel_launches": launched,
+                      "dequant_calls": len(calls)}
+        print(f"  {quant} at E=64: routes {eng.quant_routes}, {launched} "
+              f"kernel launches, {out[quant]['dequant_calls']} dequant-"
+              "routed projection calls", flush=True)
+        del eng
+    return out
 
 
 def int8_f32_parity(torch):
@@ -2131,7 +2277,8 @@ def int8_f32_parity(torch):
     tie (top-2 logit gap <= 1e-3, as in phase 3)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     eng = make_engine(llama_weights(11, 2), "float32", weight_quant="int8")
-    check("_mm" in eng._kw, "f32 int8 engine did not take the kernel path")
+    check(set(eng.quant_routes.values()) == {"kernel"},
+          f"f32 int8 engine routes {eng.quant_routes}")
     ids = np.random.default_rng(12).integers(1, V, (4, 16)).astype(np.int32)
     got = eng.generate(ids, max_new_tokens=16)
     with plain_int8():
@@ -2193,7 +2340,8 @@ def main():
     print(f"  kernels built in {secs:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "entry function" in line:
                 print(f"  [{name}] {line.strip()}", flush=True)
 
     with torch.no_grad():

@@ -120,34 +120,24 @@ _PROJECTIONS = (("qkv", "qkv_weights"), ("lin", "linear_weights"),
                 ("f1", "ffn1_weights"), ("f2", "ffn2_weights"))
 
 
-def _quant_blocks(weights, device, quant):
+def _quant_blocks(weights, quant):
     """The ``quant`` kernel's block per projection kind ({kind: block_n})
     for the float weight dict: int4 by ``kernel_block_n``, int8 by
-    ``pick_block_n(n, "int8")``, both multiples of 128 dividing the
-    width. When some projection width fits no block this returns None on
-    the CPU, where the dequant path serves, and raises on the card, where
-    the kernel is the only quantized path."""
+    ``pick_block_n(n, "int8")``, both multiples of 128 dividing the width.
+    When some width fits no block, every kind gets None: the engine then
+    serves all projections through the dequant route, as the JAX engine
+    falls back as a whole on an indivisible shape
+    (``paddle_tpu/inference/__init__.py`` :547-552), so its weights and
+    scales are the JAX engine's. The same on every device."""
     blocks = {}
     for kind, key in _PROJECTIONS:
         w0 = weights[key][0]
         n = int(np.prod(w0.shape[:-1])) if kind == "qkv" else w0.shape[1]
-        bn = kernel_block_n(n) if quant == "int4" else pick_block_n(n, "int8")
-        if bn is None:
-            if device.type != "cpu":
-                raise ValueError(
-                    f"weight_quant={quant!r}: the {key} output width {n} is "
-                    f"not a multiple of 128, which the {quant} kernel needs")
-            return None
-        blocks[kind] = bn
+        blocks[kind] = kernel_block_n(n) if quant == "int4" \
+            else pick_block_n(n, "int8")
+    if None in blocks.values():
+        return dict.fromkeys(blocks)
     return blocks
-
-
-def _int4_blocks(weights, device):
-    return _quant_blocks(weights, device, "int4")
-
-
-def _int8_blocks(weights, device):
-    return _quant_blocks(weights, device, "int8")
 
 
 def _quantize_int8(a, axis):
@@ -212,12 +202,13 @@ class FusedMultiTransformerEngine:
                         use_neox_rotary_style=use_neox_rotary_style,
                         gqa_group_size=gqa_group_size)
         self.weight_quant = weight_quant
-        blocks = _quant_blocks(self._w, self.device, weight_quant) \
-            if weight_quant else None
-        if blocks is not None:
+        # {kind: "kernel" | "dequant"} per projection, fixed here
+        self.quant_routes = {}
+        if weight_quant:
+            blocks = _quant_blocks(self._w, weight_quant)
+            self.quant_routes = {k: "dequant" if bn is None else "kernel"
+                                 for k, bn in blocks.items()}
             self._kw["_mm"] = self._build_quant_mm(blocks, weight_quant)
-        elif weight_quant in ("int4", "int8"):
-            self._kw["_dequant"] = self._build_dequant(weight_quant)
         self._gen = make_generator(0, self.device)
         self._paged_step = _dispatch_span("paged_step", self._paged_step_impl)
         self._paged_rewind = _dispatch_span("paged_rewind",
@@ -227,27 +218,37 @@ class FusedMultiTransformerEngine:
     # -- weight-only quantization -----------------------------------------
     @staticmethod
     def _matrix(kind, a):
-        """Stored weight (numpy) -> its [K, N] matrix (trans_qkvw layouts):
-        qkv [ht, hd, E] -> [E, ht*hd]; lin [H*D, E]; ffn1 [E, 2F]; ffn2
-        [F, E]."""
+        """Stored weight (numpy or torch) -> its [K, N] matrix (trans_qkvw
+        layouts): qkv [ht, hd, E] -> [E, ht*hd]; lin [H*D, E]; ffn1
+        [E, 2F]; ffn2 [F, E]."""
         return a.reshape(-1, a.shape[-1]).T if kind == "qkv" else a
 
     def _build_quant_mm(self, blocks, quant):
-        """Repack the projection weights for the ``quant`` kernel, REPLACING
-        self._w's lists: int4 into the K x N block-halved layout, int8 as
-        the JAX engine's int8 values and scales in [K, N] / [N]. Returns
-        the _mm(z2d, w, kind, li) hook running the weight-only GEMM."""
+        """Quantize the projection weights, REPLACING self._w's lists, and
+        return the _mm(z2d, w, kind, li) hook. A kind with a block takes
+        the weight-only GEMM: int4 packed into the K x N block-halved
+        layout, int8 as the JAX engine's int8 values and scales in [K, N]
+        / [N]. A kind without a block (``blocks[kind]`` None, which
+        ``_quant_blocks`` gives all kinds or none) takes the dequant route
+        of the JAX engine: its weight quantized in its stored layout (int4
+        through ``quantize_int4``, int8 per output channel), expanded to
+        the compute dtype per use, then a matmul."""
         qkv_out = tuple(self._w["qkv_weights"][0].shape[:-1])
         scales = {}
         for kind, key in _PROJECTIONS:
             packed_l, sc_l = [], []
+            axis = -1 if kind == "qkv" else 0
             for t in self._w[key]:
                 a = t.detach().float().cpu().numpy()
-                if quant == "int4":
+                if blocks[kind] is None and quant == "int4":
+                    packed, sc = quantize_int4(a, axis=axis)
+                elif blocks[kind] is None:
+                    packed, sc = _quantize_int8(a, axis)
+                elif quant == "int4":
                     packed, sc = pack_int4_blocked(self._matrix(kind, a),
                                                    block_n=blocks[kind])
                 else:
-                    q, sc = _quantize_int8(a, -1 if kind == "qkv" else 0)
+                    q, sc = _quantize_int8(a, axis)
                     packed = np.ascontiguousarray(self._matrix(kind, q))
                     sc = sc.reshape(-1)
                 packed_l.append(torch.as_tensor(packed).to(self.device))
@@ -257,6 +258,11 @@ class FusedMultiTransformerEngine:
         dtype = self._tdtype
 
         def mm(z2d, w, kind, li):
+            if blocks[kind] is None:
+                full = _unpack_int4(w, axis=-1 if kind == "qkv" else 0) \
+                    if quant == "int4" else w
+                full = (full.float() * scales[kind][li]).to(dtype)
+                return torch.matmul(z2d.to(dtype), self._matrix(kind, full))
             return weight_only_matmul(z2d.to(dtype).contiguous(), w,
                                       scales[kind][li], quant=quant,
                                       block_n=blocks[kind], out_dtype=dtype)
@@ -265,33 +271,6 @@ class FusedMultiTransformerEngine:
         mm.blocks = blocks
         mm.scales = scales
         return mm
-
-    def _build_dequant(self, weight_quant):
-        """Quantize the projection weights (int4 through ``quantize_int4``,
-        int8 per output channel) REPLACING self._w's lists; returns the
-        _dequant(w, kind, li) hook."""
-        qscales = {}
-        for kind, key in _PROJECTIONS:
-            axis = -1 if kind == "qkv" else 0
-            packed, scs = [], []
-            for t in self._w[key]:
-                a = t.detach().float().cpu().numpy()
-                if weight_quant == "int4":
-                    pk, sc = quantize_int4(a, axis=axis)
-                else:
-                    pk, sc = _quantize_int8(a, axis)
-                packed.append(torch.as_tensor(pk).to(self.device))
-                scs.append(torch.as_tensor(sc).to(self.device))
-            self._w[key] = packed
-            qscales[kind] = scs
-        cdt = self._tdtype
-
-        def dq(w, kind, li):
-            full = _unpack_int4(w, axis=-1 if kind == "qkv" else 0) \
-                if weight_quant == "int4" else w
-            return (full.float() * qscales[kind][li]).to(cdt)
-
-        return dq
 
     # -- the model --------------------------------------------------------
     def _lists(self):

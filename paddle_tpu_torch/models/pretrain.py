@@ -25,11 +25,13 @@ __all__ = ["flagship_config", "make_train_state", "make_train_step",
            "batch_to_device"]
 
 
-def flagship_config(full=True):
-    """The headline training shape: (LlamaConfig, batch, seq). ``full``
-    False gives the CPU smoke form (tiny config in float32, 4 x 64)."""
+def flagship_config(on_tpu=True):
+    """The headline training shape: (LlamaConfig, batch, seq), with the JAX
+    package's signature. ``on_tpu`` False gives the CPU smoke form (tiny
+    config in float32, 4 x 64); True the full shape, which the port runs on
+    the card."""
     from .llama import LlamaConfig
-    if not full:
+    if not on_tpu:
         return LlamaConfig.tiny(dtype="float32"), 4, 64
     cfg = LlamaConfig(
         vocab_size=32000, hidden_size=1024, intermediate_size=2816,
@@ -44,13 +46,17 @@ def _later_slice(what):
                               "port (single device only)")
 
 
-def make_train_state(model, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
-                     weight_decay=0.1, grad_clip=1.0, mesh=None):
+def make_train_state(model, mesh=None, rules=None, lr=3e-4,
+                     betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                     grad_clip=1.0):
     """(params, opt_state, meta): float32 master copies of the model's
     parameters, zero AdamW moments and the step count, and the optimizer
-    settings."""
+    settings. The JAX package's argument order: ``mesh`` None is the
+    single-device case; a mesh or sharding ``rules`` raise."""
     if mesh is not None:
         _later_slice("a mesh")
+    if rules is not None:
+        _later_slice("sharding rules")
     params = {n: p.detach().to(torch.float32).clone()
               for n, p in model.named_parameters()}
     opt_state = {"m": {n: torch.zeros_like(p) for n, p in params.items()},
@@ -98,7 +104,8 @@ def _adamw(params, grads, opt_state, lr, b1, b2, eps, wd, clip):
     return params, opt_state, gnorm
 
 
-def make_train_step(model, meta, mesh=None, telemetry=False, monitor=None):
+def make_train_step(model, mesh, meta, donate=True, telemetry=False,
+                    telemetry_every=1, monitor=None):
     """``run(params, opt_state, batch) -> (params, opt_state, loss,
     gnorm)``: one AMP-O2 training step of ``model`` on the params'
     device. ``batch`` = {input_ids: [B, S], labels: [B, S]} tensors
@@ -109,7 +116,13 @@ def make_train_step(model, meta, mesh=None, telemetry=False, monitor=None):
     train_step_seconds, dispatch_seconds{program="pretrain_step"},
     train_steps_total, train_tokens_total and train_tokens_per_s. The
     step is eager, so its host wall covers the enqueue of every kernel;
-    it reaches the device time once the launch queue backs up."""
+    it reaches the device time once the launch queue backs up.
+
+    The JAX package's argument order: ``mesh`` None is the single-device
+    case, a mesh raises. ``donate`` is accepted and does nothing: the eager
+    step already updates the masters and moments in place, where the JAX
+    step donates its input buffers. ``telemetry_every`` only matters with
+    ``telemetry``, which raises."""
     if mesh is not None:
         _later_slice("a mesh")
     if telemetry or monitor is not None:

@@ -137,6 +137,9 @@ def _check(name, q, k, v, *more):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous and "
                              f"on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every tensor must start on a 16-byte "
+                             "boundary (the kernels copy 16-byte chunks)")
         if t.dtype != q.dtype:
             raise ValueError(f"{name}: mixed dtypes {q.dtype} and {t.dtype}")
 
@@ -161,10 +164,12 @@ def _rope_ptrs(name, q, k, rope_cos, rope_sin):
     for t in (rope_cos, rope_sin):
         if t is None or t.dtype != torch.float32 or t.dim() != 2 \
                 or t.shape[0] < rows or t.shape[1] != q.shape[2] // 2 \
-                or t.device != q.device or not t.is_contiguous():
+                or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"{name}: rope_cos and rope_sin must both be "
                              f"contiguous float32 [>= {rows}, "
-                             f"{q.shape[2] // 2}] on {q.device}")
+                             f"{q.shape[2] // 2}] on {q.device}, starting "
+                             "on a 16-byte boundary")
     return rope_cos.data_ptr(), rope_sin.data_ptr()
 
 

@@ -255,6 +255,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_before_launching():
     with pytest.raises(ValueError):
         tfa._check("flash_fwd", q, q.bfloat16(), q.bfloat16())
     tfa._check("flash_fwd", q, q, q)
+    shifted = torch.zeros(2 * 8 * 32 + 1)[1:].view(2, 8, 32)   # 4 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check("flash_fwd", shifted, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"), 1.0, True)
     tab = torch.zeros(8, 16)

@@ -232,27 +232,55 @@ def test_block_multihead_attention_kernel_route_matches_plain_route():
     assert err <= _tol(ref, torch.bfloat16), err
 
 
-def test_int4_engine_refuses_widths_the_kernel_does_not_take():
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_engine_serves_widths_off_128_through_dequant(quant):
+    """``LlamaConfig.tiny``'s widths on the card: lin and ffn2 (64) fit no
+    kernel block, so every projection takes the dequant route and no GEMM
+    kernel launches; greedy tokens equal the same engine's on the CPU
+    (f32)."""
     from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
                                             engine_weights_from_numpy)
+    from paddle_tpu_torch.ops import quant_matmul as qm
     rng = np.random.default_rng(0)
-    e, h, g, d, f = 96, 4, 2, 32, 64          # output widths 96: no block
+    v, e, h, g, d, f, layers = 128, 64, 4, 2, 16, 128, 2
 
     def mk(*shape):
         return (rng.standard_normal(shape) * 0.02).astype(np.float32)
 
-    w = dict(ln_scales=[np.ones(e, np.float32)], qkv_weights=[mk(h + 2 * g,
-                                                                 d, e)],
-             linear_weights=[mk(h * d, e)],
-             ffn_ln_scales=[np.ones(e, np.float32)],
-             ffn1_weights=[mk(e, 2 * f)], ffn2_weights=[mk(f, e)],
-             embedding=mk(32, e), lm_head=mk(e, 32))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        FusedMultiTransformerEngine(
-            engine_weights_from_numpy(w, "cuda", "float32"), num_heads=h,
-            head_dim=d, max_seq_len=16, dtype="float32", norm_type="rmsnorm",
-            activation="swiglu", gqa_group_size=g, weight_quant="int4",
-            device="cuda")
+    w = dict(ln_scales=[np.ones(e, np.float32)] * layers,
+             qkv_weights=[mk(h + 2 * g, d, e) for _ in range(layers)],
+             linear_weights=[mk(h * d, e) for _ in range(layers)],
+             ffn_ln_scales=[np.ones(e, np.float32)] * layers,
+             ffn1_weights=[mk(e, 2 * f) for _ in range(layers)],
+             ffn2_weights=[mk(f, e) for _ in range(layers)],
+             embedding=mk(v, e), lm_head=mk(e, v))
+    kw = dict(num_heads=h, head_dim=d, max_seq_len=32, dtype="float32",
+              norm_type="rmsnorm", activation="swiglu", gqa_group_size=g,
+              weight_quant=quant)
+    engs = [FusedMultiTransformerEngine(
+        engine_weights_from_numpy(w, dev, "float32"), device=dev, **kw)
+        for dev in ("cuda", "cpu")]
+    assert engs[0].quant_routes == engs[1].quant_routes == dict.fromkeys(
+        ("qkv", "lin", "f1", "f2"), "dequant")
+    calls = []
+    inner = engs[0]._kw["_mm"]
+
+    def mm(z2d, wt, kind, li):
+        calls.append(kind)
+        return inner(z2d, wt, kind, li)
+
+    mm.qkv_out = inner.qkv_out
+    engs[0]._kw["_mm"] = mm
+    counter = "launches" if quant == "int4" else "int8_launches"
+    before = getattr(qm.weight_only_matmul, counter)
+    ids = rng.integers(0, v, (2, 6)).astype(np.int32)
+    got = engs[0].generate(ids, max_new_tokens=6)
+    torch.cuda.synchronize()
+    launched = getattr(qm.weight_only_matmul, counter) - before
+    assert calls.count("lin") == calls.count("f2") == calls.count("qkv") > 0
+    assert launched == 0
+    np.testing.assert_array_equal(got, engs[1].generate(ids,
+                                                         max_new_tokens=6))
 
 
 def _flash_inputs(bh, sq, sk, d, dtype, seed):
@@ -293,6 +321,82 @@ def test_flash_kernels_match_plain(dtype, d, sq, sk, causal):
         assert g.dtype == dtype and g.shape == r.shape, name
         err = float((g.float() - r.float()).abs().max())
         assert err <= _tol(r, dtype), (name, err)
+
+
+def _flash_check(dtype, d, sq, sk, causal, seed, rope=False):
+    """One forward and one backward launch against the plain versions
+    (within ``_tol``; lse within 1e-4), optionally with rope tables longer
+    than both lengths."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(3, sq, sk, d, dtype, seed)
+    tables = _rope_tables(max(sq, sk) + 3, d) if rope else (None, None)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, causal, *tables)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal, *tables)
+    grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal, *tables)
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal, *tables)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    err = float((o.float() - ro.float()).abs().max())
+    assert err <= _tol(ro, dtype), ("o", err)
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 15, 127, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_lengths_match_plain(dtype, d, s, causal):
+    """The bf16 / fp16 tensor-core bodies at lengths inside one tile and
+    across several, ending off the 64-key and the query tiles."""
+    _flash_check(dtype, d, s, s, causal, s + d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(300, 100), (100, 300), (1000, 130),
+                                   (65, 1000)])
+def test_flash_tensor_core_causal_lengths_apart(dtype, d, sq, sk):
+    """Causal (top-left, row >= col) with more queries than keys and
+    fewer: rows past the last key see every key, tiles wholly above the
+    diagonal are skipped."""
+    _flash_check(dtype, d, sq, sk, True, sq * 3 + sk + d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(15, 15, True), (127, 127, True),
+                                          (1000, 1000, True),
+                                          (300, 100, True), (100, 300, False)])
+def test_flash_tensor_core_rope_lengths(dtype, d, sq, sk, causal):
+    """Rope inside the tensor-core bodies at the narrowest and widest head
+    dims: q rotated once per tile, each k tile after it lands, dq and dk
+    counter-rotated in the accumulator layout."""
+    _flash_check(dtype, d, sq, sk, causal, sq + sk + d + 1, rope=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_backward_dk_dv_are_deterministic(dtype, d):
+    """dk and dv are summed in registers in a fixed order: two calls on the
+    same inputs give the same bits. Only dq, added with atomics, may
+    differ in its last bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(4, 700, 700, d, dtype, d + 11)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    first = fa.flash_bwd(q, k, v, o, lse, do, scale, True)
+    second = fa.flash_bwd(q, k, v, o, lse, do, scale, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    assert float((first[0].float() - second[0].float()).abs().max()) \
+        <= _tol(first[0], dtype)
 
 
 @pytest.mark.parametrize("h,kvh", [(8, 8), (8, 4), (8, 2)])

@@ -95,7 +95,7 @@ def _trajectories(cfg, batch, seq, steps):
     jstep = jpre.make_train_step(jm, mesh, jmeta)
     tm = llama_state_from_numpy(np_params, cfg, device="cpu")
     tparams, topt, tmeta = tpre.make_train_state(tm)
-    tstep = tpre.make_train_step(tm, tmeta)
+    tstep = tpre.make_train_step(tm, None, tmeta)
     want, got = [], []
     for b in _batches(steps, batch, seq, cfg.vocab_size):
         jparams, jopt, jl, jg = jstep(jparams, jopt, jpre.shard_batch(b, mesh))
@@ -107,7 +107,7 @@ def _trajectories(cfg, batch, seq, steps):
 
 
 def test_five_step_trajectory_matches_make_train_step():
-    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg, batch, seq = tpre.flagship_config(on_tpu=False)
     jcfg, jb, js = jpre.flagship_config(on_tpu=False)
     assert (batch, seq) == (jb, js) == (4, 64)
     assert vars(cfg) == vars(jcfg)
@@ -138,7 +138,7 @@ def test_five_step_trajectory_with_kernel_options_matches(kernel_options,
     five f32 steps: losses and grad norms within 1e-5 of JAX
     ``make_train_step`` with the same options; the step reaches the
     blockwise op once forward and once backward per step."""
-    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg, batch, seq = tpre.flagship_config(on_tpu=False)
     for k, v in kernel_options.items():
         setattr(cfg, k, v)
     calls = []
@@ -155,7 +155,7 @@ def test_five_step_trajectory_with_kernel_options_matches(kernel_options,
 def test_bf16_amp_step_with_kernel_options_matches(kernel_options):
     """AMP-O2 with both options: the head weight reaches the blockwise op
     as bf16 and its gradient lands on the f32 master."""
-    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg, batch, seq = tpre.flagship_config(on_tpu=False)
     cfg.dtype = "bfloat16"
     cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
     for k, v in kernel_options.items():
@@ -170,13 +170,47 @@ def test_bf16_amp_step_matches():
     """AMP-O2: ndim >= 2 parameters run the forward in bf16 (norm scales
     stay f32 and are cast down inside rms_norm), the grads land on the
     f32 masters."""
-    cfg, batch, seq = tpre.flagship_config(full=False)
+    cfg, batch, seq = tpre.flagship_config(on_tpu=False)
     cfg.dtype = "bfloat16"
     cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
     want, got, params = _trajectories(cfg, 2, 32, 3)
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-3, atol=0)
     assert all(p.dtype == torch.float32 for p in params.values())
+
+
+def test_bench_argument_order_drives_both_packages_positionally():
+    """bench.py's calls, every argument positional, on both packages:
+    ``flagship_config(on_tpu)``, ``make_train_state(model, mesh)``, then
+    ``make_train_step(model, mesh, meta)`` (the port's mesh is None, one
+    device), three f32 steps of ``LlamaConfig.tiny`` on the same seeded
+    batches; rtol 1e-5 as for the five-step trajectory."""
+    from paddle_tpu.models import LlamaConfig as JConfig
+    from paddle_tpu_torch.models import LlamaConfig
+    assert vars(tpre.flagship_config(False)[0]) \
+        == vars(jpre.flagship_config(False)[0])
+    cfg, jcfg = LlamaConfig.tiny(dtype="float32"), \
+        JConfig.tiny(dtype="float32")
+    paddle.seed(5)
+    jm = JLlama(jcfg)
+    mesh = jpre.make_mesh(1, dp=1, fsdp=1, mp=1, sp=1)
+    jparams, jopt, jmeta = jpre.make_train_state(jm, mesh)
+    jstep = jpre.make_train_step(jm, mesh, jmeta)
+    tm = llama_state_from_numpy({n: np.asarray(a) for n, a in
+                                 jparams.items()}, cfg, device="cpu")
+    tparams, topt, tmeta = tpre.make_train_state(tm, None)
+    tstep = tpre.make_train_step(tm, None, tmeta, True)
+    assert tmeta["lr"] == jmeta["lr"] == 3e-4
+    want, got = [], []
+    for b in _batches(3, 2, 16, cfg.vocab_size, seed=3):
+        jparams, jopt, jl, jg = jstep(jparams, jopt, jpre.shard_batch(b, mesh))
+        want.append((float(jl), float(jg)))
+        tparams, topt, tl, tg = tstep(tparams, topt,
+                                      tpre.batch_to_device(b, "cpu"))
+        got.append((float(tl), float(tg)))
+    assert topt["count"] == int(jopt["count"]) == 3
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-5,
+                               atol=0)
 
 
 def test_flagship_shape_matches_the_jax_package():
@@ -188,7 +222,7 @@ def test_flagship_shape_matches_the_jax_package():
 def test_cuda_is_the_default_and_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    cfg, _, _ = tpre.flagship_config(full=False)
+    cfg, _, _ = tpre.flagship_config(on_tpu=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -196,16 +230,19 @@ def test_cuda_is_the_default_and_raises_without_a_gpu():
 
 
 def test_later_slice_options_raise():
-    cfg, _, _ = tpre.flagship_config(full=False)
+    cfg, _, _ = tpre.flagship_config(on_tpu=False)
     tm = LlamaForCausalLM(cfg, device="cpu")
     params, opt, meta = tpre.make_train_state(tm)
     with pytest.raises(NotImplementedError, match="later slice"):
         tpre.make_train_state(tm, mesh=object())
-    for kw in (dict(mesh=object()), dict(telemetry=True),
-               dict(monitor=object())):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tpre.make_train_state(tm, None, rules=[])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tpre.make_train_step(tm, object(), meta)
+    for kw in (dict(telemetry=True), dict(monitor=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
-            tpre.make_train_step(tm, meta, **kw)
-    run = tpre.make_train_step(tm, meta)
+            tpre.make_train_step(tm, None, meta, **kw)
+    run = tpre.make_train_step(tm, None, meta)
     b = tpre.batch_to_device(_batches(1, 2, 8, cfg.vocab_size)[0], "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         run(params, opt, b, lr_scale=2.0)

@@ -205,8 +205,9 @@ class TestQuantizedEngines:
 
     @pytest.mark.parametrize("quant", ["int8", "int4"])
     def test_dequant_path_token_exact_vs_jax(self, quant):
-        # widths with no legal int4 kernel block: both engines take the
-        # dequantize-per-use path (quantize_int4 for int4)
+        # lin / ffn1 / ffn2 widths (64, 192, 64) fit no kernel block: both
+        # engines take the dequantize-per-use route for every projection
+        # (quantize_int4 for int4)
         from paddle_tpu.inference import FusedMultiTransformerEngine as JE
         V, E, H, G, D, L, F = 128, 64, 4, 2, 16, 2, 96
         w = _weights(V, E, H, G, D, L, F, seed=1)
@@ -214,34 +215,45 @@ class TestQuantizedEngines:
                   norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
                   weight_quant=quant)
         eng = _port_engine(w, **kw)
-        assert "_dequant" in eng._kw
+        assert eng.quant_routes == dict.fromkeys(("qkv", "lin", "f1", "f2"),
+                                                 "dequant")
         ids = np.random.default_rng(1).integers(0, V, (2, 6)).astype(
             np.int32)
         ref = JE(w, **kw).generate(ids, max_new_tokens=6)
         np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=6),
                                       ref)
 
-    def test_int4_blocks_follow_the_kernel_and_refuse_on_the_card(self):
+    def test_int4_blocks_follow_the_kernel_and_route_the_rest_to_dequant(
+            self):
         """The int4 engine picks each projection's block by the CUDA
-        kernel's rule. A width that fits no block falls back to the dequant
-        path only on the CPU; on the card it raises."""
-        from paddle_tpu_torch.inference import _int4_blocks
-        cpu, card = torch.device("cpu"), torch.device("cuda")
+        kernel's rule, from the shapes alone (no device enters). A width
+        that fits no block sends every projection to the dequant route, as
+        the JAX engine falls back: each weight packed by ``quantize_int4``
+        in its stored layout, on every device."""
+        from paddle_tpu_torch.inference import _quant_blocks
         V, H, G, D, L = 64, 4, 2, 32, 1
         w = _weights(V, 384, H, G, D, L, 192)   # widths 256, 384, 384, 384
         want = {"qkv": 256, "lin": 384, "f1": 384, "f2": 384}
-        assert _int4_blocks(w, cpu) == want
-        assert _int4_blocks(w, card) == want
-        w = _weights(V, 96, H, G, D, L, 64)     # lin/ffn2 width 96
-        assert _int4_blocks(w, cpu) is None
-        with pytest.raises(ValueError, match="multiple of 128"):
-            _int4_blocks(w, card)
-        eng = _port_engine(_weights(V, 384, H, G, D, L, 192),
-                           num_heads=H, head_dim=D, max_seq_len=16,
-                           dtype="float32", norm_type="rmsnorm",
-                           activation="swiglu", gqa_group_size=G,
-                           weight_quant="int4")
+        assert _quant_blocks(w, "int4") == want
+        kw = dict(num_heads=H, head_dim=D, max_seq_len=16, dtype="float32",
+                  norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
+                  weight_quant="int4")
+        eng = _port_engine(w, **kw)
         assert eng._kw["_mm"].blocks == want
+        assert set(eng.quant_routes.values()) == {"kernel"}
+        w = _weights(V, 96, H, G, D, L, 64)     # lin / ffn2 width 96
+        assert _quant_blocks(w, "int4") == dict.fromkeys(
+            ("qkv", "lin", "f1", "f2"))
+        eng = _port_engine(w, **kw)
+        assert set(eng.quant_routes.values()) == {"dequant"}
+        for kind, key, axis in (("qkv", "qkv_weights", -1),
+                                ("lin", "linear_weights", 0),
+                                ("f1", "ffn1_weights", 0),
+                                ("f2", "ffn2_weights", 0)):
+            want_w, want_s = JF.quantize_int4(w[key][0], axis=axis)
+            np.testing.assert_array_equal(eng._w[key][0].numpy(), want_w)
+            np.testing.assert_array_equal(
+                eng._kw["_mm"].scales[kind][0].numpy(), want_s)
 
     def test_int8_kernel_route_token_exact_vs_jax(self):
         """Widths every int8 block fits: the port's int8 engine takes the
@@ -274,23 +286,52 @@ class TestQuantizedEngines:
         np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=8),
                                       ref)
 
-    def test_int8_blocks_keep_dequant_on_the_cpu_and_refuse_on_the_card(self):
-        from paddle_tpu_torch.inference import _int8_blocks
-        cpu, card = torch.device("cpu"), torch.device("cuda")
+    def test_int8_blocks_follow_the_kernel_and_route_the_rest_to_dequant(
+            self):
+        """int8 blocks by ``pick_block_n(n, "int8")``, from the shapes
+        alone. A width that fits no block sends every projection to the
+        dequant route with the JAX engine's int8 values in their stored
+        layout."""
+        from paddle_tpu_torch.inference import _quant_blocks
         V, H, G, D, L = 64, 4, 2, 32, 1
         w = _weights(V, 640, H, G, D, L, 320)   # widths 256, 640, 640, 640
         want = {"qkv": 256, "lin": 128, "f1": 128, "f2": 128}
-        assert _int8_blocks(w, cpu) == want
-        assert _int8_blocks(w, card) == want
-        w = _weights(V, 96, H, G, D, L, 64)     # lin/ffn2 width 96
-        assert _int8_blocks(w, cpu) is None
-        with pytest.raises(ValueError, match="multiple of 128"):
-            _int8_blocks(w, card)
+        assert _quant_blocks(w, "int8") == want
+        w = _weights(V, 96, H, G, D, L, 64)     # lin / ffn2 width 96
+        assert _quant_blocks(w, "int8") == dict.fromkeys(
+            ("qkv", "lin", "f1", "f2"))
         eng = _port_engine(w, num_heads=H, head_dim=D, max_seq_len=16,
                            dtype="float32", norm_type="rmsnorm",
                            activation="swiglu", gqa_group_size=G,
                            weight_quant="int8")
-        assert "_dequant" in eng._kw and "_mm" not in eng._kw
+        assert set(eng.quant_routes.values()) == {"dequant"}
+        a = w["linear_weights"][0]
+        sc = np.abs(a).max(0, keepdims=True) / 127.0 + 1e-9
+        np.testing.assert_array_equal(
+            eng._w["linear_weights"][0].numpy(),
+            np.clip(np.round(a / sc), -127, 127).astype(np.int8))
+        np.testing.assert_array_equal(eng._kw["_mm"].scales["lin"][0].numpy(),
+                                      sc)
+
+    @pytest.mark.parametrize("quant", ["int8", "int4"])
+    def test_tiny_llama_widths_decode_the_jax_tokens(self, quant):
+        """``LlamaConfig.tiny``'s widths (E=64, 4 heads, 2 kv heads, D=16,
+        F=128): lin and ffn2 (64) fit no kernel block, so every projection
+        takes the dequant route, as in the JAX engine; greedy tokens equal
+        the JAX engine's in f32."""
+        from paddle_tpu.inference import FusedMultiTransformerEngine as JE
+        V, E, H, G, D, L, F = 128, 64, 4, 2, 16, 2, 128
+        w = _weights(V, E, H, G, D, L, F, seed=4)
+        kw = dict(num_heads=H, head_dim=D, max_seq_len=32, dtype="float32",
+                  norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
+                  weight_quant=quant)
+        eng = _port_engine(w, **kw)
+        assert set(eng.quant_routes.values()) == {"dequant"}
+        ids = np.random.default_rng(4).integers(0, V, (3, 7)).astype(
+            np.int32)
+        ref = JE(w, **kw).generate(ids, max_new_tokens=8)
+        np.testing.assert_array_equal(eng.generate(ids, max_new_tokens=8),
+                                      ref)
 
 
 class TestQuantizedFusedOps:
