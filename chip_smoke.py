@@ -43,9 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
   9. the blockwise LM-head cross-entropy kernels (forward, dh, dw) against
      their plain versions in bf16: the flagship (T = 8 x 2048, H=1024,
      V=32000), a case off every tile (T=1000, V=32001) with ignored rows,
-     and a quarter of the rows ignored; each prints its worst element
-     against its allowance and the kernel, plain, bound and unfused
-     matmul + cross_entropy times;
+     and a quarter of the rows ignored; each prints the backward's
+     cluster plan (route, blocks per cluster, slice, tile, clusters
+     resident, SMs busy), its worst element against its allowance and the
+     kernel, plain, bound and unfused matmul + cross_entropy times, with
+     dh / dw in TFLOP/s of the bound's work (4 T' H V) and of the work
+     executed (8 T' H V: the exact split of dl costs three products);
  10. the flash kernels with the rope operands against their plain
      versions in bf16: the flagship training shape, a GQA case and a
      length off the tile;
@@ -907,11 +910,11 @@ CE_GRAD_ATOL = 1e-5     # dh / dw: f32 sums of the same products in another
                         # two bf16 ulps of bf16_agreement)
 
 
-def ce_cases(torch):
+def ce_cases(torch, seed=31):
     """(name, h, w, labels, g) in bf16 at the LM head's shapes: h of unit
     RMS as the final norm gives it, w as the model initialises it."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(31)
+    gen.manual_seed(seed)
     cases = []
     for name, t, hid, vocab, ignored in (
             ("flagship_t16384_h1024_v32000", 16384, 1024, 32000, 0.0),
@@ -965,6 +968,19 @@ def phase_ce(torch):
         ign = lab == -100
         n_ign = int(ign.sum())
         zero_ign = not bool(loss[ign].any()) and not bool(dh[ign].any())
+        plan = bc.bwd_plan(t, hid, vocab)
+        print(f"  blockwise_ce[{name}] backward plan: route "
+              f"{bc.ce_bwd_dh.route} / {bc.ce_bwd_dw.route}, clusters of "
+              f"C={plan['cluster']} blocks, slice S={plan['slice']} "
+              f"({plan['panels']} panel(s) of 128, {plan['groups']} "
+              f"group(s)), tile {plan['tile_tokens']} tokens x "
+              f"{plan['tile_vocab']} vocab; dh {plan['dh_clusters']} / dw "
+              f"{plan['dw_clusters']} clusters, {plan['dh_smem_bytes']} / "
+              f"{plan['dw_smem_bytes']} B shared memory a block, "
+              f"{plan['dh_max_active_clusters']} / "
+              f"{plan['dw_max_active_clusters']} clusters resident, "
+              f"{plan['dh_busy_sms']} / {plan['dw_busy_sms']} SMs busy",
+              flush=True)
         print(f"  blockwise_ce[{name}]: {n_ign} rows ignored; loss/lse err "
               f"{err_f:.3e} (worst {ratio_f:.3f} of atol {CE_LOSS_ATOL:g}), "
               f"dh err {err_dh:.3e} (worst {ratio_dh:.3f}), dw err "
@@ -1023,9 +1039,14 @@ def phase_ce(torch):
                 atol=CE_LOSS_ATOL if key == "fwd" else CE_GRAD_ATOL, ms=ms,
                 plain_ms=pl, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 tflops=flops / ms / 1e9))
+            # the backward executes twice the bound's work: the logits and
+            # the three split products of the contraction (8 T' H V)
+            done = "" if key == "fwd" else \
+                f", {2 * flops / ms / 1e9:.2f} TFLOP/s executed"
             print(f"    {key}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-                  f"TFLOP/s) plain {pl:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-                  f"matmul+cross_entropy {lib_ms:.4f} ms", flush=True)
+                  f"TFLOP/s of the bound's work{done}) plain {pl:.4f} ms "
+                  f"bound {b_ms:.4f} ms ({b_by}) matmul+cross_entropy "
+                  f"{lib_ms:.4f} ms", flush=True)
         print(f"    unfused matmul + cross_entropy: forward {lib_f:.4f} ms, "
               f"+ dh {lib_fdh:.4f} ms, + dw {lib_fdw:.4f} ms", flush=True)
         del h, w, lab, g, loss, lse, dh, dw

@@ -24,61 +24,100 @@
 // is read from the f32 logits (a label outside [0, V) has none), dl is
 // f32, and dh / dw are f32 sums rounded once to the output dtype.
 //
-// Design. Every kernel computes 64-token x 128-vocab logits tiles,
-// accumulated GEMM-style over 32-deep chunks of the hidden axis staged
-// through shared memory (a [64, H] h tile does not fit on chip: 256 KB at
-// H = 1024 in f32), before they are folded into the softmax. The epilogues
-// see the tile as 256 threads in a 16 x 16 grid, each with 4 x 8 values.
-//   bf16 / f16 inputs: the logits products run on the tensor cores
-//   (mma.sync m16n8k16, f32 accumulators; 8 warps of 16 x 64 outputs,
-//   fragments read with ldmatrix; two staging buffers, the next chunk's
-//   16-byte loads in flight while the current one is multiplied). A
-//   product of two 16-bit inputs is exact in f32, so this is the same f32
-//   sum as the plain version's in another order. The accumulators go
-//   through shared memory to the epilogue's layout.
-//   f32 inputs: CUDA-core f32 FMAs (each thread a 4 x 8 register tile,
-//   operands staged as f32), since the f32 path must stay f32.
-//   The backward's second product contracts the f32 dl. For bf16 inputs it
-//   runs on the tensor cores too: dl is split exactly into three bf16
-//   parts (hi + mid + lo carry its 24 significant bits) and each part is
-//   contracted with the bf16 operand, three products into one f32 sum.
-//   f32 and f16 inputs contract dl on CUDA cores in f32.
-//   Forward: one block per (64-token tile, vocab split) walks its vocab
-//   tiles with the flash softmax recurrence (running max, scaled sum) and
-//   picks up the gold logit; each split writes (m, l, gold) per token and a
-//   small combine kernel merges the splits into lse and loss. The TPU grid
-//   walks the whole vocabulary in order; the split keeps the card busy when
-//   T has few tiles (T = 1000: 16 token tiles x 17 splits).
-//   dh: one block per (64-token tile, vocab split) walks its vocab tiles;
-//   each tile's dl [64, 128] goes to shared memory and is contracted with
-//   w's columns into dh's rows in 128-wide chunks of H. The TPU keeps the
-//   [block_t, H] accumulator resident; here it would be 256 KB per block
-//   at H = 1024, so the block adds into its split's private f32 workspace
-//   row block [64, H] in device memory (no atomics: one block owns those
-//   rows), and a combine kernel sums the splits' workspaces into dh in its
-//   dtype, one split or many. At the flagship
-//   (T=16384, H=1024, V=32000) the read-modify-write is 64 x 1024 x 8 B =
-//   512 KB per vocab tile against 33.5 MFLOP, 64 flops per byte.
-//   dw: the same with the roles swapped: one block per 128-column vocab
-//   tile walks the token tiles and adds h^T dl into a private [H, 128] f32
-//   workspace column block in 64-row chunks of H (1 MB per token tile at
-//   H = 1024, 32 flops per byte); the last token tile writes dw.
+// Design. Every kernel computes 64-token x 128-vocab logits tiles on the
+// way to its output.
 //
-// What bounds it: operations. At the flagship the forward is 2 T H V =
-// 1.07 TFLOP and each backward kernel 2.15 TFLOP against at most 0.2 GB of
-// inputs and outputs, far above the ~295 flops per byte where the bf16
-// tensor cores, not memory, are the limit. mma.sync from shared memory
-// without TMA, wgmma or a pipeline of stages reaches a fraction of the 989
-// TFLOP/s; the split contraction costs three tensor-core products; wgmma
-// tiles fed by TMA are later work. The workspaces cost one f32 copy of dh
-// (T x H) per vocab split and one of dw (H x V) in device memory.
+// Forward (every dtype): one block per (64-token tile, vocab split) walks
+// its vocab tiles with the flash softmax recurrence (running max, scaled
+// sum) and picks up the gold logit; each split writes (m, l, gold) per
+// token and a small combine kernel merges the splits into lse and loss.
+// The TPU grid walks the whole vocabulary in order; the split keeps the
+// card busy when T has few tiles (T = 1000: 16 token tiles x 17 splits).
+// The logits accumulate GEMM-style over 32-deep chunks of the hidden axis
+// staged through shared memory (a [64, H] tile does not fit on chip): bf16
+// / f16 on the tensor cores (mma.sync m16n8k16, f32 accumulators, ldmatrix
+// fragments, two staging buffers), f32 with CUDA-core FMAs, since the f32
+// path must stay f32. A product of two 16-bit inputs is exact in f32, so
+// the sum is the plain version's in another order.
+//
+// bf16 backward, dh and dw (one body, `blockwise_ce_bwd_cluster_kernel`):
+// thread-block clusters keep each gradient tile on chip. A cluster of C
+// blocks, C = min(8, the power of two >= ceil(H / 128)), splits the hidden
+// axis: block r owns the 128-wide panels [r P, (r + 1) P), P = ceil(ceil(H
+// / 128) / C), zero-filled past H. One step covers a (64-token tile,
+// 128-vocab tile) pair:
+//   1. each block multiplies its slice on the tensor cores into partial
+//      logits h[rows, slice] @ w[slice, cols], [64, 128] f32, and stores
+//      each row into the shared memory of the block that reduces it over
+//      distributed shared memory (DSMEM): block r owns 64 / C rows;
+//   2. cluster barrier; block r sums the C partials of its rows in rank
+//      order 0 .. C-1, the same order in every block, so the cluster holds
+//      one logits tile; it computes dl = (softmax - onehot) g for those
+//      rows by the forward's rules (labels, ignore, lse, columns past V
+//      masked), splits it into three bf16 parts, hi + mid + lo carrying
+//      dl's 24 significant bits exactly (`split3`), and stores them into
+//      every block's shared memory;
+//   3. cluster barrier; every block now holds all 64 rows of dl locally
+//      (ldmatrix reads only local shared memory) and contracts the three
+//      parts with its panel on the tensor cores into one f32 sum:
+//        dh: a cluster per 64-token tile walks every vocab tile. The h panel
+//            [64, 128] stays resident; w's panel [128, 128] of each vocab
+//            tile streams in (cp.async, two buffers, the next tile's in
+//            flight) and feeds both the logits and dh[64, 128] += dl
+//            w_panel^T (32 registers a thread).
+//        dw: a cluster per 128-vocab tile walks every token tile. The w
+//            panel stays resident; h's panel [64, 128] of each token tile
+//            streams in and feeds both the logits and dw[128, 128] +=
+//            h_panel^T dl (64 registers a thread).
+//      Each step's contraction sums into zeroed registers, then into the
+//      accumulator in f32 (the tensor cores' own accumulation would carry
+//      thousands of steps at the running sum's exponent).
+// Data moves by remote stores only, and each barrier is split into its
+// arrive and its wait with work between them (the kernel's step comment
+// gives the order). Rows of 16-bit values that do not start on 16 bytes
+// (an odd V, H % 8 != 0) are loaded as the aligned 16-byte words around
+// them and shifted into place in registers. At the end each block rounds
+// its accumulator to bf16 once and writes its panel, then waits at a last
+// cluster barrier: a block must not exit while a peer may still touch its
+// shared memory. No f32 workspace, no combine launch. For H > 1024 (P > 1)
+// the accumulator stays one panel wide: G = P clusters share each tile,
+// group g accumulating panel r P + g, and each recomputes the logits over
+// its whole slice panel by panel (no pipeline): G times the logits work,
+// on the same body, for every H up to 8192 (Llama-70B's width). Above
+// that, bf16 takes the workspace bodies below; the route is chosen from H
+// before launch and `blockwise_ce_bwd_plan` reports it with the tile plan.
+//
+// f32 and f16 backward (and bf16 above H = 8192): dh: one block per
+// (64-token tile, vocab split) walks its vocab tiles; each tile's dl
+// [64, 128] goes to shared memory and is contracted with w's columns into
+// the split's private f32 workspace rows [64, H] in device memory (no
+// atomics: one block owns those rows; 512 KB read-modify-write per vocab
+// tile at H = 1024), and a combine kernel sums the splits' workspaces into
+// dh. dw: one block per 128-column vocab tile walks the token tiles and
+// adds h^T dl into a private [H, 128] f32 workspace column block (1 MB per
+// token tile); the last token tile writes dw. f32 and f16 contract dl on
+// CUDA cores in f32; bf16 here splits dl into three parts for the tensor
+// cores as above.
+//
+// What bounds it: operations. At the flagship (T=16384, H=1024, V=32000)
+// the forward is 2 T H V = 1.07 TFLOP and each backward kernel needs 4 T H
+// V = 2.15 TFLOP (the logits and one contraction) against at most 0.2 GB
+// of inputs and outputs, far above the ~295 flops per byte where the bf16
+// tensor cores, not memory, are the limit. The backward executes 8 T H V:
+// the exact split costs three contraction products. mma.sync without TMA,
+// wgmma or warp specialisation reaches a fraction of the 989 TFLOP/s; a
+// cluster step also sends 28 KB of f32 partials and 42 KB of dl parts per
+// block over DSMEM and passes two cluster barriers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -814,6 +853,525 @@ blockwise_ce_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
+// ---- bf16 backward on thread-block clusters (design note at the top) ----
+
+constexpr int CL_MAX = 8;          // blocks per cluster: the portable maximum
+constexpr int PANEL = 128;         // hidden units in one panel
+constexpr int CL_MAX_H = 8192;     // the widest H the cluster plan holds
+constexpr int LDT = PANEL + 8;     // stride of a 16-bit tile row 128 wide (272 B)
+constexpr int LDF = BN + 4;        // stride of an f32 logits row (528 B)
+static_assert(BN == PANEL, "a panel is as wide as a vocab tile");
+
+// rows of the resident and of the streamed operand: dh keeps h [64 t][128 k]
+// and streams w [128 k][128 v]; dw keeps w and streams h
+template <bool DW> __host__ __device__ constexpr int res_rows() { return DW ? PANEL : BM; }
+template <bool DW> __host__ __device__ constexpr int str_rows() { return DW ? BM : PANEL; }
+// the partials received [C][64 / C][LDF] f32, two steps' row state
+// (labels, lse, g of 64 rows), the resident panel, two streamed panels and
+// the three bf16 parts of dl [3][BM][LDT]
+template <bool DW> constexpr size_t cluster_smem() {
+  return sizeof(float) * BM * LDF + 2 * BM * (sizeof(long long) + 2 * sizeof(float)) +
+         sizeof(uint16_t) * (res_rows<DW>() + 2 * str_rows<DW>() + 3 * BM) * LDT;
+}
+static_assert(cluster_smem<false>() <= 232448 && cluster_smem<true>() <= 232448,
+              "one block fits the 227 KB of shared memory");
+
+struct BwdPlan {
+  int C, npanel, ngroup;           // blocks per cluster, panels per block, clusters per tile
+};
+BwdPlan bwd_plan(int H) {
+  const int np = (H + PANEL - 1) / PANEL;
+  int C = 1;
+  while (C < np && C < CL_MAX) C *= 2;
+  const int npanel = (np + C - 1) / C;
+  return {C, npanel, npanel};
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(live ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src, int bytes, bool live) {
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src),
+                    "r"(live ? 8 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src),
+                    "r"(live ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// the two halves of cluster.sync(): arrive releases this thread's writes
+// (to its own and to peers' shared memory), wait acquires every block's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// dst[r * LDT + c] = src[(r0 + r) * ld + c0 + c] for ROWS rows and 128
+// columns of an array of `total` elements, zero at or past (rlim, clim).
+// Rows that start on 16 bytes (vec: ld % 8 == 0, aligned base) take
+// 16-byte cp.async copies. Other rows (an odd V) take, for each 8-element
+// chunk, the two aligned 16-byte words that cover it, loaded together for
+// four chunks at a time and funnel-shifted into place in registers; a
+// chunk whose cover would reach outside the array takes element loads.
+// (The shifted path is a call of its own: inlined, its registers would
+// spill the kernel's accumulators on the aligned path too.)
+template <int ROWS>
+__device__ __noinline__ void load_panel_shifted(uint16_t* dst, const uint16_t* __restrict__ src,
+                                                size_t total, int ld, int r0, int c0,
+                                                int rlim, int clim) {
+  constexpr int IT = ROWS * (PANEL / 8) / NT;    // chunks per thread
+  constexpr int B = 4;
+  const uintptr_t beg = reinterpret_cast<uintptr_t>(src), end = beg + 2 * total;
+#pragma unroll
+  for (int b0 = 0; b0 < IT; b0 += B) {
+    uint4 lo[B], hi[B];
+    bool cover[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = threadIdx.x + (b0 + u) * NT;
+      const int gr = r0 + i / (PANEL / 8), gc = c0 + (i % (PANEL / 8)) * 8;
+      const uintptr_t a = (beg + 2 * ((size_t)gr * ld + gc)) & ~(uintptr_t)15;
+      cover[u] = gr < rlim && gc < clim && a >= beg && a + 32 <= end;
+      lo[u] = cover[u] ? *reinterpret_cast<const uint4*>(a) : make_uint4(0u, 0u, 0u, 0u);
+      hi[u] = cover[u] ? *reinterpret_cast<const uint4*>(a + 16) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = threadIdx.x + (b0 + u) * NT;
+      const int r = i / (PANEL / 8), c = (i % (PANEL / 8)) * 8, gr = r0 + r, gc = c0 + c;
+      const size_t idx = (size_t)gr * ld + gc;
+      uint32_t o[4];
+      if (cover[u]) {
+        // the chunk's first element within its cover
+        const int sh = (int)(((beg + 2 * idx) & 15) >> 1);
+        uint32_t x[8] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w, hi[u].x, hi[u].y, hi[u].z, hi[u].w};
+        if (sh & 4) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) x[j] = x[j + 2];
+        }
+        if (sh & 2) {
+#pragma unroll
+          for (int j = 0; j < 7; ++j) x[j] = x[j + 1];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(x[k], x[k + 1], 16 * (sh & 1));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool l0 = gr < rlim && gc + 2 * k < clim, l1 = gr < rlim && gc + 2 * k + 1 < clim;
+          o[k] = (l0 ? (uint32_t)src[idx + 2 * k] : 0u) |
+                 ((l1 ? (uint32_t)src[idx + 2 * k + 1] : 0u) << 16);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {                // columns past clim are zero
+        if (gc + 2 * k >= clim) o[k] &= 0xffff0000u;
+        if (gc + 2 * k + 1 >= clim) o[k] &= 0x0000ffffu;
+      }
+      st8(dst + r * LDT + c, make_uint4(o[0], o[1], o[2], o[3]));
+    }
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_panel(uint16_t* dst, const uint16_t* __restrict__ src,
+                                           size_t total, int ld, int r0, int c0, int rlim,
+                                           int clim, bool vec) {
+  if (!vec) {
+    load_panel_shifted<ROWS>(dst, src, total, ld, r0, c0, rlim, clim);
+    return;
+  }
+#pragma unroll
+  for (int it = 0; it < ROWS * (PANEL / 8) / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / (PANEL / 8), c = (i % (PANEL / 8)) * 8, gr = r0 + r, gc = c0 + c;
+    const bool live = gr < rlim && gc < clim;
+    cp_async16(dst + r * LDT + c, live ? src + (size_t)gr * ld + gc : src, live);
+  }
+}
+
+// DW false: dh, a cluster per (64-token tile, group) walks the vocab
+// tiles; DW true: dw, a cluster per (128-vocab tile, group) walks the token
+// tiles. Grid: C x groups x tiles blocks, clusters of C along x.
+//
+// DSMEM traffic is pushed, never pulled: a remote store does not stall its
+// thread on a round trip. Each barrier is split into its arrive and its
+// wait, with work between them. Step s, in every block:
+//   wait A(s); sum this block's rows of the partials it received (Rv) in
+//   rank order, compute their dl and push its three bf16 parts to every
+//   rank's D; arrive B(s); the logits of s + 1; wait B(s); push the
+//   partials of s + 1 to the ranks that reduce their rows (every rank has
+//   read Rv for s); contract D with the panel; arrive A(s + 1); add the
+//   step's sum to the accumulator and start the copy of the panel of s + 2.
+// A rank writes a peer's D only between A and B and its Rv only between B
+// and A, while that peer reads them in the other phase: one buffer of each.
+template <bool DW>
+__global__ void __launch_bounds__(NT, 1)
+blockwise_ce_bwd_cluster_kernel(const uint16_t* __restrict__ h, const uint16_t* __restrict__ w,
+                                const long long* __restrict__ labels,
+                                const float* __restrict__ g, const float* __restrict__ lse,
+                                __nv_bfloat16* __restrict__ out, int Tn, int H, int V,
+                                long long ignore, int npanel, int ngroup, int hvec, int wvec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive();                              // peers must have started before any push
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)(blockIdx.x / C);
+  const int grp = cl % ngroup, tile = cl / ngroup;
+  const int rpr = BM / C;                        // logits rows this block reduces
+  const int accp = rank * npanel + grp;          // the panel it accumulates
+  extern __shared__ float4 smem4[];
+  float* Rv = reinterpret_cast<float*>(smem4);                    // [C][rpr][LDF] partials received
+  long long* Lab = reinterpret_cast<long long*>(Rv + BM * LDF);   // [2][BM] row state
+  float* Lse = reinterpret_cast<float*>(Lab + 2 * BM);            // [2][BM]
+  float* Gr = Lse + 2 * BM;                                       // [2][BM]
+  uint16_t* R = reinterpret_cast<uint16_t*>(Gr + 2 * BM);         // resident panel
+  uint16_t* Sb = R + res_rows<DW>() * LDT;                        // [2] streamed panels
+  uint16_t* D = Sb + 2 * str_rows<DW>() * LDT;                    // [3][BM][LDT] dl parts
+  constexpr int SROWS = str_rows<DW>();
+  const WarpTile wt;
+  const int nsteps = DW ? (Tn + BM - 1) / BM : (V + BN - 1) / BN;
+  const int trow0 = tile * BM, tcol0 = tile * BN;   // the cluster's own tile
+  const bool pipe = npanel == 1;
+
+  // h[row0 .., panel kp] [64 x 128] and w[panel kp, col0 ..] [128 x 128]
+  auto load_h = [&](uint16_t* dst, int row0, int kp) {
+    load_panel<BM>(dst, h, (size_t)Tn * H, H, row0, kp * PANEL, Tn, H, hvec);
+  };
+  auto load_w = [&](uint16_t* dst, int kp, int col0) {
+    load_panel<PANEL>(dst, w, (size_t)H * V, V, kp * PANEL, col0, H, V, wvec);
+  };
+  auto load_res = [&](int kp) {
+    if (DW) load_w(R, kp, tcol0);
+    else load_h(R, trow0, kp);
+  };
+  auto load_str = [&](uint16_t* dst, int s, int kp) {
+    if (DW) load_h(dst, s * BM, kp);
+    else load_w(dst, kp, s * BN);
+  };
+  // labels, lse and g of step s's 64 rows into state buffer s & 1 (dh: its
+  // one token tile, buffer 0, loaded once); zero past T
+  auto load_state = [&](int s) {
+    const int r = (DW ? s * BM : trow0) + threadIdx.x, b = (DW ? s & 1 : 0) * BM + threadIdx.x;
+    const bool live = r < Tn;
+    if (threadIdx.x < BM) {
+      cp_async_small(Lab + b, live ? labels + r : labels, 8, live);
+      cp_async_small(Lse + b, live ? lse + r : lse, 4, live);
+      cp_async_small(Gr + b, live ? g + r : g, 4, live);
+    }
+  };
+  // lg += h panel [64 t][128 k] @ w panel [128 k][128 v]
+  auto product = [&](float (&lg)[8][4], const uint16_t* Ht, const uint16_t* Wt) {
+#pragma unroll
+    for (int ks = 0; ks < PANEL; ks += 16) {
+      uint32_t a[4];
+      frag_a(a, Ht, LDT, wt.r0, ks);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t b[4];
+        frag_b2_t(b, Wt, LDT, wt.n0 + 16 * jj, ks);
+        mma16816<__nv_bfloat16>(lg[2 * jj], a, b[0], b[1]);
+        mma16816<__nv_bfloat16>(lg[2 * jj + 1], a, b[2], b[3]);
+      }
+    }
+  };
+  // the block's partial logits of step s over its slice. The pipeline
+  // streams one panel a step (the next one's copy in flight); with P > 1
+  // panels each is loaded in turn into R and Sb[0].
+  auto logits = [&](int s, float (&lg)[8][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) lg[j][0] = lg[j][1] = lg[j][2] = lg[j][3] = 0.f;
+    if (pipe) {
+      const uint16_t* Sp = Sb + (s & 1) * SROWS * LDT;
+      cp_async_wait<0>();
+      __syncthreads();
+      product(lg, DW ? Sp : R, DW ? R : Sp);
+    } else {
+      for (int p = 0; p < npanel; ++p) {
+        __syncthreads();                         // the panels' last readers are done
+        load_res(rank * npanel + p);
+        load_str(Sb, s, rank * npanel + p);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        product(lg, DW ? Sb : R, DW ? R : Sb);
+      }
+    }
+  };
+  // each partial row to the rank that reduces it, at [this rank][row % rpr]
+  auto push_partials = [&](const float (&lg)[8][4]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = wt.row(2 * hf);
+      float* dst = cluster.map_shared_rank(Rv + (rank * rpr + row % rpr) * LDF, row / rpr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(dst + wt.col(j, 0)) =
+            make_float2(lg[j][2 * hf], lg[j][2 * hf + 1]);
+    }
+  };
+
+  // dh: rows 16 (warp % 4) .. + 16 (tokens) x columns 64 (warp / 4) .. + 64
+  // (hidden); dw: rows 32 (warp % 4) .. + 32 (hidden) x 64 vocab columns.
+  // Each step's contraction sums into zeroed registers and is then added
+  // to acc in f32: the tensor cores' accumulation alone would carry
+  // thousands of steps at the running sum's exponent.
+  float acc[DW ? 2 : 1][8][4] = {};
+  // the state of step s lands with its streamed panel: the logits of s
+  // (one step earlier) wait for both
+  load_state(0);
+  if (pipe) {
+    load_res(rank);
+    load_str(Sb, 0, rank);
+    cp_async_commit();
+    if (nsteps > 1) {
+      load_str(Sb + SROWS * LDT, 1, rank);
+      if (DW) load_state(1);
+    }
+    cp_async_commit();
+  } else {
+    load_str(Sb + SROWS * LDT, 0, accp);
+    cp_async_commit();
+  }
+  {
+    float lg[8][4];
+    logits(0, lg);
+    cluster_wait();
+    push_partials(lg);
+  }
+  cluster_arrive();
+  cluster_wait();                                // A(0)
+  for (int s = 0; s < nsteps; ++s) {
+    const int row0 = DW ? s * BM : trow0, col0 = DW ? tcol0 : s * BN;
+    if (!pipe && DW) {                           // this step's state has landed
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const int sb = (DW ? s & 1 : 0) * BM;
+    // reduce: this block's rows summed in rank order, then dl, pushed to
+    // every rank as three bf16 parts
+    for (int i = threadIdx.x; i < rpr * (BN / 4); i += NT) {
+      const int rl = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
+      float4 y[CL_MAX];
+#pragma unroll
+      for (int q = 0; q < CL_MAX; ++q)
+        if (q < C) y[q] = *reinterpret_cast<const float4*>(Rv + (q * rpr + rl) * LDF + c4);
+      float4 x = y[0];
+#pragma unroll
+      for (int q = 1; q < CL_MAX; ++q) {
+        if (q < C) {
+          x.x += y[q].x; x.y += y[q].y; x.z += y[q].z; x.w += y[q].w;
+        }
+      }
+      const int rr = rank * rpr + rl, r = row0 + rr;
+      const bool live = r < Tn;
+      const long long lab = live ? Lab[sb + rr] : -1;
+      const float l = live ? Lse[sb + rr] : 0.f;
+      const float sc = (live && lab != ignore) ? Gr[sb + rr] : 0.f;
+      const float v[4] = {x.x, x.y, x.z, x.w};
+      uint16_t part[4][3];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + c4 + e;
+        const bool lv = col < V;
+        const float p = lv ? expf(v[e] - l) : 0.f;
+        const float hit = (lv && col == lab) ? 1.f : 0.f;
+        split3((p - hit) * sc, part[e]);
+      }
+      uint2 pk[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        pk[q] = make_uint2(part[0][q] | ((uint32_t)part[1][q] << 16),
+                           part[2][q] | ((uint32_t)part[3][q] << 16));
+#pragma unroll
+      for (int q = 0; q < CL_MAX; ++q) {
+        if (q < C) {
+          uint16_t* dst = cluster.map_shared_rank(D + rr * LDT + c4, q);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) *reinterpret_cast<uint2*>(dst + k * BM * LDT) = pk[k];
+        }
+      }
+    }
+    cluster_arrive();                            // B(s)
+    float lg[8][4];
+    if (s + 1 < nsteps) logits(s + 1, lg);
+    cluster_wait();
+    if (s + 1 < nsteps) push_partials(lg);
+    if (!pipe) {                                 // the accumulated panel has landed
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const uint16_t* Sc = Sb + (pipe ? (s & 1) : 1) * SROWS * LDT;
+    float cacc[DW ? 2 : 1][8][4] = {};
+    if constexpr (DW) {
+      // dw[panel, cols] += h[rows, panel]^T dl: h stored [t][k] is A^T
+#pragma unroll
+      for (int ts = 0; ts < BM; ts += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) frag_a_t(a[m], Sc, LDT, 2 * wt.r0 + 16 * m, ts);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            uint32_t b[4];
+            frag_b2_t(b, D + q * BM * LDT, LDT, wt.n0 + 16 * jj, ts);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              mma16816<__nv_bfloat16>(cacc[m][2 * jj], a[m], b[0], b[1]);
+              mma16816<__nv_bfloat16>(cacc[m][2 * jj + 1], a[m], b[2], b[3]);
+            }
+          }
+        }
+      }
+    } else {
+      // dh[rows, panel] += dl w[panel, cols]^T: w stored [k][v] is B's [n][k]
+#pragma unroll
+      for (int vs = 0; vs < BN; vs += 16) {
+        uint32_t a[3][4];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) frag_a(a[q], D + q * BM * LDT, LDT, wt.r0, vs);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t b[4];
+          frag_b2(b, Sc, LDT, wt.n0 + 16 * jj, vs);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            mma16816<__nv_bfloat16>(cacc[0][2 * jj], a[q], b[0], b[1]);
+            mma16816<__nv_bfloat16>(cacc[0][2 * jj + 1], a[q], b[2], b[3]);
+          }
+        }
+      }
+    }
+    const bool more = s + 1 < nsteps;
+    if (more) cluster_arrive();                  // A(s + 1): done with D, partials sent
+#pragma unroll
+    for (int m = 0; m < (DW ? 2 : 1); ++m) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] += cacc[m][j][e];
+      }
+    }
+    __syncthreads();                             // Sc is consumed
+    if (pipe && s + 2 < nsteps) {
+      load_str(Sb + (s & 1) * SROWS * LDT, s + 2, rank);
+      if (DW) load_state(s + 2);
+    }
+    if (!pipe && more) {
+      load_str(Sb + SROWS * LDT, s + 1, accp);
+      if (DW) load_state(s + 1);
+    }
+    cp_async_commit();
+    if (more) cluster_wait();
+  }
+  // each output element once, rounded from its f32 sum
+#pragma unroll
+  for (int m = 0; m < (DW ? 2 : 1); ++m) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (DW) {
+          const int hr = accp * PANEL + 2 * wt.r0 + 16 * m + wt.gq + 8 * (e / 2);
+          const int col = tcol0 + wt.col(j, e);
+          if (hr < H && col < V) out[(size_t)hr * V + col] = __float2bfloat16(acc[m][j][e]);
+        } else {
+          const int r = trow0 + wt.row(e), hc = accp * PANEL + wt.col(j, e);
+          if (r < Tn && hc < H) out[(size_t)r * H + hc] = __float2bfloat16(acc[m][j][e]);
+        }
+      }
+    }
+  }
+  cluster.sync();                                // a block exits only when its peers are done
+}
+
+// every block of every cluster reads each peer's shared memory: out[b C + q]
+// = 1000 x (b's cluster) + q from rank q of b's cluster
+__global__ void blockwise_ce_cluster_check_kernel(int* __restrict__ out) {
+  __shared__ int v;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  if (threadIdx.x == 0) v = 1000 * (int)(blockIdx.x / C) + (int)cluster.block_rank();
+  cluster.sync();
+  if ((int)threadIdx.x < C)
+    out[blockIdx.x * C + threadIdx.x] = *cluster.map_shared_rank(&v, threadIdx.x);
+  cluster.sync();
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, int C,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool DW> cudaError_t cluster_prepare() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      blockwise_ce_bwd_cluster_kernel<DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cluster_smem<DW>());
+  return e;
+}
+
+template <bool DW> int cluster_tiles(int Tn, int V) {
+  return DW ? (V + BN - 1) / BN : (Tn + BM - 1) / BM;
+}
+
+template <bool DW>
+int bwd_cluster(const void* h, const void* w, const long long* labels, const float* g,
+                const float* lse, void* out, int Tn, int H, int V, long long ignore,
+                cudaStream_t stream) {
+  const cudaError_t prep = cluster_prepare<DW>();
+  if (prep != cudaSuccess) return (int)prep;
+  const BwdPlan p = bwd_plan(H);
+  const int hvec = ((H & 7) == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0) ? 1 : 0;
+  const int wvec = ((V & 7) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) ? 1 : 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3((unsigned)(cluster_tiles<DW>(Tn, V) * p.ngroup * p.C)), NT, cluster_smem<DW>(),
+      p.C, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, blockwise_ce_bwd_cluster_kernel<DW>, (const uint16_t*)h, (const uint16_t*)w,
+      labels, g, lse, (__nv_bfloat16*)out, Tn, H, V, ignore, p.npanel, p.ngroup, hvec, wvec);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// clusters of this plan that fit on the card at once (0 on an error)
+template <bool DW> int max_active_clusters(int C, int nclusters) {
+  if (cluster_prepare<DW>() != cudaSuccess) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3((unsigned)(nclusters * C)), NT,
+                                                cluster_smem<DW>(), C, nullptr, &attr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, blockwise_ce_bwd_cluster_kernel<DW>, &cfg) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
 template <typename K>
 cudaError_t allow_smem(K kern, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -843,6 +1401,11 @@ template <typename T>
 int dh_t(const void* h, const void* w, const long long* labels, const float* g,
          const float* lse, float* ws, void* dh, int Tn, int H, int V,
          int nsplit, long long ignore, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (H <= CL_MAX_H)
+      return bwd_cluster<false>(h, w, labels, g, lse, dh, Tn, H, V, ignore, stream);
+  }
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
   auto kern = blockwise_ce_dh_kernel<T>;
   static const cudaError_t attr = allow_smem(kern, dh_smem<T>());
   if (attr != cudaSuccess) return (int)attr;
@@ -864,6 +1427,11 @@ template <typename T>
 int dw_t(const void* h, const void* w, const long long* labels, const float* g,
          const float* lse, float* ws, void* dw, int Tn, int H, int V,
          long long ignore, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (H <= CL_MAX_H)
+      return bwd_cluster<true>(h, w, labels, g, lse, dw, Tn, H, V, ignore, stream);
+  }
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
   auto kern = blockwise_ce_dw_kernel<T>;
   static const cudaError_t attr = allow_smem(kern, dw_smem<T>());
   if (attr != cudaSuccess) return (int)attr;
@@ -908,9 +1476,11 @@ int blockwise_ce_fwd_launch(int dtype, const void* h, const void* w,
   }
 }
 
-// Writes dh [T, H] in h's dtype; ws is [nsplit, T, H] f32 scratch, one
-// [T, H] workspace per vocab split. Two launches (the split kernel, then
-// the combine that sums the workspaces into dh).
+// Writes dh [T, H] in h's dtype. bf16 with H <= 8192: one cluster launch;
+// ws and nsplit are not read (ws may be null). Otherwise ws is [nsplit, T,
+// H] f32 scratch, one [T, H] workspace per vocab split, and there are two
+// launches (the split kernel, then the combine that sums the workspaces
+// into dh).
 int blockwise_ce_dh_launch(int dtype, const void* h, const void* w,
                            const long long* labels, const float* g,
                            const float* lse, float* ws, void* dh, int Tn, int H,
@@ -926,7 +1496,8 @@ int blockwise_ce_dh_launch(int dtype, const void* h, const void* w,
   }
 }
 
-// Writes dw [H, V] in w's dtype; ws is [H, V] f32 scratch.
+// Writes dw [H, V] in w's dtype, one launch. bf16 with H <= 8192: ws is
+// not read (it may be null); otherwise it is [H, V] f32 scratch.
 int blockwise_ce_dw_launch(int dtype, const void* h, const void* w,
                            const long long* labels, const float* g,
                            const float* lse, float* ws, void* dw, int Tn, int H,
@@ -940,6 +1511,49 @@ int blockwise_ce_dw_launch(int dtype, const void* h, const void* w,
     case 2: return dw_t<__half>(h, w, labels, g, lse, ws, dw, Tn, H, V, ignore, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 backward's plan for T tokens, H hidden units and V columns on a
+// card with `sms` multiprocessors, into out[0 .. 15):
+//   [0] route: 1 the cluster kernel, 0 the workspace bodies (H > 8192)
+//   [1] C, blocks per cluster  [2] S, hidden units a block multiplies
+//   [3] panels of 128 a block multiplies  [4] clusters per tile (groups)
+//   [5] tokens per tile  [6] vocab columns per tile
+//   [7] dh clusters  [8] dw clusters  [9] dh / [10] dw shared memory bytes
+//   [11] dh / [12] dw clusters resident at once (cudaOccupancyMaxActiveClusters)
+//   [13] dh / [14] dw SMs busy in the first wave
+// Returns 15, or -1 on bad sizes. The cluster route's values are zero on
+// the workspace route.
+int blockwise_ce_bwd_plan(int H, int V, int Tn, int sms, int* out) {
+  if (bad_shape(Tn, H, V) || sms <= 0) return -1;
+  for (int i = 0; i < 15; ++i) out[i] = 0;
+  if (H > CL_MAX_H) return 15;
+  const BwdPlan p = bwd_plan(H);
+  const int ndh = cluster_tiles<false>(Tn, V) * p.ngroup;
+  const int ndw = cluster_tiles<true>(Tn, V) * p.ngroup;
+  const int adh = max_active_clusters<false>(p.C, ndh > 0 ? ndh : 1);
+  const int adw = max_active_clusters<true>(p.C, ndw);
+  const int vals[15] = {1, p.C, p.npanel * PANEL, p.npanel, p.ngroup, BM, BN, ndh, ndw,
+                        (int)cluster_smem<false>(), (int)cluster_smem<true>(), adh, adw,
+                        (ndh < adh ? ndh : adh) * p.C, (ndw < adw ? ndw : adw) * p.C};
+  for (int i = 0; i < 15; ++i) out[i] = vals[i];
+  if (out[13] > sms) out[13] = sms;
+  if (out[14] > sms) out[14] = sms;
+  return 15;
+}
+
+// Launches `nclusters` clusters of C blocks (1 <= C <= 8) whose blocks read
+// every peer's shared memory: out [nclusters * C * C] int gets, at b C + q,
+// 1000 x (block b's cluster) + q as read from rank q. Returns the CUDA error
+// code of the launch.
+int blockwise_ce_cluster_check(int C, int nclusters, int* out, void* stream) {
+  if (C < 1 || C > CL_MAX || nclusters < 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3((unsigned)(nclusters * C)), 32, 0, C,
+                                                (cudaStream_t)stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, blockwise_ce_cluster_check_kernel, out);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // extern "C"

@@ -15,13 +15,20 @@ or backward. Kernel contract:
 ``ce_fwd``, ``ce_bwd_dh`` and ``ce_bwd_dw`` launch the CUDA kernels of
 ``csrc/blockwise_ce.cu`` for CUDA tensors (each counted in its
 ``.launches``) and run the plain versions for CPU tensors; any other
-device, and any input the kernels do not take, raises. The plain versions
-take the Pallas bodies' dtype steps: logits are ``h @ w`` with f32
-accumulation of the native operands, the gold logit is read from those
-f32 logits, a label outside ``[0, V)`` that is not ``ignore`` has no gold
-logit (loss = lse), ``dl = (exp(logits - lse) - onehot) * g`` is zero on
-ignored rows, ``dh = dl @ w.float().T`` is cast to h's dtype and
-``dw = h.float().T @ dl`` to w's.
+device, and any input the kernels do not take, raises. The backward takes
+one of two routes, chosen from dtype and H before launch and recorded in
+``ce_bwd_dh.route`` / ``ce_bwd_dw.route``: ``"cluster"`` (bf16 with H up
+to 8192: thread-block clusters, no f32 workspace) or ``"workspace"`` (f32,
+f16, and bf16 wider than that: per-split f32 workspaces in device
+memory). ``bwd_plan`` reads the cluster plan from the kernels' source.
+
+The plain versions take the Pallas bodies' dtype steps: logits are
+``h @ w`` with f32 accumulation of the native operands, the gold logit is
+read from those f32 logits, a label outside ``[0, V)`` that is not
+``ignore`` has no gold logit (loss = lse),
+``dl = (exp(logits - lse) - onehot) * g`` is zero on ignored rows,
+``dh = dl @ w.float().T`` is cast to h's dtype and ``dw = h.float().T @ dl``
+to w's.
 
 ``blockwise_lm_head_ce`` is the public op, a ``torch.autograd.Function``
 saving ``(h, w, labels, lse)`` as the JAX ``_vjp_fwd`` does. A tied LM
@@ -36,7 +43,8 @@ import functools
 import torch
 
 __all__ = ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw", "ce_fwd_plain",
-           "ce_bwd_dh_plain", "ce_bwd_dw_plain", "blockwise_lm_head_ce"]
+           "ce_bwd_dh_plain", "ce_bwd_dw_plain", "blockwise_lm_head_ce",
+           "bwd_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -117,11 +125,47 @@ def _raise_on(name, rc):
                            f"{rc}")
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _splits(t, vocab, device):
-    """Vocab splits of the forward and of dh, chosen by the kernels' own
-    source from their tile sizes and the card's SM count."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _launcher("splits")(t, vocab, sms)
+    """Vocab splits of the forward and of the workspace dh, chosen by the
+    kernels' own source from their tile sizes and the card's SM count."""
+    return _launcher("splits")(t, vocab, _sms(device))
+
+
+PLAN_KEYS = ("route", "cluster", "slice", "panels", "groups", "tile_tokens",
+             "tile_vocab", "dh_clusters", "dw_clusters", "dh_smem_bytes",
+             "dw_smem_bytes", "dh_max_active_clusters",
+             "dw_max_active_clusters", "dh_busy_sms", "dw_busy_sms")
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(t, hid, vocab, sms):
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    n = _launcher("plan")(hid, vocab, t, sms, out)
+    if n != len(PLAN_KEYS):
+        raise ValueError(f"bwd_plan: no plan for T={t}, H={hid}, V={vocab}")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def bwd_plan(t, hid, vocab, device=None):
+    """The bf16 backward's plan from ``csrc/blockwise_ce.cu`` for T tokens,
+    H hidden units and V columns on the card: ``route`` 1 for the cluster
+    kernel (0: the workspace bodies), blocks per ``cluster``, the hidden
+    ``slice`` and ``panels`` of 128 a block multiplies, ``groups`` of
+    clusters per tile, the tile, the clusters of each launch, their shared
+    memory, how many fit at once and the SMs they keep busy."""
+    device = torch.device("cuda") if device is None else device
+    return dict(_plan(int(t), int(hid), int(vocab), _sms(device)))
+
+
+def _bwd_route(h, vocab):
+    if h.dtype != torch.bfloat16:
+        return "workspace"
+    plan = bwd_plan(h.shape[0], h.shape[1], vocab, h.device)
+    return "cluster" if plan["route"] == 1 else "workspace"
 
 
 def ce_fwd(h, w, labels, ignore):
@@ -162,19 +206,25 @@ def ce_bwd_dh(h, w, labels, g, lse, ignore):
     dh = torch.empty_like(h)
     if t == 0:
         return dh
-    nsplit = _splits(t, w.shape[1], h.device)
-    ws = torch.empty((nsplit, t, hid), dtype=torch.float32, device=h.device)
+    route = _bwd_route(h, w.shape[1])
+    nsplit, ws = 1, None
+    if route == "workspace":
+        nsplit = _splits(t, w.shape[1], h.device)
+        ws = torch.empty((nsplit, t, hid), dtype=torch.float32,
+                         device=h.device)
     rc = _launcher("dh")(
         _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), ws.data_ptr(), dh.data_ptr(), t, hid,
-        w.shape[1], nsplit, int(ignore),
+        g.data_ptr(), lse.data_ptr(), None if ws is None else ws.data_ptr(),
+        dh.data_ptr(), t, hid, w.shape[1], nsplit, int(ignore),
         torch.cuda.current_stream(h.device).cuda_stream)
     _raise_on("ce_bwd_dh", rc)
+    ce_bwd_dh.route = route
     ce_bwd_dh.launches += 1
     return dh
 
 
 ce_bwd_dh.launches = 0
+ce_bwd_dh.route = None
 
 
 def ce_bwd_dw(h, w, labels, g, lse, ignore):
@@ -188,18 +238,23 @@ def ce_bwd_dw(h, w, labels, g, lse, ignore):
     if t == 0:
         return torch.zeros_like(w)
     dw = torch.empty_like(w)
-    ws = torch.empty(w.shape, dtype=torch.float32, device=h.device)
+    route = _bwd_route(h, w.shape[1])
+    ws = None
+    if route == "workspace":
+        ws = torch.empty(w.shape, dtype=torch.float32, device=h.device)
     rc = _launcher("dw")(
         _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), ws.data_ptr(), dw.data_ptr(), t, hid,
-        w.shape[1], int(ignore),
+        g.data_ptr(), lse.data_ptr(), None if ws is None else ws.data_ptr(),
+        dw.data_ptr(), t, hid, w.shape[1], int(ignore),
         torch.cuda.current_stream(h.device).cuda_stream)
     _raise_on("ce_bwd_dw", rc)
+    ce_bwd_dw.route = route
     ce_bwd_dw.launches += 1
     return dw
 
 
 ce_bwd_dw.launches = 0
+ce_bwd_dw.route = None
 
 
 @functools.cache
@@ -211,6 +266,17 @@ def _launcher(which):
     if which == "splits":
         fn = lib.blockwise_ce_splits
         fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return fn
+    if which == "plan":
+        fn = lib.blockwise_ce_bwd_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        return fn
+    if which == "cluster_check":
+        fn = lib.blockwise_ce_cluster_check
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         return fn
     fn = getattr(lib, f"blockwise_ce_{which}_launch")

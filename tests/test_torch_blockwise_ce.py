@@ -240,3 +240,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="unsupported device"):
             fn(h.to("meta"), w.to("meta"), lab.to("meta"), g.to("meta"),
                g.to("meta"), -100)
+
+
+def test_cpu_backward_takes_the_plain_version_and_leaves_the_route():
+    """On CPU tensors the backward wrappers run the plain versions: no
+    kernel route is chosen and no launch is counted."""
+    h, w, lab, g = (torch.as_tensor(x) for x in _inputs(5, 20, 16, 40))
+    lab = lab.long()
+    _, lse = tbc.ce_fwd_plain(h, w, lab, -100)
+    before = (tbc.ce_bwd_dh.launches, tbc.ce_bwd_dw.launches,
+              tbc.ce_bwd_dh.route, tbc.ce_bwd_dw.route)
+    dh = tbc.ce_bwd_dh(h, w, lab, g, lse, -100)
+    dw = tbc.ce_bwd_dw(h, w, lab, g, lse, -100)
+    np.testing.assert_array_equal(
+        dh.numpy(), tbc.ce_bwd_dh_plain(h, w, lab, g, lse, -100).numpy())
+    np.testing.assert_array_equal(
+        dw.numpy(), tbc.ce_bwd_dw_plain(h, w, lab, g, lse, -100).numpy())
+    assert (tbc.ce_bwd_dh.launches, tbc.ce_bwd_dw.launches,
+            tbc.ce_bwd_dh.route, tbc.ce_bwd_dw.route) == before
+
+
+@pytest.mark.parametrize("tool", ["ce_kernel_ab.py", "ce_kernel_phases.py"])
+def test_ce_kernel_tools_refuse_without_a_card(tool):
+    """The CE kernels' A/B and phase tools measure only on a card: without
+    one they exit 2 and print no result."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, os.path.join(root, "tools", tool)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "CUDA is not available" in r.stderr and r.stdout == ""
+
+
+def test_ce_kernel_phases_tool_finds_its_anchors_in_the_kernel():
+    """The phase tool instruments the cluster kernel at anchor lines of its
+    text: every phase marker lands once in the current source."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "ce_kernel_phases", os.path.join(root, "tools",
+                                         "ce_kernel_phases.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(root, "paddle_tpu_torch", "csrc",
+                           "blockwise_ce.cu")) as f:
+        out = tool.instrument(f.read())
+    for k in range(len(tool.PHASES)):
+        assert out.count(f"PHASE_MARK({k})") == 1, k
+    assert "int phase_read(" in out and "int phase_reset(" in out

@@ -524,13 +524,16 @@ def _ce_inputs(t, hid, vocab, dtype, seed, ignored):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("hid", [64, 1024, 4096])
+@pytest.mark.parametrize("hid", [64, 1024, 4096,
+                                 1000, 1536,  # off the 128-wide bf16 slices
+                                 8192])       # the widest cluster plan
 @pytest.mark.parametrize("t,vocab,ignored", [
     (100, 300, [3, 50]),          # T and V off the tiles
     (128, 256, []),               # on the tiles
-    (1000, 32001, [0, 999]),      # the forward and dh split the vocabulary
+    (1000, 32001, [0, 999]),      # the forward splits the vocabulary
     (300, 100, [5]),              # one vocab tile: one split
     (70, 130, slice(None)),       # every row ignored
+    (1, 1, []),                   # one token, one column
 ])
 def test_blockwise_ce_kernels_match_plain(dtype, hid, t, vocab, ignored):
     from paddle_tpu_torch.ops import blockwise_ce as bc
@@ -554,6 +557,75 @@ def test_blockwise_ce_kernels_match_plain(dtype, hid, t, vocab, ignored):
     for name, x, r in (("dh", dh, rdh), ("dw", dw, rdw)):
         err = float((x.float() - r.float()).abs().max())
         assert err <= _tol(r, dtype), (name, err)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_thread_block_clusters_read_every_peers_shared_memory(c):
+    """The cluster launch the bf16 CE backward rests on: clusters of c
+    blocks through cudaLaunchKernelEx, each block reading every peer's
+    shared memory (map_shared_rank) between two cluster barriers."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    n = 7
+    out = torch.full((n * c * c,), -1, dtype=torch.int32, device="cuda")
+    rc = bc._launcher("cluster_check")(
+        c, n, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = torch.tensor([[1000 * (b // c) + q for q in range(c)]
+                         for b in range(n * c)], dtype=torch.int32)
+    assert torch.equal(out.cpu().view(n * c, c), want)
+
+
+@pytest.mark.parametrize("dtype,hid,route", [
+    (torch.bfloat16, 64, "cluster"), (torch.bfloat16, 1000, "cluster"),
+    (torch.bfloat16, 1024, "cluster"), (torch.bfloat16, 1536, "cluster"),
+    (torch.bfloat16, 4096, "cluster"), (torch.bfloat16, 8192, "cluster"),
+    (torch.bfloat16, 8200, "workspace"),     # wider than the plan holds
+    (torch.float32, 1024, "workspace"), (torch.float16, 1024, "workspace"),
+])
+def test_blockwise_ce_backward_route_is_pinned_by_dtype_and_width(
+        dtype, hid, route):
+    """bf16 up to H = 8192 runs the cluster kernel; wider bf16, f32 and
+    f16 run the workspace bodies. The route is chosen before launch, the
+    plan comes from the kernels' source, and either route matches plain."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    t, vocab = 70, 300
+    h, w, lab, g = _ce_inputs(t, hid, vocab, dtype, hid, [2])
+    _, lse = bc.ce_fwd_plain(h, w, lab, -100)
+    dh = bc.ce_bwd_dh(h, w, lab, g, lse, -100)
+    dw = bc.ce_bwd_dw(h, w, lab, g, lse, -100)
+    rdh = bc.ce_bwd_dh_plain(h, w, lab, g, lse, -100)
+    rdw = bc.ce_bwd_dw_plain(h, w, lab, g, lse, -100)
+    torch.cuda.synchronize()
+    assert bc.ce_bwd_dh.route == bc.ce_bwd_dw.route == route
+    plan = bc.bwd_plan(t, hid, vocab)
+    assert plan["route"] == (hid <= 8192)
+    if plan["route"]:
+        assert plan["cluster"] == min(8, 1 << (-(-hid // 128) - 1).bit_length())
+        assert plan["slice"] * plan["cluster"] >= hid
+        assert plan["dh_max_active_clusters"] > 0
+        assert plan["dw_max_active_clusters"] > 0
+    for x, r in ((dh, rdh), (dw, rdw)):
+        assert float((x.float() - r.float()).abs().max()) <= _tol(r, dtype)
+
+
+def test_blockwise_ce_bf16_backward_allocates_no_workspace():
+    """The bf16 dh and dw allocate their output and nothing else (the
+    workspace bodies would take 16 MB and 131 MB here)."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h, w, lab, g = _ce_inputs(2048, 1024, 32000, torch.bfloat16, 11, [9])
+    _, lse = bc.ce_fwd_plain(h, w, lab, -100)
+    for fn, like in ((bc.ce_bwd_dh, h), (bc.ce_bwd_dw, w)):
+        fn(h, w, lab, g, lse, -100)               # build, plan, warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(h, w, lab, g, lse, -100)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert fn.route == "cluster"
+        assert out.shape == like.shape and out.dtype == torch.bfloat16
+        assert extra <= out.numel() * out.element_size() + 2 ** 20, extra
 
 
 def test_blockwise_ce_autograd_takes_a_transposed_head():
