@@ -10,8 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
   1. kernels against their plain PyTorch versions in bf16 at the serving
      widths (H=16, KVH=8, D=64, BS=16): ragged paged attention on a decode
      step, a mixed chunked step and a bucketed step; the int4 GEMM on the
-     four projection shapes at M=8 and M=512. Each case prints its error
-     and tolerance, and its kernel, plain, bound and library times;
+     four projection shapes at M=8, 128 and 512. Each case prints its
+     error and tolerance, its kernel, plain, bound and library times, and
+     for a GEMM its plan (tile, K splits, blocks) and the device-only
+     times of the kernel, plain and library calls;
   2. continuous-batching serving at full width in bf16 (V=32000, E=1024,
      H=16, KVH=8, D=64, L=24, F=2816, swiglu/rmsnorm, max_seq_len=512):
      12 seeded ragged requests through ContinuousBatchingEngine; every
@@ -84,15 +86,15 @@ Phases (any failure exits non-zero and prints no result line):
      ``ragged_paged_attention`` on the same caches (serve_bench's legacy
      A/B tolerance, 2e-2);
  17. the int8 weight-only GEMM against its plain version at the serving
-     projections (M = 8, 128, 512); int8 serving at full width in bf16
-     (first-step logits against a bf16 engine built from the dequantized
-     int8 weights, 6 requests with 4 x 24 int8 launches per paged step,
-     a profiled window); dense ``generate()`` at bench.py's int8 leg
-     (B=8, 16-token prompts, 64 new tokens) beside bf16 and int4 on the
-     same weights; f32 int8 tokens at L=2 against the plain route; int8
-     and int4 engines at ``LlamaConfig.tiny``'s widths (E=64), whose 64-wide
-     projections send the whole engine to the dequant route, launching no
-     GEMM kernel;
+     projections (M = 8, 128, 512), each with its plan; int8 serving at
+     full width in bf16 (first-step logits against a bf16 engine built from
+     the dequantized int8 weights, 6 requests with 4 x 24 int8 launches per
+     paged step, a profiled window); dense ``generate()`` at bench.py's
+     int8 leg (B=8, 16-token prompts, 64 new tokens) beside bf16 and int4
+     on the same weights; f32 int8 tokens at L=2 against the plain route;
+     int8 and int4 engines at ``LlamaConfig.tiny``'s widths (E=64), whose
+     64-wide projections send the whole engine to the dequant route,
+     launching no GEMM kernel;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -160,6 +162,23 @@ def time_ms(fn, iters=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_time_ms(fn, iters=50):
+    """Device time of one call without the host's: ``iters`` calls queued
+    behind a sleep kernel, so that the card never waits for the host,
+    between two CUDA events, over the count."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bound(nbytes, flops):
@@ -311,6 +330,27 @@ def attention_work(q, tables, lens, qls):
     return kv_bytes + qo_bytes + meta, flops
 
 
+def plan_text(plan):
+    """A weight-only GEMM plan (``quant_matmul.plan``) as one short field."""
+    return (f"plan BM {plan['bm']} BN {plan['bn']} S {plan['splits']} "
+            f"blocks {plan['blocks']}")
+
+
+def gemm_device_ms(kernel, plain, library):
+    """A weight-only GEMM row's device times (``device_time_ms``) of the
+    kernel, its plain version and the library yardstick: at decode M the
+    per-call event times above carry the host's time per call."""
+    return {"device_ms": device_time_ms(kernel),
+            "plain_device_ms": device_time_ms(plain, iters=20),
+            "library_device_ms": device_time_ms(library)}
+
+
+def device_text(dev):
+    return (f"device ms: kernel {dev['device_ms']:.4f} plain "
+            f"{dev['plain_device_ms']:.4f} library "
+            f"{dev['library_device_ms']:.4f}")
+
+
 def phase_kernels(torch):
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -367,7 +407,7 @@ def phase_kernels(torch):
     rng = np.random.default_rng(12)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    for m in (8, 512):
+    for m in (8, 128, 512):
         for k, n in ((E, (H + 2 * KVH) * D), (H * D, E), (E, 2 * F), (F, E)):
             w = rng.standard_normal((k, n), dtype=np.float32) * 0.02
             bn = qm.kernel_block_n(n)
@@ -390,16 +430,22 @@ def phase_kernels(torch):
             lib_ms = time_ms(lambda: torch.matmul(x, wdq))
             b_ms, b_by = bound(m * k * 2 + k * n // 2 + n * 4 + m * n * 2,
                                2 * m * n * k)
+            plan = qm.plan(m, k, n, x.dtype)
+            dev = gemm_device_ms(
+                lambda: qm.weight_only_matmul(x, pk, sc, "int4", bn),
+                lambda: qm.weight_only_matmul_plain(x, pk, sc, "int4", bn),
+                lambda: torch.matmul(x, wdq))
             rows["int4"].append(dict(case=name, max_abs_err=err,
                                      atol=INT4_ATOL,
                                      worst_err_over_allowed=ratio, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms))
+                                     bound_by=b_by, library_ms=lib_ms,
+                                     plan=plan, **dev))
             print(f"  weight_only_int4[{name}]: err {err:.3e} (worst "
                   f"{ratio:.3f} of atol {INT4_ATOL:g} + 2 bf16 ulps of "
                   f"|ref|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                  f"bound {b_ms:.4f} ms ({b_by}) matmul {lib_ms:.4f} ms",
-                  flush=True)
+                  f"bound {b_ms:.4f} ms ({b_by}) matmul {lib_ms:.4f} ms; "
+                  f"{plan_text(plan)}; {device_text(dev)}", flush=True)
     return rows
 
 
@@ -2138,15 +2184,22 @@ def int8_kernel_rows(torch):
             del wdq
             b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
                                2 * m * n * k)
+            plan = qm.plan(m, k, n, x.dtype)
+            dev = gemm_device_ms(
+                lambda: qm.weight_only_matmul(x, w8, s, "int8", bn),
+                lambda: qm.weight_only_matmul_plain(x, w8, s, "int8", bn),
+                lambda: x @ (w8.to(torch.bfloat16) * s16))
             rows.append(dict(case=name, max_abs_err=err, atol=INT8_ATOL,
                              worst_err_over_allowed=ratio, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib_ms, bf16_matmul_ms=mm_ms))
+                             library_ms=lib_ms, bf16_matmul_ms=mm_ms,
+                             plan=plan, **dev))
             print(f"  weight_only_int8[{name}]: err {err:.3e} (worst "
                   f"{ratio:.3f} of atol {INT8_ATOL:g} + 2 bf16 ulps) kernel "
                   f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
                   f"({b_by}) dequant+matmul {lib_ms:.4f} ms (matmul on a "
-                  f"bf16 copy {mm_ms:.4f})", flush=True)
+                  f"bf16 copy {mm_ms:.4f}); {plan_text(plan)}; "
+                  f"{device_text(dev)}", flush=True)
     return rows
 
 

@@ -14,7 +14,10 @@ Layout contract (unchanged from the JAX package):
 ``weight_only_matmul`` launches a CUDA kernel of
 ``csrc/weight_only_matmul.cu`` for a CUDA tensor (int4 or int8, each
 with its own launch count) and runs the plain
-``weight_only_matmul_plain`` for a CPU tensor.
+``weight_only_matmul_plain`` for a CPU tensor. bf16 / fp16 activations
+take the tensor-core body, whose plan (``plan``: tile, K splits, blocks,
+workspace) the kernel's source chooses from the shape and the card's SM
+count; f32 takes the CUDA-core body.
 """
 import ctypes
 import functools
@@ -116,23 +119,26 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     ``weight_only_matmul.int8_launches``), or raises. Both kernels take
     contiguous x and w on one device, x in float32 / bfloat16 / float16
     equal to the output dtype, float32 scales [N], and ``block_n`` a
-    multiple of 128 dividing N."""
-    if x.device.type == "cpu":
+    multiple of 128 dividing N, with w 16-byte aligned. A bf16 / fp16
+    call whose plan splits K gets its f32 workspace from ``torch.empty``;
+    it is still one kernel launch."""
+    dev = x.device
+    if dev.type == "cpu":
         return weight_only_matmul_plain(x, w_packed, scales, quant=quant,
                                         block_n=block_n, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"weight_only_matmul: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"weight_only_matmul: unsupported device {dev}")
     if quant not in ("int4", "int8"):
         raise ValueError(f"quant must be int8/int4, got {quant!r}")
-    out_dtype = out_dtype or x.dtype
-    per_byte = 2 if quant == "int4" else 1
-    if x.dim() != 2 or w_packed.dim() != 2 or x.shape[1] != w_packed.shape[0]:
+    xs, wsh = x.shape, w_packed.shape
+    if len(xs) != 2 or len(wsh) != 2 or xs[1] != wsh[0]:
         want = "[K, N/2]" if quant == "int4" else "[K, N]"
-        raise ValueError(f"weight_only_matmul: x {tuple(x.shape)} and {quant} "
-                         f"w {tuple(w_packed.shape)} must be [M, K], {want}")
-    m, k = x.shape
-    n = w_packed.shape[1] * per_byte
-    if x.dtype not in _DTYPE_CODE or out_dtype != x.dtype:
+        raise ValueError(f"weight_only_matmul: x {tuple(xs)} and {quant} "
+                         f"w {tuple(wsh)} must be [M, K], {want}")
+    m, k = xs
+    n = wsh[1] * (2 if quant == "int4" else 1)
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None or (out_dtype is not None and out_dtype != x.dtype):
         raise ValueError(f"weight_only_matmul: x dtype {x.dtype} (out "
                          f"{out_dtype}) must be float32/bfloat16/float16 "
                          "and equal the output dtype")
@@ -143,20 +149,25 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     if block_n % 128 or n % block_n:
         raise ValueError(f"weight_only_matmul: block_n={block_n} must be a "
                          f"multiple of 128 dividing N={n}")
-    for name, t in (("x", x), ("w_packed", w_packed), ("scales", scales)):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"weight_only_matmul: {name} must be a "
-                             f"contiguous tensor on {x.device}")
-    if w_packed.data_ptr() % 4:
-        raise ValueError("weight_only_matmul: w_packed must be 4-byte "
+    if not (x.is_contiguous() and w_packed.is_contiguous()
+            and scales.is_contiguous()) or w_packed.device != dev \
+            or scales.device != dev:
+        raise ValueError("weight_only_matmul: x, w_packed and scales must "
+                         f"be contiguous tensors on {dev}")
+    if w_packed.data_ptr() % 16:
+        raise ValueError("weight_only_matmul: w_packed must be 16-byte "
                          "aligned")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    rc = _launcher(quant)(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                          w_packed.data_ptr(), scales.data_ptr(),
-                          out.data_ptr(), m, k, n, int(block_n),
-                          torch.cuda.current_stream(x.device).cuda_stream)
+    ws_bytes, sms = _workspace(m, k, n, code, dev.index)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) \
+        if ws_bytes else None
+    rc = _launcher(quant)(code, x.data_ptr(), w_packed.data_ptr(),
+                          scales.data_ptr(), out.data_ptr(), m, k, n,
+                          int(block_n), None if ws is None else ws.data_ptr(),
+                          ws_bytes, sms,
+                          torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"weight_only_matmul: {quant} kernel launch "
                            f"failed with CUDA error {rc}")
@@ -171,14 +182,56 @@ weight_only_matmul.launches = 0         # int4 kernel launches
 weight_only_matmul.int8_launches = 0    # int8 kernel launches
 
 
+PLAN_KEYS = ("bm", "bn", "splits", "blocks", "workspace_bytes")
+
+
+def plan(m, k, n, dtype=torch.bfloat16, device=None):
+    """The kernel's launch plan (the same for int8 and int4) for x [M, K]
+    of ``dtype`` against a weight of N columns on the card, from
+    ``csrc/weight_only_matmul.cu``: rows ``bm`` and columns ``bn`` of a
+    block's tile, K ``splits``, ``blocks`` in the grid and the
+    ``workspace_bytes`` the wrapper allocates (0 at one split)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return dict(zip(PLAN_KEYS, _plan(int(m), int(k), int(n),
+                                     _DTYPE_CODE[dtype], _sms(device))))
+
+
 @functools.cache
-def _launcher(quant):
-    """The ``quant`` kernel's C entry point with its prototype bound,
-    built and loaded on the first launch."""
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _workspace(m, k, n, code, index):
+    """(workspace bytes of the plan, SM count) on card ``index``."""
+    sms = _sms(torch.device("cuda", index))
+    return _plan(m, k, n, code, sms)[4], sms
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(m, k, n, code, sms):
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    got = _launcher("plan")(m, k, n, code, sms, out)
+    if got != len(PLAN_KEYS):
+        raise ValueError(f"weight_only_matmul: no plan for M={m}, K={k}, "
+                         f"N={n}")
+    return tuple(out)
+
+
+@functools.cache
+def _launcher(which):
+    """The kernel's C entry point (``which``: int4, int8 or plan) with its
+    prototype bound, built and loaded on the first use."""
     from . import _build
     lib = _build.load("weight_only_matmul")
-    fn = getattr(lib, f"weight_only_{quant}_launch")
+    if which == "plan":
+        fn = lib.weight_only_plan
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        return fn
+    fn = getattr(lib, f"weight_only_{which}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_longlong,
+                                ctypes.c_int, ctypes.c_void_p]
     return fn

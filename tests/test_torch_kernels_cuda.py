@@ -66,12 +66,22 @@ def test_ragged_attention_kernel_matches_plain(dtype, d, h, kvh, bs):
         assert err <= _tol(ref, dtype), err
 
 
+# the serving projections (E=1024, F=2816: qkv, lin, ffn1, ffn2) at every
+# row count whose plan differs: decode (BM 16, K split), the BM boundary,
+# a ragged last row tile, the mixed step and a long prefill
+FLAGSHIP_GEMMS = [(m, k, n, 512) for m in (8, 16, 17, 128, 512, 1000)
+                  for k, n in ((1024, 2048), (1024, 1024), (1024, 5632),
+                               (2816, 1024))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("m,k,n,bn", [(1, 64, 256, 256), (17, 100, 512, 256),
                                       (70, 33, 1024, 512),
                                       (16, 1024, 768, 256),
-                                      (5, 64, 384, 384), (9, 96, 640, 128)])
+                                      (5, 64, 384, 384), (9, 96, 640, 128),
+                                      *FLAGSHIP_GEMMS, (8, 256, 128, 128),
+                                      (40, 1024, 128, 128)])
 def test_int4_kernel_matches_plain(dtype, m, k, n, bn):
     from paddle_tpu_torch.ops import quant_matmul as qm
     rng = np.random.default_rng(m + k + n)
@@ -96,7 +106,9 @@ def test_int4_kernel_matches_plain(dtype, m, k, n, bn):
                                       (70, 33, 1024, 512),
                                       (16, 1024, 768, 256),
                                       (5, 64, 384, 384), (9, 96, 640, 128),
-                                      (0, 64, 256, 128)])
+                                      (0, 64, 256, 128), *FLAGSHIP_GEMMS,
+                                      (8, 256, 128, 128),
+                                      (40, 1024, 128, 128)])
 def test_int8_kernel_matches_plain(dtype, m, k, n, bn):
     from paddle_tpu_torch.ops import quant_matmul as qm
     rng = np.random.default_rng(m + k + n + 1)
@@ -118,6 +130,62 @@ def test_int8_kernel_matches_plain(dtype, m, k, n, bn):
     if m:
         err = float((out.float() - ref.float()).abs().max())
         assert err <= _tol(ref, dtype), err
+
+
+def _gemm_inputs(quant, m, k, n, bn, dtype, seed):
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
+    if quant == "int4":
+        packed, sc = qm.pack_int4_blocked(w, bn)
+    else:
+        sc = (np.abs(w).max(0) / 127.0).astype(np.float32)
+        packed = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+    x = torch.as_tensor(rng.standard_normal((m, k)).astype(
+        np.float32)).to(dtype).cuda()
+    return x, torch.as_tensor(packed).cuda(), torch.as_tensor(sc).cuda()
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n", [(8, 2816, 1024), (128, 1024, 2048)])
+def test_split_k_gemm_is_deterministic(quant, dtype, m, k, n):
+    """A plan that splits K sums its f32 partials in split order in the
+    tile's last block: two calls give bit-equal outputs, one launch each."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    assert qm.plan(m, k, n, dtype)["splits"] > 1
+    x, w, sc = _gemm_inputs(quant, m, k, n, 512, dtype, m + k)
+    counter = "launches" if quant == "int4" else "int8_launches"
+    before = getattr(qm.weight_only_matmul, counter)
+    a = qm.weight_only_matmul(x, w, sc, quant, 512)
+    b = qm.weight_only_matmul(x, w, sc, quant, 512)
+    torch.cuda.synchronize()
+    assert getattr(qm.weight_only_matmul, counter) == before + 2
+    assert torch.equal(a, b)
+    ref = qm.weight_only_matmul_plain(x, w, sc, quant, 512)
+    assert float((a.float() - ref.float()).abs().max()) <= _tol(ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gemm_plan_splits_k_at_decode_and_not_at_prefill(dtype):
+    """At M = 8 every flagship projection splits K and its grid fills the
+    card as far as slices of at least 128 rows allow; at M = 512 the
+    ffn1 projection (N = 5632) has enough tiles and does not split. f32
+    keeps the CUDA-core grid (128 columns, no split). Both modes share
+    the plan."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, n in ((1024, 2048), (1024, 1024), (1024, 5632), (2816, 1024)):
+        p = qm.plan(8, k, n, dtype)
+        tiles = n // p["bn"]
+        assert p["bm"] == 16 and p["splits"] > 1, p
+        assert p["blocks"] == tiles * p["splits"]
+        assert p["blocks"] >= min(sms, tiles * (k // 128)), p
+        assert p["workspace_bytes"] >= p["splits"] * 8 * n * 4
+    p = qm.plan(512, 1024, 5632, dtype)
+    assert (p["bm"], p["splits"], p["workspace_bytes"]) == (64, 1, 0), p
+    p = qm.plan(8, 1024, 1024, torch.float32)
+    assert (p["bn"], p["splits"], p["blocks"]) == (128, 1, 8), p
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -154,6 +222,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     flat = torch.zeros(64 * 256 + 1, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="aligned"):
         qm.weight_only_matmul(x, flat[1:].view(64, 256), sc, "int8", 256)
+    flat16 = torch.zeros(64 * 256 + 8, dtype=torch.int8, device="cuda")
+    for quant, cols in (("int8", 256), ("int4", 128)):  # 8 bytes off 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            qm.weight_only_matmul(x, flat16[8:8 + 64 * cols].view(64, cols),
+                                  sc, quant, 256)
     with pytest.raises(ValueError):                     # block not /128
         qm.weight_only_matmul(x, w8, sc, "int8", 64)
     with pytest.raises(ValueError):                     # dtype mismatch

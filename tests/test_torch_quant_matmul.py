@@ -442,3 +442,53 @@ class TestQuantizedFusedOps:
         assert str(jo.dtype).endswith("float32")
         assert to.dtype == torch.float32 and tuple(to.shape) == (2, 3, 16)
         assert bool(torch.isfinite(to).all())
+
+
+def _knob_tool():
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "wo_gemm_knobs", os.path.join(root, "tools", "wo_gemm_knobs.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+class TestKnobTool:
+    """``tools/wo_gemm_knobs.py`` builds copies of the GEMM's source with
+    its two plan knobs rewritten, and measures only on a card."""
+
+    def test_refuses_without_a_card(self):
+        import os
+        import subprocess
+        import sys
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        tool = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "wo_gemm_knobs.py")
+        r = subprocess.run([sys.executable, tool, "--set", "1,auto"],
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 2
+        assert "CUDA is not available" in r.stderr and r.stdout == ""
+
+    @pytest.mark.parametrize("waves,bn", [(1, "auto"), (3, "64"),
+                                          (2, "128")])
+    def test_rewrites_exactly_the_two_knob_lines(self, waves, bn):
+        import os
+        tool = _knob_tool()
+        with open(os.path.join(tool.SRC, "weight_only_matmul.cu")) as f:
+            tree = f.read().splitlines()
+        got = tool.variant_source(waves, bn).splitlines()
+        assert len(got) == len(tree)
+        changed = [(a.strip(), b.strip()) for a, b in zip(tree, got)
+                   if a != b]
+        want = [] if waves == 2 else [
+            ("constexpr int TC_WAVES = 2;      // knob two: a split grid "
+             "covers the SMs this often",
+             f"constexpr int TC_WAVES = {waves};      // knob two: a split "
+             "grid covers the SMs this often")]
+        if bn != "auto":
+            want.append(("return cdiv(M, bm) * (N / 128) < sms ? 64 : 128;",
+                         f"return {bn};"))
+        assert changed == want
