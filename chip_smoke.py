@@ -11,14 +11,17 @@ Phases (any failure exits non-zero and prints no result line):
      widths (H=16, KVH=8, D=64, BS=16): ragged paged attention on a decode
      step, a mixed chunked step and a bucketed step; the int4 GEMM on the
      four projection shapes at M=8, 128 and 512. Each case prints its
-     error and tolerance, its kernel, plain, bound and library times, and
-     for a GEMM its plan (tile, K splits, blocks) and the device-only
-     times of the kernel, plain and library calls;
+     error and tolerance, its kernel, plain, bound and library times,
+     its plan (attention: route, page splits, row tiles, blocks,
+     workspace, and the route the call took; GEMM: tile, K splits,
+     blocks) and the device-only times of the kernel, plain and library
+     calls;
   2. continuous-batching serving at full width in bf16 (V=32000, E=1024,
      H=16, KVH=8, D=64, L=24, F=2816, swiglu/rmsnorm, max_seq_len=512):
      12 seeded ragged requests through ContinuousBatchingEngine; every
      request must finish, the ragged kernel must launch 24 times per
-     paged step, and every block must return to the free list;
+     paged step, and every block must return to the free list; a
+     profiled window prints the ragged kernel's device ms per step;
   3. parity in float32 at full width and L=2: continuous-batching greedy
      tokens against the port's dense generate(), per request;
   4. int4 serving at full width in bf16: first-step logits against a
@@ -330,16 +333,24 @@ def attention_work(q, tables, lens, qls):
     return kv_bytes + qo_bytes + meta, flops
 
 
+def ragged_plan_text(plan):
+    """A ragged attention plan (``paged_attention.ragged_plan``) as one
+    short field."""
+    return (f"plan {plan['route']} S {plan['splits']} x "
+            f"{plan['pages_per_split']} pages, {plan['tiles']} row tiles, "
+            f"blocks {plan['blocks']}, workspace {plan['workspace_bytes']} B")
+
+
 def plan_text(plan):
     """A weight-only GEMM plan (``quant_matmul.plan``) as one short field."""
     return (f"plan BM {plan['bm']} BN {plan['bn']} S {plan['splits']} "
             f"blocks {plan['blocks']}")
 
 
-def gemm_device_ms(kernel, plain, library):
-    """A weight-only GEMM row's device times (``device_time_ms``) of the
-    kernel, its plain version and the library yardstick: at decode M the
-    per-call event times above carry the host's time per call."""
+def device_times(kernel, plain, library):
+    """A kernel row's device times (``device_time_ms``) of the kernel, its
+    plain version and the library yardstick: at decode sizes the per-call
+    event times carry the host's time per call."""
     return {"device_ms": device_time_ms(kernel),
             "plain_device_ms": device_time_ms(plain, iters=20),
             "library_device_ms": device_time_ms(library)}
@@ -396,14 +407,28 @@ def phase_kernels(torch):
         qt = q4.transpose(1, 2).contiguous()
         lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask))
+        plan = pa.ragged_plan(MAX_BATCH, c, H, KVH, tables.shape[1], BS, D,
+                              q.dtype)
+        dev = device_times(
+            lambda: pa.ragged_paged_attention(q, kc, vc, tab_d, lens_d,
+                                              q_lens=qls_d),
+            lambda: pa.ragged_paged_attention_plain(q, kc, vc, tab_d, lens_d,
+                                                    q_lens=qls_d),
+            lambda: Fn.scaled_dot_product_attention(qt, kg, vg,
+                                                    attn_mask=mask))
+        check(pa.ragged_paged_attention.route == plan["route"],
+              f"attention {name}: route {pa.ragged_paged_attention.route} "
+              f"against the plan's {plan['route']}")
         rows["attn"].append(dict(case=name, max_abs_err=err, atol=ATTN_ATOL,
                                  worst_err_over_allowed=ratio, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms))
+                                 bound_by=b_by, library_ms=lib_ms,
+                                 plan=plan, **dev))
         print(f"  ragged_paged_attention[{name}]: err {err:.3e} (worst "
               f"{ratio:.3f} of atol {ATTN_ATOL:g} + 2 bf16 ulps of |ref|) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-              f"{b_ms:.4f} ms ({b_by}) sdpa {lib_ms:.4f} ms", flush=True)
+              f"{b_ms:.4f} ms ({b_by}) sdpa {lib_ms:.4f} ms; "
+              f"{ragged_plan_text(plan)}; {device_text(dev)}", flush=True)
     rng = np.random.default_rng(12)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -431,7 +456,7 @@ def phase_kernels(torch):
             b_ms, b_by = bound(m * k * 2 + k * n // 2 + n * 4 + m * n * 2,
                                2 * m * n * k)
             plan = qm.plan(m, k, n, x.dtype)
-            dev = gemm_device_ms(
+            dev = device_times(
                 lambda: qm.weight_only_matmul(x, pk, sc, "int4", bn),
                 lambda: qm.weight_only_matmul_plain(x, pk, sc, "int4", bn),
                 lambda: torch.matmul(x, wdq))
@@ -535,11 +560,18 @@ def phase_serve(torch):
     reqs = requests(7, 4, new=(16, 16))
     profile = profile_window(torch, lambda: serve(eng, reqs)[2],
                              "paged steps")
+    k3_ms = None
+    if profile.get("device_ms_by_class"):
+        k3_ms = profile["device_ms_by_class"].get(
+            "ragged_attention", 0.0) / profile["steps"]
+        print(f"  ragged kernel device time: {k3_ms:.4f} ms per paged step "
+              f"({L} launches)", flush=True)
     del eng, cb
     torch.cuda.empty_cache()
     return {"steps": steps, "tokens": toks, "wall_s": wall,
             "tokens_per_s": toks / wall, "mean_ttft_s": float(np.mean(ttft)),
-            "attn_launches": attn, "profile": profile}
+            "attn_launches": attn, "profile": profile,
+            "ragged_device_ms_per_step": k3_ms}
 
 
 def _kernel_class(name):
@@ -2185,7 +2217,7 @@ def int8_kernel_rows(torch):
             b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
                                2 * m * n * k)
             plan = qm.plan(m, k, n, x.dtype)
-            dev = gemm_device_ms(
+            dev = device_times(
                 lambda: qm.weight_only_matmul(x, w8, s, "int8", bn),
                 lambda: qm.weight_only_matmul_plain(x, w8, s, "int8", bn),
                 lambda: x @ (w8.to(torch.bfloat16) * s16))

@@ -18,9 +18,12 @@ Device part:
   outside ``[0, NB)`` is dropped) and the surviving rows are copied into
   the cache IN PLACE. Each op returns the same cache tensors it was given.
 * ``ragged_paged_attention``: the CUDA kernel
-  (``csrc/ragged_paged_attention.cu``) for a CUDA tensor, the plain
-  ``ragged_paged_attention_plain`` for a CPU tensor. The kernel walks the
-  block tables directly; the work list keeps its host role.
+  (``csrc/ragged_paged_attention.cu``) for a CUDA tensor, with the launch
+  plan of ``ragged_plan`` (page splits, row tiles, route, workspace; from
+  shapes alone), the plain ``ragged_paged_attention_plain`` for a CPU
+  tensor. ``ragged_split_plain`` is the kernel's split-and-combine
+  arithmetic in plain PyTorch. The kernel walks the block tables
+  directly; the work list keeps its host role.
 * ``paged_attention``: the legacy one-token decode attention behind
   ``block_multihead_attention``, the CUDA kernel
   (``csrc/paged_decode_attention.cu``) for a CUDA tensor and the plain
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -531,6 +535,121 @@ def ragged_paged_attention_plain(q, k_cache, v_cache, block_tables,
     return out[:, 0] if squeeze else out
 
 
+ROW_TILE = 64           # query rows of a kernel tile (16 per warp on mma)
+MMA_MIN_ROWS = 16       # live rows from which a 16-bit tile takes mma.sync
+SPLIT_WAVES = 2         # a split grid covers the SMs at least this often
+MAX_SPLITS = 32         # most splits of a plan (the kernel's combine)
+PLAN_KEYS = ("route", "splits", "pages_per_split", "tiles", "blocks",
+             "workspace_bytes")
+
+
+def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
+                sms=None):
+    """The kernel's launch plan for q [B, C, H, D] against caches of block
+    size ``bs`` and tables of ``max_nb`` columns, from shapes alone (never
+    from the lengths on the device, so a CUDA graph could capture the
+    call). ``sms`` is the card's SM count (default: the current card's).
+
+    * ``tiles``: row tiles of 64 per (kv head, sequence): ceil(C*G / 64);
+    * ``splits`` S and ``pages_per_split`` P: the page walk cut into S
+      pieces of P pages. One split (P = max_nb) when the unsplit grid
+      (B x KVH x tiles blocks) already covers the SMs twice; else P is the
+      largest power of two that lets the grid reach two waves (at least
+      ceil(max_nb / 32): 32 splits at most), and S = ceil(max_nb / P);
+    * ``blocks``: S x B x KVH x tiles;
+    * ``workspace_bytes``: the f32 partials of a split plan, S x B x KVH x
+      tiles x min(64, C*G) x (D + 2) x 4 (0 at one split);
+    * ``route``: "mma" for bf16 / fp16 when a tile can hold 16 live rows
+      (C*G >= 16): such a tile runs on the tensor cores and every other
+      tile on the warp-shuffle route, each block choosing from its own
+      q_len on the device; else "decode", every tile on the warp-shuffle
+      route."""
+    if sms is None:
+        sms = _sms(torch.device("cuda", torch.cuda.current_device()))
+    g = h // kvh
+    span = c * g
+    tiles = -(-span // ROW_TILE)
+    unsplit = b * kvh * tiles
+    max_nb = max(int(max_nb), 1)
+    target = SPLIT_WAVES * int(sms)
+    pps = max_nb
+    if 0 < unsplit < target:
+        fit = max(1, max_nb // -(-target // unsplit))
+        pps = 1 << (fit.bit_length() - 1)
+    pps = max(pps, -(-max_nb // MAX_SPLITS))
+    splits = -(-max_nb // pps)
+    route = "mma" if dtype in (torch.bfloat16, torch.float16) \
+        and span >= MMA_MIN_ROWS else "decode"
+    ws = splits * unsplit * min(ROW_TILE, span) * (d + 2) * 4 \
+        if splits > 1 else 0
+    return dict(zip(PLAN_KEYS, (route, splits, pps, tiles,
+                                splits * unsplit, ws)))
+
+
+def ragged_split_plain(q, k_cache, v_cache, block_tables, context_lens,
+                       splits, pages_per_split, scale=None, q_lens=None):
+    """The kernel's split-and-combine arithmetic in plain PyTorch, on any
+    device: split s attends over pages [s*P, (s+1)*P) of each sequence's
+    walk and leaves a partial (m, l, acc) per row, scores in log2 units
+    (an empty split: m = -1e30, l = 0, acc = 0); the partials are then
+    summed in split order 0 .. S-1 with weights 2^(m_s - max m), and
+    acc / l (l == 0 read as one) is the output. Masks, clamps and dead
+    rows as in ``ragged_paged_attention_plain``."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, c, h, d = q.shape
+    kvh, nb, bs, _ = k_cache.shape
+    g = h // kvh
+    dev = q.device
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    tables = _on_device(block_tables, dev, torch.long).clamp(0, nb - 1)
+    max_nb = tables.shape[1]
+    lens = _on_device(context_lens, dev, torch.long).reshape(-1)
+    ql = torch.ones_like(lens) if q_lens is None \
+        else _on_device(q_lens, dev, torch.long).reshape(-1)
+    qstart = (lens - ql).clamp(min=0)
+    nblk = torch.where((lens > 0) & (ql > 0),
+                       torch.clamp((lens + bs - 1) // bs, max=max_nb), 0)
+    span = max_nb * bs
+    kg = k_cache[:, tables].reshape(kvh, b, span, d).float()
+    vg = v_cache[:, tables].reshape(kvh, b, span, d).float()
+    pos = torch.arange(span, device=dev)
+    j = torch.arange(c, device=dev)
+    live = j[None, :] < ql[:, None]                               # [B, C]
+    vis = ((pos[None, None, :] < (nblk * bs)[:, None, None])
+           & (pos[None, None, :]
+              <= (qstart[:, None] + j[None, :])[:, :, None])
+           & live[:, :, None])                                    # [B, C, S]
+    qf = q.float().reshape(b, c, kvh, g, d)
+    s = torch.einsum("bcngd,nbsd->bcngs", qf, kg) * (scale * LOG2E)
+    page = pos // bs
+    parts = []
+    for sp in range(int(splits)):
+        inside = (page >= sp * pages_per_split) \
+            & (page < (sp + 1) * pages_per_split)
+        mask = (vis & inside)[:, :, None, None, :]
+        m = torch.where(mask, s, NEG_INF).amax(-1, keepdim=True)
+        p = torch.where(mask, torch.exp2(s - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bcngs,nbsd->bcngd", p, vg)))
+    big = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big = torch.maximum(big, m)
+    l_sum = torch.zeros_like(big)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:                     # split order
+        f = torch.exp2(m - big)
+        l_sum = l_sum + l * f
+        acc = acc + a * f
+    o = acc / torch.where(l_sum == 0.0, 1.0, l_sum)
+    o = torch.where((live & (lens[:, None] > 0))[:, :, None, None, None],
+                    o, 0.0)
+    out = o.reshape(b, c, h, d).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                            scale=None, q_lens=None):
     """Mixed decode/prefill attention over a paged KV cache.
@@ -548,8 +667,13 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     returns       [B, H, D] or [B, C, H, D], matching q
 
     A CPU tensor runs ``ragged_paged_attention_plain``. A CUDA tensor
-    launches the kernel of ``csrc/ragged_paged_attention.cu`` (and counts
-    the launch in ``ragged_paged_attention.launches``) or raises."""
+    launches the kernel of ``csrc/ragged_paged_attention.cu`` once, with
+    the plan of ``ragged_plan`` (counted in
+    ``ragged_paged_attention.launches``, the plan's route in
+    ``ragged_paged_attention.route``), or raises. A split plan takes its
+    f32 workspace from ``torch.empty`` and its counters from a zeroed
+    buffer kept per card and stream, which the kernel leaves zeroed.
+    Nothing here reads the lengths back to the host."""
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_cache, v_cache, block_tables, context_lens, scale=scale,
@@ -578,9 +702,11 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"ragged_paged_attention: head dim {d} not in "
                          "(32, 64, 128)")
     for name, t in (("q", q4), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device or not t.is_contiguous():
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"ragged_paged_attention: {name} must be a "
-                             f"contiguous tensor on {q.device}")
+                             f"contiguous 16-byte aligned tensor on "
+                             f"{q.device}")
     tables = _on_device(block_tables, q.device, torch.int32)
     lens = _on_device(context_lens, q.device, torch.int32).reshape(-1)
     qls = None if q_lens is None \
@@ -597,19 +723,52 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"ragged_paged_attention: block size {bs} too large")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    plan = ragged_plan(b, c, h, kvh, tables.shape[1], bs, d, q.dtype,
+                       _sms(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if plan["splits"] > 1:
+        ws = torch.empty(plan["workspace_bytes"] // 4, dtype=torch.float32,
+                         device=q.device)
+        counters = _counters(q.device, stream,
+                             plan["blocks"] // plan["splits"])
     rc = fn(_DTYPE_CODE[q.dtype], q4.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), tables.data_ptr(), lens.data_ptr(),
             None if qls is None else qls.data_ptr(), out.data_ptr(),
-            b, c, h, kvh, nb, bs, tables.shape[1], d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, c, h, kvh, nb, bs, tables.shape[1], d, plan["splits"],
+            plan["pages_per_split"], float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention: kernel launch failed "
                            f"with CUDA error {rc}")
     ragged_paged_attention.launches += 1
+    ragged_paged_attention.route = plan["route"]
     return out[:, 0] if squeeze else out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.route = None     # the last launch's plan route
+
+_COUNTERS = {}      # (card, stream) -> zeroed int32 counters of split plans
+
+
+def _counters(device, stream, n):
+    """At least ``n`` zeroed int32 counters on ``device`` for launches on
+    ``stream``, kept between calls: every launch leaves the counters it
+    used at zero, so they are zeroed once, when allocated (anew only for a
+    larger grid), and launches on one stream never share them at once."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+@functools.cache
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -620,8 +779,8 @@ def _launcher():
     lib = _build.load("ragged_paged_attention")
     fn = lib.ragged_paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 \
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     return fn, int(lib.ragged_paged_attention_max_block_size())
 
 

@@ -66,6 +66,126 @@ def test_ragged_attention_kernel_matches_plain(dtype, d, h, kvh, bs):
         assert err <= _tol(ref, dtype), err
 
 
+# the serving cache: H=16, KVH=8, D=64, 257 blocks of 16, 32 per table row
+SERVE = dict(h=16, kvh=8, d=64, bs=16, nb=257, max_nb=32)
+SERVE_LENS = [0, 1, 16, 17, 512, 600, 100, 255]   # 600: past capacity
+
+
+def _serving_case(b, c, lens, qls, dtype, seed, free_tail=False):
+    """Seeded caches, tables (ids 1..NB-1, repeats allowed; with
+    ``free_tail`` -1 past each row's last used block) and queries at the
+    serving widths; ``c`` None is a [B, H, D] decode query."""
+    h, kvh, d, bs, nb, max_nb = (SERVE[k] for k in
+                                 ("h", "kvh", "d", "bs", "nb", "max_nb"))
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    kc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    vc = torch.randn(kvh, nb, bs, d, device="cuda", generator=gen).to(dtype)
+    tables = rng.integers(1, nb, (b, max_nb)).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    if free_tail:
+        used = np.minimum(-(-lens.astype(np.int64) // bs), max_nb)
+        for i in range(b):
+            tables[i, used[i]:] = -1
+    shape = (b, h, d) if c is None else (b, c, h, d)
+    q = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    qls = None if qls is None else torch.as_tensor(
+        np.asarray(qls, np.int32)).cuda()
+    return (q, kc, vc, torch.as_tensor(tables).cuda(),
+            torch.as_tensor(lens).cuda(), qls)
+
+
+def _ragged_check(args, dtype):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    q, kc, vc, tables, lens, qls = args
+    before = pa.ragged_paged_attention.launches
+    out = pa.ragged_paged_attention(q, kc, vc, tables, lens, q_lens=qls)
+    ref = pa.ragged_paged_attention_plain(q, kc, vc, tables, lens,
+                                          q_lens=qls)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(ref, dtype), err
+    return out, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("c", [None, 64])
+def test_ragged_kernel_at_the_serving_shape(dtype, c):
+    """Lengths 0, 1, 16, 17, 512 and past capacity, with -1 ids past the
+    used blocks, at decode and at C=64 (full, partial, decode and parked
+    rows); rows that see nothing are exact zeros."""
+    qls = None if c is None else [0, 1, 16, 17, 64, 64, 5, 1]
+    args = _serving_case(8, c, SERVE_LENS, qls, dtype, seed=31,
+                         free_tail=True)
+    out, _ = _ragged_check(args, dtype)
+    assert not out[0].any()                 # len 0
+    if c is not None:
+        assert not out[1, 1:].any() and not out[6, 5:].any()  # dead rows
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,splits", [(64, None, 1), (32, None, 2),
+                                        (8, None, 8), (1, None, 32),
+                                        (8, 64, 4), (1, 64, 32)])
+def test_ragged_kernel_plans_one_some_and_most_splits(dtype, b, c, splits):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    plan = pa.ragged_plan(b, 1 if c is None else c, SERVE["h"],
+                          SERVE["kvh"], SERVE["max_nb"], SERVE["bs"],
+                          SERVE["d"], dtype)
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert plan["splits"] == splits, plan
+    rng = np.random.default_rng(b)
+    lens = rng.integers(0, 600, b)
+    lens[:3] = [512, 1, 0][:b]
+    qls = None if c is None else np.minimum(rng.integers(0, c + 1, b), lens)
+    _ragged_check(_serving_case(b, c, lens, qls, dtype, seed=32), dtype)
+
+
+@pytest.mark.parametrize("c", [None, 64])
+def test_ragged_kernel_is_deterministic(c):
+    """The split partials are summed in split order: two calls are
+    bit-equal."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    qls = None if c is None else [64, 2, 0, 64, 5, 1, 0, 30]
+    q, kc, vc, tables, lens, qls = _serving_case(
+        8, c, [64, 130, 0, 200, 5, 512, 77, 300], qls, torch.bfloat16, 33)
+    a = pa.ragged_paged_attention(q, kc, vc, tables, lens, q_lens=qls)
+    b = pa.ragged_paged_attention(q, kc, vc, tables, lens, q_lens=qls)
+    assert torch.equal(a, b)
+
+
+def test_ragged_kernel_counters_reset_between_shapes():
+    """Back-to-back calls of different plans share the card's counters:
+    each launch leaves them zero, so every call stays right."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    dec = _serving_case(8, None, SERVE_LENS, None, torch.bfloat16, 34)
+    mix = _serving_case(2, 64, [300, 512], [64, 40], torch.bfloat16, 35)
+    one = _serving_case(1, None, [511], None, torch.float16, 36)
+    first = _ragged_check(dec, torch.bfloat16)[0]
+    for _ in range(3):
+        for args, dt in ((mix, torch.bfloat16), (one, torch.float16),
+                         (dec, torch.bfloat16)):
+            _ragged_check(args, dt)
+    assert torch.equal(_ragged_check(dec, torch.bfloat16)[0], first)
+    for buf in pa._COUNTERS.values():
+        assert not buf.any()
+
+
+@pytest.mark.parametrize("dtype,c,route", [
+    (torch.bfloat16, None, "decode"), (torch.bfloat16, 64, "mma"),
+    (torch.float16, 16, "mma"), (torch.float16, 4, "decode"),
+    (torch.float32, 64, "decode")])
+def test_ragged_kernel_names_its_route(dtype, c, route):
+    from paddle_tpu_torch.ops import paged_attention as pa
+    qls = None if c is None else [c] * 8
+    _ragged_check(_serving_case(8, c, SERVE_LENS, qls, dtype, 37), dtype)
+    assert pa.ragged_paged_attention.route == route
+
+
 # the serving projections (E=1024, F=2816: qkv, lin, ffn1, ffn2) at every
 # row count whose plan differs: decode (BM 16, K split), the BM boundary,
 # a ragged last row tile, the mixed step and a long prefill

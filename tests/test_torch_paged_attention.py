@@ -264,3 +264,170 @@ class TestRaggedAttention:
             lens)
         assert b16.dtype == torch.bfloat16
         torch.testing.assert_close(b16.float(), f32, rtol=5e-2, atol=5e-2)
+
+
+# -- the split plan and the split-and-combine arithmetic ---------------------
+
+SMS = 132       # an H100's SM count: the plan takes it as an argument here
+
+
+def _plan(b, c, dtype=torch.bfloat16, h=16, kvh=8, max_nb=32, bs=16, d=64,
+          sms=SMS):
+    return tpa.ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype, sms=sms)
+
+
+class TestRaggedPlan:
+    """``ragged_plan`` decides the kernel's grid from shapes alone."""
+
+    @pytest.mark.parametrize("b,c,dtype,want", [
+        # the smoke's decode, mixed C=64 and bucketed C=16 steps (serving
+        # widths H=16, KVH=8, D=64, BS=16, 32 pages a table row)
+        (8, 1, torch.bfloat16, ("decode", 8, 4, 1, 512, 8 * 64 * 2 * 66 * 4)),
+        (8, 64, torch.bfloat16, ("mma", 4, 8, 2, 512,
+                                 4 * 128 * 64 * 66 * 4)),
+        (8, 16, torch.bfloat16, ("mma", 8, 4, 1, 512, 8 * 64 * 32 * 66 * 4)),
+        (8, 64, torch.float32, ("decode", 4, 8, 2, 512,
+                                4 * 128 * 64 * 66 * 4)),
+        (8, 4, torch.float16, ("decode", 8, 4, 1, 512, 8 * 64 * 8 * 66 * 4)),
+        (64, 1, torch.bfloat16, ("decode", 1, 32, 1, 512, 0)),
+        (32, 1, torch.bfloat16, ("decode", 2, 16, 1, 512,
+                                 2 * 256 * 2 * 66 * 4)),
+        (1, 1, torch.bfloat16, ("decode", 32, 1, 1, 256, 32 * 8 * 2 * 66 * 4)),
+    ])
+    def test_pinned_at_the_smoke_shapes(self, b, c, dtype, want):
+        got = _plan(b, c, dtype)
+        assert tuple(got[k] for k in tpa.PLAN_KEYS) == want, got
+
+    @pytest.mark.parametrize("b", [1, 3, 8, 17, 64, 300])
+    @pytest.mark.parametrize("c,h,kvh", [(1, 16, 8), (64, 16, 8), (7, 12, 3),
+                                         (1, 8, 8), (200, 4, 1)])
+    @pytest.mark.parametrize("max_nb", [1, 5, 32, 100])
+    @pytest.mark.parametrize("sms", [132, 7])
+    def test_invariants(self, b, c, h, kvh, max_nb, sms):
+        p = _plan(b, c, h=h, kvh=kvh, max_nb=max_nb, sms=sms)
+        s, pps = p["splits"], p["pages_per_split"]
+        span = c * (h // kvh)
+        unsplit = b * kvh * -(-span // 64)
+        assert p["tiles"] == -(-span // 64)
+        assert s * pps >= max_nb and (s - 1) * pps < max_nb   # no idle split
+        assert 1 <= s <= 32 and p["blocks"] == s * unsplit
+        # one split when the unsplit grid already covers the SMs twice
+        assert (s == 1) == (unsplit >= 2 * sms or max_nb == 1)
+        # else the grid reaches two waves, unless the splits ran out
+        assert p["blocks"] >= 2 * sms or s == 1 \
+            or pps == max(1, -(-max_nb // 32))
+        assert p["workspace_bytes"] == (
+            s * unsplit * min(64, span) * (64 + 2) * 4 if s > 1 else 0)
+        assert p["route"] == ("mma" if span >= 16 else "decode")
+        assert _plan(b, c, torch.float32, h=h, kvh=kvh, max_nb=max_nb,
+                     sms=sms)["route"] == "decode"
+
+
+def _split_setup(lens, c=None, seed=7, h=8, kvh=2, d=16, bs=4, max_nb=10,
+                 free_tail=()):
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    nblk = b * max_nb + 3
+    shape = (b, h, d) if c is None else (b, c, h, d)
+    q = rng.standard_normal(shape).astype(np.float32)
+    kc = rng.standard_normal((kvh, nblk, bs, d)).astype(np.float32)
+    vc = rng.standard_normal((kvh, nblk, bs, d)).astype(np.float32)
+    tables = np.stack([rng.choice(nblk, max_nb, replace=False)
+                       for _ in range(b)]).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    for i in free_tail:       # -1 free-slot ids past the row's used blocks
+        tables[i, min(-(-int(lens[i]) // bs), max_nb):] = -1
+    return q, kc, vc, tables, lens
+
+
+# lengths 0, 1, a page's edge, a split's edge, past the table's capacity
+# (10 pages of 4 = 40), with -1 ids after the used blocks of three rows
+SPLIT_LENS = [0, 1, 4, 5, 23, 40, 47, 13]
+SPLIT_QLENS = [0, 1, 4, 5, 6, 6, 0, 2]      # parked, full, partial, dead rows
+SPLIT_PLANS = [(1, 10), (2, 5), (3, 4), (8, 2), (10, 1)]  # (S, P): S P >= 10
+
+
+@pytest.fixture(scope="module")
+def split_refs():
+    """The JAX package's Pallas ragged kernel (interpret mode, as its own
+    tests run it on the CPU) on the decode and the chunked case."""
+    from paddle_tpu.ops.pallas import flash_attention as jfa
+    old = jfa._INTERPRET
+    jfa._INTERPRET = True
+    try:
+        out = {}
+        for c, qls in ((None, None), (6, np.asarray(SPLIT_QLENS, np.int32))):
+            q, kc, vc, tables, lens = _split_setup(SPLIT_LENS, c=c,
+                                                   free_tail=(1, 3, 4))
+            clipped = np.clip(tables, 0, kc.shape[1] - 1)
+            out[c] = np.asarray(jpa.ragged_paged_attention(
+                jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), clipped,
+                lens, q_lens=qls))
+        return out
+    finally:
+        jfa._INTERPRET = old
+
+
+class TestSplitCombine:
+    """``ragged_split_plain``: the kernel's partials per split, summed in
+    split order, against the JAX kernel and the plain version (f32, atol
+    1e-5: the same softmax in another summation order)."""
+
+    @pytest.mark.parametrize("splits,pps", SPLIT_PLANS)
+    @pytest.mark.parametrize("c", [None, 6])
+    def test_matches_jax_kernel_and_plain(self, split_refs, splits, pps, c):
+        qls = None if c is None else np.asarray(SPLIT_QLENS, np.int32)
+        q, kc, vc, tables, lens = _split_setup(SPLIT_LENS, c=c,
+                                               free_tail=(1, 3, 4))
+        got = tpa.ragged_split_plain(_t(q), _t(kc), _t(vc), tables, lens,
+                                     splits, pps, q_lens=qls)
+        plain = tpa.ragged_paged_attention_plain(_t(q), _t(kc), _t(vc),
+                                                 tables, lens, q_lens=qls)
+        np.testing.assert_allclose(got.numpy(), split_refs[c], rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                                   atol=ATOL)
+        assert not got[0].any()                       # len 0
+        if c is not None:
+            assert not got[6].any() and not got[7, 2:].any()  # parked, dead
+
+    @pytest.mark.parametrize("splits,pps", SPLIT_PLANS)
+    def test_empty_splits_add_nothing(self, splits, pps):
+        """A split past every page of a row leaves m = -1e30, l = 0, acc =
+        0: the sum equals the one over the splits that hold pages, also
+        for a zero-length row with queries (zeros)."""
+        lens = [3, 0, 9, 1]
+        qls = np.array([3, 2, 1, 1], np.int32)         # row 1: len 0, q 2
+        q, kc, vc, tables, lens = _split_setup(lens, c=3, seed=8)
+        got = tpa.ragged_split_plain(_t(q), _t(kc), _t(vc), tables, lens,
+                                     splits, pps, q_lens=qls)
+        wide = tpa.ragged_split_plain(_t(q), _t(kc), _t(vc), tables, lens,
+                                      splits + 5, pps, q_lens=qls)
+        plain = tpa.ragged_paged_attention_plain(_t(q), _t(kc), _t(vc),
+                                                 tables, lens, q_lens=qls)
+        torch.testing.assert_close(wide, got, rtol=0, atol=0)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                                   atol=ATOL)
+        assert not got[1].any() and bool(torch.isfinite(got).all())
+
+    def test_wrapper_leaves_route_on_cpu(self):
+        q, kc, vc, tables, lens = _split_setup([5, 9])
+        route = tpa.ragged_paged_attention.route
+        tpa.ragged_paged_attention(_t(q), _t(kc), _t(vc), tables, lens)
+        assert tpa.ragged_paged_attention.route == route
+
+
+def test_ragged_kernel_ab_refuses_without_a_card():
+    """``tools/ragged_kernel_ab.py`` measures only on a card: without one it
+    exits 2 and prints no result."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                     "ragged_kernel_ab.py")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "CUDA is not available" in r.stderr and r.stdout == ""
