@@ -40,51 +40,88 @@
 // column gets o = 0 and lse = -1e30 (:114-118), p = 0 in the backward
 // (:152, :200), dq = 0, and adds nothing to dk or dv.
 //
-// Design. CUDA-core f32 FMAs on tiles staged as f32 in shared memory, 256
-// threads as a 16 x 16 grid each holding a small register tile, rows padded
-// by 4 floats (aligned float4 reads, conflict-free column walks): the tile
-// helpers of flash_tiles.cuh, shared with flash_attention.cu. FlashMask's p
-// is f32 and is never rounded, so a 16-bit tensor-core product p @ v would
-// need p split into exact parts (blockwise_ce.cu does that for dl, three
-// products for one); this first version keeps every product on the CUDA
-// cores.
-//   Tile skip: a pre-pass writes each mask row's (max sr, min er) per k
-//   tile, padded columns left out (:58-59). A (q tile, k tile) pair is dead
-//   when rows_lo >= max sr and rows_hi < min er, or, causal, when the k tile
-//   starts past rows_hi; all three kernels skip dead pairs before loading
-//   anything. The decision is the same for every thread of a block.
-//   Forward: one block per (bh, 64-row q tile) walks the live k tiles; a
-//   thread's score rows are its output rows, so m / l / the [rows, D]
-//   accumulator stay in registers (online softmax, :96-106); o and lse are
-//   written once.
-//   dq: one block per (bh, 64-row q tile) keeps q, do, their lse and delta
-//   on chip and walks the live k tiles, adding ds k into a register
-//   accumulator: no atomics, so dq is deterministic (the fused backward's
-//   dq is summed atomically).
-//   dk / dv: one block per (bh, 64-key tile) keeps k, v and the dk / dv
-//   accumulators on chip and walks the live 32-row q tiles from the
-//   diagonal.
-//   delta = rowsum(do * o) in f32 is one pre-pass kernel for both.
-//
 // What bounds it, counted on the visible pairs: with packed documents at
 // the flagship widths (S = 2048, D = 64, bf16, about 3 in 10 causal pairs
 // visible) the bytes: each kernel must move its inputs and outputs once in
 // more time than the visible pairs' products take on the bf16 tensor cores
 // (about 150 flops per byte forward, under the ~295 where operations take
 // over); with more pairs visible (bands, long contexts) the operations.
-// These kernels run f32 FMAs on the CUDA cores (67 TFLOP/s peak), far from
-// either bound; the skip makes their work follow the live tiles.
-// Tensor-core tiles with split p are later work.
+// The tile skip makes the work follow the live tiles. The tensor-core
+// backward still takes 4.5-11x that bound at the smoke's shapes (PERF.md
+// section 6, rows 6 and 11): the element-wise step below holds it.
+//
+// Tile skip: a pre-pass writes each mask row's (max sr, min er) per k tile,
+// padded columns left out (:58-59). A (q tile, k tile) pair is dead when
+// rows_lo >= max sr and rows_hi < min er, or, causal, when the k tile starts
+// past rows_hi; every kernel skips dead pairs before loading anything, and
+// the tensor-core backward also skips a warp's slice of a live pair by the
+// same rule. The decision is the same for every thread that takes it.
+//
+// Forward (every dtype) and the f32 backward: CUDA-core f32 FMAs on tiles
+// staged as f32 in shared memory, 256 threads as a 16 x 16 grid each
+// holding a small register tile, rows padded by 4 floats: the tile helpers
+// of flash_tiles.cuh. The forward's block per (bh, 64-row q tile) walks the
+// live k tiles with an online softmax (:96-106) in registers. The f32 dq
+// block per (bh, 64-row q tile) adds ds k into registers; the f32 dk / dv
+// block per (bh, 64-key tile) walks the live 32-row q tiles from the
+// diagonal. f32 stays off the tensor cores, as flash_attention.cu's f32
+// body does: TF32 would round the f32 gradients phase 14 holds to 1e-4.
+//
+// Tensor-core backward (bf16 and fp16; mma_tiles.cuh): mma.sync m16n8k16
+// with f32 accumulators, operands in 16-bit shared tiles padded by 16
+// bytes and read with ldmatrix, each walked tile arriving through a
+// two-stage cp.async ring with zero-filled tails. q k^T and do v^T take
+// 16-bit inputs, so their products are exact in f32. FlashMask's p and ds
+// are f32: they enter p^T do, ds^T q and ds k as FM_PARTS 16-bit parts
+// (split_frag: hi, then what hi leaves, rounded), one mma.sync a part into
+// one f32 accumulator. Two parts carry 16 significant bits (bf16), 22
+// (fp16); the gate holds with two (tests/test_torch_flashmask_split.py
+// emulates the parts against the Pallas backward). The two-pass
+// instantiation rounds p and ds to T, which is one part: the same body.
+// fp16 parts below 2**-14 are subnormal, an absolute step of 2**-24 per
+// value: the card tests' fp16 cases, small and large |ds|, hold.
+//   The element-wise step (p, ds and their split) takes as many instruction
+// slots as the products, so it is cut to what each warp's slice needs: exp is
+// ex2.approx with the scale and log2(e) folded into one FMA, ds takes delta
+// scale from the row, and the step comes in four compiled forms, the
+// causal and length mask only on edge tiles and the interval test only
+// where an interval of the slice's keys (dk / dv: the warp's 16 keys; dq:
+// the tile's 64 columns, reduced from the staged bounds) can meet its rows
+// ((min sr, max er) against the rows). tools/flashmask_kernel_ab.py timed
+// each of these steps against a first form with expf and every mask on
+// every element (PERF.md section 6).
+//   dk / dv: one block of 8 warps per (bh, 64-key tile) keeps k and v in
+//   shared memory and walks the live 64-row q tiles from the diagonal, (q,
+//   do, lse, delta) through the ring. Warp (wk, wq) computes s^T = k q^T
+//   and dp^T = v do^T for keys 16 wk .. 16 wk + 15 and q rows 32 wq .. of
+//   the tile (k and v as A fragments, q and do as B fragments, both by
+//   ldmatrix from the tiles as stored). p^T and ds^T are formed in the
+//   accumulators, which are already the A fragments of dv += p^T do and
+//   dk += ds^T q (the repack of mma_tiles.cuh), with do and q as
+//   ldmatrix.trans B fragments: nothing passes through shared memory
+//   between the products. The two query halves (wq = 0, 1) are summed
+//   through shared memory once at the end, in that order.
+//   dq: one block of 4 warps per (bh, 64-row q tile) keeps q and do in
+//   shared memory and walks the live k tiles (k, v and the tile's interval
+//   bounds through the ring); warp w computes s and dp for q rows 16 w ..
+//   and the tile's 64 keys and adds ds k from the ds accumulators' parts.
+//   No atomics: dq is deterministic, as dk and dv are.
+//   delta = rowsum(do * o) in f32 is one pre-pass kernel for both.
 
 #include <limits.h>
 
 #include "flash_tiles.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;           // forward and dq: query rows per tile
-constexpr int BQB = 32;          // dk / dv: query rows per tile
-constexpr int BK = 64;           // key rows per tile
+constexpr int BQ = 64;           // forward and the f32 dq: query rows per tile
+constexpr int BQB = 32;          // the f32 dk / dv: query rows per tile
+constexpr int BK = 64;           // key rows per tile: the tile skip's columns
+constexpr int TC_BQ = 64;        // tensor-core backward: query rows per tile
+constexpr int TC_DQ_WARPS = 4;   // dq: 16 query rows a warp
+constexpr int TC_DKV_WARPS = 8;  // dk / dv: 16 keys x 32 query rows a warp
+constexpr int FM_PARTS = 2;      // FlashMask's p and ds: 16-bit parts a product
 
 // the interval bounds of the k tile's columns; past Sk an empty interval
 __device__ __forceinline__ void load_bounds(int* srs, int* ers, const int* __restrict__ sr,
@@ -235,25 +272,22 @@ flashmask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// p and ds of one score element: f32 for FlashMask, rounded to T for the
-// two-pass backward
-template <typename T, bool ROUND>
+// p and ds of one score element of the f32 backward
 __device__ __forceinline__ void p_ds(float s, float dp, bool vis, float lse_r,
                                      float delta_r, float scale, float& p, float& ds) {
-  const float e = vis ? expf(s * scale - lse_r) : 0.f;
-  const float g = e * (dp - delta_r) * scale;
-  p = ROUND ? round_to<T>(e) : e;
-  ds = ROUND ? round_to<T>(g) : g;
+  p = vis ? expf(s * scale - lse_r) : 0.f;
+  ds = p * (dp - delta_r) * scale;
 }
 
-template <typename T, int D, bool INTERVALS, bool ROUND>
+// The CUDA-core backward (f32): dq and dk / dv on tiles staged as f32
+template <int D, bool INTERVALS>
 __global__ void __launch_bounds__(NT)
-flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ lse,
-                        const float* __restrict__ delta, const T* __restrict__ dout,
-                        const int* __restrict__ sr, const int* __restrict__ er,
-                        const int2* __restrict__ ext, T* __restrict__ dq, int H,
-                        int MH, int Sq, int Sk, float scale, int causal) {
+flashmask_bwd_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ lse,
+                            const float* __restrict__ delta, const float* __restrict__ dout,
+                            const int* __restrict__ sr, const int* __restrict__ er,
+                            const int2* __restrict__ ext, float* __restrict__ dq, int H,
+                            int MH, int Sq, int Sk, float scale, int causal) {
   constexpr int LDD = D + PAD;    // Qs, dOs [BQ][LDD]; Ks [BK][LDD]
   constexpr int LDK = BK + PAD;   // Kt, Vt [D][LDK]; dSs [BQ][LDK]
   constexpr int RI = BQ / 16;     // rows per thread
@@ -277,8 +311,8 @@ flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nk_all = (Sk + BK - 1) / BK;
   const int m = INTERVALS ? mask_row(bh, H, MH) : 0;
 
-  load_tile<T, D, LDD, false>(Qs, q + qoff, q0, BQ, Sq);
-  load_tile<T, D, LDD, false>(dOs, dout + qoff, q0, BQ, Sq);
+  load_tile<float, D, LDD, false>(Qs, q + qoff, q0, BQ, Sq);
+  load_tile<float, D, LDD, false>(dOs, dout + qoff, q0, BQ, Sq);
   float lse_r[RI], delta_r[RI];
 #pragma unroll
   for (int ii = 0; ii < RI; ++ii) {
@@ -297,9 +331,9 @@ flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const int k0 = kt * BK;
     __syncthreads();                       // the previous tile is consumed
-    load_tile<T, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
-    load_tile<T, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
-    load_tile<T, D, LDD, false>(Ks, k + koff, k0, BK, Sk);
+    load_tile<float, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
+    load_tile<float, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
+    load_tile<float, D, LDD, false>(Ks, k + koff, k0, BK, Sk);
     if constexpr (INTERVALS)
       load_bounds(srs, ers, sr + (size_t)m * Sk, er + (size_t)m * Sk, k0, Sk);
     __syncthreads();
@@ -319,7 +353,7 @@ flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bool vis = row < Sq && col < Sk && (!causal || row >= col);
         if constexpr (INTERVALS) vis = vis && !in_interval(row, srs[j], ers[j]);
         float p;
-        p_ds<T, ROUND>(s[ii][jj], dp[ii][jj], vis, lse_r[ii], delta_r[ii],
+        p_ds(s[ii][jj], dp[ii][jj], vis, lse_r[ii], delta_r[ii],
                                   scale, p, ds[jj]);
       }
       store_vec<RJ>(dSs + (ty * RI + ii) * LDK + tx * RJ, ds);
@@ -332,21 +366,21 @@ flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ii = 0; ii < RI; ++ii) {
     const int row = q0 + ty * RI + ii;
     if (row >= Sq) continue;
-    T* dst = dq + qoff + (size_t)row * D + tx * RD;
+    float* dst = dq + qoff + (size_t)row * D + tx * RD;
 #pragma unroll
-    for (int dd = 0; dd < RD; ++dd) dst[dd] = from_f<T>(acc[ii][dd]);
+    for (int dd = 0; dd < RD; ++dd) dst[dd] = acc[ii][dd];
   }
 }
 
-template <typename T, int D, bool INTERVALS, bool ROUND>
+template <int D, bool INTERVALS>
 __global__ void __launch_bounds__(NT)
-flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const T* __restrict__ dout,
-                         const int* __restrict__ sr, const int* __restrict__ er,
-                         const int2* __restrict__ ext, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int MH, int Sq, int Sk,
-                         float scale, int causal) {
+flashmask_bwd_dkv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ lse,
+                             const float* __restrict__ delta, const float* __restrict__ dout,
+                             const int* __restrict__ sr, const int* __restrict__ er,
+                             const int2* __restrict__ ext, float* __restrict__ dk,
+                             float* __restrict__ dv, int H, int MH, int Sq, int Sk,
+                             float scale, int causal) {
   constexpr int LDD = D + PAD;    // Qs, dOs [BQB][LDD]
   constexpr int LDK = BK + PAD;   // Kt, Vt [D][LDK]; Ps, dSs [BQB][LDK]
   constexpr int RS = BQB / 16;    // score rows per thread
@@ -368,8 +402,8 @@ flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
-  load_tile<T, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
+  load_tile<float, D, LDK, true>(Kt, k + koff, k0, BK, Sk);
+  load_tile<float, D, LDK, true>(Vt, v + koff, k0, BK, Sk);
   int2 e = make_int2(0, INT_MAX);
   if constexpr (INTERVALS) {
     const int m = mask_row(bh, H, MH);
@@ -386,8 +420,8 @@ flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = qt * BQB;
     if (INTERVALS && !interval_live(e, q0, q0 + BQB - 1)) continue;   // a dead tile
     __syncthreads();                       // the previous q tile is consumed
-    load_tile<T, D, LDD, false>(Qs, q + qoff, q0, BQB, Sq);
-    load_tile<T, D, LDD, false>(dOs, dout + qoff, q0, BQB, Sq);
+    load_tile<float, D, LDD, false>(Qs, q + qoff, q0, BQB, Sq);
+    load_tile<float, D, LDD, false>(dOs, dout + qoff, q0, BQB, Sq);
     __syncthreads();
 
     float s[RS][RJ], dp[RS][RJ];
@@ -407,7 +441,7 @@ flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = tx * RJ + jj, col = k0 + j;
         bool vis = live && col < Sk && (!causal || row >= col);
         if constexpr (INTERVALS) vis = vis && !in_interval(row, srs[j], ers[j]);
-        p_ds<T, ROUND>(s[ii][jj], dp[ii][jj], vis, lse_r, delta_r, scale,
+        p_ds(s[ii][jj], dp[ii][jj], vis, lse_r, delta_r, scale,
                                   p[jj], ds[jj]);
       }
       store_vec<RJ>(Ps + (ty * RS + ii) * LDK + tx * RJ, p);
@@ -422,12 +456,496 @@ flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ii = 0; ii < RK; ++ii) {
     const int row = k0 + ty * RK + ii;
     if (row >= Sk) continue;
-    T* dkr = dk + koff + (size_t)row * D + tx * RD;
-    T* dvr = dv + koff + (size_t)row * D + tx * RD;
+    float* dkr = dk + koff + (size_t)row * D + tx * RD;
+    float* dvr = dv + koff + (size_t)row * D + tx * RD;
 #pragma unroll
     for (int dd = 0; dd < RD; ++dd) {
-      dkr[dd] = from_f<T>(dK[ii][dd]);
-      dvr[dd] = from_f<T>(dV[ii][dd]);
+      dkr[dd] = dK[ii][dd];
+      dvr[dd] = dV[ii][dd];
+    }
+  }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2**x on the SFU; results below 2**-126 flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = exp(s scale - lse) and ds = p (dp - delta) scale of one score element
+// of the tensor-core backward, in place of its scores s and dp, from the
+// row's lse log2(e) and delta scale: f32 here; split_frag rounds them
+// (two-pass) or splits them (FlashMask) on their way into the next product
+__device__ __forceinline__ void p_ds_inplace(float& s, float& dp, bool vis, float lse2,
+                                             float delta_s, float scale) {
+  const float e = vis ? ex2(s * (scale * LOG2E) - lse2) : 0.f;
+  dp = e * (dp * scale - delta_s);
+  s = e;
+}
+
+// dq on the tensor cores (bf16 / fp16): one block of TC_DQ_WARPS warps per
+// (bh, TC_BQ query rows), warp w owning rows 16 w .. 16 w + 15. q and do
+// stay in shared memory; k, v and the tile's interval bounds arrive through
+// a two-stage cp.async ring, tile kt + 1 (the next live one) landing while
+// tile kt is multiplied. P parts of ds a product (1: ds rounded to T).
+template <typename T, int D, bool INTERVALS, int P>
+__global__ void __launch_bounds__(TC_DQ_WARPS * 32, D <= 64 ? 3 : 2)
+flashmask_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const T* __restrict__ dout,
+                        const int* __restrict__ sr, const int* __restrict__ er,
+                        const int2* __restrict__ ext, T* __restrict__ dq, int H,
+                        int MH, int Sq, int Sk, float scale, int causal) {
+  constexpr int NTH = TC_DQ_WARPS * 32;
+  constexpr int BQT = TC_BQ, BKT = BK;
+  constexpr int LD = D + 8;      // 16-bit row stride: 16 bytes of padding
+  constexpr int KS = D / 16;     // k-steps of q k^T and do v^T
+  constexpr int NS = BKT / 8;    // score tiles of 8 keys
+  constexpr int ND = D / 8;      // dq tiles of 8 columns
+  static_assert(BQT == 16 * TC_DQ_WARPS, "a warp owns 16 query rows");
+  extern __shared__ __align__(16) unsigned char smem16[];
+  T* Qs = reinterpret_cast<T*>(smem16);          // [BQT][LD]
+  T* dOs = Qs + BQT * LD;                        // [BQT][LD]
+  T* Ks = dOs + BQT * LD;                        // [2][BKT][LD]
+  T* Vs = Ks + 2 * BKT * LD;                     // [2][BKT][LD]
+  int* Bs = reinterpret_cast<int*>(Vs + 2 * BKT * LD);   // [2][sr, er][BKT]
+
+  const int bh = blockIdx.y;
+  // the longest causal rows first, so they do not trail the grid
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 16 * warp;             // the warp's first row
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+  const int nk_all = (Sk + BKT - 1) / BKT;
+  int nk = nk_all;
+  if (causal) nk = min(nk, (q0 + BQT - 1) / BKT + 1);   // skip tiles above the diagonal
+  const int m = INTERVALS ? mask_row(bh, H, MH) : 0;
+  const int2* extm = ext + (size_t)m * nk_all;
+  const int* srm = sr + (size_t)m * Sk;
+  const int* erm = er + (size_t)m * Sk;
+
+  // the first live k tile at or after x
+  auto next_live = [&](int x) {
+    if constexpr (INTERVALS) {
+      while (x < nk && !interval_live(extm[x], q0, q0 + BQT - 1)) ++x;
+    }
+    return x;
+  };
+  // k, v and (FlashMask) the interval bounds of k tile kt into stage st;
+  // bounds past Sk land as zeros, and those columns are masked by col < Sk
+  auto load_k_tile = [&](int kt, int st) {
+    const int k0 = kt * BKT;
+    load_rows_async<D, LD, BKT, NTH>(Ks + st * BKT * LD, k + koff, k0, Sk);
+    load_rows_async<D, LD, BKT, NTH>(Vs + st * BKT * LD, v + koff, k0, Sk);
+    if constexpr (INTERVALS) {
+      for (int i = threadIdx.x; i < 2 * BKT; i += NTH) {
+        const int col = k0 + i % BKT;
+        const bool live = col < Sk;
+        const int* src = i < BKT ? srm : erm;
+        cp_async4(Bs + st * 2 * BKT + i, live ? src + col : src, live);
+      }
+    }
+  };
+
+  load_rows_async<D, LD, BQT, NTH>(Qs, q + qoff, q0, Sq);
+  load_rows_async<D, LD, BQT, NTH>(dOs, dout + qoff, q0, Sq);
+  int kt = next_live(0);
+  if (kt < nk) load_k_tile(kt, 0);
+  cp_async_commit();
+
+  float lse2[2], delta_s[2];                     // lse log2(e) and delta scale of the rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    lse2[h] = row < Sq ? lse[(size_t)bh * Sq + row] * LOG2E : 0.f;
+    delta_s[h] = row < Sq ? delta[(size_t)bh * Sq + row] * scale : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int st = 0; kt < nk; st ^= 1) {
+    const int k0 = kt * BKT;
+    const int nxt = next_live(kt + 1);
+    if (nxt < nk) {                               // the next live tile lands meanwhile
+      load_k_tile(nxt, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + st * BKT * LD;
+    const T* Vt = Vs + st * BKT * LD;
+
+    // a warp whose rows are past Sq, all above the tile's first key, or all
+    // inside every column's interval sees none of the tile
+    bool skip = row_lo >= Sq || (causal && k0 > row_lo + 15);
+    if constexpr (INTERVALS) skip = skip || !interval_live(extm[kt], row_lo, row_lo + 15);
+    if (!skip) {
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t aq[4], ad[4];
+        frag_a(aq, Qs, LD, 16 * warp, 16 * ks);
+        frag_a(ad, dOs, LD, 16 * warp, 16 * ks);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          uint32_t b[4];
+          frag_b2(b, Kt, LD, 8 * j, 16 * ks);
+          mma16816<T>(s[j], aq, b[0], b[1]);
+          mma16816<T>(s[j + 1], aq, b[2], b[3]);
+          frag_b2(b, Vt, LD, 8 * j, 16 * ks);
+          mma16816<T>(dp[j], ad, b[0], b[1]);
+          mma16816<T>(dp[j + 1], ad, b[2], b[3]);
+        }
+      }
+      // p and ds in place; only tiles on the diagonal or an edge need the
+      // causal and length mask, FlashMask tiles the interval everywhere
+      const bool edge = (causal && k0 + BKT - 1 > row_lo) || k0 + BKT > Sk || row_lo + 16 > Sq;
+      const int* srs = Bs + st * 2 * BKT;
+      // the interval test only where an interval of the tile's columns can
+      // meet the warp's rows: (min sr, max er) over the tile (padded
+      // columns read as empty intervals at 0, which only widen it)
+      bool hit = false;
+      if constexpr (INTERVALS) {
+        int smin = min(srs[lane], srs[lane + 32]);
+        int emax = max(srs[BKT + lane], srs[BKT + lane + 32]);
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
+          emax = max(emax, __shfl_xor_sync(0xffffffffu, emax, off));
+        }
+        hit = row_lo < emax && row_lo + 15 >= smin;
+      }
+      auto p_ds_tile = [&](auto edge_c, auto hit_c) {
+        constexpr bool EDGE = decltype(edge_c)::value, HIT = decltype(hit_c)::value;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const int c = 8 * j + 2 * t;
+          int2 s2 = make_int2(0, 0), e2 = make_int2(0, 0);
+          if constexpr (HIT) {
+            s2 = *reinterpret_cast<const int2*>(srs + c);
+            e2 = *reinterpret_cast<const int2*>(srs + BKT + c);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row_lo + g + 8 * h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = k0 + c + e;
+              bool vis = true;
+              if constexpr (EDGE) vis = row < Sq && col < Sk && (!causal || row >= col);
+              if constexpr (HIT)
+                vis = vis && !in_interval(row, e ? s2.y : s2.x, e ? e2.y : e2.x);
+              p_ds_inplace(s[j][2 * h + e], dp[j][2 * h + e], vis, lse2[h], delta_s[h], scale);
+            }
+          }
+        }
+      };
+      if (edge) {
+        if (hit) p_ds_tile(std::true_type{}, std::true_type{});
+        else p_ds_tile(std::true_type{}, std::false_type{});
+      } else {
+        if (hit) p_ds_tile(std::false_type{}, std::true_type{});
+        else p_ds_tile(std::false_type{}, std::false_type{});
+      }
+      // dq += ds k: ds's accumulators are the A fragments, k [key][d] the B
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk) {
+        uint32_t a[P][4];
+        split_frag<T, P>(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t b[4];
+          frag_b2_t(b, Kt, LD, 8 * n, 16 * kk);
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            mma16816<T>(acc[n], a[i], b[0], b[1]);
+            mma16816<T>(acc[n + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                              // stage st is consumed
+    kt = nxt;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    if (row >= Sq) continue;
+    T* dst = dq + qoff + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) = pack2<T>(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// dk / dv on the tensor cores (bf16 / fp16): one block of TC_DKV_WARPS
+// warps per (bh, 64-key tile); warp (wk, wq) = (w % 4, w / 4) owns keys
+// 16 wk .. 16 wk + 15 and, of each q tile, rows 32 wq .. 32 wq + 31. k and
+// v stay in shared memory; (q, do, lse, delta) of the next live q tile
+// land through the ring while the current one is multiplied. The products
+// are taken transposed (s^T = k q^T), so that p^T and ds^T sit in the
+// accumulators as the A fragments of p^T do and ds^T q. P parts of p and
+// ds a product (1: rounded to T).
+template <typename T, int D, bool INTERVALS, int P>
+__global__ void __launch_bounds__(TC_DKV_WARPS * 32, D <= 64 ? 2 : 1)
+flashmask_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const T* __restrict__ dout,
+                         const int* __restrict__ sr, const int* __restrict__ er,
+                         const int2* __restrict__ ext, T* __restrict__ dk,
+                         T* __restrict__ dv, int H, int MH, int Sq, int Sk,
+                         float scale, int causal) {
+  constexpr int NTH = TC_DKV_WARPS * 32;
+  constexpr int BQT = TC_BQ, BKT = BK;
+  constexpr int LD = D + 8;
+  constexpr int KS = D / 16;     // k-steps of k q^T and v do^T
+  constexpr int NQ = 4;          // a warp's score tiles: 8 query rows each
+  constexpr int ND = D / 8;      // dk / dv tiles of 8 columns
+  constexpr int LDR = D + 8;     // f32 row stride of the final sum
+  static_assert(BKT == 16 * 4 && BQT == 32 * 2 && TC_DKV_WARPS == 8,
+                "4 x 16 keys by 2 x 32 query rows");
+  extern __shared__ __align__(16) unsigned char smem16[];
+  T* Ks = reinterpret_cast<T*>(smem16);          // [BKT][LD]
+  T* Vs = Ks + BKT * LD;                         // [BKT][LD]
+  T* Qs = Vs + BKT * LD;                         // [2][BQT][LD]
+  T* dOs = Qs + 2 * BQT * LD;                    // [2][BQT][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQT * LD);   // [2][BQT] lse
+  float* Dl = Ls + 2 * BQT;                                    // [2][BQT] delta
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BKT;               // the longest causal walks first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wk = warp & 3, wq = warp >> 2;
+  const int key_lo = k0 + 16 * wk;               // the warp's first key
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
+
+  // FlashMask: the intervals of the thread's keys (key_lo + g, + 8; past
+  // Sk every row is masked), their (max sr, min er) over the warp's 16 keys
+  // and the tile's from the pre-pass
+  int ksr[2] = {0, 0}, ker[2] = {0, 0};
+  int2 wext = make_int2(0, INT_MAX), e = make_int2(0, INT_MAX);
+  int2 whit = make_int2(INT_MAX, INT_MIN);       // (min sr, max er) of the warp's keys
+  if constexpr (INTERVALS) {
+    const int m = mask_row(bh, H, MH);
+    int smax = 0, emin = INT_MAX, smin = INT_MAX, emax = INT_MIN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = key_lo + g + 8 * h;
+      ksr[h] = col < Sk ? sr[(size_t)m * Sk + col] : 0;
+      ker[h] = col < Sk ? er[(size_t)m * Sk + col] : INT_MAX;
+      if (col < Sk) {
+        smax = max(smax, ksr[h]);
+        emin = min(emin, ker[h]);
+        smin = min(smin, ksr[h]);
+        emax = max(emax, ker[h]);
+      }
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {     // over g: the lanes of one t
+      smax = max(smax, __shfl_xor_sync(0xffffffffu, smax, off));
+      emin = min(emin, __shfl_xor_sync(0xffffffffu, emin, off));
+      smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
+      emax = max(emax, __shfl_xor_sync(0xffffffffu, emax, off));
+    }
+    wext = make_int2(smax, emin);
+    whit = make_int2(smin, emax);
+    e = ext[(size_t)m * gridDim.x + blockIdx.x];
+  }
+
+  const int nq = (Sq + BQT - 1) / BQT;
+  // the first live q tile at or after x
+  auto next_live = [&](int x) {
+    if constexpr (INTERVALS) {
+      while (x < nq && !interval_live(e, x * BQT, x * BQT + BQT - 1)) ++x;
+    }
+    return x;
+  };
+  // q, do, lse and delta rows of q tile qt into stage st
+  auto load_q_tile = [&](int qt, int st) {
+    const int q0 = qt * BQT;
+    load_rows_async<D, LD, BQT, NTH>(Qs + st * BQT * LD, q + qoff, q0, Sq);
+    load_rows_async<D, LD, BQT, NTH>(dOs + st * BQT * LD, dout + qoff, q0, Sq);
+    const int i = threadIdx.x;
+    if (i < 2 * BQT) {
+      const int r = i % BQT, row = q0 + r;
+      const bool live = row < Sq;
+      const float* src = i < BQT ? lse_b : delta_b;
+      cp_async4((i < BQT ? Ls : Dl) + st * BQT + r, live ? src + row : src, live);
+    }
+  };
+
+  load_rows_async<D, LD, BKT, NTH>(Ks, k + koff, k0, Sk);
+  load_rows_async<D, LD, BKT, NTH>(Vs, v + koff, k0, Sk);
+  // q tiles wholly above the diagonal see no key here
+  int qt = next_live(causal ? k0 / BQT : 0);
+  if (qt < nq) load_q_tile(qt, 0);
+  cp_async_commit();
+
+  float dKa[ND][4], dVa[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { dKa[n][i] = 0.f; dVa[n][i] = 0.f; }
+  }
+
+  for (int st = 0; qt < nq; st ^= 1) {
+    const int q0 = qt * BQT;
+    const int nxt = next_live(qt + 1);
+    if (nxt < nq) {                               // the next live q tile lands meanwhile
+      load_q_tile(nxt, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Qt = Qs + st * BQT * LD;
+    const T* dOt = dOs + st * BQT * LD;
+    const int row_lo = q0 + 32 * wq;              // the warp's first query row
+
+    bool skip = row_lo >= Sq || (causal && row_lo + 31 < key_lo);
+    if constexpr (INTERVALS) skip = skip || !interval_live(wext, row_lo, row_lo + 31);
+    if (!skip) {
+      // s^T = k q^T and dp^T = v do^T: keys 16 wk .., query rows 32 wq ..
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { s[j][i] = 0.f; dp[j][i] = 0.f; }
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ak[4], av[4];
+        frag_a(ak, Ks, LD, 16 * wk, 16 * ks);
+        frag_a(av, Vs, LD, 16 * wk, 16 * ks);
+#pragma unroll
+        for (int j = 0; j < NQ; j += 2) {
+          uint32_t b[4];
+          frag_b2(b, Qt, LD, 32 * wq + 8 * j, 16 * ks);
+          mma16816<T>(s[j], ak, b[0], b[1]);
+          mma16816<T>(s[j + 1], ak, b[2], b[3]);
+          frag_b2(b, dOt, LD, 32 * wq + 8 * j, 16 * ks);
+          mma16816<T>(dp[j], av, b[0], b[1]);
+          mma16816<T>(dp[j + 1], av, b[2], b[3]);
+        }
+      }
+      // p^T and ds^T in place: element (key key_lo + g + 8 h, query row
+      // row_lo + 8 j + 2 t + e)
+      const bool edge = (causal && row_lo < key_lo + 15) || key_lo + 16 > Sk || row_lo + 32 > Sq;
+      // the interval test only where an interval of the warp's keys can
+      // meet its rows; the causal and length mask only on edge tiles
+      const bool hit = INTERVALS && row_lo < whit.y && row_lo + 31 >= whit.x;
+      auto p_ds_tile = [&](auto edge_c, auto hit_c) {
+        constexpr bool EDGE = decltype(edge_c)::value, HIT = decltype(hit_c)::value;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int c = 32 * wq + 8 * j + 2 * t;  // the query row in the tile
+          float2 l2 = *reinterpret_cast<const float2*>(Ls + st * BQT + c);
+          float2 d2 = *reinterpret_cast<const float2*>(Dl + st * BQT + c);
+          l2 = make_float2(l2.x * LOG2E, l2.y * LOG2E);
+          d2 = make_float2(d2.x * scale, d2.y * scale);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int key = key_lo + g + 8 * h;
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int row = q0 + c + x;
+              bool vis = true;
+              if constexpr (EDGE) vis = row < Sq && key < Sk && (!causal || row >= key);
+              if constexpr (HIT) vis = vis && !in_interval(row, ksr[h], ker[h]);
+              p_ds_inplace(s[j][2 * h + x], dp[j][2 * h + x], vis, x ? l2.y : l2.x,
+                           x ? d2.y : d2.x, scale);
+            }
+          }
+        }
+      };
+      if (edge) {
+        if (hit) p_ds_tile(std::true_type{}, std::true_type{});
+        else p_ds_tile(std::true_type{}, std::false_type{});
+      } else {
+        if (hit) p_ds_tile(std::false_type{}, std::true_type{});
+        else p_ds_tile(std::false_type{}, std::false_type{});
+      }
+      // dv += p^T do and dk += ds^T q over the warp's 32 query rows: do and
+      // q [row][d] are the B operands, read transposed
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ap[P][4], ads[P][4];
+        split_frag<T, P>(ap, s[2 * kk], s[2 * kk + 1]);
+        split_frag<T, P>(ads, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t b[4];
+          frag_b2_t(b, dOt, LD, 8 * n, 32 * wq + 16 * kk);
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            mma16816<T>(dVa[n], ap[i], b[0], b[1]);
+            mma16816<T>(dVa[n + 1], ap[i], b[2], b[3]);
+          }
+          frag_b2_t(b, Qt, LD, 8 * n, 32 * wq + 16 * kk);
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            mma16816<T>(dKa[n], ads[i], b[0], b[1]);
+            mma16816<T>(dKa[n + 1], ads[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                              // stage st is consumed
+    qt = nxt;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dk / dv = the wq = 0 half + the wq = 1 half, through the ring's space
+  float* red = reinterpret_cast<float*>(Qs);     // [2][BKT][LDR] f32
+  const int r0 = 16 * wk + g;
+  if (wq == 1) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* rk = red + (r0 + 8 * h) * LDR + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(rk) = make_float2(dKa[n][2 * h], dKa[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(rk + BKT * LDR) = make_float2(dVa[n][2 * h], dVa[n][2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  if (wq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key_lo + g + 8 * h;
+      if (key >= Sk) continue;
+      const size_t base = koff + (size_t)key * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const float* rk = red + (r0 + 8 * h) * LDR + 8 * n + 2 * t;
+        const float2 ok = *reinterpret_cast<const float2*>(rk);
+        const float2 ov = *reinterpret_cast<const float2*>(rk + BKT * LDR);
+        *reinterpret_cast<uint32_t*>(dk + base + 8 * n) =
+            pack2<T>(dKa[n][2 * h] + ok.x, dKa[n][2 * h + 1] + ok.y);
+        *reinterpret_cast<uint32_t*>(dv + base + 8 * n) =
+            pack2<T>(dVa[n][2 * h] + ov.x, dVa[n][2 * h + 1] + ov.y);
+      }
     }
   }
 }
@@ -468,47 +986,80 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool IV, bool RD>
+// The backward body a dtype and mode take: 0 the CUDA-core f32 body, else
+// the tensor-core body with that many 16-bit parts of p and ds a product
+// (FlashMask FM_PARTS, two-pass 1: p and ds rounded to T)
+template <typename T>
+constexpr int tc_parts(bool intervals) {
+  return std::is_same<T, float>::value ? 0 : intervals ? FM_PARTS : 1;
+}
+
+template <typename T, int D, bool IV>
 int dq_t(const BwdArgs& a, void* dq) {
-  const size_t smem = sizeof(float) *
-      (2 * BQ * (D + PAD) + BK * (D + PAD) + 2 * D * (BK + PAD) + BQ * (BK + PAD)) +
-      2 * BK * sizeof(int);
-  auto kern = flashmask_bwd_dq_kernel<T, D, IV, RD>;
+  constexpr int P = tc_parts<T>(IV);
+  size_t smem;
+  void (*kern)(const T*, const T*, const T*, const float*, const float*, const T*,
+               const int*, const int*, const int2*, T*, int, int, int, int, float, int);
+  dim3 grid, block;
+  if constexpr (P == 0) {
+    smem = sizeof(float) *
+        (2 * BQ * (D + PAD) + BK * (D + PAD) + 2 * D * (BK + PAD) + BQ * (BK + PAD)) +
+        2 * BK * sizeof(int);
+    kern = flashmask_bwd_dq_kernel_f32<D, IV>;
+    grid = dim3((a.Sq + BQ - 1) / BQ, a.BH);
+    block = dim3(NT);
+  } else {
+    smem = sizeof(T) * (2 * TC_BQ + 4 * BK) * (D + 8) + 4 * BK * sizeof(int);
+    kern = flashmask_bwd_dq_kernel<T, D, IV, P>;
+    grid = dim3((a.Sq + TC_BQ - 1) / TC_BQ, a.BH);
+    block = dim3(TC_DQ_WARPS * 32);
+  }
   static const cudaError_t attr = allow_smem(kern, smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.BH);
-  kern<<<grid, NT, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
-                                     a.lse, a.delta, (const T*)a.dout, a.sr, a.er,
-                                     reinterpret_cast<const int2*>(a.ext), (T*)dq,
-                                     a.H, a.MH, a.Sq, a.Sk, a.scale, a.causal);
+  kern<<<grid, block, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
+                                        a.lse, a.delta, (const T*)a.dout, a.sr, a.er,
+                                        reinterpret_cast<const int2*>(a.ext), (T*)dq,
+                                        a.H, a.MH, a.Sq, a.Sk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool IV, bool RD>
+template <typename T, int D, bool IV>
 int dkv_t(const BwdArgs& a, void* dk, void* dv) {
-  const size_t smem = sizeof(float) *
-      (2 * D * (BK + PAD) + 2 * BQB * (D + PAD) + 2 * BQB * (BK + PAD)) +
-      2 * BK * sizeof(int);
-  auto kern = flashmask_bwd_dkv_kernel<T, D, IV, RD>;
+  constexpr int P = tc_parts<T>(IV);
+  size_t smem;
+  void (*kern)(const T*, const T*, const T*, const float*, const float*, const T*,
+               const int*, const int*, const int2*, T*, T*, int, int, int, int, float,
+               int);
+  dim3 block;
+  if constexpr (P == 0) {
+    smem = sizeof(float) *
+        (2 * D * (BK + PAD) + 2 * BQB * (D + PAD) + 2 * BQB * (BK + PAD)) +
+        2 * BK * sizeof(int);
+    kern = flashmask_bwd_dkv_kernel_f32<D, IV>;
+    block = dim3(NT);
+  } else {
+    smem = sizeof(T) * (2 * BK + 4 * TC_BQ) * (D + 8) + 4 * TC_BQ * sizeof(float);
+    kern = flashmask_bwd_dkv_kernel<T, D, IV, P>;
+    block = dim3(TC_DKV_WARPS * 32);
+  }
   static const cudaError_t attr = allow_smem(kern, smem);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((a.Sk + BK - 1) / BK, a.BH);
-  kern<<<grid, NT, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
-                                     a.lse, a.delta, (const T*)a.dout, a.sr, a.er,
-                                     reinterpret_cast<const int2*>(a.ext), (T*)dk,
-                                     (T*)dv, a.H, a.MH, a.Sq, a.Sk, a.scale, a.causal);
+  kern<<<grid, block, smem, a.stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v,
+                                        a.lse, a.delta, (const T*)a.dout, a.sr, a.er,
+                                        reinterpret_cast<const int2*>(a.ext), (T*)dk,
+                                        (T*)dv, a.H, a.MH, a.Sq, a.Sk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-// FlashMask: the interval and f32 steps; two-pass: no interval, rounding
+// FlashMask: the interval and f32 p, ds; two-pass: no interval, rounding
 template <typename T, int D>
 int dq_m(int mode, const BwdArgs& a, void* dq) {
-  return mode == 0 ? dq_t<T, D, true, false>(a, dq) : dq_t<T, D, false, true>(a, dq);
+  return mode == 0 ? dq_t<T, D, true>(a, dq) : dq_t<T, D, false>(a, dq);
 }
 template <typename T, int D>
 int dkv_m(int mode, const BwdArgs& a, void* dk, void* dv) {
-  return mode == 0 ? dkv_t<T, D, true, false>(a, dk, dv)
-                   : dkv_t<T, D, false, true>(a, dk, dv);
+  return mode == 0 ? dkv_t<T, D, true>(a, dk, dv) : dkv_t<T, D, false>(a, dk, dv);
 }
 
 template <typename T>
@@ -553,6 +1104,20 @@ extern "C" {
 
 // Columns per k tile: the caller sizes ext as B * MH * ceil(Sk / this) int2.
 int flashmask_block_k(void) { return BK; }
+
+// The backward body that mode (0 FlashMask, 1 two-pass) and dtype (0
+// float32, 1 bfloat16, 2 float16) launch: 0 the CUDA-core f32 body, else
+// the tensor-core body with this many 16-bit parts of p and ds a product;
+// -1 for a mode or dtype the launches refuse.
+int flashmask_bwd_parts(int mode, int dtype) {
+  if (mode != 0 && mode != 1) return -1;
+  switch (dtype) {
+    case 0: return tc_parts<float>(mode == 0);
+    case 1: return tc_parts<__nv_bfloat16>(mode == 0);
+    case 2: return tc_parts<__half>(mode == 0);
+    default: return -1;
+  }
+}
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. Writes ext (the tile extremes
 // pre-pass), then o and lse. Returns the CUDA error code of the launches

@@ -1,9 +1,10 @@
 // Tensor-core tile helpers for Hopper (sm_90a): mma.sync m16n8k16 with f32
 // accumulators, ldmatrix fragment loads from padded 16-bit shared tiles,
-// and cp.async copies with zero-fill for a ring of staged tiles. Used by
-// flash_attention.cu; written to be shared by the later tensor-core
-// redesigns. `ops/_build.py` hashes every header into every library's
-// name, so an edit here rebuilds every source.
+// cp.async copies with zero-fill for a ring of staged tiles, and the exact
+// split of an f32 operand into 16-bit parts. Used by flash_attention.cu and
+// flashmask.cu; written to be shared by the later tensor-core redesigns.
+// `ops/_build.py` hashes every header into every library's name, so an
+// edit here rebuilds every source.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 / .f16 operands), for
 // lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -114,6 +115,40 @@ template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, f
 template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the two values of a packed pair as f32 (lo in .x)
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t v);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
+}
+
+// An f32 A fragment split exactly into P 16-bit parts, hi first, from two
+// C tiles side by side (l: columns 0-7, r: 8-15; see the layouts above):
+// part i is what the parts before it leave of x, rounded to T. x less a
+// part is exact in f32, so the parts sum to x within 2**-16 |x| for P = 2
+// in bf16 (2**-22 in fp16) and exactly for P = 3 in bf16 (|x| >= 2**-110,
+// where the last part is not below bf16's subnormals). P = 1 is x rounded
+// to T. One mma.sync per part, all into one f32 accumulator, multiplies x.
+template <typename T, int P>
+__device__ __forceinline__ void split_frag(uint32_t (&a)[P][4], const float (&l)[4],
+                                           const float (&r)[4]) {
+  float x[8] = {l[0], l[1], l[2], l[3], r[0], r[1], r[2], r[3]};
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      a[i][f] = pack2<T>(x[2 * f], x[2 * f + 1]);
+      if (i + 1 < P) {
+        const float2 u = unpack2<T>(a[i][f]);
+        x[2 * f] -= u.x;
+        x[2 * f + 1] -= u.y;
+      }
+    }
+  }
 }
 
 // cp.async: 16 (or 4) bytes from global to shared memory without a trip

@@ -25,7 +25,10 @@ f32 and never rounded, o / dq / dk / dv cast to their dtypes once at the
 end. A row that sees no column has o = 0 and lse = -1e30 (:114-118), p =
 0 in the backward (:152, :200), dq = 0, and adds nothing to dk or dv.
 They work on groups of heads so that no ``[heads, Sq, Sk]`` f32 temporary
-passes ``PLAIN_CHUNK_ELEMS`` elements.
+passes ``PLAIN_CHUNK_ELEMS`` elements. The bf16 / fp16 backward kernels
+take p and ds to the tensor cores as ``FM_PARTS`` 16-bit parts each
+(``split_parts`` is that split on the CPU), within 2**-16 |p| and |ds| of
+the f32 values; ``bwd_route`` names the body a mode and dtype launch.
 
 ``flashmask_attention_bshd`` is the [B, S, H, D] entry (:317-353) with a
 ``torch.autograd.Function`` around the pair; the index gets no gradient.
@@ -39,6 +42,25 @@ import torch
 from .flash_attention import _DTYPE_CODE, NEG_INF, _check, _check_saved
 
 PLAIN_CHUNK_ELEMS = 1 << 28     # f32 elements of one [heads, Sq, Sk] temporary
+FM_PARTS = 2    # 16-bit parts of FlashMask's p and ds in the tensor-core
+                # backward (``FM_PARTS`` of csrc/flashmask.cu)
+
+
+def split_parts(x, parts, dtype=torch.bfloat16):
+    """``parts`` tensors of ``dtype`` that sum to the f32 ``x``, hi first:
+    part i is what the parts before it leave of x, rounded to ``dtype``
+    (x less a part is exact in f32). The CPU mirror of ``split_frag`` in
+    csrc/mma_tiles.cuh, which feeds each part to its own tensor-core
+    product: bf16 hi + lo is within 2**-16 |x| of x, hi + mid + lo is x
+    where |x| >= 2**-110."""
+    rest = x.float()
+    out = []
+    for i in range(parts):
+        part = rest.to(dtype)
+        out.append(part)
+        if i + 1 < parts:
+            rest = rest - part.float()
+    return out
 
 
 def _mask_rows(x, bh):
@@ -242,12 +264,25 @@ flashmask_bwd.dq_launches = 0
 flashmask_bwd.dkv_launches = 0
 
 
+def bwd_route(mode, dtype):
+    """(route, parts) of the backward kernels that ``mode``
+    (``MODE_FLASHMASK`` / ``MODE_TWOPASS``) launches for ``dtype``, as the
+    built library reports it: ("tensor-core", the 16-bit parts of p and ds
+    a product) or ("cuda-core", 0) for the f32 body. Builds the library."""
+    parts = _lib().flashmask_bwd_parts(mode, _DTYPE_CODE[dtype])
+    if parts < 0:
+        raise ValueError(f"bwd_route: mode {mode}, dtype {dtype}")
+    return ("tensor-core", parts) if parts else ("cuda-core", 0)
+
+
 @functools.cache
 def _lib():
     from . import _build
     lib = _build.load("flashmask")
     lib.flashmask_block_k.argtypes = []
     lib.flashmask_block_k.restype = ctypes.c_int
+    lib.flashmask_bwd_parts.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flashmask_bwd_parts.restype = ctypes.c_int
     return lib
 
 

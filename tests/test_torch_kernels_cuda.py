@@ -1040,3 +1040,134 @@ def test_flashmask_wrappers_refuse_what_the_kernels_do_not_take():
             2, 1, 16, 3, dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError):                     # mixed dtypes
         fa.flash_bwd_twopass(q, q, q, o.half(), lse, o, 1.0, True)
+
+
+def _fm_grads(mode, q, k, v, do, sr, er, causal):
+    """(grads, refs) of one backward call of ``mode`` ("flashmask" or
+    "twopass") from the plain forward's o / lse, beside the plain
+    backward."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flashmask as fm
+    scale = q.shape[-1] ** -0.5
+    if mode == "flashmask":
+        ro, rlse = fm.flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
+        grads = fm.flashmask_bwd(q, k, v, ro, rlse, do, sr, er, scale,
+                                 causal)
+        refs = fm.flashmask_bwd_plain(q, k, v, ro, rlse, do, sr, er, scale,
+                                      causal)
+    else:
+        ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
+        grads = fa.flash_bwd_twopass(q, k, v, ro, rlse, do, scale, causal)
+        refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
+    torch.cuda.synchronize()
+    return grads, refs
+
+
+def _fm_check(grads, refs, dtype, gate=False):
+    """Each gradient within ``_tol`` of its plain version; ``gate`` also
+    holds bf16 FlashMask gradients to the smoke's per-element gate
+    (``FLASH_GRAD_ATOL`` plus two bf16 ulps of |ref|)."""
+    import chip_smoke as cs
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), (name, err)
+        if gate:
+            err, ratio = cs.bf16_agreement(g, r, cs.FLASH_GRAD_ATOL)
+            assert ratio <= 1.0, (name, err, ratio)
+
+
+@pytest.mark.parametrize("mode", ["flashmask", "twopass"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flashmask_backward_is_bitwise_reproducible(mode, dtype, d):
+    """dq (no atomics) and dk / dv (the two query halves summed in a fixed
+    order) give the same bits over two calls, in both modes."""
+    q, k, v, do = _flash_inputs(4, 700, 700, d, dtype, d + 13)
+    sr, er = _flashmask_bounds("document", 2, 1, 700, d)
+    first, _ = _fm_grads(mode, q, k, v, do, sr, er, True)
+    second, _ = _fm_grads(mode, q, k, v, do, sr, er, True)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [65, 127, 129, 2000])
+@pytest.mark.parametrize("kind,mh,causal", [("document", 1, True),
+                                            ("random", 3, False)])
+def test_flashmask_backward_at_the_tile_edges(dtype, s, kind, mh, causal):
+    """The tensor-core backward at lengths one past, one short of and just
+    over the 64-row tiles, and at S=2000: rows and keys past S are
+    zero-filled and masked."""
+    q, k, v, do = _flash_inputs(3, s, s, 64, dtype, s + mh)
+    sr, er = _flashmask_bounds(kind, 1, mh, s, s)
+    grads, refs = _fm_grads("flashmask", q, k, v, do, sr, er, causal)
+    _fm_check(grads, refs, dtype, gate=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq,sk", [(65, 129), (129, 65), (2000, 127),
+                                   (127, 2000)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_twopass_at_the_tile_edges(dtype, sq, sk, causal):
+    """The two-pass backward (one rounded part of p and ds) with query and
+    key lengths apart, off the 64-row tiles."""
+    q, k, v, do = _flash_inputs(3, sq, sk, 64, dtype, sq + 2 * sk)
+    grads, refs = _fm_grads("twopass", q, k, v, do, None, None, causal)
+    _fm_check(grads, refs, dtype)
+
+
+def test_flashmask_backward_bf16_d128_over_half_the_mask_heads():
+    """bf16 at D=128 (one block of 8 warps an SM) with MH = H / 2: heads
+    2 i and 2 i + 1 read mask head i."""
+    q, k, v, do = _flash_inputs(2 * 8, 300, 300, 128, torch.bfloat16, 128)
+    sr, er = _flashmask_bounds("document", 2, 4, 300, 4)
+    grads, refs = _fm_grads("flashmask", q, k, v, do, sr, er, True)
+    _fm_check(grads, refs, torch.bfloat16, gate=True)
+
+
+def test_flashmask_backward_band_with_every_tile_live():
+    """A band of masked rows [j + a, j + a + w) with a < 64: every causal
+    (q tile, k tile) pair is live, so nothing is skipped and each tile
+    takes the per-element interval test."""
+    import chip_smoke as cs
+    s, h = 1024, 4
+    rng = np.random.default_rng(5)
+    j = np.arange(s)
+    sr_np = (j + rng.integers(1, 64, (1, h, s))).astype(np.int32)
+    er_np = (sr_np + rng.integers(0, 200, (1, h, s))).astype(np.int32)
+    _, live, tri, _ = cs.flashmask_work(sr_np, er_np, h, s, True, 64)
+    assert live == tri
+    sr, er = (torch.as_tensor(x).cuda() for x in (sr_np, er_np))
+    q, k, v, do = _flash_inputs(h, s, s, 64, torch.bfloat16, 7)
+    grads, refs = _fm_grads("flashmask", q, k, v, do, sr, er, True)
+    _fm_check(grads, refs, torch.bfloat16, gate=True)
+
+
+@pytest.mark.parametrize("do_scale", [1.0 / 64, 64.0])
+def test_flashmask_backward_fp16_small_and_large_ds(do_scale):
+    """fp16 parts of ds lose bits below 2**-14 (subnormal) and would
+    overflow past 65504: an upstream gradient 64 times smaller (|ds| far
+    below 2**-14) and 64 times larger (|ds| up to the hundreds) both hold
+    the plain version's tolerance."""
+    s = 500
+    q, k, v, do = _flash_inputs(3, s, s, 64, torch.float16, 17)
+    do = (do.float() * do_scale).half()
+    sr, er = _flashmask_bounds("random", 1, 1, s, 3)
+    grads, refs = _fm_grads("flashmask", q, k, v, do, sr, er, False)
+    _fm_check(grads, refs, torch.float16)
+
+
+@pytest.mark.parametrize("mode,dtype,route", [
+    (0, torch.float32, ("cuda-core", 0)), (1, torch.float32, ("cuda-core", 0)),
+    (0, torch.bfloat16, ("tensor-core", 2)),
+    (1, torch.bfloat16, ("tensor-core", 1)),
+    (0, torch.float16, ("tensor-core", 2)),
+    (1, torch.float16, ("tensor-core", 1))])
+def test_flashmask_backward_names_its_route(mode, dtype, route):
+    """The library reports the body each mode and dtype launch: f32 on the
+    CUDA cores, 16-bit on the tensor cores with two parts of p and ds
+    (FlashMask) or one rounded part (two-pass)."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    assert fm.bwd_route(mode, dtype) == route
