@@ -50,10 +50,13 @@ Phases (any failure exits non-zero and prints no result line):
      V=32000), a case off every tile (T=1000, V=32001) with ignored rows,
      and a quarter of the rows ignored; each prints the backward's
      cluster plan (route, blocks per cluster, slice, tile, clusters
-     resident, SMs busy), its worst element against its allowance and the
-     kernel, plain, bound and unfused matmul + cross_entropy times, with
-     dh / dw in TFLOP/s of the bound's work (4 T' H V) and of the work
-     executed (8 T' H V: the exact split of dl costs three products);
+     resident, SMs busy), the forward's route and plan (wgmma, or wgmma
+     over rows padded to 16 bytes; splits, tile, stages, blocks, bytes
+     copied) with its device time beside its event time, its worst
+     element against its allowance and the kernel, plain, bound and
+     unfused matmul + cross_entropy times, with dh / dw in TFLOP/s of the
+     bound's work (4 T' H V) and of the work executed (8 T' H V: the exact
+     split of dl costs three products);
  10. the flash kernels with the rope operands against their plain
      versions in bf16: the flagship training shape, a GQA case and a
      length off the tile;
@@ -70,9 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
      16/4, S off the tile, non-causal, rows that see nothing (o, dq and
      their dk / dv exactly 0) and a long context (S=16384); each prints its
      worst element against its allowance, the live share of the 64 x 64
-     tiles and the kernel, plain, bound and masked-SDPA times, and the
-     backward's route (tensor cores and the parts of p and ds, or CUDA
-     cores) with the TFLOP/s it executes on the visible pairs. Then one
+     tiles and the kernel (the forward's device time too), plain, bound
+     and masked-SDPA times, and the forward's and the backward's routes
+     (tensor cores and the parts of p, and of p and ds, or CUDA cores)
+     with the TFLOP/s each executes on the visible pairs. Then one
      24-layer step's attention over packed documents through
      ``incubate.nn.functional.flashmask_attention`` with autograd: exactly
      24 launches of each kernel, timed beside 24 causal flash calls;
@@ -1080,6 +1084,16 @@ def phase_ce(torch):
         big = t >= 8192
         it, pit = (5, 3) if big else (10, 5)
         ms_f = time_ms(lambda: bc.ce_fwd(h, w, lab, -100), iters=it, warmup=1)
+        dev_f = device_time_ms(lambda: bc.ce_fwd(h, w, lab, -100),
+                               iters=2 * it)
+        fplan = bc.fwd_plan(t, hid, vocab, h.dtype)
+        print(f"    fwd route {bc.ce_fwd.route} ({fplan['splits']} vocab "
+              f"splits of {fplan['tiles_per_split']} tiles of "
+              f"{fplan['tile_tokens']} x {fplan['tile_vocab']}, "
+              f"{fplan['stages']} stages, {fplan['blocks']} blocks, "
+              f"{fplan['w_copy_bytes'] + fplan['h_copy_bytes']} bytes "
+              f"copied to padded rows): device {dev_f:.4f} ms, "
+              f"{2 * t * hid * vocab / dev_f / 1e9:.1f} TFLOP/s", flush=True)
         ms_dh = time_ms(lambda: bc.ce_bwd_dh(h, w, lab, g, lse, -100),
                         iters=it, warmup=1)
         ms_dw = time_ms(lambda: bc.ce_bwd_dw(h, w, lab, g, lse, -100),
@@ -1105,6 +1119,8 @@ def phase_ce(torch):
             lib_f = time_ms(lib, iters=it, warmup=1)
         lib_fdh = time_ms(lambda: lib(hl), iters=it, warmup=1)
         lib_fdw = time_ms(lambda: lib(wl), iters=it, warmup=1)
+        with torch.no_grad():
+            lib_dev_f = device_time_ms(lib, iters=2 * it)
         del hl, wl
         fb, ff, dhb, bf, dwb = ce_work(t, t - n_ign, hid, vocab)
         b_f = bound(fb, ff)
@@ -1121,6 +1137,9 @@ def phase_ce(torch):
                 atol=CE_LOSS_ATOL if key == "fwd" else CE_GRAD_ATOL, ms=ms,
                 plain_ms=pl, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 tflops=flops / ms / 1e9))
+            if key == "fwd":
+                rows[key][-1].update(device_ms=dev_f, route=bc.ce_fwd.route,
+                                     plan=fplan, library_device_ms=lib_dev_f)
             # the backward executes twice the bound's work: the logits and
             # the three split products of the contraction (8 T' H V)
             done = "" if key == "fwd" else \
@@ -1129,8 +1148,9 @@ def phase_ce(torch):
                   f"TFLOP/s of the bound's work{done}) plain {pl:.4f} ms "
                   f"bound {b_ms:.4f} ms ({b_by}) matmul+cross_entropy "
                   f"{lib_ms:.4f} ms", flush=True)
-        print(f"    unfused matmul + cross_entropy: forward {lib_f:.4f} ms, "
-              f"+ dh {lib_fdh:.4f} ms, + dw {lib_fdw:.4f} ms", flush=True)
+        print(f"    unfused matmul + cross_entropy: forward {lib_f:.4f} ms "
+              f"(device {lib_dev_f:.4f} ms), + dh {lib_fdh:.4f} ms, + dw "
+              f"{lib_fdw:.4f} ms", flush=True)
         del h, w, lab, g, loss, lse, dh, dw
         torch.cuda.empty_cache()
     return rows
@@ -1590,6 +1610,20 @@ def bwd_route_text(mode, dtype, d, pairs, ms_dq, ms_dkv):
                       dkv_tflops=tf_dkv)
 
 
+def fwd_route_text(dtype, d, pairs, ms_f):
+    """(text, fields) of the forward's route as the built library reports
+    it, and the TFLOP/s it executes on the visible pairs: q k^T and one
+    product of p v per part of p, 2 D flops a pair each (one f32 product
+    on the CUDA cores)."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    route, parts = fm.fwd_route(dtype)
+    tf = (1 + max(parts, 1)) * 2 * d * pairs / ms_f / 1e9
+    what = f"{parts} 16-bit parts of p" if parts else "f32"
+    return (f"fwd route {route} ({what}); executed {tf:.1f} TFLOP/s on the "
+            "visible pairs", dict(fwd_body=route, parts=parts,
+                                  executed_tflops=tf))
+
+
 def fm_inputs(torch, gen, b, s, h, kvh, d, dtype):
     """(q, k, v, do) folded to [B*H, S, D], kv heads repeated as
     ``flashmask_attention_bshd`` repeats them."""
@@ -1715,13 +1749,16 @@ def phase_flashmask(torch):
         dkv_ms, dkv_by = bound(bwd_in + 2 * b * h * s * d * 2, 4 * d * pairs)
         route_text, route = bwd_route_text(fm.MODE_FLASHMASK, q.dtype, d,
                                            pairs, ms_dq, ms_dkv)
+        dev_f = device_time_ms(lambda: fm.flashmask_fwd(
+            q, k, v, sr, er, scale, causal), iters=it)
+        fwd_text, fwd_route = fwd_route_text(q.dtype, d, pairs, dev_f)
         common = dict(case=name, visible_pairs=pairs, live_tiles=live,
                       causal_tiles=tri, tiles=tiles)
         rows["fwd"].append(dict(
             common, max_abs_err=err_o, lse_err=err_l, atol=FM_O_ATOL,
-            worst_err_over_allowed=ratio_o, ms=ms_f, plain_ms=pl_f,
-            bound_ms=f_ms, bound_by=f_by, library_ms=lib_f,
-            tflops=4 * d * pairs / ms_f / 1e9))
+            worst_err_over_allowed=ratio_o, ms=ms_f, device_ms=dev_f,
+            plain_ms=pl_f, bound_ms=f_ms, bound_by=f_by, library_ms=lib_f,
+            tflops=4 * d * pairs / ms_f / 1e9, **fwd_route))
         for key, ms, b_ms, b_by in (("dq", ms_dq, dq_ms, dq_by),
                                     ("dkv", ms_dkv, dkv_ms, dkv_by)):
             rows[key].append(dict(
@@ -1732,7 +1769,7 @@ def phase_flashmask(torch):
                 plain_note="plain_ms and library_ms cover dq, dk and dv",
                 **route))
         tf = 4 * d * pairs / ms_f / 1e9
-        print(f"    fwd kernel {ms_f:.4f} ms ({tf:.2f} "
+        print(f"    fwd kernel {ms_f:.4f} ms, device {dev_f:.4f} ms ({tf:.2f} "
               f"TFLOP/s on visible pairs) plain {pl_f:.4f} ms bound "
               f"{f_ms:.4f} ms ({f_by}) masked sdpa {lib_f:.4f} ms; bwd "
               f"kernels {ms_b:.4f} ms (dq {ms_dq:.4f} + dk/dv {ms_dkv:.4f} "
@@ -1740,7 +1777,7 @@ def phase_flashmask(torch):
               f"{8 * d * pairs / ms_b / 1e9:.2f} TFLOP/s) plain {pl_b:.4f} ms "
               f"bound {dq_ms:.4f} + {dkv_ms:.4f} ms masked sdpa fwd+bwd "
               f"{lib_fb:.4f} ms", flush=True)
-        print(f"    {route_text}", flush=True)
+        print(f"    {fwd_text}; {route_text}", flush=True)
         del q, k, v, do, o, lse, ro, rlse, grads, leaves, keep, q4, k4, v4
         torch.cuda.empty_cache()
     return rows

@@ -24,21 +24,39 @@
 // is read from the f32 logits (a label outside [0, V) has none), dl is
 // f32, and dh / dw are f32 sums rounded once to the output dtype.
 //
-// Design. Every kernel computes 64-token x 128-vocab logits tiles on the
-// way to its output.
+// Design. Every kernel computes logits tiles on the way to its output and
+// never stores them.
 //
-// Forward (every dtype): one block per (64-token tile, vocab split) walks
-// its vocab tiles with the flash softmax recurrence (running max, scaled
-// sum) and picks up the gold logit; each split writes (m, l, gold) per
-// token and a small combine kernel merges the splits into lse and loss.
-// The TPU grid walks the whole vocabulary in order; the split keeps the
-// card busy when T has few tiles (T = 1000: 16 token tiles x 17 splits).
-// The logits accumulate GEMM-style over 32-deep chunks of the hidden axis
-// staged through shared memory (a [64, H] tile does not fit on chip): bf16
-// / f16 on the tensor cores (mma.sync m16n8k16, f32 accumulators, ldmatrix
-// fragments, two staging buffers), f32 with CUDA-core FMAs, since the f32
-// path must stay f32. A product of two 16-bit inputs is exact in f32, so
-// the sum is the plain version's in another order.
+// Forward, bf16 / fp16 (`blockwise_ce_fwd_wgmma_kernel`): a GEMM whose
+// epilogue is a row reduction, on Hopper's warpgroup products. It is bound
+// by operations (2 T H V = 1.07 TFLOP at the flagship against 0.1 GB of
+// inputs); the mma.sync body it replaced ran at 147 TFLOP/s, held by small
+// tiles, loads staged through registers with one block barrier a 32-deep
+// chunk, and an epilogue through shared memory. Here one block of three
+// warpgroups takes a (128-token tile, vocab split) item: a producer thread
+// keeps TMA loads of h [128, 64] and w [64, 256] in flight through a
+// 4-stage ring (48 KB a stage, full / empty mbarriers, no block barrier in
+// the loop); two consumer warpgroups each issue wgmma m64n128k16 for 64
+// rows (w MN-major through the transpose bit, both operands under the
+// 128-byte swizzle); the epilogue reads the accumulators in registers,
+// each thread keeping its own running max and sum in log2 units
+// (ex2.approx) and the gold logit, merged over its quad once at the end,
+// while the producer already loads the next vocab tile. Each split writes
+// (m, l, gold) per token and a small combine kernel merges the splits into
+// lse and loss. The split count comes from the shapes
+// (`blockwise_ce_fwd_plan`): the (token tile, split) items fill whole
+// waves of the SMs (T = 16384: 128 items, one split; T = 1000: 8 token
+// tiles x 16 splits). TMA reads rows that start on 16 bytes only: where H
+// or V is not a multiple of 8 (V = 32001, GPT-2's 50257) the launch first
+// copies h and / or w with rows padded to the next 8 elements
+// (cudaMemcpy2DAsync into the scratch; the pad is never read, since the
+// map's extent is the real one and TMA zero-fills past it).
+//
+// Forward, f32: one block per (64-token tile, vocab split) walks its vocab
+// tiles with the same recurrence, the logits GEMM-style over 32-deep
+// chunks of the hidden axis staged through shared memory with CUDA-core
+// FMAs, since the f32 path must stay f32. In both, a product of two inputs
+// is exact in f32, so the sum is the plain version's in another order.
 //
 // bf16 backward, dh and dw (one body, `blockwise_ce_bwd_cluster_kernel`):
 // thread-block clusters keep each gradient tile on chip. A cluster of C
@@ -104,15 +122,17 @@
 // V = 2.15 TFLOP (the logits and one contraction) against at most 0.2 GB
 // of inputs and outputs, far above the ~295 flops per byte where the bf16
 // tensor cores, not memory, are the limit. The backward executes 8 T H V:
-// the exact split costs three contraction products. mma.sync without TMA,
-// wgmma or warp specialisation reaches a fraction of the 989 TFLOP/s; a
-// cluster step also sends 28 KB of f32 partials and 42 KB of dl parts per
-// block over DSMEM and passes two cluster barriers.
+// the exact split costs three contraction products. Its mma.sync without
+// TMA, wgmma or warp specialisation reaches a fraction of the 989 TFLOP/s;
+// a cluster step also sends 28 KB of f32 partials and 42 KB of dl parts
+// per block over DSMEM and passes two cluster barriers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cooperative_groups.h>
+#include <cuda.h>        // CUtensorMap and its enums; the encoder is looked up at run time
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -1378,23 +1398,483 @@ cudaError_t allow_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// ---- The forward for bf16 / fp16: wgmma fed by a TMA ring ----
+//
+// One block of three warpgroups per (128-token tile, vocab split). Warp-
+// group 0 is the producer: one thread keeps TMA loads of h [128, 64] and w
+// [64, WG_BN] in flight through a WG_STAGES-deep ring of shared memory,
+// each stage guarded by a full and an empty mbarrier. Warpgroups 1 and 2
+// consume: each owns 64 token rows and issues wgmma m64n128k16 (two of
+// them for the tile's 256 columns) from the staged tiles, f32 accumulators
+// in registers. h is K-major (hidden contiguous); w is MN-major (vocab
+// contiguous) and takes wgmma's transpose bit; both land in 128-byte rows
+// under the 128-byte swizzle, which the TMA boxes and the descriptors
+// share. The epilogue reads the accumulators where wgmma leaves them: each
+// thread keeps its own running max and sum over its columns in log2 units
+// (ex2.approx with log2(e) folded into one FMA) and the gold logit where its
+// column is the label; its quad merges them once at the end. The producer
+// is already loading the next vocab tile while the epilogue runs.
+constexpr int WG_BM = 128;                     // token rows per tile: two consumers of 64
+constexpr int WG_BN = 256;                     // vocab columns per tile
+constexpr int WG_BK = 64;                      // hidden units per stage: one 128-byte row
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;                // producer + two consumer warpgroups
+constexpr int WG_NB = WG_BN / 128;             // m64n128 products per k-step
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // h [128][64]: 16 KB
+constexpr int WG_B_BOX = WG_BK * 64 * 2;       // w [64][64], one TMA box: 8 KB
+constexpr int WG_B_BYTES = WG_BN / 64 * WG_B_BOX;
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
+constexpr size_t WG_SMEM = 1024 + (size_t)WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2**x on the SFU; results below 2**-126 flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(b)) : "memory");
+}
+// spin until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra.uni LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(b)), "r"(parity) : "memory");
+}
+
+// box (c0 inner, c1 outer) of a 2-D tensor map into shared memory; the
+// bytes complete a transaction of the barrier
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// the accumulators are read only after the wait that completes them
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// shared-memory matrix descriptors, 128-byte swizzle (addresses in 16-byte
+// units): K-major h, 8-row groups 1024 B apart (the leading offset unused);
+// MN-major w, 8-row groups of the hidden axis 1024 B apart and 64-column
+// blocks one TMA box apart
+__device__ __forceinline__ uint64_t desc_enc(uint32_t x) { return (uint64_t)((x & 0x3FFFF) >> 4); }
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return desc_enc(addr) | (1ull << 16) | (desc_enc(1024) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return desc_enc(addr) | (desc_enc(WG_B_BOX) << 16) | (desc_enc(1024) << 32) | (1ull << 62);
+}
+
+// d (+)= a b for one warpgroup: a 64 x 16 K-major, b 16 x 128 MN-major
+// (transposed), d 64 x 128 f32; scale_d 0 starts the sum at zero
+template <typename T>
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+blockwise_ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_h,
+                              const __grid_constant__ CUtensorMap tm_w,
+                              const long long* __restrict__ labels,
+                              float* __restrict__ part, int Tn, int H, int V,
+                              int nsplit, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled stages start on 1024 bytes, the swizzle's period
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  auto stage_a = [&](int s) { return smem + s * WG_STAGE_BYTES; };
+  auto stage_b = [&](int s) { return smem + s * WG_STAGE_BYTES + WG_A_BYTES; };
+
+  const int wg = threadIdx.x / 128;
+  const int row0 = blockIdx.x * WG_BM;
+  const int split = blockIdx.y;
+  const int nv = (V + WG_BN - 1) / WG_BN;
+  const int vt0 = split * tiles_per_split;
+  const int vt1 = min(nv, vt0 + tiles_per_split);
+  const int nkc = (H + WG_BK - 1) / WG_BK;       // stages per vocab tile
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);                    // the producer's arrival and the bytes
+      mbar_init(&empty[s], 8);                   // each consumer warp's release
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int i = 0;
+      for (int vt = vt0; vt < vt1; ++vt) {
+        for (int kc = 0; kc < nkc; ++kc, ++i) {
+          const int s = i % WG_STAGES;
+          if (i >= WG_STAGES) mbar_wait(&empty[s], (i / WG_STAGES - 1) & 1);
+          mbar_expect_tx(&full[s], WG_STAGE_BYTES);
+          tma_load_2d(stage_a(s), &tm_h, &full[s], kc * WG_BK, row0);
+#pragma unroll
+          for (int nb = 0; nb < WG_BN / 64; ++nb)
+            tma_load_2d(stage_b(s) + nb * WG_B_BOX, &tm_w, &full[s], vt * WG_BN + nb * 64,
+                        kc * WG_BK);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;                        // rows 64 c .. 64 c + 63 of the tile
+    const int lane = threadIdx.x % 32, wq = (threadIdx.x / 32) % 4;
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = row0 + 64 * c + 16 * wq + g;   // the thread's rows: r_lo, r_lo + 8
+    long long lab[2];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lab[h] = r_lo + 8 * h < Tn ? labels[r_lo + 8 * h] : -1;
+    float acc[WG_NB][64];
+    // release a consumed stage: every warp of both consumers arrives
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    };
+    int i = 0;
+    for (int vt = vt0; vt < vt1; ++vt) {
+      int prev = 0;
+      for (int kc = 0; kc < nkc; ++kc, ++i) {
+        const int s = i % WG_STAGES;
+        mbar_wait(&full[s], (i / WG_STAGES) & 1);
+#pragma unroll
+        for (int nb = 0; nb < WG_NB; ++nb) fence_acc(acc[nb]);
+        wgmma_fence();
+        const uint32_t a0 = smem_u32(stage_a(s)) + c * (64 * 128);
+        const uint32_t b0 = smem_u32(stage_b(s));
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          const uint64_t da = desc_kmajor(a0 + 32 * kk);
+#pragma unroll
+          for (int nb = 0; nb < WG_NB; ++nb)
+            wgmma_128<T>(acc[nb], da, desc_mnmajor(b0 + nb * 2 * WG_B_BOX + kk * 16 * 128),
+                         kc > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (kc > 0) {                            // the previous stage's products are done
+          wgmma_wait<1>();
+          release(prev);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nb = 0; nb < WG_NB; ++nb) fence_acc(acc[nb]);
+      release(prev);
+
+      // epilogue: element (nb, j, e) of row h sits in acc[nb][4 j + 2 h + e]
+      // at column vt WG_BN + 128 nb + 8 j + 2 t + e
+      const int cbase = vt * WG_BN + 2 * t;
+      auto epilogue = [&](auto edge_c) {
+        constexpr bool EDGE = decltype(edge_c)::value;   // columns past V in the tile
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = NEG_INF;
+#pragma unroll
+          for (int nb = 0; nb < WG_NB; ++nb) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (!EDGE || cbase + 128 * nb + 8 * j + e < V)
+                  mx = fmaxf(mx, acc[nb][4 * j + 2 * h + e]);
+              }
+            }
+          }
+          // a thread with no column left in the tile keeps its state
+          const float m_new = mx == NEG_INF ? m[h] : fmaxf(m[h], mx * LOG2E);
+          const float corr = ex2(m[h] - m_new), neg = -m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < WG_NB; ++nb) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float p = ex2(fmaf(acc[nb][4 * j + 2 * h + e], LOG2E, neg));
+                if (EDGE && cbase + 128 * nb + 8 * j + e >= V) p = 0.f;
+                sum += p;
+              }
+            }
+          }
+          l[h] = l[h] * corr + sum;
+          m[h] = m_new;
+          // the gold logit, from the f32 logits, in the one tile that holds it
+          if ((unsigned long long)(lab[h] - (long long)vt * WG_BN) < (unsigned long long)WG_BN &&
+              lab[h] < V) {
+#pragma unroll
+            for (int nb = 0; nb < WG_NB; ++nb) {
+#pragma unroll
+              for (int j = 0; j < 16; ++j) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  if (cbase + 128 * nb + 8 * j + e == lab[h]) gold[h] += acc[nb][4 * j + 2 * h + e];
+                }
+              }
+            }
+          }
+        }
+      };
+      if (vt * WG_BN + WG_BN > V) epilogue(std::true_type{});
+      else epilogue(std::false_type{});
+    }
+
+    // merge the quad's running (max, sum, gold) per row and write the split's
+    float* pm = part;
+    float* pl = part + (size_t)nsplit * Tn;
+    float* pg = part + 2 * (size_t)nsplit * Tn;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float M = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, 2));
+      float L = l[h] * ex2(m[h] - M), G = gold[h];
+      L += __shfl_xor_sync(0xffffffffu, L, 1);
+      L += __shfl_xor_sync(0xffffffffu, L, 2);
+      G += __shfl_xor_sync(0xffffffffu, G, 1);
+      G += __shfl_xor_sync(0xffffffffu, G, 2);
+      const int r = r_lo + 8 * h;
+      if (t == 0 && r < Tn) {
+        pm[(size_t)split * Tn + r] = M * LN2;
+        pl[(size_t)split * Tn + r] = L;
+        pg[(size_t)split * Tn + r] = G;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver the process has loaded (no link
+// flag): null where there is none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a row-major [rows, cols] 16-bit matrix whose rows are `pitch`
+// elements apart, read in boxes of box_rows x 64 under the 128-byte swizzle;
+// a box past an edge reads zeros there
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, uint64_t cols,
+              uint64_t rows, uint64_t pitch, uint32_t box_rows) {
+  const cuuint64_t dim[2] = {cols, rows};
+  const cuuint64_t stride[1] = {pitch * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, const_cast<void*>(base), dim, stride, box,
+             estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA reads rows that start on 16 bytes: h [T, H] when H % 8 == 0, w [H, V]
+// when V % 8 == 0. Other shapes read a copy of the matrix with its rows
+// padded to the next multiple of 8 elements (the pad never read: the map's
+// extent is the real one), placed in the scratch after the split partials.
+struct FwdLayout {
+  size_t part_floats, h_off, w_off, floats;      // offsets in floats; 0: no copy
+  int h_pitch, w_pitch;
+};
+FwdLayout fwd_layout(int Tn, int H, int V, int nsplit) {
+  auto up = [](size_t x, size_t m) { return (x + m - 1) / m * m; };
+  FwdLayout L{};
+  L.part_floats = 3 * (size_t)nsplit * Tn;
+  L.h_pitch = (int)up((size_t)H, 8);
+  L.w_pitch = (int)up((size_t)V, 8);
+  size_t off = up(L.part_floats, 64);           // 256-byte aligned copies
+  if (H % 8) {
+    L.h_off = off;
+    off += up((size_t)Tn * L.h_pitch / 2, 64);
+  }
+  if (V % 8) {
+    L.w_off = off;
+    off += up((size_t)H * L.w_pitch / 2, 64);
+  }
+  L.floats = off > L.part_floats ? off : L.part_floats;
+  return L;
+}
+
+// The wgmma forward's vocab splits for T tokens on `sms` multiprocessors
+// (one block each): the fewest splits that minimise the longest queue of
+// the (token tile, split) grid in waves of `sms` blocks, a block costing
+// its vocab tiles plus WG_BLOCK_COST_Q quarters of a tile (filling the
+// ring, the partials' writes).
+constexpr int WG_BLOCK_COST_Q = 1;
+int wgmma_splits(int Tn, int V, int sms) {
+  const int tt = (Tn + WG_BM - 1) / WG_BM, nv = (V + WG_BN - 1) / WG_BN;
+  int best = 1;
+  long long best_t = -1;
+  for (int s = 1; s <= nv; ++s) {
+    const int tps = (nv + s - 1) / s, used = (nv + tps - 1) / tps;
+    const long long waves = ((long long)tt * used + sms - 1) / sms;
+    const long long span = waves * (4LL * tps + WG_BLOCK_COST_Q);
+    if (best_t < 0 || span < best_t) {
+      best_t = span;
+      best = s;
+    }
+  }
+  return best;
+}
+
+template <typename T>
+int fwd_wgmma(const void* h, const void* w, const long long* labels, float* loss, float* lse,
+              float* part, int Tn, int H, int V, int nsplit, long long ignore,
+              cudaStream_t stream) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const FwdLayout L = fwd_layout(Tn, H, V, nsplit);
+  const void* hh = h;
+  const void* ww = w;
+  int hp = H, wp = V;
+  if (L.h_off) {                                 // rows of h padded to 16 bytes
+    void* dst = part + L.h_off;
+    const cudaError_t e = cudaMemcpy2DAsync(dst, (size_t)L.h_pitch * 2, h, (size_t)H * 2,
+                                            (size_t)H * 2, Tn, cudaMemcpyDeviceToDevice, stream);
+    if (e != cudaSuccess) return (int)e;
+    hh = dst;
+    hp = L.h_pitch;
+  }
+  if (L.w_off) {                                 // rows of w padded to 16 bytes
+    void* dst = part + L.w_off;
+    const cudaError_t e = cudaMemcpy2DAsync(dst, (size_t)L.w_pitch * 2, w, (size_t)V * 2,
+                                            (size_t)V * 2, H, cudaMemcpyDeviceToDevice, stream);
+    if (e != cudaSuccess) return (int)e;
+    ww = dst;
+    wp = L.w_pitch;
+  }
+  CUtensorMap tm_h, tm_w;
+  if (!make_map(enc, &tm_h, hh, H, Tn, hp, WG_BM) || !make_map(enc, &tm_w, ww, V, H, wp, WG_BK))
+    return (int)cudaErrorInvalidValue;
+  auto kern = blockwise_ce_fwd_wgmma_kernel<T>;
+  static const cudaError_t attr = allow_smem(kern, WG_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int nv = (V + WG_BN - 1) / WG_BN;
+  const int tps = (nv + nsplit - 1) / nsplit;
+  const int nused = (nv + tps - 1) / tps;        // splits that own a vocab tile
+  dim3 grid((Tn + WG_BM - 1) / WG_BM, nused);
+  kern<<<grid, WG_THREADS, WG_SMEM, stream>>>(tm_h, tm_w, labels, part, Tn, H, V, nsplit, tps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  blockwise_ce_combine_kernel<<<(Tn + NT - 1) / NT, NT, 0, stream>>>(
+      part, labels, loss, lse, Tn, nsplit, nused, ignore);
+  return (int)cudaGetLastError();
+}
+
 constexpr size_t FWD_SMEM = sizeof(float) * REGION;
 
 template <typename T>
 int fwd_t(const void* h, const void* w, const long long* labels, float* loss,
           float* lse, float* part, int Tn, int H, int V, int nsplit,
           long long ignore, cudaStream_t stream) {
-  const int nv = (V + BN - 1) / BN;
-  const int tps = (nv + nsplit - 1) / nsplit;
-  const int nused = (nv + tps - 1) / tps;  // splits that own a vocab tile
-  dim3 grid((Tn + BM - 1) / BM, nused);
-  blockwise_ce_fwd_kernel<T><<<grid, NT, FWD_SMEM, stream>>>(
-      (const T*)h, (const T*)w, labels, part, Tn, H, V, nsplit, tps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  blockwise_ce_combine_kernel<<<(Tn + NT - 1) / NT, NT, 0, stream>>>(
-      part, labels, loss, lse, Tn, nsplit, nused, ignore);
-  return (int)cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return fwd_wgmma<T>(h, w, labels, loss, lse, part, Tn, H, V, nsplit, ignore, stream);
+  } else {
+    const int nv = (V + BN - 1) / BN;
+    const int tps = (nv + nsplit - 1) / nsplit;
+    const int nused = (nv + tps - 1) / tps;  // splits that own a vocab tile
+    dim3 grid((Tn + BM - 1) / BM, nused);
+    blockwise_ce_fwd_kernel<T><<<grid, NT, FWD_SMEM, stream>>>(
+        (const T*)h, (const T*)w, labels, part, Tn, H, V, nsplit, tps);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    blockwise_ce_combine_kernel<<<(Tn + NT - 1) / NT, NT, 0, stream>>>(
+        part, labels, loss, lse, Tn, nsplit, nused, ignore);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -1446,10 +1926,11 @@ bool bad_shape(int Tn, int H, int V) { return Tn < 0 || H <= 0 || V <= 0; }
 
 extern "C" {
 
-// The vocab splits of the forward and of dh for T tokens over V columns on
-// a card with `sms` multiprocessors: enough blocks for two per SM when the
-// token tiles alone are too few (small T), at most one split per vocab
-// tile. The caller sizes the scratch of both launches by it.
+// The vocab splits of the f32 forward and of the workspace dh for T tokens
+// over V columns on a card with `sms` multiprocessors: enough blocks for
+// two per SM when the token tiles alone are too few (small T), at most one
+// split per vocab tile. The caller sizes the workspace of dh by it; the
+// forward's plan (below) gives its own.
 int blockwise_ce_splits(int Tn, int V, int sms) {
   if (Tn <= 0 || V <= 0 || sms <= 0) return 1;
   const int tiles_t = (Tn + BM - 1) / BM, tiles_v = (V + BN - 1) / BN;
@@ -1457,10 +1938,43 @@ int blockwise_ce_splits(int Tn, int V, int sms) {
   return want < 1 ? 1 : (want < tiles_v ? want : tiles_v);
 }
 
+// The forward's plan for dtype (0 float32, 1 bfloat16, 2 float16), T
+// tokens, H hidden units and V columns on a card with `sms`
+// multiprocessors, into out[0 .. 10):
+//   [0] route: 0 the CUDA-core f32 body; 1 wgmma with TMA loads straight
+//       from h and w; 2 the same over copies of h and / or w whose rows are
+//       padded to 16 bytes (H % 8 != 0 or V % 8 != 0)
+//   [1] vocab splits  [2] vocab tiles per split  [3] tokens per tile
+//   [4] vocab columns per tile  [5] ring stages (0: none)  [6] blocks
+//   [7] scratch floats the launch needs in `part`  [8] bytes of h copied
+//   [9] bytes of w copied
+// Returns 10, or -1 on bad sizes or dtype. The caller sizes `part` by [7]
+// and passes [1] as nsplit.
+int blockwise_ce_fwd_plan(int dtype, int Tn, int H, int V, int sms, long long* out) {
+  if (bad_shape(Tn, H, V) || sms <= 0 || dtype < 0 || dtype > 2) return -1;
+  for (int i = 0; i < 10; ++i) out[i] = 0;
+  const bool wg = dtype != 0;
+  const int bm = wg ? WG_BM : BM, bn = wg ? WG_BN : BN;
+  const int nsplit = wg ? wgmma_splits(Tn, V, sms) : blockwise_ce_splits(Tn, V, sms);
+  const int nv = (V + bn - 1) / bn, tps = (nv + nsplit - 1) / nsplit;
+  const int nused = (nv + tps - 1) / tps;
+  const FwdLayout L = fwd_layout(Tn, H, V, nsplit);
+  const long long vals[10] = {
+      wg ? (L.h_off || L.w_off ? 2 : 1) : 0, nsplit, tps, bm, bn, wg ? WG_STAGES : 0,
+      (long long)((Tn + bm - 1) / bm) * nused,
+      wg ? (long long)L.floats : 3LL * nsplit * Tn,
+      wg && L.h_off ? 2LL * Tn * H : 0, wg && L.w_off ? 2LL * H * V : 0};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 10;
+}
+
 // dtype: 0 float32, 1 bfloat16, 2 float16. Writes loss and lse; part is
-// [3, nsplit, T] f32 scratch (running max, scaled sum and gold logit of
-// each vocab split). Two launches (the split kernel, then the combine).
-// Returns the CUDA error code of the launches (0 on success).
+// f32 scratch: [3, nsplit, T] (running max, scaled sum and gold logit of
+// each vocab split), then for bf16 / fp16 the padded copies of
+// blockwise_ce_fwd_plan (its [7] floats in all). Two launches (the split
+// kernel, then the combine), after the copies. bf16 / fp16 need h and w
+// on 16-byte boundaries. Returns the CUDA error code of the launches (0 on
+// success).
 int blockwise_ce_fwd_launch(int dtype, const void* h, const void* w,
                             const long long* labels, float* loss, float* lse,
                             float* part, int Tn, int H, int V, int nsplit,

@@ -47,8 +47,9 @@
 // (about 150 flops per byte forward, under the ~295 where operations take
 // over); with more pairs visible (bands, long contexts) the operations.
 // The tile skip makes the work follow the live tiles. The tensor-core
-// backward still takes 4.5-11x that bound at the smoke's shapes (PERF.md
-// section 6, rows 6 and 11): the element-wise step below holds it.
+// forward and backward still take several times that bound at the
+// smoke's shapes (PERF.md section 6, rows 6, 10 and 11): the element-wise
+// step (exp, masks, the split of p) holds them as much as the products.
 //
 // Tile skip: a pre-pass writes each mask row's (max sr, min er) per k tile,
 // padded columns left out (:58-59). A (q tile, k tile) pair is dead when
@@ -57,15 +58,34 @@
 // the tensor-core backward also skips a warp's slice of a live pair by the
 // same rule. The decision is the same for every thread that takes it.
 //
-// Forward (every dtype) and the f32 backward: CUDA-core f32 FMAs on tiles
-// staged as f32 in shared memory, 256 threads as a 16 x 16 grid each
-// holding a small register tile, rows padded by 4 floats: the tile helpers
-// of flash_tiles.cuh. The forward's block per (bh, 64-row q tile) walks the
+// f32 forward and backward: CUDA-core f32 FMAs on tiles staged as f32 in
+// shared memory, 256 threads as a 16 x 16 grid each holding a small
+// register tile, rows padded by 4 floats: the tile helpers of
+// flash_tiles.cuh. The forward's block per (bh, 64-row q tile) walks the
 // live k tiles with an online softmax (:96-106) in registers. The f32 dq
 // block per (bh, 64-row q tile) adds ds k into registers; the f32 dk / dv
 // block per (bh, 64-key tile) walks the live 32-row q tiles from the
 // diagonal. f32 stays off the tensor cores, as flash_attention.cu's f32
 // body does: TF32 would round the f32 gradients phase 14 holds to 1e-4.
+//
+// Tensor-core forward (bf16 and fp16; `_fm_fwd_kernel`, :69): the same
+// (bh, 64-row q tile) blocks, as 4 warps of 16 rows each, walking the live
+// k tiles in the dq kernel's order. Its CUDA-core body (q k^T and p v as
+// f32 FMAs, p through shared memory, three block barriers and synchronous
+// loads a tile, expf and every mask on every element) ran 1.9-2.9x masked
+// SDPA; here each warp keeps its q fragments in registers, k, v and the
+// tile's interval bounds arrive through the two-stage cp.async ring of
+// live tiles, s = q k^T is exact in f32 on mma.sync, the online max and
+// sum run over each row's quad in log2 units (ex2.approx, the scale and
+// log2(e) in one FMA), the masks come in the backward's four compiled
+// forms, and p, f32 as the Pallas body keeps it (:96-106), enters p v from
+// the score accumulators as FM_FWD_PARTS exact 16-bit parts (split_frag)
+// with v as ldmatrix.trans fragments: nothing passes through shared
+// memory between the products. One part (p rounded, as the flash forward
+// does) misses the smoke's o gate where |o| is near 0; two hold it
+// (tests/test_torch_flashmask_split.py emulates both against the Pallas
+// forward). A row that sees nothing keeps l = 0 and writes o = 0 and lse =
+// -1e30.
 //
 // Tensor-core backward (bf16 and fp16; mma_tiles.cuh): mma.sync m16n8k16
 // with f32 accumulators, operands in 16-bit shared tiles padded by 16
@@ -121,7 +141,10 @@ constexpr int BK = 64;           // key rows per tile: the tile skip's columns
 constexpr int TC_BQ = 64;        // tensor-core backward: query rows per tile
 constexpr int TC_DQ_WARPS = 4;   // dq: 16 query rows a warp
 constexpr int TC_DKV_WARPS = 8;  // dk / dv: 16 keys x 32 query rows a warp
+constexpr int TC_FWD_WARPS = 4;  // the tensor-core forward: 16 query rows a warp
+constexpr int TC_FWD_MIN_BLOCKS_D64 = 3;   // its blocks an SM at D <= 64 (4 spill)
 constexpr int FM_PARTS = 2;      // FlashMask's p and ds: 16-bit parts a product
+constexpr int FM_FWD_PARTS = 2;  // the forward's p: 16-bit parts in p v
 
 // the interval bounds of the k tile's columns; past Sk an empty interval
 __device__ __forceinline__ void load_bounds(int* srs, int* ers, const int* __restrict__ sr,
@@ -171,13 +194,16 @@ flashmask_extremes_kernel(const int* __restrict__ sr, const int* __restrict__ er
   if (lane == 0) ext[w] = make_int2(smax, emin);
 }
 
-template <typename T, int D>
+// The CUDA-core forward (f32): one block of NT threads per (bh, BQ query
+// rows), tiles staged as f32
+template <int D>
 __global__ void __launch_bounds__(NT)
-flashmask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ sr,
-                     const int* __restrict__ er, const int2* __restrict__ ext,
-                     T* __restrict__ o, float* __restrict__ lse, int H, int MH,
-                     int Sq, int Sk, float scale, int causal) {
+flashmask_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ sr,
+                         const int* __restrict__ er, const int2* __restrict__ ext,
+                         float* __restrict__ o, float* __restrict__ lse, int H, int MH,
+                         int Sq, int Sk, float scale, int causal) {
+  using T = float;
   constexpr int LDQ = D + PAD;    // Qs [BQ][LDQ]
   constexpr int LDK = BK + PAD;   // Kt [D][LDK], Ps [BQ][LDK]
   constexpr int LDV = D + PAD;    // Vs [BK][LDV]
@@ -467,6 +493,7 @@ flashmask_bwd_dkv_kernel_f32(const float* __restrict__ q, const float* __restric
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2**x on the SFU; results below 2**-126 flush to zero
 __device__ __forceinline__ float ex2(float x) {
@@ -484,6 +511,246 @@ __device__ __forceinline__ void p_ds_inplace(float& s, float& dp, bool vis, floa
   const float e = vis ? ex2(s * (scale * LOG2E) - lse2) : 0.f;
   dp = e * (dp * scale - delta_s);
   s = e;
+}
+
+// The forward on the tensor cores (bf16 / fp16): one block of TC_FWD_WARPS
+// warps per (bh, TC_BQ query rows), warp w owning rows 16 w .. 16 w + 15
+// with its q fragments in registers, loaded once. k, v and the tile's
+// interval bounds arrive through a two-stage cp.async ring that fetches
+// only the live tiles, tile kt + 1 landing while tile kt is multiplied. s
+// = q k^T sums exact products in f32; the online max and sum run over each
+// row's quad of lanes in log2 units (scale and log2(e) folded into one FMA
+// before ex2.approx); p stays f32 and enters p v as P exact 16-bit parts
+// (split_frag) from the score accumulators, v as ldmatrix.trans B
+// fragments: nothing passes through shared memory between the products.
+template <typename T, int D, int P>
+__global__ void __launch_bounds__(TC_FWD_WARPS * 32, D <= 64 ? TC_FWD_MIN_BLOCKS_D64 : 2)
+flashmask_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ sr,
+                     const int* __restrict__ er, const int2* __restrict__ ext,
+                     T* __restrict__ o, float* __restrict__ lse, int H, int MH,
+                     int Sq, int Sk, float scale, int causal) {
+  constexpr int NTH = TC_FWD_WARPS * 32;
+  constexpr int BQT = TC_BQ, BKT = BK;
+  constexpr int LD = D + 8;      // 16-bit row stride: 16 bytes of padding
+  constexpr int KS = D / 16;     // k-steps of q k^T
+  constexpr int NS = BKT / 8;    // score tiles of 8 keys
+  constexpr int ND = D / 8;      // o tiles of 8 columns
+  static_assert(BQT == 16 * TC_FWD_WARPS, "a warp owns 16 query rows");
+  extern __shared__ __align__(16) unsigned char smem16[];
+  T* Qs = reinterpret_cast<T*>(smem16);          // [BQT][LD]
+  T* Ks = Qs + BQT * LD;                         // [2][BKT][LD]
+  T* Vs = Ks + 2 * BKT * LD;                     // [2][BKT][LD]
+  int* Bs = reinterpret_cast<int*>(Vs + 2 * BKT * LD);   // [2][sr, er][BKT]
+
+  const int bh = blockIdx.y;
+  // the longest causal rows first, so they do not trail the grid
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 16 * warp;             // the warp's first row
+  const float scale_log2 = scale * LOG2E;       // scores and m in log2 units
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
+  const int nk_all = (Sk + BKT - 1) / BKT;
+  int nk = nk_all;
+  if (causal) nk = min(nk, (q0 + BQT - 1) / BKT + 1);   // skip tiles above the diagonal
+  const int m_row = mask_row(bh, H, MH);
+  const int2* extm = ext + (size_t)m_row * nk_all;
+  const int* srm = sr + (size_t)m_row * Sk;
+  const int* erm = er + (size_t)m_row * Sk;
+
+  // the first live k tile at or after x
+  auto next_live = [&](int x) {
+    while (x < nk && !interval_live(extm[x], q0, q0 + BQT - 1)) ++x;
+    return x;
+  };
+  // k, v and the interval bounds of k tile kt into stage st; bounds past
+  // Sk land as zeros (empty intervals), those columns masked by col < Sk
+  auto load_k_tile = [&](int kt, int st) {
+    const int k0 = kt * BKT;
+    load_rows_async<D, LD, BKT, NTH>(Ks + st * BKT * LD, k + koff, k0, Sk);
+    load_rows_async<D, LD, BKT, NTH>(Vs + st * BKT * LD, v + koff, k0, Sk);
+    for (int i = threadIdx.x; i < 2 * BKT; i += NTH) {
+      const int col = k0 + i % BKT;
+      const bool live = col < Sk;
+      const int* src = i < BKT ? srm : erm;
+      cp_async4(Bs + st * 2 * BKT + i, live ? src + col : src, live);
+    }
+  };
+
+  load_rows_async<D, LD, BQT, NTH>(Qs, q + qoff, q0, Sq);
+  int kt = next_live(0);
+  if (kt < nk) load_k_tile(kt, 0);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  bool have_q = false;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int st = 0; kt < nk; st ^= 1) {
+    const int k0 = kt * BKT;
+    const int nxt = next_live(kt + 1);
+    if (nxt < nk) {                               // the next live tile lands meanwhile
+      load_k_tile(nxt, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + st * BKT * LD;
+    const T* Vt = Vs + st * BKT * LD;
+    if (!have_q) {                                // the q tile landed with the first k tile
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) frag_a(qf[ks], Qs, LD, 16 * warp, 16 * ks);
+      have_q = true;
+    }
+
+    // a warp whose rows are past Sq, all above the tile's first key, or all
+    // inside every column's interval sees none of the tile
+    const bool skip = row_lo >= Sq || (causal && k0 > row_lo + 15) ||
+                      !interval_live(extm[kt], row_lo, row_lo + 15);
+    if (!skip) {
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          uint32_t b[4];
+          frag_b2(b, Kt, LD, 8 * j, 16 * ks);
+          mma16816<T>(s[j], qf[ks], b[0], b[1]);
+          mma16816<T>(s[j + 1], qf[ks], b[2], b[3]);
+        }
+      }
+      // only tiles on the diagonal or the ragged end need the causal and
+      // length mask, and the interval test only where an interval of the
+      // tile's columns can meet the warp's rows: (min sr, max er) over the
+      // tile (padded columns read as empty intervals at 0, which only widen it)
+      const bool edge = (causal && k0 + BKT - 1 > row_lo) || k0 + BKT > Sk;
+      const int* srs = Bs + st * 2 * BKT;
+      int smin = min(srs[lane], srs[lane + 32]);
+      int emax = max(srs[BKT + lane], srs[BKT + lane + 32]);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        smin = min(smin, __shfl_xor_sync(0xffffffffu, smin, off));
+        emax = max(emax, __shfl_xor_sync(0xffffffffu, emax, off));
+      }
+      const bool hit = row_lo < emax && row_lo + 15 >= smin;
+      // the online softmax of the tile in place of its scores: s becomes p
+      // = 2**(s scale log2(e) - m), 0 where masked
+      auto softmax_tile = [&](auto edge_c, auto hit_c) {
+        constexpr bool EDGE = decltype(edge_c)::value, HIT = decltype(hit_c)::value;
+        constexpr bool MASK = EDGE || HIT;
+        uint32_t vis = 0xffffffffu;               // bit 4 j + e: element e of tile j
+        if constexpr (MASK) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const int c = 8 * j + 2 * t;
+            int2 s2 = make_int2(0, 0), e2 = make_int2(0, 0);
+            if constexpr (HIT) {
+              s2 = *reinterpret_cast<const int2*>(srs + c);
+              e2 = *reinterpret_cast<const int2*>(srs + BKT + c);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = row_lo + g + 8 * (e >> 1), col = k0 + c + (e & 1);
+              bool ok = true;
+              if constexpr (EDGE) ok = col < Sk && (!causal || row >= col);
+              if constexpr (HIT)
+                ok = ok && !in_interval(row, (e & 1) ? s2.y : s2.x, (e & 1) ? e2.y : e2.x);
+              if (!ok) vis &= ~(1u << (4 * j + e));
+            }
+          }
+        }
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!MASK || (vis >> (4 * j + e)) & 1u) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        }
+        float corr[2], neg_m[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {             // a row's four lanes: t = 0 .. 3
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          // a row with nothing visible yet keeps m = NEG_INF
+          const float m_new = mx[h] == NEG_INF ? m[h] : fmaxf(m[h], mx[h] * scale_log2);
+          corr[h] = ex2(m[h] - m_new);
+          m[h] = m_new;
+          neg_m[h] = -m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(s[j][e], scale_log2, neg_m[e >> 1]));
+            if constexpr (MASK) p = (vis >> (4 * j + e)) & 1u ? p : 0.f;
+            psum[e >> 1] += p;
+            s[j][e] = p;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 1);
+          psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
+          l[h] = corr[h] * l[h] + psum[h];
+        }
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
+          acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
+        }
+      };
+      if (edge) {
+        if (hit) softmax_tile(std::true_type{}, std::true_type{});
+        else softmax_tile(std::true_type{}, std::false_type{});
+      } else {
+        if (hit) softmax_tile(std::false_type{}, std::true_type{});
+        else softmax_tile(std::false_type{}, std::false_type{});
+      }
+      // o += p v: p's accumulators are the A fragments (P parts), v [key][d]
+      // the B fragments
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk) {
+        uint32_t a[P][4];
+        split_frag<T, P>(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t b[4];
+          frag_b2_t(b, Vt, LD, 8 * n, 16 * kk);
+#pragma unroll
+          for (int i = 0; i < P; ++i) {
+            mma16816<T>(acc[n], a[i], b[0], b[1]);
+            mma16816<T>(acc[n + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                              // stage st is consumed
+    kt = nxt;
+  }
+  cp_async_wait<0>();
+
+  // o = acc / l, a row that sees nothing 0 with lse -1e30
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + g + 8 * h;
+    if (row >= Sq) continue;
+    const float lz = l[h] == 0.f ? 1.f : l[h];    // acc is 0 where l is
+    T* dst = o + qoff + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) = pack2<T>(acc[n][2 * h] / lz, acc[n][2 * h + 1] / lz);
+    if (t == 0) lse[(size_t)bh * Sq + row] = l[h] == 0.f ? NEG_INF : m[h] * LN2 + logf(lz);
+  }
 }
 
 // dq on the tensor cores (bf16 / fp16): one block of TC_DQ_WARPS warps per
@@ -958,20 +1225,40 @@ int extremes(const int* sr, const int* er, int* ext, int rows, int Sk, cudaStrea
   return (int)cudaGetLastError();
 }
 
+// The forward body a dtype takes: 0 the CUDA-core f32 body, else the
+// tensor-core body with that many 16-bit parts of p in p v
+template <typename T>
+constexpr int fwd_parts() {
+  return std::is_same<T, float>::value ? 0 : FM_FWD_PARTS;
+}
+
 template <typename T, int D>
 int fwd_t(const void* q, const void* k, const void* v, const int* sr,
           const int* er, const int* ext, void* o, float* lse, int BH, int H,
           int MH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (BQ * (D + PAD) + D * (BK + PAD) + BK * (D + PAD) + BQ * (BK + PAD)) +
-      2 * BK * sizeof(int);
-  auto kern = flashmask_fwd_kernel<T, D>;
+  constexpr int P = fwd_parts<T>();
+  size_t smem;
+  void (*kern)(const T*, const T*, const T*, const int*, const int*, const int2*, T*,
+               float*, int, int, int, int, float, int);
+  dim3 grid, block;
+  if constexpr (P == 0) {
+    smem = sizeof(float) *
+        (BQ * (D + PAD) + D * (BK + PAD) + BK * (D + PAD) + BQ * (BK + PAD)) +
+        2 * BK * sizeof(int);
+    kern = flashmask_fwd_kernel_f32<D>;
+    grid = dim3((Sq + BQ - 1) / BQ, BH);
+    block = dim3(NT);
+  } else {
+    smem = sizeof(T) * (TC_BQ + 4 * BK) * (D + 8) + 4 * BK * sizeof(int);
+    kern = flashmask_fwd_kernel<T, D, P>;
+    grid = dim3((Sq + TC_BQ - 1) / TC_BQ, BH);
+    block = dim3(TC_FWD_WARPS * 32);
+  }
   static const cudaError_t attr = allow_smem(kern, smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, sr, er,
-                                   reinterpret_cast<const int2*>(ext), (T*)o, lse,
-                                   H, MH, Sq, Sk, scale, causal);
+  kern<<<grid, block, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, sr, er,
+                                      reinterpret_cast<const int2*>(ext), (T*)o, lse,
+                                      H, MH, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1115,6 +1402,18 @@ int flashmask_bwd_parts(int mode, int dtype) {
     case 0: return tc_parts<float>(mode == 0);
     case 1: return tc_parts<__nv_bfloat16>(mode == 0);
     case 2: return tc_parts<__half>(mode == 0);
+    default: return -1;
+  }
+}
+
+// The forward body that dtype (0 float32, 1 bfloat16, 2 float16)
+// launches: 0 the CUDA-core f32 body, else the tensor-core body with this
+// many 16-bit parts of p in p v; -1 for a dtype the launch refuses.
+int flashmask_fwd_parts(int dtype) {
+  switch (dtype) {
+    case 0: return fwd_parts<float>();
+    case 1: return fwd_parts<__nv_bfloat16>();
+    case 2: return fwd_parts<__half>();
     default: return -1;
   }
 }

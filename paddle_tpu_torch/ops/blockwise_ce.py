@@ -15,7 +15,13 @@ or backward. Kernel contract:
 ``ce_fwd``, ``ce_bwd_dh`` and ``ce_bwd_dw`` launch the CUDA kernels of
 ``csrc/blockwise_ce.cu`` for CUDA tensors (each counted in its
 ``.launches``) and run the plain versions for CPU tensors; any other
-device, and any input the kernels do not take, raises. The backward takes
+device, and any input the kernels do not take, raises. The forward takes
+one of three routes, chosen from dtype and shapes before launch
+(``fwd_plan``) and recorded in ``ce_fwd.route``: ``"wgmma"`` (bf16 /
+fp16: warp-specialised ``wgmma`` fed by a TMA ring), ``"wgmma-pitched"``
+(the same over copies of h and / or w whose rows are padded to 16 bytes,
+where H or V is not a multiple of 8: TMA reads only rows that start on 16
+bytes) or ``"cuda-core"`` (f32). The backward takes
 one of two routes, chosen from dtype and H before launch and recorded in
 ``ce_bwd_dh.route`` / ``ce_bwd_dw.route``: ``"cluster"`` (bf16 with H up
 to 8192: thread-block clusters, no f32 workspace) or ``"workspace"`` (f32,
@@ -44,7 +50,7 @@ import torch
 
 __all__ = ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw", "ce_fwd_plain",
            "ce_bwd_dh_plain", "ce_bwd_dw_plain", "blockwise_lm_head_ce",
-           "bwd_plan"]
+           "fwd_plan", "bwd_plan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -130,8 +136,9 @@ def _sms(device):
 
 
 def _splits(t, vocab, device):
-    """Vocab splits of the forward and of the workspace dh, chosen by the
-    kernels' own source from their tile sizes and the card's SM count."""
+    """Vocab splits of the workspace dh, chosen by the kernels' own source
+    from their tile sizes and the card's SM count (the forward takes its
+    own from ``fwd_plan``)."""
     return _launcher("splits")(t, vocab, _sms(device))
 
 
@@ -161,6 +168,39 @@ def bwd_plan(t, hid, vocab, device=None):
     return dict(_plan(int(t), int(hid), int(vocab), _sms(device)))
 
 
+FWD_PLAN_KEYS = ("route", "splits", "tiles_per_split", "tile_tokens",
+                 "tile_vocab", "stages", "blocks", "scratch_floats",
+                 "h_copy_bytes", "w_copy_bytes")
+FWD_ROUTES = ("cuda-core", "wgmma", "wgmma-pitched")
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(code, t, hid, vocab, sms):
+    out = (ctypes.c_longlong * len(FWD_PLAN_KEYS))()
+    n = _launcher("fwd_plan")(code, t, hid, vocab, sms, out)
+    if n != len(FWD_PLAN_KEYS):
+        raise ValueError(f"fwd_plan: no plan for T={t}, H={hid}, V={vocab}")
+    plan = dict(zip(FWD_PLAN_KEYS, out))
+    plan["route"] = FWD_ROUTES[plan["route"]]
+    return plan
+
+
+def fwd_plan(t, hid, vocab, dtype=torch.bfloat16, device=None):
+    """The forward's plan from ``csrc/blockwise_ce.cu`` for T tokens, H
+    hidden units and V columns in ``dtype`` on the card: its ``route``
+    (``FWD_ROUTES``), vocab ``splits`` and tiles per split, the tile, the
+    ring's ``stages``, the ``blocks`` of the launch, the f32 scratch it
+    needs and the bytes of h and w it copies to padded rows."""
+    device = torch.device("cuda") if device is None else device
+    return dict(_fwd_plan(_DTYPE_CODE[dtype], int(t), int(hid), int(vocab),
+                          _sms(device)))
+
+
+def _aligned(x):
+    """x, or a copy of it on a 16-byte boundary (TMA's rule for h and w)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _bwd_route(h, vocab):
     if h.dtype != torch.bfloat16:
         return "workspace"
@@ -181,18 +221,24 @@ def ce_fwd(h, w, labels, ignore):
     lse = torch.empty(t, dtype=torch.float32, device=h.device)
     if t == 0:
         return loss, lse
-    nsplit = _splits(t, vocab, h.device)
-    part = torch.empty((3, nsplit, t), dtype=torch.float32, device=h.device)
+    plan = fwd_plan(t, hid, vocab, h.dtype, h.device)
+    if plan["route"] != "cuda-core":
+        h, w = _aligned(h), _aligned(w)
+    nsplit = plan["splits"]
+    part = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                       device=h.device)
     rc = _launcher("fwd")(
         _DTYPE_CODE[h.dtype], h.data_ptr(), w.data_ptr(), labels.data_ptr(),
         loss.data_ptr(), lse.data_ptr(), part.data_ptr(), t, hid, vocab,
         nsplit, int(ignore), torch.cuda.current_stream(h.device).cuda_stream)
     _raise_on("ce_fwd", rc)
+    ce_fwd.route = plan["route"]
     ce_fwd.launches += 1
     return loss, lse
 
 
 ce_fwd.launches = 0
+ce_fwd.route = None
 
 
 def ce_bwd_dh(h, w, labels, g, lse, ignore):
@@ -266,6 +312,11 @@ def _launcher(which):
     if which == "splits":
         fn = lib.blockwise_ce_splits
         fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return fn
+    if which == "fwd_plan":
+        fn = lib.blockwise_ce_fwd_plan
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
         return fn
     if which == "plan":

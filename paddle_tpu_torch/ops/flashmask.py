@@ -25,10 +25,12 @@ f32 and never rounded, o / dq / dk / dv cast to their dtypes once at the
 end. A row that sees no column has o = 0 and lse = -1e30 (:114-118), p =
 0 in the backward (:152, :200), dq = 0, and adds nothing to dk or dv.
 They work on groups of heads so that no ``[heads, Sq, Sk]`` f32 temporary
-passes ``PLAIN_CHUNK_ELEMS`` elements. The bf16 / fp16 backward kernels
-take p and ds to the tensor cores as ``FM_PARTS`` 16-bit parts each
-(``split_parts`` is that split on the CPU), within 2**-16 |p| and |ds| of
-the f32 values; ``bwd_route`` names the body a mode and dtype launch.
+passes ``PLAIN_CHUNK_ELEMS`` elements. The bf16 / fp16 kernels take the
+f32 p to the tensor cores as 16-bit parts (``split_parts`` is that split
+on the CPU): the forward ``FM_FWD_PARTS`` of p in p v, the backward
+``FM_PARTS`` of p and ds each, within 2**-16 |p| and |ds| of the f32
+values; ``fwd_route`` and ``bwd_route`` name the body a dtype (and mode)
+launch.
 
 ``flashmask_attention_bshd`` is the [B, S, H, D] entry (:317-353) with a
 ``torch.autograd.Function`` around the pair; the index gets no gradient.
@@ -44,6 +46,8 @@ from .flash_attention import _DTYPE_CODE, NEG_INF, _check, _check_saved
 PLAIN_CHUNK_ELEMS = 1 << 28     # f32 elements of one [heads, Sq, Sk] temporary
 FM_PARTS = 2    # 16-bit parts of FlashMask's p and ds in the tensor-core
                 # backward (``FM_PARTS`` of csrc/flashmask.cu)
+FM_FWD_PARTS = 2    # 16-bit parts of the forward's p in p v
+                    # (``FM_FWD_PARTS`` of csrc/flashmask.cu)
 
 
 def split_parts(x, parts, dtype=torch.bfloat16):
@@ -264,6 +268,16 @@ flashmask_bwd.dq_launches = 0
 flashmask_bwd.dkv_launches = 0
 
 
+def fwd_route(dtype):
+    """(route, parts) of the forward kernel that ``dtype`` launches, as the
+    built library reports it: ("tensor-core", the 16-bit parts of p in p v)
+    or ("cuda-core", 0) for the f32 body. Builds the library."""
+    parts = _lib().flashmask_fwd_parts(_DTYPE_CODE[dtype])
+    if parts < 0:
+        raise ValueError(f"fwd_route: dtype {dtype}")
+    return ("tensor-core", parts) if parts else ("cuda-core", 0)
+
+
 def bwd_route(mode, dtype):
     """(route, parts) of the backward kernels that ``mode``
     (``MODE_FLASHMASK`` / ``MODE_TWOPASS``) launches for ``dtype``, as the
@@ -283,6 +297,8 @@ def _lib():
     lib.flashmask_block_k.restype = ctypes.c_int
     lib.flashmask_bwd_parts.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flashmask_bwd_parts.restype = ctypes.c_int
+    lib.flashmask_fwd_parts.argtypes = [ctypes.c_int]
+    lib.flashmask_fwd_parts.restype = ctypes.c_int
     return lib
 
 

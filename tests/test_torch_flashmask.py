@@ -331,3 +331,55 @@ def test_entries_refuse_what_they_do_not_take():
         tfm.flashmask_bwd(q, q, q, q, q[..., 0], q, sr, sr, 1.0, True)
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_bwd_twopass(q, q, q, q, q[..., 0], q, 1.0, True)
+
+
+@pytest.mark.parametrize("args", [[], ["--only", "fwd"], ["--only", "bwd"]])
+def test_flashmask_kernel_ab_refuses_without_a_card(args):
+    """``tools/flashmask_kernel_ab.py`` (forward and backward) measures only
+    on a card: without one it exits 2 and prints no result."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, os.path.join(
+        root, "tools", "flashmask_kernel_ab.py"), *args],
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2
+    assert "CUDA is not available" in r.stderr and r.stdout == ""
+
+
+def test_flashmask_kernel_ab_reads_ptxas_for_every_kernel():
+    """The A/B tool's ``-Xptxas -v`` reader names the forward and backward
+    kernels, tensor-core and f32, with their registers and spills."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "flashmask_kernel_ab", os.path.join(root, "tools",
+                                            "flashmask_kernel_ab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ns = "_ZN45_GLOBAL__N__9f405fcc_12_flashmask_cu_20a05dd2"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{ns}20flashmask_fwd_"
+        "kernelI13__nv_bfloat16Li64ELi2EEEvPKT_S4_' for 'sm_90a'",
+        "    56 bytes stack frame, 52 bytes spill stores, 76 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{ns}24flashmask_fwd_"
+        "kernel_f32ILi32EEEvPKfS2_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{ns}23flashmask_bwd_dq_"
+        "kernelI6__halfLi128ELb1ELi2EEEvPKT_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 241 registers, used 1 barriers"])
+    out = tool.ptxas_summary(log)
+    assert out == {
+        "flashmask_fwd_kernel<bf16,64,2>":
+            "128 registers, spill 52/76 bytes",
+        "flashmask_fwd_kernel_f32<32>": "64 registers, spill 0/0 bytes",
+        "flashmask_bwd_dq_kernel<fp16,128,1,2>":
+            "241 registers, spill 0/0 bytes"}

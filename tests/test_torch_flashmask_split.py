@@ -15,6 +15,14 @@ same bf16 inputs, o and lse, with the smoke's gate: ``FLASH_GRAD_ATOL``
 (1e-4) plus two bf16 ulps of |ref| per element
 (``chip_smoke.bf16_agreement``). One part (p and ds rounded to bf16)
 misses that gate on the same inputs, so two is the fewest that holds it.
+
+The forward is emulated the same way with its own part count
+(``FM_FWD_PARTS``): the online softmax over the kernel's 64-column k
+tiles, p in f32 relative to the running max, split, one f32 product of
+each part with v, the parts summed in f32, o = acc / l rounded to bf16
+once. It is held against the Pallas forward (``_fm_fwd``) under the
+smoke's o gate, ``FM_O_ATOL`` (1e-5) plus two bf16 ulps; one part fewer
+misses it.
 """
 import os
 import re
@@ -66,6 +74,15 @@ def test_the_part_count_is_the_kernels():
                             "flashmask.cu")).read()
     found = re.search(r"constexpr int FM_PARTS = (\d+);", src)
     assert found and int(found.group(1)) == tfm.FM_PARTS == 2
+
+
+def test_the_forward_part_count_is_the_kernels():
+    """The module's ``FM_FWD_PARTS`` is the constant the forward kernel is
+    built with."""
+    src = open(os.path.join(ROOT, "paddle_tpu_torch", "csrc",
+                            "flashmask.cu")).read()
+    found = re.search(r"constexpr int FM_FWD_PARTS = (\d+);", src)
+    assert found and int(found.group(1)) == tfm.FM_FWD_PARTS == 2
 
 
 @settings(max_examples=200, deadline=None)
@@ -228,3 +245,76 @@ def test_split_emulation_meets_the_smoke_gate(s, d, h, kvh, mh, kind, causal,
     assert _worst(got, want) <= 1.0
     rounded = _emulate(q, k, v, o, lse, do, sr, er, scale, causal, 1)
     assert _worst(rounded, want) > 1.0
+
+
+FWD_TILE = 64       # the kernel's k tile: one online-softmax step
+
+
+def _emulate_fwd(q, k, v, sr, er, scale, causal, parts):
+    """o as the tensor-core forward computes it: per 64-column k tile, s =
+    q k^T from exact products of the bf16 inputs, the running max m and
+    sum l in f32, p = exp(s scale - m) in f32 split into ``parts`` bf16
+    parts, one f32 product of each part with v, the accumulator rescaled
+    by the max's correction; o = acc / l rounded to bf16 once."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    srx = tfm._mask_rows(torch.as_tensor(sr), bh)
+    erx = tfm._mask_rows(torch.as_tensor(er), bh)
+    vis = tfm._visible(srx, erx, sq, causal)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros(bh, sq, 1)
+    acc = torch.zeros(bh, sq, d)
+    for c0 in range(0, sk, FWD_TILE):
+        c1 = min(sk, c0 + FWD_TILE)
+        s = torch.matmul(qf, kf[:, c0:c1].transpose(1, 2)) * scale
+        live = vis[..., c0:c1]
+        mx = s.masked_fill(~live, -1e30).amax(-1, keepdim=True)
+        m_new = torch.maximum(m, mx)
+        p = torch.where(live, torch.exp(s - m_new), torch.zeros(()))
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = acc * corr
+        for part in tfm.split_parts(p, parts):
+            acc = acc + torch.matmul(part.float(), vf[:, c0:c1])
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+
+
+def _pallas_fwd(q, k, v, sr, er, scale, causal, block):
+    """o of the Pallas FlashMask forward on the same bf16 values, in
+    interpret mode."""
+    bh = q.shape[0]
+    rep = bh // sr.shape[0] // sr.shape[1]
+
+    def lanes(x):
+        x = np.repeat(x, rep, axis=1).reshape(bh, 1, -1)
+        return jnp.asarray(np.broadcast_to(x, (bh, 8, x.shape[-1])))
+
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    o, _ = FM._fm_fwd(jq, jk, jv, lanes(sr), lanes(er), scale, causal,
+                      block, block)
+    return torch.as_tensor(np.array(o.astype(jnp.float32))).bfloat16()
+
+
+@pytest.mark.parametrize("s,d,h,kvh,mh,kind,causal,block", [
+    (40, 32, 2, 2, 1, "document", True, 8),
+    (96, 64, 4, 2, 2, "band", True, 16),
+    (112, 32, 4, 1, 1, "random", False, 16),
+    (160, 64, 4, 2, 1, "document", True, 32),
+    (200, 64, 2, 1, 2, "random", True, 40),
+])
+def test_forward_split_emulation_meets_the_smoke_gate(s, d, h, kvh, mh, kind,
+                                                      causal, block):
+    """FM_FWD_PARTS parts of p hold the smoke's FlashMask o gate against
+    the Pallas forward; one part fewer (p rounded to bf16, as the flash
+    forward rounds it) does not, on these inputs."""
+    q, k, v, _, sr, er = _case(s, d, h, kvh, mh, kind, s + d + mh + 1)
+    scale = d ** -0.5
+    want = _pallas_fwd(q, k, v, sr, er, scale, causal, block)
+    got = _emulate_fwd(q, k, v, sr, er, scale, causal, tfm.FM_FWD_PARTS)
+    assert cs.bf16_agreement(got, want, cs.FM_O_ATOL)[1] <= 1.0
+    fewer = _emulate_fwd(q, k, v, sr, er, scale, causal,
+                         tfm.FM_FWD_PARTS - 1)
+    assert cs.bf16_agreement(fewer, want, cs.FM_O_ATOL)[1] > 1.0

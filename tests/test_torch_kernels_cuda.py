@@ -1171,3 +1171,183 @@ def test_flashmask_backward_names_its_route(mode, dtype, route):
     (FlashMask) or one rounded part (two-pass)."""
     from paddle_tpu_torch.ops import flashmask as fm
     assert fm.bwd_route(mode, dtype) == route
+
+
+def _fm_fwd_check(q, k, v, sr, er, causal, gate):
+    """The forward kernel's (o, lse) against the plain version: o within
+    ``_tol``, lse within 1e-4, and with ``gate`` (bf16) each element of o
+    within the smoke's gate (``FM_O_ATOL`` plus two bf16 ulps of |ref|).
+    Returns (o, lse)."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import flashmask as fm
+    scale = q.shape[-1] ** -0.5
+    n0 = fm.flashmask_fwd.launches
+    o, lse = fm.flashmask_fwd(q, k, v, sr, er, scale, causal)
+    ro, rlse = fm.flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
+    torch.cuda.synchronize()
+    assert fm.flashmask_fwd.launches == n0 + 1
+    assert o.dtype == q.dtype and bool(torch.isfinite(o).all())
+    assert float((o.float() - ro.float()).abs().max()) <= _tol(ro, q.dtype)
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    if gate:
+        err, ratio = cs.bf16_agreement(o, ro, cs.FM_O_ATOL)
+        assert ratio <= 1.0, (err, ratio)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 2000])
+@pytest.mark.parametrize("kind,mh,causal", [("document", 1, True),
+                                            ("random", 3, False)])
+def test_flashmask_forward_tensor_cores_at_the_tile_edges(dtype, d, s, kind,
+                                                          mh, causal):
+    """The tensor-core forward (p in FM_FWD_PARTS exact parts) at every
+    head dim, at lengths off the 64-row tiles, causal documents and
+    non-causal intervals."""
+    q, k, v, _ = _flash_inputs(3, s, s, d, dtype, s + d + mh)
+    sr, er = _flashmask_bounds(kind, 1, mh, s, s + d)
+    _fm_fwd_check(q, k, v, sr, er, causal, gate=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,mh", [(8, 2), (8, 4), (6, 1)])
+def test_flashmask_forward_gqa_mask_heads(dtype, d, h, mh):
+    """Heads h read mask head h // (H / MH) in the forward: two batch rows
+    of H heads over MH mask heads, each mask head its own documents."""
+    q, k, v, _ = _flash_inputs(2 * h, 300, 300, d, dtype, h + mh + d)
+    sr, er = _flashmask_bounds("document", 2, mh, 300, mh + d)
+    _fm_fwd_check(q, k, v, sr, er, True, gate=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [100, 1024])
+def test_flashmask_forward_rows_that_see_nothing(dtype, d, s):
+    """Columns below 64 masked for every row: rows 0-63 see nothing (their
+    only causal tile is dead), o is exactly 0 and lse exactly -1e30."""
+    q, k, v, _ = _flash_inputs(3, s, s, d, dtype, s + d)
+    sr, er = _flashmask_bounds("dead", 1, 1, s, 0)
+    o, lse = _fm_fwd_check(q, k, v, sr, er, True,
+                           gate=dtype == torch.bfloat16)
+    assert not bool(o[:, :64].any())
+    assert bool((lse[:, :64] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flashmask_forward_band_with_every_tile_live(dtype):
+    """Bands [j + a, j + a + w) with a < 64 leave every causal tile live,
+    each with the per-element interval test, and a non-causal interval
+    mask beside it."""
+    import chip_smoke as cs
+    s, h = 1024, 4
+    rng = np.random.default_rng(9)
+    j = np.arange(s)
+    sr_np = (j + rng.integers(1, 64, (1, h, s))).astype(np.int32)
+    er_np = (sr_np + rng.integers(0, 200, (1, h, s))).astype(np.int32)
+    _, live, tri, _ = cs.flashmask_work(sr_np, er_np, h, s, True, 64)
+    assert live == tri
+    sr, er = (torch.as_tensor(x).cuda() for x in (sr_np, er_np))
+    q, k, v, _ = _flash_inputs(h, s, s, 64, dtype, 11)
+    for causal in (True, False):
+        _fm_fwd_check(q, k, v, sr, er, causal, gate=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.float32, ("cuda-core", 0)), (torch.bfloat16, ("tensor-core", 2)),
+    (torch.float16, ("tensor-core", 2))])
+def test_flashmask_forward_names_its_route(dtype, route):
+    """The library reports the forward body each dtype launches: f32 on
+    the CUDA cores, 16-bit on the tensor cores with p in two exact parts."""
+    from paddle_tpu_torch.ops import flashmask as fm
+    assert fm.fwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t,hid,vocab,route", [
+    (128, 1024, 256, "wgmma"),              # on the tiles
+    (130, 1024, 32000, "wgmma"),            # T off the 128-token tile
+    (1000, 1000, 32001, "wgmma-pitched"),   # V odd, H % 64 != 0
+    (257, 96, 200, "wgmma"),                # V below one 256-column tile
+    (70, 100, 300, "wgmma-pitched"),        # H % 8 != 0: h copied
+    (33, 36, 77, "wgmma-pitched"),          # both copied, one stage of H
+    (1, 8, 1, "wgmma-pitched"),             # one token, one column
+])
+def test_blockwise_ce_forward_wgmma_routes_and_edges(dtype, t, hid, vocab,
+                                                      route):
+    """The 16-bit forward on wgmma: the route is chosen from the shapes
+    before launch (rows of h and w that do not start on 16 bytes read a
+    padded copy), and loss / lse match plain, with labels outside [0, V)
+    that are not ignored (no gold logit: loss = lse) and ignored rows."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h, w, lab, _ = _ce_inputs(t, hid, vocab, dtype, t + hid + vocab, [0])
+    if t > 2:
+        lab[1] = vocab + 5                  # past V, not ignored
+        lab[2] = -3
+    plan = bc.fwd_plan(t, hid, vocab, dtype)
+    assert plan["route"] == route
+    assert plan["tile_tokens"] == 128 and plan["tile_vocab"] == 256
+    loss, lse = bc.ce_fwd(h, w, lab, -100)
+    rloss, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+    torch.cuda.synchronize()
+    assert bc.ce_fwd.route == route
+    err = max(float((loss - rloss).abs().max()),
+              float((lse - rlse).abs().max()))
+    assert err <= cs.CE_LOSS_ATOL, err
+    assert float(loss[0]) == 0.0
+    if t > 2:
+        assert float((loss[1:3] - lse[1:3]).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_blockwise_ce_forward_every_row_ignored(dtype):
+    """Every row ignored: loss is exactly 0 and lse is still each row's."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    h, w, lab, _ = _ce_inputs(300, 1024, 5000, dtype, 3, slice(None))
+    loss, lse = bc.ce_fwd(h, w, lab, -100)
+    _, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+    torch.cuda.synchronize()
+    assert not bool(loss.any())
+    assert float((lse - rlse).abs().max()) <= 1e-4
+
+
+def test_blockwise_ce_forward_takes_a_misaligned_view():
+    """A w that starts 2 bytes past a 16-byte boundary (a view into a
+    larger buffer) is copied onto one before TMA reads it."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    t, hid, vocab = 200, 256, 1024
+    h, w, lab, _ = _ce_inputs(t, hid, vocab, torch.bfloat16, 5, [])
+    buf = torch.empty(hid * vocab + 1, dtype=torch.bfloat16, device="cuda")
+    wv = buf[1:].view(hid, vocab)
+    wv.copy_(w)
+    assert wv.data_ptr() % 16 != 0
+    loss, lse = bc.ce_fwd(h, wv, lab, -100)
+    rloss, rlse = bc.ce_fwd_plain(h, w, lab, -100)
+    torch.cuda.synchronize()
+    assert float((loss - rloss).abs().max()) <= 1e-4
+    assert float((lse - rlse).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("t,vocab", [(16384, 32000), (1000, 32001),
+                                     (2048, 32000), (64, 50257)])
+def test_blockwise_ce_forward_plan_fills_whole_waves(t, vocab):
+    """The wgmma forward's split count: blocks of (128-token tile, split)
+    whose longest queue (vocab tiles plus a quarter tile a block) is the
+    shortest any split count gives on this card, with no split left
+    without a tile."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = bc.fwd_plan(t, 1024, vocab)
+    tt, nv = -(-t // 128), -(-vocab // 256)
+
+    def queue(s):
+        tps = -(-nv // s)
+        used = -(-nv // tps)
+        return -(-tt * used // sms) * (4 * tps + 1)
+
+    assert plan["tiles_per_split"] == -(-nv // plan["splits"])
+    assert queue(plan["splits"]) == min(queue(s) for s in range(1, nv + 1))
+    assert plan["blocks"] == tt * -(-nv // plan["tiles_per_split"])
+    assert plan["stages"] == 4

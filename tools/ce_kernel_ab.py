@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""A/B timing of builds of the port's blockwise cross-entropy backward
-kernels (dh and dw) on one card.
+"""A/B timing of builds of the port's blockwise cross-entropy kernels (the
+forward, dh and dw) on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/ce_kernel_ab.py [--variant NAME=DIR]... [--gates]
-                                  [--seed N] [--out PATH]
+                                  [--only fwd|bwd] [--seed N] [--out PATH]
 
 The tree's ``paddle_tpu_torch/csrc`` is variant ``tree``. Each
 ``--variant`` names a directory holding another ``blockwise_ce.cu`` with
@@ -24,7 +24,18 @@ the mean of its two turns), beside the unfused ``torch.matmul`` +
 ``cross_entropy`` forward and its dh and dw shares on the same tensors.
 ``--gates`` also holds each variant's dh and dw to phase 9's per-element
 gate (``chip_smoke.bf16_agreement`` with ``CE_GRAD_ATOL``) and prints
-the worst element over its allowance. Prints one line per case, then one
+the worst element over its allowance.
+
+The forward (``blockwise_ce_fwd_launch``; ``--only fwd`` alone) is held
+to phase 9's gate (loss and lse within ``CE_LOSS_ATOL`` of the plain
+version) before it is timed, by device time
+(``chip_smoke.device_time_ms``) in the same turns, beside the unfused
+``torch.matmul`` + ``cross_entropy`` forward's device time and, where
+H or V is not a multiple of 8, the device time of the row-padding copies
+the ``wgmma-pitched`` route makes (its ``cudaMemcpy2DAsync`` calls alone). Each build
+sizes its split count and scratch by its own exported rule:
+``blockwise_ce_fwd_plan`` where the source has it (and its route),
+else ``blockwise_ce_splits`` with [3, splits, T] of scratch. Prints one line per case, then one
 JSON object with every number, the compiler's register and spill counts
 and the card's name and power limit (also written to ``--out``).
 """
@@ -59,11 +70,48 @@ def build(name, src_dir, tmp):
     lib.blockwise_ce_dw_launch.argtypes = [ctypes.c_int] \
         + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
         + [ctypes.c_longlong, ctypes.c_void_p]
+    lib.blockwise_ce_fwd_launch.argtypes = [ctypes.c_int] \
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        + [ctypes.c_longlong, ctypes.c_void_p]
     lib.blockwise_ce_splits.argtypes = [ctypes.c_int] * 3
     for fn in (lib.blockwise_ce_dh_launch, lib.blockwise_ce_dw_launch,
-               lib.blockwise_ce_splits):
+               lib.blockwise_ce_fwd_launch, lib.blockwise_ce_splits):
         fn.restype = ctypes.c_int
+    if hasattr(lib, "blockwise_ce_fwd_plan"):
+        lib.blockwise_ce_fwd_plan.argtypes = [ctypes.c_int] * 5 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.blockwise_ce_fwd_plan.restype = ctypes.c_int
     return lib, regs
+
+
+def fwd_launcher(torch, lib, t, hid, vocab):
+    """(route, splits, forward) calling ``lib``'s forward entry point for
+    bf16 inputs of these sizes, the splits and scratch sized by the
+    build's own rule."""
+    from paddle_tpu_torch.ops import blockwise_ce as bc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(lib, "blockwise_ce_fwd_plan"):
+        out = (ctypes.c_longlong * 10)()
+        if lib.blockwise_ce_fwd_plan(1, t, hid, vocab, sms, out) != 10:
+            raise RuntimeError("no forward plan")
+        route, nsplit, floats = bc.FWD_ROUTES[out[0]], out[1], out[7]
+    else:
+        nsplit = lib.blockwise_ce_splits(t, vocab, sms)
+        route, floats = "mma.sync (no plan)", 3 * nsplit * t
+    part = torch.empty(floats, dtype=torch.float32, device="cuda")
+    loss = torch.empty(t, dtype=torch.float32, device="cuda")
+    lse = torch.empty(t, dtype=torch.float32, device="cuda")
+
+    def fwd(h, w, lab):
+        rc = lib.blockwise_ce_fwd_launch(
+            1, h.data_ptr(), w.data_ptr(), lab.data_ptr(), loss.data_ptr(),
+            lse.data_ptr(), part.data_ptr(), t, hid, vocab, nsplit, -100,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fwd launch failed: CUDA error {rc}")
+        return loss, lse
+
+    return route, nsplit, fwd
 
 
 def launcher(torch, lib, t, hid, vocab):
@@ -97,10 +145,102 @@ def launcher(torch, lib, t, hid, vocab):
     return dh, dw
 
 
+def cudart():
+    """The CUDA runtime library, as ctypes sees it: the one the process
+    has loaded, else the toolkit's."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for name in ("libcudart.so.12", "libcudart.so",
+                 os.path.join(home, "lib64", "libcudart.so")):
+        try:
+            return ctypes.CDLL(name)
+        except OSError:
+            continue
+    raise RuntimeError("no CUDA runtime library to time the copies with")
+
+
+def pitched_copy_ms(torch, cs, h, w, iters):
+    """Device ms of the copies the ``wgmma-pitched`` route makes before its
+    kernel (h where H % 8 != 0, w where V % 8 != 0): the same
+    ``cudaMemcpy2DAsync`` calls into rows padded to 8 elements; None where
+    the shapes need none."""
+    t, hid = h.shape
+    vocab = w.shape[1]
+    copies = [(x, rows, cols) for x, rows, cols in ((h, t, hid),
+                                                    (w, hid, vocab))
+              if cols % 8]
+    if not copies:
+        return None
+    rt = cudart()
+    fn = rt.cudaMemcpy2DAsync
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                   ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    pitch = [-(-cols // 8) * 8 for _, _, cols in copies]
+    bufs = [torch.empty(rows * p, dtype=x.dtype, device="cuda")
+            for (x, rows, _), p in zip(copies, pitch)]
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        for (x, rows, cols), p, dst in zip(copies, pitch, bufs):
+            rc = fn(dst.data_ptr(), 2 * p, x.data_ptr(), 2 * cols, 2 * cols,
+                    rows, 3, stream)            # 3: device to device
+            if rc:
+                raise RuntimeError(f"cudaMemcpy2DAsync: CUDA error {rc}")
+
+    return cs.device_time_ms(run, iters=iters)
+
+
+def fwd_case(torch, Fn, cs, libs, order, h, w, lab, rloss, rlse, name):
+    """The forward of every build at one case: held to phase 9's gate,
+    then timed by device time in turns beside matmul + cross_entropy's
+    forward. Returns the case's record and prints a line."""
+    t, hid = h.shape
+    vocab = w.shape[1]
+    fwds, rec = {}, {"variants": {}}
+    for n, lib in libs.items():
+        route, nsplit, fwd = fwd_launcher(torch, lib, t, hid, vocab)
+        loss, lse = fwd(h, w, lab)
+        torch.cuda.synchronize()
+        err = max(float((loss - rloss).abs().max()),
+                  float((lse - rlse).abs().max()))
+        cs.check(err <= cs.CE_LOSS_ATOL, f"{n} {name} fwd: loss / lse err "
+                 f"{err} over {cs.CE_LOSS_ATOL}")
+        fwds[n] = fwd
+        rec["variants"][n] = {"route": route, "splits": nsplit,
+                              "max_abs_err": err, "fwd_turns": []}
+    for n in order:
+        rec["variants"][n]["fwd_turns"].append(cs.device_time_ms(
+            lambda: fwds[n](h, w, lab), iters=10 if t >= 8192 else 30))
+    with torch.no_grad():
+        rec["library_fwd_device_ms"] = cs.device_time_ms(
+            lambda: Fn.cross_entropy(torch.matmul(h, w), lab,
+                                     reduction="none", ignore_index=-100),
+            iters=10 if t >= 8192 else 30)
+    rec["pitched_copy_device_ms"] = pitched_copy_ms(
+        torch, cs, h, w, iters=10 if t >= 8192 else 30)
+    flops = 2 * t * hid * vocab
+    line = [f"{name} fwd:"]
+    for n, rv in rec["variants"].items():
+        rv["fwd_ms"] = sum(rv["fwd_turns"]) / 2
+        rv["fwd_tflops"] = flops / rv["fwd_ms"] / 1e9
+        line.append(f"{n} [{rv['route']}, {rv['splits']} splits] "
+                    f"{rv['fwd_ms']:.4f} ms ({rv['fwd_tflops']:.1f} TFLOP/s; "
+                    f"err {rv['max_abs_err']:.2e});")
+    line.append(f"matmul+cross_entropy fwd {rec['library_fwd_device_ms']:.4f}"
+                " ms")
+    if rec["pitched_copy_device_ms"] is not None:
+        line.append(f"(the pitched route's copies alone "
+                    f"{rec['pitched_copy_device_ms']:.4f} ms)")
+    print(" ".join(line), flush=True)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--gates", action="store_true")
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -137,10 +277,20 @@ def main():
     for name, h, w, lab, g in cases:
         t, hid = h.shape
         vocab = w.shape[1]
-        _, lse = bc.ce_fwd_plain(h, w, lab, -100)
+        rloss, lse = bc.ce_fwd_plain(h, w, lab, -100)
+        it = 5 if t >= 8192 else 10
+        row = {"case": name, "variants": {}}
+        if args.only != "bwd":
+            row["fwd"] = fwd_case(torch, Fn, chip_smoke, libs, order, h, w,
+                                  lab, rloss, lse, name)
+        if args.only == "fwd":
+            results.append(row)
+            del h, w, lab, g, lse, rloss
+            torch.cuda.empty_cache()
+            continue
+        del rloss
         runs = {n: launcher(torch, lib, t, hid, vocab)
                 for n, lib in libs.items()}
-        it = 5 if t >= 8192 else 10
         dh_t = {n: [] for n in runs}
         dw_t = {n: [] for n in runs}
         for n in order:
@@ -165,8 +315,8 @@ def main():
         t_live = t - int((lab == -100).sum())
         bound_flops = 4 * t_live * hid * vocab
         exec_flops = 8 * t_live * hid * vocab
-        row = {"case": name, "library_dh_share_ms": lib_dh,
-               "library_dw_share_ms": lib_dw, "variants": {}}
+        row.update({"library_dh_share_ms": lib_dh,
+                    "library_dw_share_ms": lib_dw})
         line = [f"{name}:"]
         for n in runs:
             a, b = sum(dh_t[n]) / 2, sum(dw_t[n]) / 2

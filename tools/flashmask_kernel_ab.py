@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""A/B timing of builds of the port's FlashMask backward kernels (dq and
-dk / dv of ``csrc/flashmask.cu``) on one card.
+"""A/B timing of builds of the port's FlashMask kernels (the forward, dq
+and dk / dv of ``csrc/flashmask.cu``) on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 tools/flashmask_kernel_ab.py [--variant NAME=DIR]... [--out PATH]
+    python3 tools/flashmask_kernel_ab.py [--variant NAME=DIR]...
+                                         [--only fwd|bwd] [--out PATH]
 
 The tree's ``paddle_tpu_torch/csrc`` is variant ``tree``. Each
 ``--variant`` names a directory holding another ``flashmask.cu`` with the
@@ -12,10 +13,19 @@ headers it includes: an older commit's ``csrc`` unpacked with ``git
 archive``, or a copy edited for an experiment. Every variant is built
 with ``ops/_build.py``'s nvcc flags into a temporary directory (all
 builds at once) and launched through its C entry points in this process
-(``flashmask_bwd_prep_launch``, ``flashmask_bwd_dq_launch``,
-``flashmask_bwd_dkv_launch``, whose argument lists every variant shares).
-A source that exports ``flashmask_bwd_parts`` reports its route; one
+(``flashmask_fwd_launch``, ``flashmask_bwd_prep_launch``,
+``flashmask_bwd_dq_launch``, ``flashmask_bwd_dkv_launch``, whose argument
+lists every variant shares). A source that exports
+``flashmask_fwd_parts`` / ``flashmask_bwd_parts`` reports its route; one
 without it ran the CUDA-core body.
+
+The forward (``--only fwd`` alone): at phase 13's seven cases each
+variant's o and lse are held to the plain version with the smoke's gates
+(``FM_O_ATOL`` plus two bf16 ulps of |ref| per element, lse within
+``LSE_ATOL``, rows that see nothing exactly 0 and -1e30), then timed by
+device time in turns A, B, ..., B, A beside masked SDPA's forward (device
+time). Its TFLOP/s count the products each build runs on the visible
+pairs: q k^T and one product of p v per part of p.
 
 Cases: ``chip_smoke.py``'s phase 13 (the seven FlashMask masks, bf16,
 D=64, inputs from the same seeds) and phase 15's two-pass backward (B=8,
@@ -67,13 +77,14 @@ def ptxas_summary(log):
     of the backward kernels in an ``-Xptxas -v`` log."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"entry function '_Z\w*?(flashmask_bwd_\w+?kernel"
-                      r"(?:_f32)?)I(\w+?)EEv", ln)
+        m = re.search(r"entry function '_Z\w*?(flashmask_(?:bwd|fwd)_\w*?"
+                      r"kernel(?:_f32)?)I(\w+?)EEv", ln)
         if m:
             args = re.sub(r"^(13__nv_bfloat16|6__half|f)", lambda t: {
                 "13__nv_bfloat16": "bf16", "6__half": "fp16",
                 "f": "f32"}[t.group(1)], m.group(2))
-            args = re.sub(r"L[ib](\d+)E?", r",\1", args).rstrip("E")
+            args = re.sub(r"L[ib](\d+)E?", r",\1", args).rstrip("E") \
+                .lstrip(",")
             name = f"{m.group(1)}<{args}>"
             out[name] = ""
         elif name and "spill" in ln:
@@ -103,7 +114,12 @@ def finish_build(name, proc, out):
                       [i, i] + [ptr] * 11 + shape)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
+    lib.flashmask_fwd_launch.argtypes = [i] + [ptr] * 8 + shape
+    lib.flashmask_fwd_launch.restype = ctypes.c_int
     lib.flashmask_block_k.restype = ctypes.c_int
+    if hasattr(lib, "flashmask_fwd_parts"):
+        lib.flashmask_fwd_parts.argtypes = [i]
+        lib.flashmask_fwd_parts.restype = ctypes.c_int
     if hasattr(lib, "flashmask_bwd_parts"):
         lib.flashmask_bwd_parts.argtypes = [i, i]
         lib.flashmask_bwd_parts.restype = ctypes.c_int
@@ -113,6 +129,13 @@ def finish_build(name, proc, out):
     else:
         def parts(mode, code):
             return 0
+
+    def fwd_parts(code):
+        if hasattr(lib, "flashmask_fwd_parts"):
+            return lib.flashmask_fwd_parts(code)
+        return 0
+
+    parts.fwd = fwd_parts
     return lib, parts, regs
 
 
@@ -159,6 +182,32 @@ class Runner:
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{which} launch failed: CUDA error {rc}")
+
+    def fwd(self, q, k, v, sr, er, scale, causal, out=None):
+        """(o, lse) of the forward launch (the tile-extremes pre-pass and
+        the forward kernel), as ``ops.flashmask.flashmask_fwd`` launches
+        it; ``out`` reuses (o, lse, ext)."""
+        torch = self.torch
+        from paddle_tpu_torch.ops import flashmask as fm
+        bh, sq, d = q.shape
+        h, mh = fm._check_mask("ab", q, k, sr, er)
+        if out is None:
+            nk = -(-k.shape[1] // self.lib.flashmask_block_k())
+            out = (torch.empty_like(q),
+                   torch.empty((bh, sq), dtype=torch.float32,
+                               device=q.device),
+                   torch.empty(sr.shape[0] * sr.shape[1] * nk * 2,
+                               dtype=torch.int32, device=q.device))
+        o, lse, ext = out
+        rc = self.lib.flashmask_fwd_launch(
+            fm._DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), sr.data_ptr(), er.data_ptr(), ext.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, h, mh, sq, k.shape[1], d,
+            float(scale), int(bool(causal)),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fwd launch failed: CUDA error {rc}")
+        return out
 
     def bwd(self, mode, q, k, v, o, lse, do, sr, er, scale, causal):
         prep = self.prep(mode, q, k, o, do, sr, er)
@@ -223,9 +272,69 @@ def sdpa_bwd_ms(torch, Fn, dev_ms, shape, q, k, v, do, sr, er, causal,
     return dev_ms(fb, iters=iters) - fwd
 
 
+def fwd_row(torch, Fn, cs, fm, runs, parts_of, order, name, shape, q, k, v,
+            sr, er, causal, pairs, iters):
+    """The forward of every variant at one case: held to the plain version
+    with the smoke's gates, then timed by device time in turns beside
+    masked SDPA's forward. Returns the case's record and prints a line."""
+    b, h, s, d = shape
+    scale = 1.0 / math.sqrt(d)
+    ro, rlse = fm.flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
+    row = {"case": name, "mode": "flashmask_fwd", "visible_pairs": pairs,
+           "variants": {}}
+    for n, run in runs.items():
+        o, lse, _ = run.fwd(q, k, v, sr, er, scale, causal)
+        torch.cuda.synchronize()
+        err, ratio = cs.bf16_agreement(o, ro, cs.FM_O_ATOL)
+        lse_err = float((lse - rlse).abs().max())
+        cs.check(ratio <= 1.0 and lse_err <= cs.LSE_ATOL,
+                 f"{n} {name} fwd: o max abs err {err} ({ratio:.2f}x its "
+                 f"allowance), lse err {lse_err}")
+        if name.startswith("dead_rows"):
+            cs.check(not bool(o[:, :64].any()) and
+                     bool((lse[:, :64] == cs.NEG_INF_F).all()),
+                     f"{n} {name} fwd: a row that sees nothing is not 0 / "
+                     "-1e30")
+        p = parts_of[n].fwd(1)
+        row["variants"][n] = {
+            "route": "tensor-core" if p else "cuda-core", "parts": p,
+            "max_abs_err": err, "worst_err_over_allowed": ratio,
+            "lse_err": lse_err, "fwd_turns": []}
+        del o, lse
+    for n in order:
+        out = runs[n].fwd(q, k, v, sr, er, scale, causal)
+        row["variants"][n]["fwd_turns"].append(cs.device_time_ms(
+            lambda: runs[n].fwd(q, k, v, sr, er, scale, causal, out),
+            iters))
+        del out
+    q4, k4, v4 = (x.view(b, h, s, d) for x in (q, k, v))
+    rowi = torch.arange(s, device="cuda")[:, None]
+    keep = ~((rowi >= sr[:, :, None, :]) & (rowi < er[:, :, None, :]))
+    if causal:
+        keep &= rowi >= torch.arange(s, device="cuda")[None, :]
+    if sr.shape[1] not in (1, h):
+        keep = keep.repeat_interleave(h // sr.shape[1], dim=1)
+    row["sdpa_fwd_device_ms"] = cs.device_time_ms(
+        lambda: Fn.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
+                                                scale=scale), iters)
+    line = [f"{name} fwd:"]
+    for n, rv in row["variants"].items():
+        rv["fwd_ms"] = sum(rv["fwd_turns"]) / 2
+        rv["fwd_tflops"] = (1 + max(rv["parts"], 1)) * 2 * d * pairs \
+            / rv["fwd_ms"] / 1e9
+        line.append(f"{n} [{rv['route']}, {rv['parts']} parts] "
+                    f"{rv['fwd_ms']:.4f} ms ({rv['fwd_tflops']:.1f} TFLOP/s "
+                    f"executed; worst {rv['worst_err_over_allowed']:.3f});")
+    line.append(f"masked sdpa fwd {row['sdpa_fwd_device_ms']:.4f} ms")
+    print(" ".join(line), flush=True)
+    del ro, rlse, keep
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -273,6 +382,15 @@ def main():
             refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
             extras = cs.flash_grad_rounding(torch, fa, q, k, v, ro, rlse, do,
                                             scale, causal)
+        iters = 5 if s > 4096 else 20
+        if mode == fm.MODE_FLASHMASK and args.only != "bwd":
+            results.append(fwd_row(torch, Fn, cs, fm, runs, parts_of, order,
+                                   name, shape, q, k, v, sr, er, causal,
+                                   pairs, iters))
+        if args.only == "fwd":
+            del q, k, v, do
+            torch.cuda.empty_cache()
+            continue
         row = {"case": name, "mode": "flashmask" if mode == 0 else "twopass",
                "visible_pairs": pairs, "variants": {}}
         for n, run in runs.items():
@@ -297,7 +415,6 @@ def main():
                 "worst_without_flips": bare, "dq_turns": [],
                 "dkv_turns": []}
             del grads
-        iters = 5 if s > 4096 else 20
         for n in order:
             run = runs[n]
             prep = run.prep(mode, q, k, ro, do, sr, er)
