@@ -86,14 +86,17 @@ Phases (any failure exits non-zero and prints no result line):
      one-ulp flips of rounded p and ds allowed, as in phase 5), 24 calls
      counted, timed beside the fused backward and SDPA's, with its route
      and executed TFLOP/s;
- 16. the legacy paged decode kernel against its plain version (bf16, and
-     f32 for one case): serve_bench's ragged-leg shape (B=8, BS=64,
-     lens 1-448), the serving cache (BS=16, 257 blocks), MHA 16/16, and
-     rows at ctx 0 and past the table's capacity with -1 ids past the
-     last used block; then 64 decode steps x 24 layers of
-     ``incubate.nn.functional.block_multihead_attention`` at B=8 over
-     the serving cache (exactly 24 launches per step, the last step's
-     outputs and the caches against a plain-route run), timed beside
+ 16. the legacy paged decode kernel against its plain version and its
+     split arithmetic at the plan's splits (bf16, and f32 for one case):
+     serve_bench's ragged-leg shape (B=8, BS=64, lens 1-448), the
+     serving cache (BS=16, 257 blocks), MHA 16/16, rows at ctx 0 and
+     past the table's capacity with -1 ids past the last used block,
+     pages of 128 keys and MQA 16/1; each with its plan, two bit-equal
+     calls and device times beside SDPA's; then 64 decode steps x 24
+     layers of ``incubate.nn.functional.block_multihead_attention`` at
+     B=8 over the serving cache (exactly 24 launches per step, the last
+     step's outputs and the caches against a plain-route run, the
+     kernel's device ms per step), timed beside
      ``ragged_paged_attention`` on the same caches (serve_bench's legacy
      A/B tolerance, 2e-2);
  17. the int8 weight-only GEMM against its plain version at the serving
@@ -2059,7 +2062,73 @@ def decode_cases():
         ("d_ctx0_and_capacity", MAX_BATCH, H, KVH, BS, NUM_BLOCKS, maxnb,
          np.array([0, SMAX, SMAX + 88, 33, 1, 250, BS, BS + 1], np.int32),
          "bfloat16", True),
+        ("e_block_size_128", MAX_BATCH, H, KVH, 128,
+         MAX_BATCH * (SMAX // 128) + 1, SMAX // 128, lens_b, "bfloat16",
+         False),
+        ("f_mqa_16_1", MAX_BATCH, H, 1, BS, NUM_BLOCKS, maxnb, lens_b,
+         "bfloat16", False),
     ]
+
+
+def decode_case_tensors(torch):
+    """Phase 16's kernel cases on the card, one at a time: (case row of
+    ``decode_cases``, q, k cache, v cache, int32 tables and lengths)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rng = np.random.default_rng(160)
+    for case in decode_cases():
+        (name, b, h, kvh, bs, nb, max_nb, lens, dt, free_tail) = case
+        dtype = getattr(torch, dt)
+        kc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
+            dtype)
+        vc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
+            dtype)
+        q = torch.randn(b, h, D, device="cuda", generator=gen).to(dtype)
+        tables = decode_tables(rng, b, max_nb, nb, lens, bs, free_tail)
+        yield (case, q, kc, vc, torch.as_tensor(tables).cuda(),
+               torch.as_tensor(lens).cuda())
+
+
+def decode_step_caches(torch):
+    """Phase 16's serving cache as the decode-op run leaves it after
+    ``DECODE_STEPS`` steps (case (b)'s tables, the lengths after the last
+    append), random bf16 contents and one layer's q: (q, k cache, v cache,
+    tables, lengths) on the card."""
+    (_, b, h, kvh, bs, nb, max_nb, lens0, _, _) = decode_cases()[2]
+    rng = np.random.default_rng(161)
+    tables = decode_tables(rng, b, max_nb, nb, lens0, bs)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(161)
+    kc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).bfloat16()
+    vc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).bfloat16()
+    q = torch.randn(b, h, D, device="cuda", generator=gen).bfloat16()
+    return (q, kc, vc, torch.as_tensor(tables).cuda(),
+            torch.as_tensor(lens0 + DECODE_STEPS).cuda())
+
+
+def decode_sdpa_inputs(torch, q, kc, vc, tables, lens):
+    """SDPA's operands for a decode call: the KV of the table's blocks
+    (ids clamped) gathered into a dense context, heads repeated for GQA,
+    the mask pos < ctx (timed only; the port never calls SDPA)."""
+    b, h, _ = q.shape
+    kvh, nb, bs, _ = kc.shape
+    tl = tables.long().clamp(0, nb - 1)
+    span = tables.shape[1] * bs
+    kg = kc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
+    vg = vc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
+    kg = kg.repeat_interleave(h // kvh, 1).contiguous()
+    vg = vg.repeat_interleave(h // kvh, 1).contiguous()
+    mask = (torch.arange(span, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    return q[:, :, None], kg, vg, mask
+
+
+def decode_plan_text(plan):
+    """A decode kernel plan (``paged_attention.decode_plan``) as one short
+    field."""
+    return (f"plan S {plan['splits']} x {plan['pages_per_split']} pages, "
+            f"blocks {plan['blocks']}, workspace "
+            f"{plan['workspace_bytes']} B")
 
 
 def decode_work(lens, bs, max_nb, b, h, kvh, itemsize):
@@ -2075,29 +2144,24 @@ def decode_work(lens, bs, max_nb, b, h, kvh, itemsize):
 
 
 def phase_paged_decode(torch):
-    """Phase 16: the legacy decode kernel against its plain version, then
-    the fused op at full width. Returns (kernel rows, op stats)."""
+    """Phase 16: the legacy decode kernel against its plain version and
+    its split arithmetic at the plan's splits, then the fused op at full
+    width. Returns (kernel rows, op stats)."""
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import paged_attention as pa
     rows = []
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(16)
-    rng = np.random.default_rng(160)
-    for (name, b, h, kvh, bs, nb, max_nb, lens, dt, free_tail) in \
-            decode_cases():
-        dtype = getattr(torch, dt)
-        kc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
-            dtype)
-        vc = torch.randn(kvh, nb, bs, D, device="cuda", generator=gen).to(
-            dtype)
-        q = torch.randn(b, h, D, device="cuda", generator=gen).to(dtype)
-        tables = decode_tables(rng, b, max_nb, nb, lens, bs, free_tail)
-        tab_d = torch.as_tensor(tables).cuda()
-        lens_d = torch.as_tensor(lens).cuda()
+    for case, q, kc, vc, tab_d, lens_d in decode_case_tensors(torch):
+        (name, b, h, kvh, bs, _, max_nb, lens, _, _) = case
+        plan = pa.decode_plan(b, h, kvh, max_nb, bs, D, q.dtype)
         out = pa.paged_attention(q, kc, vc, tab_d, lens_d)
+        again = pa.paged_attention(q, kc, vc, tab_d, lens_d)
         ref = pa.paged_attention_plain(q, kc, vc, tab_d, lens_d)
+        split_ref = pa.paged_attention_split_plain(
+            q, kc, vc, tab_d, lens_d, plan["splits"],
+            plan["pages_per_split"])
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"decode {name}: non-finite")
+        check(torch.equal(out, again), f"decode {name}: two calls differ")
         zero = lens == 0
         check(not zero.any() or float(out[torch.as_tensor(zero).cuda()]
                                       .float().abs().max()) == 0.0,
@@ -2105,6 +2169,11 @@ def phase_paged_decode(torch):
         err, ratio = ulp_agreement(out, ref, DECODE_ATOL)
         check(ratio <= 1.0, f"decode {name}: max abs err {err}, an element "
               f"off by {ratio:.2f}x its allowance")
+        s_err, s_ratio = ulp_agreement(out, split_ref, DECODE_ATOL)
+        check(s_ratio <= 1.0, f"decode {name}: max abs err {s_err} against "
+              f"the split arithmetic, {s_ratio:.2f}x its allowance")
+        check(name != "b_serving_cache" or plan["splits"] > 1,
+              f"decode {name}: plan {plan} does not split")
         ms = time_ms(lambda: pa.paged_attention(q, kc, vc, tab_d, lens_d))
         plain_ms = time_ms(lambda: pa.paged_attention_plain(
             q, kc, vc, tab_d, lens_d), iters=10)
@@ -2113,36 +2182,39 @@ def phase_paged_decode(torch):
         b_ms, b_by = bound(nbytes, flops)
         # library yardstick: SDPA over the gathered dense context with the
         # ctx mask (timed only; the port never calls it)
-        tl = torch.as_tensor(tables, dtype=torch.long).cuda().clamp(0, nb - 1)
-        span = max_nb * bs
-        kg = kc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
-        vg = vc[:, tl].reshape(kvh, b, span, D).transpose(0, 1)
-        kg = kg.repeat_interleave(h // kvh, 1).contiguous()
-        vg = vg.repeat_interleave(h // kvh, 1).contiguous()
-        mask = (torch.arange(span, device="cuda")[None, :]
-                < lens_d[:, None])[:, None, None, :]
-        q4 = q[:, :, None]
+        q4, kg, vg, mask = decode_sdpa_inputs(torch, q, kc, vc, tab_d,
+                                              lens_d)
         lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask))
-        del kg, vg
+        dev_ms = device_time_ms(lambda: pa.paged_attention(q, kc, vc, tab_d,
+                                                           lens_d))
+        lib_dev = device_time_ms(lambda: Fn.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask))
+        del q4, kg, vg, mask
         rows.append(dict(case=name, max_abs_err=err, atol=DECODE_ATOL,
-                         worst_err_over_allowed=ratio, ms=ms,
+                         worst_err_over_allowed=ratio,
+                         split_plain_err=s_err,
+                         split_plain_worst_over_allowed=s_ratio, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev,
+                         device_ratio_to_library=dev_ms / lib_dev,
+                         repeat_bit_equal=True, plan=plan))
         print(f"  paged_decode_attention[{name}]: err {err:.3e} (worst "
-              f"{ratio:.3f} of atol {DECODE_ATOL:g} + 1 ulp) kernel "
+              f"{ratio:.3f} of atol {DECODE_ATOL:g} + 1 ulp; split "
+              f"arithmetic {s_ratio:.3f}; two calls bit-equal) kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
-              f"({b_by}) sdpa {lib_ms:.4f} ms", flush=True)
+              f"({b_by}) sdpa {lib_ms:.4f} ms; {decode_plan_text(plan)}; "
+              f"device ms: kernel {dev_ms:.4f} sdpa {lib_dev:.4f} "
+              f"({dev_ms / lib_dev:.2f}x)", flush=True)
     torch.cuda.empty_cache()
     return rows, decode_op_run(torch, pa)
 
 
-def decode_op_run(torch, pa):
-    """64 decode steps x 24 layers of block_multihead_attention at B=8 over
-    the serving cache (case (b)'s tables and starting lengths; rows that
-    reach the table's capacity have their writes dropped and still
-    attend), against a plain-route run and the ragged kernel."""
-    from paddle_tpu_torch.incubate.nn import functional as TF
+def decode_op_inputs(torch):
+    """The decode-op run's inputs: case (b)'s tables (host int32) and
+    starting lengths, 24 layers of bf16 serving caches on the card and
+    [DECODE_STEPS, L, B, 3, H, D] qkv, all from seed 161."""
     (_, b, h, kvh, bs, nb, max_nb, lens0, _, _) = decode_cases()[2]
     rng = np.random.default_rng(161)
     tables = decode_tables(rng, b, max_nb, nb, lens0, bs)
@@ -2152,18 +2224,36 @@ def decode_op_run(torch, pa):
                            generator=gen).bfloat16(),
                torch.randn(kvh, nb, bs, D, device="cuda",
                            generator=gen).bfloat16()) for _ in range(L)]
-    start = [(k.clone(), v.clone()) for k, v in caches]
     qkv = torch.randn(DECODE_STEPS, L, b, 3, h, D, device="cuda",
                       generator=gen).bfloat16()
+    return tables, lens0, caches, qkv
+
+
+def decode_op_steps(caches, qkv, tables, lens0, steps=DECODE_STEPS):
+    """``steps`` decode steps x L layers of block_multihead_attention
+    (each appends its token in place); the last step's outputs."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    outs = None
+    for step in range(steps):
+        lens = lens0 + step
+        outs = [TF.block_multihead_attention(qkv[step, li], *caches[li],
+                                             tables, lens)[0]
+                for li in range(len(caches))]
+    return outs
+
+
+def decode_op_run(torch, pa):
+    """64 decode steps x 24 layers of block_multihead_attention at B=8 over
+    the serving cache (case (b)'s tables and starting lengths; rows that
+    reach the table's capacity have their writes dropped and still
+    attend), against a plain-route run and the ragged kernel."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    tables, lens0, caches, qkv = decode_op_inputs(torch)
+    b = len(lens0)
+    start = [(k.clone(), v.clone()) for k, v in caches]
 
     def run(cs, steps=DECODE_STEPS):
-        outs = None
-        for step in range(steps):
-            lens = lens0 + step
-            outs = [TF.block_multihead_attention(qkv[step, li], *cs[li],
-                                                 tables, lens)[0]
-                    for li in range(L)]
-        return outs
+        return decode_op_steps(cs, qkv, tables, lens0, steps)
 
     TF.block_multihead_attention(qkv[0, 0].clone(), *[c.clone() for c in
                                                       caches[0]],
@@ -2231,6 +2321,12 @@ def decode_op_run(torch, pa):
     n_prof = min(8, DECODE_STEPS)        # the trace's size bounds its cost
     profile = profile_window(torch, lambda: (run(caches, n_prof), n_prof)[1],
                              "decode steps")
+    k7_ms = None
+    if profile.get("device_ms_by_class"):
+        k7_ms = profile["device_ms_by_class"].get(
+            "paged_decode_attention", 0.0) / profile["steps"]
+        print(f"  decode kernel device time: {k7_ms:.4f} ms per decode step "
+              f"({L} launches)", flush=True)
     del caches, start, qkv, outs, refs
     torch.cuda.empty_cache()
     return {"steps": DECODE_STEPS, "launches": k7, "wall_s": wall,
@@ -2238,7 +2334,7 @@ def decode_op_run(torch, pa):
             "plain_route_wall_s": plain_wall, "worst_over_allowed": worst,
             "legacy_vs_ragged_max_diff": ab, "legacy_ms": legacy_ms,
             "legacy_ms_again": legacy_ms2, "ragged_ms": ragged_ms,
-            "profile": profile}
+            "profile": profile, "k7_device_ms_per_step": k7_ms}
 
 
 # -- phase 17: int8 serving ---------------------------------------------------

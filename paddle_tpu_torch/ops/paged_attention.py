@@ -26,8 +26,12 @@ Device part:
   directly; the work list keeps its host role.
 * ``paged_attention``: the legacy one-token decode attention behind
   ``block_multihead_attention``, the CUDA kernel
-  (``csrc/paged_decode_attention.cu``) for a CUDA tensor and the plain
+  (``csrc/paged_decode_attention.cu``) for a CUDA tensor, with the plan
+  of ``decode_plan`` (page splits and workspace, from shapes alone; the
+  split rule ``split_pages`` is the ragged kernel's), and the plain
   ``paged_attention_plain`` for a CPU tensor.
+  ``paged_attention_split_plain`` is the kernel's split-and-combine
+  arithmetic in plain PyTorch.
 """
 import ctypes
 import functools
@@ -543,6 +547,23 @@ PLAN_KEYS = ("route", "splits", "pages_per_split", "tiles", "blocks",
              "workspace_bytes")
 
 
+def split_pages(unsplit, max_nb, sms):
+    """(splits S, pages per split P) of a page walk of ``max_nb`` pages
+    whose unsplit grid has ``unsplit`` blocks, on a card of ``sms`` SMs:
+    one split (P = max_nb) when the unsplit grid already covers the SMs
+    ``SPLIT_WAVES`` times; else P is the largest power of two that lets
+    the grid reach that many waves, at least ceil(max_nb / MAX_SPLITS),
+    and S = ceil(max_nb / P). The rule of both paged-attention plans."""
+    max_nb = max(int(max_nb), 1)
+    target = SPLIT_WAVES * int(sms)
+    pps = max_nb
+    if 0 < unsplit < target:
+        fit = max(1, max_nb // -(-target // unsplit))
+        pps = 1 << (fit.bit_length() - 1)
+    pps = max(pps, -(-max_nb // MAX_SPLITS))
+    return -(-max_nb // pps), pps
+
+
 def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
                 sms=None):
     """The kernel's launch plan for q [B, C, H, D] against caches of block
@@ -552,10 +573,8 @@ def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
 
     * ``tiles``: row tiles of 64 per (kv head, sequence): ceil(C*G / 64);
     * ``splits`` S and ``pages_per_split`` P: the page walk cut into S
-      pieces of P pages. One split (P = max_nb) when the unsplit grid
-      (B x KVH x tiles blocks) already covers the SMs twice; else P is the
-      largest power of two that lets the grid reach two waves (at least
-      ceil(max_nb / 32): 32 splits at most), and S = ceil(max_nb / P);
+      pieces of P pages by ``split_pages`` over the unsplit grid of
+      B x KVH x tiles blocks (two waves, 32 splits at most);
     * ``blocks``: S x B x KVH x tiles;
     * ``workspace_bytes``: the f32 partials of a split plan, S x B x KVH x
       tiles x min(64, C*G) x (D + 2) x 4 (0 at one split);
@@ -570,14 +589,7 @@ def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
     span = c * g
     tiles = -(-span // ROW_TILE)
     unsplit = b * kvh * tiles
-    max_nb = max(int(max_nb), 1)
-    target = SPLIT_WAVES * int(sms)
-    pps = max_nb
-    if 0 < unsplit < target:
-        fit = max(1, max_nb // -(-target // unsplit))
-        pps = 1 << (fit.bit_length() - 1)
-    pps = max(pps, -(-max_nb // MAX_SPLITS))
-    splits = -(-max_nb // pps)
+    splits, pps = split_pages(unsplit, max_nb, sms)
     route = "mma" if dtype in (torch.bfloat16, torch.float16) \
         and span >= MMA_MIN_ROWS else "decode"
     ws = splits * unsplit * min(ROW_TILE, span) * (d + 2) * 4 \
@@ -831,6 +843,50 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens,
     return (acc / l).reshape(b, h, d).to(q.dtype)
 
 
+DECODE_PLAN_KEYS = ("splits", "pages_per_split", "blocks", "workspace_bytes")
+
+
+def decode_plan(b, h, kvh, max_nb, bs, d, dtype=torch.bfloat16, sms=None):
+    """The decode kernel's launch plan for q [B, H, D] against caches of
+    block size ``bs`` and tables of ``max_nb`` columns, from shapes alone
+    (never from the lengths on the device, so a CUDA graph could capture
+    the call). ``sms`` is the card's SM count (default: the current
+    card's).
+
+    * ``splits`` S and ``pages_per_split`` P: ``split_pages`` over the
+      unsplit grid of B x KVH blocks, the ragged kernel's rule (B=8,
+      KVH=8, 32 pages: 8 splits of 4 pages);
+    * ``blocks``: S x B x KVH;
+    * ``workspace_bytes``: the f32 partials of a split plan,
+      S x B x H x (D + 2) x 4 (0 at one split).
+
+    The block size and dtype do not enter the rule: the kernel streams a
+    page in chunks whose shared memory does not grow with either."""
+    if sms is None:
+        sms = _sms(torch.device("cuda", torch.cuda.current_device()))
+    unsplit = b * kvh
+    splits, pps = split_pages(unsplit, max_nb, sms)
+    ws = splits * b * h * (d + 2) * 4 if splits > 1 else 0
+    return dict(zip(DECODE_PLAN_KEYS, (splits, pps, splits * unsplit, ws)))
+
+
+def paged_attention_split_plain(q, k_cache, v_cache, block_tables,
+                                context_lens, splits, pages_per_split,
+                                scale=None):
+    """The decode kernel's split-and-combine arithmetic in plain PyTorch,
+    on any device: split s attends over pages [s*P, (s+1)*P) of each
+    sequence's walk and leaves a partial (m, l, acc) per query row,
+    scores in log2 units (an empty split: m = -1e30, l = 0, acc = 0); the
+    partials are summed in split order 0 .. S-1 with weights
+    2^(m_s - max m), and acc / l (l == 0 read as one) is the output.
+    One query per sequence sees the positions below its ctx: the ragged
+    kernel's decode rows, so this is ``ragged_split_plain`` with one
+    query a sequence. Shapes as in ``paged_attention``."""
+    return ragged_split_plain(q, k_cache, v_cache, block_tables,
+                              context_lens, splits, pages_per_split,
+                              scale=scale)
+
+
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                     scale=None):
     """Decode-step attention over a paged KV cache.
@@ -845,8 +901,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     returns       [B, H, D] in q's dtype
 
     A CPU tensor runs ``paged_attention_plain``. A CUDA tensor launches
-    the kernel of ``csrc/paged_decode_attention.cu`` (and counts the
-    launch in ``paged_attention.launches``) or raises."""
+    the kernel of ``csrc/paged_decode_attention.cu`` once, with the plan
+    of ``decode_plan`` (counted in ``paged_attention.launches``), or
+    raises. A split plan takes its f32 workspace from ``torch.empty`` and
+    its counters from the zeroed buffer kept per card and stream, which
+    the kernel leaves zeroed. Nothing here reads the lengths back to the
+    host."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_cache, v_cache, block_tables,
                                      context_lens, scale=scale)
@@ -871,9 +931,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"paged_attention: head dim {d} not in "
                          "(32, 64, 128)")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device or not t.is_contiguous():
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"paged_attention: {name} must be a contiguous "
-                             f"tensor on {q.device}")
+                             f"16-byte aligned tensor on {q.device}")
     tables = _on_device(block_tables, q.device, torch.int32)
     lens = _on_device(context_lens, q.device, torch.int32).reshape(-1)
     if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1 \
@@ -889,10 +950,20 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                          f"kernel's {max_bs}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    plan = decode_plan(b, h, kvh, tables.shape[1], bs, d, q.dtype,
+                       _sms(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if plan["splits"] > 1:
+        ws = torch.empty(plan["workspace_bytes"] // 4, dtype=torch.float32,
+                         device=q.device)
+        counters = _counters(q.device, stream, b * kvh)
     rc = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, h, kvh, nb, bs, tables.shape[1], d,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            b, h, kvh, nb, bs, tables.shape[1], d, plan["splits"],
+            plan["pages_per_split"], float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -912,6 +983,6 @@ def _decode_launcher():
     lib = _build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     return fn, int(lib.paged_decode_attention_max_block_size())

@@ -375,11 +375,13 @@ def _decode_case(b, h, kvh, d, bs, nb, max_nb, lens, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4])
-@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 12, 16])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
 def test_paged_decode_kernel_matches_plain(dtype, d, g, bs):
     """ctx 0 (exact zeros), 1, a block boundary, the table's capacity and
-    past it, with -1 table entries past each row's last used block."""
+    past it, with -1 table entries past each row's last used block; pages
+    of 16 to 128 keys (one to several chunks a page), row groups of 1, 2,
+    4 (with an idle row at G = 3) and several groups a kv head."""
     from paddle_tpu_torch.ops import paged_attention as pa
     kvh, max_nb = 4, 5
     cap = max_nb * bs
@@ -396,6 +398,97 @@ def test_paged_decode_kernel_matches_plain(dtype, d, g, bs):
     assert float(out[0].float().abs().max()) == 0.0
     err = float((out.float() - ref.float()).abs().max())
     assert err <= _tol(ref, dtype), err
+
+
+def _forced_plan(monkeypatch, pa, splits):
+    """Route ``paged_attention`` through a plan of ``splits`` splits
+    ("maxnb": one page a split) in place of ``decode_plan``'s; returns
+    the pages per split as a function of the table width."""
+    def pps(max_nb):
+        s = max_nb if splits == "maxnb" else splits
+        return -(-max_nb // s)
+
+    def forced(b, h, kvh, max_nb, bs, d, dtype=None, sms=None):
+        p = pps(max_nb)
+        s = -(-max_nb // p)
+        return {"splits": s, "pages_per_split": p, "blocks": s * b * kvh,
+                "workspace_bytes": s * b * h * (d + 2) * 4 if s > 1 else 0}
+
+    monkeypatch.setattr(pa, "decode_plan", forced)
+    return pps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, "maxnb"])
+@pytest.mark.parametrize("g,bs", [(2, 16), (1, 128), (16, 64), (5, 32)])
+def test_paged_decode_kernel_forced_plans_match_split_plain(
+        monkeypatch, dtype, splits, g, bs):
+    """One split (the direct write), two, and one page a split (the most
+    partials), each against the split arithmetic at the same S and P."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    kvh, max_nb = 2, 6
+    cap = max_nb * bs
+    lens = [0, 1, bs, cap, cap + 9, 3 * bs + 5, 2 * bs - 1]
+    q, kc, vc, tables, lens = _decode_case(len(lens), kvh * g, kvh, 64, bs,
+                                           50, max_nb, lens, dtype, g + bs)
+    pps = _forced_plan(monkeypatch, pa, splits)(max_nb)
+    out = pa.paged_attention(q, kc, vc, tables, lens)
+    ref = pa.paged_attention_split_plain(q, kc, vc, tables, lens,
+                                         -(-max_nb // pps), pps)
+    torch.cuda.synchronize()
+    assert float(out[0].float().abs().max()) == 0.0
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= _tol(ref, dtype), err
+
+
+@pytest.mark.parametrize("h,kvh,bs", [(16, 8, 16), (16, 1, 16),
+                                      (16, 8, 128)])
+def test_paged_decode_kernel_is_deterministic(h, kvh, bs):
+    """The split partials are summed in split order: two calls are
+    bit-equal."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    lens = [64, 130, 0, 200, 5, 512, 77, 300]
+    q, kc, vc, tables, lens = _decode_case(8, h, kvh, 64, bs, 8 * 512 // bs
+                                           + 1, 512 // bs, lens,
+                                           torch.bfloat16, 41)
+    assert pa.decode_plan(8, h, kvh, 512 // bs, bs, 64)["splits"] > 1
+    a = pa.paged_attention(q, kc, vc, tables, lens)
+    b = pa.paged_attention(q, kc, vc, tables, lens)
+    assert torch.equal(a, b)
+
+
+def test_paged_decode_kernel_on_a_side_stream_leaves_its_counters_zero():
+    """A split launch on a non-default stream takes that stream's
+    counters and leaves them zeroed; its output matches the plain
+    version."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    lens = [300, 1, 0, 512, 17, 64, 200, 511]
+    q, kc, vc, tables, lens = _decode_case(8, 16, 8, 64, 16, 257, 32, lens,
+                                           torch.bfloat16, 42)
+    ref = pa.paged_attention_plain(q, kc, vc, tables, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = [pa.paged_attention(q, kc, vc, tables, lens)
+                for _ in range(3)]
+    side.synchronize()
+    buf = pa._COUNTERS[(q.device.index, side.cuda_stream)]
+    assert not buf.any()
+    for out in outs:
+        assert torch.equal(out, outs[0])
+    err = float((outs[0].float() - ref.float()).abs().max())
+    assert err <= _tol(ref, torch.bfloat16), err
+
+
+def test_paged_decode_wrapper_refuses_an_unaligned_cache():
+    from paddle_tpu_torch.ops import paged_attention as pa
+    flat = torch.zeros(2 * 4 * 16 * 64 + 4, dtype=torch.bfloat16,
+                       device="cuda")
+    kc = flat[4:].view(2, 4, 16, 64)                    # 8 bytes off 16
+    q = torch.zeros(2, 4, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pa.paged_attention(q, kc, kc, np.zeros((2, 1), np.int32),
+                           np.ones(2, np.int32))
 
 
 def test_block_multihead_attention_kernel_route_matches_plain_route():

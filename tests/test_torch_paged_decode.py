@@ -8,10 +8,17 @@ ops around it, held against the JAX package on the CPU.
   block, an explicit scale. f32 within ATOL = 2e-5 (the same f32 products
   and online-softmax steps, summed in another order); bf16 within one bf16
   ulp of the largest output (both sides compute in f32 and round once).
+* ``decode_plan``: the decode kernel's split plan from shapes alone, its
+  invariants over a grid of shapes and its values at the smoke's shapes.
+* ``paged_attention_split_plain`` (the kernel's split-and-combine
+  arithmetic) at 1, 2, 3 and MAXNB splits against the Pallas
+  ``paged_attention`` in interpret mode, on the same edge rows and
+  tolerances as the plain version.
 * ``block_multihead_attention``: output and both caches against JAX, MHA
   and GQA, one row at capacity (its write dropped) and one at ctx 0.
 * ``block_kv_cache_rewind``, ``blha_get_max_len`` and
   ``masked_multihead_attention`` against JAX.
+* ``tools/paged_decode_kernel_ab.py`` refuses to run without a card.
 """
 import numpy as np
 import pytest
@@ -116,6 +123,103 @@ class TestPlainAgainstPallas:
         assert tpa.paged_attention.launches == before
         with pytest.raises(ValueError, match="unsupported device"):
             tpa.paged_attention(t[0].to("meta"), *t[1:], *args[3:])
+
+
+def _plan(b, h=16, kvh=8, max_nb=32, bs=16, d=64, sms=132):
+    return tpa.decode_plan(b, h, kvh, max_nb, bs, d, torch.bfloat16, sms=sms)
+
+
+class TestDecodePlan:
+    """``decode_plan`` decides the kernel's grid from shapes alone."""
+
+    @pytest.mark.parametrize("b,h,kvh,max_nb,bs,want", [
+        # phase 16: the serving cache (B=8, H=16, KVH=8, 32 pages of 16),
+        # serve_bench's 7 pages of 64, MHA 16/16, 4 pages of 128, MQA 16/1
+        (8, 16, 8, 32, 16, (8, 4, 512, 8 * 8 * 16 * 66 * 4)),
+        (8, 16, 8, 7, 64, (7, 1, 448, 7 * 8 * 16 * 66 * 4)),
+        (8, 16, 16, 32, 16, (4, 8, 512, 4 * 8 * 16 * 66 * 4)),
+        (8, 16, 8, 4, 128, (4, 1, 256, 4 * 8 * 16 * 66 * 4)),
+        (8, 16, 1, 32, 16, (32, 1, 256, 32 * 8 * 16 * 66 * 4)),
+        (64, 16, 8, 32, 16, (1, 32, 512, 0)),
+    ])
+    def test_pinned_at_the_smoke_shapes(self, b, h, kvh, max_nb, bs, want):
+        got = _plan(b, h, kvh, max_nb, bs)
+        assert tuple(got[k] for k in tpa.DECODE_PLAN_KEYS) == want, got
+
+    @pytest.mark.parametrize("b", [1, 3, 8, 17, 64, 300])
+    @pytest.mark.parametrize("h,kvh", [(16, 8), (16, 16), (16, 1), (12, 3)])
+    @pytest.mark.parametrize("max_nb", [1, 5, 7, 32, 100])
+    @pytest.mark.parametrize("sms", [132, 7])
+    def test_invariants(self, b, h, kvh, max_nb, sms):
+        p = _plan(b, h, kvh, max_nb, sms=sms)
+        s, pps = p["splits"], p["pages_per_split"]
+        unsplit = b * kvh
+        assert s * pps >= max_nb and (s - 1) * pps < max_nb   # no idle split
+        assert 1 <= s <= tpa.MAX_SPLITS and p["blocks"] == s * unsplit
+        # one split when the unsplit grid already covers the SMs twice
+        assert (s == 1) == (unsplit >= tpa.SPLIT_WAVES * sms or max_nb == 1)
+        # else the grid reaches two waves, unless the splits ran out
+        assert p["blocks"] >= tpa.SPLIT_WAVES * sms or s == 1 \
+            or pps == max(1, -(-max_nb // tpa.MAX_SPLITS))
+        assert p["workspace_bytes"] == (s * b * h * (64 + 2) * 4
+                                        if s > 1 else 0)
+        # the rule is the ragged kernel's over the same unsplit grid, and
+        # neither the block size nor the dtype enters it
+        assert (s, pps) == tpa.split_pages(unsplit, max_nb, sms)
+        assert tpa.decode_plan(b, h, kvh, max_nb, 128, 64, torch.float32,
+                               sms=sms) == p
+
+
+class TestSplitPlainAgainstPallas:
+    """The kernel's split arithmetic: partials per split in log2 units,
+    summed in split order, against the Pallas kernel on the edge rows."""
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, "maxnb"])
+    @pytest.mark.parametrize("bs", [16, 64])
+    @pytest.mark.parametrize("h,kvh", [(4, 4), (8, 4), (8, 2)],
+                             ids=["g1", "g2", "g4"])
+    def test_f32_edge_lengths(self, h, kvh, bs, splits):
+        max_nb = 3
+        cap = max_nb * bs
+        lens = [0, 1, bs, cap, cap + 5, bs + 3]
+        args = _case(h + bs + 1, len(lens), h, kvh, 16, bs, 24, max_nb, lens)
+        s = max_nb if splits == "maxnb" else splits
+        t = [torch.from_numpy(a) for a in args[:3]]
+        got = tpa.paged_attention_split_plain(*t, *args[3:], s,
+                                              -(-max_nb // s))
+        assert got.dtype == torch.float32 and got.shape == (len(lens), h, 16)
+        np.testing.assert_allclose(got.numpy(), _jax(*args), rtol=0,
+                                   atol=ATOL)
+        assert float(got[0].abs().max()) == 0.0     # ctx 0: exact zeros
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 4])
+    def test_bf16(self, splits):
+        args = _case(4, 4, 8, 4, 16, 16, 20, 4, [0, 17, 64, 40])
+        t = [torch.from_numpy(a).to(torch.bfloat16) for a in args[:3]]
+        got = tpa.paged_attention_split_plain(*t, *args[3:], splits,
+                                              -(-4 // splits))
+        ref = _jax(*args, dtype=jnp.bfloat16)
+        assert got.dtype == torch.bfloat16
+        tol = 2.0 ** -8 * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                                   atol=tol)
+
+
+def test_paged_decode_kernel_ab_refuses_without_a_card():
+    """``tools/paged_decode_kernel_ab.py`` measures only on a card:
+    without one it exits 2 and prints no result."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, os.path.join(
+        root, "tools", "paged_decode_kernel_ab.py"), "--variant",
+        "parent=_archive/parent"], capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 2
+    assert "CUDA is not available" in r.stderr and r.stdout == ""
 
 
 def _T(a):

@@ -139,19 +139,8 @@ def cases(torch, cs, pa):
         out.append((name, q, kc, vc, torch.as_tensor(tables).cuda(),
                     torch.as_tensor(lens).cuda(),
                     None if qls is None else torch.as_tensor(qls).cuda()))
-    (_, b, h, kvh, bs, nb, max_nb, lens0, _, _) = cs.decode_cases()[2]
-    rng = np.random.default_rng(161)
-    tables = cs.decode_tables(rng, b, max_nb, nb, lens0, bs)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(161)
-    k16 = torch.randn(kvh, nb, bs, cs.D, device="cuda",
-                      generator=gen).bfloat16()
-    v16 = torch.randn(kvh, nb, bs, cs.D, device="cuda",
-                      generator=gen).bfloat16()
-    q = torch.randn(b, h, cs.D, device="cuda", generator=gen).bfloat16()
-    out.append(("phase16_serving_cache", q, k16, v16,
-                torch.as_tensor(tables).cuda(),
-                torch.as_tensor(lens0 + cs.DECODE_STEPS).cuda(), None))
+    out.append(("phase16_serving_cache", *cs.decode_step_caches(torch),
+                None))
     return out
 
 
