@@ -40,8 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
   7. flagship pretraining (V=32000, E=1024, F=2816, L=24, 16 heads, bf16
      AMP-O2, B=8, S=2048): 2 warm-up and 3 timed steps on fresh seeded
      batches, tokens/s, ms/step, MFU, loss and grad norm, 24 forward and
-     24 backward flash launches per step, then a profiled step (device
-     busy share and time by kernel class);
+     24 backward flash launches per step, the fused tier's launches, then
+     a profiled step (device busy share and time by kernel class) and a
+     step's "other" kernels by source operation;
   8. f32 training parity at full width, L=2: 3 steps through the kernels
      against the plain attention path (loss and grad norm), then the loss
      falls over 10 steps on one repeated batch;
@@ -109,6 +110,24 @@ Phases (any failure exits non-zero and prints no result line):
      int8 and int4 engines at ``LlamaConfig.tiny``'s widths (E=64), whose
      64-wide projections send the whole engine to the dequant route,
      launching no GEMM kernel;
+18. the training step's fused tier against its plain versions: kernel A
+     (RMSNorm with its residual, forward and backward) at the flagship
+     (R = 16384, H = 1024, bf16, with and without a residual), in f32, at
+     H = 1000 on 16383 rows and with fused_rms_norm's f32 output; kernel B
+     (SwiGLU) on the flagship's fused [R, 2 x 2816] projection read in
+     place, the two-tensor form and im = 1000; kernel C (token cross
+     entropy) on the flagship's bf16 logits, in f32, and at V = 32001 with
+     ignored rows and label smoothing 0.1; kernel D (AdamW with the clip)
+     over the flagship's 373.9M parameters. Each case: every element
+     within atol + 2 ulps (AdamW's p, m, v and gnorm within 2 f32 ulps),
+     two calls bit-equal, and the device ms of the kernel, its plain
+     version, its bound and one PyTorch call of the same function where
+     there is one (F.rms_norm after the add, F.cross_entropy, AdamW(fused)
+     after clip_grad_norm_; none for SwiGLU). Phases 7 and 11 assert the
+     tier's launches a step (norm 49 + 49, SwiGLU 24 + 24, token CE 1 + 1
+     in phase 7 and none in phase 11, AdamW 2) and print a step's "other"
+     kernels by source operation; phases 8 and 12 hold the kernels against
+     a reference that also runs the tier's plain versions;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -503,6 +522,32 @@ def reset_counts():
     bc.ce_fwd.launches = bc.ce_bwd_dh.launches = bc.ce_bwd_dw.launches = 0
     fm.flashmask_fwd.launches = 0
     fm.flashmask_bwd.dq_launches = fm.flashmask_bwd.dkv_launches = 0
+    from paddle_tpu_torch.ops import adamw, fused_norm, swiglu, token_ce
+    for fn in (fused_norm.rms_norm_fwd, fused_norm.rms_norm_bwd,
+               swiglu.swiglu_fwd, swiglu.swiglu_bwd, token_ce.token_ce_fwd,
+               token_ce.token_ce_bwd, adamw.adamw_step):
+        fn.launches = 0
+
+
+def read_tier_counts():
+    """(norm fwd, norm bwd, swiglu fwd, swiglu bwd, token CE fwd, token CE
+    bwd, AdamW kernel launches) of the fused tier."""
+    from paddle_tpu_torch.ops import adamw, fused_norm, swiglu, token_ce
+    return (fused_norm.rms_norm_fwd.launches,
+            fused_norm.rms_norm_bwd.launches, swiglu.swiglu_fwd.launches,
+            swiglu.swiglu_bwd.launches, token_ce.token_ce_fwd.launches,
+            token_ce.token_ce_bwd.launches, adamw.adamw_step.launches)
+
+
+def tier_counts_per_step(cfg, fused_loss):
+    """The fused tier's launches a training step of ``cfg``: two norms a
+    layer and the final one, forward and backward; one SwiGLU a layer,
+    forward and backward; the token CE once each way unless the LM-head
+    loss is fused; kernel D's two launches."""
+    n_norm = 2 * cfg.num_hidden_layers + 1
+    n_ce = 0 if fused_loss else 1
+    return (n_norm, n_norm, cfg.num_hidden_layers, cfg.num_hidden_layers,
+            n_ce, n_ce, 2)
 
 
 def read_counts():
@@ -587,6 +632,14 @@ def phase_serve(torch):
 
 def _kernel_class(name):
     n = name.lower()
+    if "rms_norm_" in n:
+        return "fused_norm"
+    if "swiglu_" in n:
+        return "swiglu"
+    if "token_ce_" in n:
+        return "token_ce"
+    if "adamw_" in n and "multi_tensor" not in n:
+        return "adamw"
     if "blockwise_ce" in n:
         return "blockwise_ce"
     if "flashmask" in n:
@@ -649,6 +702,123 @@ def profile_window(torch, work, unit):
         print(f"    top: {us / 1e3:.2f} ms x{cnt} {key[:90]}", flush=True)
     return {"wall_s": wall, "steps": steps, "device_busy_s": busy,
             "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()}}
+
+
+OTHER_HEADS = ("norm", "residual add", "SwiGLU", "CE", "AdamW and clip",
+               "AMP casts", "qkv slices and BSHD<->BHSD copies", "rope",
+               "embedding", "the rest")
+_QKV = "qkv slices and BSHD<->BHSD copies"
+# autograd Functions of the port whose forward leaves no op to match a
+# backward node to: the node's name decides
+_FUNCTION_HEADS = (("FlashAttention", _QKV), ("RmsNorm", "norm"),
+                   ("SwiGLU", "SwiGLU"), ("TokenCrossEntropy", "CE"),
+                   ("BlockwiseCE", "CE"))
+
+
+@contextlib.contextmanager
+def head_annotations(torch):
+    """Wrap the port's modules and functions that own a head of
+    ``OTHER_HEADS`` in ``record_function("head:<head>")`` ranges for the
+    traced run of ``attribute_other``; restores them after."""
+    from paddle_tpu_torch.models import llama, pretrain
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layers import common, norm
+    targets = ((llama.LlamaAttention, "forward", _QKV),
+               (llama.LlamaMLP, "forward", "SwiGLU"),
+               (llama.LlamaDecoderLayer, "forward", "residual add"),
+               (llama.LlamaModel, "forward", "AMP casts"),
+               (llama.LlamaLMHead, "forward", "AMP casts"),
+               (llama.LlamaPretrainingCriterion, "forward", "CE"),
+               (llama, "fused_lm_head_loss", "CE"),
+               (norm.RMSNorm, "forward", "norm"),
+               (common.Embedding, "forward", "embedding"),
+               (F, "fused_rotary_position_embedding", "rope"),
+               (pretrain, "_adamw", "AdamW and clip"))
+    saved = []
+    for owner, attr, head in targets:
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _head=head, **k):
+            with torch.profiler.record_function("head:" + _head):
+                return _fn(*a, **k)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def attribute_other(torch, work):
+    """A traced run of ``work()`` that sums the device time of the "other"
+    kernel class by the source operation that launched each kernel
+    (``OTHER_HEADS``): the innermost ``head_annotations`` range around the
+    launching op decides; a kernel of the backward pass is charged to the
+    forward op that made its autograd node (matched by sequence number);
+    an unannotated cast (and its backward) is an AMP cast. Returns {head:
+    ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with head_annotations(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    return other_by_head(prof.events())
+
+
+def other_by_head(events):
+    """{head: ms} of the "other" kernels attached to profiler ``events``
+    (see ``attribute_other``); prints the table."""
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            forward.setdefault((e.thread, e.sequence_nr), e)
+
+    def head_of(e):
+        cast = False
+        while e is not None:
+            if e.name.startswith("head:"):
+                return e.name[5:]
+            if e.name.startswith("autograd::engine::evaluate_function: "):
+                fwd = forward.get((e.fwd_thread, e.sequence_nr))
+                if fwd is None:
+                    return next((h for k, h in _FUNCTION_HEADS
+                                 if k in e.name), "the rest")
+                cast = cast or fwd.name in ("aten::to", "aten::_to_copy")
+                e = fwd
+                continue
+            cast = cast or e.name in ("aten::to", "aten::_to_copy")
+            e = e.cpu_parent
+        return "AMP casts" if cast else "the rest"
+
+    # a kernel is attached to every op event of its correlation id: take
+    # each id's innermost (shortest) event once
+    launcher = {}
+    for e in events:
+        if getattr(e, "kernels", None):
+            best = launcher.get(e.id)
+            if best is None or e.cpu_time_total < best.cpu_time_total:
+                launcher[e.id] = e
+    ms = {h: 0.0 for h in OTHER_HEADS}
+    top = {h: {} for h in OTHER_HEADS}
+    for e in launcher.values():
+        for k in e.kernels:
+            if _kernel_class(k.name) != "other":
+                continue
+            head = head_of(e)
+            ms[head] += k.duration / 1e3
+            key = k.name[:60]
+            top[head][key] = top[head].get(key, 0.0) + k.duration / 1e3
+    total = sum(ms.values())
+    print(f"  'other' by source operation (a traced step with head "
+          f"ranges): {total:.2f} ms", flush=True)
+    for h in OTHER_HEADS:
+        best = sorted(top[h].items(), key=lambda kv: -kv[1])[:3]
+        print(f"    {h}: {ms[h]:.2f} ms; "
+              + "; ".join(f"{n} {t:.2f}" for n, t in best), flush=True)
+    return ms
 
 
 def phase_parity(torch):
@@ -857,6 +1027,26 @@ def plain_ce():
         yield
     finally:
         bc.ce_fwd, bc.ce_bwd_dh, bc.ce_bwd_dw = saved
+
+
+@contextlib.contextmanager
+def plain_fused():
+    """Route the fused tier (norm, SwiGLU, token cross entropy, AdamW)
+    through its plain versions on the card (the reference path of phases 8
+    and 12); restores the kernels."""
+    from paddle_tpu_torch.ops import adamw, fused_norm, swiglu, token_ce
+    swaps = ((fused_norm, "rms_norm_fwd"), (fused_norm, "rms_norm_bwd"),
+             (swiglu, "swiglu_fwd"), (swiglu, "swiglu_bwd"),
+             (token_ce, "token_ce_fwd"), (token_ce, "token_ce_bwd"),
+             (adamw, "adamw_step"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name in swaps]
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, name + "_plain"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def flash_work(bh, sq, sk, d, causal):
@@ -1378,6 +1568,7 @@ def phase_train(torch, options=None):
     wall = time.perf_counter() - t0
     fwd, bwd = read_flash_counts()
     fused = read_fused_counts()
+    tier = read_tier_counts()
     losses += [float(x) for x, _ in out]
     gnorms += [float(g) for _, g in out]
     check((fwd, bwd) == (cfg.num_hidden_layers * timed,) * 2,
@@ -1387,6 +1578,11 @@ def phase_train(torch, options=None):
         else (0,) * 5
     check(fused == want, f"ce fwd / dh / dw and rope flash fwd / bwd "
           f"launches {fused} in {timed} steps (want {want})")
+    want_tier = tuple(timed * n for n in tier_counts_per_step(
+        cfg, bool(options)))
+    check(tier == want_tier, f"fused tier launches (norm fwd / bwd, swiglu "
+          f"fwd / bwd, token CE fwd / bwd, AdamW) {tier} in {timed} steps "
+          f"(want {want_tier})")
     check(outputs == [bool(options)] * (2 + timed),
           f"the forward returned logits {outputs} (None wanted only with "
           "the fused loss)")
@@ -1408,6 +1604,9 @@ def phase_train(torch, options=None):
           f"{tokens_per_s:.1f} tokens/s, {wall / timed * 1e3:.1f} ms/step, "
           f"MFU {mfu:.4f} (bench.py's flops per token vs 989 TFLOP/s), "
           f"peak memory {peak_gb:.1f} GB", flush=True)
+    print(f"  fused tier launches in {timed} steps: norm fwd / bwd "
+          f"{tier[:2]}, swiglu fwd / bwd {tier[2:4]}, token CE fwd / bwd "
+          f"{tier[4:6]}, AdamW {tier[6]}", flush=True)
     print(f"  losses {['%.4f' % x for x in losses]} (ln V = "
           f"{math.log(cfg.vocab_size):.4f}), grad norms "
           f"{['%.4f' % x for x in gnorms]}; flash launches fwd {fwd} bwd "
@@ -1420,6 +1619,7 @@ def phase_train(torch, options=None):
         return 1
 
     prof = profile_window(torch, one_step, "train step")
+    prof["other_by_head_ms"] = attribute_other(torch, one_step)
     del model, params, opt_state, batches, out
     torch.cuda.empty_cache()
     return {"tokens_per_s": tokens_per_s, "ms_per_step": wall / timed * 1e3,
@@ -1427,6 +1627,7 @@ def phase_train(torch, options=None):
             "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
             "ce_launches": list(fused[:3]),
             "rope_flash_launches": list(fused[3:]),
+            "tier_launches": list(tier),
             "peak_memory_gb": peak_gb, "profile": prof}
 
 
@@ -1455,6 +1656,7 @@ def phase_train_parity(torch, options=None):
         if path == "plain":
             ctx.enter_context(plain_attention())
             ctx.enter_context(plain_ce())
+            ctx.enter_context(plain_fused())
         rows = []
         reset_counts()
         with ctx:
@@ -1471,6 +1673,11 @@ def phase_train_parity(torch, options=None):
             check(counts == want, f"kernel path launched flash fwd / bwd, ce "
                   f"fwd / dh / dw, rope flash fwd / bwd {counts} (want "
                   f"{want})")
+            tier = read_tier_counts()
+            want = tuple(n * k for k in tier_counts_per_step(
+                cfg, bool(options)))
+            check(tier == want, f"kernel path launched the fused tier "
+                  f"{tier} (want {want})")
     rel = np.abs(runs[0] - runs[1]) / np.abs(runs[1])
     print(f"  f32 L=2 B={batch} S={seq}: kernel (loss, gnorm) "
           f"{runs[0].tolist()} vs plain {runs[1].tolist()}; worst relative "
@@ -2587,6 +2794,292 @@ def int8_f32_parity(torch):
             "largest_tie_gap": worst}
 
 
+# -- phase 18: the training step's fused tier -------------------------------
+
+# Gates of phase 18: every element within atol + 2 units in the last place
+# (of its own dtype) of the plain version. atol covers f32 sums taken in
+# another order: the norm's mean square and dot over H, the cross
+# entropy's row sums over V (lse ~ 10: 1e-5), its sum of exp (S up to V:
+# 1e-2), its totals over N rows and dw's column sums over R rows (a
+# relative share of the largest element), and the one rounding that a
+# fused multiply-add saves in dlogits (4 f32 ulps of the largest |dx|).
+TIER_ATOL = 1e-6
+CE_LOSS_ATOL_T = 1e-5
+CE_SUM_ATOL = 1e-2
+CE_TOTAL_RTOL = 1e-5
+DW_RTOL = 1e-5
+
+
+def ulps(t):
+    """One unit in the last place of |t| in t's dtype, per element (f32)."""
+    mant = {"torch.float32": 23, "torch.bfloat16": 7,
+            "torch.float16": 10}[str(t.dtype)]
+    return (t.float().abs().clamp_min(2.0 ** -126).log2().floor()
+            - mant).exp2()
+
+
+def two_ulp_agreement(out, ref, atol):
+    """(max abs error, largest error over atol (a number or a tensor) + 2
+    ulps of |ref| in out's dtype)."""
+    err = (out.float() - ref.float()).abs()
+    return float(err.max()), float((err / (atol + 2 * ulps(
+        ref.to(out.dtype)))).max())
+
+
+def tier_case(torch, kernel, name, run, plain, atols, nbytes, library=None,
+              plain_iters=10):
+    """One phase-18 case: ``run()`` twice (bit-equal) and ``plain()`` on
+    the same inputs, each output within its atol (a number, or a function
+    of the plain output) + 2 ulps; device ms of
+    the kernel, its plain version and ``library`` (one PyTorch call of the
+    same function, or None)."""
+    out1, out2, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          f"{kernel}[{name}]: two calls differ")
+    err = ratio = 0.0
+    for o, r, atol in zip(out1, ref, atols):
+        check(bool(torch.isfinite(o).all()), f"{kernel}[{name}]: non-finite")
+        e, q = two_ulp_agreement(o, r, atol(r) if callable(atol) else atol)
+        err, ratio = max(err, e), max(ratio, q)
+    check(ratio <= 1.0, f"{kernel}[{name}]: max abs err {err}, an element "
+          f"off by {ratio:.2f}x its allowance")
+    ms = device_time_ms(run)
+    plain_ms = device_time_ms(plain, iters=plain_iters)
+    lib_ms = None if library is None else device_time_ms(library)
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"  {kernel}[{name}]: err {err:.3e} (worst {ratio:.3f} of atol + 2 "
+          f"ulps; two calls bit-equal) device ms: kernel {ms:.4f} plain "
+          f"{plain_ms:.4f} bound {b_ms:.4f} ({b_by})"
+          + ("" if lib_ms is None else f" library {lib_ms:.4f}"), flush=True)
+    return {"case": name, "max_abs_err": err, "worst_over_allowed": ratio,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def norm_cases(torch, rows):
+    """Kernel A forward and backward: the flagship's residual norm in bf16
+    (and without a residual, the first layer's), f32, H = 1000 (off 8) on
+    a row count off any block, and fused_rms_norm's f32 output."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import fused_norm as fn
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    r0, h0 = MAX_BATCH * 2048, E
+    specs = (("flagship_r16384_h1024", r0, h0, torch.bfloat16, True, False),
+             ("flagship_first_norm", r0, h0, torch.bfloat16, False, False),
+             ("f32_r16384_h1024", r0, h0, torch.float32, True, False),
+             ("h1000_r16383", 16383, 1000, torch.bfloat16, True, False),
+             ("fused_f32_out", r0, h0, torch.bfloat16, True, True))
+    for name, r, hid, dt, resid, f32_out in specs:
+        def rnd(*shape, dtype=dt):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        od = torch.float32 if f32_out else dt
+        x, w = rnd(r, hid), 1 + 0.1 * rnd(hid, dtype=torch.float32)
+        res = rnd(r, hid) if resid else None
+        dout, dres = rnd(r, hid, dtype=od), rnd(r, hid) if resid else None
+        eb, ob = torch.finfo(dt).bits // 8, torch.finfo(od).bits // 8
+        _, h, inv = fn.rms_norm_fwd_plain(x, w, 1e-6, None, res, od)
+        w_dt = w.to(dt)
+        out_atol = TIER_ATOL
+        if od != dt:
+            # round_T(h * inv) may flip by one unit of T where inv differs
+            # in its last bit; an f32 output keeps that unit times |w|
+            n = (h.float() * inv[:, None]).to(dt)
+            out_atol = TIER_ATOL + ulps(n) * w.abs()
+        rows["fwd"].append(tier_case(
+            torch, "fused_norm_fwd", name,
+            lambda: fn.rms_norm_fwd(x, w, 1e-6, None, res, od),
+            lambda: fn.rms_norm_fwd_plain(x, w, 1e-6, None, res, od),
+            (out_atol, 0.0, TIER_ATOL),
+            r * hid * (eb * (1 + 2 * resid) + ob) + r * 4 + hid * 4,
+            library=lambda: Fn.rms_norm(h, (hid,), w_dt, 1e-6)))
+        # dh + dres rounds twice on both sides; where the sum cancels, the
+        # ulp that the norm's part may differ by is large beside the result
+        dh_norm = fn.rms_norm_bwd_plain(dout, None, h, w, inv, od)[0]
+        dh_atol = TIER_ATOL + 2 * ulps(dh_norm) if resid else TIER_ATOL
+        rows["bwd"].append(tier_case(
+            torch, "fused_norm_bwd", name,
+            lambda: fn.rms_norm_bwd(dout, dres, h, w, inv, od),
+            lambda: fn.rms_norm_bwd_plain(dout, dres, h, w, inv, od),
+            (dh_atol, lambda ref: DW_RTOL * float(ref.abs().max())),
+            r * hid * (eb * (2 + resid) + ob) + r * 4 + 2 * hid * 4))
+
+
+def swiglu_cases(torch, rows):
+    """Kernel B forward and backward: the flagship's fused [R, 2 im]
+    projection read in place, the two-tensor form, and im = 1000 (off 8).
+    No single PyTorch call computes SwiGLU: library_ms is null."""
+    from paddle_tpu_torch.ops import swiglu as sw
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    r0 = MAX_BATCH * 2048
+    for name, r, im, fused in (("flagship_r16384_im2816", r0, F, True),
+                               ("two_tensor_r16384_im2816", r0, F, False),
+                               ("im1000_r4099", 4099, 1000, False)):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen,
+                               device="cuda").bfloat16()
+        if fused:
+            gu = rnd(r, 2 * im)
+            g, u = gu[:, :im], gu[:, im:]
+        else:
+            g, u = rnd(r, im), rnd(r, im)
+        dout = rnd(r, im)
+        rows["fwd"].append(tier_case(
+            torch, "swiglu_fwd", name, lambda: (sw.swiglu_fwd(g, u),),
+            lambda: (sw.swiglu_fwd_plain(g, u),), (TIER_ATOL,),
+            3 * r * im * 2))
+
+        def bwd(fn):
+            dg = torch.empty(r, 2 * im, dtype=torch.bfloat16, device="cuda")
+            fn(dout, g, u, dg[:, :im], dg[:, im:])
+            return (dg,)
+        rows["bwd"].append(tier_case(
+            torch, "swiglu_bwd", name, lambda: bwd(sw.swiglu_bwd),
+            lambda: bwd(sw.swiglu_bwd_plain), (TIER_ATOL,), 5 * r * im * 2))
+
+
+def token_ce_cases(torch, rows):
+    """Kernel C forward and backward: the flagship's bf16 logits, the
+    same in f32, and V = 32001 with a quarter of the rows ignored and
+    label smoothing 0.1; the library yardstick is F.cross_entropy on the
+    same logits (forward)."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    n0 = MAX_BATCH * 2048
+    for name, n, vocab, dt, eps, ign in (
+            ("flagship_n16384_v32000", n0, V, torch.bfloat16, 0.0, 0),
+            ("f32_n16384_v32000", n0, V, torch.float32, 0.0, 0),
+            ("v32001_smooth_ignored", 4099, V + 1, torch.bfloat16, 0.1, 4)):
+        x = (2 * torch.randn(n, vocab, generator=gen, device="cuda")).to(dt)
+        lab = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+        if ign:
+            lab[::ign] = -100
+        g = torch.ones((), device="cuda")
+        eb = torch.finfo(dt).bits // 8
+        rows["fwd"].append(tier_case(
+            torch, "token_ce_fwd", name,
+            lambda: tc.token_ce_fwd(x, lab, -100, eps),
+            lambda: tc.token_ce_fwd_plain(x, lab, -100, eps),
+            (CE_LOSS_ATOL_T, CE_SUM_ATOL,
+             lambda ref: CE_TOTAL_RTOL * float(ref.abs().max())),
+            n * vocab * eb + n * (8 + 12),
+            library=lambda: Fn.cross_entropy(x, lab, ignore_index=-100,
+                                             label_smoothing=eps)))
+        _, stats, totals = tc.token_ce_fwd_plain(x, lab, -100, eps)
+        rows["bwd"].append(tier_case(
+            torch, "token_ce_bwd", name,
+            lambda: (tc.token_ce_bwd(x, lab, stats, g, totals, -100, eps,
+                                     "mean"),),
+            lambda: (tc.token_ce_bwd_plain(x, lab, stats, g, totals, -100,
+                                           eps, "mean"),),
+            (lambda ref: 2.0 ** -22 * float(ref.abs().max()),),
+            2 * n * vocab * eb + n * 16))
+
+
+def adamw_case(torch):
+    """Kernel D over the flagship's 373.9M parameters (f32 masters,
+    moments and grads, clip active): p, m, v and gnorm within 2 f32 ulps
+    of the foreach passes, two runs from the same state bit-equal; the
+    library yardstick is clip_grad_norm_(foreach=True) then
+    torch.optim.AdamW(fused=True).step()."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import adamw as ad
+    cfg, _, _ = pretrain.flagship_config()
+    shapes = [tuple(p.shape) for p in LlamaForCausalLM(
+        cfg, device="cuda", seed=0).parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(84)
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    p0 = [rnd(s, 0.02) for s in shapes]
+    g0 = [rnd(s, 1e-3) for s in shapes]
+    m0 = [rnd(s, 1e-4) for s in shapes]
+    v0 = [rnd(s, 1e-4) ** 2 for s in shapes]
+    decay = [len(s) >= 2 for s in shapes]
+    hp = (3e-4, 0.9, 0.95, 1e-8, 0.1, 1.0, 3)
+    n = sum(math.prod(s) for s in shapes)
+
+    def state():
+        return ([t.clone() for t in p0], [t.clone() for t in m0],
+                [t.clone() for t in v0])
+    runs = []
+    for fn in (ad.adamw_step, ad.adamw_step, ad.adamw_step_plain):
+        ps, ms, vs = state()
+        gn = fn(ps, g0, ms, vs, decay, *hp)
+        runs.append((ps, ms, vs, gn))
+        torch.cuda.synchronize()
+    (k1, k2, ref) = runs
+    same = all(torch.equal(a, b) for x, y in zip(k1[:3], k2[:3])
+               for a, b in zip(x, y)) and torch.equal(k1[3], k2[3])
+    check(same, "adamw: two runs from the same state differ")
+    err = ratio = 0.0
+    worst = None
+    for what, xs, ys in zip("pmv", k1[:3], ref[:3]):
+        for i, (a, b) in enumerate(zip(xs, ys)):
+            e, q = two_ulp_agreement(a, b, 0.0)
+            if q > ratio:
+                j = int(((a - b).abs() / (2 * ulps(b))).argmax())
+                worst = (what, i, j, float(a.flatten()[j]),
+                         float(b.flatten()[j]), float(p0[i].flatten()[j]),
+                         float(g0[i].flatten()[j]), float(m0[i].flatten()[j]),
+                         float(v0[i].flatten()[j]))
+            err, ratio = max(err, e), max(ratio, q)
+    ge, gq = two_ulp_agreement(k1[3].reshape(1), ref[3].reshape(1), 0.0)
+    print(f"  adamw: gnorm kernel {float(k1[3]):.9g} plain "
+          f"{float(ref[3]):.9g} ({gq:.3f} of 2 ulps); p, m, v worst "
+          f"{ratio:.3f} of 2 ulps (max abs err {err:.3e}); the worst "
+          f"element (tensor, param, index, kernel, plain, p0, g, m0, v0): "
+          f"{worst}", flush=True)
+    check(ratio <= 1.0 and gq <= 1.0, f"adamw: p / m / v off by {ratio:.2f}x"
+          f", gnorm by {gq:.2f}x their 2-ulp allowance")
+    ps, ms, vs = state()
+    ms_k = device_time_ms(lambda: ad.adamw_step(ps, g0, ms, vs, decay, *hp),
+                          iters=20)
+    ps, ms, vs = state()
+    ms_p = device_time_ms(
+        lambda: ad.adamw_step_plain(ps, g0, ms, vs, decay, *hp), iters=5)
+    del ps, ms, vs, runs, k1, k2, ref
+    params = [torch.nn.Parameter(t.clone()) for t in p0]
+    for prm, g in zip(params, g0):
+        prm.grad = g.clone()
+    opt = torch.optim.AdamW(params, lr=hp[0], betas=hp[1:3], eps=hp[3],
+                            weight_decay=hp[4], fused=True)
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(params, hp[5], foreach=True)
+        opt.step()
+    ms_l = device_time_ms(library, iters=20)
+    nbytes = n * 4 * 7              # p, g, m, v read; p, m, v written
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"  adamw[flagship_{n / 1e6:.1f}M]: device ms kernel {ms_k:.4f} "
+          f"plain {ms_p:.4f} bound {b_ms:.4f} ({b_by}) library "
+          f"{ms_l:.4f}", flush=True)
+    del params, opt, p0, g0, m0, v0
+    torch.cuda.empty_cache()
+    return [{"case": f"flagship_{n / 1e6:.1f}M", "max_abs_err": err,
+             "worst_over_allowed": max(ratio, gq), "ms": ms_k,
+             "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": ms_l}]
+
+
+def phase_fused_tier(torch):
+    """Phase 18: kernels A-D against their plain versions (module
+    docstring). Returns {kernel: rows}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {k: [] for k in ("norm_fwd", "norm_bwd", "swiglu_fwd",
+                            "swiglu_bwd", "ce_fwd", "ce_bwd")}
+    with torch.no_grad():
+        for key, fn in (("norm", norm_cases), ("swiglu", swiglu_cases),
+                        ("ce", token_ce_cases)):
+            part = {"fwd": [], "bwd": []}
+            fn(torch, part)
+            rows[f"{key}_fwd"], rows[f"{key}_bwd"] = part["fwd"], part["bwd"]
+            torch.cuda.empty_cache()
+        rows["adamw"] = adamw_case(torch)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -2687,6 +3180,10 @@ def main():
         print("phase 17: int8 weight-only GEMM, int8 serving, dense decode "
               "and f32 parity", flush=True)
         int8_rows, int8_stats = phase_int8(torch)
+    print("phase 18: the training step's fused tier (RMSNorm + residual, "
+          "SwiGLU, token cross entropy, AdamW) against its plain versions",
+          flush=True)
+    tier_rows = phase_fused_tier(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -2744,7 +3241,29 @@ def main():
         "weight_only_int8", "paddle_tpu_torch/csrc/weight_only_matmul.cu",
         "paddle_tpu/ops/pallas/quant_matmul.py:65",
         int8_stats["int8_launches"], int8_rows, f"M8_K{E}_N{2 * F}"))
-    check(len(kernels) == 14 and all(e["launches"] > 0 for e in kernels),
+    tier_launches = train_stats["tier_launches"]
+    for i, (name, source, replaces, key, case) in enumerate((
+            ("fused_norm_fwd", "fused_norm", "nn/functional/norm.py:81",
+             "norm_fwd", "flagship_r16384_h1024"),
+            ("fused_norm_bwd", "fused_norm", "nn/functional/norm.py:81",
+             "norm_bwd", "flagship_r16384_h1024"),
+            ("swiglu_fwd", "swiglu", "models/llama.py:209",
+             "swiglu_fwd", "flagship_r16384_im2816"),
+            ("swiglu_bwd", "swiglu", "models/llama.py:209",
+             "swiglu_bwd", "flagship_r16384_im2816"),
+            ("token_ce_fwd", "token_ce", "nn/functional/loss.py:23",
+             "ce_fwd", "flagship_n16384_v32000"),
+            ("token_ce_bwd", "token_ce", "nn/functional/loss.py:23",
+             "ce_bwd", "flagship_n16384_v32000"),
+            ("adamw", "adamw", "models/pretrain.py:176", "adamw",
+             tier_rows["adamw"][0]["case"]))):
+        # no pallas_call stands behind these: "replaces" names the JAX
+        # source whose XLA fusion each kernel takes over
+        kernels.append(kernel_entry(
+            name, f"paddle_tpu_torch/csrc/{source}.cu",
+            f"paddle_tpu/{replaces}", tier_launches[i], tier_rows[key],
+            case))
+    check(len(kernels) == 21 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -2758,6 +3277,7 @@ def main():
           f"{json.dumps(fused_parity)}", flush=True)
     print(f"card: {card}; decode op: {json.dumps(decode_stats)}; int8: "
           f"{json.dumps(int8_stats)}", flush=True)
+    print(f"card: {card}; fused tier: {json.dumps(tier_rows)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,17 @@ attention of the PyTorch port (counterpart of
 ``paddle_tpu/incubate/nn/functional/__init__.py``:
 ``fused_multi_transformer`` with its helpers and its int8 / int4
 wrappers, ``masked_multihead_attention``, ``block_multihead_attention``,
-``block_kv_cache_rewind``, ``blha_get_max_len``, ``flashmask_attention``).
+``block_kv_cache_rewind``, ``blha_get_max_len``, ``flashmask_attention``),
+and the training step's fused tier of that module: ``fused_rms_norm``
+(RMSNorm of x + bias + residual, kernel A of ``ops.fused_norm``),
+``swiglu`` and ``fused_bias_act``'s swiglu (kernel B of ``ops.swiglu``),
+and in plain PyTorch, as the JAX package computes them in plain XLA,
+``fused_layer_norm``, ``fused_bias_dropout_residual_layer_norm``,
+``fused_dropout_add``, ``fused_bias_act``'s other activations,
+``fused_matmul_bias``, ``fused_linear``, ``fused_linear_activation`` and
+``fused_linear_param_grad_add``. Dropout draws from an explicit
+``generator`` (the default one when None): the bits differ from JAX's, the
+keep rate and the scaling do not.
 
 ``fused_multi_transformer`` keeps the JAX package's three branches and
 its cast points:
@@ -42,15 +52,21 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import flashmask as _fm
+from ...ops import fused_norm as _fn
 from ...ops import paged_attention as _pa
+from ...ops.swiglu import swiglu as _swiglu
 
 NEG_INF_F = -1e30
 
 __all__ = ["blha_get_max_len", "block_kv_cache_rewind",
            "block_multihead_attention", "flashmask_attention",
-           "fused_multi_transformer", "fused_multi_transformer_int4",
-           "fused_multi_transformer_int8", "masked_multihead_attention",
-           "quantize_int4"]
+           "fused_bias_act", "fused_bias_dropout_residual_layer_norm",
+           "fused_dropout_add", "fused_layer_norm", "fused_linear",
+           "fused_linear_activation", "fused_linear_param_grad_add",
+           "fused_matmul_bias", "fused_multi_transformer",
+           "fused_multi_transformer_int4", "fused_multi_transformer_int8",
+           "fused_rms_norm", "masked_multihead_attention", "quantize_int4",
+           "swiglu"]
 
 
 def _ln(h, eps, scale=None, bias=None):
@@ -568,3 +584,202 @@ def flashmask_attention(query, key, value, startend_row_indices,
     function's dense fallback (:368-392) computes the same function."""
     return _fm.flashmask_attention_bshd(query, key, value,
                                         startend_row_indices, causal=causal)
+
+
+# -- the training step's fused tier (JAX :176-270, :970-1115) -------------
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def _keep(shape, p, generator, device):
+    """Bernoulli(1 - p) keep mask drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def _add(a, b):
+    """a + b with JAX's dtype promotion (torch keeps a 16-bit tensor's
+    dtype against a 0-dim f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) + b.to(dt)
+
+
+def fused_bias_act(x, bias=None, act_method="gelu"):
+    """act(x + bias): relu, gelu (tanh form), silu, or the gated geglu /
+    swiglu over the two halves of the last axis (swiglu through the
+    SwiGLU kernel)."""
+    h = x if bias is None else _add(x, bias)
+    if act_method == "swiglu":
+        return _swiglu(h)
+    if act_method == "geglu":
+        a, b = torch.chunk(h, 2, dim=-1)
+        return _gelu(a) * b
+    act = {"relu": torch.relu, "gelu": _gelu, "silu": F.silu}[act_method]
+    return act(h)
+
+
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      generator=None):
+    """dropout(x) + y; ``downscale_in_infer`` drops without rescaling in
+    training and scales by 1 - p in inference."""
+    if mode == "downscale_in_infer":
+        if not training:
+            return x * (1.0 - p) + y
+        if p == 0.0:
+            return x + y
+        keep = _keep(x.shape, p, generator, x.device)
+        return torch.where(keep, x, torch.zeros_like(x)) + y
+    if not training or p == 0.0:
+        return x + y
+    keep = _keep(x.shape, p, generator, x.device)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x)) + y
+
+
+def fused_bias_dropout_residual_layer_norm(x, residual, bias=None,
+                                           ln_scale=None, ln_bias=None,
+                                           dropout_rate=0.0, ln_epsilon=1e-5,
+                                           training=True, generator=None):
+    """LayerNorm(dropout(x + bias) + residual)."""
+    h = x if bias is None else x + bias
+    if training and dropout_rate > 0.0:
+        keep = _keep(h.shape, dropout_rate, generator, h.device)
+        h = torch.where(keep, h / (1.0 - dropout_rate), torch.zeros_like(h))
+    return _ln(h + residual, ln_epsilon, ln_scale, ln_bias)
+
+
+def fused_linear_param_grad_add(x, dout, dweight=None, dbias=None,
+                                multi_precision=True, has_bias=True):
+    """dW (+ dweight) = x^T dout summed over the leading axes in f32, and
+    with ``has_bias`` dB (+ dbias) = the sum of dout; f32 outputs under
+    ``multi_precision``, else dout's dtype."""
+    out_t = torch.float32 if multi_precision else dout.dtype
+    dw = torch.einsum("...i,...o->io", x.to(torch.float32),
+                      dout.to(torch.float32))
+    if dweight is not None:
+        dw = dweight.to(torch.float32) + dw
+    outs = [dw.to(out_t)]
+    if has_bias:
+        db = dout.to(torch.float32).sum(dim=tuple(range(dout.dim() - 1)))
+        if dbias is not None:
+            db = dbias.to(torch.float32) + db
+        outs.append(db.to(out_t))
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
+                      name=None):
+    """x @ y (+ bias), either operand transposed on its last two axes."""
+    a = x.transpose(-1, -2) if transpose_x else x
+    b = y.transpose(-1, -2) if transpose_y else y
+    dt = torch.promote_types(a.dtype, b.dtype)
+    out = torch.matmul(a.to(dt), b.to(dt))
+    return out if bias is None else _add(out, bias)
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    """x @ weight (+ bias), weight [in, out] (or transposed)."""
+    return fused_matmul_bias(x, weight, bias, False, transpose_weight, name)
+
+
+def fused_linear_activation(x, y, bias, trans_x=False, trans_y=False,
+                            activation=None):
+    """act(x @ y + bias) with act None, "none", "gelu" (tanh form) or
+    "relu"."""
+    if activation not in (None, "none", "gelu", "relu"):
+        raise ValueError(f"unsupported epilogue activation {activation}")
+    out = fused_matmul_bias(x, y, bias, trans_x, trans_y)
+    if activation == "gelu":
+        return _gelu(out)
+    if activation == "relu":
+        return torch.relu(out)
+    return out
+
+
+def swiglu(x, y=None, name=None):
+    """silu(x) * y, or with y None silu(gate) * up over the halves of x's
+    last axis: the SwiGLU kernel (``ops.swiglu``) on the card."""
+    return _swiglu(x, y)
+
+
+def _maybe_quant(out, quant_scale, quant_round_type, quant_max_bound,
+                 quant_min_bound):
+    if quant_scale <= 0:
+        return out
+    q = out.to(torch.float32) * quant_max_bound * quant_scale
+    if quant_round_type == 0:
+        q = torch.round(q)                      # half to even
+    else:
+        q = torch.where(q >= 0, torch.floor(q + 0.5), torch.ceil(q - 0.5))
+    return torch.clamp(q, quant_min_bound, quant_max_bound).to(torch.int8)
+
+
+def _trailing(t, shape, begin):
+    """t as the [prod(shape[begin:])] vector it scales, or None when it
+    does not span exactly the normalized axes."""
+    n = math.prod(shape[begin:])
+    return t.reshape(n) if t is not None and t.numel() == n else None
+
+
+def fused_rms_norm(x, norm_weight, norm_bias, epsilon, begin_norm_axis,
+                   bias=None, residual=None, quant_scale=-1,
+                   quant_round_type=0, quant_max_bound=0, quant_min_bound=0):
+    """RMSNorm over the axes from ``begin_norm_axis`` of x (+ bias)
+    (+ residual), through kernel A (``ops.fused_norm``). Returns (out,
+    residual_out), residual_out the pre-norm sum. The JAX dtype rule:
+    ``round(h * inv) * norm_weight`` promotes, so an f32 scale over a bf16
+    activation gives f32 (``nn.RMSNorm`` casts the scale down instead);
+    then + norm_bias and the optional int8 quantization, in plain
+    PyTorch."""
+    shape = x.shape
+    begin = begin_norm_axis % x.dim()
+    hid = math.prod(shape[begin:])
+    flat_bias = _trailing(bias, shape, begin)
+    if bias is not None and flat_bias is None:
+        x = _add(x, bias)                       # a bias of another shape
+    if residual is not None:
+        x, residual = torch.broadcast_tensors(x, residual)
+        shape = x.shape
+    x2 = x.reshape(-1, hid)
+    res2 = None if residual is None else residual.reshape(-1, hid)
+    w = None if norm_weight is None else norm_weight.reshape(hid)
+    got = _fn.rms_norm(x2, w, epsilon, bias=flat_bias, residual=res2,
+                       cast_weight=False)
+    if flat_bias is None and res2 is None:
+        out, h = got, x
+    else:
+        out, h = got
+    out = out.reshape(shape)
+    if norm_bias is not None:
+        out = _add(out, norm_bias)
+    out = _maybe_quant(out, quant_scale, quant_round_type, quant_max_bound,
+                       quant_min_bound)
+    return out, h.reshape(shape)
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon, residual_alpha=1.0,
+                     begin_norm_axis=1, bias=None, residual=None,
+                     quant_scale=-1, quant_round_type=0, quant_max_bound=0,
+                     quant_min_bound=0):
+    """LayerNorm over the axes from ``begin_norm_axis`` of x (+ bias)
+    (+ residual_alpha * residual), in f32, cast back to the sum's dtype,
+    then * norm_weight + norm_bias (promoting); with neither the result is
+    the sum. Returns (out, residual_out); optional int8 quantization."""
+    h = x
+    if bias is not None:
+        h = _add(h, bias)
+    if residual is not None:
+        h = _add(h, residual_alpha * residual)
+    if norm_weight is None and norm_bias is None:
+        return h, h
+    red = tuple(range(begin_norm_axis % h.dim(), h.dim()))
+    hf = h.to(torch.float32)
+    mu = hf.mean(dim=red, keepdim=True)
+    var = ((hf - mu) ** 2).mean(dim=red, keepdim=True)
+    out = ((hf - mu) * torch.rsqrt(var + epsilon)).to(h.dtype)
+    if norm_weight is not None:
+        out = out * norm_weight
+    if norm_bias is not None:
+        out = _add(out, norm_bias)
+    out = _maybe_quant(out, quant_scale, quant_round_type, quant_max_bound,
+                       quant_min_bound)
+    return out, h

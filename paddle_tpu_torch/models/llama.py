@@ -6,7 +6,11 @@ float32 parameters, hidden states cast to bf16 when ``config.dtype`` is
 "bfloat16", RMSNorm in float32 with its scale cast to the activation's
 dtype, neox RoPE, attention through ``F.flash_attention`` (the CUDA
 kernels on the card) or, with a mask, the plain ``_sdpa_ref``, and a
-float32 cross entropy over the LM head's logits.
+float32 cross entropy over the LM head's logits. The training step's
+fused tier carries the rest on the card: each residual add goes into the
+next RMSNorm's kernel (``ops.fused_norm``), the MLP's silu(gate) * up is
+the SwiGLU kernel (``ops.swiglu``) and the criterion the token
+cross-entropy kernel (``ops.token_ce``).
 
 Two opt-in kernel options of the JAX model are ported:
 ``fuse_rope_in_attention`` hands ``[S, D/2]`` cos/sin tables to the flash
@@ -39,6 +43,7 @@ from .. import nn
 from ..nn import functional as F
 from ..nn.layers.common import normal_
 from ..ops.blockwise_ce import blockwise_lm_head_ce
+from ..ops.swiglu import swiglu
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaLMHead", "LlamaForCausalLM",
@@ -188,11 +193,11 @@ class LlamaMLP(torch.nn.Module):
         self.down_proj = init.linear(im, h)
 
     def forward(self, x):
+        # SwiGLU kernel: the fused projection's halves are read in place
+        # and its gradient is written as one [.., 2 im] tensor
         if self.fuse_ffn:
-            gu = self.gate_up_fused_proj(x)
-            gate, up = gu[..., :self.im], gu[..., self.im:]
-            return self.down_proj(F.silu(gate) * up)
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+            return self.down_proj(swiglu(self.gate_up_fused_proj(x)))
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
 class LlamaDecoderLayer(torch.nn.Module):
@@ -205,15 +210,23 @@ class LlamaDecoderLayer(torch.nn.Module):
         self.post_attention_layernorm = nn.RMSNorm(
             config.hidden_size, config.rms_norm_eps, init.device)
 
-    def forward(self, hidden_states, position_ids=None, attn_mask=None):
-        residual = hidden_states
-        hidden_states = self.input_layernorm(hidden_states)
+    def forward(self, hidden_states, position_ids=None, attn_mask=None,
+                residual=None):
+        """(mlp output, residual stream): the residual add before each norm
+        goes into the norm's kernel, and the layer's last add into the next
+        layer's first norm (or the model's final norm). ``residual`` None
+        (the first layer) takes ``hidden_states`` as the stream. The same
+        rounded values as the JAX layer's ``residual + hidden_states``."""
+        if residual is None:
+            residual = hidden_states
+            hidden_states = self.input_layernorm(hidden_states)
+        else:
+            hidden_states, residual = self.input_layernorm(hidden_states,
+                                                           residual)
         hidden_states = self.self_attn(hidden_states, position_ids, attn_mask)
-        hidden_states = residual + hidden_states
-        residual = hidden_states
-        hidden_states = self.post_attention_layernorm(hidden_states)
-        hidden_states = self.mlp(hidden_states)
-        return residual + hidden_states
+        hidden_states, residual = self.post_attention_layernorm(
+            hidden_states, residual)
+        return self.mlp(hidden_states), residual
 
 
 class LlamaModel(torch.nn.Module):
@@ -233,9 +246,13 @@ class LlamaModel(torch.nn.Module):
         hidden_states = self.embed_tokens(input_ids)
         if self.config.dtype == "bfloat16":
             hidden_states = hidden_states.to(torch.bfloat16)
+        residual = None
         for layer in self.layers:
-            hidden_states = layer(hidden_states, position_ids, attn_mask)
-        return self.norm(hidden_states)
+            hidden_states, residual = layer(hidden_states, position_ids,
+                                            attn_mask, residual)
+        if residual is None:
+            return self.norm(hidden_states)
+        return self.norm(hidden_states, residual)[0]
 
 
 class LlamaLMHead(torch.nn.Module):

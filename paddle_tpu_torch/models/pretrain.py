@@ -5,9 +5,9 @@ The JAX package jits one sharded program over a mesh; the port runs the
 same step eagerly on one card: an AMP-O2 forward (parameters with
 ndim >= 2 cast to bf16 when ``config.dtype`` is "bfloat16", so the
 gradients land on the float32 masters), autograd, then AdamW with a
-global-norm clip. The optimizer updates the masters and moments in
-place, where the JAX package returns new arrays: one copy of each lives
-on the card.
+global-norm clip (kernel D of ``ops.adamw`` on the card: two launches a
+step). The optimizer updates the masters and moments in place, where the
+JAX package returns new arrays: one copy of each lives on the card.
 
 Not ported in this slice (they raise ``NotImplementedError``): the mesh
 and its sharding rules, in-graph telemetry / the health monitor, and
@@ -20,6 +20,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..observability import instrument as _metrics
+from ..ops import adamw
 
 __all__ = ["flagship_config", "make_train_state", "make_train_step",
            "batch_to_device"]
@@ -67,41 +68,31 @@ def make_train_state(model, mesh=None, rules=None, lr=3e-4,
     return params, opt_state, meta
 
 
-def _adamw(params, grads, opt_state, lr, b1, b2, eps, wd, clip):
+def _adamw(params, grads, opt_state, lr, b1, b2, eps, wd, clip,
+           step_fn=None):
     """AdamW with global-norm clipping, the JAX package's math: grads
     scaled by min(1, clip / (gnorm + 1e-6)), bias-corrected moments, eps
     outside the square root, decoupled decay on parameters with
     ndim >= 2 only. Updates params and opt_state (moments and count) in
     place; returns (params, opt_state, gnorm) with gnorm a 0-dim float32
-    tensor."""
+    tensor. On the card the update is kernel D (``ops.adamw``: two
+    launches a step), on the CPU its plain version."""
     names = list(params)
     ps = [params[n] for n in names]
-    gs = [grads[n].to(torch.float32) for n in names]
-    ms = [opt_state["m"][n] for n in names]
-    vs = [opt_state["v"][n] for n in names]
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
-    if clip:
-        scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-        gs = torch._foreach_mul(gs, scale)
     count = opt_state["count"] + 1
-    c1 = 1.0 - b1 ** count
-    c2 = 1.0 - b2 ** count
-    torch._foreach_mul_(ms, b1)
-    torch._foreach_add_(ms, gs, alpha=1 - b1)
-    torch._foreach_mul_(vs, b2)
-    torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
-    denom = torch._foreach_div(vs, c2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, eps)
-    step = torch._foreach_div(ms, c1)
-    torch._foreach_div_(step, denom)
-    if wd:
-        decay = [i for i, p in enumerate(ps) if p.dim() >= 2]
-        torch._foreach_add_([step[i] for i in decay],
-                            [ps[i] for i in decay], alpha=wd)
-    torch._foreach_add_(ps, step, alpha=-lr)
+    gnorm = (step_fn or adamw.adamw_step)(
+        ps, [grads[n] for n in names], [opt_state["m"][n] for n in names],
+        [opt_state["v"][n] for n in names], [p.dim() >= 2 for p in ps], lr,
+        b1, b2, eps, wd, clip, count)
     opt_state["count"] = count
     return params, opt_state, gnorm
+
+
+def _adamw_plain(params, grads, opt_state, lr, b1, b2, eps, wd, clip):
+    """``_adamw`` through the plain foreach passes on any device, kernel D's
+    plain version (the tests' reference)."""
+    return _adamw(params, grads, opt_state, lr, b1, b2, eps, wd, clip,
+                  step_fn=adamw.adamw_step_plain)
 
 
 def make_train_step(model, mesh, meta, donate=True, telemetry=False,

@@ -1,39 +1,87 @@
 """Loss functionals for the PyTorch port (counterpart of
 ``paddle_tpu/nn/functional/loss.py``).
 
-Only the path the pretraining criterion takes is ported: hard labels,
-``use_softmax``, class axis last, no class weights, no label smoothing,
-the mean over valid rows. Other modes raise ``NotImplementedError``.
+``cross_entropy`` takes every mode of the JAX function. The streamed case
+(softmax on, hard labels, class axis last, no class weights; any
+reduction and label smoothing) runs through the token cross-entropy
+kernel (``ops.token_ce``: the CUDA kernels on the card, their plain
+versions on the CPU), which never forms an [N, V] f32 tensor. Soft
+labels, class weights, another axis and ``use_softmax=False`` are plain
+PyTorch, as the JAX package computes them in plain XLA.
 """
 import torch
+
+from ...ops.token_ce import token_cross_entropy
+
+
+def _reduce(out, reduction):
+    if reduction == "mean":
+        return torch.mean(out)
+    if reduction == "sum":
+        return torch.sum(out)
+    return out
+
+
+def _take(x, idx, axis):
+    """x gathered at ``idx`` along ``axis`` (idx has that axis removed; x
+    1-D: a lookup); NaN where idx is outside the axis (JAX's gather
+    fills)."""
+    n = x.shape[axis]
+    inr = (idx >= 0) & (idx < n)
+    safe = idx.clamp(0, n - 1)
+    if x.dim() == 1:
+        got = x[safe]
+    else:
+        got = torch.gather(x, axis, safe.unsqueeze(axis)).squeeze(axis)
+    return torch.where(inr, got, torch.full_like(got, float("nan")))
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Softmax cross entropy of logits ``input`` [..., V] against int
-    labels [...] (or [..., 1]). The row max is subtracted in the logits'
-    dtype and the difference upcast to float32 (the JAX package's order:
-    bf16 parity depends on it); the gold logit is read in float32. Rows
-    whose label is ``ignore_index`` count zero and leave the mean's
-    denominator."""
-    last = axis in (-1, input.dim() - 1)
-    if (weight is not None or soft_label or not use_softmax or not last
-            or label_smoothing > 0 or reduction != "mean"):
-        raise NotImplementedError(
-            "cross_entropy: only hard labels with use_softmax on the last "
-            "axis and the mean reduction, without class weights or label "
-            "smoothing, are ported; the other modes are a later slice")
-    lbl = label.long()
-    if lbl.dim() == input.dim():
-        lbl = lbl.squeeze(-1)
-    valid = lbl != ignore_index
-    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
-    m = input.detach().amax(dim=-1, keepdim=True)
-    shifted = (input - m).to(torch.float32)
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) \
-        + m[..., 0].to(torch.float32)
-    picked = torch.gather(input, -1, safe[..., None])[..., 0].to(
-        torch.float32)
-    loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
-    return loss.sum() / valid.to(torch.float32).sum().clamp_min(1.0)
+    """Softmax cross entropy of logits ``input`` against int class labels
+    (or, with ``soft_label``, a distribution), paddle's semantics as the
+    JAX package implements them. Rows whose label is ``ignore_index``
+    count zero and leave the mean's denominator (with class weights the
+    denominator is the sum of the kept rows' weights)."""
+    nd = input.dim()
+    ax = axis % nd
+    if use_softmax and not soft_label and ax == nd - 1 and weight is None:
+        return token_cross_entropy(input, label, ignore_index, reduction,
+                                   label_smoothing)
+    if use_softmax:
+        # f32 softmax accumulation whatever the logits' dtype
+        logp = torch.log_softmax(input.to(torch.float32), dim=ax)
+    else:
+        logp = torch.log(torch.clamp_min(input, 1e-30))
+    n_classes = input.shape[ax]
+    if soft_label:
+        tgt = label
+        if label_smoothing > 0:
+            tgt = (1 - label_smoothing) * tgt + label_smoothing / n_classes
+        loss = -torch.sum(tgt * logp, dim=ax)
+        valid = torch.ones(loss.shape, dtype=logp.dtype, device=loss.device)
+    else:
+        lbl = label.to(torch.int64)
+        if lbl.dim() == nd:          # [N, 1] style labels
+            lbl = lbl.squeeze(ax)
+        keep = lbl != ignore_index
+        safe = torch.where(keep, lbl, torch.zeros_like(lbl))
+        picked = _take(logp, safe, ax)
+        if label_smoothing > 0:
+            smooth = -torch.mean(logp, dim=ax)
+            loss = (1 - label_smoothing) * (-picked) \
+                + label_smoothing * smooth
+        else:
+            loss = -picked
+        if weight is not None:
+            loss = loss * _take(weight, safe, 0)
+        loss = torch.where(keep, loss, torch.zeros_like(loss))
+        valid = keep.to(logp.dtype)
+    if reduction == "mean":
+        if weight is not None and not soft_label:
+            denom = torch.sum(_take(weight, safe, 0) * valid)
+        else:
+            denom = torch.clamp_min(torch.sum(valid), 1.0)
+        return torch.sum(loss) / denom
+    return _reduce(loss, reduction)

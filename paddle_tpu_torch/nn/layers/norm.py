@@ -3,7 +3,7 @@
 import torch
 
 from ...core.device import DEFAULT_DEVICE, resolve_device
-from .. import functional as F
+from ...ops import fused_norm
 
 
 class RMSNorm(torch.nn.Module):
@@ -18,5 +18,10 @@ class RMSNorm(torch.nn.Module):
             torch.ones(hidden_size, dtype=torch.float32,
                        device=resolve_device(device)))
 
-    def forward(self, x):
-        return F.rms_norm(x, self.weight, self.epsilon)
+    def forward(self, x, residual=None):
+        """RMSNorm of x, or with ``residual`` of h = x + residual (rounded
+        to x's dtype): then (out, h), the add handed to the norm's kernel
+        (the JAX layer's ``residual + hidden_states`` before the next
+        norm). The scale is cast to the activation's dtype either way."""
+        return fused_norm.rms_norm(x, self.weight, self.epsilon,
+                                   residual=residual)

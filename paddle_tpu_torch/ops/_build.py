@@ -26,7 +26,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("ragged_paged_attention", "weight_only_matmul", "flash_attention",
-           "blockwise_ce", "flashmask", "paged_decode_attention")
+           "blockwise_ce", "flashmask", "paged_decode_attention",
+           "fused_norm", "swiglu", "token_ce", "adamw")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

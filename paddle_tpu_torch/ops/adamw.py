@@ -1,0 +1,127 @@
+"""AdamW with the global-norm clip over a list of tensors (kernel D of the
+training step's fused tier, ``csrc/adamw.cu``).
+
+The JAX package computes the update inside its jitted step, where XLA
+fuses it (``paddle_tpu/models/pretrain.py:176-200``): no ``pallas_call``
+stands behind it. Kernel contract, for T tensors:
+  p, m, v   float32, updated in place
+  g         float32, bfloat16 or float16, p's shape (upcast in registers)
+  decay     the tensors that take weight decay (ndim >= 2 in the step)
+  returns   gnorm, a 0-dim f32 on the card: sqrt of the sum of the
+            tensors' squared f32 norms, each norm from an f64 sum
+Launch 1 writes per-chunk sums of squares into a fixed workspace and its
+last block reduces them in chunk order to gnorm and the clip scale
+min(1, clip / (gnorm + 1e-6)) on the card (no host sync); launch 2
+updates p, m and v with the plain version's op order and roundings
+(``adamw_step_plain``, the foreach passes, as PyTorch's CUDA foreach
+kernels round them: a fused multiply-add for each ``a + alpha * b``, a
+product with the reciprocal for each division by a scalar). Up to 256
+tensors take one launch of each.
+
+``adamw_step`` launches the kernels for CUDA tensors (every kernel launch
+counted in ``adamw_step.launches``: 2 a step up to 256 tensors) and runs
+``adamw_step_plain`` for CPU tensors.
+"""
+import ctypes
+
+import torch
+
+from . import _launch as L
+
+__all__ = ["adamw_step", "adamw_step_plain"]
+
+
+def adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip,
+                     count):
+    """The update in plain PyTorch (``torch._foreach_*`` passes), the JAX
+    package's math: grads scaled by min(1, clip / (gnorm + 1e-6)),
+    bias-corrected moments with eps outside the square root, decoupled
+    decay on the tensors flagged in ``decay``. ``count`` is the step's
+    number (1 for the first). Updates ps, ms and vs in place; returns
+    gnorm, a 0-dim f32 tensor."""
+    gs = [g.to(torch.float32) for g in gs]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    if clip:
+        scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+        gs = torch._foreach_mul(gs, scale)
+    c1 = 1.0 - b1 ** count
+    c2 = 1.0 - b2 ** count
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, gs, alpha=1 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+    denom = torch._foreach_div(vs, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    step = torch._foreach_div(ms, c1)
+    torch._foreach_div_(step, denom)
+    if wd:
+        idx = [i for i, d in enumerate(decay) if d]
+        torch._foreach_add_([step[i] for i in idx], [ps[i] for i in idx],
+                            alpha=wd)
+    torch._foreach_add_(ps, step, alpha=-lr)
+    return gnorm
+
+
+_counters = {}    # device -> one zeroed uint32 the kernel leaves zeroed
+
+
+def _counter(device):
+    c = _counters.get(device)
+    if c is None:
+        c = _counters[device] = torch.zeros(1, dtype=torch.int32,
+                                            device=device)
+    return c
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count):
+    """``adamw_step_plain``'s update through kernel D for CUDA tensors (or
+    the plain version for CPU ones); returns gnorm, a 0-dim f32 tensor."""
+    if not ps or not L.on_cuda("adamw_step", ps[0]):
+        return adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd,
+                                clip, count)
+    dev = ps[0].device
+    gs = [g.contiguous() for g in gs]
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        if p.dtype != torch.float32 or m.dtype != torch.float32 \
+                or v.dtype != torch.float32 or g.dtype not in L.DTYPE_CODE \
+                or not (p.shape == g.shape == m.shape == v.shape) \
+                or any(t.device != dev or not t.is_contiguous()
+                       for t in (p, g, m, v)):
+            raise ValueError("adamw_step: p, m, v must be contiguous f32 "
+                             "and g contiguous f32 / bf16 / f16 of p's "
+                             f"shape, all on {dev}")
+    t = len(ps)
+    n = (ctypes.c_longlong * t)(*(p.numel() for p in ps))
+    gtype = (ctypes.c_int * t)(*(L.DTYPE_CODE[g.dtype] for g in gs))
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    chunk = L.entry("adamw", "adamw_chunk_elems")()
+    chunks = sum(-(-p.numel() // chunk) for p in ps)
+    if chunks == 0:
+        return out.zero_()[0]
+    ws = torch.empty(2 * chunks, dtype=torch.float64, device=dev)
+    stream = L.stream(ps[0])
+    gp = _ptrs(gs)
+    rc = L.entry("adamw", "adamw_sumsq")(
+        t, gp, n, gtype, ws.data_ptr(), _counter(dev).data_ptr(),
+        out.data_ptr(), float(clip or 0.0), stream)
+    L.raise_on("adamw_sumsq", rc)
+    c1 = 1.0 - b1 ** count
+    c2 = 1.0 - b2 ** count
+    rc = L.entry("adamw", "adamw_update")(
+        t, _ptrs(ps), gp, _ptrs(ms), _ptrs(vs), n, gtype,
+        (ctypes.c_int * t)(*(int(bool(d) and bool(wd)) for d in decay)),
+        out.data_ptr(), float(b1), float(1 - b1), float(b2), float(1 - b2),
+        1.0 / c1, 1.0 / c2, float(eps), float(wd or 0.0), float(-lr),
+        int(bool(clip)), stream)
+    L.raise_on("adamw_update", rc)
+    batches = -(-t // L.entry("adamw", "adamw_max_tensors")())
+    adamw_step.launches += 2 * batches
+    return out[0]
+
+
+adamw_step.launches = 0

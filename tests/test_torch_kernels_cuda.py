@@ -1444,3 +1444,229 @@ def test_blockwise_ce_forward_plan_fills_whole_waves(t, vocab):
     assert queue(plan["splits"]) == min(queue(s) for s in range(1, nv + 1))
     assert plan["blocks"] == tt * -(-nv // plan["tiles_per_split"])
     assert plan["stages"] == 4
+
+
+# -- the training step's fused tier (kernels A-D) ---------------------------
+
+def _ulp(t):
+    """One unit in the last place of |t| in t's dtype, per element."""
+    mant = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}[
+        t.dtype]
+    return (t.float().abs().clamp_min(2.0 ** -126).log2().floor()
+            - mant).exp2()
+
+
+def _two_ulps(out, ref, atol=0.0):
+    """Largest |out - ref| over atol (a number or a tensor) + 2 units in
+    the last place of |ref| in out's dtype (both sides round the same f32
+    value once)."""
+    err = (out.float() - ref.float()).abs()
+    return float((err / (atol + 2 * _ulp(ref.to(out.dtype)))).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("r,h", [(1, 8), (7, 1000), (33, 8200), (130, 64),
+                                 (3000, 13)])
+@pytest.mark.parametrize("bias,res,f32_out", [
+    (False, False, False), (True, True, False), (False, True, True)])
+def test_fused_norm_kernel_matches_plain(dtype, r, h, bias, res, f32_out):
+    """Kernel A forward and backward at row counts and widths off the
+    block and off 8, with and without bias / residual, and the f32 output
+    of fused_rms_norm's rule; two calls bit-equal."""
+    from paddle_tpu_torch.ops import fused_norm as fn
+    gen = torch.Generator(device="cuda").manual_seed(r + h)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    od = torch.float32 if f32_out and dtype != torch.float32 else dtype
+    x, w = rnd(r, h), 1 + 0.1 * rnd(h, dt=torch.float32)
+    b = rnd(h) if bias else None
+    rr = rnd(r, h) if res else None
+    out, hh, inv = fn.rms_norm_fwd(x, w, 1e-6, b, rr, od)
+    again = fn.rms_norm_fwd(x, w, 1e-6, b, rr, od)
+    ref = fn.rms_norm_fwd_plain(x, w, 1e-6, b, rr, od)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip((out, hh, inv), again))
+    assert out.dtype == od
+    # with an f32 output, round(h * inv) flipping one unit of the
+    # activation's dtype (inv's last bit) shows as that unit times |w|
+    n = (ref[1].float() * ref[2][:, None]).to(dtype)
+    extra = _ulp(n) * w.abs() if od != dtype else 0.0
+    assert _two_ulps(out, ref[0], 1e-6 + extra) <= 1
+    assert torch.equal(hh, ref[1])
+    assert _two_ulps(inv, ref[2], 1e-6) <= 1
+    dout, dres = rnd(r, h, dt=od), rnd(r, h) if b is not None or res \
+        else None
+    dh, dw = fn.rms_norm_bwd(dout, dres, hh, w, inv, od)
+    dh2, dw2 = fn.rms_norm_bwd(dout, dres, hh, w, inv, od)
+    rdh, rdw = fn.rms_norm_bwd_plain(dout, dres, hh, w, inv, od)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+    # dh + dres rounds twice on both sides: where the sum cancels, the
+    # norm's part may differ by its own ulp
+    extra = 0.0 if dres is None else 2 * _ulp(
+        fn.rms_norm_bwd_plain(dout, None, hh, w, inv, od)[0])
+    assert _two_ulps(dh, rdh, 1e-6 + extra) <= 1
+    assert _two_ulps(dw, rdw, 1e-5 * float(rdw.abs().max())) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("r,im", [(1, 1), (5, 7), (9, 8), (300, 1000),
+                                  (64, 2816)])
+@pytest.mark.parametrize("form", ["fused", "two", "strided"])
+def test_swiglu_kernel_matches_plain(dtype, r, im, form):
+    """Kernel B forward and backward: the fused halves read in place, two
+    tensors, and row strides wider than the rows."""
+    from paddle_tpu_torch.ops import swiglu as sw
+    gen = torch.Generator(device="cuda").manual_seed(r * im)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    if form == "fused":
+        gu = rnd(r, 2 * im)
+        g, u = gu[:, :im], gu[:, im:]
+    elif form == "two":
+        g, u = rnd(r, im), rnd(r, im)
+    else:
+        g, u = rnd(r, im + 5)[:, 3:3 + im], rnd(r, im + 8)[:, :im]
+    out = sw.swiglu_fwd(g, u)
+    ref = sw.swiglu_fwd_plain(g, u)
+    dout = rnd(r, im)
+    grads = []
+    for fn in (sw.swiglu_bwd, sw.swiglu_bwd, sw.swiglu_bwd_plain):
+        dgu = torch.zeros(r, 2 * im + 3, dtype=dtype, device="cuda")
+        fn(dout, g, u, dgu[:, :im], dgu[:, im + 3:])
+        grads.append(dgu)
+    torch.cuda.synchronize()
+    assert _two_ulps(out, ref, 1e-6) <= 1
+    assert torch.equal(grads[0], grads[1])
+    assert _two_ulps(grads[0], grads[2], 1e-6) <= 1
+    assert (grads[0][:, im:im + 3] == 0).all()        # the gap untouched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,v", [(1, 1), (5, 7), (64, 32001), (3, 8),
+                                 (1030, 4096)])
+@pytest.mark.parametrize("smooth", [0.0, 0.1])
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_token_ce_kernel_matches_plain(dtype, n, v, smooth, reduction):
+    """Kernel C forward (rows, stats, totals) and backward for each
+    reduction, with ignored rows and a label outside [0, V) (NaN loss, no
+    one-hot), at vocabularies off 8 and rows off any block."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator(device="cuda").manual_seed(n + v)
+    x = (3 * torch.randn(n, v, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    lab[::3] = -100
+    if n > 1:
+        lab[1] = v + 2
+    loss, stats, totals = tc.token_ce_fwd(x, lab, -100, smooth)
+    again = tc.token_ce_fwd(x, lab, -100, smooth)
+    rl, rs, rt = tc.token_ce_fwd_plain(x, lab, -100, smooth)
+    torch.cuda.synchronize()
+    assert all(torch.allclose(a, b, rtol=0, atol=0, equal_nan=True)
+               for a, b in zip((loss, stats, totals), again))
+    assert torch.equal(loss.isnan(), rl.isnan())
+    keep = ~rl.isnan()
+    assert _two_ulps(loss[keep], rl[keep], 1e-5) <= 1
+    assert torch.equal(stats[:, 0], rs[:, 0])
+    assert _two_ulps(stats[:, 1], rs[:, 1], 1e-3) <= 1
+    g = torch.randn(n, generator=gen, device="cuda") \
+        if reduction == "none" else torch.tensor(0.7, device="cuda")
+    dx = tc.token_ce_bwd(x, lab, rs, g, rt, -100, smooth, reduction)
+    rdx = tc.token_ce_bwd_plain(x, lab, rs, g, rt, -100, smooth, reduction)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _two_ulps(dx, rdx, 2.0 ** -22 * float(rdx.abs().max())) <= 1
+    assert (dx[::3] == 0).all()
+
+
+@pytest.mark.parametrize("count", [1, 300])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip,wd", [(1.0, 0.1), (0.0, 0.0), (1e-3, 0.1)])
+def test_adamw_kernel_matches_plain(count, gdtype, clip, wd):
+    """Kernel D against the foreach passes: sizes 0, 1, odd, one past a
+    chunk, a tensor that starts 4 bytes off a 16-byte boundary (the scalar
+    route), more tensors than one launch takes (300 > 256), bf16 grads,
+    the clip on / off / dominant, decay on the ndim >= 2 tensors only."""
+    from paddle_tpu_torch.ops import adamw as ad
+    gen = torch.Generator(device="cuda").manual_seed(count)
+    sizes = [(0,), (1,), (7, 3), (65537,), (33, 65)] * (count // 5 + 1)
+    sizes = sizes[:max(count, 5)]
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    p0 = [rnd(s, 0.02) for s in sizes]
+    p0[2] = torch.empty(22, device="cuda")[1:].view(7, 3).copy_(p0[2])
+    g0 = [rnd(s, 1e-2).to(gdtype) for s in sizes]
+    m0 = [rnd(s, 1e-3) for s in sizes]
+    v0 = [rnd(s, 1e-3) ** 2 for s in sizes]
+    decay = [len(s) >= 2 for s in sizes]
+    outs = []
+    for fn in (ad.adamw_step, ad.adamw_step, ad.adamw_step_plain):
+        ps = [t.clone() if i != 2 else torch.empty(22, device="cuda")[1:]
+              .view(7, 3).copy_(t) for i, t in enumerate(p0)]
+        ms, vs = [t.clone() for t in m0], [t.clone() for t in v0]
+        gn = fn(ps, g0, ms, vs, decay, 1e-3, 0.9, 0.95, 1e-8, wd, clip, 2)
+        outs.append((ps, ms, vs, gn))
+    torch.cuda.synchronize()
+    (k1, k2, ref) = outs
+    assert torch.equal(k1[3], k2[3]) and _two_ulps(k1[3], ref[3]) <= 1
+    for a, b, c in zip(k1[:3], k2[:3], ref[:3]):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y)
+            if x.numel():
+                assert _two_ulps(x, z) <= 1
+
+
+def test_pretrain_adamw_takes_kernel_d_and_matches_its_plain_route():
+    """``pretrain._adamw`` on the card launches kernel D (two launches a
+    step) and gives within 2 ulps what ``pretrain._adamw_plain`` (the
+    foreach passes) gives on the same dicts, three steps in a row."""
+    from paddle_tpu_torch.models import pretrain
+    from paddle_tpu_torch.ops import adamw as ad
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {"w": (64, 48), "e": (100, 64), "n": (64,)}
+    init = {k: 0.02 * torch.randn(s, generator=gen, device="cuda")
+            for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen, device="cuda")
+             for k, s in shapes.items()}
+    outs = []
+    for fn in (pretrain._adamw, pretrain._adamw_plain):
+        params = {k: t.clone() for k, t in init.items()}
+        state = {"m": {k: torch.zeros_like(t) for k, t in init.items()},
+                 "v": {k: torch.zeros_like(t) for k, t in init.items()},
+                 "count": 0}
+        before = ad.adamw_step.launches
+        for _ in range(3):
+            params, state, gnorm = fn(params, grads, state, 1e-3, 0.9, 0.95,
+                                      1e-8, 0.1, 1.0)
+        outs.append((params, state, gnorm, ad.adamw_step.launches - before))
+    (kp, ks, kg, kn), (pp, ps, pg, pn) = outs
+    assert (kn, pn) == (6, 0) and ks["count"] == ps["count"] == 3
+    assert _two_ulps(kg.reshape(1), pg.reshape(1)) <= 1
+    for k in shapes:
+        for a, b in ((kp[k], pp[k]), (ks["m"][k], ps["m"][k]),
+                     (ks["v"][k], ps["v"][k])):
+            assert _two_ulps(a, b) <= 1
+
+
+def test_fused_tier_wrappers_refuse_what_the_kernels_do_not_take():
+    from paddle_tpu_torch.ops import adamw as ad
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import swiglu as sw
+    from paddle_tpu_torch.ops import token_ce as tc
+    x = torch.randn(4, 8, device="cuda")
+    with pytest.raises(ValueError):
+        fn.rms_norm_fwd(x.t(), None, 1e-6, None, None, torch.float32)
+    with pytest.raises(ValueError):
+        sw.swiglu_fwd(x[:, ::2], x[:, 1::2])
+    with pytest.raises(ValueError):
+        tc.token_ce_fwd(x, torch.zeros(4, dtype=torch.int32,
+                                       device="cuda"), -100, 0.0)
+    with pytest.raises(ValueError):
+        ad.adamw_step([x.double()], [x], [x.clone()], [x.clone()], [True],
+                      1e-3, 0.9, 0.95, 1e-8, 0.1, 1.0, 1)

@@ -130,10 +130,15 @@ def test_cross_entropy_with_ignored_rows(dtype):
     assert (tl.grad[[1, 4, 7]] == 0).all()
     # every row ignored: the mean's denominator is clamped to one
     assert float(TF.cross_entropy(tl, torch.full((10,), -100)).detach()) == 0.0
-    for kw in (dict(label_smoothing=0.1), dict(reduction="sum"),
-               dict(soft_label=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TF.cross_entropy(tl, _t(labels), **kw)
+    # the other modes are ported: they match the JAX function
+    soft = rng.dirichlet(np.ones(17), 10).astype(np.float32)
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    for lab, kw in ((labels, dict(label_smoothing=0.1)),
+                    (labels, dict(reduction="sum")),
+                    (soft, dict(soft_label=True))):
+        want = _np(JF.cross_entropy(jl, paddle.to_tensor(lab), **kw))
+        got = TF.cross_entropy(tl, _t(lab), **kw).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("kind", ["bool", "additive"])

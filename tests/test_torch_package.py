@@ -76,15 +76,20 @@ def test_no_jax_or_paddle_tpu_import_statement():
 
 def test_kernel_sources_and_lazy_build():
     from paddle_tpu_torch.ops import _build
+    # the training step's fused tier replaces work XLA fuses: its sources
+    # name the JAX package's function, the others the TPU kernel
+    tier = ("fused_norm", "swiglu", "token_ce", "adamw")
     for name in _build.SOURCES:
         src = os.path.join(_build.CSRC_DIR, name + ".cu")
         with open(src) as f:
             text = f.read()
         assert "sm_90a" in text and 'extern "C"' in text
-        assert "paddle_tpu/ops/pallas/" in text   # names the TPU kernel
+        assert ("paddle_tpu/" if name in tier
+                else "paddle_tpu/ops/pallas/") in text
     assert "flashmask" in _build.SOURCES
     assert "paged_decode_attention" in _build.SOURCES
-    assert len(_build.SOURCES) == 6
+    assert set(tier) <= set(_build.SOURCES)
+    assert len(_build.SOURCES) == 10
     # importing the ops built nothing
     assert _build._libs == {}
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -60,22 +60,27 @@ def test_adamw_one_step_matches(clip):
         {"m": {n: jnp.asarray(a) for n, a in m.items()},
          "v": {n: jnp.asarray(a) for n, a in v.items()},
          "count": jnp.asarray(3, jnp.int32)}, **hp)
-    t = {n: torch.tensor(a) for n, a in params.items()}
-    state = {"m": {n: torch.tensor(a) for n, a in m.items()},
-             "v": {n: torch.tensor(a) for n, a in v.items()}, "count": 3}
-    tp, ts, tg = tpre._adamw(
-        t, {n: torch.tensor(a) for n, a in grads.items()}, state,
-        hp["lr"], hp["b1"], hp["b2"], hp["eps"], hp["wd"], hp["clip"])
-    assert ts["count"] == int(js["count"]) == 4
-    assert abs(float(tg) - float(jg)) <= 1e-6 * float(jg)
-    for n in params:
-        np.testing.assert_allclose(tp[n].numpy(), np.asarray(jp[n]), rtol=0,
-                                   atol=1e-6, err_msg=n)
-        np.testing.assert_allclose(ts["m"][n].numpy(), np.asarray(js["m"][n]),
-                                   rtol=0, atol=1e-6, err_msg=n)
-        np.testing.assert_allclose(ts["v"][n].numpy(), np.asarray(js["v"][n]),
-                                   rtol=0, atol=1e-6, err_msg=n)
-    assert tp["w2d"] is t["w2d"] and ts is state   # updated in place
+    # _adamw (kernel D on the card, its plain version here) and
+    # _adamw_plain (the foreach passes anywhere) both match
+    for fn in (tpre._adamw, tpre._adamw_plain):
+        t = {n: torch.tensor(a) for n, a in params.items()}
+        state = {"m": {n: torch.tensor(a) for n, a in m.items()},
+                 "v": {n: torch.tensor(a) for n, a in v.items()}, "count": 3}
+        tp, ts, tg = fn(
+            t, {n: torch.tensor(a) for n, a in grads.items()}, state,
+            hp["lr"], hp["b1"], hp["b2"], hp["eps"], hp["wd"], hp["clip"])
+        assert ts["count"] == int(js["count"]) == 4
+        assert abs(float(tg) - float(jg)) <= 1e-6 * float(jg)
+        for n in params:
+            np.testing.assert_allclose(tp[n].numpy(), np.asarray(jp[n]),
+                                       rtol=0, atol=1e-6, err_msg=n)
+            np.testing.assert_allclose(ts["m"][n].numpy(),
+                                       np.asarray(js["m"][n]), rtol=0,
+                                       atol=1e-6, err_msg=n)
+            np.testing.assert_allclose(ts["v"][n].numpy(),
+                                       np.asarray(js["v"][n]), rtol=0,
+                                       atol=1e-6, err_msg=n)
+        assert tp["w2d"] is t["w2d"] and ts is state   # updated in place
 
 
 def _batches(n, batch, seq, vocab, seed=0):
@@ -103,7 +108,7 @@ def _trajectories(cfg, batch, seq, steps):
         tparams, topt, tl, tg = tstep(tparams, topt,
                                       tpre.batch_to_device(b, "cpu"))
         got.append((float(tl), float(tg)))
-    return np.array(want), np.array(got), tparams
+    return np.array(want), np.array(got), tparams, jparams
 
 
 def test_five_step_trajectory_matches_make_train_step():
@@ -113,9 +118,12 @@ def test_five_step_trajectory_matches_make_train_step():
     assert vars(cfg) == vars(jcfg)
     steps0 = instrument.train_steps_total().value
     tokens0 = instrument.train_tokens_total().value
-    want, got, params = _trajectories(cfg, batch, seq, 5)
+    want, got, params, jparams = _trajectories(cfg, batch, seq, 5)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
     assert all(p.dtype == torch.float32 for p in params.values())
+    for n, p in params.items():     # the parameters after five updates
+        np.testing.assert_allclose(p.numpy(), np.asarray(jparams[n]),
+                                   rtol=1e-5, atol=1e-5, err_msg=n)
     assert instrument.train_steps_total().value == steps0 + 5
     assert instrument.train_tokens_total().value == tokens0 + 5 * batch * seq
     assert instrument.train_tokens_per_s().value > 0
@@ -146,7 +154,7 @@ def test_five_step_trajectory_with_kernel_options_matches(kernel_options,
         inner = getattr(tbc, name)
         monkeypatch.setattr(tbc, name, lambda *a, _n=name, _f=inner: (
             calls.append(_n), _f(*a))[1])
-    want, got, params = _trajectories(cfg, batch, seq, 5)
+    want, got, params, _ = _trajectories(cfg, batch, seq, 5)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
     assert calls == ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw"] * 5
     assert all(p.dtype == torch.float32 for p in params.values())
@@ -160,7 +168,7 @@ def test_bf16_amp_step_with_kernel_options_matches(kernel_options):
     cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
     for k, v in kernel_options.items():
         setattr(cfg, k, v)
-    want, got, params = _trajectories(cfg, 2, 32, 3)
+    want, got, params, _ = _trajectories(cfg, 2, 32, 3)
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-3, atol=0)
     assert all(p.dtype == torch.float32 for p in params.values())
@@ -173,7 +181,7 @@ def test_bf16_amp_step_matches():
     cfg, batch, seq = tpre.flagship_config(on_tpu=False)
     cfg.dtype = "bfloat16"
     cfg.fuse_attention_qkv = cfg.fuse_attention_ffn = True
-    want, got, params = _trajectories(cfg, 2, 32, 3)
+    want, got, params, _ = _trajectories(cfg, 2, 32, 3)
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-3, atol=0)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-3, atol=0)
     assert all(p.dtype == torch.float32 for p in params.values())
