@@ -113,17 +113,23 @@ Phases (any failure exits non-zero and prints no result line):
 18. the training step's fused tier against its plain versions: kernel A
      (RMSNorm with its residual, forward and backward) at the flagship
      (R = 16384, H = 1024, bf16, with and without a residual), in f32, at
-     H = 1000 on 16383 rows and with fused_rms_norm's f32 output; kernel B
+     H = 1000 on 16383 rows, with fused_rms_norm's f32 output, at
+     Llama-7B's H = 4096, on one row of H = 8 and at H = 8200; kernel B
      (SwiGLU) on the flagship's fused [R, 2 x 2816] projection read in
      place, the two-tensor form and im = 1000; kernel C (token cross
-     entropy) on the flagship's bf16 logits, in f32, and at V = 32001 with
-     ignored rows and label smoothing 0.1; kernel D (AdamW with the clip)
-     over the flagship's 373.9M parameters. Each case: every element
+     entropy) on the flagship's bf16 logits, in f32, at V = 32001, GPT-2's
+     50257 and Llama-3's 128256 with ignored rows and label smoothing 0.1,
+     and with labels outside [0, V) (NaN rows); kernel D (AdamW with the
+     clip) over the flagship's 373.9M parameters. Each case: every element
      within atol + 2 ulps (AdamW's p, m, v and gnorm within 2 f32 ulps),
      two calls bit-equal, and the device ms of the kernel, its plain
      version, its bound and one PyTorch call of the same function where
-     there is one (F.rms_norm after the add, F.cross_entropy, AdamW(fused)
-     after clip_grad_norm_; none for SwiGLU). Phases 7 and 11 assert the
+     there is one (F.rms_norm after the add and its backward share,
+     F.cross_entropy and its backward share, AdamW(fused) after
+     clip_grad_norm_; none for SwiGLU). A's backward and C's forward print
+     the route each case took, which must be the one their plans name,
+     and together the cases must take every route ("warp", "warps",
+     "block"; "rows", "cluster", "two-pass"). Phases 7 and 11 assert the
      tier's launches a step (norm 49 + 49, SwiGLU 24 + 24, token CE 1 + 1
      in phase 7 and none in phase 11, AdamW 2) and print a step's "other"
      kernels by source operation; phases 8 and 12 hold the kernels against
@@ -197,21 +203,30 @@ def time_ms(fn, iters=25, warmup=3):
     return float(np.median(times))
 
 
-def device_time_ms(fn, iters=50):
+def device_time_ms(fn, iters=50, sleep=10_000_000):
     """Device time of one call without the host's: ``iters`` calls queued
-    behind a sleep kernel, so that the card never waits for the host,
-    between two CUDA events, over the count."""
+    behind a sleep kernel of ``sleep`` cycles, so that the card never
+    waits for the host, between two CUDA events, over the count."""
     import torch
     fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(sleep)
     a.record()
     for _ in range(iters):
         fn()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def library_share_ms(full, minus):
+    """Device ms of the share of ``full()`` (a PyTorch forward and
+    backward through autograd) that ``minus()`` (its forward) leaves: 20
+    calls of each behind a sleep long enough (about 0.1 s) that autograd's
+    host work never leaves the card waiting."""
+    return device_time_ms(full, iters=20, sleep=200_000_000) - \
+        device_time_ms(minus, iters=20, sleep=200_000_000)
 
 
 def bound(nbytes, flops):
@@ -2827,14 +2842,23 @@ def two_ulp_agreement(out, ref, atol):
 
 
 def tier_case(torch, kernel, name, run, plain, atols, nbytes, library=None,
-              plain_iters=10):
+              plain_iters=10, route=None, library_minus=None):
     """One phase-18 case: ``run()`` twice (bit-equal) and ``plain()`` on
     the same inputs, each output within its atol (a number, or a function
-    of the plain output) + 2 ulps; device ms of
-    the kernel, its plain version and ``library`` (one PyTorch call of the
-    same function, or None)."""
+    of the plain output) + 2 ulps; device ms of the kernel, its plain
+    version and ``library`` (one PyTorch call of the same function, or
+    None; less ``library_minus``'s time where only a share of that call
+    is the same function). ``route``: (the route the wrapper reports
+    it passed to the kernel, the route the case names); the two must
+    agree."""
     out1, out2, ref = run(), run(), plain()
     torch.cuda.synchronize()
+    taken = None
+    if route is not None:
+        taken, planned = route()
+        check(taken is not None and taken == planned,
+              f"{kernel}[{name}]: took route {taken}, the case names "
+              f"{planned}")
     check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
           f"{kernel}[{name}]: two calls differ")
     err = ratio = 0.0
@@ -2846,63 +2870,114 @@ def tier_case(torch, kernel, name, run, plain, atols, nbytes, library=None,
           f"off by {ratio:.2f}x its allowance")
     ms = device_time_ms(run)
     plain_ms = device_time_ms(plain, iters=plain_iters)
-    lib_ms = None if library is None else device_time_ms(library)
+    lib_ms = None if library is None else device_time_ms(library) \
+        if library_minus is None else library_share_ms(library, library_minus)
     b_ms, b_by = bound(nbytes, 0)
-    print(f"  {kernel}[{name}]: err {err:.3e} (worst {ratio:.3f} of atol + 2 "
-          f"ulps; two calls bit-equal) device ms: kernel {ms:.4f} plain "
+    print(f"  {kernel}[{name}]"
+          + ("" if taken is None else f" route {taken}")
+          + f": err {err:.3e} (worst {ratio:.3f} of atol + 2 ulps; two "
+          f"calls bit-equal) device ms: kernel {ms:.4f} plain "
           f"{plain_ms:.4f} bound {b_ms:.4f} ({b_by})"
           + ("" if lib_ms is None else f" library {lib_ms:.4f}"), flush=True)
-    return {"case": name, "max_abs_err": err, "worst_over_allowed": ratio,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    return {"case": name, "route": taken, "max_abs_err": err,
+            "worst_over_allowed": ratio, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+# kernel A's cases: (name, R, H, dtype name, residual, f32 output, the
+# backward's route); the flagship's residual norm in bf16 and the first
+# layer's (no residual), f32 (route "block"), H = 1000 (not a multiple of
+# a warp's 1024) on a row count off any block, fused_rms_norm's f32
+# output, Llama-7B's H = 4096 ("warps", 4 a row), one row of H = 8, H =
+# 8200 past the register routes ("block"), and H = 1001, whose rows allow
+# no 16-byte accesses ("block")
+NORM_SPECS = (
+    ("flagship_r16384_h1024", MAX_BATCH * 2048, E, "bfloat16", True, False,
+     "warp"),
+    ("flagship_first_norm", MAX_BATCH * 2048, E, "bfloat16", False, False,
+     "warp"),
+    ("f32_r16384_h1024", MAX_BATCH * 2048, E, "float32", True, False,
+     "block"),
+    ("h1000_r16383", 16383, 1000, "bfloat16", True, False, "warp"),
+    ("fused_f32_out", MAX_BATCH * 2048, E, "bfloat16", True, True, "warp"),
+    ("h4096_r4096", 4096, 4096, "bfloat16", True, False, "warps"),
+    ("h8_r1", 1, 8, "bfloat16", True, False, "warp"),
+    ("h8200_r33", 33, 8200, "bfloat16", True, False, "block"),
+    ("h1001_r7", 7, 1001, "bfloat16", True, False, "block"))
+
+
+def norm_case(torch, gen, spec):
+    """Kernel A's inputs, gates and bytes for one of NORM_SPECS: a dict
+    with the forward's and backward's arguments (``fwd_args``,
+    ``bwd_args`` in the wrappers' order), their atols, bytes, and the
+    library calls (F.rms_norm after the add; its backward share)."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import fused_norm as fn
+    name, r, hid, dtn, resid, f32_out, want_route = spec
+    dt = getattr(torch, dtn)
+
+    def rnd(*shape, dtype=dt):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    od = torch.float32 if f32_out else dt
+    x, w = rnd(r, hid), 1 + 0.1 * rnd(hid, dtype=torch.float32)
+    res = rnd(r, hid) if resid else None
+    dout, dres = rnd(r, hid, dtype=od), rnd(r, hid) if resid else None
+    eb, ob = torch.finfo(dt).bits // 8, torch.finfo(od).bits // 8
+    _, h, inv = fn.rms_norm_fwd_plain(x, w, 1e-6, None, res, od)
+    w_dt = w.to(dt)
+    out_atol = TIER_ATOL
+    if od != dt:
+        # round_T(h * inv) may flip by one unit of T where inv differs
+        # in its last bit; an f32 output keeps that unit times |w|
+        n = (h.float() * inv[:, None]).to(dt)
+        out_atol = TIER_ATOL + ulps(n) * w.abs()
+    # dh + dres rounds twice on both sides; where the sum cancels, the
+    # ulp that the norm's part may differ by is large beside the result
+    dh_norm = fn.rms_norm_bwd_plain(dout, None, h, w, inv, od)[0]
+    dh_atol = TIER_ATOL + 2 * ulps(dh_norm) if resid else TIER_ATOL
+    hg, wg = h.detach().requires_grad_(), w_dt.detach().requires_grad_()
+    dlib = dout.to(dt)
+
+    def lib_fwd():
+        with torch.enable_grad():
+            return Fn.rms_norm(hg, (hid,), wg, 1e-6)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lib_fwd(), (hg, wg), dlib)
+    return {"name": name, "fwd_args": (x, w, 1e-6, None, res, od),
+            "bwd_args": (dout, dres, h, w, inv, od),
+            "fwd_atols": (out_atol, 0.0, TIER_ATOL),
+            "bwd_atols": (dh_atol,
+                          lambda ref: DW_RTOL * float(ref.abs().max())),
+            "fwd_bytes": r * hid * (eb * (1 + 2 * resid) + ob) + r * 4
+            + hid * 4,
+            "bwd_bytes": r * hid * (eb * (2 + resid) + ob) + r * 4
+            + 2 * hid * 4,
+            "lib_fwd": lambda: Fn.rms_norm(h, (hid,), w_dt, 1e-6),
+            "lib_grad": lib_fwd_bwd, "lib_grad_minus": lib_fwd,
+            "bwd_route": lambda: (fn.rms_norm_bwd.route, want_route)}
 
 
 def norm_cases(torch, rows):
-    """Kernel A forward and backward: the flagship's residual norm in bf16
-    (and without a residual, the first layer's), f32, H = 1000 (off 8) on
-    a row count off any block, and fused_rms_norm's f32 output."""
-    import torch.nn.functional as Fn
+    """Kernel A forward and backward over NORM_SPECS, the backward's route
+    printed and gated against the case's."""
     from paddle_tpu_torch.ops import fused_norm as fn
     gen = torch.Generator(device="cuda").manual_seed(81)
-    r0, h0 = MAX_BATCH * 2048, E
-    specs = (("flagship_r16384_h1024", r0, h0, torch.bfloat16, True, False),
-             ("flagship_first_norm", r0, h0, torch.bfloat16, False, False),
-             ("f32_r16384_h1024", r0, h0, torch.float32, True, False),
-             ("h1000_r16383", 16383, 1000, torch.bfloat16, True, False),
-             ("fused_f32_out", r0, h0, torch.bfloat16, True, True))
-    for name, r, hid, dt, resid, f32_out in specs:
-        def rnd(*shape, dtype=dt):
-            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-        od = torch.float32 if f32_out else dt
-        x, w = rnd(r, hid), 1 + 0.1 * rnd(hid, dtype=torch.float32)
-        res = rnd(r, hid) if resid else None
-        dout, dres = rnd(r, hid, dtype=od), rnd(r, hid) if resid else None
-        eb, ob = torch.finfo(dt).bits // 8, torch.finfo(od).bits // 8
-        _, h, inv = fn.rms_norm_fwd_plain(x, w, 1e-6, None, res, od)
-        w_dt = w.to(dt)
-        out_atol = TIER_ATOL
-        if od != dt:
-            # round_T(h * inv) may flip by one unit of T where inv differs
-            # in its last bit; an f32 output keeps that unit times |w|
-            n = (h.float() * inv[:, None]).to(dt)
-            out_atol = TIER_ATOL + ulps(n) * w.abs()
+    for spec in NORM_SPECS:
+        c = norm_case(torch, gen, spec)
         rows["fwd"].append(tier_case(
-            torch, "fused_norm_fwd", name,
-            lambda: fn.rms_norm_fwd(x, w, 1e-6, None, res, od),
-            lambda: fn.rms_norm_fwd_plain(x, w, 1e-6, None, res, od),
-            (out_atol, 0.0, TIER_ATOL),
-            r * hid * (eb * (1 + 2 * resid) + ob) + r * 4 + hid * 4,
-            library=lambda: Fn.rms_norm(h, (hid,), w_dt, 1e-6)))
-        # dh + dres rounds twice on both sides; where the sum cancels, the
-        # ulp that the norm's part may differ by is large beside the result
-        dh_norm = fn.rms_norm_bwd_plain(dout, None, h, w, inv, od)[0]
-        dh_atol = TIER_ATOL + 2 * ulps(dh_norm) if resid else TIER_ATOL
+            torch, "fused_norm_fwd", c["name"],
+            lambda: fn.rms_norm_fwd(*c["fwd_args"]),
+            lambda: fn.rms_norm_fwd_plain(*c["fwd_args"]), c["fwd_atols"],
+            c["fwd_bytes"], library=c["lib_fwd"]))
         rows["bwd"].append(tier_case(
-            torch, "fused_norm_bwd", name,
-            lambda: fn.rms_norm_bwd(dout, dres, h, w, inv, od),
-            lambda: fn.rms_norm_bwd_plain(dout, dres, h, w, inv, od),
-            (dh_atol, lambda ref: DW_RTOL * float(ref.abs().max())),
-            r * hid * (eb * (2 + resid) + ob) + r * 4 + 2 * hid * 4))
+            torch, "fused_norm_bwd", c["name"],
+            lambda: fn.rms_norm_bwd(*c["bwd_args"]),
+            lambda: fn.rms_norm_bwd_plain(*c["bwd_args"]), c["bwd_atols"],
+            c["bwd_bytes"], library=c["lib_grad"],
+            library_minus=c["lib_grad_minus"], route=c["bwd_route"]))
+        del c
 
 
 def swiglu_cases(torch, rows):
@@ -2938,43 +3013,121 @@ def swiglu_cases(torch, rows):
             lambda: bwd(sw.swiglu_bwd_plain), (TIER_ATOL,), 5 * r * im * 2))
 
 
-def token_ce_cases(torch, rows):
-    """Kernel C forward and backward: the flagship's bf16 logits, the
-    same in f32, and V = 32001 with a quarter of the rows ignored and
-    label smoothing 0.1; the library yardstick is F.cross_entropy on the
-    same logits (forward)."""
+# kernel C's cases: (name, N, V, dtype name, label smoothing, every k-th
+# row ignored or 0, the forward's route); the flagship's bf16 logits, the
+# same in f32, V = 32001 off 8 with ignored rows and smoothing (each row at
+# another 16-byte phase), GPT-2's 50257 (off 8 too) and Llama-3's 128256
+CE_SPECS = (
+    ("flagship_n16384_v32000", MAX_BATCH * 2048, V, "bfloat16", 0.0, 0,
+     "rows"),
+    ("f32_n16384_v32000", MAX_BATCH * 2048, V, "float32", 0.0, 0,
+     "cluster"),
+    ("v32001_smooth_ignored", 4099, V + 1, "bfloat16", 0.1, 4, "rows"),
+    ("v50257_smooth_ignored", 4099, 50257, "bfloat16", 0.1, 4, "cluster"),
+    ("v128256_smooth_ignored", 4099, 128256, "bfloat16", 0.1, 4,
+     "cluster"))
+
+
+def ce_case(torch, gen, spec):
+    """Kernel C's inputs, gates and bytes for one of CE_SPECS: a dict with
+    the forward's and backward's arguments in the wrappers' order, their
+    atols and bytes, and the library calls (F.cross_entropy; its backward
+    share)."""
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import token_ce as tc
+    name, n, vocab, dtn, eps, ign, want_route = spec
+    dt = getattr(torch, dtn)
+    x = (2 * torch.randn(n, vocab, generator=gen, device="cuda")).to(dt)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+    if ign:
+        lab[::ign] = -100
+    g = torch.ones((), device="cuda")
+    eb = torch.finfo(dt).bits // 8
+    _, stats, totals = tc.token_ce_fwd_plain(x, lab, -100, eps)
+    xg = x.detach().requires_grad_()
+
+    def lib_fwd():
+        with torch.enable_grad():
+            return Fn.cross_entropy(xg, lab, ignore_index=-100,
+                                    label_smoothing=eps)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lib_fwd(), xg)
+    return {"name": name, "fwd_args": (x, lab, -100, eps),
+            "bwd_args": (x, lab, stats, g, totals, -100, eps, "mean"),
+            "fwd_atols": (CE_LOSS_ATOL_T, CE_SUM_ATOL,
+                          lambda ref: CE_TOTAL_RTOL * float(ref.abs().max())),
+            "bwd_atols": (lambda ref: 2.0 ** -22 * float(ref.abs().max()),),
+            "fwd_bytes": n * vocab * eb + n * (8 + 12),
+            "bwd_bytes": 2 * n * vocab * eb + n * 16,
+            "lib_fwd": lambda: Fn.cross_entropy(x, lab, ignore_index=-100,
+                                                label_smoothing=eps),
+            "lib_grad": lib_fwd_bwd, "lib_grad_minus": lib_fwd,
+            "fwd_route": lambda: (tc.token_ce_fwd.route, want_route)}
+
+
+def ce_nan_label_check(torch):
+    """Kernel C's forward with labels outside [0, V) (V + 2 and -1) on
+    each route ("rows" at 32000, "cluster" at 128256, "two-pass" at
+    262145): those rows' losses NaN as in the plain version, every other
+    row, the stats and the valid count within the gates. Returns the
+    routes taken."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator(device="cuda").manual_seed(85)
+    routes = []
+    for vocab, want in ((V, "rows"), (128256, "cluster"),
+                        (262145, "two-pass")):
+        x = (2 * torch.randn(7, vocab, generator=gen, device="cuda")
+             ).bfloat16()
+        lab = torch.randint(0, vocab, (7,), generator=gen, device="cuda")
+        lab[1], lab[3], lab[5] = vocab + 2, -1, -100
+        loss, stats, totals = tc.token_ce_fwd(x, lab, -100, 0.1)
+        rl, rs, rt = tc.token_ce_fwd_plain(x, lab, -100, 0.1)
+        torch.cuda.synchronize()
+        taken = tc.token_ce_fwd.route
+        check(taken == want, f"token_ce_fwd[nan_label_v{vocab}]: took "
+              f"route {taken}, not {want}")
+        nan = torch.tensor([1, 3], device="cuda")
+        keep = torch.tensor([0, 2, 4, 5, 6], device="cuda")
+        check(bool(loss[nan].isnan().all()) and bool(rl[nan].isnan().all())
+              and not bool(loss[keep].isnan().any()),
+              f"token_ce_fwd[nan_label_v{vocab}]: NaN rows {loss.tolist()}")
+        e1, q1 = two_ulp_agreement(loss[keep], rl[keep], CE_LOSS_ATOL_T)
+        e2, q2 = two_ulp_agreement(stats, rs, CE_SUM_ATOL)
+        check(max(q1, q2) <= 1.0 and float(totals[1]) == float(rt[1]) == 6,
+              f"token_ce_fwd[nan_label_v{vocab}]: err {max(e1, e2)}, "
+              f"{max(q1, q2):.2f}x the allowance, count {float(totals[1])}")
+        print(f"  token_ce_fwd[nan_label_v{vocab}] route {taken}: labels "
+              f"V + 2 and -1 give NaN as the plain version; the other rows "
+              f"err {max(e1, e2):.3e} (worst {max(q1, q2):.3f})", flush=True)
+        routes.append(taken)
+    return routes
+
+
+def token_ce_cases(torch, rows):
+    """Kernel C forward and backward over CE_SPECS, the forward's route
+    printed and gated against the case's; the library yardsticks are
+    F.cross_entropy (forward) and its backward share (forward + backward
+    minus forward) on the same logits. Then the labels outside [0, V)."""
+    from paddle_tpu_torch.ops import token_ce as tc
     gen = torch.Generator(device="cuda").manual_seed(83)
-    n0 = MAX_BATCH * 2048
-    for name, n, vocab, dt, eps, ign in (
-            ("flagship_n16384_v32000", n0, V, torch.bfloat16, 0.0, 0),
-            ("f32_n16384_v32000", n0, V, torch.float32, 0.0, 0),
-            ("v32001_smooth_ignored", 4099, V + 1, torch.bfloat16, 0.1, 4)):
-        x = (2 * torch.randn(n, vocab, generator=gen, device="cuda")).to(dt)
-        lab = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
-        if ign:
-            lab[::ign] = -100
-        g = torch.ones((), device="cuda")
-        eb = torch.finfo(dt).bits // 8
+    for spec in CE_SPECS:
+        c = ce_case(torch, gen, spec)
         rows["fwd"].append(tier_case(
-            torch, "token_ce_fwd", name,
-            lambda: tc.token_ce_fwd(x, lab, -100, eps),
-            lambda: tc.token_ce_fwd_plain(x, lab, -100, eps),
-            (CE_LOSS_ATOL_T, CE_SUM_ATOL,
-             lambda ref: CE_TOTAL_RTOL * float(ref.abs().max())),
-            n * vocab * eb + n * (8 + 12),
-            library=lambda: Fn.cross_entropy(x, lab, ignore_index=-100,
-                                             label_smoothing=eps)))
-        _, stats, totals = tc.token_ce_fwd_plain(x, lab, -100, eps)
+            torch, "token_ce_fwd", c["name"],
+            lambda: tc.token_ce_fwd(*c["fwd_args"]),
+            lambda: tc.token_ce_fwd_plain(*c["fwd_args"]), c["fwd_atols"],
+            c["fwd_bytes"], library=c["lib_fwd"], route=c["fwd_route"]))
         rows["bwd"].append(tier_case(
-            torch, "token_ce_bwd", name,
-            lambda: (tc.token_ce_bwd(x, lab, stats, g, totals, -100, eps,
-                                     "mean"),),
-            lambda: (tc.token_ce_bwd_plain(x, lab, stats, g, totals, -100,
-                                           eps, "mean"),),
-            (lambda ref: 2.0 ** -22 * float(ref.abs().max()),),
-            2 * n * vocab * eb + n * 16))
+            torch, "token_ce_bwd", c["name"],
+            lambda: (tc.token_ce_bwd(*c["bwd_args"]),),
+            lambda: (tc.token_ce_bwd_plain(*c["bwd_args"]),),
+            c["bwd_atols"], c["bwd_bytes"], library=c["lib_grad"],
+            library_minus=c["lib_grad_minus"]))
+        del c
+        torch.cuda.empty_cache()
+    rows["nan_label_routes"] = ce_nan_label_check(torch)
 
 
 def adamw_case(torch):
@@ -3065,7 +3218,8 @@ def adamw_case(torch):
 
 def phase_fused_tier(torch):
     """Phase 18: kernels A-D against their plain versions (module
-    docstring). Returns {kernel: rows}."""
+    docstring); A's backward and C's forward on every route their plans
+    name. Returns {kernel: rows}."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {k: [] for k in ("norm_fwd", "norm_bwd", "swiglu_fwd",
                             "swiglu_bwd", "ce_fwd", "ce_bwd")}
@@ -3076,7 +3230,15 @@ def phase_fused_tier(torch):
             fn(torch, part)
             rows[f"{key}_fwd"], rows[f"{key}_bwd"] = part["fwd"], part["bwd"]
             torch.cuda.empty_cache()
+        nan_routes = part["nan_label_routes"]
         rows["adamw"] = adamw_case(torch)
+    taken = ({r["route"] for r in rows["norm_bwd"]},
+             {r["route"] for r in rows["ce_fwd"]} | set(nan_routes))
+    print(f"  routes taken: fused_norm_bwd {sorted(taken[0])}, token_ce_fwd "
+          f"{sorted(taken[1])}", flush=True)
+    check(taken == ({"warp", "warps", "block"},
+                    {"rows", "cluster", "two-pass"}),
+          f"phase 18 took routes {taken}, not every route of the plans")
     return rows
 
 

@@ -1,14 +1,17 @@
 // Helpers shared by the training step's fused tier (fused_norm.cu,
 // swiglu.cu, token_ce.cu): element conversions that round as PyTorch's
 // casts do (round to nearest even), eight-element loads and stores that
-// take one or two 16-byte accesses where the row allows it, and a block
-// sum in a fixed order.
+// take one or two 16-byte accesses where the row allows it, eight elements
+// kept packed in registers, cp.async copies into shared memory, a named
+// barrier, and a block sum in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fused_tier {
 
@@ -79,6 +82,97 @@ __device__ __forceinline__ void store8(T* p, int n, const float (&f)[8]) {
     for (int i = 0; i < 8; ++i)
       if (i < n) p[i] = from_f<T>(f[i]);
   }
+}
+
+// Eight elements of T kept packed in registers (16 bytes for a 16-bit T,
+// 32 for f32): what a row kept on chip holds between its two uses.
+template <typename T> struct Pack8 {
+  uint4 u[sizeof(T) / 2];
+};
+
+__device__ __forceinline__ void words(const uint4& u, uint32_t (&w)[4]) {
+  w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+}
+
+// The eight elements of q as floats (exact: every T widens to f32).
+template <typename T>
+__device__ __forceinline__ void unpack(const Pack8<T>& q, float (&f)[8]) {
+  uint32_t w[4];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      words(q.u[j], w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[4 * j + i] = __uint_as_float(w[i]);
+    }
+  } else {
+    words(q.u[0], w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        f[2 * j] = __uint_as_float(w[j] << 16);
+        f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      } else {
+        const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&w[j]));
+        f[2 * j] = t.x;
+        f[2 * j + 1] = t.y;
+      }
+    }
+  }
+}
+
+// f rounded to T (to nearest even), packed.
+template <typename T>
+__device__ __forceinline__ void pack(const float (&f)[8], Pack8<T>& q) {
+  uint32_t w[8];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = __float_as_uint(f[i]);
+    q.u[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    q.u[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+        w[j] = *reinterpret_cast<const uint32_t*>(&t);
+      } else {
+        const __half2 t = __floats2half2_rn(f[2 * j], f[2 * j + 1]);
+        w[j] = *reinterpret_cast<const uint32_t*>(&t);
+      }
+    }
+    q.u[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// cp.async of a Pack8's bytes (one or two 16-byte copies, L1 bypassed)
+// from 16-byte aligned global memory into shared memory; cp_async4 copies
+// 4 bytes. commit / wait as PTX's cp.async groups.
+template <typename T>
+__device__ __forceinline__ void cp_async_pack(Pack8<T>* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+#pragma unroll
+  for (int j = 0; j < (int)(sizeof(T) / 2); ++j)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * j),
+                 "l"(reinterpret_cast<const uint4*>(src) + j)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads, whole warps.
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

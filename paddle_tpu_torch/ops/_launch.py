@@ -56,9 +56,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # source -> {C entry point: argument types}; every entry returns an int
 PROTOTYPES = {
     "fused_norm": {
-        "fused_norm_bwd_blocks": [_L, _I],
         "fused_norm_fwd": [_I] * 4 + [_P] * 7 + [_L, _I, _F, _P],
-        "fused_norm_bwd": [_I] * 4 + [_P] * 8 + [_L, _I, _I, _P],
+        "fused_norm_bwd": [_I] * 4 + [_P] * 8 + [_L] + [_I] * 4 + [_P],
     },
     "swiglu": {
         "swiglu_fwd": [_I, _I] + [_P] * 3 + [_L] * 3 + [_L, _I, _P],
@@ -66,7 +65,7 @@ PROTOTYPES = {
     },
     "token_ce": {
         "token_ce_fwd": [_I, _I] + [_P] * 5 + [_L, _L, _I, _L, _F, _F,
-                                               _P],
+                                               _I, _I, _P],
         "token_ce_bwd": [_I, _I] + [_P] * 6 + [_L, _L, _I, _L, _F, _F,
                                                _I, _P],
     },

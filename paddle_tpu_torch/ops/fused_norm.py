@@ -25,13 +25,65 @@ promotes).
 rows and then the column sum of dw) and run ``rms_norm_fwd_plain`` /
 ``rms_norm_bwd_plain`` for CPU tensors. ``rms_norm`` is the public op, a
 ``torch.autograd.Function``.
+
+The backward takes one of three routes, chosen by ``bwd_plan`` from the
+activation's dtype, H and whether the rows allow 16-byte accesses, and
+passed to the kernel, which runs that route or refuses it: "warp" (one
+warp a row, read once through a ring of rows in shared memory), "warps"
+(2, 4 or 8 warps a row, 16-bit rows up to 8192 columns) and "block" (a
+block a row, two passes: wider rows, f32 rows past 512 columns, and rows
+without 16-byte accesses). ``rms_norm_bwd.route`` names the route of the
+last launch.
 """
 import torch
 
 from . import _launch as L
 
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
-           "rms_norm_bwd_plain"]
+           "rms_norm_bwd_plain", "bwd_plan"]
+
+# the backward's shapes (csrc/fused_norm.cu): a lane of the register routes
+# holds 64 bytes of each operand of a row, LANE_CHUNKS chunks of 8. f32
+# rows past one warp stay on "block": split over 2 warps they ran 8%
+# slower than it (H = 1024, 0.1089 against 0.1007 ms on an H100 SXM at
+# 700 W), half of each lane's work gone to the per-row barrier and
+# reductions.
+LANE_CHUNKS = {2: 4, 4: 2}          # element bytes -> chunks a lane
+ROW_WARPS_MAX = {2: 8, 4: 1}        # wider rows: "block"
+BLOCK_WARPS_MIN = 4
+BLOCK_THREADS = 128                 # route "block": NT threads a row
+# the register routes' grid, one wave of 8 warps an SM, each streaming
+# its rows through a ring of 3 rows (75 KB a block of 4 warps; on an H100
+# 8 warps an SM beat 12 and 16, with fewer partial rows of dw)
+WARPS_PER_SM = 8
+BLOCK_ROUTE_BLOCKS_PER_SM = 8
+
+
+def bwd_plan(r, hid, dtype, sms, vec=True):
+    """The backward's route and grid for R rows of width H in ``dtype``
+    on a card of ``sms`` SMs (``vec``: the rows allow 16-byte accesses),
+    from those alone: route, warps a row (0 for "block"), warps a block,
+    row groups a block, blocks, row slots (each walks rows s, s + slots,
+    ...), columns a warp holds, and the bytes of dw partials (one f32 row
+    a block). The kernel takes the route and grid as they are."""
+    size = 4 if dtype == torch.float32 else 2
+    cw = 32 * 8 * LANE_CHUNKS[size]
+    wpr = 1
+    while wpr * cw < hid:
+        wpr *= 2
+    if vec and wpr <= ROW_WARPS_MAX[size]:
+        nw = max(BLOCK_WARPS_MIN, wpr)
+        groups = nw // wpr
+        blocks = min(-(-r // groups), sms * WARPS_PER_SM // nw)
+        route = "warp" if wpr == 1 else "warps"
+    else:
+        route, wpr, cw, groups = "block", 0, 0, 1
+        nw = BLOCK_THREADS // 32
+        blocks = min(r, BLOCK_ROUTE_BLOCKS_PER_SM * sms)
+    blocks = max(blocks, 1)
+    return {"route": route, "warps_per_row": wpr, "warps_per_block": nw,
+            "groups": groups, "blocks": blocks, "slots": blocks * groups,
+            "warp_cols": cw, "partial_bytes": blocks * hid * 4}
 
 
 def rms_norm_fwd_plain(x, w, eps, bias, residual, out_dtype):
@@ -118,8 +170,9 @@ rms_norm_fwd.launches = 0
 def rms_norm_bwd(dout, dres, h, w, inv, out_dtype):
     """(dh, dw) of the norm over h [R, H] given dout (and dres, the
     residual_out gradient, or None). A CPU tensor runs the plain version;
-    a CUDA tensor launches the backward kernels (the call counted once in
-    ``rms_norm_bwd.launches``) or raises."""
+    a CUDA tensor launches the backward kernels on ``bwd_plan``'s route
+    (the call counted once in ``rms_norm_bwd.launches``, the route in
+    ``rms_norm_bwd.route``) or raises."""
     if not L.on_cuda("rms_norm_bwd", h):
         return rms_norm_bwd_plain(dout, dres, h, w, inv, out_dtype)
     _check("rms_norm_bwd", h, dout, dres, w, inv)
@@ -131,25 +184,30 @@ def rms_norm_bwd(dout, dres, h, w, inv, out_dtype):
                          "forward")
     dh = torch.empty_like(h)
     dw = part = None
-    g = L.entry("fused_norm", "fused_norm_bwd_blocks")(r, L.sms(h.device))
+    vec = _vec(hid, dout, dres, h, w, dh)
+    plan = bwd_plan(r, hid, h.dtype, L.sms(h.device), vec)
+    tcode = L.dtype_code("rms_norm_bwd", h)
     if w is not None:
         dw = torch.empty_like(w)
         if r == 0:
             return dh, dw.zero_()
-        part = torch.empty((g, hid), dtype=torch.float32, device=h.device)
-    tcode = L.dtype_code("rms_norm_bwd", h)
+        part = torch.empty((plan["blocks"], hid), dtype=torch.float32,
+                           device=h.device)
     wcode = tcode if w is None else L.dtype_code("rms_norm_bwd", w)
     rc = L.entry("fused_norm", "fused_norm_bwd")(
         tcode, wcode, L.DTYPE_CODE[out_dtype],
-        int(_vec(hid, dout, dres, h, w, dh)), dout.data_ptr(), L.ptr(dres),
-        h.data_ptr(), L.ptr(w), inv.data_ptr(), dh.data_ptr(), L.ptr(part),
-        L.ptr(dw), r, hid, g, L.stream(h))
+        int(vec), dout.data_ptr(), L.ptr(dres), h.data_ptr(), L.ptr(w),
+        inv.data_ptr(), dh.data_ptr(), L.ptr(part), L.ptr(dw), r, hid,
+        plan["blocks"], plan["warps_per_row"], plan["warps_per_block"],
+        L.stream(h))
     L.raise_on("rms_norm_bwd", rc)
     rms_norm_bwd.launches += 1
+    rms_norm_bwd.route = plan["route"]
     return dh, dw
 
 
 rms_norm_bwd.launches = 0
+rms_norm_bwd.route = None
 
 
 class RmsNorm(torch.autograd.Function):

@@ -23,13 +23,51 @@ kernels' path. Kernel contract:
 and then the totals) and run ``token_ce_fwd_plain`` / ``token_ce_bwd_plain``
 for CPU tensors. ``token_cross_entropy`` is the public op, a
 ``torch.autograd.Function``.
+
+The forward takes one of three routes, chosen by ``fwd_plan`` from the
+logits' dtype and V alone and passed to the kernel, which runs that route
+or refuses it: "rows" (a block a row, the row kept in shared memory
+between the max and the exp-sum), "cluster" (2, 4 or 8 blocks a row over
+DSMEM) and "two-pass" (a block a row, read twice: rows wider than 512
+KB). ``token_ce_fwd.route`` names the route of the last launch.
 """
 import torch
 
 from . import _launch as L
 
 __all__ = ["token_cross_entropy", "token_ce_fwd", "token_ce_bwd",
-           "token_ce_fwd_plain", "token_ce_bwd_plain"]
+           "token_ce_fwd_plain", "token_ce_bwd_plain", "fwd_plan"]
+
+# the forward's shapes (csrc/token_ce.cu)
+ROW_THREADS = 512                   # routes "rows" / "cluster": NT_ROW
+CLUSTER_MAX = 8
+TWO_PASS_THREADS = 256              # route "two-pass": NT
+
+
+def fwd_plan(n, vocab, dtype):
+    """The forward's route for N rows of V logits in ``dtype``, from those
+    alone: route, 16-byte chunks a thread holds (a power of two; at most 8
+    for 16-bit logits, 4 for f32: 64 KB a block), blocks a row, threads a
+    block, blocks of the grid and the bytes of a row a block holds. The
+    kernel takes the route as it is."""
+    size = 4 if dtype == torch.float32 else 2
+    maxc = 4 if size == 4 else 8
+    per = ROW_THREADS * 8
+    route, chunks, cluster = "two-pass", 0, 1
+    for c in (1, 2, 4, 8):
+        if c <= maxc and per * c >= vocab:
+            route, chunks = "rows", c
+            break
+    else:
+        for cs in (2, 4, 8):
+            if per * maxc * cs >= vocab:
+                route, chunks, cluster = "cluster", maxc, cs
+                break
+    threads = TWO_PASS_THREADS if route == "two-pass" else ROW_THREADS
+    held = per * chunks * size if chunks else 0
+    return {"route": route, "chunks": chunks, "cluster": cluster,
+            "threads": threads, "blocks": n * cluster, "block_bytes": held}
+
 
 _GMODE = {"none": 0, "sum": 1, "mean": 2}
 
@@ -99,12 +137,15 @@ def _vec(x):
 
 def token_ce_fwd(x, labels, ignore, smoothing):
     """(loss [N], stats [N, 2], totals [3]), all f32. A CPU tensor runs the
-    plain version; a CUDA tensor launches the forward kernels (the call
-    counted once in ``token_ce_fwd.launches``) or raises."""
+    plain version; a CUDA tensor launches the forward kernels on
+    ``fwd_plan``'s route (the call counted once in
+    ``token_ce_fwd.launches``, the route in ``token_ce_fwd.route``) or
+    raises."""
     if not L.on_cuda("token_ce_fwd", x):
         return token_ce_fwd_plain(x, labels, ignore, smoothing)
     _check("token_ce_fwd", x, labels)
     n, vocab = x.shape
+    plan = fwd_plan(n, vocab, x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     loss, stats = torch.empty(n, **f32), torch.empty((n, 2), **f32)
     totals = torch.empty(3, **f32)
@@ -112,13 +153,16 @@ def token_ce_fwd(x, labels, ignore, smoothing):
         L.dtype_code("token_ce_fwd", x), int(_vec(x)), x.data_ptr(),
         labels.data_ptr(), loss.data_ptr(), stats.data_ptr(),
         totals.data_ptr(), n, x.stride(0), vocab, int(ignore),
-        float(1 - smoothing), float(smoothing), L.stream(x))
+        float(1 - smoothing), float(smoothing), plan["chunks"],
+        plan["cluster"], L.stream(x))
     L.raise_on("token_ce_fwd", rc)
     token_ce_fwd.launches += 1
+    token_ce_fwd.route = plan["route"]
     return loss, stats, totals
 
 
 token_ce_fwd.launches = 0
+token_ce_fwd.route = None
 
 
 def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction):

@@ -459,3 +459,100 @@ def test_dropout_keep_rate_scaling_and_exact_cases(mode):
     got = TI.fused_bias_dropout_residual_layer_norm(
         _tt(x), _tt(y), dropout_rate=p, generator=gen)
     assert got.shape == x.shape and torch.isfinite(got).all()
+
+
+# -- the route plans of A's backward and C's forward (shapes alone) --------
+
+# every width a register route takes, its edges, Llama-7B's 4096 and past
+NORM_WIDTHS = [1, 7, 8, 9, 255, 256, 257, 511, 512, 513, 1000, 1023, 1024,
+               1025, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 8200,
+               12288, 16384, 58000]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("hid", NORM_WIDTHS)
+def test_norm_bwd_plan_covers_every_row_and_column_once(dtype, hid):
+    """Kernel A's backward plan: a route for every H, the register routes
+    for rows of 16-byte accesses up to 8 warps of 64-byte lanes for 16-bit
+    rows (8192 columns, so Llama-7B's 4096 stays on one) and one warp for
+    f32 (512), the fewest warps whose lanes hold every column (a row's
+    warps hold columns [0, warps * warp_cols) once each), every slot of
+    the grid walking rows s, s + slots, ..., and the same shape giving the
+    same grid."""
+    dt = getattr(torch, dtype)
+    wide = 4 if dt == torch.float32 else 2
+    vec = hid % 8 == 0
+    warp_cols = 1024 * 2 // wide
+    reg_cols = warp_cols * (8 if wide == 2 else 1)
+    for r, sms in ((1, 132), (7, 132), (16383, 132), (16384, 132),
+                   (100, 7)):
+        plan = tfn.bwd_plan(r, hid, dt, sms, vec)
+        assert plan == tfn.bwd_plan(r, hid, dt, sms, vec)
+        assert tfn.bwd_plan(r, hid, dt, sms, False)["route"] == "block"
+        assert plan["route"] == ("block" if hid > reg_cols or not vec
+                                 else "warp" if hid <= warp_cols
+                                 else "warps")
+        wpr = plan["warps_per_row"]
+        if wpr:
+            assert plan["warp_cols"] == warp_cols
+            assert wpr & (wpr - 1) == 0 and wpr * warp_cols >= hid
+            assert wpr == 1 or wpr // 2 * warp_cols < hid
+            assert plan["warps_per_block"] == max(4, wpr)
+            assert plan["groups"] * wpr == plan["warps_per_block"]
+            assert plan["blocks"] * plan["warps_per_block"] <= max(
+                tfn.WARPS_PER_SM * sms, plan["warps_per_block"])
+        else:
+            assert plan["warps_per_block"] == tfn.BLOCK_THREADS // 32
+            assert plan["groups"] == 1 and plan["warp_cols"] == 0
+        assert 1 <= plan["blocks"] and plan["slots"] == \
+            plan["blocks"] * plan["groups"]
+        # no slot idle that a row could have used
+        assert plan["slots"] < r + plan["groups"]
+        assert plan["partial_bytes"] == plan["blocks"] * hid * 4
+
+
+CE_VOCABS = [1, 7, 8, 4095, 4096, 4097, 8192, 16384, 16385, 32000, 32001,
+             32768, 32769, 50257, 65536, 65537, 128256, 131072, 131073,
+             262144, 262145]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("vocab", CE_VOCABS)
+def test_ce_fwd_plan_covers_every_column_once(dtype, vocab):
+    """Kernel C's forward plan: a route for every V (a row on one block up
+    to 64 KB, on a cluster of 2-8 blocks up to 512 KB, two passes past
+    that), one compiled chunk count per power-of-two bucket, the fewest
+    chunks and blocks whose threads hold the row (a row's blocks hold its
+    16-byte chunks [0, 512 * chunks * cluster) once each, and block 0's
+    first threads the at most 7 + 7 elements of its head and tail), and
+    one grid per shape."""
+    dt = getattr(torch, dtype)
+    size = 4 if dt == torch.float32 else 2
+    plan = tce.fwd_plan(4099, vocab, dt)
+    assert plan == tce.fwd_plan(4099, vocab, dt)
+    row = vocab * size
+    assert plan["route"] == ("rows" if row <= 65536 else "cluster"
+                             if row <= 8 * 65536 else "two-pass")
+    if plan["route"] != "two-pass":
+        nc, cl = plan["chunks"], plan["cluster"]
+        assert nc in (1, 2, 4, 8) and nc * size * 8 <= 128
+        assert cl in (1, 2, 4, 8) and plan["threads"] == 512
+        assert 512 * 8 * nc * cl >= vocab
+        assert cl == 1 or (512 * 8 * nc * cl // 2 < vocab
+                           and nc * size == 16)
+        assert cl > 1 or nc == 1 or 512 * 8 * nc // 2 < vocab
+        assert plan["blocks"] == 4099 * cl and plan["block_bytes"] <= 65536
+
+
+def test_route_plans_reach_every_limit():
+    """Up to the wrappers' limits every H and V maps to a route: the
+    register routes' last widths and one past them, and V up to the
+    largest the forward takes (2**31 - 1)."""
+    for dt, last_h, wpr in ((torch.float32, 512, 1),
+                            (torch.bfloat16, 8192, 8)):
+        assert tfn.bwd_plan(5, last_h, dt, 132)["warps_per_row"] == wpr
+        assert tfn.bwd_plan(5, last_h + 1, dt, 132)["route"] == "block"
+    for dt, last_v in ((torch.float32, 131072), (torch.bfloat16, 262144)):
+        assert tce.fwd_plan(3, last_v, dt)["cluster"] == 8
+        assert tce.fwd_plan(3, last_v + 1, dt)["route"] == "two-pass"
+        assert tce.fwd_plan(3, 2 ** 31 - 1, dt)["route"] == "two-pass"

@@ -3,9 +3,10 @@ card, at edge shapes the smoke run does not reach: every head dim and
 dtype the attention kernels take (with and without rope), odd group
 sizes and block sizes, GEMM rows and depths that are not tile multiples,
 the blockwise cross entropy at token counts, vocabularies and hidden
-widths off its tiles, with ignored rows, and the legacy paged decode
+widths off its tiles, with ignored rows, the legacy paged decode
 kernel at ctx 0, past the table's capacity and with free-slot ids past
-the last used block.
+the last used block, and the fused tier's kernels A-D, A's backward and
+C's forward on every route their plans name.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -1582,6 +1583,82 @@ def test_token_ce_kernel_matches_plain(dtype, n, v, smooth, reduction):
     assert dx.dtype == dtype and dx.shape == x.shape
     assert _two_ulps(dx, rdx, 2.0 ** -22 * float(rdx.abs().max())) <= 1
     assert (dx[::3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [8, 1000, 1001, 1024, 4096])
+@pytest.mark.parametrize("r", [1, 7, 16383])
+@pytest.mark.parametrize("affine", [True, False])
+def test_fused_norm_backward_routes_at_the_edges(dtype, h, r, affine):
+    """Kernel A's backward on the route its plan names ("warp" to 1024
+    16-bit / 512 f32 columns, "warps" past that for 16-bit rows: Llama-7B's
+    4096, "block" for f32 past 512 and for rows without 16-byte accesses:
+    1001), with the residual gradient, with and without a scale: the
+    wrapper reports the plan's route, two calls bit-equal, dh and dw
+    within phase 18's gates."""
+    from paddle_tpu_torch.ops import fused_norm as fn
+    gen = torch.Generator(device="cuda").manual_seed(r * h)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    w = 1 + 0.1 * rnd(h, dt=torch.float32) if affine else None
+    _, hh, inv = fn.rms_norm_fwd_plain(rnd(r, h), w, 1e-6, None, rnd(r, h),
+                                       dtype)
+    dout, dres = rnd(r, h), rnd(r, h)
+    dh, dw = fn.rms_norm_bwd(dout, dres, hh, w, inv, dtype)
+    dh2, dw2 = fn.rms_norm_bwd(dout, dres, hh, w, inv, dtype)
+    rdh, rdw = fn.rms_norm_bwd_plain(dout, dres, hh, w, inv, dtype)
+    torch.cuda.synchronize()
+    plan = fn.bwd_plan(r, h, dtype, torch.cuda.get_device_properties(
+        0).multi_processor_count, h % 8 == 0)
+    assert fn.rms_norm_bwd.route == plan["route"]
+    assert (plan["route"] == "block") == (
+        (dtype == torch.float32 and h > 512) or h % 8 != 0)
+    assert torch.equal(dh, dh2)
+    extra = 2 * _ulp(fn.rms_norm_bwd_plain(dout, None, hh, w, inv,
+                                           dtype)[0])
+    assert _two_ulps(dh, rdh, 1e-6 + extra) <= 1
+    if affine:
+        assert torch.equal(dw, dw2)
+        assert _two_ulps(dw, rdw, 1e-5 * float(rdw.abs().max())) <= 1
+    else:
+        assert dw is None and rdw is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("v", [1, 7, 32000, 32001, 50257, 128256])
+def test_token_ce_forward_routes_at_the_edges(dtype, v):
+    """Kernel C's forward on the route its plan names ("rows" up to 64 KB a
+    row, "cluster" of 2-8 blocks past that: f32 32000, GPT-2's 50257,
+    Llama-3's 128256; rows off 16 bytes at 1, 7, 32001 and 50257 take
+    their head and tail one element at a time), with ignored rows,
+    smoothing and labels outside [0, V): the wrapper reports the plan's
+    route, two calls bit-equal, NaN where the plain version has it, the
+    rest within phase 18's gates."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator(device="cuda").manual_seed(v)
+    n = 37
+    x = (2 * torch.randn(n, v, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    lab[::4] = -100
+    lab[1], lab[3] = v + 2, -1
+    for smooth in (0.0, 0.1):
+        loss, stats, totals = tc.token_ce_fwd(x, lab, -100, smooth)
+        again = tc.token_ce_fwd(x, lab, -100, smooth)
+        rl, rs, rt = tc.token_ce_fwd_plain(x, lab, -100, smooth)
+        torch.cuda.synchronize()
+        assert tc.token_ce_fwd.route == tc.fwd_plan(n, v, dtype)["route"]
+        assert all(torch.allclose(a, b, rtol=0, atol=0, equal_nan=True)
+                   for a, b in zip((loss, stats, totals), again))
+        assert torch.equal(loss.isnan(), rl.isnan())
+        assert bool(loss[[1, 3]].isnan().all())
+        keep = ~rl.isnan()
+        assert _two_ulps(loss[keep], rl[keep], 1e-5) <= 1
+        assert torch.equal(stats[:, 0], rs[:, 0])
+        assert _two_ulps(stats[:, 1], rs[:, 1], 1e-2) <= 1
+        assert float(totals[1]) == float(rt[1])
 
 
 @pytest.mark.parametrize("count", [1, 300])
