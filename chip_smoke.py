@@ -134,12 +134,40 @@ Phases (any failure exits non-zero and prints no result line):
      in phase 7 and none in phase 11, AdamW 2) and print a step's "other"
      kernels by source operation; phases 8 and 12 hold the kernels against
      a reference that also runs the tier's plain versions;
+ 19. (run after phase 4, under no_grad) the serving front door at full
+     width in bf16: ``paddle_tpu_torch.serving``'s HTTP/SSE gateway on
+     127.0.0.1 and its stepper thread in front of phase 2's engine (prefix
+     cache on, an SLO monitor), an asyncio client over TCP. The 12
+     requests of phase 2, opened as SSE streams under ``stepper.hold()``
+     so that they land on one admission pass, must stream the tokens of
+     the same batch run through a fresh ContinuousBatchingEngine with no
+     HTTP in the path; a cancel after 2 token events ends with a typed
+     ``end`` and an exact prefix of its solo run; ``deadline_steps=1``
+     answers 504 and a ``spec_k`` wider than the engine 422; /metrics,
+     /slo and /healthz parse; the blocks return; the ragged kernel
+     launches 24 times a paged step; the stepper records no error and the
+     peak memory stays that of the direct run. Prints tokens/s, ms per
+     paged step and mean TTFT through the gateway and direct, and a
+     profiled window behind the gateway (idle share, K3's device ms);
+ 20. (after 19) two flagship replicas on the card, each with its own
+     stepper, behind ``EngineRouter``: 4 prompt families x 3 nested
+     resumes (a 128-token prefix shared within a family) under round
+     robin, least loaded and prefix affinity, the pool's tokens/s each;
+     every request finishes, 24 ragged launches a paged step over both
+     replicas, prefix affinity maps strictly more cached-prefix tokens
+     and prefills strictly fewer than round robin; a step() fault on
+     replica 0 fails its streamed request (``engine_error``), resubmits
+     its queued one to replica 1, where it finishes, and routes the next
+     submit there; then the same workload over two f32 engines at L=2
+     (TF32 off): every policy's tokens equal one engine's dense
+     generate() under phase 3's rule;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Nothing here imports JAX or the JAX package.
 """
+import asyncio
 import contextlib
 import json
 import math
@@ -273,16 +301,11 @@ def requests(seed, n, prompt=(16, 384), new=(16, 64)):
     return out
 
 
-def serve(engine, reqs, **kw):
-    """Serve (prompt, max_new) pairs through ContinuousBatchingEngine;
-    returns (cb, GenerationRequest list, paged steps, wall seconds)."""
-    import torch
-    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
-                                              GenerationRequest)
-    cb = ContinuousBatchingEngine(engine, num_blocks=NUM_BLOCKS,
-                                  block_size=BS, max_batch=MAX_BATCH,
-                                  prefill_chunk=CHUNK, **kw)
-    free0 = cb.allocator.num_free
+@contextlib.contextmanager
+def counted_steps(engine):
+    """Count ``engine``'s paged steps while the block runs: yields a
+    one-element list holding the count (each engine is stepped by one
+    thread, so the count needs no lock)."""
     steps = [0]
     inner = engine._paged_step
 
@@ -292,6 +315,31 @@ def serve(engine, reqs, **kw):
 
     engine._paged_step = counted
     try:
+        yield steps
+    finally:
+        engine._paged_step = inner
+
+
+def check_pool(cb):
+    """Every block back: none in use, no references, free + pooled (the
+    prefix cache's reusable blocks) the whole pool."""
+    from tools.torch_serve_gates import alloc_baseline
+    a = cb.allocator
+    check(alloc_baseline(cb), f"blocks leaked: {a.num_used} in use, "
+          f"{a.num_free} free + {a.num_pooled} pooled of "
+          f"{a.num_blocks - a.reserved}")
+
+
+def serve(engine, reqs, **kw):
+    """Serve (prompt, max_new) pairs through ContinuousBatchingEngine;
+    returns (cb, GenerationRequest list, paged steps, wall seconds)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
+                                              GenerationRequest)
+    cb = ContinuousBatchingEngine(engine, num_blocks=NUM_BLOCKS,
+                                  block_size=BS, max_batch=MAX_BATCH,
+                                  prefill_chunk=CHUNK, **kw)
+    with counted_steps(engine) as steps:
         greqs = [GenerationRequest(p, n) for p, n in reqs]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -300,15 +348,12 @@ def serve(engine, reqs, **kw):
         cb.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        engine._paged_step = inner
     for r in greqs:
         res = cb.finished[r.request_id]
         check(res.status == "finished" and len(res) == r.max_new_tokens,
               f"request {r.request_id} ended {res.status} with {len(res)} of "
               f"{r.max_new_tokens} tokens")
-    check(cb.allocator.num_free == free0,
-          f"blocks leaked: {cb.allocator.num_free} free of {free0}")
+    check_pool(cb)
     return cb, greqs, steps[0], wall
 
 
@@ -836,6 +881,29 @@ def other_by_head(events):
     return ms
 
 
+def tie_gap(torch, eng, prompt, got, n, label):
+    """Phase 3's rule: greedy tokens ``got`` must equal ``eng``'s dense
+    generate() of ``prompt``, except that they may part at a near tie.
+    Returns the top-2 logit gap at the first differing token (0.0 when
+    none differs) and fails past 1e-3."""
+    prompt = np.asarray(prompt, np.int32)
+    ref = eng.generate(prompt[None, :], max_new_tokens=n)[0].tolist()
+    if got == ref:
+        return 0.0
+    check(len(got) == n, f"{label}: {len(got)} of {n} tokens")
+    t = next(i for i in range(n) if got[i] != ref[i])
+    ids = np.concatenate([prompt, np.asarray(ref[:t], np.int32)])[None, :]
+    with torch.no_grad():
+        lg = eng._prefill_logits(ids)[0].float()
+    top = torch.topk(lg, 2).values
+    gap = float(top[0] - top[1])
+    print(f"  {label}: first differing token at step {t} (got {got[t]} vs "
+          f"dense {ref[t]}), top-2 logit gap {gap:.3e}", flush=True)
+    check(gap <= 1e-3, f"{label} diverges at step {t} with a top-2 logit "
+          f"gap {gap} > 1e-3")
+    return gap
+
+
 def phase_parity(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -844,22 +912,8 @@ def phase_parity(torch):
     cb, greqs, steps, _ = serve(eng, reqs)
     worst = 0.0
     for (p, n), r in zip(reqs, greqs):
-        got = list(cb.finished[r.request_id])
-        ref = eng.generate(p[None, :], max_new_tokens=n)[0].tolist()
-        if got == ref:
-            continue
-        t = next(i for i in range(n) if got[i] != ref[i])
-        ids = np.concatenate([p, np.asarray(ref[:t], np.int32)])[None, :]
-        with torch.no_grad():
-            lg = eng._prefill_logits(ids)[0].float()
-        top = torch.topk(lg, 2).values
-        gap = float(top[0] - top[1])
-        worst = max(worst, gap)
-        print(f"  request {r.request_id}: first differing token at step {t}"
-              f" (cb {got[t]} vs dense {ref[t]}), top-2 logit gap "
-              f"{gap:.3e}", flush=True)
-        check(gap <= 1e-3, f"request {r.request_id} diverges at step {t} "
-              f"with a top-2 logit gap {gap} > 1e-3")
+        worst = max(worst, tie_gap(torch, eng, p, list(
+            cb.finished[r.request_id]), n, f"request {r.request_id}"))
     print(f"  f32 parity: {len(greqs)} requests, {steps} paged steps, CB "
           f"greedy vs dense generate(): largest tie gap at a divergence "
           f"{worst:.3e}", flush=True)
@@ -929,6 +983,381 @@ def phase_int4(torch):
           f"int4 kernel launches {int4} = 4 x {L} x {steps}", flush=True)
     return {"steps": steps, "int4_launches": int4, "tokens_per_s":
             toks / wall}
+
+
+# -- phases 19-20: the serving front door ----------------------------------
+
+GW_NEW = 16             # phase 20's new tokens a request
+GRAD_SLACK_BYTES = 64 << 20   # phase 19: two cuBLAS workspaces
+
+
+async def stream_batch(gates, port, bodies, stepper):
+    """Open one SSE stream per body while ``stepper`` is held, so that
+    every request lands on one admission pass, then release and read
+    every stream to its ``end``. Returns the release time and, per
+    stream, (events, the time of its first token frame)."""
+    opened = []
+    stepper.hold()
+    try:
+        for body in bodies:
+            st, reader, writer = await gates.open_stream(port, body)
+            check(st == 200, f"stream {body['request_id']}: HTTP {st}")
+            first = await gates.next_sse(reader)
+            check(first is not None and first[0] == "accepted",
+                  f"stream {body['request_id']} opened with {first}")
+            opened.append((reader, writer))
+    finally:
+        stepper.release()
+    t0 = time.perf_counter()
+
+    async def drain(reader, writer):
+        events, first = [], None
+        while True:
+            ev = await gates.next_sse(reader)
+            if ev is None:
+                break
+            if ev[0] == "token" and first is None:
+                first = time.perf_counter()
+            events.append(ev)
+            if ev[0] == "end":
+                break
+        writer.close()
+        return events, first
+
+    return t0, await asyncio.gather(*(drain(r, w) for r, w in opened))
+
+
+def phase_gateway(torch):
+    """Phase 19: the HTTP/SSE gateway and its stepper thread in front of
+    the serving flagship (bf16, prefix cache on, an SLO monitor), a real
+    asyncio client over TCP on 127.0.0.1."""
+    from paddle_tpu_torch.incubate.nn import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import SLOMonitor
+    from paddle_tpu_torch import serving
+    from tools import torch_serve_gates as gates
+    eng = make_engine(llama_weights(0, L), "bfloat16")
+    kw = dict(num_blocks=NUM_BLOCKS, block_size=BS, max_batch=MAX_BATCH,
+              prefill_chunk=CHUNK)
+    # build and load the kernels and warm cuBLAS on this thread, before
+    # any stepper starts: the first request must not carry the build
+    serve(eng, requests(99, 2, prompt=(16, 80), new=(2, 4)))
+    reqs = requests(1, 12)
+    cancel_p, cancel_n = requests(19, 1, prompt=(40, 40), new=(64, 64))[0]
+    deadline_p = requests(23, 1, prompt=(200, 200))[0][0]
+
+    # the direct engine: the same held batch, no HTTP in the path
+    torch.cuda.reset_peak_memory_stats()
+    cb, greqs, d_steps, d_wall = serve(eng, reqs, prefix_cache=True)
+    direct_peak = torch.cuda.max_memory_allocated()
+    direct = [list(cb.finished[r.request_id]) for r in greqs]
+    d_toks = sum(len(t) for t in direct)
+    d_ttft = float(np.mean([r.first_token_time - r.submit_time
+                            for r in greqs]))
+    cb, solo, _, _ = serve(eng, [(cancel_p, cancel_n)], prefix_cache=True)
+    cancel_ref = list(cb.finished[solo[0].request_id])
+    del cb
+    torch.cuda.empty_cache()
+
+    monitor = SLOMonitor.from_config({
+        "cadence_s": 1.0,
+        "objectives": [{"name": "ttft_p99", "kind": "quantile",
+                        "metric": "serve_ttft_seconds", "q": 0.99,
+                        "max": 60.0}]})
+    cb = ContinuousBatchingEngine(eng, prefix_cache=True, monitor=monitor,
+                                  **kw)
+    stepper = serving.EngineStepper(cb).start()
+    gw = serving.ServingGateway(stepper, monitor=monitor)
+    server = gates.GatewayThread(gw).start()
+    port = gw.port
+    out = {}
+
+    async def traffic():
+        # one request through the stepper thread before the counted run
+        # (its own cuBLAS handle and workspace)
+        code, _ = await gates.request(port, "POST", "/v1/generate", {
+            "prompt": [int(t) for t in reqs[0][0][:24]],
+            "max_new_tokens": 4, "request_id": "warm", "stream": False})
+        check(code == 200, f"warm-up request: HTTP {code}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with counted_steps(eng) as steps:
+            bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": n,
+                       "request_id": f"gw{j}"}
+                      for j, (p, n) in enumerate(reqs)]
+            t0, got = await stream_batch(gates, port, bodies, stepper)
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+            out["steps"] = steps[0]
+            out["streams"] = got
+            out["t0"] = t0
+            st, events, del_code = await gates.run_stream(
+                port, {"prompt": [int(t) for t in cancel_p],
+                       "max_new_tokens": cancel_n, "request_id": "cancel"},
+                cancel_after=2)
+            out["cancel"] = (st, events, del_code)
+            code, body = await gates.request(port, "POST", "/v1/generate", {
+                "prompt": [int(t) for t in deadline_p], "max_new_tokens": 8,
+                "request_id": "deadline", "deadline_steps": 1,
+                "stream": False})
+            out["deadline"] = (code, json.loads(body))
+            code, body = await gates.request(port, "POST", "/v1/generate", {
+                "prompt": [1, 2, 3], "max_new_tokens": 2,
+                "request_id": "reject", "spec_k": 4})
+            out["reject"] = (code, json.loads(body))
+            out["all_steps"] = steps[0]
+        out["control"] = await gates.check_control_plane(port)
+
+    try:
+        asyncio.run(traffic())
+        gw_peak = torch.cuda.max_memory_allocated()
+        launches, _ = read_counts()
+        baseline = stepper.call(gates.alloc_baseline).result(60)
+        grad_recorded = stepper.call(lambda c: any(
+            t.requires_grad for t in c.caches)).result(60)
+        grad_on = stepper.call(lambda c: torch.is_grad_enabled()).result(60)
+        reqs_p = requests(7, 4, new=(16, 16))
+
+        def profiled():
+            bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": n,
+                       "request_id": f"prof{j}"}
+                      for j, (p, n) in enumerate(reqs_p)]
+            with counted_steps(eng) as steps:
+                asyncio.run(stream_batch(gates, port, bodies, stepper))
+            return steps[0]
+
+        profile = profile_window(torch, profiled, "paged steps behind the "
+                                 "gateway")
+    finally:
+        server.close()
+        stepper.stop()
+    check(stepper.error is None, f"the stepper failed: {stepper.error!r}")
+
+    for j, ((events, _), ref) in enumerate(zip(out["streams"], direct)):
+        end = gates.end_event(events)
+        check(end is not None and end["status"] == "finished",
+              f"stream gw{j} ended {end}")
+        check(gates.stream_tokens(events) == ref and end["tokens"] == ref,
+              f"stream gw{j}: streamed tokens differ from the direct "
+              f"engine's at the same schedule")
+    st, events, del_code = out["cancel"]
+    end, toks = gates.end_event(events), gates.stream_tokens(events)
+    check(st == 200 and del_code == 200 and end is not None
+          and end["status"] == "cancelled" and len(toks) >= 2
+          and toks == cancel_ref[:len(toks)] and end["tokens"] == toks,
+          f"cancel: HTTP {st}, DELETE {del_code}, end {end}, {len(toks)} "
+          f"tokens, prefix of the solo run {toks == cancel_ref[:len(toks)]}")
+    code, body = out["deadline"]
+    check(code == 504 and body["status"] == "deadline_exceeded"
+          and body["tokens"] == [], f"deadline: HTTP {code} {body}")
+    code, body = out["reject"]
+    check(code == 422 and body["reason"] == "spec_k_exceeds_engine",
+          f"spec_k wider than the engine: HTTP {code} {body}")
+    check(all(out["control"].values()),
+          f"control plane: {out['control']}")
+    check(baseline, "the KV / refcount gauges are not back at baseline")
+    check(launches == L * out["all_steps"],
+          f"ragged kernel launched {launches} times behind the gateway in "
+          f"{out['all_steps']} paged steps (want {L * out['all_steps']})")
+    check(not grad_recorded, "the stepper thread's caches require grad")
+    # grad mode is on in the stepper thread (it is thread-local); graphs
+    # recorded there would hold every step's activations. What may differ
+    # is the thread's own cuBLAS workspace (32 MiB on this card).
+    check(gw_peak <= direct_peak + GRAD_SLACK_BYTES,
+          f"peak memory behind the gateway {gw_peak} B against "
+          f"{direct_peak} B direct")
+    toks = sum(len(gates.stream_tokens(e)) for e, _ in out["streams"])
+    ttft = float(np.mean([f - out["t0"] for _, f in out["streams"]]))
+    stats = {
+        "gateway": {"tokens": toks, "steps": out["steps"],
+                    "tokens_per_s": toks / out["wall"],
+                    "ms_per_step": out["wall"] / out["steps"] * 1e3,
+                    "mean_ttft_s": ttft},
+        "direct": {"tokens": d_toks, "steps": d_steps,
+                   "tokens_per_s": d_toks / d_wall,
+                   "ms_per_step": d_wall / d_steps * 1e3,
+                   "mean_ttft_s": d_ttft},
+        "attn_launches": launches, "counted_steps": out["all_steps"],
+        "cancel_tokens": len(gates.stream_tokens(out["cancel"][1])),
+        "peak_memory_gb": gw_peak / 1e9,
+        "direct_peak_memory_gb": direct_peak / 1e9,
+        "stepper_grad_enabled": grad_on, "profile": profile,
+    }
+    g, d = stats["gateway"], stats["direct"]
+    print(f"  12 held streams through the gateway: {g['tokens']} tokens in "
+          f"{g['steps']} paged steps, {g['tokens_per_s']:.1f} tokens/s, "
+          f"{g['ms_per_step']:.2f} ms/step, mean TTFT "
+          f"{g['mean_ttft_s'] * 1e3:.1f} ms", flush=True)
+    print(f"  the same batch, direct engine: {d['tokens']} tokens in "
+          f"{d['steps']} paged steps, {d['tokens_per_s']:.1f} tokens/s, "
+          f"{d['ms_per_step']:.2f} ms/step, mean TTFT "
+          f"{d['mean_ttft_s'] * 1e3:.1f} ms", flush=True)
+    print(f"  streamed tokens equal the direct engine's; cancel after 2 "
+          f"events: {stats['cancel_tokens']} tokens, a prefix of the solo "
+          f"run; deadline 504; spec_k 4 -> 422; ragged kernel launches "
+          f"{launches} = {L} x {out['all_steps']} steps; peak memory "
+          f"{stats['peak_memory_gb']:.3f} GB vs "
+          f"{stats['direct_peak_memory_gb']:.3f} GB direct (stepper grad "
+          f"mode {grad_on}, no cache requires grad)", flush=True)
+    if profile.get("device_ms_by_class"):
+        stats["ragged_device_ms_per_step"] = profile["device_ms_by_class"].get(
+            "ragged_attention", 0.0) / profile["steps"]
+        print(f"  ragged kernel device time behind the gateway: "
+              f"{stats['ragged_device_ms_per_step']:.4f} ms per paged step",
+              flush=True)
+    del eng, cb
+    torch.cuda.empty_cache()
+    return stats
+
+
+def router_families():
+    """Phase 20's workload: 4 prompt families x 3 nested resumes, each
+    family's resumes sharing its first 128 tokens (resume r is 128 + 64 r
+    + 5 tokens long), and each later round's families in a seeded order
+    (arrivals interleave; in pool order, round robin over 2 replicas
+    would meet each family's replica by accident)."""
+    from tools.torch_serve_gates import family_prompts
+    prompts = family_prompts(np.random.default_rng(20), V, 4, 3, 128, 64, 5)
+    rng = np.random.default_rng(21)
+    orders = {r: [int(m) for m in rng.permutation(4)] for r in (1, 2)}
+    return prompts, orders
+
+
+def run_pool(torch, engines, policy, prompts, orders, tag):
+    """One fresh pool (a ContinuousBatchingEngine and a stepper per
+    engine, prefix cache on) behind EngineRouter, one wave of the
+    workload. Returns (the Subs, paged steps per replica, wall seconds,
+    the cache stats per replica)."""
+    from paddle_tpu_torch.incubate.nn import ContinuousBatchingEngine
+    from paddle_tpu_torch import serving
+    from tools import torch_serve_gates as gates
+    steppers = [serving.EngineStepper(ContinuousBatchingEngine(
+        e, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=MAX_BATCH,
+        prefill_chunk=CHUNK, prefix_cache=True), name=f"replica-{i}")
+        for i, e in enumerate(engines)]
+    router = serving.EngineRouter(steppers, policy=policy).start()
+    try:
+        with contextlib.ExitStack() as stack:
+            counts = [stack.enter_context(counted_steps(e))
+                      for e in engines]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            subs = gates.run_wave(router, prompts, 4, 3, GW_NEW,
+                                  lambda m, r: f"{tag}.{policy}.f{m}r{r}",
+                                  order=orders.get)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for key, sub in subs.items():
+            check(sub.end is not None and sub.end["status"] == "finished"
+                  and len(sub.tokens) == GW_NEW,
+                  f"{policy} {key}: ended {sub.end}")
+        stats = [s.call(lambda c: dict(c.cache_stats)).result(60)
+                 for s in steppers]
+        for i, s in enumerate(steppers):
+            check(s.call(gates.alloc_baseline).result(60),
+                  f"{policy}: replica {i}'s blocks are not back")
+        check(router.error is None and all(s.error is None
+                                           for s in steppers),
+              f"{policy}: a stepper failed")
+    finally:
+        router.stop()
+    return subs, [c[0] for c in counts], wall, stats
+
+
+def phase_router(torch):
+    """Phase 20: two flagship replicas on the card behind EngineRouter,
+    each with its own stepper, under every policy; a replica crash; the
+    f32 pool's tokens under phase 3's rule."""
+    from paddle_tpu_torch.incubate.nn import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch import serving
+    from tools import torch_serve_gates as gates
+    w = llama_weights(0, L)
+    engines = [make_engine(w, "bfloat16") for _ in range(2)]
+    del w
+    for e in engines:       # build and warm on this thread first
+        serve(e, requests(99, 2, prompt=(16, 80), new=(2, 4)))
+    prompts, orders = router_families()
+    total_prompt = sum(len(p) for p in prompts.values())
+    rows = {}
+    for policy in ("round_robin", "least_loaded", "prefix_affinity"):
+        reset_counts()
+        subs, steps, wall, stats = run_pool(torch, engines, policy, prompts,
+                                            orders, "bf16")
+        launches, _ = read_counts()
+        check(launches == L * sum(steps),
+              f"{policy}: ragged kernel launched {launches} times in "
+              f"{steps} paged steps (want {L * sum(steps)})")
+        cached = sum(s["hit_blocks"] for s in stats) * BS
+        toks = sum(len(s.tokens) for s in subs.values())
+        rows[policy] = {"tokens_per_s": toks / wall, "wall_s": wall,
+                        "steps": steps, "attn_launches": launches,
+                        "cached_prefix_tokens": cached,
+                        "prefill_sweep_tokens": total_prompt - cached}
+        print(f"  {policy}: {toks} tokens in {wall:.3f} s, "
+              f"{toks / wall:.1f} tokens/s for the pool, paged steps "
+              f"{steps}, ragged launches {launches} = {L} x {sum(steps)}; "
+              f"cached prefix {cached} tokens, prefill sweep "
+              f"{total_prompt - cached}", flush=True)
+    aff, rr = rows["prefix_affinity"], rows["round_robin"]
+    check(aff["cached_prefix_tokens"] > rr["cached_prefix_tokens"]
+          and aff["prefill_sweep_tokens"] < rr["prefill_sweep_tokens"],
+          f"prefix affinity {aff} does not beat round robin {rr}")
+
+    # a crash: replica 0's step() raises with a request queued on it
+    steppers = [serving.EngineStepper(ContinuousBatchingEngine(
+        e, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=MAX_BATCH,
+        prefill_chunk=CHUNK), name=f"crash-replica-{i}")
+        for i, e in enumerate(engines)]
+    router = serving.EngineRouter(steppers, policy="round_robin").start()
+    rng = np.random.default_rng(22)
+    cprompts = {k: [int(t) for t in rng.integers(1, V, n)]
+                for k, n in (("stream", 48), ("bystander", 96),
+                             ("victim", 160), ("post", 64))}
+    news = {"stream": 64, "bystander": 8, "victim": 8, "post": 8}
+    try:
+        subs, _, target, post = gates.crash_scenario(
+            router, cprompts, news, tracing.get_tracer())
+        live = router.live_replicas()
+        masked = router.error is None and steppers[0].error is not None
+    finally:
+        router.stop()
+    a, c, d = subs["stream"], subs["victim"], subs["post"]
+    check(a.end["status"] == "failed" and a.end["reason"] == "engine_error"
+          and len(a.tokens) >= 1, f"crashed stream ended {a.end}")
+    check(c.end["status"] == "finished" and len(c.tokens) == 8
+          and target == 1, f"victim ended {c.end} after a resubmit to "
+          f"replica {target}")
+    check(d.end["status"] == "finished" and post == 1 and live == [1],
+          f"post-crash submit routed to {post}, live {live}")
+    check(masked, "the pool's error is not masked by the survivor")
+    print(f"  crash: replica 0's stream failed (engine_error) after "
+          f"{len(a.tokens)} token(s), its queued request resubmitted to "
+          f"replica {target} and finished, the next submit routed to "
+          f"replica {post}; live {live}", flush=True)
+    del engines, steppers, router
+    torch.cuda.empty_cache()
+
+    # f32 tokens under every policy against one engine's dense generate()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    w = llama_weights(3, 2)
+    engines = [make_engine(w, "float32") for _ in range(2)]
+    worst = 0.0
+    for policy in ("round_robin", "least_loaded", "prefix_affinity"):
+        subs, steps, _, _ = run_pool(torch, engines, policy, prompts,
+                                     orders, "f32")
+        for (m, r), sub in subs.items():
+            worst = max(worst, tie_gap(torch, engines[0], prompts[(m, r)],
+                                       sub.tokens, GW_NEW,
+                                       f"f32 {policy} f{m}r{r}"))
+    print(f"  f32 pools (L=2): every policy's tokens equal one engine's "
+          f"dense generate(), largest tie gap at a divergence "
+          f"{worst:.3e}", flush=True)
+    del engines
+    torch.cuda.empty_cache()
+    return {"policies": rows, "crash": {
+        "streamed_tokens": len(a.tokens), "resubmit_target": target,
+        "post_route": post}, "f32_worst_tie_gap": worst}
 
 
 # -- phases 5-8: flash attention and training ------------------------------
@@ -3290,6 +3719,12 @@ def main():
         phase_parity(torch)
         print("phase 4: int4 serving, full width, bf16", flush=True)
         int4_stats = phase_int4(torch)
+        print("phase 19: the HTTP/SSE gateway and its stepper thread, full "
+              "width, bf16", flush=True)
+        gateway_stats = phase_gateway(torch)
+        print("phase 20: two replicas behind EngineRouter, full width, bf16 "
+              "(f32 at L=2 for the tokens)", flush=True)
+        router_stats = phase_router(torch)
 
     # training needs autograd: phases 5-8 run outside no_grad
     print("phase 5: flash kernels against their plain versions (bf16)",
@@ -3431,6 +3866,8 @@ def main():
           f"{json.dumps(fm_f32)}", flush=True)
     print(f"card: {card}; serve: {json.dumps(serve_stats)}; int4 serve: "
           f"{json.dumps(int4_stats)}", flush=True)
+    print(f"card: {card}; gateway: {json.dumps(gateway_stats)}; router: "
+          f"{json.dumps(router_stats)}", flush=True)
     print(f"card: {card}; forward: {json.dumps(fwd_stats)}; train: "
           f"{json.dumps(train_stats)}; f32 parity: "
           f"{json.dumps(parity_stats)}", flush=True)

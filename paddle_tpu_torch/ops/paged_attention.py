@@ -36,6 +36,7 @@ Device part:
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -754,15 +755,23 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention: kernel launch failed "
                            f"with CUDA error {rc}")
-    ragged_paged_attention.launches += 1
-    ragged_paged_attention.route = plan["route"]
+    with _LAUNCH_LOCK:
+        ragged_paged_attention.launches += 1
+        ragged_paged_attention.route = plan["route"]
     return out[:, 0] if squeeze else out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.route = None     # the last launch's plan route
+# serving replicas step from threads of their own (serving/router.py): the
+# count is a read-modify-write, so it is taken under a lock
+_LAUNCH_LOCK = threading.Lock()
 
-_COUNTERS = {}      # (card, stream) -> zeroed int32 counters of split plans
+# (card, stream) -> zeroed int32 counters of split plans. Threads that
+# launch on one stream (serving replicas on the card's default stream)
+# share its buffer: launches on one stream run in order, so two never use
+# the counters at once. A replica given a stream of its own gets its own.
+_COUNTERS = {}
 
 
 def _counters(device, stream, n):
@@ -771,10 +780,12 @@ def _counters(device, stream, n):
     used at zero, so they are zeroed once, when allocated (anew only for a
     larger grid), and launches on one stream never share them at once."""
     key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
+    with _LAUNCH_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32,
+                              device=device)
+            _COUNTERS[key] = buf
     return buf
 
 

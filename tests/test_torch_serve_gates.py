@@ -1,0 +1,55 @@
+"""``tools/torch_serve_gates.py`` on the CPU: the port's gateway, replica
+and chaos gates reproduce every host-deterministic field of the committed
+JAX baselines (``tools/serve_{gateway,replica,chaos}.json``: tokens,
+statuses, per-event token widths, routing tables, cache counters) and
+hold every invariant. The port's fault schedules are the JAX package's
+for the same seed."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOL = os.path.join(REPO, "tools", "torch_serve_gates.py")
+
+
+@pytest.mark.parametrize("leg", ["gateway", "replica", "chaos"])
+def test_gate_reproduces_the_committed_baseline(leg):
+    proc = subprocess.run(
+        [sys.executable, TOOL, "--device", "cpu", "--check",
+         os.path.join("tools", f"serve_{leg}.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert f"{leg} leg OK [cpu]" in proc.stdout
+    assert "MISMATCH" not in proc.stdout and "REGRESSION" not in proc.stdout
+
+
+def test_gates_refuse_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the gates would run on it")
+    proc = subprocess.run(
+        [sys.executable, TOOL, "--check",
+         os.path.join("tools", "serve_chaos.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "leg OK" not in proc.stdout
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_seeded_fault_plans_equal_jax(seed):
+    from paddle_tpu.testing import seeded_plan as jax_plan
+    from paddle_tpu_torch.testing import seeded_plan
+
+    def schedule(inj):
+        return (sorted(inj._alloc_fail_calls), sorted(inj._alloc_fail_steps),
+                sorted(inj._slow_steps.items()), inj._dump_failures)
+
+    kw = dict(steps=40, alloc_fail_rate=0.2, slow_rate=0.3,
+              slow_delay_s=0.002, dump_failures=seed % 2)
+    got = schedule(seeded_plan(seed, **kw))
+    assert got == schedule(jax_plan(seed, **kw))
+    assert got[1] and got[2]
