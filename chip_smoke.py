@@ -161,6 +161,30 @@ Phases (any failure exits non-zero and prints no result line):
      submit there; then the same workload over two f32 engines at L=2
      (TF32 off): every policy's tokens equal one engine's dense
      generate() under phase 3's rule;
+ 21. flagship pretraining as phase 7 (its seed and batches, 2 warm-up and
+     3 timed steps) with ``recompute=True``, then
+     ``recompute="dots_saveable"``: the step-0 loss bit-equal to phase
+     7's, the flash forward launched 48 times a step and its backward 24
+     (a flash call is not a dot, so both modes run it again), the fused
+     tier's forward-side kernels of the layers launched twice, grad norms
+     within 1e-2 relative of phase 7's at the same step, each of the 147
+     tensors' step-0 gradient within 4 times its spread over two repeats
+     of phase 7's step 0 (read from the first moment, clip scale taken
+     out), peak memory below phase 7's; tokens/s, ms/step, MFU (phase 7's flops per token, the
+     recomputed forward not counted) and peak memory beside phase 7's;
+ 22. the flagship with ``telemetry=True`` and a ``TrainHealthMonitor``
+     (tools/train_health.json's monitor block, the healthy run's 30 s
+     stall threshold) fed through ``io.DataLoader(num_workers=2,
+     instrument=True)`` on phase 7's batches: no breach over 6 steps, the
+     seven group labels of the spec with finite norms, the step-0 loss
+     bit-equal to phase 7's, kernel D launched 2 times a step, ms/step
+     beside phase 7's; then a NaN'd batch at step 1 of 3 from a fresh
+     model (``non_finite`` fires once, the next step runs, no CUDA
+     error); ``tools/torch_train_monitor.py --device cuda --check
+     tools/train_health.json`` (the JAX baseline's fire matrices); kernel
+     D over the flagship's 147 tensors with and without the telemetry
+     (p, m, v and gnorm bit-equal, the vector within 1e-5 of
+     ``pack_telemetry_plain``, device ms beside its bound);
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -587,6 +611,7 @@ def reset_counts():
                swiglu.swiglu_fwd, swiglu.swiglu_bwd, token_ce.token_ce_fwd,
                token_ce.token_ce_bwd, adamw.adamw_step):
         fn.launches = 0
+    adamw.adamw_step.telemetry_launches = 0
 
 
 def read_tier_counts():
@@ -2036,9 +2061,8 @@ def phase_train(torch, options=None):
           f"step-0 loss {losses[0]} not within 1.0 of ln V = "
           f"{math.log(cfg.vocab_size):.3f}")
     tokens_per_s = batch * seq * timed / wall
-    flops_per_token = 6 * n_params + \
-        12 * cfg.num_hidden_layers * cfg.hidden_size * seq   # bench.py:85-87
-    mfu = flops_per_token * tokens_per_s / BF16_FLOPS_PER_S
+    mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
+        BF16_FLOPS_PER_S
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if options:
         print(f"  ce kernel launches fwd / dh / dw {fused[:3]}, rope-fused "
@@ -3671,6 +3695,475 @@ def phase_fused_tier(torch):
     return rows
 
 
+# -- phases 21-22: recompute, the telemetry and the health monitor ----------
+
+TEL_RTOL = 1e-5         # packed telemetry vector, kernel D vs plain: f64
+                        # sums in another order, each rounded to f32 once
+RECOMPUTE_GNORM_RTOL = 1e-2   # grad norms vs phase 7: K2's dq sums in f32
+                              # atomics, so gradients differ run to run
+F32_EPS = 2.0 ** -23
+RECOMPUTE_SPREAD_K = 4        # step-0 gradients: each tensor within 4x its
+                              # spread over two repeats of phase 7's step 0
+
+
+def flagship_batches(cfg, batch, seq, n):
+    """Phase 7's host batches (bench.py's rule: a fresh random batch each
+    step, from seed 0), as numpy."""
+    rng = np.random.default_rng(0)
+    return [{"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
+             "labels": rng.integers(0, cfg.vocab_size, (batch, seq))}
+            for _ in range(n)]
+
+
+def train_flops_per_token(cfg, n_params, seq):
+    """bench.py's flops per trained token (bench.py:85-87)."""
+    return 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+
+
+def step0_grad_rel(torch, ref, m, gnorm, clip):
+    """{tensor: relative error} of one run's step-0 gradients against
+    ``ref`` = (its gnorm, {tensor: first moment on the host}). After one
+    AdamW step the first moment is (1 - b1) x the clipped gradient, so each
+    side's clip scale min(1, clip / (gnorm + 1e-6)) is taken out first."""
+    scale = min(1.0, clip / (ref[0] + 1e-6)) / min(1.0, clip / (gnorm + 1e-6))
+    rel = {}
+    for n, t in m.items():
+        r = ref[1][n].to(t.device)
+        rel[n] = float((t * scale - r).norm() / r.norm())
+    return rel
+
+
+def phase_recompute(torch, base):
+    """Phase 21: phase 7's run with ``recompute`` True and
+    "dots_saveable" (2 warm-up and 3 timed steps on phase 7's batches):
+    the step-0 loss bit-equal to phase 7's, the forward-side kernels
+    launched twice (flash forward 48 a step), grad norms within
+    RECOMPUTE_GNORM_RTOL of phase 7's at the same step, each tensor's
+    step-0 gradient within RECOMPUTE_SPREAD_K times its spread over two
+    repeats of phase 7's step 0 (K2's dq atomics: the only difference a
+    correct recompute leaves), and peak memory below phase 7's. Returns
+    {mode: stats}."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+
+    def first_step(mode):
+        cfg, batch, seq = pretrain.flagship_config()
+        cfg.recompute = mode
+        model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        params, opt_state, meta = pretrain.make_train_state(model, None)
+        step = pretrain.make_train_step(model, None, meta)
+        host = flagship_batches(cfg, batch, seq, 1)[0]
+        _, opt_state, loss, gnorm = step(params, opt_state,
+                                         pretrain.batch_to_device(host))
+        return float(loss), float(gnorm), opt_state["m"], meta["grad_clip"]
+
+    # phase 7's step 0 from a fresh model: the reference, then two repeats
+    # whose error against it is each tensor's run-to-run spread
+    loss, gnorm, m, clip = first_step(False)
+    check(loss == base["losses"][0], f"phase 7's step 0 again: loss "
+          f"{loss!r} is not phase 7's {base['losses'][0]!r}")
+    ref = (gnorm, {n: t.cpu() for n, t in m.items()})
+    del m
+    spread = {}
+    for _ in range(2):
+        _, gnorm, m, _ = first_step(False)
+        for n, r in step0_grad_rel(torch, ref, m, gnorm, clip).items():
+            # a tensor that no dq reaches differs only by the rounding of
+            # the scale: one f32 epsilon is its floor
+            spread[n] = max(spread.get(n, F32_EPS), r)
+        del m
+    torch.cuda.empty_cache()
+    lo, hi = min(spread, key=spread.get), max(spread, key=spread.get)
+    print(f"  step-0 gradients of phase 7 run twice more against a third: "
+          f"relative spread {spread[lo]:.3e} ({lo}) to {spread[hi]:.3e} "
+          f"({hi}); limit {RECOMPUTE_SPREAD_K} x each tensor's",
+          flush=True)
+    out = {}
+    for mode in (True, "dots_saveable"):
+        cfg, batch, seq = pretrain.flagship_config()
+        cfg.recompute = mode
+        model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        params, opt_state, meta = pretrain.make_train_state(model, None)
+        step = pretrain.make_train_step(model, None, meta)
+        n_params = sum(p.numel() for p in params.values())
+        host = flagship_batches(cfg, batch, seq, 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, gnorms = [], []
+        for b in host[:2]:                                  # warm-up
+            params, opt_state, loss, gnorm = step(
+                params, opt_state, pretrain.batch_to_device(b))
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+            if len(losses) == 1:
+                rel0 = step0_grad_rel(torch, ref, opt_state["m"], gnorms[0],
+                                      clip)
+        worst = max(rel0, key=lambda n: rel0[n] / spread[n])
+        check(all(rel0[n] <= RECOMPUTE_SPREAD_K * spread[n] for n in rel0),
+              f"recompute={mode!r}: step-0 gradient of {worst} "
+              f"{rel0[worst]:.3e} relative to phase 7's, over "
+              f"{RECOMPUTE_SPREAD_K} x its spread {spread[worst]:.3e}")
+        timed = 3
+        batches = [pretrain.batch_to_device(b) for b in host[2:]]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = []
+        for b in batches:
+            params, opt_state, loss, gnorm = step(params, opt_state, b)
+            res.append((loss, gnorm))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = read_flash_counts()
+        tier = read_tier_counts()
+        losses += [float(x) for x, _ in res]
+        gnorms += [float(g) for _, g in res]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        nl = cfg.num_hidden_layers
+        check((fwd, bwd) == (2 * nl * timed, nl * timed),
+              f"recompute={mode!r}: flash launched fwd {fwd} / bwd {bwd} "
+              f"times in {timed} steps (want {2 * nl} / {nl} a step)")
+        per = tier_counts_per_step(cfg, False)
+        want = tuple(timed * n for n in (per[0] + 2 * nl, per[1],
+                                         per[2] + nl, per[3], per[4],
+                                         per[5], per[6]))
+        check(tier == want, f"recompute={mode!r}: fused tier launches "
+              f"{tier} in {timed} steps (want {want}: the forward-side "
+              "kernels of the layers twice)")
+        check(losses[0] == base["losses"][0],
+              f"recompute={mode!r}: step-0 loss {losses[0]!r} is not "
+              f"phase 7's {base['losses'][0]!r}")
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"recompute={mode!r}: non-finite loss / grad norm: {losses} "
+              f"{gnorms}")
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(gnorms, base["grad_norms"]))
+        check(rel <= RECOMPUTE_GNORM_RTOL,
+              f"recompute={mode!r}: grad norms {gnorms} vs phase 7's "
+              f"{base['grad_norms']} (worst relative {rel:.3e})")
+        check(peak_gb < base["peak_memory_gb"],
+              f"recompute={mode!r}: peak memory {peak_gb:.2f} GB is not "
+              f"below phase 7's {base['peak_memory_gb']:.2f} GB")
+        tokens_per_s = batch * seq * timed / wall
+        mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
+            BF16_FLOPS_PER_S
+        print(f"  recompute={mode!r}: {tokens_per_s:.1f} tokens/s, "
+              f"{wall / timed * 1e3:.1f} ms/step, MFU {mfu:.4f} (phase 7's "
+              "flops per token, the recomputed forward not counted), peak "
+              f"memory {peak_gb:.2f} GB; beside phase 7: "
+              f"{base['tokens_per_s']:.1f} tokens/s, "
+              f"{base['ms_per_step']:.1f} ms/step, MFU {base['mfu']:.4f}, "
+              f"{base['peak_memory_gb']:.2f} GB", flush=True)
+        print(f"    flash fwd / bwd {fwd} / {bwd} in {timed} steps; fused "
+              f"tier {tier}; step-0 loss {losses[0]!r} (phase 7 "
+              f"{base['losses'][0]!r}); grad norms "
+              f"{['%.5f' % g for g in gnorms]} (worst relative to phase 7 "
+              f"{rel:.2e}); step-0 gradients {min(rel0.values()):.3e} to "
+              f"{max(rel0.values()):.3e} relative to phase 7's, worst "
+              f"against its spread {worst} at "
+              f"{rel0[worst] / spread[worst]:.2f} x", flush=True)
+        spare = iter(batches)
+
+        def one_step():
+            nonlocal params, opt_state
+            params, opt_state, loss, _ = step(params, opt_state, next(spare))
+            float(loss)
+            return 1
+
+        prof = profile_window(torch, one_step, f"recompute={mode!r} step")
+        out[str(mode)] = {
+            "tokens_per_s": tokens_per_s, "ms_per_step": wall / timed * 1e3,
+            "mfu": mfu, "peak_memory_gb": peak_gb, "losses": losses,
+            "grad_norms": gnorms, "flash_fwd_launches": fwd,
+            "flash_bwd_launches": bwd, "tier_launches": list(tier),
+            "grad_norm_worst_rel": rel,
+            "step0_grad_rel": [min(rel0.values()), max(rel0.values())],
+            "step0_worst_vs_spread": [worst, rel0[worst] / spread[worst]],
+            "profile": prof}
+        del model, params, opt_state, batches, res, step, spare
+        torch.cuda.empty_cache()
+    out["step0_spread"] = [spread[lo], spread[hi]]
+    return out
+
+
+def health_config():
+    """tools/train_health.json's monitor block."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "train_health.json")
+    with open(path) as f:
+        return json.load(f)["monitor"]
+
+
+def _collate_rows(rows):
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def telemetry_train(torch, base):
+    """Phase 22 (a): the flagship with telemetry every step and a
+    TrainHealthMonitor, fed through the port's DataLoader (two workers,
+    instrument=True), 6 steps on phase 7's batches; then the NaN'd-batch
+    leg from a fresh model."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.observability import train_health as th
+    from paddle_tpu_torch.ops import adamw
+    from paddle_tpu_torch.testing import TrainFaultInjector
+    cfg, batch, seq = pretrain.flagship_config()
+    mon_cfg = health_config()
+    steps = 6
+    flight_dir = tempfile.mkdtemp(prefix="smoke_health_")
+    try:
+        flight = obs.FlightRecorder(min_interval_s=0.0)
+        flight.arm(flight_dir)
+        # the healthy run's stall threshold, as the gate's healthy leg:
+        # the workers' first batch comes after their start-up
+        mon = obs.TrainHealthMonitor.from_config(
+            mon_cfg, flight_recorder=flight, data_stall_s=30.0)
+        model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        params, opt_state, meta = pretrain.make_train_state(model, None)
+        step = pretrain.make_train_step(model, None, meta, monitor=mon)
+        labels = step._telemetry_spec.labels
+        samples = []
+        for b in flagship_batches(cfg, batch, seq, steps):
+            samples += [{k: v[j] for k, v in b.items()}
+                        for j in range(batch)]
+        loader = DataLoader(samples, batch_size=batch, num_workers=2,
+                            instrument=True, collate_fn=_collate_rows)
+        loader.health_monitor = mon
+        th.pop_data_wait()
+        reg = obs.get_registry()
+        waits0 = reg.histogram("train_data_wait_seconds").count
+        losses, gnorms = [], []
+        t0 = None
+        for i, b in enumerate(loader):
+            if i == 2:
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+            params, opt_state, loss, gnorm = step(
+                params, opt_state, pretrain.batch_to_device(b))
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+        torch.cuda.synchronize()
+        timed = steps - 2
+        wall = time.perf_counter() - t0
+        launches = (adamw.adamw_step.launches,
+                    adamw.adamw_step.telemetry_launches)
+        snap = reg.snapshot()
+
+        def gauges(name):
+            return {k: v["value"] for k, v in
+                    snap.get(name, {}).get("children", {}).items()}
+        norms = {f: gauges(f"train_group_{f}")
+                 for f in ("grad_norm", "param_norm", "update_ratio")}
+        batches_seen = reg.histogram("train_data_wait_seconds").count - \
+            waits0
+        check(mon.steps_observed == steps and mon.breaches_total == 0,
+              f"telemetry run: {mon.steps_observed} steps observed, "
+              f"breaches {mon.breach_counts}")
+        want_labels = ("embed", "blocks_00_05", "blocks_06_11",
+                       "blocks_12_17", "blocks_18_23", "norm_bias", "head")
+        check(labels == want_labels and all(
+            set(v) == set(want_labels) for v in norms.values()),
+            f"telemetry groups {labels} / gauges "
+            f"{ {k: sorted(v) for k, v in norms.items()} } (want "
+            f"{want_labels})")
+        check(all(math.isfinite(x) for v in norms.values()
+                  for x in v.values()),
+              f"non-finite group norms: {norms}")
+        check(losses[0] == base["losses"][0],
+              f"telemetry run: step-0 loss {losses[0]!r} is not phase 7's "
+              f"{base['losses'][0]!r}")
+        check(launches == (2 * timed, 2 * timed),
+              f"kernel D launched {launches[0]} times ({launches[1]} with "
+              f"the telemetry) in {timed} steps (want {2 * timed} each)")
+        check(batches_seen == steps, f"the instrumented loader counted "
+              f"{batches_seen} batches (want {steps})")
+        ms = wall / timed * 1e3
+        print(f"  telemetry every step + monitor + DataLoader(num_workers=2,"
+              f" instrument=True): {ms:.1f} ms/step (phase 7: "
+              f"{base['ms_per_step']:.1f}), {batch * seq / ms * 1e3:.1f} "
+              f"tokens/s; 0 breaches over {steps} steps; kernel D "
+              f"{launches[0]} launches in {timed} steps; step-0 loss "
+              f"{losses[0]!r}", flush=True)
+        print("    groups (grad norm / param norm / update ratio): "
+              + ", ".join(f"{g} {norms['grad_norm'][g]:.4f} / "
+                          f"{norms['param_norm'][g]:.2f} / "
+                          f"{norms['update_ratio'][g]:.2e}"
+                          for g in want_labels), flush=True)
+        # the same vector computed every step but fetched once: the cost
+        # of the per-step fetch (a sync) apart from kernel D's share
+        sparse = pretrain.make_train_step(model, None, meta, telemetry=True,
+                                          telemetry_every=1000)
+        host = flagship_batches(cfg, batch, seq, 5)
+        devb = [pretrain.batch_to_device(b) for b in host]
+        params, opt_state, loss, _ = sparse(params, opt_state, devb[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in devb[1:]:
+            params, opt_state, loss, _ = sparse(params, opt_state, b)
+        torch.cuda.synchronize()
+        ms_sparse = (time.perf_counter() - t0) / (len(devb) - 1) * 1e3
+        print(f"    telemetry computed every step, fetched once: "
+              f"{ms_sparse:.1f} ms/step", flush=True)
+        stats = {"ms_per_step": ms, "ms_per_step_fetch_once": ms_sparse,
+                 "losses": losses, "grad_norms": gnorms,
+                 "breaches": mon.breaches_total, "groups": list(labels),
+                 "adamw_launches": launches[0],
+                 "telemetry_launches": launches[1],
+                 "group_norms": norms}
+        del model, params, opt_state, step, loader, samples, sparse, devb
+        torch.cuda.empty_cache()
+
+        # the NaN'd batch at the flagship: out-of-vocab ids read NaN
+        # embedding rows (no device assert), non_finite fires once, and
+        # the step after the fault runs
+        nan_dir = os.path.join(flight_dir, "nan")
+        flight = obs.FlightRecorder(min_interval_s=0.0)
+        flight.arm(nan_dir)
+        mon = obs.TrainHealthMonitor.from_config(mon_cfg,
+                                                 flight_recorder=flight)
+        model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+        params, opt_state, meta = pretrain.make_train_state(model, None)
+        step = pretrain.make_train_step(model, None, meta, monitor=mon)
+        inj = TrainFaultInjector().nan_batch(1)
+        nan_losses = []
+        for i, b in enumerate(flagship_batches(cfg, batch, seq, 3)):
+            b = inj.adjust_batch(i, b)
+            params, opt_state, loss, gnorm = step(
+                params, opt_state, pretrain.batch_to_device(b))
+            nan_losses.append(float(loss))
+        torch.cuda.synchronize()
+        reasons = sorted(obs.load_dump(p)["reason"] for p in flight.dumps)
+        check(mon.breach_counts == {"non_finite": 1}
+              and reasons == ["non_finite_loss"]
+              and inj.injected["nan_batch"] == 1
+              and math.isfinite(nan_losses[0])
+              and not math.isfinite(nan_losses[1]) and len(nan_losses) == 3,
+              f"NaN'd batch: fired {mon.breach_counts}, dumps {reasons}, "
+              f"losses {nan_losses}")
+        print(f"  NaN'd batch at step 1 of 3: losses {nan_losses}, fired "
+              f"{mon.breach_counts}, dumps {reasons}; the next step ran, "
+              "no CUDA error", flush=True)
+        stats["nan_leg"] = {"losses": nan_losses,
+                            "fired": dict(mon.breach_counts),
+                            "dumps": reasons}
+        del model, params, opt_state, step
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    return stats
+
+
+def adamw_telemetry_case(torch):
+    """Kernel D over the flagship's 147 tensors with and without the
+    telemetry: p, m, v and gnorm bit-equal, the packed vector within
+    TEL_RTOL of ``pack_telemetry_plain`` (non-finite counts exact), and
+    the device ms of each beside the bound and the plain version's."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.observability import train_health as th
+    from paddle_tpu_torch.ops import adamw as ad
+    cfg, _, _ = pretrain.flagship_config()
+    named = [(n, tuple(p.shape)) for n, p in LlamaForCausalLM(
+        cfg, device="cuda", seed=0).named_parameters()]
+    spec = th.build_telemetry_spec({n: len(s) for n, s in named})
+    group_of = {n: j for j, (_, ns) in enumerate(spec.groups) for n in ns}
+    groups = [group_of[n] for n, _ in named]
+    ng = len(spec.groups)
+    shapes = [s for _, s in named]
+    gen = torch.Generator(device="cuda").manual_seed(85)
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    p0 = [rnd(s, 0.02) for s in shapes]
+    g0 = [rnd(s, 1e-3) for s in shapes]
+    m0 = [rnd(s, 1e-4) for s in shapes]
+    v0 = [rnd(s, 1e-4) ** 2 for s in shapes]
+    loss = torch.tensor(10.375, device="cuda")
+    decay = [len(s) >= 2 for s in shapes]
+    hp = (3e-4, 0.9, 0.95, 1e-8, 0.1, 1.0, 3)
+    n = sum(math.prod(s) for s in shapes)
+
+    def state():
+        return ([t.clone() for t in p0], [t.clone() for t in m0],
+                [t.clone() for t in v0])
+    ps, ms, vs = state()
+    gn_off = ad.adamw_step(ps, g0, ms, vs, decay, *hp)
+    off = (ps, ms, vs)
+    pt, mt, vt = state()
+    gn_on, vec = ad.adamw_step(pt, g0, mt, vt, decay, *hp, groups=groups,
+                               loss=loss)
+    torch.cuda.synchronize()
+    same = torch.equal(gn_off, gn_on) and all(
+        torch.equal(a, b) for x, y in zip(off, (pt, mt, vt))
+        for a, b in zip(x, y))
+    check(same, "kernel D: p / m / v / gnorm differ with the telemetry on")
+    ref = ad.pack_telemetry_plain(loss, gn_on, g0, p0, pt, groups)
+    rel = float(((vec - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    nf_k = vec[2:].reshape(ng, 4)[:, 3]
+    nf_p = ref[2:].reshape(ng, 4)[:, 3]
+    check(rel <= TEL_RTOL and torch.equal(nf_k, nf_p),
+          f"kernel D telemetry: {vec.tolist()} vs plain {ref.tolist()} "
+          f"(worst relative {rel:.3e}, rtol {TEL_RTOL:g})")
+    del off, ps, ms, vs
+    ps, ms, vs = state()
+    ms_off = device_time_ms(
+        lambda: ad.adamw_step(ps, g0, ms, vs, decay, *hp), iters=20)
+    ms_on = device_time_ms(
+        lambda: ad.adamw_step(ps, g0, ms, vs, decay, *hp, groups=groups,
+                              loss=loss), iters=20)
+
+    def plain():
+        old = [p.clone() for p in ps]
+        gn = ad.adamw_step_plain(ps, g0, ms, vs, decay, *hp)
+        ad.pack_telemetry_plain(loss, gn, g0, old, ps, groups)
+    ms_plain = device_time_ms(plain, iters=5)
+    b_ms, b_by = bound(n * 4 * 7, 0)
+    print(f"  adamw_telemetry[flagship_{n / 1e6:.1f}M, {len(shapes)} "
+          f"tensors, {ng} groups]: p / m / v / gnorm bit-equal on and off; "
+          f"vector worst relative {rel:.2e} of plain (rtol {TEL_RTOL:g}); "
+          f"device ms telemetry on {ms_on:.4f} off {ms_off:.4f} plain "
+          f"{ms_plain:.4f} bound {b_ms:.4f} ({b_by})", flush=True)
+    del ps, ms, vs, pt, mt, vt, p0, g0, m0, v0
+    torch.cuda.empty_cache()
+    return [{"case": f"flagship_{n / 1e6:.1f}M", "max_abs_err": float(
+        (vec - ref).abs().max()), "worst_rel": rel, "ms": ms_on,
+        "ms_off": ms_off, "plain_ms": ms_plain, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}]
+
+
+def train_monitor_gate():
+    """Phase 22 (b): tools/torch_train_monitor.py --device cuda --check
+    tools/train_health.json in a process of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(root, "tools",
+                                      "torch_train_monitor.py"),
+         "--device", "cuda", "--check",
+         os.path.join(root, "tools", "train_health.json")],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    for line in r.stdout.strip().splitlines()[-12:]:
+        print(f"    | {line}", flush=True)
+    check(r.returncode == 0, f"tools/torch_train_monitor.py --device cuda "
+          f"--check failed (exit {r.returncode}): {r.stderr[-2000:]}")
+    secs = time.perf_counter() - t0
+    print(f"  the train_health gate passed on the card in {secs:.1f} s",
+          flush=True)
+    return {"seconds": secs}
+
+
+def phase_health(torch, base):
+    """Phase 22: telemetry, the monitor and the faults."""
+    stats = telemetry_train(torch, base)
+    stats["gate"] = train_monitor_gate()
+    rows = adamw_telemetry_case(torch)
+    return stats, rows
+
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -3781,6 +4274,14 @@ def main():
           "SwiGLU, token cross entropy, AdamW) against its plain versions",
           flush=True)
     tier_rows = phase_fused_tier(torch)
+    print("phase 21: flagship pretraining with activation recompute (True, "
+          "then \"dots_saveable\"), bf16 AMP-O2, B=8 S=2048", flush=True)
+    recompute_stats = phase_recompute(torch, train_stats)
+    print("phase 22: the flagship with in-step telemetry, the health "
+          "monitor and the instrumented DataLoader; the NaN'd batch; the "
+          "train_health gate on the card; kernel D's telemetry alone",
+          flush=True)
+    health_stats, tel_rows = phase_health(torch, train_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -3860,7 +4361,15 @@ def main():
             name, f"paddle_tpu_torch/csrc/{source}.cu",
             f"paddle_tpu/{replaces}", tier_launches[i], tier_rows[key],
             case))
-    check(len(kernels) == 21 and all(e["launches"] > 0 for e in kernels),
+    # kernel D's telemetry instance: launch 2 with the group sums and the
+    # packed vector (no pallas_call: the JAX step's _pack_telemetry is an
+    # XLA fusion), counted in phase 22's telemetry run
+    kernels.append(kernel_entry(
+        "adamw_telemetry", "paddle_tpu_torch/csrc/adamw.cu",
+        "paddle_tpu/models/pretrain.py:205",
+        health_stats["telemetry_launches"], tel_rows,
+        tel_rows[0]["case"]))
+    check(len(kernels) == 22 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -3877,6 +4386,8 @@ def main():
     print(f"card: {card}; decode op: {json.dumps(decode_stats)}; int8: "
           f"{json.dumps(int8_stats)}", flush=True)
     print(f"card: {card}; fused tier: {json.dumps(tier_rows)}", flush=True)
+    print(f"card: {card}; recompute: {json.dumps(recompute_stats)}; "
+          f"telemetry and health: {json.dumps(health_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

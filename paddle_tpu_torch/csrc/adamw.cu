@@ -25,6 +25,19 @@
 // Grads may be f32, bf16 or f16 (upcast in registers); p, m, v are f32.
 // More than MAX_T tensors take ceil(T / MAX_T) launches of each.
 //
+// Telemetry (the JAX step's _pack_telemetry, pretrain.py:205-229, which
+// XLA fuses into its jitted step) rides on the same two launches, with no
+// pass of its own: launch 1 also writes each chunk's count of non-finite
+// grads, launch 2 (its telemetry instance) each chunk's f64 sums of p_old^2
+// and (p_new - p_old)^2, the difference rounded to f32 first, and its
+// group's id (a per-tensor id in the launch parameters). The last block of
+// launch 2 (the same ticket as launch 1's) walks the chunks in order, one
+// lane of its first warp a group, sums them into the groups in f64 and
+// writes the packed f32 vector
+// [loss, gnorm, then (grad_norm, param_norm, update_norm, nonfinite) per
+// group]. The update itself runs the same instructions in both instances,
+// so p, m, v and gnorm are bit-equal with the telemetry on and off.
+//
 // Bound: bytes. At the flagship's 373.9M parameters with f32 grads: launch
 // 1 reads g (1.50 GB), launch 2 reads g, p, m, v and writes p, m, v
 // (10.47 GB): 11.97 GB, 3.57 ms at 3.35 TB/s. Each thread moves four
@@ -42,6 +55,8 @@ namespace {
 constexpr int NT = 256;
 constexpr int CHUNK = 65536;
 constexpr int MAX_T = 256;
+constexpr int MAX_G = 32;   // telemetry groups
+constexpr int WS_SLOTS = 6;  // g^2, end flag, nonfinite, p^2, du^2, group
 
 struct TensorList {
   float* p[MAX_T];
@@ -52,6 +67,7 @@ struct TensorList {
   int chunk0[MAX_T + 1];  // first chunk of each tensor, in this launch
   int gtype[MAX_T];       // 0 f32, 1 bf16, 2 f16
   int decay[MAX_T];
+  int group[MAX_T];       // telemetry group of each tensor
   int count;
 };
 
@@ -108,12 +124,13 @@ __device__ double block_sum_d(double v, double* red) {
 }
 
 // ws: [2 * total chunks] f64 (the chunks' sums, then 1.0 where a chunk ends
-// its tensor); base: this launch's first chunk; out: [2] f32 (gnorm,
+// its tensor; with telemetry WS_SLOTS * total, slot 2 the chunks' counts of
+// non-finite grads); base: this launch's first chunk; out: [2] f32 (gnorm,
 // scale) written by the last block of the last launch.
 __global__ void __launch_bounds__(NT)
 adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
                    int last_launch, unsigned int* counter, float* out,
-                   float clip) {
+                   float clip, int telemetry) {
   __shared__ double red[NT / 32];
   __shared__ bool is_last;
   const int b = blockIdx.x;
@@ -123,25 +140,36 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   const void* g = L.g[t];
   const int type = L.gtype[t];
   double acc = 0.0;
+  int bad = 0;  // non-finite grads (counted only with telemetry)
   if (vec_ok(L, t)) {
     const long long end4 = start + ((end - start) & ~3LL);
     for (long long i = start + threadIdx.x * 4; i < end4; i += NT * 4) {
       float f[4];
       load_g4(g, type, i, f);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc += (double)f[k] * f[k];
+      for (int k = 0; k < 4; ++k) {
+        acc += (double)f[k] * f[k];
+        bad += !isfinite(f[k]);
+      }
     }
     for (long long i = end4 + threadIdx.x; i < end; i += NT) {
       const float f = load_g(g, type, i);
       acc += (double)f * f;
+      bad += !isfinite(f);
     }
   } else {
     for (long long i = start + threadIdx.x; i < end; i += NT) {
       const float f = load_g(g, type, i);
       acc += (double)f * f;
+      bad += !isfinite(f);
     }
   }
   acc = block_sum_d(acc, red);
+  if (telemetry) {
+    __syncthreads();  // every thread has read red
+    const double nf = block_sum_d((double)bad, red);
+    if (threadIdx.x == 0) ws[2 * total + base + b] = nf;
+  }
   if (threadIdx.x == 0) {
     ws[base + b] = acc;
     ws[total + base + b] = end == L.n[t] ? 1.0 : 0.0;
@@ -178,10 +206,9 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   if (threadIdx.x == 0) {
     const float gnorm = (float)sqrt(sq);
     out[0] = gnorm;
-    out[1] = clip != 0.0f
-                 ? fminf(__fmul_rn(__frcp_rn(__fadd_rn(gnorm, 1e-6f)), clip),
-                         1.0f)
-                 : 1.0f;
+    // a NaN gnorm gives a NaN scale, as the plain version's clamp does
+    const float r = __fmul_rn(__frcp_rn(__fadd_rn(gnorm, 1e-6f)), clip);
+    out[1] = clip != 0.0f ? (isnan(r) ? r : fminf(r, 1.0f)) : 1.0f;
   }
 }
 
@@ -209,14 +236,22 @@ __device__ __forceinline__ void adamw_elem(float& p, float gv, float& m,
   p = __fmaf_rn(h.neg_lr, step, p);
 }
 
-__global__ void __launch_bounds__(NT)
-adamw_update_kernel(const TensorList L, const float* __restrict__ out,
-                    const Hyper h) {
-  const int b = blockIdx.x;
-  const int t = find_tensor(L, b);
-  const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
-  const long long end = min(L.n[t], start + CHUNK);
-  const float scale = out[1];
+// Telemetry's chunk sums of p_old^2 and (p_new - p_old)^2, the difference
+// rounded to f32 as the plain version takes it.
+struct TelSums {
+  double p2 = 0.0, u2 = 0.0;
+  __device__ __forceinline__ void add(float before, float after) {
+    const float d = __fsub_rn(after, before);
+    p2 += (double)before * before;
+    u2 += (double)d * d;
+  }
+};
+
+template <bool TEL>
+__device__ __forceinline__ void update_chunk(const TensorList& L, int t,
+                                             long long start, long long end,
+                                             float scale, const Hyper& h,
+                                             TelSums& tel) {
   const bool decay = L.decay[t] != 0;
   float* p = L.p[t];
   float* m = L.m[t];
@@ -232,6 +267,7 @@ adamw_update_kernel(const TensorList L, const float* __restrict__ out,
       float4 pp = *reinterpret_cast<float4*>(p + i);
       float4 mm = *reinterpret_cast<float4*>(m + i);
       float4 vv = *reinterpret_cast<float4*>(v + i);
+      const float4 p0 = pp;
       adamw_elem(pp.x, gv[0], mm.x, vv.x, scale, h, decay);
       adamw_elem(pp.y, gv[1], mm.y, vv.y, scale, h, decay);
       adamw_elem(pp.z, gv[2], mm.z, vv.z, scale, h, decay);
@@ -239,15 +275,115 @@ adamw_update_kernel(const TensorList L, const float* __restrict__ out,
       *reinterpret_cast<float4*>(p + i) = pp;
       *reinterpret_cast<float4*>(m + i) = mm;
       *reinterpret_cast<float4*>(v + i) = vv;
+      if (TEL) {
+        tel.add(p0.x, pp.x);
+        tel.add(p0.y, pp.y);
+        tel.add(p0.z, pp.z);
+        tel.add(p0.w, pp.w);
+      }
     }
     tail = end4;
   }
   for (long long i = tail + threadIdx.x; i < end; i += NT) {
     float pv = p[i], mv = m[i], vv = v[i];
+    const float p0 = pv;
     adamw_elem(pv, load_g(g, type, i), mv, vv, scale, h, decay);
     p[i] = pv;
     m[i] = mv;
     v[i] = vv;
+    if (TEL) tel.add(p0, pv);
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+adamw_update_kernel(const TensorList L, const float* __restrict__ out,
+                    const Hyper h) {
+  const int b = blockIdx.x;
+  const int t = find_tensor(L, b);
+  const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
+  const long long end = min(L.n[t], start + CHUNK);
+  TelSums tel;
+  update_chunk<false>(L, t, start, end, out[1], h, tel);
+}
+
+// Where the telemetry's walk writes: loss [1] f32 on the card, vec
+// [2 + 4 * groups] f32.
+struct TelOut {
+  const float* loss;
+  float* vec;
+  int groups;
+};
+
+// Launch 2 with the telemetry: the update of adamw_update_kernel, each
+// chunk's p^2 / du^2 sums and group into ws (slots 3-5, slot 0 and 2 as
+// launch 1 left them), and the packed vector from the last block of the
+// last launch.
+__global__ void __launch_bounds__(NT)
+adamw_update_tel_kernel(const TensorList L, const float* __restrict__ out,
+                        const Hyper h, double* ws, int base, int total,
+                        int last_launch, unsigned int* counter,
+                        const TelOut to) {
+  __shared__ double red[NT / 32];
+  __shared__ bool is_last;
+  const int b = blockIdx.x;
+  const int t = find_tensor(L, b);
+  const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
+  const long long end = min(L.n[t], start + CHUNK);
+  TelSums tel;
+  update_chunk<true>(L, t, start, end, out[1], h, tel);
+  const double p2 = block_sum_d(tel.p2, red);
+  __syncthreads();
+  const double u2 = block_sum_d(tel.u2, red);
+  if (threadIdx.x == 0) {
+    ws[3 * total + base + b] = p2;
+    ws[4 * total + base + b] = u2;
+    ws[5 * total + base + b] = (double)L.group[t];
+    __threadfence();
+    const unsigned int ticket = atomicAdd(counter, 1u);
+    is_last = ticket == gridDim.x - 1;
+    if (is_last) *counter = 0u;
+  }
+  __syncthreads();
+  if (!is_last || !last_launch) return;
+  // every chunk of every launch is written: slot by slot a tile of NT
+  // chunks comes through shared memory, and lane j of warp 0 adds group
+  // j's chunks in chunk order into its registers (the tile's values are
+  // broadcast reads; a lane skips the chunks of other groups)
+  __shared__ double tile[5][NT];
+  constexpr int slot[5] = {0, 3, 4, 2, 5};  // g^2, p^2, du^2, nf, group
+  double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
+  for (int c0 = 0; c0 < total; c0 += NT) {
+    const int c = c0 + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      tile[k][threadIdx.x] = c < total ? __ldcg(ws + slot[k] * total + c)
+                                       : 0.0;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int lim = min(NT, total - c0);
+      for (int i = 0; i < lim; ++i) {
+        const double x0 = tile[0][i], x1 = tile[1][i], x2 = tile[2][i];
+        const double x3 = tile[3][i];
+        if ((int)tile[4][i] == (int)threadIdx.x) {
+          a0 += x0;
+          a1 += x1;
+          a2 += x2;
+          a3 += x3;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    to.vec[0] = *to.loss;
+    to.vec[1] = out[0];
+  }
+  if ((int)threadIdx.x < to.groups) {
+    float* r = to.vec + 2 + 4 * threadIdx.x;
+    r[0] = (float)sqrt(a0);
+    r[1] = (float)sqrt(a1);
+    r[2] = (float)sqrt(a2);
+    r[3] = (float)a3;
   }
 }
 
@@ -255,7 +391,7 @@ adamw_update_kernel(const TensorList L, const float* __restrict__ out,
 // this launch's chunks.
 int fill(TensorList& L, int t0, int count, void* const* p, void* const* g,
          void* const* m, void* const* v, const long long* n,
-         const int* gtype, const int* decay) {
+         const int* gtype, const int* decay, const int* group = nullptr) {
   int c = 0;
   L.count = count;
   for (int i = 0; i < count; ++i) {
@@ -267,6 +403,7 @@ int fill(TensorList& L, int t0, int count, void* const* p, void* const* g,
     L.n[i] = n[t];
     L.gtype[i] = gtype[t];
     L.decay[i] = decay ? decay[t] : 0;
+    L.group[i] = group ? group[t] : 0;
     L.chunk0[i] = c;
     c += (int)((n[t] + CHUNK - 1) / CHUNK);
   }
@@ -280,15 +417,18 @@ extern "C" {
 
 int adamw_max_tensors() { return MAX_T; }
 int adamw_chunk_elems() { return CHUNK; }
+int adamw_max_groups() { return MAX_G; }
+int adamw_ws_slots() { return WS_SLOTS; }
 
 // Launch 1 over T tensors' grads g[T] (n[T] elements, gtype[T]: 0 f32, 1
-// bf16, 2 f16): ws holds 2 x (sum of ceil(n / CHUNK)) doubles, counter one
+// bf16, 2 f16): ws holds 2 x (sum of ceil(n / CHUNK)) doubles (WS_SLOTS x
+// with telemetry, which also counts the non-finite grads), counter one
 // zeroed unsigned int (left zeroed), out [2] f32 receives (gnorm, scale);
 // clip 0 leaves the scale at 1. Tensors of 0 elements take no chunk. Returns
 // the CUDA error of the launches (0 on success).
 int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
                 void* ws, void* counter, void* out, float clip,
-                void* stream) {
+                int telemetry, void* stream) {
   if (T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   long long total = 0;
@@ -306,7 +446,7 @@ int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
     if (chunks > 0)
       adamw_sumsq_kernel<<<chunks, NT, 0, s>>>(
           L, (double*)ws, base, (int)total, bi == last_batch,
-          (unsigned int*)counter, (float*)out, clip);
+          (unsigned int*)counter, (float*)out, clip, telemetry);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     base += chunks;
@@ -317,23 +457,50 @@ int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
 // Launch 2: p, m, v [T] f32 updated in place from g (as in adamw_sumsq),
 // decay[T] 1 for the tensors that take weight decay, out as adamw_sumsq
 // left it (the scale is read when clip_on); rc1 / rc2 the reciprocals of
-// the bias corrections.
+// the bias corrections. With the telemetry (vec not null): group[T] (each
+// tensor's group, 0 <= group < groups <= MAX_G), ws and counter as
+// adamw_sumsq(telemetry=1) left them, loss [1] f32 and vec [2 + 4 groups]
+// f32 on the card; without it group, ws, counter and loss are not read.
 int adamw_update(int T, void* const* p, void* const* g, void* const* m,
                  void* const* v, const long long* n, const int* gtype,
-                 const int* decay, void* out, float b1, float omb1, float b2,
-                 float omb2, float rc1, float rc2, float eps, float wd,
-                 float neg_lr, int clip_on, void* stream) {
+                 const int* decay, const int* group, void* out, float b1,
+                 float omb1, float b2, float omb2, float rc1, float rc2,
+                 float eps, float wd, float neg_lr, int clip_on, void* ws,
+                 void* counter, void* loss, void* vec, int groups,
+                 void* stream) {
   if (T < 1) return (int)cudaErrorInvalidValue;
+  const bool tel = vec != nullptr;
+  long long total = 0;
+  if (tel) {
+    if (!group || !ws || !counter || !loss || groups < 1 || groups > MAX_G)
+      return (int)cudaErrorInvalidValue;
+    for (int t = 0; t < T; ++t) {
+      if (group[t] < 0 || group[t] >= groups)
+        return (int)cudaErrorInvalidValue;
+      total += (n[t] + CHUNK - 1) / CHUNK;
+    }
+    if (total < 1 || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   const Hyper h{b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr, clip_on};
-  for (int t0 = 0; t0 < T; t0 += MAX_T) {
+  const TelOut to{(const float*)loss, (float*)vec, groups};
+  int last = T - 1;
+  while (last > 0 && n[last] == 0) --last;
+  const int last_batch = last / MAX_T;
+  int base = 0;
+  for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
     TensorList L;
     const int chunks = fill(L, t0, std::min(MAX_T, T - t0), p, g, m, v, n,
-                            gtype, decay);
-    if (chunks > 0)
+                            gtype, decay, tel ? group : nullptr);
+    if (chunks > 0 && tel)
+      adamw_update_tel_kernel<<<chunks, NT, 0, s>>>(
+          L, (const float*)out, h, (double*)ws, base, (int)total,
+          bi == last_batch, (unsigned int*)counter, to);
+    else if (chunks > 0)
       adamw_update_kernel<<<chunks, NT, 0, s>>>(L, (const float*)out, h);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    base += chunks;
   }
   return 0;
 }

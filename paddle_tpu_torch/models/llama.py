@@ -26,9 +26,12 @@ Parameter names match ``jit.functional.state_arrays`` of the JAX model
 .weight``, ``lm_head.weight`` [hidden, vocab], ...), so
 ``llama_state_from_numpy`` loads its arrays directly.
 
+``recompute`` (True or a named policy of
+``distributed.fleet.recompute``) runs each decoder layer through
+``recompute`` while the model trains: the layer's activations are rebuilt
+in the backward, the flash forward kernel then launching twice a layer.
 Options of the JAX model that are not ported yet raise
-``NotImplementedError``: recompute, context parallelism and the pipeline
-form.
+``NotImplementedError``: context parallelism and the pipeline form.
 ``sequence_parallel`` only shards activations over a mesh and has no
 effect on one device, as in the JAX package off-mesh.
 """
@@ -40,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from .. import nn
+from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..nn.layers.common import normal_
 from ..ops.blockwise_ce import blockwise_lm_head_ce
@@ -96,7 +100,7 @@ class LlamaConfig:
 
 
 def _refuse_later_slice(config):
-    for opt in ("recompute", "context_parallel"):
+    for opt in ("context_parallel",):
         if getattr(config, opt, False):
             raise NotImplementedError(
                 f"LlamaConfig.{opt} is a later slice of the port")
@@ -247,9 +251,17 @@ class LlamaModel(torch.nn.Module):
         if self.config.dtype == "bfloat16":
             hidden_states = hidden_states.to(torch.bfloat16)
         residual = None
+        policy = self.config.recompute
         for layer in self.layers:
-            hidden_states, residual = layer(hidden_states, position_ids,
-                                            attn_mask, residual)
+            if policy and self.training and torch.is_grad_enabled():
+                # the residual stream (None at layer 0) goes through the
+                # checkpoint beside the hidden states
+                hidden_states, residual = recompute(
+                    layer, hidden_states, position_ids, attn_mask, residual,
+                    policy=policy if isinstance(policy, str) else None)
+            else:
+                hidden_states, residual = layer(hidden_states, position_ids,
+                                                attn_mask, residual)
         if residual is None:
             return self.norm(hidden_states)
         return self.norm(hidden_states, residual)[0]

@@ -10,20 +10,41 @@ PyTorch, as the JAX package runs it in plain XLA, and so does
 ``flashmask_attention`` with an index: the JAX package's form of it here
 materializes the mask and never reaches the FlashMask kernels (those are
 ``incubate.nn.functional.flashmask_attention``'s).
+
+Dropout (with ``training``) and ``return_softmax`` take ``_sdpa_ref`` too,
+as the JAX package's routes do: the keep mask comes from a generator
+seeded with a seed drawn from the default chain in the forward
+(``core.random.fresh_seed``), the port's counterpart of the key the JAX
+package passes in as an input. Autograd keeps the mask for the backward,
+and activation recompute replays the chain, so a recomputed forward draws
+the same mask. A dropout-free call keeps the flash kernels.
 """
 import math
 
 import torch
 
+from ...core import random as _random
 from ...ops import flash_attention as _fa
+from .rope import apply_rotary_pos_emb
 
 
-def _sdpa_ref(q, k, v, mask=None, causal=False):
+def _dropout_keep(shape, keep_prob, seed, device):
+    """The Bernoulli(``keep_prob``) keep mask of ``shape`` that ``seed``
+    gives on ``device`` (a generator of its own, seeded afresh)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    return u < keep_prob
+
+
+def _sdpa_ref(q, k, v, mask=None, causal=False, dropout=0.0, seed=None):
     """Reference attention in plain PyTorch, [B, S, H, D] layout. Scores
     and the prob @ v product in float32, the output cast to q's dtype.
     The causal mask is bottom-right aligned (``tril(k=t-s)``), as the JAX
     package's; it agrees with the kernel's top-left mask when q and k
-    have the same length."""
+    have the same length. ``dropout`` > 0 with a ``seed`` drops each
+    probability with that chance and scales the kept ones by
+    1 / (1 - dropout), the mask drawn from ``seed`` alone."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if k.shape[2] != q.shape[2]:            # GQA: repeat the kv head groups
         rep = q.shape[2] // k.shape[2]
@@ -43,6 +64,11 @@ def _sdpa_ref(q, k, v, mask=None, causal=False):
         else:
             logits = logits + mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
+    if dropout > 0.0 and seed is not None:
+        keep = _dropout_keep(probs.shape, 1.0 - dropout, seed, probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
     out = torch.matmul(probs, vt.float()).to(q.dtype)
     return out.transpose(1, 2)
 
@@ -53,13 +79,20 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """paddle's flash_attention: inputs [batch, seqlen, num_heads,
     head_dim]; returns (out, None). rope_cos / rope_sin [S, D/2] (neox):
     applied to q and k inside the kernels, the rotated tensors never in
-    memory."""
-    if dropout > 0.0 or return_softmax:
-        raise NotImplementedError(
-            "flash_attention: dropout and return_softmax are a later slice")
-    return _fa.flash_attention_bshd(query, key, value, causal=causal,
-                                    rope_cos=rope_cos,
-                                    rope_sin=rope_sin), None
+    memory. With ``dropout`` > 0 and ``training``, or ``return_softmax``,
+    the call runs ``_sdpa_ref`` (q and k rotated first when the tables are
+    given) and still returns (out, None), as the JAX package does."""
+    drop = dropout > 0.0 and training
+    if not drop and not return_softmax:
+        return _fa.flash_attention_bshd(query, key, value, causal=causal,
+                                        rope_cos=rope_cos,
+                                        rope_sin=rope_sin), None
+    if rope_cos is not None:
+        query = apply_rotary_pos_emb(query, rope_cos, rope_sin, True)
+        key = apply_rotary_pos_emb(key, rope_cos, rope_sin, True)
+    seed = _random.fresh_seed(query.device) if drop else None
+    return _sdpa_ref(query, key, value, causal=causal,
+                     dropout=dropout if drop else 0.0, seed=seed), None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -72,8 +105,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  causal=is_causal, training=training)
         return out
     if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: dropout is a later slice")
+        return _sdpa_ref(query, key, value, mask=attn_mask,
+                         causal=is_causal, dropout=dropout_p,
+                         seed=_random.fresh_seed(query.device))
     return _sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal)
 
 
@@ -89,12 +123,11 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     means something else here than in
     ``incubate.nn.functional.flashmask_attention``, which masks [start,
     end): the JAX package has both, and so does the port (ROADMAP Queue
-    3)."""
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "flashmask_attention: dropout is a later slice")
+    3). ``dropout`` > 0 drops probabilities as ``_sdpa_ref`` does (the JAX
+    package's form has no ``training`` switch)."""
     if startend_row_indices is None:
-        out, _ = flash_attention(query, key, value, causal=causal)
+        out, _ = flash_attention(query, key, value, dropout=dropout,
+                                 causal=causal)
         return out
     s = query.shape[1]
     rows = torch.arange(s, device=query.device)[:, None]
@@ -103,4 +136,6 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     if causal:
         keep = keep & torch.ones((s, s), dtype=torch.bool,
                                  device=query.device).tril()
-    return _sdpa_ref(query, key, value, mask=keep, causal=False)
+    seed = _random.fresh_seed(query.device) if dropout > 0.0 else None
+    return _sdpa_ref(query, key, value, mask=keep, causal=False,
+                     dropout=dropout, seed=seed)

@@ -14,5 +14,18 @@ def linear(x, weight):
 
 
 def embedding(x, weight):
-    """Rows of ``weight`` [V, E] at the ids ``x``."""
-    return torch.nn.functional.embedding(x.long(), weight)
+    """Rows of ``weight`` [V, E] at the ids ``x``, as the JAX package's
+    ``jnp.take`` (fill mode) gathers them: an id in [-V, V) reads its row,
+    a negative one wrapping to ``id + V``; any other id reads a row of NaN
+    in the weight's dtype, and its gradient is dropped. The index is
+    clamped before the gather and the NaN rows selected after it, so no
+    id can reach past the table (on the card that would be a device-side
+    assert, which ends the CUDA context)."""
+    idx = x.long()
+    v = weight.shape[0]
+    idx = torch.where(idx < 0, idx + v, idx)
+    valid = (idx >= 0) & (idx < v)
+    rows = torch.nn.functional.embedding(idx.clamp(0, max(v - 1, 0)), weight)
+    nan = torch.full((), float("nan"), dtype=weight.dtype,
+                     device=weight.device)
+    return torch.where(valid[..., None], rows, nan)

@@ -35,7 +35,8 @@ class Linear(torch.nn.Module):
 
 
 class Embedding(torch.nn.Module):
-    """Lookup table [num_embeddings, embedding_dim]."""
+    """Lookup table [num_embeddings, embedding_dim]; an id outside
+    [-num_embeddings, num_embeddings) reads a NaN row (``F.embedding``)."""
 
     def __init__(self, num_embeddings, embedding_dim, std, generator,
                  device):

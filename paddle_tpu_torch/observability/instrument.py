@@ -8,13 +8,15 @@ leave an instrumented module holding an orphaned family.
 
 A copy of ``paddle_tpu/observability/instrument.py`` (stdlib only), kept
 apart so the PyTorch package imports nothing of the JAX package. The
-op-dispatch counter ``watch_ops`` is left out: it hooks the JAX
-package's dispatch point, which the port does not have.
+op-dispatch counter ``watch_ops`` hooks the JAX package's dispatch point
+there; the port has none, so it counts torch-function calls through a
+``torch.overrides.TorchFunctionMode`` instead (torch is imported only
+when it is switched on).
 """
 from .metrics import DEFAULT_LATENCY_BUCKETS, get_registry
 
 __all__ = [
-    "serve_ttft", "serve_tpot", "serve_queue_wait",
+    "watch_ops", "serve_ttft", "serve_tpot", "serve_queue_wait",
     "serve_step_seconds", "dispatch_seconds", "serve_tokens_total",
     "serve_requests_total",
     "serve_inflight", "serve_queue_depth", "serve_tokens_per_s",
@@ -516,3 +518,46 @@ def autotune_winner():
         help="last swept winner's tunable values, one child per "
              "(kernel, param): pack / prefill_chunk / buffer_depth",
         labels=("kernel", "param"))
+
+
+# -- op dispatch ----------------------------------------------------------
+
+_op_mode = None
+
+
+def watch_ops(enable=True):
+    """Count every torch-function call of this thread into
+    ``op_calls_total{op=...}``, the op named as
+    ``torch.overrides.resolve_name`` names it ("torch.matmul",
+    "torch.Tensor.add", ...): torch's names, not the JAX package's.
+    Switching it on twice changes nothing; switching it off pops the mode
+    and leaves the mode stack as it was before. The mode stack is
+    thread-local, so the count covers the calling thread."""
+    global _op_mode
+    if enable:
+        if _op_mode is not None:
+            return
+        from torch.overrides import TorchFunctionMode, resolve_name
+
+        class _CountOps(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(),
+                                   kwargs=None):
+                name = resolve_name(func) or getattr(func, "__name__",
+                                                     repr(func))
+                get_registry().counter(
+                    "op_calls_total", help="torch-function calls",
+                    labels=("op",)).labels(op=name).inc()
+                return func(*args, **(kwargs or {}))
+
+        mode = _CountOps()
+        mode.__enter__()
+        _op_mode = mode
+    elif _op_mode is not None:
+        from torch.overrides import _get_current_function_mode_stack
+        stack = _get_current_function_mode_stack()
+        if not stack or stack[-1] is not _op_mode:
+            raise RuntimeError("watch_ops(False): another torch function "
+                               "mode was entered after watch_ops() and is "
+                               "still active")
+        _op_mode.__exit__(None, None, None)
+        _op_mode = None

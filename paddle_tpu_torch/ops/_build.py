@@ -14,6 +14,9 @@ the port on a machine without ``nvcc``.
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
 for them together; it returns the seconds spent, and ``build_logs`` keeps
 each compiler's output (register and spill counts from ``-Xptxas -v``).
+Each build and each library load is announced to the callables in
+``listeners`` as ``(stage, name, seconds)`` with stage "nvcc_build" or
+"library_load" (``observability.compile_watch`` counts them).
 """
 import ctypes
 import hashlib
@@ -35,6 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs = {}
 build_logs = {}     # source name -> compiler output of this process's build
+listeners = []      # callables (stage, name, seconds), see the docstring
+
+
+def _announce(stage, name, seconds):
+    for fn in list(listeners):
+        fn(stage, name, seconds)
 
 
 def nvcc_path():
@@ -109,10 +118,15 @@ def build_all(names=SOURCES, timeout=600):
                 _finish(n, proc, out, tmp, timeout)
             except RuntimeError as e:
                 errors.append(str(e))
+            else:
+                if proc is not None:
+                    _announce("nvcc_build", n, time.perf_counter() - t0)
         if errors:
             raise RuntimeError("\n".join(errors))
         for n, _, out, _ in started:
+            t1 = time.perf_counter()
             _libs[n] = ctypes.CDLL(out)
+            _announce("library_load", n, time.perf_counter() - t1)
     return time.perf_counter() - t0
 
 

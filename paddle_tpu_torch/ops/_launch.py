@@ -72,8 +72,11 @@ PROTOTYPES = {
     "adamw": {
         "adamw_max_tensors": [],
         "adamw_chunk_elems": [],
-        "adamw_sumsq": [_I] + [_P] * 6 + [_F, _P],
-        "adamw_update": [_I] + [_P] * 8 + [_F] * 9 + [_I, _P],
+        "adamw_max_groups": [],
+        "adamw_ws_slots": [],
+        "adamw_sumsq": [_I] + [_P] * 6 + [_F, _I, _P],
+        "adamw_update": [_I] + [_P] * 9 + [_F] * 9 + [_I] + [_P] * 4
+                        + [_I, _P],
     },
 }
 

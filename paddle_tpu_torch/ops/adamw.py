@@ -21,6 +21,16 @@ tensors take one launch of each.
 ``adamw_step`` launches the kernels for CUDA tensors (every kernel launch
 counted in ``adamw_step.launches``: 2 a step up to 256 tensors) and runs
 ``adamw_step_plain`` for CPU tensors.
+
+With ``groups`` (each tensor's telemetry group) and ``loss``, the same two
+launches also compute the training step's packed telemetry vector (the
+JAX package's ``_pack_telemetry``, ``paddle_tpu/models/pretrain.py:205-229``):
+[loss, gnorm, then (grad_norm, param_norm, update_norm, nonfinite) per
+group], the norms of the unclipped grads, of the parameters before the
+update and of the update itself, summed in f64 on the card; those
+launches also count in ``adamw_step.telemetry_launches``. p, m, v and
+gnorm are bit-equal with and without it. ``pack_telemetry_plain`` is its
+plain version: the CPU's route, and what the card is held against.
 """
 import ctypes
 
@@ -28,7 +38,7 @@ import torch
 
 from . import _launch as L
 
-__all__ = ["adamw_step", "adamw_step_plain"]
+__all__ = ["adamw_step", "adamw_step_plain", "pack_telemetry_plain"]
 
 
 def adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip,
@@ -63,6 +73,26 @@ def adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip,
     return gnorm
 
 
+def pack_telemetry_plain(loss, gnorm, gs, ps_old, ps_new, groups):
+    """The packed telemetry vector in plain PyTorch: f32 [2 + 4 G] =
+    [loss, gnorm, then per group (sqrt of the sum of g^2, of p_old^2, of
+    (p_new - p_old)^2, the count of non-finite g)], each sum in f64 over
+    the group's tensors in order (the difference rounded to f32 first);
+    ``groups[i]`` is tensor i's group in [0, G), G = max(groups) + 1."""
+    dev = gnorm.device
+    acc = torch.zeros(max(groups) + 1, 4, dtype=torch.float64, device=dev)
+    for j, g, p0, p1 in zip(groups, gs, ps_old, ps_new):
+        g = g.to(torch.float32)
+        acc[j, 0] += g.double().square().sum()
+        acc[j, 1] += p0.double().square().sum()
+        acc[j, 2] += (p1 - p0).double().square().sum()
+        acc[j, 3] += (~torch.isfinite(g)).sum()
+    rows = torch.cat([acc[:, :3].sqrt(), acc[:, 3:]], 1).to(torch.float32)
+    head = torch.stack([loss.detach().reshape(()).to(torch.float32),
+                        gnorm.reshape(()).to(torch.float32)])
+    return torch.cat([head, rows.reshape(-1)])
+
+
 _counters = {}    # device -> one zeroed uint32 the kernel leaves zeroed
 
 
@@ -78,12 +108,26 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
-def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count):
+def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count,
+               groups=None, loss=None):
     """``adamw_step_plain``'s update through kernel D for CUDA tensors (or
-    the plain version for CPU ones); returns gnorm, a 0-dim f32 tensor."""
+    the plain version for CPU ones); returns gnorm, a 0-dim f32 tensor, or
+    (gnorm, the packed telemetry vector) when ``groups`` (tensor i's group;
+    the vector has max(groups) + 1 of them) and ``loss`` (a 0-dim f32
+    tensor) are given."""
+    tel = groups is not None
+    if tel:
+        n_groups = max(groups) + 1 if groups else 0
+        if len(groups) != len(ps) or loss is None:
+            raise ValueError("adamw_step: telemetry needs a group for every "
+                             "tensor and the loss")
     if not ps or not L.on_cuda("adamw_step", ps[0]):
-        return adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd,
-                                clip, count)
+        old = [p.clone() for p in ps] if tel else None
+        gnorm = adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd,
+                                 clip, count)
+        if not tel:
+            return gnorm
+        return gnorm, pack_telemetry_plain(loss, gnorm, gs, old, ps, groups)
     dev = ps[0].device
     gs = [g.contiguous() for g in gs]
     for p, g, m, v in zip(ps, gs, ms, vs):
@@ -95,6 +139,12 @@ def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count):
             raise ValueError("adamw_step: p, m, v must be contiguous f32 "
                              "and g contiguous f32 / bf16 / f16 of p's "
                              f"shape, all on {dev}")
+    if tel:
+        most = L.entry("adamw", "adamw_max_groups")()
+        if n_groups > most or min(groups) < 0:
+            raise ValueError(f"adamw_step: telemetry groups must be ids in "
+                             f"[0, {most}), got {sorted(set(groups))}")
+        loss = loss.detach().reshape(1).to(device=dev, dtype=torch.float32)
     t = len(ps)
     n = (ctypes.c_longlong * t)(*(p.numel() for p in ps))
     gtype = (ctypes.c_int * t)(*(L.DTYPE_CODE[g.dtype] for g in gs))
@@ -102,26 +152,40 @@ def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count):
     chunk = L.entry("adamw", "adamw_chunk_elems")()
     chunks = sum(-(-p.numel() // chunk) for p in ps)
     if chunks == 0:
-        return out.zero_()[0]
-    ws = torch.empty(2 * chunks, dtype=torch.float64, device=dev)
+        gnorm = out.zero_()[0]
+        if not tel:
+            return gnorm
+        return gnorm, pack_telemetry_plain(loss, gnorm, gs, ps, ps, groups)
+    slots = L.entry("adamw", "adamw_ws_slots")() if tel else 2
+    ws = torch.empty(slots * chunks, dtype=torch.float64, device=dev)
     stream = L.stream(ps[0])
     gp = _ptrs(gs)
     rc = L.entry("adamw", "adamw_sumsq")(
         t, gp, n, gtype, ws.data_ptr(), _counter(dev).data_ptr(),
-        out.data_ptr(), float(clip or 0.0), stream)
+        out.data_ptr(), float(clip or 0.0), int(tel), stream)
     L.raise_on("adamw_sumsq", rc)
     c1 = 1.0 - b1 ** count
     c2 = 1.0 - b2 ** count
-    rc = L.entry("adamw", "adamw_update")(
-        t, _ptrs(ps), gp, _ptrs(ms), _ptrs(vs), n, gtype,
-        (ctypes.c_int * t)(*(int(bool(d) and bool(wd)) for d in decay)),
-        out.data_ptr(), float(b1), float(1 - b1), float(b2), float(1 - b2),
-        1.0 / c1, 1.0 / c2, float(eps), float(wd or 0.0), float(-lr),
-        int(bool(clip)), stream)
-    L.raise_on("adamw_update", rc)
+    args = (t, _ptrs(ps), gp, _ptrs(ms), _ptrs(vs), n, gtype,
+            (ctypes.c_int * t)(*(int(bool(d) and bool(wd)) for d in decay)))
+    hyper = (float(b1), float(1 - b1), float(b2), float(1 - b2), 1.0 / c1,
+             1.0 / c2, float(eps), float(wd or 0.0), float(-lr),
+             int(bool(clip)))
     batches = -(-t // L.entry("adamw", "adamw_max_tensors")())
+    vec = (torch.empty(2 + 4 * n_groups, dtype=torch.float32, device=dev)
+           if tel else None)
+    rc = L.entry("adamw", "adamw_update")(
+        *args, (ctypes.c_int * t)(*groups) if tel else None, out.data_ptr(),
+        *hyper, ws.data_ptr(), _counter(dev).data_ptr(),
+        loss.data_ptr() if tel else None, vec.data_ptr() if tel else None,
+        n_groups if tel else 0, stream)
+    L.raise_on("adamw_update", rc)
     adamw_step.launches += 2 * batches
-    return out[0]
+    if not tel:
+        return out[0]
+    adamw_step.telemetry_launches += 2 * batches
+    return out[0], vec
 
 
 adamw_step.launches = 0
+adamw_step.telemetry_launches = 0

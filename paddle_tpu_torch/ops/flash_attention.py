@@ -105,7 +105,10 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     p = torch.exp(s - lse[..., None])
     vis = _visible(q.shape[1], k.shape[1], causal, q.device)
     if vis is not None:
-        p = p * vis
+        # select, as the kernels do: a masked score far above its row's
+        # lse overflows exp to inf, and inf * 0 would be NaN
+        p = torch.where(vis, p, torch.zeros((), dtype=p.dtype,
+                                            device=p.device))
     dp = torch.matmul(do.float(), v.float().transpose(1, 2))
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
     ds = (p * (dp - delta) * scale).to(q.dtype).float()

@@ -1,5 +1,5 @@
 """Test/chaos support utilities of the PyTorch port (deterministic fault
-injection)."""
-from .faults import FaultInjector, seeded_plan  # noqa: F401
+injection for serving and training)."""
+from .faults import FaultInjector, TrainFaultInjector, seeded_plan  # noqa: F401
 
-__all__ = ["FaultInjector", "seeded_plan"]
+__all__ = ["FaultInjector", "TrainFaultInjector", "seeded_plan"]

@@ -1,7 +1,8 @@
-"""Deterministic fault injection for the serving stack.
+"""Deterministic fault injection for the serving stack and the training
+loop.
 
-The PyTorch port's copy of the serving half of
-``paddle_tpu/testing/faults.py`` (``FaultInjector``, ``seeded_plan``).
+The PyTorch port's copy of ``paddle_tpu/testing/faults.py``
+(``FaultInjector``, ``seeded_plan`` and ``TrainFaultInjector``).
 
 The resilience contract — "the engine degrades instead of crashing" —
 is only worth committing if CI can PROVE it, and proving it needs
@@ -35,8 +36,9 @@ the wrappers and ALWAYS restores the originals — a crashed run must
 not leak a failing allocator into the next test.
 """
 import contextlib
+import time
 
-__all__ = ["FaultInjector", "seeded_plan"]
+__all__ = ["FaultInjector", "TrainFaultInjector", "seeded_plan"]
 
 
 class FaultInjector:
@@ -171,6 +173,94 @@ class FaultInjector:
             cb.allocator.alloc = orig_alloc
             cb.step = orig_step
             del fr._write
+
+
+class TrainFaultInjector:
+    """Deterministic faults for the TRAINING loop: the three production
+    failure modes the train-health gate (tools/torch_train_monitor.py)
+    must prove the monitor catches:
+
+    * **NaN'd batch** — ``nan_batch(step)`` corrupts that step's host
+      batch with out-of-vocab token ids. The embedding gather
+      (``nn.functional.embedding``, as the JAX package's fill-mode
+      ``jnp.take``) reads NaN rows for them, so the loss
+      and every gradient go non-finite THAT step and the parameters
+      are poisoned from then on — the real shape of a corrupted data
+      shard, and exactly what the ``non_finite`` detector must catch
+      at the first poisoned step (training continues; degrade, don't
+      crash).
+    * **lr spike** — ``lr_spike(step, factor)`` routes that step
+      through the train step's ``lr_scale=``: one update at
+      ``factor`` x the configured lr blows the parameters up (finite),
+      so the NEXT step's loss/grad-norm jump out of the rolling
+      baseline — the ``grad_spike`` + ``loss_spike`` detectors' case.
+    * **throttled loader** — ``stall_loader(batch_index, delay_s)``
+      sleeps inside the batch iterator (wrap it with
+      ``wrap_loader``), upstream of the instrumented loader's wait
+      measurement, so the stall is indistinguishable from a real
+      starved input pipeline and must fire the ``data_stall`` dump.
+
+    Host-side and exactly reproducible: the schedule is step/batch
+    indices, ``injected`` counts what actually fired."""
+
+    # out-of-vocab by orders of magnitude: no real vocab reaches here,
+    # and the id still fits int32
+    OOV_TOKEN = 1 << 30
+
+    def __init__(self):
+        self._nan_batch_steps = set()
+        self._lr_spikes = {}            # step -> factor
+        self._loader_stalls = {}        # batch index -> delay_s
+        self.injected = {"nan_batch": 0, "lr_spike": 0,
+                         "loader_stall": 0}
+
+    # -- schedule builders (chainable) ------------------------------------
+    def nan_batch(self, step, tokens=4):
+        self._nan_batch_steps.add(int(step))
+        self._nan_tokens = int(tokens)
+        return self
+
+    def lr_spike(self, step, factor=64.0):
+        self._lr_spikes[int(step)] = float(factor)
+        return self
+
+    def stall_loader(self, batch_index, delay_s=0.5):
+        self._loader_stalls[int(batch_index)] = float(delay_s)
+        return self
+
+    # -- hooks the training loop applies ----------------------------------
+    def adjust_batch(self, step, batch):
+        """Corrupt the HOST batch (numpy dict, before `batch_to_device`) when
+        this step is scheduled; returns the batch either way."""
+        if int(step) in self._nan_batch_steps:
+            ids = batch["input_ids"].copy()
+            n = min(getattr(self, "_nan_tokens", 4), ids.shape[-1])
+            ids[0, :n] = self.OOV_TOKEN
+            batch = dict(batch, input_ids=ids)
+            self.injected["nan_batch"] += 1
+        return batch
+
+    def lr_scale_for(self, step):
+        """The ``lr_scale=`` to pass the train step at this step (None
+        = the configured lr)."""
+        factor = self._lr_spikes.get(int(step))
+        if factor is None:
+            return None
+        self.injected["lr_spike"] += 1
+        return factor
+
+    def wrap_loader(self, iterable):
+        """Throttle scheduled batches. Wrap the RAW iterator and feed
+        the result to the instrumented loader, so the injected delay
+        lands inside the measured data wait."""
+        def gen():
+            for i, b in enumerate(iterable):
+                delay = self._loader_stalls.get(i)
+                if delay:
+                    self.injected["loader_stall"] += 1
+                    time.sleep(delay)
+                yield b
+        return gen()
 
 
 def seeded_plan(seed, steps, alloc_fail_rate=0.0, slow_rate=0.0,

@@ -81,6 +81,24 @@ def test_plain_fwd_bwd_match_the_pallas_kernels(s, d, block, causal):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=name)
 
 
+def test_plain_backward_is_finite_where_a_masked_score_overflows():
+    """A masked score far above its row's lse: exp(s - lse) overflows to
+    inf there, and the plain backward selects it away as the kernels and
+    the Pallas backward do (it once took inf * 0 = NaN). Row 0 sees only
+    key 0 (score 0); its masked score against key 1 is ~565."""
+    s, d = 32, 32
+    q, k, v, do = _inputs(9, 3, s, d)
+    q[:, 0, :] = 10.0
+    k[:, 0, :] = 0.0
+    k[:, 1, :] = 10.0
+    scale = 1.0 / np.sqrt(d)
+    want = _jax_fwd_bwd(q, k, v, do, scale, True, 16)
+    got = _port_fwd_bwd(q, k, v, do, scale, True)
+    for name, w, g in zip(("o", "lse", "dq", "dk", "dv"), want, got):
+        assert np.isfinite(g).all() and np.isfinite(w).all(), name
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=ATOL, err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,d,block", [(32, 16, 16), (32, 32, 16),
                                        (48, 16, 48), (64, 32, 32)])
@@ -212,13 +230,20 @@ def test_plain_versions_take_the_dtype_steps():
 
 
 def test_flash_attention_refuses_later_slice_options():
-    """Dropout and return_softmax still raise; the rope tables are taken
-    now and equal rotating q and k before the kernel."""
-    x = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TF.flash_attention(x, x, x, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TF.flash_attention(x, x, x, return_softmax=True)
+    """Dropout and return_softmax are taken now (the reference route, as
+    the JAX package's: ``return_softmax`` gives (out, None) and dropout
+    with ``training=False`` the dropout-free result, both equal to the
+    kernel's here); the rope tables are taken and equal rotating q and k
+    before the kernel."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.as_tensor(rng.standard_normal((1, 8, 2, 32))
+                               .astype(np.float32)) for _ in range(3))
+    plain, none = TF.flash_attention(q, k, v, causal=True)
+    for kw in (dict(return_softmax=True), dict(dropout=0.1, training=False)):
+        out, soft = TF.flash_attention(q, k, v, causal=True, **kw)
+        assert soft is None and none is None
+        np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=0,
+                                   atol=1e-6)
     rng = np.random.default_rng(4)
     q, k, v = (torch.as_tensor(rng.standard_normal((1, 8, 2, 32))
                                .astype(np.float32)) for _ in range(3))
@@ -267,3 +292,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take_before_launching():
                      (torch.zeros(16, 8).t(), tab)):
         with pytest.raises(ValueError, match="rope_cos"):
             tfa._rope_ptrs("flash_fwd", q, q, cos, sin)
+
+
+# -- dropout and return_softmax (the reference route) ----------------------
+
+def _uniform_case(s=64):
+    """q = k = 0 gives every key the probability 1 / s, and v = I makes
+    the output those probabilities: out[0, i, 0, j] = p(i, j) after the
+    dropout."""
+    z = torch.zeros(1, s, 1, s)
+    v = torch.eye(s)[None, :, None, :].contiguous()
+    return z, z.clone(), v
+
+
+@pytest.mark.parametrize("p", [0.1, 0.25, 0.5])
+def test_dropout_keeps_each_probability_with_one_minus_p_scaled_up(p):
+    """Keep rate within 3 sigma of 1 - p over 4096 probabilities, and each
+    kept one scaled by 1 / (1 - p), as the JAX package's
+    ``jnp.where(keep, probs / (1 - p), 0)``."""
+    from paddle_tpu_torch.core import random as trandom
+    q, k, v = _uniform_case()
+    trandom.seed(7)
+    out, none = TF.flash_attention(q, k, v, dropout=p)
+    assert none is None
+    vals = out[0, :, 0, :].numpy()
+    kept = vals != 0
+    n = kept.size
+    sigma = np.sqrt(n * p * (1 - p)) / n
+    assert abs(kept.mean() - (1 - p)) <= 3 * sigma
+    np.testing.assert_allclose(vals[kept], (1 / 64) / (1 - p), rtol=1e-6)
+
+
+def test_dropout_zero_and_training_off_give_the_plain_result():
+    """p = 0 and ``training=False`` take the flash route and equal the
+    JAX package's reference attention exactly as the plain kernel does;
+    with dropout the call takes the reference route instead."""
+    import paddle_tpu.nn.functional.attention as JATT
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 16, 2, 32))
+                               .astype(np.float32)) for _ in range(3))
+    calls = []
+    real = tfa.flash_attention_bshd
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    tfa.flash_attention_bshd = counting
+    try:
+        a, _ = TF.flash_attention(q, k, v, dropout=0.0, causal=True)
+        b, _ = TF.flash_attention(q, k, v, dropout=0.3, causal=True,
+                                  training=False)
+        assert len(calls) == 2              # the kernel route, both times
+        TF.flash_attention(q, k, v, dropout=0.3, causal=True)
+        TF.flash_attention(q, k, v, causal=True, return_softmax=True)
+        assert len(calls) == 2              # the reference route
+    finally:
+        tfa.flash_attention_bshd = real
+    ref = np.asarray(JATT._sdpa_ref(jnp.asarray(q.numpy()),
+                                    jnp.asarray(k.numpy()),
+                                    jnp.asarray(v.numpy()), causal=True))
+    for out in (a, b):
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+
+
+def test_the_same_seed_gives_the_same_mask_and_the_chain_moves_on():
+    """``core.random.seed`` resets the default chain: the same seed draws
+    the same masks in the same order, consecutive calls draw new ones, and
+    the gradient runs through the kept probabilities only."""
+    from paddle_tpu_torch.core import random as trandom
+    q, k, v = _uniform_case()
+    trandom.seed(3)
+    first = TF.flash_attention(q, k, v, dropout=0.4)[0]
+    second = TF.flash_attention(q, k, v, dropout=0.4)[0]
+    trandom.seed(3)
+    again = TF.flash_attention(q, k, v, dropout=0.4)[0]
+    assert torch.equal(first, again) and not torch.equal(first, second)
+    vg = v.clone().requires_grad_(True)
+    trandom.seed(3)
+    out = TF.flash_attention(q, k, vg, dropout=0.4)[0]
+    out.sum().backward()
+    # d(sum out) / d v[j, d] = sum_i p(i, j) for every d: the kept
+    # column sums
+    cols = first[0, :, 0, :].sum(0)
+    grad = vg.grad[0, :, 0, :]
+    assert torch.equal(grad, grad[:, :1].expand_as(grad))
+    np.testing.assert_allclose(grad[:, 0].numpy(), cols.numpy(), rtol=1e-6)
+
+
+def test_sdpa_and_flashmask_take_dropout():
+    """The masked routes drop too: scaled_dot_product_attention with a
+    mask and flashmask_attention with an index."""
+    from paddle_tpu_torch.core import random as trandom
+    q, k, v = _uniform_case(32)
+    mask = torch.ones(32, 32, dtype=torch.bool)
+    trandom.seed(5)
+    out = TF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          dropout_p=0.5)
+    frac = float((out[0, :, 0, :] != 0).float().mean())
+    assert 0.35 < frac < 0.65
+    assert torch.equal(TF.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, dropout_p=0.5, training=False),
+        TF.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    idx = torch.full((1, 1, 32, 1), 32, dtype=torch.int32)
+    out = TF.flashmask_attention(q, k, v, idx, dropout=0.5, causal=False)
+    frac = float((out[0, :, 0, :] != 0).float().mean())
+    assert 0.35 < frac < 0.65

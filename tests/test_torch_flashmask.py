@@ -311,8 +311,9 @@ def test_plain_versions_take_the_dtype_steps():
 
 def test_entries_refuse_what_they_do_not_take():
     """Index shapes and types are checked before anything runs; dropout in
-    the ``nn`` form is a later slice; a tensor neither on the CPU nor on a
-    GPU raises."""
+    the ``nn`` form is taken now (the reference route, as the JAX
+    package's; tests/test_torch_flash_attention.py holds its keep rate);
+    a tensor neither on the CPU nor on a GPU raises."""
     x = torch.zeros(1, 16, 2, 32)
     for idx in (torch.zeros(1, 1, 16, 3, dtype=torch.int32),
                 torch.zeros(1, 3, 16, 1, dtype=torch.int32),
@@ -320,9 +321,11 @@ def test_entries_refuse_what_they_do_not_take():
                 torch.zeros(1, 1, 16, 1)):
         with pytest.raises(ValueError, match="startend_row_indices"):
             TFI.flashmask_attention(x, x, x, idx)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TF.flashmask_attention(x, x, x, torch.zeros(1, 1, 16, 1).int(),
-                               dropout=0.1)
+    v = torch.ones(1, 16, 2, 32)
+    full = torch.full((1, 1, 16, 1), 16, dtype=torch.int32)
+    kept = TF.flashmask_attention(x, x, v, full, dropout=0.5)
+    assert kept.shape == v.shape and bool(torch.isfinite(kept).all())
+    assert not torch.equal(kept, TF.flashmask_attention(x, x, v, full))
     q = torch.zeros(2, 16, 32, device="meta")
     sr = torch.zeros(1, 1, 16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -1731,6 +1731,67 @@ def test_pretrain_adamw_takes_kernel_d_and_matches_its_plain_route():
             assert _two_ulps(a, b) <= 1
 
 
+@pytest.mark.parametrize("case", ["one_tensor", "two_launches",
+                                  "nan_and_inf", "bf16_grads"])
+def test_adamw_telemetry_matches_plain_and_leaves_the_update_alone(case):
+    """Kernel D with the telemetry (the group sums and the packed vector in
+    the same two launches) against ``pack_telemetry_plain``: one tensor;
+    257 tensors (two launches of each kernel) with tensors of 0 and 1
+    elements and 5 groups; NaN and Inf grads in two tensors (the counts
+    exact, NaN where the plain version has NaN); bf16 grads. p, m, v and
+    gnorm are bit-equal to the run without the telemetry. Tolerance rtol
+    1e-5: f64 sums in another order, each rounded to f32 once."""
+    from paddle_tpu_torch.ops import adamw as ad
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    if case == "one_tensor":
+        sizes, ng = [(33, 65)], 1
+    elif case == "two_launches":
+        sizes, ng = ([(1,), (0,), (7, 3), (65537,), (33, 65)] * 52)[:257], 5
+    else:
+        sizes, ng = [(64, 48), (65537,), (1,), (100, 64)], 3
+    groups = [i % ng for i in range(len(sizes))]
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    p0 = [rnd(s, 0.02) for s in sizes]
+    g0 = [rnd(s, 1e-2) for s in sizes]
+    if case == "nan_and_inf":
+        g0[1][5] = float("nan")
+        g0[1][70000 % 65537] = float("inf")
+        g0[3][2, 3] = float("-inf")
+    if case == "bf16_grads":
+        g0 = [g.to(torch.bfloat16) for g in g0]
+    m0 = [rnd(s, 1e-3) for s in sizes]
+    v0 = [rnd(s, 1e-3) ** 2 for s in sizes]
+    decay = [len(s) >= 2 for s in sizes]
+    loss = torch.tensor(4.5, device="cuda")
+    hp = (1e-3, 0.9, 0.95, 1e-8, 0.1, 1.0, 2)
+    runs = []
+    for tel in (False, True):
+        ps, ms, vs = ([t.clone() for t in x] for x in (p0, m0, v0))
+        before = (ad.adamw_step.launches, ad.adamw_step.telemetry_launches)
+        kw = dict(groups=groups, loss=loss) if tel else {}
+        out = ad.adamw_step(ps, g0, ms, vs, decay, *hp, **kw)
+        after = (ad.adamw_step.launches, ad.adamw_step.telemetry_launches)
+        runs.append((ps, ms, vs, out, (after[0] - before[0],
+                                      after[1] - before[1])))
+    torch.cuda.synchronize()
+    (p1, m1, v1, gn_off, n_off), (p2, m2, v2, (gn_on, vec), n_on) = runs
+    launches = 2 * -(-len(sizes) // 256)
+    assert n_off == (launches, 0) and n_on == (launches, launches)
+    assert torch.equal(gn_off, gn_on) or (gn_off.isnan() and gn_on.isnan())
+    for a, b in zip(p1 + m1 + v1, p2 + m2 + v2):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.isnan(), b.isnan())
+    ref = ad.pack_telemetry_plain(loss, gn_on, g0, p0, p2, groups)
+    assert vec.shape == (2 + 4 * ng,)
+    torch.testing.assert_close(vec, ref, rtol=1e-5, atol=0, equal_nan=True)
+    nf = vec[2:].reshape(ng, 4)[:, 3]
+    assert torch.equal(nf, ref[2:].reshape(ng, 4)[:, 3])
+    if case == "nan_and_inf":
+        assert nf.tolist() == [1.0, 2.0, 0.0] and bool(gn_on.isnan())
+
+
 def test_fused_tier_wrappers_refuse_what_the_kernels_do_not_take():
     from paddle_tpu_torch.ops import adamw as ad
     from paddle_tpu_torch.ops import fused_norm as fn

@@ -426,11 +426,20 @@ def test_seeded_init_and_later_slice_options():
     assert not np.array_equal(w, c["llama.layers.0.self_attn.q_proj.weight"])
     assert abs(float(w.std()) - 0.02) < 0.004
     assert (a["llama.norm.weight"] == 1.0).all()
-    for opt in ("recompute", "context_parallel"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            LlamaForCausalLM(LlamaConfig.tiny(**{opt: True}), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        LlamaForCausalLM(LlamaConfig.tiny(context_parallel=True),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         tllama.LlamaForCausalLMPipe(cfg, 2)
+    # recompute is taken now (tests/test_torch_recompute.py holds it
+    # against the JAX model): the same weights and the same loss
+    rc = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32", recompute=True),
+                          device="cpu", seed=3)
+    assert all(np.array_equal(a[n], v) for n, v in
+               llama_state_to_numpy(rc).items())
+    ids = torch.as_tensor(np.arange(32).reshape(2, 16) % 128)
+    full = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    assert torch.equal(rc(ids, labels=ids)[1], full(ids, labels=ids)[1])
     assert cfg.head_dim == 16
     m = LlamaForCausalLM(cfg, device="cpu")
     assert m.model is m.llama

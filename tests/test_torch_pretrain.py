@@ -238,6 +238,8 @@ def test_cuda_is_the_default_and_raises_without_a_gpu():
 
 
 def test_later_slice_options_raise():
+    """A mesh and sharding rules still raise; telemetry, the monitor and
+    lr_scale run (``test_lifted_options_run_and_match_the_jax_package``)."""
     cfg, _, _ = tpre.flagship_config(on_tpu=False)
     tm = LlamaForCausalLM(cfg, device="cpu")
     params, opt, meta = tpre.make_train_state(tm)
@@ -247,10 +249,82 @@ def test_later_slice_options_raise():
         tpre.make_train_state(tm, None, rules=[])
     with pytest.raises(NotImplementedError, match="later slice"):
         tpre.make_train_step(tm, object(), meta)
-    for kw in (dict(telemetry=True), dict(monitor=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tpre.make_train_step(tm, None, meta, **kw)
-    run = tpre.make_train_step(tm, None, meta)
-    b = tpre.batch_to_device(_batches(1, 2, 8, cfg.vocab_size)[0], "cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
-        run(params, opt, b, lr_scale=2.0)
+        tpre.make_train_step(tm, object(), meta, telemetry=True)
+
+
+def _pair(telemetry=False, monitor=None, jmonitor=None):
+    """The JAX step on a one-device mesh and the port's, from the same
+    seeded weights (tiny config, float32)."""
+    cfg, _, _ = tpre.flagship_config(on_tpu=False)
+    jcfg, _, _ = jpre.flagship_config(on_tpu=False)
+    paddle.seed(23)
+    jm = JLlama(jcfg)
+    mesh = jpre.make_mesh(1, dp=1, fsdp=1, mp=1, sp=1)
+    jparams, jopt, jmeta = jpre.make_train_state(jm, mesh)
+    np_params = {n: np.asarray(a) for n, a in jparams.items()}
+    jstep = jpre.make_train_step(jm, mesh, jmeta, telemetry=telemetry,
+                                 monitor=jmonitor)
+    tm = llama_state_from_numpy(np_params, cfg, device="cpu")
+    tparams, topt, tmeta = tpre.make_train_state(tm)
+    tstep = tpre.make_train_step(tm, None, tmeta, telemetry=telemetry,
+                                 monitor=monitor)
+    return (mesh, jparams, jopt, jstep), (tparams, topt, tstep, tmeta), cfg
+
+
+@pytest.mark.parametrize("option", ["telemetry", "monitor", "lr_scale"])
+def test_lifted_options_run_and_match_the_jax_package(option, tmp_path):
+    """The options the refusal test used to refuse, run against the JAX
+    step on the same weights and batches (3 steps, 4 x 32): telemetry's
+    packed vector within rtol 1e-5 (the non-finite counts and the group
+    labels exact), the monitor's gauges and breaches (none) equal, and
+    one ``lr_scale=64`` step's loss and parameters within the trajectory
+    tolerance."""
+    from paddle_tpu import observability as jobs
+    from paddle_tpu_torch import observability as tobs
+    jmon = tmon = None
+    if option == "monitor":
+        jmon = jobs.TrainHealthMonitor(
+            flight_recorder=jobs.FlightRecorder(min_interval_s=0.0))
+        tmon = tobs.TrainHealthMonitor(
+            flight_recorder=tobs.FlightRecorder(min_interval_s=0.0))
+    (mesh, jp, jo, jstep), (tp, to, tstep, tmeta), cfg = _pair(
+        telemetry=option == "telemetry", monitor=tmon, jmonitor=jmon)
+    for i, b in enumerate(_batches(3, 4, 32, cfg.vocab_size, seed=3)):
+        jb, tb = jpre.shard_batch(b, mesh), tpre.batch_to_device(b, "cpu")
+        if option == "telemetry":
+            jp, jo, jl, jg, jv = jstep._jitted(jp, jo, jb)
+            tp, to, tl, tg, tv = tstep._step(tp, to, tb, tmeta["lr"])
+            assert tstep._telemetry_spec.labels == \
+                jstep._telemetry_spec.labels
+            jv, tv = np.asarray(jv), tv.numpy()
+            np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=0)
+            assert np.array_equal(tv[5::4], jv[5::4])     # non-finite
+            continue
+        scale = 64.0 if option == "lr_scale" and i == 1 else None
+        jp, jo, jl, jg = jstep(jp, jo, jb, lr_scale=scale)
+        tp, to, tl, tg = tstep(tp, to, tb, lr_scale=scale)
+        np.testing.assert_allclose([float(tl), float(tg)],
+                                   [float(jl), float(jg)], rtol=1e-5)
+        for n, p in tp.items():
+            np.testing.assert_allclose(p.numpy(), np.asarray(jp[n]),
+                                       rtol=1e-5, atol=1e-5, err_msg=n)
+    if option == "monitor":
+        assert tmon.steps_observed == jmon.steps_observed == 3
+        assert tmon.breach_counts == jmon.breach_counts == {}
+        assert tstep._monitor is tmon
+
+
+def test_telemetry_leaves_the_losses_and_parameters_alone():
+    """Telemetry on and off give the same bits: losses, grad norms and the
+    parameters after 3 steps (the update runs the same passes)."""
+    runs = []
+    for tel in (False, True):
+        _, (tp, to, tstep, _), cfg = _pair(telemetry=tel)
+        rows = []
+        for b in _batches(3, 4, 32, cfg.vocab_size, seed=4):
+            tp, to, tl, tg = tstep(tp, to, tpre.batch_to_device(b, "cpu"))
+            rows.append((float(tl), float(tg)))
+        runs.append((rows, tp))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
