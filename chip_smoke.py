@@ -185,6 +185,30 @@ Phases (any failure exits non-zero and prints no result line):
      D over the flagship's 147 tensors with and without the telemetry
      (p, m, v and gnorm bit-equal, the vector within 1e-5 of
      ``pack_telemetry_plain``, device ms beside its bound);
+ 23. (after 22, under no_grad) ``fused_multi_transformer``'s serving
+     options at the serving flagship's width (L=24, GQA 16/8, swiglu,
+     rmsnorm), f32 and bf16: a 128-token ``pre_caches`` prefix + 384
+     tokens, B=8, against one prefill over the 512 (suffix rows and
+     caches within 1e-4 x max(1, |ref|) in f32, 5e-2 x max |ref| in
+     bf16); a zero ``attn_mask`` bit-equal to none and -1e30 over columns
+     [len, S) bit-equal to ``seq_lens``; training dropout p=0.1 on a
+     layer whose output is its dropped out-projection (kept share within
+     6 sigma of 0.9, kept values exactly x / 0.9), ``training=False``
+     bit-equal to p=0; ``FusedMultiTransformer`` with weights and biases
+     from numpy bit-equal to the functional op; bf16 ms per prefill;
+ 24. (a, under no_grad) phase 2's serving twice, plain and with
+     ``MemoryMonitor(interval_s=0)``, ``shed_on_pressure`` and the cost
+     catalog on: tokens equal, the monitor reading the allocator (no
+     census), ``paged_step``'s counted flops, bytes, intensity, peak, MFU
+     and roofline share (each in (0, 1]), K3's 24 counted launches, the
+     mean tick; (b) a budget 1.05 x the reserved bytes: ``hbm_pressure``
+     fires, 4 queued priority-2 requests are shed with that reason and
+     the 4 admitted ones keep their unpressured tokens; (c) phase 7's
+     step with the catalog: ``pretrain_step`` counted once (flops a token
+     beside bench.py's 6N + 12 L E S), three steps timed by CUDA events
+     (the catalog's MFU and roofline share in (0, 1], beside phase 7's
+     MFU), and the flash, SwiGLU, token-CE and AdamW kernels' own counts
+     a launch equal to ``ops.work``'s bound within 1%;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -282,9 +306,10 @@ def library_share_ms(full, minus):
 
 
 def bound(nbytes, flops):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / BF16_FLOPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    """(ms, "bytes" or "operations") by ``ops.work.bound_ms``, the one
+    owner of the kernels' work formulas and the card's peaks."""
+    from paddle_tpu_torch.ops import work
+    return work.bound_ms(nbytes, flops, HBM_BYTES_PER_S, BF16_FLOPS_PER_S)
 
 
 def llama_weights(seed, layers, scale=0.02):
@@ -426,25 +451,13 @@ def attention_cases(torch, pa):
 
 
 def attention_work(q, tables, lens, qls):
-    """Bytes and flops the case's data needs: each needed KV block read
-    once per kv head, q read and out written once, 4*D flops per visible
-    (query row, key) pair."""
-    b = lens.shape[0]
+    """Bytes and flops the case's data needs (``ops.work.ragged_attention``):
+    each needed KV block read once per kv head, q read and out written
+    once, 4*D flops per visible (query row, key) pair."""
+    from paddle_tpu_torch.ops import work
     c = 1 if q.dim() == 3 else q.shape[1]
-    maxnb = tables.shape[1]
-    ql = np.ones(b, np.int64) if qls is None else qls.astype(np.int64)
-    lens = lens.astype(np.int64)
-    nblk = np.where((lens > 0) & (ql > 0),
-                    np.minimum(-(-lens // BS), maxnb), 0)
-    kv_bytes = int(nblk.sum()) * BS * D * 2 * 2 * KVH
-    qo_bytes = 2 * b * c * H * D * 2
-    meta = tables.nbytes + 2 * lens.size * 4
-    flops = 0
-    for i in range(b):
-        qs = max(int(lens[i]) - int(ql[i]), 0)
-        for j in range(int(ql[i])):
-            flops += min(qs + j + 1, int(nblk[i]) * BS) * 4 * D * H
-    return kv_bytes + qo_bytes + meta, flops
+    return work.ragged_attention(lens, qls, c, tables.shape[1], BS, H, KVH,
+                                 D, 2, tables.nbytes)
 
 
 def ragged_plan_text(plan):
@@ -477,6 +490,7 @@ def device_text(dev):
 
 
 def phase_kernels(torch):
+    from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
@@ -567,8 +581,7 @@ def phase_kernels(torch):
             wdq = (qm.unpack_int4_blocked(pk, bn).float()
                    * sc[None, :]).bfloat16()
             lib_ms = time_ms(lambda: torch.matmul(x, wdq))
-            b_ms, b_by = bound(m * k * 2 + k * n // 2 + n * 4 + m * n * 2,
-                               2 * m * n * k)
+            b_ms, b_by = bound(*work.weight_only_matmul(m, k, n, 4))
             plan = qm.plan(m, k, n, x.dtype)
             dev = device_times(
                 lambda: qm.weight_only_matmul(x, pk, sc, "int4", bn),
@@ -1520,20 +1533,12 @@ def plain_fused():
 
 def flash_work(bh, sq, sk, d, causal):
     """(fwd bytes, fwd flops, bwd bytes, bwd flops) a bf16 case's data
-    needs: each input read once and each output written once; 4*D flops
-    per visible (row, key) pair forward (two products), 10*D backward
-    (five)."""
-    if causal:
-        pairs = sum(min(r + 1, sk) for r in range(sq))
-    else:
-        pairs = sq * sk
-    pairs *= bh
-    qo = bh * sq * d * 2
-    kv = bh * sk * d * 2
-    lse = bh * sq * 4
-    fwd_bytes = 2 * qo + 2 * kv + lse            # q, k, v in; o, lse out
-    bwd_bytes = 4 * qo + 4 * kv + lse            # q,k,v,o,do,lse; dq,dk,dv
-    return fwd_bytes, 4 * d * pairs, bwd_bytes, 10 * d * pairs
+    needs (``ops.work.flash_fwd`` / ``flash_bwd``): each input read once
+    and each output written once; 4*D flops per visible (row, key) pair
+    forward (two products), 10*D backward (five)."""
+    from paddle_tpu_torch.ops import work
+    return work.flash_fwd(bh, sq, sk, d, causal) + \
+        work.flash_bwd(bh, sq, sk, d, causal)
 
 
 def flash_cases(torch, seed=21):
@@ -1681,15 +1686,13 @@ def ce_cases(torch, seed=31):
 
 def ce_work(t, t_live, hid, vocab):
     """(fwd bytes, fwd flops, dh bytes, backward flops, dw bytes) a bf16
-    case needs:
-    inputs read once, outputs written once; the forward's 2 T H V flops
-    (every row's lse is an output), each backward kernel's 4 H V flops per
-    row that is not ignored (an ignored row's gradient is zero)."""
-    hw = t * hid * 2 + hid * vocab * 2
-    fwd_bytes = hw + t * 8 + 2 * t * 4              # h, w, labels; loss, lse
-    bwd_in = hw + t * 8 + 2 * t * 4                 # h, w, labels, g, lse
-    return (fwd_bytes, 2 * t * hid * vocab, bwd_in + t * hid * 2,
-            4 * t_live * hid * vocab, bwd_in + hid * vocab * 2)
+    case needs (``ops.work.blockwise_ce``): inputs read once, outputs
+    written once; the forward's 2 T H V flops (every row's lse is an
+    output), each backward kernel's 4 H V flops per row that is not
+    ignored (an ignored row's gradient is zero)."""
+    from paddle_tpu_torch.ops import work
+    w = work.blockwise_ce(t, t_live, hid, vocab)
+    return w["fwd"] + w["dh"][:1] + w["dh"][1:] + w["dw"][:1]
 
 
 def phase_ce(torch):
@@ -2229,12 +2232,10 @@ def flashmask_work(sr, er, h, sq, causal, d):
     its [B, MH, Sk] bounds: pairs counted per column (its causal rows less
     the interval's overlap), tiles by ``_block_live``'s rule at the
     kernels' 64 x 64 tiles, each mask row counted for its H / MH heads."""
+    from paddle_tpu_torch.ops import work
     b, mh, sk = sr.shape
     rep = h // mh
-    j = np.arange(sk)
-    lo = j if causal else np.zeros_like(j)
-    over = np.clip(np.minimum(er, sq) - np.maximum(sr, lo), 0, None)
-    pairs = int(((sq - lo) - over).sum()) * rep
+    pairs = work.flashmask_pairs(sr, er, h, sq, causal)
     nq, nk = -(-sq // FM_TILE), -(-sk // FM_TILE)
     pad = nk * FM_TILE - sk
     srp = np.pad(sr, ((0, 0), (0, 0), (0, pad))).reshape(b, mh, nk, FM_TILE)
@@ -2317,6 +2318,7 @@ def fm_inputs(torch, gen, b, s, h, kvh, d, dtype):
 
 
 def phase_flashmask(torch):
+    from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import flashmask as fm
     rows = {"fwd": [], "dq": [], "dkv": []}
@@ -2415,16 +2417,12 @@ def phase_flashmask(torch):
 
         lib_fb = time_ms(sdpa_fb, iters=it)
         lib_b = lib_fb - lib_f
-        qkv = 3 * b * h * s * d * 2
-        idx = 2 * sr.numel() * 4
-        lse_b = b * h * s * 4
-        f_ms, f_by = bound(qkv + idx + b * h * s * d * 2 + lse_b,
-                           4 * d * pairs)
         # dq: q k v o do lse and the index in, dq out; dk / dv: the same in,
         # dk and dv out; each two of the backward's four products
-        bwd_in = qkv + 2 * b * h * s * d * 2 + lse_b + idx
-        dq_ms, dq_by = bound(bwd_in + b * h * s * d * 2, 4 * d * pairs)
-        dkv_ms, dkv_by = bound(bwd_in + 2 * b * h * s * d * 2, 4 * d * pairs)
+        fm_work = work.flashmask(b, h, s, d, pairs, sr.numel())
+        f_ms, f_by = bound(*fm_work["fwd"])
+        dq_ms, dq_by = bound(*fm_work["dq"])
+        dkv_ms, dkv_by = bound(*fm_work["dkv"])
         route_text, route = bwd_route_text(fm.MODE_FLASHMASK, q.dtype, d,
                                            pairs, ms_dq, ms_dkv)
         dev_f = device_time_ms(lambda: fm.flashmask_fwd(
@@ -2585,6 +2583,7 @@ def phase_twopass(torch):
     step's worth of attention backward), then each element against
     ``flash_bwd_plain``, then its time beside the fused backward and SDPA's
     backward share."""
+    from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flashmask as fm
@@ -2648,10 +2647,9 @@ def phase_twopass(torch):
 
     lib_fb = time_ms(sdpa_fb, iters=10)
     pairs = b * h * s * (s + 1) // 2
-    qkvo = 4 * b * h * s * d * 2
-    bwd_in = qkvo + b * h * s * d * 2 + b * h * s * 4   # q k v o do, lse
-    dq_ms, dq_by = bound(bwd_in + b * h * s * d * 2, 4 * d * pairs)
-    dkv_ms, dkv_by = bound(bwd_in + 2 * b * h * s * d * 2, 4 * d * pairs)
+    tp_work = work.flashmask(b, h, s, d, pairs, 0)    # q k v o do, lse in
+    dq_ms, dq_by = bound(*tp_work["dq"])
+    dkv_ms, dkv_by = bound(*tp_work["dkv"])
     name = "flagship_b8_s2048_h16_d64"
     route_text, route = bwd_route_text(fm.MODE_TWOPASS, q.dtype, d, pairs,
                                        ms_dq, ms_dkv)
@@ -2807,15 +2805,12 @@ def decode_plan_text(plan):
 
 
 def decode_work(lens, bs, max_nb, b, h, kvh, itemsize):
-    """Bytes and flops the case's data needs: the KV of each row's first
-    min(ctx, max_nb * BS) positions read once per kv head, the table
-    entries of the blocks used, q read and out written once; 4*D flops per
-    (query head, key)."""
-    toks = int(np.minimum(lens.astype(np.int64), max_nb * bs).sum())
-    blocks = int(np.minimum(-(-lens.astype(np.int64) // bs), max_nb).sum())
-    nbytes = (toks * kvh * D * itemsize * 2 + 2 * b * h * D * itemsize
-              + blocks * 4 + b * 4)
-    return nbytes, 4 * D * h * toks
+    """Bytes and flops the case's data needs (``ops.work.paged_decode``):
+    the KV of each row's first min(ctx, max_nb * BS) positions read once
+    per kv head, the table entries of the blocks used, q read and out
+    written once; 4*D flops per (query head, key)."""
+    from paddle_tpu_torch.ops import work
+    return work.paged_decode(lens, bs, max_nb, b, h, kvh, D, itemsize)
 
 
 def phase_paged_decode(torch):
@@ -3034,6 +3029,7 @@ def plain_int8():
 
 
 def int8_kernel_rows(torch):
+    from paddle_tpu_torch.ops import work
     from paddle_tpu_torch.ops import quant_matmul as qm
     rows = []
     rng = np.random.default_rng(17)
@@ -3063,8 +3059,7 @@ def int8_kernel_rows(torch):
             wdq = w8.to(torch.bfloat16) * s16
             mm_ms = time_ms(lambda: torch.matmul(x, wdq))
             del wdq
-            b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
-                               2 * m * n * k)
+            b_ms, b_by = bound(*work.weight_only_matmul(m, k, n, 8))
             plan = qm.plan(m, k, n, x.dtype)
             dev = device_times(
                 lambda: qm.weight_only_matmul(x, w8, s, "int8", bn),
@@ -3364,6 +3359,7 @@ def norm_case(torch, gen, spec):
     with the forward's and backward's arguments (``fwd_args``,
     ``bwd_args`` in the wrappers' order), their atols, bytes, and the
     library calls (F.rms_norm after the add; its backward share)."""
+    from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import fused_norm as fn
     name, r, hid, dtn, resid, f32_out, want_route = spec
@@ -3403,10 +3399,8 @@ def norm_case(torch, gen, spec):
             "fwd_atols": (out_atol, 0.0, TIER_ATOL),
             "bwd_atols": (dh_atol,
                           lambda ref: DW_RTOL * float(ref.abs().max())),
-            "fwd_bytes": r * hid * (eb * (1 + 2 * resid) + ob) + r * 4
-            + hid * 4,
-            "bwd_bytes": r * hid * (eb * (2 + resid) + ob) + r * 4
-            + 2 * hid * 4,
+            "fwd_bytes": work.rms_norm_fwd(r, hid, eb, ob, resid)[0],
+            "bwd_bytes": work.rms_norm_bwd(r, hid, eb, ob, resid)[0],
             "lib_fwd": lambda: Fn.rms_norm(h, (hid,), w_dt, 1e-6),
             "lib_grad": lib_fwd_bwd, "lib_grad_minus": lib_fwd,
             "bwd_route": lambda: (fn.rms_norm_bwd.route, want_route)}
@@ -3437,6 +3431,7 @@ def swiglu_cases(torch, rows):
     """Kernel B forward and backward: the flagship's fused [R, 2 im]
     projection read in place, the two-tensor form, and im = 1000 (off 8).
     No single PyTorch call computes SwiGLU: library_ms is null."""
+    from paddle_tpu_torch.ops import work
     from paddle_tpu_torch.ops import swiglu as sw
     gen = torch.Generator(device="cuda").manual_seed(82)
     r0 = MAX_BATCH * 2048
@@ -3455,7 +3450,7 @@ def swiglu_cases(torch, rows):
         rows["fwd"].append(tier_case(
             torch, "swiglu_fwd", name, lambda: (sw.swiglu_fwd(g, u),),
             lambda: (sw.swiglu_fwd_plain(g, u),), (TIER_ATOL,),
-            3 * r * im * 2))
+            work.swiglu_fwd(r, im)[0]))
 
         def bwd(fn):
             dg = torch.empty(r, 2 * im, dtype=torch.bfloat16, device="cuda")
@@ -3463,7 +3458,8 @@ def swiglu_cases(torch, rows):
             return (dg,)
         rows["bwd"].append(tier_case(
             torch, "swiglu_bwd", name, lambda: bwd(sw.swiglu_bwd),
-            lambda: bwd(sw.swiglu_bwd_plain), (TIER_ATOL,), 5 * r * im * 2))
+            lambda: bwd(sw.swiglu_bwd_plain), (TIER_ATOL,),
+            work.swiglu_bwd(r, im)[0]))
 
 
 # kernel C's cases: (name, N, V, dtype name, label smoothing, every k-th
@@ -3486,6 +3482,7 @@ def ce_case(torch, gen, spec):
     the forward's and backward's arguments in the wrappers' order, their
     atols and bytes, and the library calls (F.cross_entropy; its backward
     share)."""
+    from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import token_ce as tc
     name, n, vocab, dtn, eps, ign, want_route = spec
@@ -3512,8 +3509,8 @@ def ce_case(torch, gen, spec):
             "fwd_atols": (CE_LOSS_ATOL_T, CE_SUM_ATOL,
                           lambda ref: CE_TOTAL_RTOL * float(ref.abs().max())),
             "bwd_atols": (lambda ref: 2.0 ** -22 * float(ref.abs().max()),),
-            "fwd_bytes": n * vocab * eb + n * (8 + 12),
-            "bwd_bytes": 2 * n * vocab * eb + n * 16,
+            "fwd_bytes": work.token_ce_fwd(n, vocab, eb)[0],
+            "bwd_bytes": work.token_ce_bwd(n, vocab, eb)[0],
             "lib_fwd": lambda: Fn.cross_entropy(x, lab, ignore_index=-100,
                                                 label_smoothing=eps),
             "lib_grad": lib_fwd_bwd, "lib_grad_minus": lib_fwd,
@@ -3589,6 +3586,7 @@ def adamw_case(torch):
     of the foreach passes, two runs from the same state bit-equal; the
     library yardstick is clip_grad_norm_(foreach=True) then
     torch.optim.AdamW(fused=True).step()."""
+    from paddle_tpu_torch.ops import work
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
     from paddle_tpu_torch.ops import adamw as ad
     cfg, _, _ = pretrain.flagship_config()
@@ -3656,7 +3654,7 @@ def adamw_case(torch):
         torch.nn.utils.clip_grad_norm_(params, hp[5], foreach=True)
         opt.step()
     ms_l = device_time_ms(library, iters=20)
-    nbytes = n * 4 * 7              # p, g, m, v read; p, m, v written
+    nbytes = work.adamw(n)[0]       # p, g, m, v read; p, m, v written
     b_ms, b_by = bound(nbytes, 0)
     print(f"  adamw[flagship_{n / 1e6:.1f}M]: device ms kernel {ms_k:.4f} "
           f"plain {ms_p:.4f} bound {b_ms:.4f} ({b_by}) library "
@@ -4062,6 +4060,7 @@ def adamw_telemetry_case(torch):
     telemetry: p, m, v and gnorm bit-equal, the packed vector within
     TEL_RTOL of ``pack_telemetry_plain`` (non-finite counts exact), and
     the device ms of each beside the bound and the plain version's."""
+    from paddle_tpu_torch.ops import work
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
     from paddle_tpu_torch.observability import train_health as th
     from paddle_tpu_torch.ops import adamw as ad
@@ -4120,7 +4119,7 @@ def adamw_telemetry_case(torch):
         gn = ad.adamw_step_plain(ps, g0, ms, vs, decay, *hp)
         ad.pack_telemetry_plain(loss, gn, g0, old, ps, groups)
     ms_plain = device_time_ms(plain, iters=5)
-    b_ms, b_by = bound(n * 4 * 7, 0)
+    b_ms, b_by = bound(*work.adamw(n))
     print(f"  adamw_telemetry[flagship_{n / 1e6:.1f}M, {len(shapes)} "
           f"tensors, {ng} groups]: p / m / v / gnorm bit-equal on and off; "
           f"vector worst relative {rel:.2e} of plain (rtol {TEL_RTOL:g}); "
@@ -4162,6 +4161,387 @@ def phase_health(torch, base):
     rows = adamw_telemetry_case(torch)
     return stats, rows
 
+
+
+# -- phase 23: the incubate options at the serving flagship's width -------
+
+PRE, SUF = 128, 384             # phase 23 (a): prefix + prompt, B = 8
+INC_F32_ATOL = 1e-4             # f32: the same math; the GEMMs of a 384-
+#                                 and a 512-row slab may sum in another order
+INC_BF16_RTOL = 5e-2            # bf16, 24 layers: a rounding flip early on
+#                                 moves later rows by a few bf16 ulps of max
+
+
+def incubate_weights(torch, dtype, layers=None, seed=23, biases=False):
+    """Phase 23's stack: the serving flagship's shapes (rmsnorm, swiglu,
+    GQA) from seeded numpy, as the functional op's keyword lists on the
+    card; with ``biases`` also the numpy dict of FusedMultiTransformer's
+    parameter names."""
+    layers = layers or L
+    w = llama_weights(seed, layers)
+    rng = np.random.default_rng(seed + 1)
+    lists = {k: w[k] for k in ("ln_scales", "qkv_weights", "linear_weights",
+                               "ffn_ln_scales", "ffn1_weights",
+                               "ffn2_weights")}
+    lists.update({k: [] for k in ("ln_biases", "qkv_biases",
+                                  "linear_biases", "ffn_ln_biases",
+                                  "ffn1_biases", "ffn2_biases")})
+    if biases:
+        def mk(*shape):
+            return rng.standard_normal(shape, dtype=np.float32) * 0.02
+        lists.update(
+            ln_biases=[mk(E) for _ in range(layers)],
+            qkv_biases=[mk(H + 2 * KVH, D) for _ in range(layers)],
+            linear_biases=[mk(E) for _ in range(layers)],
+            ffn_ln_biases=[mk(E) for _ in range(layers)],
+            ffn1_biases=[mk(2 * F) for _ in range(layers)],
+            ffn2_biases=[mk(E) for _ in range(layers)])
+    dt = getattr(torch, dtype)
+    kw = {k: [torch.as_tensor(a).to("cuda", dt) for a in v]
+          for k, v in lists.items()}
+    named = {f"{k[:-1] if not k.endswith('biases') else k[:-2]}_{i}": a
+             for k, v in lists.items() for i, a in enumerate(v)}
+    return kw, named
+
+
+def incubate_kw(extra=None):
+    return dict(norm_type="rmsnorm", activation="swiglu",
+                gqa_group_size=KVH, epsilon=1e-6, **(extra or {}))
+
+
+def phase_incubate(torch):
+    """Phase 23: ``fused_multi_transformer``'s serving options and the
+    fused layer at the serving flagship's width (L=24): (a) pre_caches,
+    (b) attn_mask, (c) dropout, (d) FusedMultiTransformer from numpy."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                              fused_layer_state_from_numpy)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, s = MAX_BATCH, PRE + SUF
+    stats = {}
+    for dtn in ("float32", "bfloat16"):
+        w, _ = incubate_weights(torch, dtn)
+        dt = getattr(torch, dtn)
+        x = torch.randn(b, s, E, device="cuda", generator=gen).to(dt)
+
+        def zeros():
+            return [torch.zeros(2, b, KVH, s, D, device="cuda", dtype=dt)
+                    for _ in range(L)]
+        full_c = zeros()
+        full = TF.fused_multi_transformer(x, cache_kvs=full_c, **w,
+                                          **incubate_kw())
+        pre = [c[:, :, :, :PRE].clone() for c in full_c]
+        suf_c = zeros()
+        suf = TF.fused_multi_transformer(x[:, PRE:], pre_caches=pre,
+                                         cache_kvs=suf_c, **w,
+                                         **incubate_kw())
+        torch.cuda.synchronize()
+        ref = full[:, PRE:].float()
+        err = float((suf.float() - ref).abs().max())
+        cerr = max(float((a.float() - c.float()).abs().max())
+                   for a, c in zip(suf_c, full_c))
+        top = float(ref.abs().max())
+        allowed = INC_F32_ATOL * max(1.0, top) if dtn == "float32" \
+            else INC_BF16_RTOL * top
+        check(bool(torch.isfinite(suf).all()) and err <= allowed
+              and cerr <= allowed * 4,
+              f"pre_caches {dtn}: suffix rows off by {err} (caches {cerr}) "
+              f"against the concatenated prefill, allowed {allowed}")
+        print(f"  (a) pre_caches {dtn}: {PRE}-token prefix + {SUF} tokens, "
+              f"B={b}: suffix rows max abs err {err:.3e} (allowed "
+              f"{allowed:.3e}, max |ref| {top:.3f}; bit-equal "
+              f"{bool(torch.equal(suf, full[:, PRE:]))}), caches "
+              f"{cerr:.3e}", flush=True)
+        stats[f"pre_caches_err_{dtn}"] = err
+        # (b) a zero mask is the unmasked op, bit for bit; -1e30 over
+        # columns [len, S) is those columns dropped through seq_lens
+        lens = np.clip(np.array([s, s - 212, s, 17, s // 2, 1, s - 112,
+                                 s - 1], np.int64)[:b], 1, s)
+        plain = TF.fused_multi_transformer(x, **w, **incubate_kw())
+        zero = TF.fused_multi_transformer(
+            x, attn_mask=torch.zeros(b, 1, s, s, device="cuda"), **w,
+            **incubate_kw())
+        neg = torch.zeros(b, 1, s, s, device="cuda")
+        cols = torch.arange(s, device="cuda")[None, :] >= \
+            torch.as_tensor(lens, device="cuda")[:, None]
+        neg.masked_fill_(cols[:, None, None, :], -1e30)
+        masked = TF.fused_multi_transformer(x, attn_mask=neg, **w,
+                                            **incubate_kw())
+        dropped = TF.fused_multi_transformer(x, seq_lens=lens, **w,
+                                             **incubate_kw())
+        check(torch.equal(plain, zero), f"attn_mask {dtn}: a zero mask "
+              "changed the output")
+        check(torch.equal(masked, dropped), f"attn_mask {dtn}: -1e30 over "
+              f"columns [len, S) differs from seq_lens by "
+              f"{float((masked.float() - dropped.float()).abs().max())}")
+        print(f"  (b) attn_mask {dtn}: zero mask bit-equal to none; -1e30 "
+              f"over columns [len, {s}) bit-equal to seq_lens "
+              f"{[int(n) for n in lens]}",
+              flush=True)
+        # (c) dropout p=0.1 on one layer whose input is zero and whose
+        # FFN is zero: the output is the dropped out-projection itself
+        p = 0.1
+        w1, _ = incubate_weights(torch, dtn, layers=1, biases=True)
+        w1["ffn2_weights"] = [torch.zeros_like(w1["ffn2_weights"][0])]
+        w1["ffn2_biases"] = [torch.zeros_like(w1["ffn2_biases"][0])]
+        z = torch.zeros(b, s, E, device="cuda", dtype=dt)
+        base = TF.fused_multi_transformer(z, **w1, **incubate_kw())
+        got = TF.fused_multi_transformer(z, training=True, dropout_rate=p,
+                                         **w1, **incubate_kw())
+        kept = got != 0
+        share = float(kept.float().mean())
+        sigma = math.sqrt(p * (1 - p) / kept.numel())
+        exact = torch.equal(got[kept], (base / (1 - p))[kept])
+        check(abs(share - (1 - p)) <= 6 * sigma and exact,
+              f"dropout {dtn}: kept share {share} (6 sigma {6 * sigma}), "
+              f"scaling exact {exact}")
+        ev = TF.fused_multi_transformer(x, training=False, dropout_rate=p,
+                                        **w, **incubate_kw())
+        check(torch.equal(ev, plain), f"dropout {dtn}: training=False is "
+              "not bit-equal to p=0")
+        print(f"  (c) dropout p={p} {dtn}: kept share {share:.5f} (0.9 +- "
+              f"{6 * sigma:.5f} at 6 sigma), kept values exactly x / 0.9; "
+              "training=False bit-equal to p=0", flush=True)
+        stats[f"dropout_keep_{dtn}"] = share
+        del full_c, suf_c, pre, plain, zero, masked, dropped, neg
+    # (d) the fused layer with numpy weights (biases too) against the
+    # functional op on the same values, bf16
+    wb, named = incubate_weights(torch, "bfloat16", biases=True)
+    layer = FusedMultiTransformer(E, H, F, activation="swiglu",
+                                  norm_type="rmsnorm", gqa_group_size=KVH,
+                                  epsilon=1e-6, num_layers=L, device="cuda")
+    fused_layer_state_from_numpy(layer, named)
+    layer = layer.to(torch.bfloat16).eval()
+    xb = torch.randn(b, s, E, device="cuda", generator=gen).bfloat16()
+    lo = layer(xb)
+    fo = TF.fused_multi_transformer(xb, **wb, **incubate_kw())
+    check(torch.equal(lo, fo), "FusedMultiTransformer with numpy weights "
+          f"differs from the functional op by "
+          f"{float((lo.float() - fo.float()).abs().max())}")
+    print(f"  (d) FusedMultiTransformer ({L} layers, weights and biases "
+          "from numpy) bit-equal to the functional op", flush=True)
+    del layer
+    # time: a bf16 prefill of 512 tokens, and the prefix form
+    w, _ = incubate_weights(torch, "bfloat16")
+    xb = xb[:, :s]
+    pre = [torch.randn(2, b, KVH, PRE, D, device="cuda",
+                       generator=gen).bfloat16() for _ in range(L)]
+    ms_full = time_ms(lambda: TF.fused_multi_transformer(
+        xb, **w, **incubate_kw()), iters=10)
+    ms_pre = time_ms(lambda: TF.fused_multi_transformer(
+        xb[:, PRE:], pre_caches=pre, **w, **incubate_kw()), iters=10)
+    print(f"  bf16 prefill, L={L}, B={b}: {s} tokens {ms_full:.2f} ms; "
+          f"{PRE}-token prefix + {SUF} tokens {ms_pre:.2f} ms (CUDA events)",
+          flush=True)
+    stats.update(prefill_ms=ms_full, prefix_prefill_ms=ms_pre)
+    torch.cuda.empty_cache()
+    return stats
+
+
+# -- phase 24: the cost catalog and the memory monitor on the card ---------
+
+def timed_ticks(watch):
+    """Wrap ``watch.tick`` to add up its host seconds; returns the list
+    [calls, seconds]."""
+    acc = [0, 0.0]
+    inner = watch.tick
+
+    def tick(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            acc[0] += 1
+            acc[1] += time.perf_counter() - t0
+
+    watch.tick = tick
+    return acc
+
+
+def request_tokens(cb, greqs):
+    return [list(cb.finished[r.request_id]) for r in greqs]
+
+
+def phase_observability(torch):
+    """Phase 24 (a) and (b), under no_grad: phase 2's serving workload
+    plain and with the memory monitor, pressure shedding and the cost
+    catalog on; then the pressure leg."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
+                                              GenerationRequest)
+    eng = make_engine(llama_weights(0, L), "bfloat16")
+    serve(eng, requests(99, 2, prompt=(16, 80), new=(2, 4)))
+    reqs = requests(1, 12)
+    cb0, g0, steps0, wall0 = serve(eng, reqs)
+    plain = request_tokens(cb0, g0)
+    cat = obs.get_cost_catalog()
+    cat.reset()
+    cat.enabled = True
+    watch = obs.MemoryMonitor(interval_s=0)
+    ticks = timed_ticks(watch)
+    try:
+        cb1, g1, steps1, wall1 = serve(eng, reqs, memory_watch=watch,
+                                       shed_on_pressure=True)
+    finally:
+        cat.enabled = False
+    check(request_tokens(cb1, g1) == plain, "serving tokens changed with "
+          "the monitor and the catalog on")
+    rows = {r["program"]: r for r in cat.table()}
+    r = rows["paged_step"]
+    ragged = r["kernels"].get("ragged_paged_attention", {})
+    check(r["mfu"] is not None and 0 < r["mfu"] <= 1.0
+          and 0 < r["roofline_frac"] <= 1.0,
+          f"paged_step MFU {r['mfu']} / roofline share {r['roofline_frac']} "
+          "not in (0, 1]")
+    check(ragged.get("launches", 0) == L,
+          f"ragged launches in the last counted step {ragged} (want {L})")
+    rep = watch.last_report
+    check(rep["devices"] and not rep["pressure"] and rep["census_bytes"]
+          is None, f"monitor report on the card: {rep}")
+    tick_us = ticks[1] / max(ticks[0], 1) * 1e6
+    print(f"  serving x2 ({steps0} / {steps1} paged steps): tokens equal "
+          f"with MemoryMonitor(interval_s=0) + shed_on_pressure + the "
+          f"catalog; {ticks[0]} ticks, mean {tick_us:.1f} us a tick (no "
+          "census on the card)", flush=True)
+    print(f"  paged_step: {r['signatures']} signatures counted; last "
+          f"counted: {r['flops']:.4e} flops, {r['bytes_accessed']:.4e} "
+          f"bytes, intensity {r['intensity']:.3f}, peak {r['peak_hbm']} B; "
+          f"device p50 {r['device_s'] * 1e3:.3f} ms, MFU "
+          f"{r['mfu']:.3e}, roofline share {r['roofline_frac']:.3e}; K3 in "
+          f"the counted steps: {ragged}", flush=True)
+    for name in ("paged_rewind", "paged_copy"):
+        if name in rows:
+            print(f"  {name}: {rows[name]['bytes_accessed']:.4e} bytes "
+                  f"counted", flush=True)
+    # (b) the pressure leg: a budget just above the reserved bytes; the
+    # admitted class runs on, the queued low class is shed
+    first, later = requests(5, 4), requests(6, 4)
+
+    def pressure_run(watch, shed):
+        cb = ContinuousBatchingEngine(
+            eng, num_blocks=NUM_BLOCKS, block_size=BS, max_batch=MAX_BATCH,
+            prefill_chunk=CHUNK, memory_watch=watch, shed_on_pressure=shed)
+        hi = [GenerationRequest(p, n, priority=0) for p, n in first]
+        for q in hi:
+            cb.submit(q)
+        cb.step()
+        lo = [GenerationRequest(p, n, priority=2) for p, n in later]
+        if shed:
+            for q in lo:
+                cb.submit(q)
+        cb.run()
+        return cb, hi, lo
+
+    cb_a, hi_a, _ = pressure_run(None, False)
+    reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    budget = reserved * 1.05
+    shed0 = obs.get_registry().snapshot().get(
+        "serve_requests_shed_total", {}).get("children", {}).get(
+            "hbm_pressure", {}).get("value", 0)
+    watch2 = obs.MemoryMonitor(budget_bytes=budget, min_headroom_frac=0.1,
+                               interval_s=0)
+    cb_b, hi_b, lo_b = pressure_run(watch2, True)
+    shed1 = obs.get_registry().snapshot()["serve_requests_shed_total"][
+        "children"]["hbm_pressure"]["value"]
+    check(watch2.pressure_events >= 1 and all(
+        cb_b.finished[q.request_id].status == "shed" for q in lo_b)
+        and shed1 - shed0 == len(lo_b),
+          f"pressure leg: {watch2.pressure_events} pressure events, "
+          f"statuses {[cb_b.finished[q.request_id].status for q in lo_b]}")
+    check(request_tokens(cb_b, hi_b) == request_tokens(cb_a, hi_a),
+          "admitted requests' tokens changed under pressure")
+    check_pool(cb_b)
+    print(f"  pressure: budget {budget / 1e9:.3f} GB (reserved "
+          f"{reserved / 1e9:.3f} GB x 1.05), headroom "
+          f"{watch2.last_report['headroom_frac']:.4f} < 0.1: hbm_pressure "
+          f"fired {watch2.pressure_events} times, {len(lo_b)} queued "
+          f"priority-2 requests shed (reason hbm_pressure), the {len(hi_b)} "
+          "admitted ones finished with their unpressured tokens", flush=True)
+    del eng, cb0, cb1, cb_a, cb_b
+    torch.cuda.empty_cache()
+    return {"tick_us": tick_us, "ticks": ticks[0],
+            "paged_step": {k: r[k] for k in (
+                "flops", "bytes_accessed", "intensity", "peak_hbm",
+                "device_s", "mfu", "roofline_frac", "signatures")},
+            "pressure_events": watch2.pressure_events}
+
+
+def phase_train_catalog(torch, base):
+    """Phase 24 (c): phase 7's step with the catalog: the first step
+    counted as pretrain_step, three timed on the device; flops per token
+    beside bench.py's formula, the catalog's MFU beside phase 7's, and
+    each hand-written kernel's count against ``ops.work`` at the
+    flagship's shapes."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import work
+    cfg, batch, seq = pretrain.flagship_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    params, opt_state, meta = pretrain.make_train_state(model, None)
+    step = pretrain.make_train_step(model, None, meta)
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    cat = obs.get_cost_catalog()
+    cat.reset()
+    cat.enabled = True
+    try:
+        for _ in range(4):
+            b_ = pretrain.batch_to_device(
+                {"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
+                 "labels": rng.integers(0, cfg.vocab_size, (batch, seq))})
+            params, opt_state, loss, _ = step(params, opt_state, b_)
+        float(loss)
+    finally:
+        cat.enabled = False
+    row = {r["program"]: r for r in cat.table()}["pretrain_step"]
+    tokens = batch * seq
+    per_tok = row["flops"] / tokens
+    bench = train_flops_per_token(cfg, n_params, seq)
+    check(row["mfu"] is not None and 0 < row["mfu"] <= 1.0
+          and 0 < row["roofline_frac"] <= 1.0,
+          f"pretrain_step MFU {row['mfu']} / roofline share "
+          f"{row['roofline_frac']} not in (0, 1]")
+    bh, hd = batch * cfg.num_attention_heads, \
+        cfg.hidden_size // cfg.num_attention_heads
+    im = cfg.intermediate_size
+    want = {"flash_fwd": work.flash_fwd(bh, seq, seq, hd, True),
+            "flash_bwd": work.flash_bwd(bh, seq, seq, hd, True),
+            "swiglu_fwd": work.swiglu_fwd(tokens, im),
+            "swiglu_bwd": work.swiglu_bwd(tokens, im),
+            "token_ce_fwd": work.token_ce_fwd(tokens, cfg.vocab_size, 2),
+            "token_ce_bwd": work.token_ce_bwd(tokens, cfg.vocab_size, 2),
+            "adamw": work.adamw(n_params)}
+    lines = []
+    for name, (nb, fl) in want.items():
+        got = row["kernels"].get(name)
+        check(got is not None and got["launches"] > 0,
+              f"{name} not counted in pretrain_step: {row['kernels']}")
+        launches = got["launches"]
+        b_got, _ = work.bound_ms(got["bytes"] / launches,
+                                 got["flops"] / launches)
+        b_want, by = work.bound_ms(nb, fl)
+        check(abs(b_got - b_want) <= 0.01 * b_want,
+              f"{name}: the catalog's count gives {b_got} ms a launch, the "
+              f"table {b_want} ms")
+        lines.append(f"{name} {got['launches']} x {b_got:.4f} ms ({by})")
+    print(f"  pretrain_step counted once: {row['flops']:.4e} flops = "
+          f"{per_tok:.4e} a token, {per_tok / bench:.3f} of bench.py's 6N + "
+          f"12 L E S = {bench:.4e}; bytes {row['bytes_accessed']:.4e}, "
+          f"intensity {row['intensity']:.1f}, peak {row['peak_hbm']} B; device p50 {row['device_s'] * 1e3:.1f} ms a step over "
+          f"the 3 timed steps: catalog MFU {row['mfu']:.4f} (phase 7's "
+          f"bench-formula MFU {base['mfu']:.4f}), roofline share "
+          f"{row['roofline_frac']:.4f}", flush=True)
+    print(f"  kernels' own counts a launch, each the table's bound within "
+          f"1%: {'; '.join(lines)}", flush=True)
+    del model, params, opt_state
+    torch.cuda.empty_cache()
+    return {"flops_per_token": per_tok, "bench_flops_per_token": bench,
+            "ratio": per_tok / bench, "mfu": row["mfu"],
+            "roofline_frac": row["roofline_frac"],
+            "device_ms": row["device_s"] * 1e3,
+            "kernels": row["kernels"]}
 
 
 def kernel_entry(name, source, replaces, launches, rows, main_case):
@@ -4282,6 +4662,16 @@ def main():
           "train_health gate on the card; kernel D's telemetry alone",
           flush=True)
     health_stats, tel_rows = phase_health(torch, train_stats)
+    with torch.no_grad():
+        print("phase 23: fused_multi_transformer's pre_caches, attn_mask and "
+              "dropout and FusedMultiTransformer at the serving flagship's "
+              "width (L=24), f32 and bf16", flush=True)
+        incubate_stats = phase_incubate(torch)
+        print("phase 24: phase 2's serving with the memory monitor, pressure "
+              "shedding and the cost catalog; the pressure leg", flush=True)
+        obs_stats = phase_observability(torch)
+    print("phase 24 (c): phase 7's step with the cost catalog", flush=True)
+    obs_stats["train"] = phase_train_catalog(torch, train_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -4388,6 +4778,8 @@ def main():
     print(f"card: {card}; fused tier: {json.dumps(tier_rows)}", flush=True)
     print(f"card: {card}; recompute: {json.dumps(recompute_stats)}; "
           f"telemetry and health: {json.dumps(health_stats)}", flush=True)
+    print(f"card: {card}; incubate options: {json.dumps(incubate_stats)}; "
+          f"observability: {json.dumps(obs_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

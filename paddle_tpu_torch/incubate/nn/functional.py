@@ -1,4 +1,5 @@
-"""Fused decoder-stack ops, the fused decode-attention ops and FlashMask
+"""Fused decoder-stack ops, the fused attention, feed-forward and var-len
+attention functions, the fused decode-attention ops and FlashMask
 attention of the PyTorch port (counterpart of
 ``paddle_tpu/incubate/nn/functional/__init__.py``:
 ``fused_multi_transformer`` with its helpers and its int8 / int4
@@ -10,10 +11,13 @@ and the training step's fused tier of that module: ``fused_rms_norm``
 and in plain PyTorch, as the JAX package computes them in plain XLA,
 ``fused_layer_norm``, ``fused_bias_dropout_residual_layer_norm``,
 ``fused_dropout_add``, ``fused_bias_act``'s other activations,
-``fused_matmul_bias``, ``fused_linear``, ``fused_linear_activation`` and
-``fused_linear_param_grad_add``. Dropout draws from an explicit
-``generator`` (the default one when None): the bits differ from JAX's, the
-keep rate and the scaling do not.
+``fused_matmul_bias``, ``fused_linear``, ``fused_linear_activation``,
+``fused_linear_param_grad_add``, ``fused_multi_head_attention``,
+``fused_feedforward`` and ``variable_length_memory_efficient_attention``.
+Dropout draws from an explicit ``generator`` (the default one when None)
+where the function takes one, else from the port's seed chain
+(``core.random``: a fresh seed a draw, as a JAX op takes a fresh key):
+the bits differ from JAX's, the keep rate and the scaling do not.
 
 ``fused_multi_transformer`` keeps the JAX package's three branches and
 its cast points:
@@ -31,11 +35,21 @@ its cast points:
 Caches are updated IN PLACE; the function returns the output hidden
 states. The TPU work-list arguments of the JAX signature (``ragged_work``,
 ``ragged_pack``, ``kv_buffer_depth``) have no counterpart: the CUDA
-kernel walks the block tables. Dropout, ``pre_caches``, ``attn_mask``,
-``beam_offset`` and the tensor-parallel ``_tp_reduce`` hook belong to a
-later slice and raise ``NotImplementedError`` when passed. A stored
-weight whose dequantized form is float32 meets bf16 activations as in
-JAX: the product runs in the promoted dtype.
+kernel walks the block tables. The options, as the JAX package has them:
+``pre_caches`` (per layer [2, B, KVH, S_pre, D]) put a prompt prefix's
+keys before the new ones in dense prefill, every new row seeing the whole
+prefix, and the cache fills with prefix + new from position 0;
+``attn_mask`` (additive, [B, H, S, S_kv]-broadcastable, H the query
+heads under MHA, 1 under GQA) adds to the f32 logits before the causal /
+position mask in dense prefill and dense decode; ``training`` with
+``dropout_rate`` drops the out-projection output before the residual,
+one draw a layer from the seed chain, upscaled by 1 / (1 - p) under
+"upscale_in_train" and only zeroed under any other mode, and nothing in
+eval. Refused as the JAX package refuses them: ``pre_caches`` with
+``time_step``, ``attn_mask`` on the paged path, ``beam_offset``; the
+tensor-parallel ``_tp_reduce`` hook is a later slice. A stored weight
+whose dequantized form is float32 meets bf16 activations as in JAX: the
+product runs in the promoted dtype.
 
 The fused decode-attention ops keep the JAX signatures and return order.
 ``block_multihead_attention`` appends the new token with
@@ -51,6 +65,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core import random as _random
+from ...core.random import make_generator
 from ...ops import flashmask as _fm
 from ...ops import fused_norm as _fn
 from ...ops import paged_attention as _pa
@@ -61,12 +77,13 @@ NEG_INF_F = -1e30
 __all__ = ["blha_get_max_len", "block_kv_cache_rewind",
            "block_multihead_attention", "flashmask_attention",
            "fused_bias_act", "fused_bias_dropout_residual_layer_norm",
-           "fused_dropout_add", "fused_layer_norm", "fused_linear",
-           "fused_linear_activation", "fused_linear_param_grad_add",
-           "fused_matmul_bias", "fused_multi_transformer",
+           "fused_dropout_add", "fused_feedforward", "fused_layer_norm",
+           "fused_linear", "fused_linear_activation",
+           "fused_linear_param_grad_add", "fused_matmul_bias",
+           "fused_multi_head_attention", "fused_multi_transformer",
            "fused_multi_transformer_int4", "fused_multi_transformer_int8",
            "fused_rms_norm", "masked_multihead_attention", "quantize_int4",
-           "swiglu"]
+           "swiglu", "variable_length_memory_efficient_attention"]
 
 
 def _ln(h, eps, scale=None, bias=None):
@@ -221,17 +238,8 @@ def fused_multi_transformer(
     Returns the output hidden states [B, S, E]; caches are updated in
     place."""
     if beam_offset is not None:
-        raise NotImplementedError("fused_multi_transformer: beam_offset is "
-                                  "a later slice")
-    if pre_caches is not None:
-        raise NotImplementedError("fused_multi_transformer: pre_caches is a "
-                                  "later slice")
-    if attn_mask is not None:
-        raise NotImplementedError("fused_multi_transformer: attn_mask is a "
-                                  "later slice")
-    if training and dropout_rate:
-        raise NotImplementedError("fused_multi_transformer: dropout is a "
-                                  "later slice")
+        raise NotImplementedError(
+            "fused_multi_transformer: beam_offset unsupported")
     if _tp_reduce is not None:
         raise NotImplementedError("fused_multi_transformer: tensor-parallel "
                                   "reduction is a later slice")
@@ -239,6 +247,11 @@ def fused_multi_transformer(
         raise ValueError(
             "fused_multi_transformer: chunk_lens (chunked prefill) is a "
             "paged-cache feature — pass block_tables too")
+    if pre_caches is not None and time_step is not None:
+        raise NotImplementedError(
+            "fused_multi_transformer: pre_caches apply to the context/"
+            "prefill phase; at decode time the prefix already lives in "
+            "cache_kvs (run prefill with pre_caches first)")
     caches = list(cache_kvs) if cache_kvs is not None else []
     b, s, e = x.shape
     paged = None
@@ -257,6 +270,10 @@ def fused_multi_transformer(
                 "fused_multi_transformer: paged decode takes one token "
                 f"per sequence (x [B, 1, E]); got {list(x.shape)} — a "
                 "multi-token chunk slab needs per-sequence chunk_lens")
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "fused_multi_transformer: attn_mask unsupported on the "
+                "paged decode path")
         _, _, nb, bs, _ = caches[0].shape
         paged = _paged_inputs(block_tables, seq_lens, chunk_lens, s, nb, bs,
                               x.device)
@@ -272,6 +289,10 @@ def fused_multi_transformer(
 
     def item(lst, li):
         return lst[li] if lst else None
+
+    pres = list(pre_caches) if pre_caches is not None else []
+    mask = None if attn_mask is None else \
+        attn_mask[:, :, None].to(torch.float32)    # [B, H, 1, S, S_kv]
 
     slens = None
     if paged is not None:
@@ -376,30 +397,56 @@ def fused_multi_transformer(
             qg = q.reshape(b, s, g_eff, r, hd)
             logits = torch.einsum("bsgrd,bgtd->bgrst", qg.float(),
                                   cache[0].float()) * scale
+            if mask is not None:
+                logits = logits + mask
             logits = torch.where(posm, logits, NEG_INF_F)
             p = torch.softmax(logits, dim=-1)
             ctx = torch.einsum("bgrst,bgtd->bsgrd", p, cache[1].float()) \
                 .reshape(b, s, nh, hd).to(x.dtype)
         else:
-            # context/prefill: causal attention, fill cache [0:S]
+            # context/prefill: causal attention, fill cache [0:S_pre+S];
+            # pre_caches (prompt-prefix KV) put their keys first, and every
+            # new row sees the whole prefix plus the causal new part
+            kk, vv = k, v
+            s_pre = 0
+            if pres:
+                pk, pv = pres[li][0], pres[li][1]     # [B, g, S_pre, D]
+                s_pre = pk.shape[2]
+                dt = torch.promote_types(pk.dtype, k.dtype)
+                kk = torch.cat([pk.transpose(1, 2).to(dt), k.to(dt)], 1)
+                vv = torch.cat([pv.transpose(1, 2).to(dt), v.to(dt)], 1)
             qg = q.reshape(b, s, g_eff, r, hd)
             logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
-                                  k.float()) * scale
+                                  kk.float()) * scale
             causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                           device=x.device))[None, None, None]
+                                           device=x.device))
+            if s_pre:
+                causal = torch.cat([torch.ones((s, s_pre), dtype=torch.bool,
+                                               device=x.device), causal], 1)
+            causal = causal[None, None, None]
             if slens is not None:
                 # padded batch: keys at/after each row's length are out
+                # (the prefix is always in)
                 valid = (torch.arange(s, device=x.device)[None, :]
                          < slens[:, None])
+                if s_pre:
+                    valid = torch.cat([torch.ones((b, s_pre),
+                                                  dtype=torch.bool,
+                                                  device=x.device), valid],
+                                      1)
                 causal = causal & valid[:, None, None, None, :]
+            if mask is not None:
+                logits = logits + mask
             logits = torch.where(causal, logits, NEG_INF_F)
             p = torch.softmax(logits, dim=-1)
-            ctx = torch.einsum("bgrst,btgd->bsgrd", p, v.float()) \
+            ctx = torch.einsum("bgrst,btgd->bsgrd", p, vv.float()) \
                 .reshape(b, s, nh, hd).to(x.dtype)
             if caches:
                 cache = caches[li]
-                cache[0][:, :, :s] = k.transpose(1, 2).to(cache.dtype)
-                cache[1][:, :, :s] = v.transpose(1, 2).to(cache.dtype)
+                cache[0][:, :, :s_pre + s] = kk.transpose(1, 2).to(
+                    cache.dtype)
+                cache[1][:, :, :s_pre + s] = vv.transpose(1, 2).to(
+                    cache.dtype)
         if _mm is not None:
             attn = _mm(ctx.reshape(b * s, nh * hd), linear_weights[li],
                        "lin", li).reshape(b, s, -1)
@@ -408,6 +455,14 @@ def fused_multi_transformer(
                            dq(linear_weights[li], "lin", li))
         if item(linear_biases, li) is not None:
             attn = attn + linear_biases[li]
+        if training and dropout_rate:
+            # one draw a layer from the port's seed chain; eval leaves
+            # attn as it is, in every mode (the JAX package's rule)
+            keep = _keep(attn.shape, dropout_rate, _chain_generator(x.device),
+                         attn.device)
+            attn = torch.where(keep, attn / (1.0 - dropout_rate)
+                               if mode == "upscale_in_train" else attn,
+                               torch.zeros_like(attn))
         h = resid * residual_alpha + attn
         if not pre_layer_norm:
             h = norm(h, ln_scales[li], item(ln_biases, li))
@@ -595,6 +650,129 @@ def _gelu(x):
 def _keep(shape, p, generator, device):
     """Bernoulli(1 - p) keep mask drawn from ``generator``."""
     return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def _chain_generator(device):
+    """A generator seeded from the port's seed chain (``core.random``): the
+    counterpart of the fresh key a JAX op takes as an input."""
+    return make_generator(_random.fresh_seed(device), device)
+
+
+def _drop(t, p, training):
+    """Upscale-in-train dropout of ``t`` with one draw from the seed
+    chain; t itself when not training or p <= 0."""
+    if not training or p <= 0.0:
+        return t
+    keep = _keep(t.shape, p, _chain_generator(t.device), t.device)
+    return torch.where(keep, t / (1.0 - p), torch.zeros_like(t))
+
+
+def _einsum(eq, a, b):
+    """einsum in the promoted dtype of the two (jnp's rule)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.0,
+                               attn_dropout_rate=0.0, ln_epsilon=1e-5,
+                               training=True, num_heads=None):
+    """[pre-LN] -> QKV projection -> MHA -> out projection -> residual
+    [-> post-LN] (the JAX package's :47-122). x [B, S, E]; qkv_weight
+    [3, H, D, E]; linear_weight [H*D, E]; cache_kv [2, B, S_cache, H, D]:
+    its keys and values come before the new ones and the extended cache
+    is returned as (out, new_cache); attn_mask additive, broadcastable to
+    [B, H, S, S_kv]. In training the attention probabilities
+    (``attn_dropout_rate``) and then the projection output
+    (``dropout_rate``) drop, upscaled, each with one draw from the seed
+    chain."""
+    h = _ln(x, pre_ln_epsilon, pre_ln_scale, pre_ln_bias) \
+        if pre_layer_norm else x
+    b, s, _ = h.shape
+    nh, hd = qkv_weight.shape[1], qkv_weight.shape[2]
+    qkv = _einsum("bsd,tnhd->tbsnh", h, qkv_weight).to(h.dtype)
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias.reshape(3, 1, 1, nh, hd)
+    q, k, v = qkv[0], qkv[1], qkv[2]                    # [B, S, H, D]
+    new_cache = None
+    if cache_kv is not None:
+        dt = torch.promote_types(cache_kv.dtype, k.dtype)
+        k = torch.cat([cache_kv[0].to(dt), k.to(dt)], 1)
+        v = torch.cat([cache_kv[1].to(dt), v.to(dt)], 1)
+        new_cache = torch.stack([k, v])
+    logits = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    if attn_mask is not None:
+        logits = logits + attn_mask.to(torch.float32)
+    p = _drop(torch.softmax(logits, dim=-1), attn_dropout_rate, training)
+    ctx = torch.einsum("bnst,btnh->bsnh", p, v.float()).to(h.dtype)
+    out = _einsum("bse,ed->bsd", ctx.reshape(b, s, nh * hd), linear_weight)
+    if linear_bias is not None:
+        out = out + linear_bias
+    out = x + _drop(out, dropout_rate, training)
+    if not pre_layer_norm:
+        out = _ln(out, ln_epsilon, ln_scale, ln_bias)
+    return out if new_cache is None else (out, new_cache)
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu",
+                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                      pre_layer_norm=False, training=True):
+    """[pre-LN] -> FC1 -> act -> dropout1 -> FC2 -> dropout2 -> residual
+    [-> post-LN] (the JAX package's :124-175); relu, exact gelu or silu;
+    each dropout upscaled, one draw from the seed chain when training."""
+    h = _ln(x, ln1_epsilon, ln1_scale, ln1_bias) if pre_layer_norm else x
+    h = _einsum("...d,de->...e", h, linear1_weight)
+    if linear1_bias is not None:
+        h = h + linear1_bias
+    act = {"relu": torch.relu, "gelu": F.gelu, "silu": F.silu}[activation]
+    h = _drop(act(h), dropout1_rate, training)
+    h = _einsum("...e,ed->...d", h, linear2_weight)
+    if linear2_bias is not None:
+        h = h + linear2_bias
+    out = x + _drop(h, dropout2_rate, training)
+    if not pre_layer_norm:
+        out = _ln(out, ln2_epsilon, ln2_scale, ln2_bias)
+    return out
+
+
+def variable_length_memory_efficient_attention(query, key, value, seq_lens,
+                                               kv_seq_lens, mask=None,
+                                               scale=None, causal=False,
+                                               pre_cache_length=0):
+    """Var-len attention over padded [B, H, S, D] tensors (the JAX
+    package's :1184-1218): keys at or past kv_seq_lens[b] and, when
+    causal, keys past row + ``pre_cache_length`` take float32's lowest
+    logit, then the additive ``mask``; rows at or past seq_lens[b] are
+    zero."""
+    bsz, _, s, d = query.shape
+    skv = key.shape[2]
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bhsd,bhtd->bhst", query, key).to(
+        torch.float32) * sc
+    dev = query.device
+    sl = torch.as_tensor(seq_lens, device=dev).reshape(bsz, 1)
+    kvl = torch.as_tensor(kv_seq_lens, device=dev).reshape(bsz, 1)
+    q_valid = torch.arange(s, device=dev)[None, :] < sl
+    kv_valid = torch.arange(skv, device=dev)[None, :] < kvl
+    neg = torch.finfo(torch.float32).min
+    logits = torch.where(kv_valid[:, None, None, :], logits, neg)
+    if causal:
+        cm = (torch.arange(skv, device=dev)[None, :] - pre_cache_length
+              <= torch.arange(s, device=dev)[:, None])
+        logits = torch.where(cm[None, None], logits, neg)
+    if mask is not None:
+        logits = logits + mask.to(torch.float32)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", p.to(value.dtype), value)
+    return torch.where(q_valid[:, None, :, None], out, torch.zeros_like(out))
 
 
 def _add(a, b):

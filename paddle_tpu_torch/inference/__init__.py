@@ -38,6 +38,7 @@ from ..core.device import resolve_device
 from ..core.random import make_generator
 from ..incubate.nn.functional import (_unpack_int4, fused_multi_transformer,
                                       quantize_int4)
+from ..observability import costs as _costs
 from ..observability import instrument as _instrument
 from ..observability import tracing as _tracing
 from ..ops import paged_attention as _pa
@@ -72,14 +73,43 @@ def _dispatch_span(name, fn):
     ring; perf_counter timebase), also observed into the
     `dispatch_seconds{program}` histogram. CUDA work is asynchronous: the
     interval covers the host's enqueue of the program's kernels, not
-    their completion on the device."""
+    their completion on the device.
+
+    While the cost catalog is enabled (``observability.costs``, opt-in),
+    the FIRST call of each argument signature runs counted (its flops,
+    bytes and peak memory land in the catalog under the program's name;
+    the set is cleared when the catalog's generation changes), and every
+    other call is timed on the device into
+    ``program_device_seconds{program}`` (CUDA events read on a later
+    call, never a synchronize)."""
+    seen = set()
+    seen_gen = [None]
+
     def call(*args, **kwargs):
+        catalog = _costs.get_cost_catalog()
+        counted = timer = None
+        if catalog.enabled:
+            if seen_gen[0] != catalog.generation:
+                seen.clear()
+                seen_gen[0] = catalog.generation
+            sig = _costs.arg_signature(args, kwargs)
+            if sig not in seen:
+                seen.add(sig)
+                counted = f"sig{len(seen)}"
+            else:
+                timer = catalog.start_timer(_costs.device_of(args, kwargs))
         t0 = _time.perf_counter()
         delay = _dispatch_delay.get(name)
         if delay:
             _time.sleep(delay)
-        out = fn(*args, **kwargs)
+        if counted is not None:
+            out, _ = catalog.count_call(name, fn, args, kwargs,
+                                        signature=counted)
+        else:
+            out = fn(*args, **kwargs)
         dur = _time.perf_counter() - t0
+        if timer is not None:
+            catalog.stop_timer(name, timer)
         _tracing.get_tracer().record_span(name, t0 * 1e6, dur * 1e6)
         _instrument.dispatch_seconds().labels(program=name).observe(dur)
         return out

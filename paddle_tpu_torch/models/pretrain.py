@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import costs as _costs
 from ..observability import instrument as _metrics
 from ..ops import adamw
 
@@ -138,6 +139,12 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
     step's learning rate the f32 product of lr and the scale, as the JAX
     step's ``lr * jnp.float32(lr_scale)`` rounds it.
 
+    While the cost catalog is enabled (``observability.costs``), the first
+    step runs counted as ``pretrain_step`` (forward, backward and AdamW:
+    flops, bytes, peak memory, the kernels' own counts) and every later
+    one is timed on the device into
+    ``program_device_seconds{program="pretrain_step"}``.
+
     The JAX package's argument order: ``mesh`` None is the single-device
     case, a mesh raises. ``donate`` is accepted and does nothing: the eager
     step already updates the masters and moments in place, where the JAX
@@ -157,6 +164,7 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
     # step-phase bookkeeping (telemetry): the host time between steps
     # less the data wait the instrumented loader reported
     phase = {"step": 0, "last_exit": None}
+    attributed = []     # cost catalog: the step is counted once
 
     def step(params, opt_state, batch, eff_lr):
         """The step itself: (params, opt_state, loss, gnorm[, vec])."""
@@ -199,8 +207,21 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
                     request="train", step=phase["step"])
         eff_lr = lr if lr_scale is None else float(
             np.float32(lr) * np.float32(lr_scale))
+        catalog = _costs.get_cost_catalog()
+        timer = None
         t0 = time.monotonic()
-        out = step(params, opt_state, batch, eff_lr)
+        if catalog.enabled and not attributed:
+            # once: the whole step (forward, backward, AdamW) counted as
+            # it runs, under `pretrain_step`
+            attributed.append(True)
+            out, _ = catalog.count_call(
+                "pretrain_step", step, (params, opt_state, batch, eff_lr))
+        else:
+            if catalog.enabled:
+                timer = catalog.start_timer(batch["input_ids"].device)
+            out = step(params, opt_state, batch, eff_lr)
+            if timer is not None:
+                catalog.stop_timer("pretrain_step", timer)
         dur = time.monotonic() - t0
         _metrics.train_step_seconds().observe(dur)
         _metrics.dispatch_seconds().labels(

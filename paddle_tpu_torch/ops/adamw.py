@@ -37,6 +37,7 @@ import ctypes
 import torch
 
 from . import _launch as L
+from . import work as _work
 
 __all__ = ["adamw_step", "adamw_step_plain", "pack_telemetry_plain"]
 
@@ -181,6 +182,9 @@ def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count,
         n_groups if tel else 0, stream)
     L.raise_on("adamw_update", rc)
     adamw_step.launches += 2 * batches
+    if _work.counting():
+        _work.note("adamw", sum(_work.adamw(p.numel(), g.element_size())[0]
+                                for p, g in zip(ps, gs)), 0)
     if not tel:
         return out[0]
     adamw_step.telemetry_launches += 2 * batches

@@ -48,6 +48,8 @@ import functools
 
 import torch
 
+from . import work as _work
+
 __all__ = ["ce_fwd", "ce_bwd_dh", "ce_bwd_dw", "ce_fwd_plain",
            "ce_bwd_dh_plain", "ce_bwd_dw_plain", "blockwise_lm_head_ce",
            "fwd_plan", "bwd_plan"]
@@ -234,6 +236,9 @@ def ce_fwd(h, w, labels, ignore):
     _raise_on("ce_fwd", rc)
     ce_fwd.route = plan["route"]
     ce_fwd.launches += 1
+    if _work.counting():
+        _work.note("blockwise_ce_fwd", *_work.blockwise_ce(
+            t, t, hid, vocab, h.element_size())["fwd"])
     return loss, lse
 
 
@@ -266,6 +271,10 @@ def ce_bwd_dh(h, w, labels, g, lse, ignore):
     _raise_on("ce_bwd_dh", rc)
     ce_bwd_dh.route = route
     ce_bwd_dh.launches += 1
+    if _work.counting():
+        _work.note("blockwise_ce_dh", *_work.blockwise_ce(
+            t, int((labels != ignore).sum()), hid, w.shape[1],
+            h.element_size())["dh"])
     return dh
 
 
@@ -296,6 +305,10 @@ def ce_bwd_dw(h, w, labels, g, lse, ignore):
     _raise_on("ce_bwd_dw", rc)
     ce_bwd_dw.route = route
     ce_bwd_dw.launches += 1
+    if _work.counting():
+        _work.note("blockwise_ce_dw", *_work.blockwise_ce(
+            t, int((labels != ignore).sum()), hid, w.shape[1],
+            h.element_size())["dw"])
     return dw
 
 

@@ -39,6 +39,8 @@ import math
 
 import torch
 
+from . import work as _work
+
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
@@ -201,6 +203,10 @@ def flash_fwd(q, k, v, scale, causal, rope_cos=None, rope_sin=None):
                            f"{rc}")
     flash_fwd.launches += 1
     flash_fwd.rope_launches += rcos is not None
+    if _work.counting():
+        _work.note("flash_fwd", *_work.flash_fwd(
+            bh, sq, k.shape[1], d, causal, q.element_size(),
+            rcos is not None))
     return o, lse
 
 
@@ -243,6 +249,9 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
                            f"{rc}")
     flash_bwd.launches += 1
     flash_bwd.rope_launches += rcos is not None
+    if _work.counting():
+        _work.note("flash_bwd", *_work.flash_bwd(
+            bh, sq, sk, d, causal, q.element_size(), rcos is not None))
     return dq.to(q.dtype), dk, dv
 
 

@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from . import work as _work
 from .flash_attention import _DTYPE_CODE, NEG_INF, _check, _check_saved
 
 PLAIN_CHUNK_ELEMS = 1 << 28     # f32 elements of one [heads, Sq, Sk] temporary
@@ -184,6 +185,8 @@ def flashmask_fwd(q, k, v, sr, er, scale, causal):
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flashmask_fwd", rc)
     flashmask_fwd.launches += 1
+    if _work.counting():
+        _note_work(("flashmask_fwd",), ("fwd",), q, k, sr, er, h, causal)
     return o, lse
 
 
@@ -191,6 +194,24 @@ flashmask_fwd.launches = 0
 
 MODE_FLASHMASK = 0      # the interval mask and tile skip; f32 p and ds
 MODE_TWOPASS = 1        # no interval; p and ds rounded to the input dtype
+
+
+def _note_work(kernels, parts, q, k, sr, er, h, causal):
+    """Report ``kernels``' work (``ops.work.flashmask``'s ``parts``) to
+    the cost catalog's counter: the visible pairs of the interval mask
+    (read back from the device: counting only), or of the causal mask
+    without one."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if sr is None:
+        pairs, idx = _work.flash_pairs(bh, sq, sk, causal), 0
+    else:
+        pairs = _work.flashmask_pairs(sr.cpu().numpy(), er.cpu().numpy(), h,
+                                      sq, causal)
+        idx = sr.numel()
+    got = _work.flashmask(bh // h, h, sq, d, pairs, idx, q.element_size())
+    for kernel, part in zip(kernels, parts):
+        _work.note(kernel, *got[part])
 
 
 def _ptrs(*ts):
@@ -245,6 +266,10 @@ def _bwd_kernels(owner, mode, q, k, v, o, lse, do, sr, er, scale, causal):
     _bwd_launch("dkv", name, mode, q, k, v, lse, do, prep, (dk, dv), scale,
                 causal)
     owner.dkv_launches += 1
+    if _work.counting():
+        _note_work((name + "_dq",
+                    name + "_dkv"), ("dq", "dkv"), q, k, sr, er, prep[2],
+                   causal)
     return dq, dk, dv
 
 

@@ -38,6 +38,7 @@ last launch.
 import torch
 
 from . import _launch as L
+from . import work as _work
 
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
            "rms_norm_bwd_plain", "bwd_plan"]
@@ -161,6 +162,9 @@ def rms_norm_fwd(x, w, eps, bias, residual, out_dtype):
         float(eps), L.stream(x))
     L.raise_on("rms_norm_fwd", rc)
     rms_norm_fwd.launches += 1
+    if _work.counting():
+        _work.note("rms_norm_fwd", *_work.rms_norm_fwd(
+            r, hid, x.element_size(), out.element_size(), h is not x))
     return out, h, inv
 
 
@@ -203,6 +207,10 @@ def rms_norm_bwd(dout, dres, h, w, inv, out_dtype):
     L.raise_on("rms_norm_bwd", rc)
     rms_norm_bwd.launches += 1
     rms_norm_bwd.route = plan["route"]
+    if _work.counting():
+        _work.note("rms_norm_bwd", *_work.rms_norm_bwd(
+            r, hid, h.element_size(), dout.element_size(),
+            dres is not None))
     return dh, dw
 
 

@@ -41,6 +41,8 @@ import threading
 import numpy as np
 import torch
 
+from . import work as _work
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
@@ -758,6 +760,11 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     with _LAUNCH_LOCK:
         ragged_paged_attention.launches += 1
         ragged_paged_attention.route = plan["route"]
+    if _work.counting():
+        _work.note("ragged_paged_attention", *_work.ragged_attention(
+            lens.cpu().numpy(), None if qls is None else qls.cpu().numpy(),
+            c, tables.shape[1], bs, h, kvh, d, q.element_size(),
+            tables.numel() * 4))
     return out[:, 0] if squeeze else out
 
 
@@ -979,6 +986,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise RuntimeError(f"paged_attention: kernel launch failed with CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
+    if _work.counting():
+        _work.note("paged_decode_attention", *_work.paged_decode(
+            lens.cpu().numpy(), bs, tables.shape[1], b, h, kvh, d,
+            q.element_size()))
     return out
 
 

@@ -25,6 +25,8 @@ import functools
 import numpy as np
 import torch
 
+from . import work as _work
+
 DEFAULT_BLOCK_N = 512
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -175,6 +177,9 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
         weight_only_matmul.launches += 1
     else:
         weight_only_matmul.int8_launches += 1
+    if _work.counting():
+        _work.note(f"weight_only_{quant}", *_work.weight_only_matmul(
+            m, k, n, 4 if quant == "int4" else 8, x.element_size()))
     return out
 
 

@@ -22,6 +22,7 @@ call counted in ``.launches``) and run ``swiglu_fwd_plain`` /
 import torch
 
 from . import _launch as L
+from . import work as _work
 
 __all__ = ["swiglu", "swiglu_fwd", "swiglu_bwd", "swiglu_fwd_plain",
            "swiglu_bwd_plain"]
@@ -68,6 +69,8 @@ def swiglu_fwd(g, u):
         out.stride(0), r, im, L.stream(g))
     L.raise_on("swiglu_fwd", rc)
     swiglu_fwd.launches += 1
+    if _work.counting():
+        _work.note("swiglu_fwd", *_work.swiglu_fwd(r, im, g.element_size()))
     return out
 
 
@@ -89,6 +92,8 @@ def swiglu_bwd(dout, g, u, dg, du):
         L.stream(g))
     L.raise_on("swiglu_bwd", rc)
     swiglu_bwd.launches += 1
+    if _work.counting():
+        _work.note("swiglu_bwd", *_work.swiglu_bwd(r, im, g.element_size()))
 
 
 swiglu_bwd.launches = 0

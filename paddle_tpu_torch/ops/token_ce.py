@@ -34,6 +34,7 @@ KB). ``token_ce_fwd.route`` names the route of the last launch.
 import torch
 
 from . import _launch as L
+from . import work as _work
 
 __all__ = ["token_cross_entropy", "token_ce_fwd", "token_ce_bwd",
            "token_ce_fwd_plain", "token_ce_bwd_plain", "fwd_plan"]
@@ -158,6 +159,9 @@ def token_ce_fwd(x, labels, ignore, smoothing):
     L.raise_on("token_ce_fwd", rc)
     token_ce_fwd.launches += 1
     token_ce_fwd.route = plan["route"]
+    if _work.counting():
+        _work.note("token_ce_fwd", *_work.token_ce_fwd(n, vocab,
+                                                        x.element_size()))
     return loss, stats, totals
 
 
@@ -187,6 +191,9 @@ def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction):
         L.stream(x))
     L.raise_on("token_ce_bwd", rc)
     token_ce_bwd.launches += 1
+    if _work.counting():
+        _work.note("token_ce_bwd", *_work.token_ce_bwd(n, vocab,
+                                                        x.element_size()))
     return dx
 
 

@@ -219,15 +219,23 @@ class TestHelpersAndLimits:
             JF._ragged_group_q(w, 4, True) == 1
         assert TF._ragged_group_q([np.zeros((3, 4, 8, 16))], -1, True) == 1
 
-    @pytest.mark.parametrize("kw", [
-        dict(dropout_rate=0.1, training=True), dict(pre_caches=[1]),
-        dict(attn_mask=1), dict(beam_offset=1), dict(_tp_reduce=abs)],
-        ids=["dropout", "pre_caches", "attn_mask", "beam_offset", "tp"])
-    def test_later_slice_options_raise(self, kw):
+    @pytest.mark.parametrize("kw,msg", [
+        (dict(pre_caches=[1], time_step=0), "pre_caches apply to"),
+        (dict(attn_mask=1, time_step=0, seq_lens=np.zeros(1, np.int32),
+              block_tables=np.zeros((1, 1), np.int32),
+              cache_kvs=[torch.zeros((2, 2, 2, 4, 8))]),
+         "attn_mask unsupported on the paged"),
+        (dict(beam_offset=1), "beam_offset unsupported"),
+        (dict(_tp_reduce=abs), "later slice")],
+        ids=["pre_caches", "attn_mask", "beam_offset", "tp"])
+    def test_later_slice_options_raise(self, kw, msg):
+        """What the port still refuses: where the JAX package refuses
+        (pre_caches at decode time, attn_mask on the paged path,
+        beam_offset; its messages) and the tensor-parallel hook."""
         rng = np.random.default_rng(7)
         w = _torch_args(_weights(rng, 1, 16, 2, 8, 32))
-        x = torch.zeros((1, 2, 16))
-        with pytest.raises(NotImplementedError, match="later slice"):
+        x = torch.zeros((1, 1, 16))
+        with pytest.raises(NotImplementedError, match=msg):
             TF.fused_multi_transformer(x, **w, **kw)
 
     def test_paged_argument_checks(self):
