@@ -209,6 +209,22 @@ Phases (any failure exits non-zero and prints no result line):
      (the catalog's MFU and roofline share in (0, 1], beside phase 7's
      MFU), and the flash, SwiGLU, token-CE and AdamW kernels' own counts
      a launch equal to ``ops.work``'s bound within 1%;
+ 25. (after 20, under no_grad) kv-head-sharded tensor-parallel serving
+     over gloo, the ranks processes on the one card (``--tp-follower``
+     runs one): the ragged kernel at a rank's heads (8 / 4 and 4 / 2) on
+     phase 1's cases and the int8 / int4 GEMM at a rank's projection
+     shapes (K x N 1024 x 1024, 512 x 1024, 1024 x 2816, 1408 x 1024, 704
+     x 1024) against their plain versions; then tp=2 at the serving
+     flagship's width on phase 2's 12 requests, each leg beside a tp=1
+     engine: f32, bf16, int8 and int4 in f32 and in bf16, and tp=4 at
+     L=2 in f32. Gates: f32 tokens equal to tp=1's (a part only at a
+     near tie, phase 3's rule), bf16 step-0 logits within 5% of the
+     logit range, on every rank 24 ragged launches, 48 all_reduces (and
+     96 GEMM launches when quantized) a step and cache bytes 1/tp, the
+     collective bytes equal to the steps' analytic payload, /healthz's
+     mesh block with two device rows; prints ms/step, tokens/s, rank 0's
+     idle share and K3's device ms a step beside tp=1. Followers are
+     joined with a timeout; one that fails or hangs fails the phase;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -330,14 +346,18 @@ def llama_weights(seed, layers, scale=0.02):
         embedding=mk(V, E), lm_head=mk(E, V))
 
 
-def make_engine(weights, dtype, weight_quant=None):
+def make_engine(weights, dtype, weight_quant=None, tp=1, group=None):
+    """The serving flagship's engine on the card; at tp > 1 one rank's
+    (the full weights stay on the host until the engine cuts its
+    shard)."""
     from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
                                             engine_weights_from_numpy)
     return FusedMultiTransformerEngine(
-        engine_weights_from_numpy(weights, "cuda", dtype), num_heads=H,
+        engine_weights_from_numpy(weights, "cuda" if tp == 1 else "cpu",
+                                  dtype), num_heads=H,
         head_dim=D, max_seq_len=SMAX, dtype=dtype, norm_type="rmsnorm",
         activation="swiglu", gqa_group_size=KVH, weight_quant=weight_quant,
-        device="cuda")
+        tp=tp, group=group, device="cuda")
 
 
 def requests(seed, n, prompt=(16, 384), new=(16, 64)):
@@ -408,8 +428,11 @@ def serve(engine, reqs, **kw):
 
 # -- phase 1 -----------------------------------------------------------------
 
-def attention_cases(torch, pa):
-    """(name, q, tables, lens, q_lens) of the slice's attention shapes."""
+def attention_cases(torch, pa, h=H, kvh=KVH):
+    """(name, q, tables, lens, q_lens) of the slice's attention shapes, at
+    `h` query and `kvh` kv heads (one rank's shard under tensor-parallel
+    serving: H / tp and KVH / tp)."""
+    H, KVH = h, kvh
     dev = "cuda"
     rng = np.random.default_rng(11)
     maxnb = SMAX // BS
@@ -450,14 +473,14 @@ def attention_cases(torch, pa):
     return kc, vc, cases
 
 
-def attention_work(q, tables, lens, qls):
+def attention_work(q, tables, lens, qls, kvh=KVH):
     """Bytes and flops the case's data needs (``ops.work.ragged_attention``):
     each needed KV block read once per kv head, q read and out written
     once, 4*D flops per visible (query row, key) pair."""
     from paddle_tpu_torch.ops import work
     c = 1 if q.dim() == 3 else q.shape[1]
-    return work.ragged_attention(lens, qls, c, tables.shape[1], BS, H, KVH,
-                                 D, 2, tables.nbytes)
+    return work.ragged_attention(lens, qls, c, tables.shape[1], BS,
+                                 q.shape[-2], kvh, D, 2, tables.nbytes)
 
 
 def ragged_plan_text(plan):
@@ -4544,6 +4567,472 @@ def phase_train_catalog(torch, base):
             "kernels": row["kernels"]}
 
 
+# -- phase 25: kv-head-sharded tensor-parallel serving -----------------------
+
+TP_TIMEOUT_S = 120.0    # every gloo operation of phase 25's groups
+TP_IDLE_S = 900.0       # a follower's wait for rank 0's next op
+TP_JOIN_S = 120.0       # a follower's exit after its last leg
+TP_SEED = 0             # phase 2's weights
+# (leg, dtype, weight_quant, layers) of the tp=2 group, in order
+TP2_LEGS = (("f32", "float32", None, L), ("bf16", "bfloat16", None, L),
+            ("int8_f32", "float32", "int8", L),
+            ("int4_f32", "float32", "int4", L),
+            ("int8_bf16", "bfloat16", "int8", L),
+            ("int4_bf16", "bfloat16", "int4", L))
+TP4_LEGS = (("f32_L2", "float32", None, 2),)
+TP_LOGIT_RTOL = 0.05    # bf16 step-0 logits: 5% of the logit range
+
+
+def tp_follower(spec_path):
+    """A follower rank of phase 25 (``chip_smoke.py --tp-follower SPEC``):
+    joins the group, then for each leg of the spec builds its engine from
+    the seeded weights and replays rank 0's programs until rank 0 stops
+    it, counting its kernel launches and all_reduces; writes the counts
+    as JSON to the spec's ``out``."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.distributed import collective
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    group = collective.new_group(spec["rank"], spec["tp"], spec["store"],
+                                 timeout=TP_TIMEOUT_S)
+    weights, out = {}, []
+    for name, dtype, quant, layers in spec["legs"]:
+        if layers not in weights:
+            weights = {layers: llama_weights(TP_SEED, layers)}
+        reset_counts()
+        calls0 = collective.all_reduce.calls
+        eng = make_engine(weights[layers], dtype, quant, tp=spec["tp"],
+                          group=group)
+        stats = eng.serve_follower(idle_timeout=TP_IDLE_S)
+        torch.cuda.synchronize()
+        attn, int4 = read_counts()
+        stats.update(leg=name, attn=attn, int4=int4,
+                     int8=read_decode_counts()[1],
+                     all_reduce=collective.all_reduce.calls - calls0,
+                     routes=sorted(set(eng.quant_routes.values())))
+        out.append(stats)
+        del eng
+        torch.cuda.empty_cache()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def spawn_followers(tp, legs, tmp):
+    """Start ranks 1..tp-1 of a group over a FileStore in `tmp`, each a
+    process of this script; returns their (process, spec, log) list."""
+    procs = []
+    for rank in range(1, tp):
+        spec = {"rank": rank, "tp": tp, "store": os.path.join(tmp,
+                                                             f"store{tp}"),
+                "legs": [list(leg) for leg in legs],
+                "out": os.path.join(tmp, f"tp{tp}_rank{rank}.json")}
+        path = os.path.join(tmp, f"tp{tp}_rank{rank}_spec.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        log = open(os.path.join(tmp, f"tp{tp}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-follower",
+             path], stdout=log, stderr=subprocess.STDOUT), spec, log))
+    return procs
+
+
+def join_followers(procs):
+    """Wait (bounded) for every follower's exit; fail unless each exited
+    0. Returns each follower's per-leg counts."""
+    results = []
+    for proc, spec, log in procs:
+        try:
+            rc = proc.wait(TP_JOIN_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(f"tp follower rank {spec['rank']} ended "
+                               f"{rc}:\n{tail}")
+        with open(spec["out"]) as f:
+            results.append(json.load(f))
+    return results
+
+
+def kill_followers(procs):
+    for proc, _, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+@contextlib.contextmanager
+def step_record(engine):
+    """Record each paged step's slab width and rank 0's step-0 logits
+    while the block runs: yields {"widths": [...], "logits": tensor}."""
+    rec = {"widths": [], "logits": None}
+    inner, select = engine._paged_step, engine._select
+
+    def step(*a, **k):
+        rec["widths"].append(int(np.asarray(a[2]).shape[1]))
+        return inner(*a, **k)
+
+    def sel(logits, *a, **k):
+        if rec["logits"] is None:
+            rec["logits"] = logits.float().cpu()
+        return select(logits, *a, **k)
+
+    engine._paged_step, engine._select = step, sel
+    try:
+        yield rec
+    finally:
+        engine._paged_step = inner
+        del engine._select
+
+
+def cache_bytes(caches):
+    return sum(c.numel() * c.element_size() for c in caches)
+
+
+def collective_bytes():
+    from paddle_tpu_torch import observability as obs
+    fam = obs.get_registry().get("collective_bytes_total")
+    return sum(c.value for c in fam._children.values()) \
+        if fam is not None else 0.0
+
+
+def token_agreement(ref, got):
+    """(equal tokens, tokens, first divergence as (request, step) or
+    None), position by position."""
+    eq = n = 0
+    first = None
+    for i, (a, b) in enumerate(zip(ref, got)):
+        n += len(a)
+        for t, (x, y) in enumerate(zip(a, b)):
+            if x == y:
+                eq += 1
+            elif first is None:
+                first = (i, t)
+        if len(a) != len(b) and first is None:
+            first = (i, min(len(a), len(b)))
+    return eq, n, first
+
+
+def tp_tie_gap(torch, e1, reqs, ref, got, label):
+    """Phase 3's rule between two engines' greedy tokens: equal, or
+    parting only where the tp=1 engine's top-2 logits sit within 1e-3.
+    Returns the largest such gap (0.0 when every token is equal)."""
+    worst = 0.0
+    for i, ((p, _), a, b) in enumerate(zip(reqs, ref, got)):
+        if a == b:
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ids = np.concatenate([p, np.asarray(a[:t], np.int32)])[None, :]
+        lg = e1._prefill_logits(ids)[0].float()
+        top = torch.topk(lg, 2).values
+        gap = float(top[0] - top[1])
+        print(f"  {label}: request {i} parts at step {t}, top-2 logit gap "
+              f"{gap:.3e}", flush=True)
+        check(gap <= 1e-3, f"{label}: request {i} diverges at step {t} "
+              f"with a top-2 logit gap {gap} > 1e-3")
+        worst = max(worst, gap)
+    return worst
+
+
+def tp_kernel_rows(torch):
+    """K3 at each rank's kv heads (tp=2: 8 q / 4 kv heads; tp=4: 4 / 2)
+    on phase 1's three cases, and K4 at each rank's projection shapes
+    (tp=2: qkv K=1024 N=1024, out K=512 N=1024, ffn1 K=1024 N=2816, ffn2
+    K=1408 N=1024; tp=4's ffn2 K=704 N=1024), int8 and int4 at M=8 and
+    512 in bf16 and M=8 in f32, each against its plain version."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    rows = {"attn": [], "int4": [], "int8": []}
+    for tp in (2, 4):
+        kc, vc, cases = attention_cases(torch, pa, H // tp, KVH // tp)
+        for name, q, tables, lens, qls in cases:
+            tab_d = torch.as_tensor(tables).cuda()
+            lens_d = torch.as_tensor(lens).cuda()
+            qls_d = None if qls is None else torch.as_tensor(qls).cuda()
+
+            def run():
+                return pa.ragged_paged_attention(q, kc, vc, tab_d, lens_d,
+                                                 q_lens=qls_d)
+            out = run()
+            ref = pa.ragged_paged_attention_plain(q, kc, vc, tab_d, lens_d,
+                                                  q_lens=qls_d)
+            err, ratio = bf16_agreement(out, ref, ATTN_ATOL)
+            c = 1 if q.dim() == 3 else q.shape[1]
+            plan = pa.ragged_plan(MAX_BATCH, c, H // tp, KVH // tp,
+                                  tables.shape[1], BS, D, q.dtype)
+            check(ratio <= 1.0 and bool(torch.isfinite(out).all()),
+                  f"tp={tp} attention {name}: max abs err {err}, worst "
+                  f"{ratio:.2f}x its allowance")
+            check(pa.ragged_paged_attention.route == plan["route"],
+                  f"tp={tp} attention {name}: route "
+                  f"{pa.ragged_paged_attention.route} against the plan's "
+                  f"{plan['route']}")
+            b_ms, b_by = bound(*attention_work(q, tables, lens, qls,
+                                               KVH // tp))
+            dev_ms = device_time_ms(run)
+            rows["attn"].append(dict(case=f"tp{tp}_{name}", max_abs_err=err,
+                                     worst_err_over_allowed=ratio,
+                                     device_ms=dev_ms, bound_ms=b_ms,
+                                     bound_by=b_by, plan=plan))
+            print(f"  ragged_paged_attention[tp{tp} {H // tp}/{KVH // tp} "
+                  f"heads, {name}]: err {err:.3e} (worst {ratio:.3f}) "
+                  f"device {dev_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+                  f"{ragged_plan_text(plan)}", flush=True)
+    rng = np.random.default_rng(25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    shapes = ((E, (H + 2 * KVH) * D // 2), (H * D // 2, E), (E, F),
+              (F // 2, E), (F // 4, E))
+    for k, n in shapes:
+        w = rng.standard_normal((k, n), dtype=np.float32) * 0.02
+        pk, sc4 = qm.pack_int4_blocked(w, qm.kernel_block_n(n))
+        sc8 = np.abs(w).max(0) / 127.0 + 1e-9
+        q8 = np.clip(np.round(w / sc8), -127, 127).astype(np.int8)
+        ops = {"int4": (torch.as_tensor(pk).cuda(),
+                        torch.as_tensor(sc4).cuda(), qm.kernel_block_n(n)),
+               "int8": (torch.as_tensor(q8).cuda(),
+                        torch.as_tensor(sc8.astype(np.float32)).cuda(),
+                        qm.pick_block_n(n, "int8"))}
+        for quant, (wq, s, bn) in ops.items():
+            for m, dt in ((8, torch.bfloat16), (512, torch.bfloat16),
+                          (8, torch.float32)):
+                x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+
+                def run():
+                    return qm.weight_only_matmul(x, wq, s, quant, bn)
+                out = run()
+                ref = qm.weight_only_matmul_plain(x, wq, s, quant, bn)
+                atol = INT4_ATOL if quant == "int4" else INT8_ATOL
+                err, ratio = bf16_agreement(out, ref, atol) \
+                    if dt == torch.bfloat16 \
+                    else two_ulp_agreement(out, ref, atol)
+                name = f"M{m}_K{k}_N{n}_{str(dt)[6:]}"
+                check(ratio <= 1.0 and bool(torch.isfinite(out).all()),
+                      f"{quant} {name}: max abs err {err}, worst "
+                      f"{ratio:.2f}x its allowance")
+                plan = qm.plan(m, k, n, dt)
+                dev_ms = device_time_ms(run)
+                rows[quant].append(dict(case=name, max_abs_err=err,
+                                        worst_err_over_allowed=ratio,
+                                        device_ms=dev_ms, plan=plan))
+                print(f"  weight_only_{quant}[{name}]: err {err:.3e} "
+                      f"(worst {ratio:.3f}) device {dev_ms:.4f} ms; "
+                      f"{plan_text(plan)}", flush=True)
+    return rows
+
+
+def tp_healthz(torch, cb):
+    """The port's gateway in front of rank 0's tp=2 scheduler: /healthz
+    carries the mesh block, two device rows at the allocator's per-rank
+    bytes, and validates."""
+    import http.client
+    from paddle_tpu_torch import serving
+    from tools.torch_serve_gates import GatewayThread
+    stepper = serving.EngineStepper(cb).start()
+    gw = serving.ServingGateway(stepper)
+    th = GatewayThread(gw).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+        conn.close()
+    finally:
+        th.close()
+        stepper.stop()
+    check(resp.status == 200, f"/healthz answered {resp.status}")
+    serving.validate_healthz(payload)
+    mesh = payload.get("mesh") or {}
+    rows = mesh.get("devices", [])
+    per = cb.allocator.high_water * cb.engine.kv_device_block_bytes(BS)
+    check(mesh.get("tp") == 2 and len(rows) == 2
+          and all(r["kv_bytes_high_water"] == per for r in rows),
+          f"/healthz mesh block {mesh} (want tp 2, two rows of {per} B)")
+    return mesh
+
+
+def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
+    """One leg on rank 0: the tp=1 engine, then the tp engine (its
+    followers replaying), the same requests; returns the leg's record."""
+    name, dtype, quant, layers = leg
+    rec = {"leg": name, "tp": tp}
+    e1 = make_engine(w, dtype, quant)
+    serve(e1, warm)
+    reset_counts()
+    with step_record(e1) as r1:
+        cb1, g1, steps1, wall1 = serve(e1, reqs)
+    toks1 = [list(cb1.finished[r.request_id]) for r in g1]
+    rec["tp1"] = {"steps": steps1, "wall_s": wall1,
+                  "ms_per_step": wall1 / steps1 * 1e3,
+                  "tokens_per_s": sum(map(len, toks1)) / wall1,
+                  "cache_bytes": cache_bytes(cb1.caches),
+                  "kv_block_bytes": e1.kv_device_block_bytes(BS)}
+    if name == "bf16":
+        rec["tp1"]["profile"] = profile_window(
+            torch, lambda: serve(e1, reqs)[2], "paged steps (tp=1)")
+    del cb1
+    t0 = time.perf_counter()
+    e2 = make_engine(w, dtype, quant, tp=tp, group=group)
+    rec["build_s"] = time.perf_counter() - t0
+    routes = set(e2.quant_routes.values())
+    check(quant is None or routes == {"kernel"}, f"{name}: tp={tp} routes "
+          f"{e2.quant_routes}: every rank's widths fit a kernel block")
+    with counted_steps(e2) as leg_steps:
+        serve(e2, warm)
+        reset_counts()
+        calls0, coll0 = collective.all_reduce.calls, collective_bytes()
+        with step_record(e2) as r2:
+            cb2, g2, steps2, wall2 = serve(e2, reqs)
+        attn, int4 = read_counts()
+        int8 = read_decode_counts()[1]
+        calls = collective.all_reduce.calls - calls0
+        coll = collective_bytes() - coll0
+        toks2 = [list(cb2.finished[r.request_id]) for r in g2]
+        bytes2 = cache_bytes(cb2.caches)
+        if name == "bf16":
+            rec["healthz_mesh"] = tp_healthz(torch, cb2)
+            rec["profile"] = profile_window(
+                torch, lambda: serve(e2, reqs)[2], f"paged steps (tp={tp}, "
+                "rank 0)")
+    want_k4 = {"int4": (4 * layers * steps2, 0),
+               "int8": (0, 4 * layers * steps2), None: (0, 0)}[quant]
+    check(attn == layers * steps2, f"{name}: ragged kernel launched {attn} "
+          f"times in {steps2} tp={tp} steps on rank 0 (want "
+          f"{layers * steps2})")
+    check((int4, int8) == want_k4, f"{name}: int4 / int8 launches "
+          f"{(int4, int8)} in {steps2} steps (want {want_k4})")
+    check(calls == 2 * layers * steps2, f"{name}: {calls} all_reduce calls "
+          f"in {steps2} steps (want {2 * layers * steps2})")
+    want_coll = sum(e2.tp_step_comm_bytes(MAX_BATCH, c)
+                    for c in r2["widths"])
+    check(coll == want_coll and len(r2["widths"]) == steps2,
+          f"{name}: collective_bytes_total moved {coll}, the steps' "
+          f"tp_step_comm_bytes sum to {want_coll}")
+    check(bytes2 * tp == rec["tp1"]["cache_bytes"]
+          and e2.kv_device_block_bytes(BS) * tp == rec["tp1"]
+          ["kv_block_bytes"], f"{name}: rank 0's caches {bytes2} B, block "
+          f"{e2.kv_device_block_bytes(BS)} B against tp=1's "
+          f"{rec['tp1']['cache_bytes']} / {rec['tp1']['kv_block_bytes']}")
+    eq, n, first = token_agreement(toks1, toks2)
+    rec.update(steps=steps2, wall_s=wall2, ms_per_step=wall2 / steps2 * 1e3,
+               tokens_per_s=sum(map(len, toks2)) / wall2, attn=attn,
+               int4=int4, int8=int8, all_reduce=calls,
+               collective_bytes=coll, cache_bytes=bytes2,
+               equal_tokens=eq, tokens=n, first_divergence=first,
+               leg_steps=leg_steps[0])
+    if dtype == "float32":
+        rec["largest_tie_gap"] = tp_tie_gap(torch, e1, reqs, toks1, toks2,
+                                            f"{name} tp={tp}")
+    else:
+        l1, l2 = r1["logits"], r2["logits"]
+        err = float((l1 - l2).abs().max())
+        tol = TP_LOGIT_RTOL * float(l1.abs().max())
+        rec.update(step0_logit_err=err, step0_logit_tol=tol)
+        check(bool(torch.isfinite(l2).all()) and err <= tol,
+              f"{name}: step-0 logits {err} from tp=1's (tol {tol})")
+    print(f"  {name} tp={tp}: {eq}/{n} tokens equal to tp=1 (first "
+          f"divergence {first}); {steps2} steps, {rec['ms_per_step']:.2f} "
+          f"ms/step, {rec['tokens_per_s']:.1f} tokens/s (tp=1 "
+          f"{rec['tp1']['ms_per_step']:.2f} ms/step, "
+          f"{rec['tp1']['tokens_per_s']:.1f} tokens/s); launches a step: "
+          f"K3 {attn / steps2:g}, int4 {int4 / steps2:g}, int8 "
+          f"{int8 / steps2:g}, all_reduce {calls / steps2:g}; collective "
+          f"{coll:.0f} B; rank 0's caches {bytes2} B (tp=1 "
+          f"{rec['tp1']['cache_bytes']} B)" + (
+              f"; step-0 logits {rec['step0_logit_err']:.4e} from tp=1's "
+              f"(tol {rec['step0_logit_tol']:.4e})" if dtype != "float32"
+              else ""), flush=True)
+    e2.stop_followers()
+    del e1, e2, cb2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_followers(results, recs, legs, layers_of):
+    """Each follower replayed every step of each leg, with the kernels'
+    launches and the all_reduces that many steps give, and held half
+    (a quarter) of tp=1's cache bytes."""
+    for rank, res in enumerate(results, 1):
+        for st, rec, leg in zip(res, recs, legs):
+            n, lay = st["steps"], layers_of[leg[0]]
+            k4 = 4 * lay * n if leg[2] else 0
+            got = (st["steps"], st["attn"], st["all_reduce"],
+                   st["int4"] + st["int8"], st["cache_bytes"] * rec["tp"])
+            want = (rec["leg_steps"], lay * n, 2 * lay * n, k4,
+                    rec["tp1"]["cache_bytes"])
+            check(got == want, f"tp={rec['tp']} rank {rank} leg {leg[0]}: "
+                  f"(steps, K3, all_reduce, K4, tp x cache bytes) {got}, "
+                  f"want {want}")
+
+
+def phase_tp(torch):
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed import collective
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": "gloo, one card"}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = []
+    try:
+        procs = spawn_followers(2, TP2_LEGS, tmp)
+        out["kernels"] = tp_kernel_rows(torch)
+        w = llama_weights(TP_SEED, L)
+        reqs = requests(1, 12)
+        warm = requests(99, 2, prompt=(16, 80), new=(2, 4))
+        group = collective.new_group(0, 2, os.path.join(tmp, "store2"),
+                                     timeout=TP_TIMEOUT_S)
+        recs = [tp_leg(torch, w, reqs, warm, leg, group, 2, collective)
+                for leg in TP2_LEGS]
+        check_followers(join_followers(procs), recs, TP2_LEGS,
+                        {leg[0]: leg[3] for leg in TP2_LEGS})
+        procs = spawn_followers(4, TP4_LEGS, tmp)
+        w2 = llama_weights(TP_SEED, 2)
+        group4 = collective.new_group(0, 4, os.path.join(tmp, "store4"),
+                                      timeout=TP_TIMEOUT_S)
+        recs4 = [tp_leg(torch, w2, reqs, warm, leg, group4, 4, collective)
+                 for leg in TP4_LEGS]
+        check_followers(join_followers(procs), recs4, TP4_LEGS,
+                        {leg[0]: leg[3] for leg in TP4_LEGS})
+        procs = []
+    finally:
+        kill_followers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["legs"] = recs + recs4
+    bf = next(r for r in recs if r["leg"] == "bf16")
+    prof1, prof2 = bf["tp1"]["profile"], bf["profile"]
+
+    def k3(p):
+        d = p.get("device_ms_by_class")
+        return None if not d else d.get("ragged_attention", 0.0) / p["steps"]
+
+    def idle(p):
+        return None if p.get("device_busy_s") is None \
+            else 1 - p["device_busy_s"] / p["wall_s"]
+    out["bf16_summary"] = {
+        "tp1_ms_per_step": bf["tp1"]["ms_per_step"],
+        "tp2_ms_per_step": bf["ms_per_step"],
+        "tp1_tokens_per_s": bf["tp1"]["tokens_per_s"],
+        "tp2_tokens_per_s": bf["tokens_per_s"],
+        "tp1_idle": idle(prof1), "tp2_rank0_idle": idle(prof2),
+        "tp1_k3_ms_per_step": k3(prof1), "tp2_k3_ms_per_step_rank0":
+            k3(prof2)}
+    print(f"  tensor-parallel serving over gloo on one card (bf16, 12 "
+          f"requests): {json.dumps(out['bf16_summary'])}", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -4598,6 +5087,10 @@ def main():
         print("phase 20: two replicas behind EngineRouter, full width, bf16 "
               "(f32 at L=2 for the tokens)", flush=True)
         router_stats = phase_router(torch)
+        print("phase 25: kv-head-sharded tensor-parallel serving, full "
+              "width: tp=2 over gloo in two processes on the card (f32, "
+              "bf16, int8 and int4), tp=4 at L=2", flush=True)
+        tp_stats = phase_tp(torch)
 
     # training needs autograd: phases 5-8 run outside no_grad
     print("phase 5: flash kernels against their plain versions (bf16)",
@@ -4780,6 +5273,8 @@ def main():
           f"telemetry and health: {json.dumps(health_stats)}", flush=True)
     print(f"card: {card}; incubate options: {json.dumps(incubate_stats)}; "
           f"observability: {json.dumps(obs_stats)}", flush=True)
+    print(f"card: {card}; tensor parallel: {json.dumps(tp_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4789,7 +5284,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--tp-follower"]:
+            rc = tp_follower(sys.argv[2])
+        else:
+            rc = main()
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()

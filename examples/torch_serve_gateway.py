@@ -16,6 +16,14 @@ The flight recorder is armed by default with bounded retention, and
 Ctrl-C (or a mid-run sys.exit) leaves an `operator_abort` flight dump
 carrying the span window + a final metrics snapshot.
 
+``--tp N`` serves the model tensor-parallel over N ranks: this process
+is rank 0 (the scheduler, the stepper, the gateway) and starts N-1
+follower processes of this script, each holding 1/N of the heads, the
+FFN width and the paged KV cache and replaying rank 0's steps; the group
+is gloo over a FileStore in a temporary directory (every operation
+bounded by 60 s), so all ranks may share one card. /healthz then reports
+one device row per rank.
+
 Try it:
   python examples/torch_serve_gateway.py --port 8000 &
   curl -N -X POST localhost:8000/v1/generate \
@@ -25,7 +33,10 @@ Try it:
 """
 import argparse
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -56,22 +67,53 @@ def main():
                     help="do not arm the anomaly flight recorder "
                          "(armed by default with bounded retention)")
     ap.add_argument("--flight-dir", default=None)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (this process and tp-1 "
+                         "followers)")
+    ap.add_argument("--follower-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.follower_rank:
+        return follow(args)
 
-    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
-                                              GenerationRequest)
-    from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
-                                            engine_weights_from_numpy)
-    from paddle_tpu_torch.observability import SLOMonitor, tracing
-    from paddle_tpu_torch.serving import run_gateway
+    from paddle_tpu_torch.observability import tracing
 
     if not args.no_flight_recorder:
         fr = tracing.arm_default(args.flight_dir)
         print(f"flight recorder armed: {fr._dir} "
               f"(max_dumps={fr.max_dumps}, max_bytes={fr.max_bytes})")
 
-    # the serve_llama demo model (random weights, llama-shaped config),
-    # with a head dim the card's attention kernel takes (32, 64 or 128)
+    procs, tmp, group = [], None, None
+    if args.tp > 1:
+        tmp = tempfile.mkdtemp(prefix="torch_serve_gateway_tp_")
+        args.store = os.path.join(tmp, "store")
+        for rank in range(1, args.tp):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__)] + sys.argv[1:]
+                + ["--follower-rank", str(rank), "--store", args.store,
+                   "--no-flight-recorder"]))
+        from paddle_tpu_torch.distributed.collective import new_group
+        group = new_group(0, args.tp, args.store, timeout=TP_TIMEOUT_S)
+    engine = None
+    try:
+        engine, V, L = build_engine(args, group)
+        return serve(args, engine, V, L)
+    finally:
+        stop_followers(engine, procs)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+TP_TIMEOUT_S = 60.0
+
+
+def build_engine(args, group):
+    """The serve_llama demo model (random weights, llama-shaped config),
+    with a head dim the card's attention kernel takes (32, 64 or 128);
+    under --tp this rank's shard. Returns (engine, vocab, layers)."""
+    from paddle_tpu_torch.inference import FusedMultiTransformerEngine
+
     rng = np.random.default_rng(0)
     V, E, H, G, D, L, F = 512, 128, 4, 2, 32, 4, 344
     SMAX = 128
@@ -88,10 +130,46 @@ def main():
         ffn2_weights=[mk(F, E) for _ in range(L)],
         embedding=mk(V, E), lm_head=mk(E, V))
     engine = FusedMultiTransformerEngine(
-        engine_weights_from_numpy(weights, args.device, "float32"),
-        num_heads=H, head_dim=D, max_seq_len=SMAX, dtype="float32",
+        weights, num_heads=H, head_dim=D, max_seq_len=SMAX, dtype="float32",
         norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
-        device=args.device)
+        tp=args.tp, group=group, device=args.device)
+    return engine, V, L
+
+
+def follow(args):
+    """A follower rank: its shard of the model, replaying rank 0's steps
+    until rank 0 stops it (or exits)."""
+    from paddle_tpu_torch.distributed.collective import new_group
+    group = new_group(args.follower_rank, args.tp, args.store,
+                      timeout=TP_TIMEOUT_S)
+    engine, _, _ = build_engine(args, group)
+    engine.serve_follower()
+    return 0
+
+
+def stop_followers(engine, procs):
+    """Stop and join (bounded) every follower process; one that does not
+    stop is killed."""
+    if not procs:
+        return
+    if engine is not None:
+        try:
+            engine.stop_followers()
+        except RuntimeError as e:     # a follower already gone
+            print(f"stopping followers: {e}", file=sys.stderr)
+    for proc in procs:
+        try:
+            proc.wait(TP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def serve(args, engine, V, L):
+    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
+                                              GenerationRequest)
+    from paddle_tpu_torch.observability import SLOMonitor, get_registry
+    from paddle_tpu_torch.serving import run_gateway
 
     monitor = SLOMonitor.from_config({
         "cadence_s": 1.0,
@@ -110,13 +188,22 @@ def main():
     warm = ContinuousBatchingEngine(engine, **kw)
     warm.submit(GenerationRequest(np.arange(1, 9, dtype=np.int32), 2))
     warm.run()
+    if warm.tp > 1:
+        rows = warm.device_kv_report()
+        comm = get_registry().get("collective_bytes_total")
+        total = sum(c.value for c in comm._children.values()) \
+            if comm is not None else 0
+        print(f"  tensor parallel: tp={warm.tp}, per-device KV high-water "
+              f"{rows[0]['kv_bytes_high_water']} B (1/{warm.tp} of "
+              f"single-device), collective payload {int(total)} B "
+              f"(all_reduce over 'tp')")
     del warm
     cb = ContinuousBatchingEngine(
         engine, prefix_cache=args.prefix_cache, monitor=monitor,
         shed_on_pressure=args.shed_on_pressure, **kw)
     print(f"engine up on {engine.device}: vocab {V}, {L} layers, "
           f"{args.num_blocks} KV blocks x {args.block_size}, max_batch "
-          f"{args.max_batch}")
+          f"{args.max_batch}, tp {engine.tp}")
     return run_gateway(cb, host=args.host, port=args.port, monitor=monitor)
 
 

@@ -6,8 +6,11 @@ The scheduler is host code and unchanged. What differs from the JAX
 module: one ``torch.Generator`` seeded from ``seed`` replaces the PRNG
 key chain (the step draws from it when sampling); the step's tokens come
 back as a device tensor and are read with ``.cpu()``; the engine's paged
-programs run eagerly and update the caches in place; tensor-parallel
-telemetry and the autotune cache are a later slice.
+programs run eagerly and update the caches in place; under
+tensor-parallel serving (an engine built with ``tp > 1`` over a
+``torch.distributed`` group) this scheduler runs on rank 0 alone and the
+engine broadcasts each program to the other ranks (inference/tp_worker);
+the autotune cache is a later slice.
 
 The vLLM-style serving loop the ROADMAP's "heavy traffic from millions of
 users" regime needs: requests of wildly different lengths share one fixed
@@ -585,7 +588,20 @@ class ContinuousBatchingEngine:
     (priority 0, no deadlines, shedding off) is bit-identical to the
     pre-resilience engine.
 
-    Tensor-parallel serving (``tp > 1``) is a later slice of the port.
+    Tensor-parallel serving: hand in an engine built with ``tp > 1``
+    (on rank 0 of its group) and the SAME scheduler drives every rank —
+    admission, chunk budgeting, spec accept/rewind, prefix matching, and
+    preemption all compute once on rank 0, whose engine broadcasts each
+    paged program to the followers (the paged KV cache and the ragged
+    kernel shard over kv-heads; inference/tp_layout.py). The
+    (work-list length, chunk width) bucket keys are untouched — zero new
+    buckets after warmup holds per tp — and the scheduler additionally
+    records the step's collective payload
+    (``collective_bytes_total{op="all_reduce",axis="tp"}`` + a
+    ``collective`` timeline span) and per-device KV-bytes gauges (1/tp of
+    the single-device figure by construction). Token-exact vs the tp=1
+    engine in every mode, pinned by tests/test_torch_tp_serving.py and
+    the ``tp`` leg of tools/torch_serve_gates.py.
     """
 
     SLO_WINDOW = 8      # decode-TPOT samples per controller decision
@@ -690,11 +706,23 @@ class ContinuousBatchingEngine:
             raise ValueError("shed_priority_min must be >= 0")
         self._submit_counter = 0
         self._admit_counter = 0
+        # tensor-parallel serving (engine built with tp > 1): the
+        # scheduler stays on rank 0 alone — every decision above computes
+        # once and the engine broadcasts each program to the followers —
+        # but the step dispatch gains collective telemetry (the two
+        # row-parallel all_reduces per layer, attributed analytically
+        # through the comm-task path) and the pool gauges gain a
+        # per-device bytes view (each rank holds 1/tp of every block's kv
+        # heads). tp == 1 leaves ALL of it dormant.
         self._tp = int(getattr(engine, "tp", 1) or 1)
-        if self._tp > 1:
-            raise NotImplementedError("tensor-parallel serving is a later "
-                                      "slice")
         self._comm_seconds = {}     # request id -> comm-window seconds
+        self._comm_tasks = None
+        if self._tp > 1:
+            from ...distributed.comm_watchdog import comm_task_manager
+            self._comm_tasks = comm_task_manager
+            self._kv_dev_block_bytes = engine.kv_device_block_bytes(
+                self.block_size)
+            _metrics.serve_tp_degree().set(self._tp)
         # streaming fanout (ISSUE 12, the serving gateway's engine-side
         # half): host-side emission hooks, fired on the stepper thread.
         # `on_token(request_id, tokens, step)` fires for every committed
@@ -863,8 +891,11 @@ class ContinuousBatchingEngine:
         per device with its kv-head-shard byte figures. Single-chip
         engines report one device whose block bytes cover ALL kv
         heads, so the shape is uniform for consumers."""
-        fn = getattr(self.engine, "kv_device_block_bytes", None)
-        per_block = fn(self.block_size) if fn is not None else 0
+        if self._tp > 1:
+            per_block = self._kv_dev_block_bytes
+        else:
+            fn = getattr(self.engine, "kv_device_block_bytes", None)
+            per_block = fn(self.block_size) if fn is not None else 0
         return [{
             "device": d,
             "kv_bytes_used": self.allocator.num_used * per_block,
@@ -1058,6 +1089,20 @@ class ContinuousBatchingEngine:
             _metrics.kv_blocks_shared().set(self.allocator.num_shared)
             _metrics.kv_blocks_prefix_resident().set(
                 self.allocator.num_registered)
+        if self._tp > 1:
+            # per-device bytes view of the same pool: the allocator is
+            # one flat host-side block-id space, every rank holds the
+            # kv-head shard of every block, so the per-device figures are
+            # symmetric by construction — surfaced per device so the
+            # dashboard (/metrics, /healthz) shows every rank, not a
+            # silently-device-0 number
+            used = _metrics.kv_device_bytes_used()
+            hw = _metrics.kv_device_bytes_high_water()
+            used_b = self.allocator.num_used * self._kv_dev_block_bytes
+            hw_b = self.allocator.high_water * self._kv_dev_block_bytes
+            for d in range(self._tp):   # bounded by the group's size
+                used.labels(device=str(d)).set(used_b)
+                hw.labels(device=str(d)).set(hw_b)
 
     def _admission_pressure(self):
         """Shed signal for the admission gate: the attached SLO
@@ -1721,6 +1766,18 @@ class ContinuousBatchingEngine:
                 _tracing.get_flight_recorder().trigger(
                     "post_warmup_recompile", bucket=f"{t_total}x{c}",
                     step=self._step_count)
+        comm_task = None
+        if self._comm_tasks is not None:
+            # the TP step's per-layer all_reduces, attributed through the
+            # comm-task path: payload bytes are pure shape math
+            # (tp_step_comm_bytes — 2 all_reduces/layer over the [B, C, E]
+            # partial activations), the window is the dispatch-to-fetch
+            # span that CONTAINS the reduces, so the (all_reduce, tp)
+            # bandwidth gauge is a floor and collective_bytes_total
+            # attributes the comms cost exactly
+            comm_task = self._comm_tasks.start_task(
+                "all_reduce", group="tp",
+                nbytes=self.engine.tp_step_comm_bytes(self.max_batch, c))
         pc_step = time.perf_counter()
         # tables/lens go in as the persistent scheduler arrays
         # themselves: the engine copies what it needs to the device
@@ -1788,6 +1845,16 @@ class ContinuousBatchingEngine:
         toks2 = toks2.cpu().numpy()    # [B, W]: a sample per sel column
         t_done = time.monotonic()
         pc_done = time.perf_counter()
+        if comm_task is not None:
+            # end AFTER the host read above synced the step: the
+            # collective span covers real execution, not async enqueue
+            self._comm_tasks.end_task(comm_task)
+            comm_dur = comm_task.elapsed
+            for i in active:
+                if q_lens[i]:
+                    rid = self.slots[i].request_id
+                    self._comm_seconds[rid] = self._comm_seconds.get(
+                        rid, 0.0) + comm_dur
         for i in active:
             if i in pre_done:
                 continue        # settled in the overlap window above

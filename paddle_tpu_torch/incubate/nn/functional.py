@@ -46,8 +46,9 @@ position mask in dense prefill and dense decode; ``training`` with
 one draw a layer from the seed chain, upscaled by 1 / (1 - p) under
 "upscale_in_train" and only zeroed under any other mode, and nothing in
 eval. Refused as the JAX package refuses them: ``pre_caches`` with
-``time_step``, ``attn_mask`` on the paged path, ``beam_offset``; the
-tensor-parallel ``_tp_reduce`` hook is a later slice. A stored weight
+``time_step``, ``attn_mask`` on the paged path, ``beam_offset``. The
+tensor-parallel ``_tp_reduce`` hook sums the row-parallel products over
+the serving engine's group (``inference/tp_layout``). A stored weight
 whose dequantized form is float32 meets bf16 activations as in JAX: the
 product runs in the promoted dtype.
 
@@ -233,16 +234,16 @@ def fused_multi_transformer(
 
     ``_mm(z2d, w, kind, li)`` (with ``_mm.qkv_out``) replaces the four
     projection matmuls (the weight-only-quantized GEMM); ``_dequant(w,
-    kind, li)`` maps a stored weight to its float form.
+    kind, li)`` maps a stored weight to its float form; ``_tp_reduce(t)``
+    sums the out-projection's and ffn2's partial products over the
+    tensor-parallel ranks (before their biases) when the weights are one
+    rank's shard.
 
     Returns the output hidden states [B, S, E]; caches are updated in
     place."""
     if beam_offset is not None:
         raise NotImplementedError(
             "fused_multi_transformer: beam_offset unsupported")
-    if _tp_reduce is not None:
-        raise NotImplementedError("fused_multi_transformer: tensor-parallel "
-                                  "reduction is a later slice")
     if chunk_lens is not None and block_tables is None:
         raise ValueError(
             "fused_multi_transformer: chunk_lens (chunked prefill) is a "
@@ -280,6 +281,12 @@ def fused_multi_transformer(
     G = gqa_group_size if gqa_group_size and gqa_group_size > 0 else 0
     n_layers = len(qkv_weights)
     dq = _dequant or (lambda w, kind, li: w)
+    # _tp_reduce: the tensor-parallel serving hook (inference/tp_layout's
+    # Megatron split). Applied to the ROW-parallel products — attention
+    # out-projection and ffn2 — BEFORE their bias adds, where each rank
+    # holds a partial sum over its weight-row shard: an all_reduce over
+    # the engine's group (two a layer), identity on one device
+    tp_red = _tp_reduce or (lambda t: t)
     if norm_type == "rmsnorm":
         def norm(h, sc, bi):
             return _rms(h, epsilon, sc)
@@ -453,6 +460,7 @@ def fused_multi_transformer(
         else:
             attn = _matmul(ctx.reshape(b, s, nh * hd),
                            dq(linear_weights[li], "lin", li))
+        attn = tp_red(attn)
         if item(linear_biases, li) is not None:
             attn = attn + linear_biases[li]
         if training and dropout_rate:
@@ -490,6 +498,7 @@ def fused_multi_transformer(
                      li).reshape(b, s, -1)
         else:
             f2 = _matmul(f1, dq(ffn2_weights[li], "f2", li))
+        f2 = tp_red(f2)
         if item(ffn2_biases, li) is not None:
             f2 = f2 + ffn2_biases[li]
         h = resid2 * residual_alpha + f2

@@ -2,6 +2,7 @@
 ``paddle_tpu/ops/pallas/paged_attention.py``).
 
 Host part, copied as is from the JAX module: ``next_pow2``,
+``kv_head_shard`` (the tensor-parallel kv-head split),
 ``build_ragged_work``, ``RaggedWorkBuilder`` and ``default_pack``. Their
 nine int32 arrays are identical to the JAX package's; the serving engine
 keys its step buckets on the padded length and reads its host counters
@@ -57,6 +58,33 @@ def next_pow2(n):
     """Work-list bucketing for serving: compile one program per power of
     two instead of one per distinct total block count."""
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def kv_head_shard(num_kv_heads, tp, rank=None):
+    """Kv-head ownership under tensor-parallel serving: the ragged
+    kernel's grid is (kv_head, work item), so the natural multi-device
+    split hands each of `tp` ranks a contiguous `num_kv_heads/tp` head
+    slice of the paged cache — the WORK LIST itself is head-blind (one
+    entry per (sequence, cache block)) and replicates verbatim, which is
+    what lets the host build it once for every rank.
+
+    Returns (start, count) for `rank`, or just `count` when rank is None
+    (the per-rank head budget). Raises when the heads don't split evenly:
+    a ragged head split would give ranks different grid shapes and break
+    the shared (work-list length, chunk width) step keys."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if num_kv_heads % tp != 0:
+        raise ValueError(
+            f"kv heads ({num_kv_heads}) must divide evenly over tp "
+            f"({tp}): every device must run the same (kvh, work) grid")
+    count = num_kv_heads // tp
+    if rank is None:
+        return count
+    if not 0 <= int(rank) < tp:
+        raise ValueError(f"rank {rank} outside [0, {tp})")
+    return int(rank) * count, count
 
 
 def build_ragged_work(block_tables, context_lens, block_size, pack,

@@ -69,9 +69,30 @@ def pack_int4_blocked(w, block_n=DEFAULT_BLOCK_N):
     k, n = w.shape
     if n % block_n or block_n % 2:
         raise ValueError(f"block_n={block_n} must divide N={n} (and be even)")
-    scales = np.abs(w).max(axis=0) / 7.0
+    q, scales = quantize_int4_values(w, axis=0)
+    return pack_int4_values(q, block_n), scales.reshape(n)
+
+
+def quantize_int4_values(w, axis=0):
+    """The int4 quantization of ``pack_int4_blocked`` on any layout (numpy
+    float32 in): per output channel, reducing over the input axis
+    ``axis``, scale = absmax / 7 (1 where the channel is all zero), values
+    rounded and clipped to [-8, 7]. Returns (int8 values shaped as ``w``,
+    float32 scales with ``axis`` of size 1)."""
+    m = np.moveaxis(np.asarray(w, np.float32), axis, -1)
+    scales = np.abs(m).max(axis=-1, keepdims=True) / 7.0
     scales = np.where(scales == 0, 1.0, scales).astype(np.float32)
-    q = np.clip(np.round(w / scales[None, :]), -8, 7).astype(np.int8)
+    q = np.clip(np.round(m / scales), -8, 7).astype(np.int8)
+    return np.moveaxis(q, -1, axis), np.moveaxis(scales, -1, axis)
+
+
+def pack_int4_values(q, block_n=DEFAULT_BLOCK_N):
+    """[K, N] int8 values in [-8, 7] -> the kernel's [K, N//2] block-halved
+    nibbles (numpy)."""
+    q = np.asarray(q, np.int8)
+    k, n = q.shape
+    if n % block_n or block_n % 2:
+        raise ValueError(f"block_n={block_n} must divide N={n} (and be even)")
     half = block_n // 2
     packed = np.empty((k, n // 2), np.int8)
     for j in range(n // block_n):
@@ -80,7 +101,7 @@ def pack_int4_blocked(w, block_n=DEFAULT_BLOCK_N):
         packed[:, j * half:(j + 1) * half] = (
             (hi.astype(np.uint8) << 4) |
             (lo.astype(np.uint8) & 0x0F)).astype(np.int8)
-    return packed, scales
+    return packed
 
 
 def unpack_int4_blocked(w_packed, block_n=DEFAULT_BLOCK_N):

@@ -73,6 +73,10 @@ def _rope(rng, b, s_rope, d):
     return np.stack([np.cos(ang), np.sin(ang)])        # [2, B, 1, S, D]
 
 
+def _reached(t):
+    raise NotImplementedError("tensor-parallel hook reached")
+
+
 class _Pair:
     """Run one call on both packages: x and caches from numpy, kwargs
     translated (numpy arrays -> paddle Tensors / torch tensors)."""
@@ -226,12 +230,14 @@ class TestHelpersAndLimits:
               cache_kvs=[torch.zeros((2, 2, 2, 4, 8))]),
          "attn_mask unsupported on the paged"),
         (dict(beam_offset=1), "beam_offset unsupported"),
-        (dict(_tp_reduce=abs), "later slice")],
+        (dict(_tp_reduce=_reached), "tensor-parallel hook reached")],
         ids=["pre_caches", "attn_mask", "beam_offset", "tp"])
     def test_later_slice_options_raise(self, kw, msg):
         """What the port still refuses: where the JAX package refuses
         (pre_caches at decode time, attn_mask on the paged path,
-        beam_offset; its messages) and the tensor-parallel hook."""
+        beam_offset; its messages). The tensor-parallel hook is served
+        now: a hook that raises shows it is called on the out-projection's
+        partial product (tests/test_torch_tp_serving.py holds its sums)."""
         rng = np.random.default_rng(7)
         w = _torch_args(_weights(rng, 1, 16, 2, 8, 32))
         x = torch.zeros((1, 1, 16))

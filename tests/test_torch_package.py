@@ -173,7 +173,9 @@ def test_later_slice_engine_options_raise():
     kw = dict(num_heads=2, head_dim=8, max_seq_len=16, dtype="float32",
               norm_type="rmsnorm", activation="swiglu", gqa_group_size=1,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # tensor-parallel serving is served now, over the caller's group;
+    # this engine's one kv head does not split over two ranks
+    with pytest.raises(ValueError, match="kv_heads .1. divisible by tp"):
         FusedMultiTransformerEngine(_tiny_weights(), tp=2, **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
         FusedMultiTransformerEngine(_tiny_weights(), autotune_cache={}, **kw)

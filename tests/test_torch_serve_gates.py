@@ -1,8 +1,9 @@
-"""``tools/torch_serve_gates.py`` on the CPU: the port's gateway, replica
-and chaos gates reproduce every host-deterministic field of the committed
-JAX baselines (``tools/serve_{gateway,replica,chaos}.json``: tokens,
-statuses, per-event token widths, routing tables, cache counters) and
-hold every invariant. The port's fault schedules are the JAX package's
+"""``tools/torch_serve_gates.py`` on the CPU: the port's gateway, replica,
+chaos and tensor-parallel gates reproduce every host-deterministic field
+of the committed JAX baselines (``tools/serve_{gateway,replica,chaos,
+tp}.json``: tokens, statuses, per-event token widths, routing tables,
+cache counters, per-rank KV bytes, collective payload) and hold every
+invariant. The port's fault schedules are the JAX package's
 for the same seed."""
 import os
 import subprocess
@@ -24,6 +25,22 @@ def test_gate_reproduces_the_committed_baseline(leg):
         cwd=REPO, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
     assert f"{leg} leg OK [cpu]" in proc.stdout
+    assert "MISMATCH" not in proc.stdout and "REGRESSION" not in proc.stdout
+
+
+@pytest.mark.parametrize("tps", ["1,2,4,8"])
+def test_tp_gate_reproduces_the_committed_baseline(tps):
+    """tools/serve_tp.json (the JAX package's tensor-parallel baseline) at
+    its own tps: the port's tp engines, ranks as threads over gloo,
+    token-exact against tp=1 with the baseline's steps, spec and prefix
+    counters, per-rank KV high-water bytes and collective payload."""
+    proc = subprocess.run(
+        [sys.executable, TOOL, "--device", "cpu", "--check",
+         os.path.join("tools", "serve_tp.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "tp leg OK [cpu]: tps [%s]" % tps.replace(",", ", ") \
+        in proc.stdout
     assert "MISMATCH" not in proc.stdout and "REGRESSION" not in proc.stdout
 
 

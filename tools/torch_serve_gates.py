@@ -24,7 +24,16 @@ schemas, driven from the configs of the committed baselines
 * **chaos** — alloc outages, dispatch stalls, cancels, dump-write
   failures and a step-clock shed window through ``FaultInjector``:
   survivors token-exact, partials exact prefixes, gauges at baseline,
-  pass 3 replaying pass 2.
+  pass 3 replaying pass 2;
+* **tp** — tensor-parallel serving (``tools/serve_tp.json``, the JAX
+  package's ``serve_bench.py --tp`` baseline): for each tp the same
+  scheduler on rank 0 of a group whose other ranks are threads of this
+  process (``ThreadRanks``: a ``HashStore`` and gloo, 60 s timeout)
+  drives plain / chunked / spec / prefix workloads; every mode
+  token-exact against tp=1, per-rank KV high-water bytes exactly 1/tp,
+  the collective payload and zero new buckets after warmup. It runs on
+  the CPU (8 q / 8 kv heads of 8 dims, below the card's attention
+  kernel; chip_smoke.py's phase 25 serves tp on the card).
 
 The engine is the tiny serving engine of ``tools/serve_bench.py``
 (V=128, E=64, 4 q / 2 kv heads, L=2, f32) built from the same numpy
@@ -41,6 +50,8 @@ Usage:
   python tools/torch_serve_gates.py [--device cpu] [--json OUT]
   python tools/torch_serve_gates.py --device cpu \
       --check tools/serve_gateway.json
+  python tools/torch_serve_gates.py --device cpu \
+      --check tools/serve_tp.json
 """
 import argparse
 import asyncio
@@ -57,7 +68,8 @@ sys.path.insert(0, REPO)
 
 BASELINES = {"gateway": "tools/serve_gateway.json",
              "replica": "tools/serve_replica.json",
-             "chaos": "tools/serve_chaos.json"}
+             "chaos": "tools/serve_chaos.json",
+             "tp": "tools/serve_tp.json"}
 SCHEMAS = {"gateway": "paddle_tpu.serve_gateway/1",
            "replica": "paddle_tpu.serve_replica/1",
            "chaos": "paddle_tpu.serve_chaos/1"}
@@ -66,6 +78,10 @@ SCHEMAS = {"gateway": "paddle_tpu.serve_gateway/1",
 # ragged-attention kernel takes D in (32, 64, 128)
 TINY_DIMS = (128, 64, 4, 2, 16, 2, 96)
 CARD_DIMS = (128, 64, 4, 2, 32, 2, 96)
+# tools/serve_bench.py's tensor-parallel engine: 8 q / 8 kv heads, so the
+# kv-head axis splits at tp = 1, 2, 4, 8
+TP_DIMS = (128, 64, 8, 8, 8, 2, 96)
+TP_TIMEOUT_S = 60.0
 
 
 # -- the engine ---------------------------------------------------------------
@@ -1194,6 +1210,243 @@ CHAOS_INVARIANTS = ("survivors_token_exact", "partials_prefix_exact",
                     "gauges_return_to_baseline", "deterministic_replay")
 
 
+# -- tp -----------------------------------------------------------------------
+
+class ThreadRanks:
+    """A tensor-parallel group whose ranks are threads of this process
+    (a ``HashStore`` and gloo, every operation bounded by `timeout`):
+    ``engine`` is rank 0's engine, built by `build(rank, group)` as every
+    follower's is; followers ``serve_follower()`` until ``close()``,
+    which stops and joins them (within `timeout`) and returns their
+    replay counts."""
+
+    def __init__(self, tp, build, timeout=TP_TIMEOUT_S):
+        import torch.distributed as dist
+
+        from paddle_tpu_torch.distributed.collective import new_group
+
+        store = dist.HashStore()
+        self.timeout = timeout
+        self.stats, self.errors = {}, {}
+
+        def follow(rank):
+            try:
+                eng = build(rank, new_group(rank, tp, store,
+                                            timeout=timeout))
+                self.stats[rank] = eng.serve_follower()
+            except Exception as e:      # read by close()
+                self.errors[rank] = e
+
+        self.threads = [threading.Thread(target=follow, args=(r,),
+                                         daemon=True, name=f"tp-rank{r}")
+                        for r in range(1, tp)]
+        for t in self.threads:
+            t.start()
+        self.engine = build(0, new_group(0, tp, store, timeout=timeout))
+
+    def close(self):
+        self.engine.stop_followers()
+        for t in self.threads:
+            t.join(self.timeout)
+        alive = [t.name for t in self.threads if t.is_alive()]
+        if alive or self.errors:
+            raise RuntimeError(f"tp followers: alive {alive}, errors "
+                               f"{self.errors}")
+        return self.stats
+
+
+TP_KEYS = ("shape", "tps", "workload", "token_exact", "steps", "spec",
+           "prefix", "effective_tokens_per_step", "kv_high_water_blocks",
+           "kv_device_high_water_bytes", "collective_bytes",
+           "new_buckets_after_warmup")
+
+
+def tp_leg(config, device, tps=(1, 2, 4, 8)):
+    """tools/serve_bench.py's tp leg over the port: for each tp the same
+    scheduler drives the kv-head-sharded engine (rank 0 of ThreadRanks)
+    through plain / chunked / spec / prefix workloads. Reports the
+    baseline's keys: token-exact vs tp=1 in every mode, steps, spec and
+    prefix counters, per-rank KV high-water bytes (1/tp of tp=1), the
+    collective payload of all_reduce over 'tp' (2 a layer over the
+    [B, C, E] slab) and new buckets after warmup."""
+    import numpy as np
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
+                                              GenerationRequest)
+    from paddle_tpu_torch.inference import FusedMultiTransformerEngine
+
+    if device != "cpu":
+        raise SystemExit("the tp leg runs on the CPU (its 8-dim heads are "
+                         "below the card's attention kernel); "
+                         "chip_smoke.py's phase 25 serves tp on the card")
+    V, E, H, G, D, L, F = TP_DIMS
+    rng = np.random.default_rng(0)
+    weights = tiny_weights(rng, TP_DIMS)
+    block_size = 8
+    workload = [tuple(w) for w in config.get(
+        "workload", [(5, 4), (11, 3), (3, 6), (8, 2)])]
+    pattern = [7, 23, 41, 11]
+    prefix_toks = rng.integers(1, V, 24).astype(np.int32)
+    kw = dict(num_heads=H, head_dim=D, max_seq_len=64, dtype="float32",
+              norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
+              device="cpu")
+
+    def drive(cb, reqs):
+        for r in reqs:
+            cb.submit(r)
+        res = cb.run()
+        return [list(res[r.request_id]) for r in reqs]
+
+    def cb_of(engine, **k):
+        return ContinuousBatchingEngine(engine, num_blocks=24,
+                                        block_size=block_size, **k)
+
+    def ragged(tag, seed):
+        prng = np.random.default_rng(seed)
+        return [GenerationRequest(prng.integers(1, V, p).astype(np.int32),
+                                  n, request_id=f"{tag}{j}")
+                for j, (p, n) in enumerate(workload)]
+
+    def modes(engine, tp):
+        runs = {}
+        cb = cb_of(engine, max_batch=4)
+        toks = drive(cb, ragged(f"tp{tp}_pl", 7))
+        runs["plain"] = {"outputs": toks, "steps": cb._step_count,
+                         "high_water_blocks": cb.allocator.high_water}
+        cb = cb_of(engine, max_batch=4, prefill_chunk=4, token_budget=6)
+        toks = drive(cb, ragged(f"tp{tp}_ch", 7))
+        cb.declare_warm()
+        warm = set(cb._seen_buckets)
+        drive(cb, ragged(f"tp{tp}_cw", 5))
+        runs["chunked"] = {"outputs": toks, "steps": cb._step_count,
+                           "new_buckets_after_warmup":
+                               len(set(cb._seen_buckets) - warm)}
+        cb = cb_of(engine, max_batch=2, prefill_chunk=8, spec_k=4)
+        reqs = [GenerationRequest(np.asarray(pattern * k, np.int32), 10,
+                                  request_id=f"tp{tp}_sp{k}")
+                for k in (6, 3)]
+        toks = drive(cb, reqs)
+        runs["spec"] = {"outputs": toks, "steps": cb._step_count,
+                        "drafted": sum(r.spec_drafted for r in reqs),
+                        "accepted": sum(r.spec_accepted for r in reqs)}
+        cb = cb_of(engine, max_batch=4, prefill_chunk=8,
+                   prefix_cache=True)
+        prng = np.random.default_rng(3)
+        toks = drive(cb, [GenerationRequest(
+            np.concatenate([prefix_toks,
+                            prng.integers(1, V, 3).astype(np.int32)]),
+            4, request_id=f"tp{tp}_pf{j}") for j in range(4)])
+        runs["prefix"] = {"outputs": toks, "steps": cb._step_count,
+                          "cache_hits": cb.cache_stats["hit_blocks"],
+                          "cow_copies": cb.cache_stats["cow_copies"]}
+        return {"runs": runs,
+                "tokens": sum(len(t) for t in runs["plain"]["outputs"]),
+                "kv_device_high_water_bytes":
+                    runs["plain"]["high_water_blocks"]
+                    * engine.kv_device_block_bytes(block_size)}
+
+    reg = obs.get_registry()
+
+    def coll_bytes():
+        fam = reg.get("collective_bytes_total")
+        return sum(c.value for c in fam._children.values()) \
+            if fam is not None else 0.0
+
+    per_tp = {}
+    for tp in tps:
+        b0 = coll_bytes()
+        if tp == 1:
+            ranks = None
+            engine = FusedMultiTransformerEngine(dict(weights), **kw)
+        else:
+            ranks = ThreadRanks(tp, lambda rank, g, tp=tp:
+                                FusedMultiTransformerEngine(
+                                    dict(weights), tp=tp, group=g, **kw))
+            engine = ranks.engine
+        try:
+            r = modes(engine, tp)
+        finally:
+            if ranks is not None:
+                replayed = ranks.close()
+        if ranks is not None:
+            steps = sum(m["steps"] for m in r["runs"].values())
+            # the chunked run's warm replay steps on the same scheduler
+            if any(s["steps"] < steps for s in replayed.values()):
+                raise RuntimeError(f"tp={tp}: followers replayed "
+                                   f"{replayed} of {steps} steps")
+        r["collective_bytes"] = int(coll_bytes() - b0)
+        per_tp[str(tp)] = r
+        print(f"tp[{tp}]: plain {r['runs']['plain']['steps']} steps / "
+              f"{r['tokens']} tokens, spec "
+              f"{r['runs']['spec']['accepted']}/"
+              f"{r['runs']['spec']['drafted']} accepted, per-device KV "
+              f"high-water {r['kv_device_high_water_bytes']} B, "
+              f"collective {r['collective_bytes']} B, "
+              f"{r['runs']['chunked']['new_buckets_after_warmup']} new "
+              "buckets after warmup", flush=True)
+
+    base = per_tp[str(tps[0])]
+    exact = {str(tp): all(per_tp[str(tp)]["runs"][m]["outputs"]
+                          == base["runs"][m]["outputs"]
+                          for m in ("plain", "chunked", "spec", "prefix"))
+             for tp in tps[1:]}
+    return {
+        "shape": {"V": V, "E": E, "H": H, "KVH": G, "D": D, "L": L,
+                  "block_size": block_size},
+        "tps": list(tps),
+        "workload": [list(w) for w in workload],
+        "token_exact": exact,
+        "steps": {m: base["runs"][m]["steps"]
+                  for m in ("plain", "chunked", "spec", "prefix")},
+        "spec": {"drafted": base["runs"]["spec"]["drafted"],
+                 "accepted": base["runs"]["spec"]["accepted"]},
+        "prefix": {"cache_hits": base["runs"]["prefix"]["cache_hits"],
+                   "cow_copies": base["runs"]["prefix"]["cow_copies"]},
+        "effective_tokens_per_step": round(
+            base["tokens"] / base["runs"]["plain"]["steps"], 4),
+        "kv_high_water_blocks": base["runs"]["plain"]["high_water_blocks"],
+        "kv_device_high_water_bytes": {
+            str(tp): per_tp[str(tp)]["kv_device_high_water_bytes"]
+            for tp in tps},
+        "collective_bytes": {str(tp): per_tp[str(tp)]["collective_bytes"]
+                             for tp in tps},
+        "new_buckets_after_warmup": {
+            str(tp): per_tp[str(tp)]["runs"]["chunked"]
+            ["new_buckets_after_warmup"] for tp in tps},
+    }
+
+
+def check_tp(base, device):
+    """The tp gate: the baseline's keys at the baseline's tps, every mode
+    token-exact against tp=1, per-rank KV high-water bytes exactly 1/tp
+    of tp=1's and zero new buckets after warmup at every tp. Returns the
+    list of failed keys."""
+    tps = tuple(base["tps"])
+    cur = tp_leg({"workload": base["workload"]}, device, tps)
+    bad = [k for k in TP_KEYS if cur[k] != base[k]]
+    for k in bad:
+        print(f"MISMATCH {k}: current {cur[k]!r} != baseline {base[k]!r}")
+    if not all(cur["token_exact"].values()):
+        print("REGRESSION: tensor-parallel serving is not token-exact vs "
+              f"tp=1: {cur['token_exact']}")
+        bad.append("token_exact")
+    hw = cur["kv_device_high_water_bytes"]
+    for tp, v in hw.items():
+        if v * int(tp) != hw["1"]:
+            print(f"REGRESSION: per-device KV high-water at tp={tp} is "
+                  f"{v}, not 1/{tp} of tp=1's {hw['1']}")
+            bad.append("kv_device_high_water_bytes")
+    if any(cur["new_buckets_after_warmup"].values()):
+        print("REGRESSION: a tp compiled fresh buckets after warmup: "
+              f"{cur['new_buckets_after_warmup']}")
+        bad.append("new_buckets_after_warmup")
+    print(f"tp leg {'OK' if not bad else 'FAILED'} [{device}]: tps "
+          f"{list(tps)}, token-exact {cur['token_exact']}, per-device KV "
+          f"high-water {hw}, collective {cur['collective_bytes']} B")
+    return bad
+
+
 # -- checking -----------------------------------------------------------------
 
 LEGS = {"gateway": (gateway_leg, GATEWAY_KEYS, GATEWAY_INVARIANTS),
@@ -1237,13 +1490,13 @@ def check(name, base, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="serving gates of the PyTorch port: gateway, replica "
-                    "router, chaos")
+                    "router, chaos, tensor parallel")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
     ap.add_argument("--check", metavar="BASELINE_JSON", action="append",
                     default=None,
                     help="gate against a committed baseline "
-                         "(tools/serve_{gateway,replica,chaos}.json); "
+                         "(tools/serve_{gateway,replica,chaos,tp}.json); "
                          "may repeat")
     ap.add_argument("--json", default=None,
                     help="write the legs' full reports here")
@@ -1257,18 +1510,29 @@ def main(argv=None):
         for path in args.check:
             with open(path) as f:
                 base = json.load(f)
-            names = [n for n in LEGS if n in base]
+            names = [n for n in list(LEGS) + ["tp"] if n in base]
             if len(names) != 1:
-                print(f"{path}: want one of {sorted(LEGS)} sections")
+                print(f"{path}: want one of {sorted(LEGS) + ['tp']} "
+                      "sections")
                 return 1
-            failed += check(names[0], base[names[0]], device)
+            if names[0] == "tp":
+                failed += check_tp(base["tp"], device)
+            else:
+                failed += check(names[0], base[names[0]], device)
         return 1 if failed else 0
 
     out = {}
     for name, path in BASELINES.items():
         with open(os.path.join(REPO, path)) as f:
-            out[name] = LEGS[name][0](json.load(f)[name]["config"],
-                                      device)
+            base = json.load(f)[name]
+        if name == "tp":
+            if device == "cpu":
+                out[name] = tp_leg(base, device, tuple(base["tps"]))
+            else:
+                print("tp leg: CPU only (phase 25 of chip_smoke.py serves "
+                      "tp on the card)")
+            continue
+        out[name] = LEGS[name][0](base["config"], device)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
