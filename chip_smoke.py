@@ -113,11 +113,14 @@ Phases (any failure exits non-zero and prints no result line):
 18. the training step's fused tier against its plain versions: kernel A
      (RMSNorm with its residual, forward and backward) at the flagship
      (R = 16384, H = 1024, bf16, with and without a residual), in f32, at
-     H = 1000 on 16383 rows, with fused_rms_norm's f32 output, at
+     H = 1000 on 16383 rows, with fused_rms_norm's f32 output, at phase
+     26 (a)'s rank (R = 8192, with and without a residual), at
      Llama-7B's H = 4096, on one row of H = 8 and at H = 8200; kernel B
      (SwiGLU) on the flagship's fused [R, 2 x 2816] projection read in
-     place, the two-tensor form and im = 1000; kernel C (token cross
-     entropy) on the flagship's bf16 logits, in f32, at V = 32001, GPT-2's
+     place, the two-tensor form, phase 26 (a)'s rank ([8192, 2 x 1408] in
+     place) and im = 1000; kernel C (token cross entropy) on the
+     flagship's bf16 logits, in f32, at phase 26 (a)'s rank (N = 8192),
+     at V = 32001, GPT-2's
      50257 and Llama-3's 128256 with ignored rows and label smoothing 0.1,
      and with labels outside [0, V) (NaN rows); kernel D (AdamW with the
      clip) over the flagship's 373.9M parameters. Each case: every element
@@ -225,6 +228,26 @@ Phases (any failure exits non-zero and prints no result line):
      mesh block with two device rows; prints ms/step, tokens/s, rank 0's
      idle share and K3's device ms a step beside tp=1. Followers are
      joined with a timeout; one that fails or hangs fails the phase;
+ 26. (last, with autograd) the sharded pretrain mesh over gloo, every
+     rank a process on the one card (``--mesh-rank`` runs one; the test
+     bed, not a deployment): (a) the pretrain flagship (L=24, B=8,
+     S=2048, bf16 AMP-O2) on fsdp 2 x mp 2, phase 7's seeded weights and
+     batches, one warm step and 3 timed ones: the step-0 loss within
+     ``MESH_LOSS_RTOL`` and the step-0 grad norm within
+     ``MESH_GNORM_RTOL`` of phase 7's, each rank's bytes at rest equal to
+     the analytic figure from ``spec_for_param``, its collective calls
+     and bytes equal to ``sharded.step_comm``, exactly 24 + 24 flash
+     launches, 49 + 49 norm, 24 + 24 SwiGLU, 1 + 1 token CE and 2 AdamW
+     a step on every rank, finite losses; prints ms/step, global
+     tokens/s, MFU against one card, each rank's peak memory and bytes
+     at rest, rank 0's idle share and collectives by op and axis. (b)
+     f32 at full width and L=2 on dp 2 x fsdp 2 x mp 2 (eight ranks),
+     phase 8's seeded weights and batches: the losses and grad norms of
+     3 steps within ``TRAIN_RTOL`` of the one-card f32 step on the card
+     and the gathered masters within ``MESH_MASTER_ATOL`` (below one lr
+     step), at least 99.9% of every tensor's elements and every element
+     of a 1-D tensor within ``MESH_MASTER_BULK``. Ranks are joined with a
+     timeout; one that fails or hangs fails the phase;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -512,9 +535,32 @@ def device_text(dev):
             f"{dev['library_device_ms']:.4f}")
 
 
+def sdpa_yardstick(torch, q, kc, vc, tables, lens, qls, h=H, kvh=KVH):
+    """The library yardstick of a ragged attention case: SDPA over the
+    same KV gathered contiguously with the same mask (timed only; the
+    port never calls it). Returns the call."""
+    import torch.nn.functional as Fn
+    q4 = q[:, None] if q.dim() == 3 else q
+    c = q4.shape[1]
+    tl = torch.as_tensor(tables, dtype=torch.long).cuda()
+    s_len = tables.shape[1] * BS
+    kg = kc[:, tl].reshape(kvh, -1, s_len, D).transpose(0, 1)
+    vg = vc[:, tl].reshape(kvh, -1, s_len, D).transpose(0, 1)
+    kg = kg.repeat_interleave(h // kvh, 1).contiguous()
+    vg = vg.repeat_interleave(h // kvh, 1).contiguous()
+    ql_np = np.ones(len(lens), np.int64) if qls is None else qls
+    qst = np.maximum(lens - ql_np, 0)
+    pos = np.arange(s_len)
+    vis = ((pos[None, None, :] <= (qst[:, None] + np.arange(c))[:, :, None])
+           & (pos[None, None, :] < lens[:, None, None]))
+    mask = torch.as_tensor(vis[:, None]).cuda()
+    qt = q4.transpose(1, 2).contiguous()
+    return lambda: Fn.scaled_dot_product_attention(qt, kg, vg,
+                                                   attn_mask=mask)
+
+
 def phase_kernels(torch):
     from paddle_tpu_torch.ops import work
-    import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     rows = {"attn": [], "int4": []}
@@ -538,26 +584,9 @@ def phase_kernels(torch):
             q, kc, vc, tab_d, lens_d, q_lens=qls_d), iters=20)
         nbytes, flops = attention_work(q, tables, lens, qls)
         b_ms, b_by = bound(nbytes, flops)
-        # library yardstick: SDPA over the same KV gathered contiguously
-        # with the same mask (timed only; the port never calls it)
-        q4 = q[:, None] if q.dim() == 3 else q
-        c = q4.shape[1]
-        tl = torch.as_tensor(tables, dtype=torch.long).cuda()
-        s_len = tables.shape[1] * BS
-        kg = kc[:, tl].reshape(KVH, -1, s_len, D).transpose(0, 1)
-        vg = vc[:, tl].reshape(KVH, -1, s_len, D).transpose(0, 1)
-        kg = kg.repeat_interleave(H // KVH, 1).contiguous()
-        vg = vg.repeat_interleave(H // KVH, 1).contiguous()
-        ql_np = np.ones(len(lens), np.int64) if qls is None else qls
-        qst = np.maximum(lens - ql_np, 0)
-        pos = np.arange(s_len)
-        vis = ((pos[None, None, :] <= (qst[:, None] + np.arange(c))[:, :,
-                                                                     None])
-               & (pos[None, None, :] < lens[:, None, None]))
-        mask = torch.as_tensor(vis[:, None]).cuda()
-        qt = q4.transpose(1, 2).contiguous()
-        lib_ms = time_ms(lambda: Fn.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask))
+        sdpa = sdpa_yardstick(torch, q, kc, vc, tables, lens, qls)
+        lib_ms = time_ms(sdpa)
+        c = 1 if q.dim() == 3 else q.shape[1]
         plan = pa.ragged_plan(MAX_BATCH, c, H, KVH, tables.shape[1], BS, D,
                               q.dtype)
         dev = device_times(
@@ -565,8 +594,7 @@ def phase_kernels(torch):
                                               q_lens=qls_d),
             lambda: pa.ragged_paged_attention_plain(q, kc, vc, tab_d, lens_d,
                                                     q_lens=qls_d),
-            lambda: Fn.scaled_dot_product_attention(qt, kg, vg,
-                                                    attn_mask=mask))
+            sdpa)
         check(pa.ragged_paged_attention.route == plan["route"],
               f"attention {name}: route {pa.ragged_paged_attention.route} "
               f"against the plan's {plan['route']}")
@@ -1582,6 +1610,8 @@ def flash_cases(torch, seed=21):
     cases = []
     for name, b, s, h, kvh, d, causal in (
             ("flagship_b8_s2048_h16_d64", 8, 2048, 16, 16, 64, True),
+            # a rank's shard of phase 26 (a): B / (dp fsdp), H / mp
+            ("rank_shard_b4_s2048_h8_d64", 4, 2048, 8, 8, 64, True),
             ("entry_b4_s128_h8_kvh4_d32", 4, 128, 8, 4, 32, True),
             ("off_tile_b2_s2000_h16_d64", 2, 2000, 16, 16, 64, True),
             ("full_b2_s1000_h8_d128", 2, 1000, 8, 8, 128, False)):
@@ -3355,13 +3385,17 @@ def tier_case(torch, kernel, name, run, plain, atols, nbytes, library=None,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+# phase 26 (a)'s rows a rank: fsdp 2 splits B = 8 into 4 rows of 2048
+MESH_ROWS = MAX_BATCH // 2 * 2048
+
 # kernel A's cases: (name, R, H, dtype name, residual, f32 output, the
 # backward's route); the flagship's residual norm in bf16 and the first
 # layer's (no residual), f32 (route "block"), H = 1000 (not a multiple of
 # a warp's 1024) on a row count off any block, fused_rms_norm's f32
-# output, Llama-7B's H = 4096 ("warps", 4 a row), one row of H = 8, H =
-# 8200 past the register routes ("block"), and H = 1001, whose rows allow
-# no 16-byte accesses ("block")
+# output, phase 26 (a)'s rank (R = 8192, with and without the residual),
+# Llama-7B's H = 4096 ("warps", 4 a row), one row of H = 8, H = 8200 past
+# the register routes ("block"), and H = 1001, whose rows allow no
+# 16-byte accesses ("block")
 NORM_SPECS = (
     ("flagship_r16384_h1024", MAX_BATCH * 2048, E, "bfloat16", True, False,
      "warp"),
@@ -3371,6 +3405,9 @@ NORM_SPECS = (
      "block"),
     ("h1000_r16383", 16383, 1000, "bfloat16", True, False, "warp"),
     ("fused_f32_out", MAX_BATCH * 2048, E, "bfloat16", True, True, "warp"),
+    ("rank_r8192_h1024", MESH_ROWS, E, "bfloat16", True, False, "warp"),
+    ("rank_first_norm_r8192", MESH_ROWS, E, "bfloat16", False, False,
+     "warp"),
     ("h4096_r4096", 4096, 4096, "bfloat16", True, False, "warps"),
     ("h8_r1", 1, 8, "bfloat16", True, False, "warp"),
     ("h8200_r33", 33, 8200, "bfloat16", True, False, "block"),
@@ -3452,14 +3489,18 @@ def norm_cases(torch, rows):
 
 def swiglu_cases(torch, rows):
     """Kernel B forward and backward: the flagship's fused [R, 2 im]
-    projection read in place, the two-tensor form, and im = 1000 (off 8).
-    No single PyTorch call computes SwiGLU: library_ms is null."""
+    projection read in place, the two-tensor form, phase 26 (a)'s rank
+    (its [gate_r | up_r] of F / mp = 1408 columns each on 8192 rows, read
+    in place at a 2 x 1408 stride) and im = 1000 (off 8). No single
+    PyTorch call computes SwiGLU: library_ms is null."""
     from paddle_tpu_torch.ops import work
     from paddle_tpu_torch.ops import swiglu as sw
     gen = torch.Generator(device="cuda").manual_seed(82)
     r0 = MAX_BATCH * 2048
     for name, r, im, fused in (("flagship_r16384_im2816", r0, F, True),
                                ("two_tensor_r16384_im2816", r0, F, False),
+                               ("rank_fused_r8192_im1408", MESH_ROWS,
+                                F // 2, True),
                                ("im1000_r4099", 4099, 1000, False)):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen,
@@ -3487,11 +3528,13 @@ def swiglu_cases(torch, rows):
 
 # kernel C's cases: (name, N, V, dtype name, label smoothing, every k-th
 # row ignored or 0, the forward's route); the flagship's bf16 logits, the
-# same in f32, V = 32001 off 8 with ignored rows and smoothing (each row at
-# another 16-byte phase), GPT-2's 50257 (off 8 too) and Llama-3's 128256
+# same in f32, phase 26 (a)'s rank (N = 8192), V = 32001 off 8 with
+# ignored rows and smoothing (each row at another 16-byte phase), GPT-2's
+# 50257 (off 8 too) and Llama-3's 128256
 CE_SPECS = (
     ("flagship_n16384_v32000", MAX_BATCH * 2048, V, "bfloat16", 0.0, 0,
      "rows"),
+    ("rank_n8192_v32000", MESH_ROWS, V, "bfloat16", 0.0, 0, "rows"),
     ("f32_n16384_v32000", MAX_BATCH * 2048, V, "float32", 0.0, 0,
      "cluster"),
     ("v32001_smooth_ignored", 4099, V + 1, "bfloat16", 0.1, 4, "rows"),
@@ -3660,6 +3703,7 @@ def adamw_case(torch):
           f"{worst}", flush=True)
     check(ratio <= 1.0 and gq <= 1.0, f"adamw: p / m / v off by {ratio:.2f}x"
           f", gnorm by {gq:.2f}x their 2-ulp allowance")
+    mesh_row = adamw_mesh_case(torch, state, g0, decay, hp)
     ps, ms, vs = state()
     ms_k = device_time_ms(lambda: ad.adamw_step(ps, g0, ms, vs, decay, *hp),
                           iters=20)
@@ -3687,7 +3731,56 @@ def adamw_case(torch):
     return [{"case": f"flagship_{n / 1e6:.1f}M", "max_abs_err": err,
              "worst_over_allowed": max(ratio, gq), "ms": ms_k,
              "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": ms_l}]
+             "library_ms": ms_l}, mesh_row]
+
+
+def adamw_mesh_case(torch, state, g0, decay, hp):
+    """Kernel D's mesh form (phase 26's step) on the flagship's tensors:
+    every other tensor owned, ``reduce`` doubling the sums in place (two
+    ranks holding the same shards) and the telemetry on, against the
+    plain version's mesh form: p, m, v and gnorm within 2 f32 ulps, the
+    packed vector within 4 f32 ulps (f64 sums in another order)."""
+    from paddle_tpu_torch.ops import adamw as ad
+    owned = [i % 2 == 0 for i in range(len(g0))]
+    groups = [i % 4 for i in range(len(g0))]
+    loss = torch.tensor(2.5, device="cuda")
+
+    def double(t):
+        return t.mul_(2.0)
+    runs = []
+    for fn in (ad.adamw_step, ad.adamw_step):
+        ps, ms, vs = state()
+        gn, vec = fn(ps, g0, ms, vs, decay, *hp, groups=groups, loss=loss,
+                     owned=owned, reduce=double)
+        runs.append((ps, ms, vs, gn, vec))
+    ps, ms, vs = state()
+    old = [p.clone() for p in ps]
+    gn = ad.adamw_step_plain(ps, g0, ms, vs, decay, *hp, owned, double)
+    vec = ad.pack_telemetry_plain(loss, gn, g0, old, ps, groups, owned,
+                                  double)
+    torch.cuda.synchronize()
+    k1, k2 = runs
+    same = all(torch.equal(a, b) for a, b in zip(k1[3:], k2[3:])) and all(
+        torch.equal(a, b) for x, y in zip(k1[:3], k2[:3])
+        for a, b in zip(x, y))
+    check(same, "adamw mesh form: two runs from the same state differ")
+    err = ratio = 0.0
+    for xs, ys in zip(k1[:3], (ps, ms, vs)):
+        for a, b in zip(xs, ys):
+            e, q = two_ulp_agreement(a, b, 0.0)
+            err, ratio = max(err, e), max(ratio, q)
+    ge, gq = two_ulp_agreement(k1[3].reshape(1), gn.reshape(1), 0.0)
+    ve, vq = two_ulp_agreement(k1[4], vec, 0.0)
+    print(f"  adamw mesh form: gnorm kernel {float(k1[3]):.9g} plain "
+          f"{float(gn):.9g} ({gq:.3f} of 2 ulps); p, m, v worst {ratio:.3f} "
+          f"of 2 ulps; telemetry vector worst {vq / 2:.3f} of 4 ulps",
+          flush=True)
+    check(ratio <= 1.0 and gq <= 1.0 and vq <= 2.0,
+          f"adamw mesh form: p / m / v off by {ratio:.2f}x, gnorm by "
+          f"{gq:.2f}x their 2-ulp allowance, the vector by {vq:.2f}x 2 ulps")
+    del runs, k1, k2, ps, ms, vs, old
+    return {"case": "mesh_form_owned_half", "max_abs_err": max(err, ge, ve),
+            "worst_over_allowed": max(ratio, gq, vq / 2)}
 
 
 def phase_fused_tier(torch):
@@ -4750,7 +4843,11 @@ def tp_kernel_rows(torch):
     on phase 1's three cases, and K4 at each rank's projection shapes
     (tp=2: qkv K=1024 N=1024, out K=512 N=1024, ffn1 K=1024 N=2816, ffn2
     K=1408 N=1024; tp=4's ffn2 K=704 N=1024), int8 and int4 at M=8 and
-    512 in bf16 and M=8 in f32, each against its plain version."""
+    512 in bf16 and M=8 in f32, each against its plain version. Device
+    ms of each beside its plain version's and the library's: SDPA over
+    the gathered context at the rank's heads (K3), ``torch.matmul`` on a
+    copy of the dequantized shard weight in the activations' dtype
+    (K4)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import quant_matmul as qm
     rows = {"attn": [], "int4": [], "int8": []}
@@ -4780,14 +4877,18 @@ def tp_kernel_rows(torch):
                   f"{plan['route']}")
             b_ms, b_by = bound(*attention_work(q, tables, lens, qls,
                                                KVH // tp))
-            dev_ms = device_time_ms(run)
+            dev = device_times(
+                run, lambda: pa.ragged_paged_attention_plain(
+                    q, kc, vc, tab_d, lens_d, q_lens=qls_d),
+                sdpa_yardstick(torch, q, kc, vc, tables, lens, qls,
+                               H // tp, KVH // tp))
             rows["attn"].append(dict(case=f"tp{tp}_{name}", max_abs_err=err,
                                      worst_err_over_allowed=ratio,
-                                     device_ms=dev_ms, bound_ms=b_ms,
-                                     bound_by=b_by, plan=plan))
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     plan=plan, **dev))
             print(f"  ragged_paged_attention[tp{tp} {H // tp}/{KVH // tp} "
                   f"heads, {name}]: err {err:.3e} (worst {ratio:.3f}) "
-                  f"device {dev_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+                  f"bound {b_ms:.4f} ms ({b_by}); {device_text(dev)}; "
                   f"{ragged_plan_text(plan)}", flush=True)
     rng = np.random.default_rng(25)
     gen = torch.Generator(device="cuda")
@@ -4822,12 +4923,18 @@ def tp_kernel_rows(torch):
                       f"{quant} {name}: max abs err {err}, worst "
                       f"{ratio:.2f}x its allowance")
                 plan = qm.plan(m, k, n, dt)
-                dev_ms = device_time_ms(run)
+                wint = qm.unpack_int4_blocked(wq, bn) if quant == "int4" \
+                    else wq
+                wdq = (wint.float() * s[None, :]).to(dt)
+                dev = device_times(
+                    run, lambda: qm.weight_only_matmul_plain(x, wq, s, quant,
+                                                             bn),
+                    lambda: torch.matmul(x, wdq))
                 rows[quant].append(dict(case=name, max_abs_err=err,
                                         worst_err_over_allowed=ratio,
-                                        device_ms=dev_ms, plan=plan))
+                                        plan=plan, **dev))
                 print(f"  weight_only_{quant}[{name}]: err {err:.3e} "
-                      f"(worst {ratio:.3f}) device {dev_ms:.4f} ms; "
+                      f"(worst {ratio:.3f}) {device_text(dev)}; "
                       f"{plan_text(plan)}", flush=True)
     return rows
 
@@ -5033,6 +5140,378 @@ def phase_tp(torch):
     return out
 
 
+# -- phase 26: the sharded pretrain mesh over gloo on the one card ----------
+
+MESH_TIMEOUT_S = 300.0     # every gloo operation of phase 26's groups
+MESH_JOIN_S = 600.0        # a rank's exit after its last step
+MESH_LOSS_RTOL = 2e-3      # step-0 bf16 loss against phase 7's: a bf16
+#                            rounding is 2**-9 relative; the mean over
+#                            16384 tokens averages the ones that differ
+MESH_GNORM_RTOL = 1e-3     # step-0 bf16 grad norm against phase 7's: on
+#                            one card phases 11, 21 and 22 land 7e-5 to
+#                            1.0e-4 from it (K2's dq atomics; H100 run),
+#                            the mesh sums the row-parallel outputs and the
+#                            gradients in another order besides
+MESH_MASTER_ATOL = 2.4e-4  # f32 masters after 3 steps: below one AdamW
+#                            step (lr 3e-4), which an element whose
+#                            gradient sums to ~0 may take in either sign
+MESH_MASTER_BULK = 1e-4    # ... and within this: 99.9% of every tensor's
+#                            elements, and every element of a 1-D tensor
+#                            (norm weights: whole on every rank, their
+#                            gradients summed over the data group)
+MESH_LEGS = (
+    # (leg, mesh, world, dtype, layers, weight seed, batch seed, steps)
+    ("a", {"fsdp": 2, "mp": 2}, 4, "bfloat16", L, 0, 0, 4),
+    ("b", {"dp": 2, "fsdp": 2, "mp": 2}, 8, "float32", 2, 1, 1, 3),
+)
+
+
+def mesh_config(dtype, layers):
+    from paddle_tpu_torch.models import pretrain
+    cfg, batch, seq = pretrain.flagship_config()
+    cfg.dtype = dtype
+    cfg.num_hidden_layers = layers
+    return cfg, batch, seq
+
+
+def mesh_batches(cfg, batch, seq, seed, n):
+    """Phase 7's (seed 0) or phase 8's (seed 1) host batches."""
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq)),
+             "labels": rng.integers(0, cfg.vocab_size, (batch, seq))}
+            for _ in range(n)]
+
+
+def llama_shapes(cfg):
+    """{name: shape} of the fused Llama's parameters, from the config
+    alone (the analytic side of the bytes-at-rest gate)."""
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * \
+        cfg.head_dim
+    shapes = {"llama.embed_tokens.weight": (v, e), "llama.norm.weight": (e,),
+              "lm_head.weight": (e, v)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"llama.layers.{i}."
+        shapes.update({
+            p + "self_attn.qkv_proj.weight": (e, qkv),
+            p + "self_attn.o_proj.weight": (e, e),
+            p + "mlp.gate_up_fused_proj.weight": (e, 2 * f),
+            p + "mlp.down_proj.weight": (f, e),
+            p + "input_layernorm.weight": (e,),
+            p + "post_attention_layernorm.weight": (e,)})
+    return shapes
+
+
+def mesh_analytic(cfg, mesh_kw, world, tokens_local):
+    """(bytes at rest a rank, one step's collectives a rank) from the
+    specs of ``spec_for_param`` and ``sharded.step_comm``."""
+    from paddle_tpu_torch.distributed.fleet import sharded
+    from paddle_tpu_torch.models import pretrain
+    mesh = pretrain.make_mesh(world, device="cpu", **mesh_kw)
+    shapes = llama_shapes(cfg)
+    specs = {n: pretrain.spec_for_param(n, s, mesh,
+                                        pretrain.llama_sharding_rules())
+             for n, s in shapes.items()}
+    rest = 0
+    for n, shp in shapes.items():
+        rest += 3 * 4 * int(np.prod([d // (mesh.shape[a] if a else 1)
+                                     for d, a in zip(shp, specs[n])]))
+    plans, split = sharded.plan_params(cfg, shapes, specs, mesh.shape)
+    bf16 = cfg.dtype == "bfloat16"
+    comm = sharded.step_comm(plans, split, mesh.shape, tokens_local,
+                             cfg.hidden_size, 2 if bf16 else 4,
+                             2 if bf16 else 4)
+    return rest, comm, sum(int(np.prod(s)) for s in shapes.values())
+
+
+def mesh_rank(spec_path):
+    """A rank of phase 26 (``chip_smoke.py --mesh-rank SPEC``): joins the
+    world group, builds the seeded model on the card, keeps its shards of
+    the state (the whole weights go to the meta device), runs the leg's
+    steps and writes its numbers as JSON to the spec's ``out``; leg (b)'s
+    rank 0 also writes the gathered masters."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import collective, comm_watchdog
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = collective.new_group(spec["rank"], spec["world"], spec["store"],
+                                 timeout=MESH_TIMEOUT_S)
+
+    def coll_seconds():
+        fam = obs.get_registry().snapshot().get("collective_seconds", {})
+        return {k: c["sum"] for k, c in fam.get("children", {}).items()}
+    cfg, batch, seq = mesh_config(spec["dtype"], spec["layers"])
+    mesh = pretrain.make_mesh(spec["world"], group=group, **spec["mesh"])
+    model = LlamaForCausalLM(cfg, device="cuda", seed=spec["seed"])
+    params, opt, meta = pretrain.make_train_state(model, mesh)
+    model.to("meta")
+    torch.cuda.empty_cache()
+    step = pretrain.make_train_step(model, mesh, meta)
+    rest = sum(t.numel() * t.element_size()
+               for tree in (params, opt["m"], opt["v"])
+               for t in tree.values())
+    batches = [pretrain.shard_batch(b, mesh) for b in mesh_batches(
+        cfg, batch, seq, spec["batch_seed"], spec["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist, out = [], {"rank": spec["rank"], "rest_bytes": rest}
+    warm = 1 if spec["leg"] == "a" else 0
+    for b in batches[:warm]:
+        params, opt, loss, gnorm = step(params, opt, b)
+        hist.append((float(loss), float(gnorm)))
+    torch.cuda.synchronize()
+    reset_counts()
+    # the watchdog's collective_seconds{op, axis}: host seconds from each
+    # collective's dispatch to its result (waits for peers included)
+    comm_watchdog.enable_comm_watchdog(timeout=MESH_TIMEOUT_S,
+                                       poll_interval=60)
+    c0 = coll_seconds()
+    t0 = time.perf_counter()
+    res = []
+    for b in batches[warm:]:
+        params, opt, loss, gnorm = step(params, opt, b)
+        res.append((loss, gnorm))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = len(batches) - warm
+    c1 = coll_seconds()
+    comm_watchdog.disable_comm_watchdog()
+    out["collective_ms_per_step"] = {
+        k: (v - c0.get(k, 0.0)) / timed * 1e3 for k, v in c1.items()}
+    hist += [(float(x), float(g)) for x, g in res]
+    out.update(hist=hist, timed=timed, ms_per_step=wall / timed * 1e3,
+               flash=list(read_flash_counts()), tier=list(read_tier_counts()),
+               comm=dict(step.comm),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if spec["leg"] == "a":
+        def one_step():
+            nonlocal params, opt
+            params, opt, loss, _ = step(params, opt, batches[-1])
+            float(loss)
+            return 1
+        if spec["rank"] == 0:
+            out["profile"] = profile_window(torch, one_step, "mesh step")
+        else:
+            one_step()
+    else:
+        masters = pretrain.gather_state_to_numpy(params, mesh, meta)
+        if spec["rank"] == 0:
+            np.savez(spec["masters"], **masters)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_mesh_leg(leg, tmp):
+    """Start every rank of `leg` as a process of this script over a
+    FileStore in `tmp`, join them (bounded) and return their outputs in
+    rank order; a rank that fails or hangs fails the phase with its log's
+    tail."""
+    name, mesh_kw, world, dtype, layers, seed, bseed, steps = leg
+    procs = []
+    try:
+        for rank in range(world):
+            spec = {"rank": rank, "world": world, "leg": name,
+                    "store": os.path.join(tmp, f"store_{name}"),
+                    "mesh": mesh_kw, "dtype": dtype, "layers": layers,
+                    "seed": seed, "batch_seed": bseed, "steps": steps,
+                    "out": os.path.join(tmp, f"{name}_rank{rank}.json"),
+                    "masters": os.path.join(tmp, f"{name}_masters.npz")}
+            path = os.path.join(tmp, f"{name}_rank{rank}_spec.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            log = open(os.path.join(tmp, f"{name}_rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 path], stdout=log, stderr=subprocess.STDOUT), spec, log))
+        results = []
+        deadline = time.monotonic() + MESH_JOIN_S
+        for proc, spec, log in procs:
+            try:
+                rc = proc.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise SmokeFailure(f"mesh leg {name} rank {spec['rank']} "
+                                   f"ended {rc}:\n{tail}")
+            with open(spec["out"]) as f:
+                results.append(json.load(f))
+        return results, procs[0][1]
+    finally:
+        kill_followers(procs)   # kills a rank still running, closes logs
+
+
+def mesh_reference(torch, leg):
+    """Leg (b)'s reference: the one-card f32 step (kernels on) from the
+    same seeded weights and batches: the (loss, gnorm) of each step and
+    the masters after the last, as numpy."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    _, _, _, dtype, layers, seed, bseed, steps = leg
+    cfg, batch, seq = mesh_config(dtype, layers)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    params, opt, meta = pretrain.make_train_state(model, None)
+    step = pretrain.make_train_step(model, None, meta)
+    hist = []
+    for b in mesh_batches(cfg, batch, seq, bseed, steps):
+        params, opt, loss, gnorm = step(params, opt,
+                                        pretrain.batch_to_device(b))
+        hist.append((float(loss), float(gnorm)))
+    masters = {n: t.cpu().numpy() for n, t in params.items()}
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return np.array(hist), masters
+
+
+def phase_mesh(torch, train_stats):
+    import shutil
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {"backend": "gloo, one card"}
+    try:
+        leg_a, leg_b = MESH_LEGS
+        name, mesh_kw, world, dtype, layers, _, _, steps = leg_a
+        cfg, batch, seq = mesh_config(dtype, layers)
+        data = mesh_kw.get("dp", 1) * mesh_kw.get("fsdp", 1)
+        rest, comm, n_params = mesh_analytic(cfg, mesh_kw, world,
+                                             batch // data * seq)
+        t0 = time.perf_counter()
+        ranks, _ = run_mesh_leg(leg_a, tmp)
+        out["a_wall_s"] = time.perf_counter() - t0
+        per_step = tier_counts_per_step(cfg, False)
+        for r in ranks:
+            n = r["timed"]
+            check(r["flash"] == [cfg.num_hidden_layers * n] * 2,
+                  f"mesh (a) rank {r['rank']}: flash fwd / bwd launches "
+                  f"{r['flash']} in {n} steps (want {cfg.num_hidden_layers} "
+                  "each a step)")
+            check(r["tier"] == [n * k for k in per_step],
+                  f"mesh (a) rank {r['rank']}: fused tier launches "
+                  f"{r['tier']} in {n} steps (want {per_step} a step)")
+            check(r["rest_bytes"] == rest,
+                  f"mesh (a) rank {r['rank']}: {r['rest_bytes']} bytes at "
+                  f"rest, the specs give {rest}")
+            check(r["comm"] == comm, f"mesh (a) rank {r['rank']}: "
+                  f"collectives {r['comm']}, the formula gives {comm}")
+            check(all(math.isfinite(x) for h in r["hist"] for x in h),
+                  f"mesh (a) rank {r['rank']}: non-finite {r['hist']}")
+        r0 = ranks[0]
+        check(batch // data * seq == MESH_ROWS,
+              f"mesh (a): {batch // data * seq} rows a rank, phase 18's "
+              f"rank cases hold the tier at {MESH_ROWS}")
+        loss0, ref0 = r0["hist"][0][0], train_stats["losses"][0]
+        check(abs(loss0 - ref0) <= MESH_LOSS_RTOL * abs(ref0),
+              f"mesh (a) step-0 loss {loss0} against phase 7's {ref0} "
+              f"(rtol {MESH_LOSS_RTOL:g})")
+        gn0, gref0 = r0["hist"][0][1], train_stats["grad_norms"][0]
+        gn_rel = abs(gn0 - gref0) / abs(gref0)
+        check(gn_rel <= MESH_GNORM_RTOL,
+              f"mesh (a) step-0 grad norm {gn0} against phase 7's {gref0}: "
+              f"relative {gn_rel:.3e} (rtol {MESH_GNORM_RTOL:g})")
+        tokens_per_s = batch * seq / (r0["ms_per_step"] / 1e3)
+        mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
+            BF16_FLOPS_PER_S
+        prof = r0.get("profile", {})
+        idle = None if prof.get("device_busy_s") is None \
+            else 1 - prof["device_busy_s"] / prof["wall_s"]
+        out["a"] = {
+            "mesh": mesh_kw, "ms_per_step": r0["ms_per_step"],
+            "tokens_per_s": tokens_per_s, "mfu": mfu,
+            "step0_loss": loss0, "phase7_step0_loss": ref0,
+            "step0_grad_norm": gn0, "phase7_step0_grad_norm": gref0,
+            "step0_grad_norm_rel": gn_rel,
+            "losses": [h[0] for h in r0["hist"]],
+            "grad_norms": [h[1] for h in r0["hist"]],
+            "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+            "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+            "rest_bytes": rest, "rank0_idle": idle,
+            "collectives": r0["comm"], "launches_rank0": {
+                "flash": r0["flash"], "tier": r0["tier"],
+                "timed_steps": r0["timed"]},
+            "rank0_profile": prof}
+        print(f"  (a) fsdp 2 x mp 2, L={cfg.num_hidden_layers} B={batch} "
+              f"S={seq} bf16: {r0['ms_per_step']:.1f} ms/step, "
+              f"{tokens_per_s:.1f} global tokens/s, MFU {mfu:.4f} (one "
+              f"card's 989 TFLOP/s; phase 7 {train_stats['ms_per_step']:.1f}"
+              f" ms/step, {train_stats['tokens_per_s']:.1f} tokens/s); "
+              f"step-0 loss {loss0:.5f} vs phase 7's {ref0:.5f}, grad norm "
+              f"{gn0:.6f} vs {gref0:.6f} (relative {gn_rel:.2e}, rtol "
+              f"{MESH_GNORM_RTOL:g}); peak GB by "
+              f"rank {['%.2f' % r['peak_gb'] for r in ranks]} (phase 7 "
+              f"{train_stats['peak_memory_gb']:.2f}); {rest} bytes at rest "
+              f"a rank; rank 0 idle "
+              f"{'not measured' if idle is None else '%.1f%%' % (idle * 100)}"
+              f"; launches a rank in {r0['timed']} steps: flash "
+              f"{r0['flash']}, tier {r0['tier']}", flush=True)
+        print(f"  (a) collectives a step on rank 0: "
+              f"{json.dumps(r0['comm'])}", flush=True)
+        inside = r0["collective_ms_per_step"]
+        out["a"]["collective_ms_per_step_rank0"] = inside
+        print(f"  (a) rank 0's host ms a step inside collectives (dispatch to "
+              f"result): {sum(inside.values()):.1f} of "
+              f"{r0['ms_per_step']:.1f}; by op, axis "
+              f"{json.dumps({k: round(v, 1) for k, v in inside.items()})}",
+              flush=True)
+
+        name, mesh_kw, world, dtype, layers, _, _, steps = leg_b
+        ref_hist, ref_masters = mesh_reference(torch, leg_b)
+        ranks, spec0 = run_mesh_leg(leg_b, tmp)
+        got = np.array(ranks[0]["hist"])
+        rel = np.abs(got - ref_hist) / np.abs(ref_hist)
+        for r in ranks:
+            check(np.array_equal(np.array(r["hist"]), got),
+                  f"mesh (b) rank {r['rank']}: (loss, gnorm) {r['hist']} "
+                  f"differ from rank 0's {got.tolist()}")
+        check(float(rel.max()) <= TRAIN_RTOL,
+              f"mesh (b) (loss, gnorm) {got.tolist()} against the one-card "
+              f"step {ref_hist.tolist()}: worst rel {float(rel.max()):.2e}")
+        masters = np.load(spec0["masters"])
+        # per tensor: its largest difference and the one that 99.9% of its
+        # elements stay within (every element of a 1-D tensor)
+        per = {}
+        for n in ref_masters:
+            d = np.abs(masters[n] - ref_masters[n]).ravel()
+            per[n] = (float(d.max()), float(d.max() if ref_masters[n].ndim
+                                            == 1 else np.quantile(d, 0.999)))
+        worst_n = max(per, key=lambda n: per[n][0])
+        bulk_n = max(per, key=lambda n: per[n][1])
+        worst, q999 = per[worst_n][0], per[bulk_n][1]
+        check(worst <= MESH_MASTER_ATOL and q999 <= MESH_MASTER_BULK,
+              f"mesh (b) masters after {steps} steps: max abs diff {worst} "
+              f"in {worst_n} (allowed {MESH_MASTER_ATOL:g}); worst tensor's "
+              f"99.9th percentile (max for a 1-D tensor) {q999} in {bulk_n}"
+              f" (allowed {MESH_MASTER_BULK:g})")
+        one_d = max(v[0] for n, v in per.items() if ref_masters[n].ndim == 1)
+        out["b"] = {"mesh": mesh_kw, "hist": got.tolist(),
+                    "one_card": ref_hist.tolist(),
+                    "worst_rel": float(rel.max()),
+                    "masters_max_abs": worst, "masters_max_tensor": worst_n,
+                    "masters_q999_worst_tensor": q999,
+                    "masters_q999_tensor": bulk_n,
+                    "masters_1d_max_abs": one_d,
+                    "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+                    "collectives_rank0": ranks[0]["comm"]}
+        print(f"  (b) dp 2 x fsdp 2 x mp 2, f32 L={layers}: (loss, gnorm) "
+              f"{got.tolist()} vs one card {ref_hist.tolist()}, worst rel "
+              f"{float(rel.max()):.2e} (rtol {TRAIN_RTOL:g}); masters max "
+              f"abs diff {worst:.3e} ({worst_n}), worst tensor's 99.9th "
+              f"percentile {q999:.3e} ({bulk_n}), 1-D tensors' max "
+              f"{one_d:.3e}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -5165,6 +5644,10 @@ def main():
         obs_stats = phase_observability(torch)
     print("phase 24 (c): phase 7's step with the cost catalog", flush=True)
     obs_stats["train"] = phase_train_catalog(torch, train_stats)
+    print("phase 26: the sharded pretrain mesh over gloo in processes on "
+          "the card: (a) the flagship on fsdp 2 x mp 2, bf16; (b) f32 L=2 "
+          "on dp 2 x fsdp 2 x mp 2", flush=True)
+    mesh_stats = phase_mesh(torch, train_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -5275,6 +5758,8 @@ def main():
           f"observability: {json.dumps(obs_stats)}", flush=True)
     print(f"card: {card}; tensor parallel: {json.dumps(tp_stats)}",
           flush=True)
+    print(f"card: {card}; sharded pretrain mesh: {json.dumps(mesh_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5286,6 +5771,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--tp-follower"]:
             rc = tp_follower(sys.argv[2])
+        elif sys.argv[1:2] == ["--mesh-rank"]:
+            rc = mesh_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

@@ -38,6 +38,20 @@
 // group]. The update itself runs the same instructions in both instances,
 // so p, m, v and gnorm are bit-equal with the telemetry on and off.
 //
+// On the training mesh (pretrain.make_train_step with a mesh) a rank holds
+// shards and the norm is global, so the clip scale cannot be finished
+// inside launch 1. There launch 1's last block writes the sum of squares
+// of the grads (f64, the chunks' sums in chunk order) to sumsq_out, the
+// caller all_reduces it over the ranks, and every block of launch 2 takes
+// gnorm = sqrt(global sum) and the scale from it (block 0 also writes them
+// to out). owned[t] 0 leaves a tensor out of every sum (its chunks write
+// 0), so that a shard replicated over ranks counts once: the update itself
+// is the same. With the telemetry, launch 2's last block writes the
+// groups' raw f64 sums (g^2, p_old^2, du^2, non-finite) to raw[4 * group]
+// for the caller to all_reduce and take the square roots of. With owned
+// all 1 and no sumsq_out / gsumsq / raw, the kernels run the one-device
+// instructions and give the same bits.
+//
 // Bound: bytes. At the flagship's 373.9M parameters with f32 grads: launch
 // 1 reads g (1.50 GB), launch 2 reads g, p, m, v and writes p, m, v
 // (10.47 GB): 11.97 GB, 3.57 ms at 3.35 TB/s. Each thread moves four
@@ -68,6 +82,7 @@ struct TensorList {
   int gtype[MAX_T];       // 0 f32, 1 bf16, 2 f16
   int decay[MAX_T];
   int group[MAX_T];       // telemetry group of each tensor
+  int owned[MAX_T];       // 0: left out of every sum (a replica's shard)
   int count;
 };
 
@@ -123,6 +138,8 @@ __device__ double block_sum_d(double v, double* red) {
   return t;
 }
 
+// sumsq_out (the mesh form, else null): the last block writes the sum of
+// the chunks' sums there instead of gnorm and the scale.
 // ws: [2 * total chunks] f64 (the chunks' sums, then 1.0 where a chunk ends
 // its tensor; with telemetry WS_SLOTS * total, slot 2 the chunks' counts of
 // non-finite grads); base: this launch's first chunk; out: [2] f32 (gnorm,
@@ -130,7 +147,7 @@ __device__ double block_sum_d(double v, double* red) {
 __global__ void __launch_bounds__(NT)
 adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
                    int last_launch, unsigned int* counter, float* out,
-                   float clip, int telemetry) {
+                   float clip, int telemetry, double* sumsq_out) {
   __shared__ double red[NT / 32];
   __shared__ bool is_last;
   const int b = blockIdx.x;
@@ -141,7 +158,9 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   const int type = L.gtype[t];
   double acc = 0.0;
   int bad = 0;  // non-finite grads (counted only with telemetry)
-  if (vec_ok(L, t)) {
+  if (!L.owned[t]) {
+    // a replica's shard: counted on its owner, writes 0
+  } else if (vec_ok(L, t)) {
     const long long end4 = start + ((end - start) & ~3LL);
     for (long long i = start + threadIdx.x * 4; i < end4; i += NT * 4) {
       float f[4];
@@ -184,7 +203,7 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   // sums come through shared memory a tile at a time; thread 0 walks them
   // in order.
   __shared__ double sv[NT], sf[NT];
-  double s = 0.0, sq = 0.0;
+  double s = 0.0, sq = 0.0, all = 0.0;
   for (int c0 = 0; c0 < total; c0 += NT) {
     const int c = c0 + threadIdx.x;
     sv[threadIdx.x] = c < total ? __ldcg(ws + c) : 0.0;
@@ -194,6 +213,7 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
       const int lim = min(NT, total - c0);
       for (int i = 0; i < lim; ++i) {
         s += sv[i];
+        all += sv[i];
         if (sf[i] != 0.0) {
           const float norm = (float)sqrt(s);
           sq += (double)norm * norm;
@@ -203,7 +223,9 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && sumsq_out != nullptr) {
+    *sumsq_out = all;
+  } else if (threadIdx.x == 0) {
     const float gnorm = (float)sqrt(sq);
     out[0] = gnorm;
     // a NaN gnorm gives a NaN scale, as the plain version's clamp does
@@ -215,7 +237,25 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
 struct Hyper {
   float b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr;
   int clip_on;
+  float clip;
+  const double* gsumsq;  // the mesh form: the global sum of squares
 };
+
+// The scale of a block of launch 2: launch 1's (out[1]), or in the mesh
+// form from the global sum of squares, as launch 1's last block takes it
+// on one device; block 0 writes gnorm and the scale to out.
+__device__ __forceinline__ float block_scale(float* out, const Hyper& h) {
+  if (h.gsumsq == nullptr) return out[1];
+  const float gnorm = (float)sqrt(*h.gsumsq);
+  const float r = __fmul_rn(__frcp_rn(__fadd_rn(gnorm, 1e-6f)), h.clip);
+  const float scale =
+      h.clip != 0.0f ? (isnan(r) ? r : fminf(r, 1.0f)) : 1.0f;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    out[0] = gnorm;
+    out[1] = scale;
+  }
+  return scale;
+}
 
 // The foreach passes' roundings, as PyTorch's CUDA foreach kernels compute
 // them: each `a + alpha * b` is one fused multiply-add, a division by a
@@ -296,22 +336,23 @@ __device__ __forceinline__ void update_chunk(const TensorList& L, int t,
 }
 
 __global__ void __launch_bounds__(NT)
-adamw_update_kernel(const TensorList L, const float* __restrict__ out,
-                    const Hyper h) {
+adamw_update_kernel(const TensorList L, float* out, const Hyper h) {
   const int b = blockIdx.x;
   const int t = find_tensor(L, b);
   const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
   const long long end = min(L.n[t], start + CHUNK);
   TelSums tel;
-  update_chunk<false>(L, t, start, end, out[1], h, tel);
+  update_chunk<false>(L, t, start, end, block_scale(out, h), h, tel);
 }
 
 // Where the telemetry's walk writes: loss [1] f32 on the card, vec
-// [2 + 4 * groups] f32.
+// [2 + 4 * groups] f32; or in the mesh form (raw not null) the groups' raw
+// f64 sums, raw [4 * groups], and no vec.
 struct TelOut {
   const float* loss;
   float* vec;
   int groups;
+  double* raw;
 };
 
 // Launch 2 with the telemetry: the update of adamw_update_kernel, each
@@ -319,7 +360,7 @@ struct TelOut {
 // launch 1 left them), and the packed vector from the last block of the
 // last launch.
 __global__ void __launch_bounds__(NT)
-adamw_update_tel_kernel(const TensorList L, const float* __restrict__ out,
+adamw_update_tel_kernel(const TensorList L, float* out,
                         const Hyper h, double* ws, int base, int total,
                         int last_launch, unsigned int* counter,
                         const TelOut to) {
@@ -330,7 +371,8 @@ adamw_update_tel_kernel(const TensorList L, const float* __restrict__ out,
   const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
   const long long end = min(L.n[t], start + CHUNK);
   TelSums tel;
-  update_chunk<true>(L, t, start, end, out[1], h, tel);
+  update_chunk<true>(L, t, start, end, block_scale(out, h), h, tel);
+  if (!L.owned[t]) tel = TelSums();  // a replica's shard writes 0
   const double p2 = block_sum_d(tel.p2, red);
   __syncthreads();
   const double u2 = block_sum_d(tel.u2, red);
@@ -374,6 +416,16 @@ adamw_update_tel_kernel(const TensorList L, const float* __restrict__ out,
     }
     __syncthreads();
   }
+  if (to.raw != nullptr) {
+    if ((int)threadIdx.x < to.groups) {
+      double* r = to.raw + 4 * threadIdx.x;
+      r[0] = a0;
+      r[1] = a1;
+      r[2] = a2;
+      r[3] = a3;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     to.vec[0] = *to.loss;
     to.vec[1] = out[0];
@@ -391,7 +443,8 @@ adamw_update_tel_kernel(const TensorList L, const float* __restrict__ out,
 // this launch's chunks.
 int fill(TensorList& L, int t0, int count, void* const* p, void* const* g,
          void* const* m, void* const* v, const long long* n,
-         const int* gtype, const int* decay, const int* group = nullptr) {
+         const int* gtype, const int* decay, const int* group = nullptr,
+         const int* owned = nullptr) {
   int c = 0;
   L.count = count;
   for (int i = 0; i < count; ++i) {
@@ -404,6 +457,7 @@ int fill(TensorList& L, int t0, int count, void* const* p, void* const* g,
     L.gtype[i] = gtype[t];
     L.decay[i] = decay ? decay[t] : 0;
     L.group[i] = group ? group[t] : 0;
+    L.owned[i] = owned ? owned[t] : 1;
     L.chunk0[i] = c;
     c += (int)((n[t] + CHUNK - 1) / CHUNK);
   }
@@ -424,11 +478,14 @@ int adamw_ws_slots() { return WS_SLOTS; }
 // bf16, 2 f16): ws holds 2 x (sum of ceil(n / CHUNK)) doubles (WS_SLOTS x
 // with telemetry, which also counts the non-finite grads), counter one
 // zeroed unsigned int (left zeroed), out [2] f32 receives (gnorm, scale);
-// clip 0 leaves the scale at 1. Tensors of 0 elements take no chunk. Returns
-// the CUDA error of the launches (0 on success).
+// clip 0 leaves the scale at 1. Tensors of 0 elements take no chunk. The
+// mesh form: owned[T] (null: all 1) and sumsq_out, one f64 on the card that
+// receives the sum of squares instead of out. Returns the CUDA error of
+// the launches (0 on success).
 int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
                 void* ws, void* counter, void* out, float clip,
-                int telemetry, void* stream) {
+                int telemetry, const int* owned, void* sumsq_out,
+                void* stream) {
   if (T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   long long total = 0;
@@ -442,11 +499,13 @@ int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
   for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
     TensorList L;
     const int chunks = fill(L, t0, std::min(MAX_T, T - t0), nullptr, g,
-                            nullptr, nullptr, n, gtype, nullptr);
+                            nullptr, nullptr, n, gtype, nullptr, nullptr,
+                            owned);
     if (chunks > 0)
       adamw_sumsq_kernel<<<chunks, NT, 0, s>>>(
           L, (double*)ws, base, (int)total, bi == last_batch,
-          (unsigned int*)counter, (float*)out, clip, telemetry);
+          (unsigned int*)counter, (float*)out, clip, telemetry,
+          (double*)sumsq_out);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     base += chunks;
@@ -461,15 +520,20 @@ int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
 // tensor's group, 0 <= group < groups <= MAX_G), ws and counter as
 // adamw_sumsq(telemetry=1) left them, loss [1] f32 and vec [2 + 4 groups]
 // f32 on the card; without it group, ws, counter and loss are not read.
+// The mesh form: owned[T] as adamw_sumsq had it, gsumsq the all_reduced
+// f64 sum of squares (the scale is taken from it with clip, and gnorm and
+// the scale written to out), and with the telemetry raw [4 groups] f64 in
+// place of vec (which may then be null).
 int adamw_update(int T, void* const* p, void* const* g, void* const* m,
                  void* const* v, const long long* n, const int* gtype,
                  const int* decay, const int* group, void* out, float b1,
                  float omb1, float b2, float omb2, float rc1, float rc2,
                  float eps, float wd, float neg_lr, int clip_on, void* ws,
                  void* counter, void* loss, void* vec, int groups,
+                 const int* owned, const void* gsumsq, float clip, void* raw,
                  void* stream) {
   if (T < 1) return (int)cudaErrorInvalidValue;
-  const bool tel = vec != nullptr;
+  const bool tel = vec != nullptr || raw != nullptr;
   long long total = 0;
   if (tel) {
     if (!group || !ws || !counter || !loss || groups < 1 || groups > MAX_G)
@@ -482,8 +546,9 @@ int adamw_update(int T, void* const* p, void* const* g, void* const* m,
     if (total < 1 || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const Hyper h{b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr, clip_on};
-  const TelOut to{(const float*)loss, (float*)vec, groups};
+  const Hyper h{b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr, clip_on,
+                clip, (const double*)gsumsq};
+  const TelOut to{(const float*)loss, (float*)vec, groups, (double*)raw};
   int last = T - 1;
   while (last > 0 && n[last] == 0) --last;
   const int last_batch = last / MAX_T;
@@ -491,13 +556,13 @@ int adamw_update(int T, void* const* p, void* const* g, void* const* m,
   for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
     TensorList L;
     const int chunks = fill(L, t0, std::min(MAX_T, T - t0), p, g, m, v, n,
-                            gtype, decay, tel ? group : nullptr);
+                            gtype, decay, tel ? group : nullptr, owned);
     if (chunks > 0 && tel)
       adamw_update_tel_kernel<<<chunks, NT, 0, s>>>(
-          L, (const float*)out, h, (double*)ws, base, (int)total,
+          L, (float*)out, h, (double*)ws, base, (int)total,
           bi == last_batch, (unsigned int*)counter, to);
     else if (chunks > 0)
-      adamw_update_kernel<<<chunks, NT, 0, s>>>(L, (const float*)out, h);
+      adamw_update_kernel<<<chunks, NT, 0, s>>>(L, (float*)out, h);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     base += chunks;

@@ -1,5 +1,5 @@
 """Distributed surface of the PyTorch port (counterpart of
-``paddle_tpu/distributed``): so far the one-device part of ``fleet``,
-activation recompute. Meshes, collectives and the parallel layers are
-later slices."""
+``paddle_tpu/distributed``): collectives on explicit groups
+(``collective``), the comm watchdog, the training mesh (``mesh``) and
+``fleet`` (activation recompute and the mesh's sharded compute)."""
 from . import fleet  # noqa: F401

@@ -34,6 +34,15 @@ Options of the JAX model that are not ported yet raise
 ``NotImplementedError``: context parallelism and the pipeline form.
 ``sequence_parallel`` only shards activations over a mesh and has no
 effect on one device, as in the JAX package off-mesh.
+
+On the training mesh (``pretrain.make_train_step`` with a mesh of more
+than one rank, ``distributed.fleet.sharded``) each layer computes with
+the weight its module is bound to (``_weight``: the gathered compute form
+of the rank's shard), and the attention and the MLP take their local
+head and column counts from it: a module split over mp runs its own
+heads (the flash kernels on ``[B, S, H/mp, D]``) between the Megatron
+operators of its ``_tp`` binding. Off the mesh nothing is bound and the
+modules compute as above.
 """
 import numpy as np
 import torch
@@ -106,6 +115,13 @@ def _refuse_later_slice(config):
                 f"LlamaConfig.{opt} is a later slice of the port")
 
 
+def _weight(mod):
+    """The weight a layer computes with: the module's parameter, or on the
+    training mesh its gathered compute form (``sharded.bound``)."""
+    bind = mod.__dict__.get("_shard_weight")
+    return mod.weight if bind is None else bind(mod.weight)
+
+
 class _Init:
     """Where a model's layers draw their initial weights: one generator on
     the model's device, Normal(0, initializer_range)."""
@@ -143,22 +159,29 @@ class LlamaAttention(torch.nn.Module):
 
     def forward(self, hidden_states, position_ids=None, attn_mask=None):
         b, s = hidden_states.shape[0], hidden_states.shape[1]
-        h = self.num_heads * self.head_dim
-        kv_out = self.num_kv_heads * self.head_dim
+        d = self.head_dim
+        tp = self.__dict__.get("_tp")
+        if tp is not None:
+            hidden_states = tp.enter(hidden_states)
         if self.fuse_qkv:
-            qkv = self.qkv_proj(hidden_states)
-            q = qkv[:, :, :h].reshape(b, s, self.num_heads, self.head_dim)
-            k = qkv[:, :, h:h + kv_out].reshape(b, s, self.num_kv_heads,
-                                                self.head_dim)
-            v = qkv[:, :, h + kv_out:].reshape(b, s, self.num_kv_heads,
-                                               self.head_dim)
+            w = _weight(self.qkv_proj)
+            # mp's share of the heads: 1 off the mesh or run whole
+            split = (self.num_heads + 2 * self.num_kv_heads) * d \
+                // w.shape[1]
+            nh, nkv = self.num_heads // split, self.num_kv_heads // split
+            h, kv_out = nh * d, nkv * d
+            qkv = F.linear(hidden_states, w)
+            q = qkv[:, :, :h].reshape(b, s, nh, d)
+            k = qkv[:, :, h:h + kv_out].reshape(b, s, nkv, d)
+            v = qkv[:, :, h + kv_out:].reshape(b, s, nkv, d)
         else:
-            q = self.q_proj(hidden_states).reshape(b, s, self.num_heads,
-                                                   self.head_dim)
-            k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads,
-                                                   self.head_dim)
-            v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads,
-                                                   self.head_dim)
+            wq, wk, wv = (_weight(self.q_proj), _weight(self.k_proj),
+                          _weight(self.v_proj))
+            nh, nkv = wq.shape[1] // d, wk.shape[1] // d
+            h = nh * d
+            q = F.linear(hidden_states, wq).reshape(b, s, nh, d)
+            k = F.linear(hidden_states, wk).reshape(b, s, nkv, d)
+            v = F.linear(hidden_states, wv).reshape(b, s, nkv, d)
         rope = {}
         if getattr(self.config, "fuse_rope_in_attention", False) \
                 and position_ids is None and attn_mask is None:
@@ -177,7 +200,8 @@ class LlamaAttention(torch.nn.Module):
         else:
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                                  is_causal=True)
-        return self.o_proj(out.reshape(b, s, h))
+        out = F.linear(out.reshape(b, s, h), _weight(self.o_proj))
+        return out if tp is None else tp.leave(out)
 
 
 class LlamaMLP(torch.nn.Module):
@@ -198,10 +222,18 @@ class LlamaMLP(torch.nn.Module):
 
     def forward(self, x):
         # SwiGLU kernel: the fused projection's halves are read in place
-        # and its gradient is written as one [.., 2 im] tensor
+        # and its gradient is written as one [.., 2 im] tensor (on the
+        # mesh a rank's [gate_r | up_r])
+        tp = self.__dict__.get("_tp")
+        if tp is not None:
+            x = tp.enter(x)
         if self.fuse_ffn:
-            return self.down_proj(swiglu(self.gate_up_fused_proj(x)))
-        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+            act = swiglu(F.linear(x, _weight(self.gate_up_fused_proj)))
+        else:
+            act = swiglu(F.linear(x, _weight(self.gate_proj)),
+                         F.linear(x, _weight(self.up_proj)))
+        out = F.linear(act, _weight(self.down_proj))
+        return out if tp is None else tp.leave(out)
 
 
 class LlamaDecoderLayer(torch.nn.Module):
@@ -247,7 +279,7 @@ class LlamaModel(torch.nn.Module):
                                init.device)
 
     def forward(self, input_ids, position_ids=None, attn_mask=None):
-        hidden_states = self.embed_tokens(input_ids)
+        hidden_states = F.embedding(input_ids, _weight(self.embed_tokens))
         if self.config.dtype == "bfloat16":
             hidden_states = hidden_states.to(torch.bfloat16)
         residual = None
@@ -286,8 +318,8 @@ class LlamaLMHead(torch.nn.Module):
 
     def get_weight(self):
         """The [hidden, vocab] projection, resolving weight tying."""
-        return self._tied.weight.t() if self._tied is not None \
-            else self.weight
+        return _weight(self._tied).t() if self._tied is not None \
+            else _weight(self)
 
     def forward(self, hidden_states):
         # the logits product runs in the hidden states' dtype; the
@@ -297,12 +329,17 @@ class LlamaLMHead(torch.nn.Module):
 
 
 class LlamaPretrainingCriterion(torch.nn.Module):
-    """Mean token cross entropy in float32 over already-shifted labels."""
+    """Mean token cross entropy in float32 over already-shifted labels.
+    ``denominator`` (a 0-dim f32 tensor) replaces the count of the labels
+    kept: the training mesh divides a rank's sum by the global count."""
 
-    def forward(self, logits, labels):
+    def forward(self, logits, labels, denominator=None):
         v = logits.shape[-1]
+        if denominator is None:
+            return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
+                                   reduction="mean")
         return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
-                               reduction="mean")
+                               reduction="sum") / denominator
 
 
 class LlamaForCausalLM(torch.nn.Module):
@@ -329,24 +366,27 @@ class LlamaForCausalLM(torch.nn.Module):
         return self.llama
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
-                labels=None):
+                labels=None, loss_denominator=None):
         hidden_states = self.llama(input_ids, position_ids, attn_mask)
         if labels is not None and getattr(self.config, "fused_lm_loss",
                                           False):
             return None, fused_lm_head_loss(
-                hidden_states, self.lm_head.get_weight(), labels)
+                hidden_states, self.lm_head.get_weight(), labels,
+                denominator=loss_denominator)
         logits = self.lm_head(hidden_states)
         if labels is not None:
-            return logits, LlamaPretrainingCriterion()(logits, labels)
+            return logits, LlamaPretrainingCriterion()(logits, labels,
+                                                       loss_denominator)
         return logits
 
 
 def fused_lm_head_loss(hidden_states, weight, labels, ignore_index=-100,
-                       chunk_tokens=1024, mode=None):
+                       chunk_tokens=1024, mode=None, denominator=None):
     """Mean token cross entropy of the LM head; the [B*S, V] logits never
     exist. hidden_states [B, S, H], weight [H, V] (cast to the hidden
     states' dtype), labels [B, S]; the sum over non-ignored tokens divided
-    by their count (at least 1), in float32.
+    by their count (at least 1), in float32, or by ``denominator`` (the
+    training mesh's global count) when given.
 
     mode None or "pallas": the blockwise op (``ops.blockwise_ce``: the CUDA
     kernels on the card, their plain versions on the CPU). "scan": token
@@ -365,6 +405,8 @@ def fused_lm_head_loss(hidden_states, weight, labels, ignore_index=-100,
     w = weight.to(hidden_states.dtype)
     if mode == "pallas":
         loss = blockwise_lm_head_ce(h, w, lab, ignore_index)
+        if denominator is not None:
+            return loss.sum() / denominator
         cnt = (lab != ignore_index).to(torch.float32).sum()
         return loss.sum() / cnt.clamp_min(1.0)
     nch = max(1, -(-t // chunk_tokens))
@@ -385,7 +427,8 @@ def fused_lm_head_loss(hidden_states, weight, labels, ignore_index=-100,
         lo, hi = i * per, (i + 1) * per
         dt, dc = checkpoint(body, h[lo:hi], lab[lo:hi], use_reentrant=False)
         tot, cnt = tot + dt, cnt + dc
-    return tot / cnt.clamp_min(1.0)
+    return tot / (cnt.clamp_min(1.0) if denominator is None
+                  else denominator)
 
 
 def LlamaForCausalLMPipe(config, num_stages, loss_fn=None):

@@ -21,7 +21,10 @@ the work while the program runs:
 * ``peak_hbm`` on the card is the argument bytes plus the rise of
   ``max_memory_allocated`` over the counted call (its temporaries and
   outputs: XLA's argument + output + temp), for which the call resets the
-  card's peak-memory statistic; on the CPU it is absent.
+  card's peak-memory statistic. On the CPU it is the argument bytes
+  plus the most bytes of the storages that the call's aten ops made
+  alive at once (each counted until its storage is freed; per thread, as
+  the dispatch modes are).
 * ``program_flops{program}`` / ``program_bytes{program}`` /
   ``program_peak_hbm_bytes{program}`` and the argument / output / temp
   gauges, ``program_arithmetic_intensity{program}`` (flops per byte, the
@@ -252,11 +255,15 @@ def device_of(args, kwargs=None):
 _counter_cls = None
 
 
-def _work_counter():
+def _work_counter(track_host_peak=False):
     """A dispatch mode that adds each aten op's tensor input and output
-    bytes, and takes the port's kernels' own reports (``add_kernel``)."""
+    bytes, and takes the port's kernels' own reports (``add_kernel``).
+    ``track_host_peak`` (a call on the CPU): also the most bytes of the
+    CPU storages its ops made alive at once (``peak``)."""
     global _counter_cls
     if _counter_cls is None:
+        import weakref
+
         import torch
         from torch.utils._python_dispatch import TorchDispatchMode
         aten = torch.ops.aten
@@ -265,10 +272,35 @@ def _work_counter():
                 aten.alias, aten.lift_fresh, aten.set_, aten.resize_}
 
         class WorkCounter(TorchDispatchMode):
-            def __init__(self):
+            def __init__(self, track=False):
                 super().__init__()
                 self.bytes = 0
                 self.kernels = {}
+                self.track = track
+                self.live, self.peak = {}, 0
+                self.cur = 0
+                self._lock = threading.Lock()
+
+            def _free(self, ptr):
+                with self._lock:
+                    self.cur -= self.live.pop(ptr, 0)
+
+            def _made(self, args, out):
+                """Count the new CPU storages among an op's outputs."""
+                seen = {t.untyped_storage().data_ptr()
+                        for t in _leaves(args) if isinstance(t, torch.Tensor)}
+                for t in _leaves(out):
+                    if not isinstance(t, torch.Tensor) or t.is_cuda:
+                        continue
+                    st = t.untyped_storage()
+                    ptr, nbytes = st.data_ptr(), st.nbytes()
+                    if not nbytes or ptr in seen or ptr in self.live:
+                        continue
+                    with self._lock:
+                        self.live[ptr] = nbytes
+                        self.cur += nbytes
+                        self.peak = max(self.peak, self.cur)
+                    weakref.finalize(st, self._free, ptr)
 
             def add_kernel(self, kernel, nbytes, flops):
                 k = self.kernels.setdefault(
@@ -282,10 +314,12 @@ def _work_counter():
                 if not func.is_view and func.overloadpacket not in free:
                     self.bytes += _tensor_bytes((args, kwargs or {})) + \
                         _tensor_bytes(out)
+                if self.track and not func.is_view:
+                    self._made((args, kwargs or {}), out)
                 return out
 
         _counter_cls = WorkCounter
-    return _counter_cls()
+    return _counter_cls(track_host_peak)
 
 
 def _sample_quantile(values, q):
@@ -415,7 +449,7 @@ class CostCatalog:
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         flop_mode = FlopCounterMode(display=False)
-        counter = _work_counter()
+        counter = _work_counter(not cuda)
         _work._counting[0] += 1
         try:
             with flop_mode, counter:
@@ -423,12 +457,12 @@ class CostCatalog:
         finally:
             _work._counting[0] -= 1
         out_bytes = _tensor_bytes(out)
-        peak = temp = None
         if cuda:
             torch.cuda.synchronize(dev)
             rise = torch.cuda.max_memory_allocated(dev) - base
-            peak = arg_bytes + rise
-            temp = max(0, rise - out_bytes)
+        else:
+            rise = counter.peak
+        peak, temp = arg_bytes + rise, max(0, rise - out_bytes)
         kflops = sum(k["flops"] for k in counter.kernels.values())
         kbytes = sum(k["bytes"] for k in counter.kernels.values())
         entry = self.record(

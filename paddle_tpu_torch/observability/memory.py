@@ -210,12 +210,15 @@ def device_memory():
     return out
 
 
-def shard_skew(tree, registry=None):
+def shard_skew(tree, registry=None, group=None):
     """Bytes per device of a pytree of tensors (dicts, lists, tuples):
     sets ``shard_bytes{device}`` gauges and the ``shard_skew`` ratio (max
     device bytes / mean device bytes; 1.0 == balanced, and on one device).
-    Returns {"devices": {...}, "skew": r}, or {} without torch or on an
-    empty tree."""
+    With ``group`` (a training mesh's world group; a collective, which
+    every rank calls) each rank's bytes of its own tree are all_gathered
+    over it and the devices are the ranks ("rank0", "rank1", ...): the
+    mesh's bytes at rest per rank. Returns {"devices": {...}, "skew": r},
+    or {} without torch or on an empty tree."""
     try:
         import torch
     except Exception:
@@ -236,6 +239,14 @@ def shard_skew(tree, registry=None):
         dev = str(t.device)
         per_device[dev] = per_device.get(dev, 0) + \
             int(t.numel() * t.element_size())
+    if group is not None:
+        from ..distributed import collective
+        mine = torch.tensor([sum(per_device.values())], dtype=torch.int64,
+                            device="cuda" if group.name() == "nccl"
+                            else "cpu")
+        parts = collective.all_gather([], mine, group=group)
+        per_device = {f"rank{r}": int(p.item())
+                      for r, p in enumerate(parts)}
     if not per_device:
         return {}
     reg = registry if registry is not None else get_registry()

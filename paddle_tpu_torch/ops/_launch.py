@@ -74,9 +74,9 @@ PROTOTYPES = {
         "adamw_chunk_elems": [],
         "adamw_max_groups": [],
         "adamw_ws_slots": [],
-        "adamw_sumsq": [_I] + [_P] * 6 + [_F, _I, _P],
+        "adamw_sumsq": [_I] + [_P] * 6 + [_F, _I, _P, _P, _P],
         "adamw_update": [_I] + [_P] * 9 + [_F] * 9 + [_I] + [_P] * 4
-                        + [_I, _P],
+                        + [_I, _P, _P, _F, _P, _P],
     },
 }
 

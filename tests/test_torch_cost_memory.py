@@ -82,7 +82,10 @@ class TestCostCatalog:
         # the matmul reads 8 KiB and writes 4; the sum reads its 4 KiB
         assert e["bytes_accessed"] >= 3 * 32 * 32 * 4 + 4
         assert e["arg_bytes"] == 2 * 32 * 32 * 4
-        assert e["peak_hbm"] is None            # the CPU keeps no peak
+        # on the CPU the peak is the arguments plus the storages the ops
+        # held at once: the 4 KiB product while the sum makes its 4 bytes
+        assert e["peak_hbm"] == e["arg_bytes"] + 32 * 32 * 4 + 4
+        assert e["temp_bytes"] == 32 * 32 * 4
         snap = reg.snapshot()
         assert snap["program_flops"]["children"]["mm"]["value"] == \
             e["flops"]

@@ -2,9 +2,9 @@
 with a time limit: ``tools/torch_metrics_snapshot.py --selfcheck`` (the
 whole metrics core, stdlib-only, under a blocked torch import) and
 ``tools/torch_cost_report.py --device cpu --check tools/train_obs.json``
-(the serve leg of the train_obs gate: every required serving program
-counted, the baseline's serve exact fields and bounds held, the keys the
-port cannot meet skipped by name)."""
+(the train_obs gate: every required program counted, the baseline's
+exact fields and bounds held, its serve and pretrain legs, the serve
+keys the port cannot meet skipped by name and no pretrain key skipped)."""
 import os
 import subprocess
 import sys
@@ -41,5 +41,7 @@ def test_cost_report_serve_gate():
     r = _run(["tools/torch_cost_report.py", "--device", "cpu", "--check",
               "tools/train_obs.json"], timeout=240)
     assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
-    assert "train_obs gate (port, serve leg) OK" in r.stdout
-    assert "skipped pretrain.shard_skew" in r.stdout
+    assert "train_obs gate (port) OK" in r.stdout
+    # the pretrain leg runs on the mesh: none of its keys is skipped
+    assert "skipped pretrain." not in r.stdout
+    assert "skipped require pretrain" not in r.stdout

@@ -238,19 +238,25 @@ def test_cuda_is_the_default_and_raises_without_a_gpu():
 
 
 def test_later_slice_options_raise():
-    """A mesh and sharding rules still raise; telemetry, the monitor and
-    lr_scale run (``test_lifted_options_run_and_match_the_jax_package``)."""
+    """The mesh's sp and pp axes still raise (the mesh itself runs:
+    ``tests/test_torch_sharded_pretrain.py``), and a mesh that is not the
+    port's is refused; telemetry, the monitor and lr_scale run
+    (``test_lifted_options_run_and_match_the_jax_package``); sharding
+    rules on one device place nothing."""
     cfg, _, _ = tpre.flagship_config(on_tpu=False)
     tm = LlamaForCausalLM(cfg, device="cpu")
     params, opt, meta = tpre.make_train_state(tm)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    for kw in (dict(sp=2), dict(pp=2)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tpre.make_mesh(2, device="cpu", **kw)
+    with pytest.raises(TypeError, match="make_mesh"):
         tpre.make_train_state(tm, mesh=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpre.make_train_state(tm, None, rules=[])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tpre.make_train_step(tm, object(), meta)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tpre.make_train_step(tm, object(), meta, telemetry=True)
+    ruled, _, _ = tpre.make_train_state(tm, None, rules=[])
+    assert all(torch.equal(ruled[n], params[n]) for n in params)
 
 
 def _pair(telemetry=False, monitor=None, jmonitor=None):

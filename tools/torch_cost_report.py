@@ -19,16 +19,23 @@ Modes:
   python tools/torch_cost_report.py [--device cpu] [--json OUT]
   python tools/torch_cost_report.py --device cpu --check tools/train_obs.json
 
+The pretrain leg is the JAX tool's (``tools/cost_report.py``
+``pretrain_cost_leg``) over the port's mesh: dp 2 x fsdp 2 x mp 2, eight
+ranks that are threads of this process (gloo over one ``HashStore``),
+the same tiny config and batches; rank 0's step is counted by the
+catalog (``pretrain_step``: flops, bytes and the peak; the other ranks
+step with catalogs of their own that stay disabled), ``shard_skew`` of the placed masters over the world
+group, and then one eager all_reduce and all_gather over the world with
+the comm watchdog on, whose (op, axis) labels the baseline names. It also
+reports rank 0's collectives of the last step by op and axis.
+
 ``--check`` holds the report to the committed JAX baseline: its required
-programs, its ``serve.*`` exact fields and its ``serve.*`` bounds at the
-same tiny workload (the count is of the same work). Skipped, by name
-(``SKIPPED``), with the reason the port's count cannot meet them; no
-bound is widened. The ``pretrain.*`` keys need the sharded mesh
-(ROADMAP Queue 1 item 7): the port trains on one device, and the tool
-says it skips them. On the card (the default device) the engine's head
-dim is 32, the kernel's smallest, so the baseline's CPU numbers do not
-apply there: the report is printed, and the neutrality, leak and
-compile gates are held.
+programs, its exact fields and its bounds at the same tiny workload (the
+count is of the same work). Skipped, by name (``SKIPPED``), with the
+reason the port's count cannot meet them; no bound is widened. On the
+card (the default device) the engine's head dim is 32, the kernel's
+smallest, so the baseline's CPU numbers do not apply there: the report
+is printed, and the neutrality, leak and compile gates are held.
 """
 import argparse
 import json
@@ -46,13 +53,8 @@ SERVE_PROGRAMS = ("paged_step", "paged_rewind", "paged_copy")
 _NO_PRODUCTS = ("FlopCounterMode counts products (matmul, convolution, "
                 "attention) only; {} does none, so the count is 0 and no "
                 "MFU follows, where XLA counts each element-wise op")
-_NO_PEAK = ("peak_hbm is the rise of max_memory_allocated on the card; "
-            "the CPU keeps no such statistic")
-_MESH = ("the pretrain leg needs the dp x fsdp x mp mesh (ROADMAP Queue 1 "
-         "item 7); the port trains on one device")
 
-# baseline keys the port's count cannot meet, with the reason; "cpu" keys
-# are skipped on the CPU only
+# baseline keys the port's count cannot meet, with the reason
 SKIPPED = {
     "serve.programs.paged_rewind.flops": _NO_PRODUCTS.format(
         "a rewind zeroes cache slots and"),
@@ -65,8 +67,15 @@ SKIPPED = {
         "the port copies one block in place in each layer's cache; XLA's "
         "functional update reads and writes each layer's whole cache"),
 }
-SKIPPED_CPU = {f"serve.programs.{p}.peak_hbm": _NO_PEAK
-               for p in SERVE_PROGRAMS}
+_IN_PLACE_PEAK = ("the port {} in place and makes no new storage, so the "
+                  "peak is the arguments' bytes; XLA's functional update "
+                  "allocates each updated cache as an output")
+SKIPPED.update({
+    "serve.programs.paged_rewind.peak_hbm": _IN_PLACE_PEAK.format(
+        "zeroes the rewound cache slots"),
+    "serve.programs.paged_copy.peak_hbm": _IN_PLACE_PEAK.format(
+        "copies one block"),
+})
 # the port's own exact fields beside the baseline's
 PORT_EXACT = {"serve.new_compiles_after_warmup": 0}
 
@@ -150,6 +159,90 @@ def serve_cost_leg(device, new_tokens=24, spec_k=4, chunk=8, block_size=8):
     }
 
 
+def pretrain_cost_leg(device, steps=3, dp=2, fsdp=2, mp=2):
+    """The sharded pretrain step on thread ranks: rank 0's pretrain_step
+    cost and MFU (each step's loss read, so the host wall is the step's),
+    the shard skew of the placed masters, and eager-collective telemetry
+    through the watchdog."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import collective, comm_watchdog
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         pretrain)
+    from paddle_tpu_torch.testing import run_thread_ranks
+
+    n = dp * fsdp * mp
+    cfg = LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=32, dtype="float32")
+    rng = np.random.default_rng(0)
+    b, s = max(2, dp * fsdp), 32
+    batches = [{"input_ids": rng.integers(0, 128, (b, s)).astype(np.int32),
+                "labels": rng.integers(0, 128, (b, s)).astype(np.int32)}
+               for _ in range(steps)]
+    catalog = obs.get_cost_catalog()
+
+    def rank(r, group):
+        mesh = pretrain.make_mesh(n, dp=dp, fsdp=fsdp, mp=mp, group=group,
+                                  device=device)
+        model = LlamaForCausalLM(cfg, device=device)
+        params, opt, meta = pretrain.make_train_state(model, mesh)
+        skew = obs.shard_skew(params, group=group)
+        step = pretrain.make_train_step(
+            model, mesh, meta,
+            catalog=catalog if r == 0 else obs.CostCatalog())
+        loss = None
+        for batch in batches:
+            params, opt, loss, _ = step(params, opt,
+                                        pretrain.shard_batch(batch, mesh))
+            float(loss)     # block: the host wall is the step's
+        return {"skew": skew, "loss": float(loss), "comm": dict(step.comm)}
+
+    catalog.enabled = True
+    try:
+        ranks = run_thread_ranks(n, rank, timeout=120)
+    finally:
+        catalog.enabled = False
+
+    def eager(r, group):
+        dev = "cuda" if device != "cpu" else "cpu"
+        collective.all_reduce(torch.ones(4096, device=dev), group=group,
+                              axis="world")
+        collective.all_gather([], torch.ones(1024, device=dev), group=group,
+                              axis="world")
+    # eager-collective telemetry through the watchdog: one all_reduce and
+    # one all_gather over the world, the fleet.metrics path of the JAX leg
+    comm_watchdog.enable_comm_watchdog(timeout=600, poll_interval=60)
+    try:
+        run_thread_ranks(n, eager, timeout=120)
+    finally:
+        comm_watchdog.disable_comm_watchdog()
+    snap = obs.get_registry().snapshot()
+    coll = sorted(snap.get("collective_seconds", {}).get("children", {}))
+    bw = {k: v["value"] for k, v in snap.get(
+        "collective_bandwidth_bytes_per_s", {}).get("children",
+                                                    {}).items()}
+    rows = {r["program"]: r for r in catalog.table()
+            if r["program"] == "pretrain_step"}
+    skew = ranks[0]["skew"]
+    return {
+        "mesh": {"dp": dp, "fsdp": fsdp, "mp": mp},
+        "steps": steps,
+        "tokens_per_step": b * s,
+        "final_loss": ranks[0]["loss"],
+        "shard_skew": skew.get("skew"),
+        "shard_devices": len(skew.get("devices", {})),
+        "shard_bytes": skew.get("devices", {}),
+        "collectives": coll,
+        "collective_bandwidth": bw,
+        "step_collectives_rank0": ranks[0]["comm"],
+        "programs": rows,
+    }
+
+
 def build_report(device):
     from paddle_tpu_torch import observability as obs
     return {
@@ -157,7 +250,7 @@ def build_report(device):
         "peaks": {"flops_per_s": obs.peak_flops(),
                   "bytes_per_s": obs.peak_bandwidth()},
         "serve": serve_cost_leg(device),
-        "pretrain": {"skipped": _MESH},
+        "pretrain": pretrain_cost_leg(device),
     }
 
 
@@ -172,6 +265,18 @@ def _fmt(v):
     return str(v)
 
 
+def _program_row(name, r):
+    lat = r.get("device_s")
+    return " | ".join(f"{v:>12}" for v in (
+        name, _fmt(r.get("flops")), _fmt(r.get("bytes_accessed")),
+        "-" if r.get("intensity") is None else f"{r['intensity']:.2f}",
+        _fmt(r.get("peak_hbm")),
+        "-" if lat is None else f"{lat * 1e3:.3f}ms",
+        "-" if r.get("mfu") is None else f"{r['mfu']:.2e}",
+        "-" if r.get("roofline_frac") is None
+        else f"{r['roofline_frac']:.2e}"))
+
+
 def print_report(report):
     s = report["serve"]
     print(f"peaks: {_fmt(report['peaks']['flops_per_s'])}FLOP/s, "
@@ -181,16 +286,10 @@ def print_report(report):
     cols = ("program", "flops", "bytes", "intensity", "peak_hbm",
             "device_p50", "mfu", "roofline")
     print(" | ".join(f"{c:>12}" for c in cols))
-    for name, r in sorted(s["programs"].items()):
-        lat = r.get("device_s")
-        print(" | ".join(f"{v:>12}" for v in (
-            name, _fmt(r.get("flops")), _fmt(r.get("bytes_accessed")),
-            "-" if r.get("intensity") is None else f"{r['intensity']:.2f}",
-            _fmt(r.get("peak_hbm")),
-            "-" if lat is None else f"{lat * 1e3:.3f}ms",
-            "-" if r.get("mfu") is None else f"{r['mfu']:.2e}",
-            "-" if r.get("roofline_frac") is None
-            else f"{r['roofline_frac']:.2e}")))
+    p = report["pretrain"]
+    for name, r in sorted(list(s["programs"].items())
+                          + list(p["programs"].items())):
+        print(_program_row(name, r))
         for k, kc in sorted(r.get("kernels", {}).items()):
             print(f"{'':>14}{k}: {kc['launches']} launches, "
                   f"{_fmt(float(kc['bytes']))}B, {_fmt(float(kc['flops']))}"
@@ -200,7 +299,14 @@ def print_report(report):
           f"{s['new_compiles_after_warmup']} new compiles after warmup, "
           f"census leak groups={s['leak']['census_delta_groups']}, "
           f"KV used after retirement={s['leak']['kv_used_final']}")
-    print(f"pretrain: skipped ({report['pretrain']['skipped']})")
+    print(f"pretrain: mesh {p['mesh']} on thread ranks, {p['steps']} steps "
+          f"of {p['tokens_per_step']} tokens, final loss "
+          f"{p['final_loss']:.4f}, shard_skew {p['shard_skew']:.3f} over "
+          f"{p['shard_devices']} ranks, watchdog labels {p['collectives']}")
+    print("pretrain: rank 0's collectives a step: "
+          + ", ".join(f"{k} {v['calls']} calls {_fmt(float(v['bytes']))}B"
+                      for k, v in sorted(
+                          p["step_collectives_rank0"].items())))
 
 
 def _lookup(report, dotted):
@@ -213,9 +319,8 @@ def _lookup(report, dotted):
 
 
 def check(baseline_path, device):
-    """The train_obs gate's serve leg: schema, required programs, exact
-    fields and bounds against the committed baseline, less the named
-    skips."""
+    """The train_obs gate: schema, required programs, exact fields and
+    bounds against the committed baseline, less the named skips."""
     with open(baseline_path) as f:
         base = json.load(f)
     if base.get("schema") != BASELINE_SCHEMA:
@@ -223,7 +328,7 @@ def check(baseline_path, device):
         return 1
     report = build_report(device)
     print_report(report)
-    skipped = dict(SKIPPED, **(SKIPPED_CPU if device == "cpu" else {}))
+    skipped = SKIPPED
     bad, skips = [], []
 
     def skip(key, why):
@@ -231,17 +336,16 @@ def check(baseline_path, device):
 
     if report.get("schema") != REPORT_SCHEMA:
         bad.append(f"report schema {report.get('schema')!r}")
-    programs = report["serve"]["programs"]
+    programs = dict(report["serve"]["programs"],
+                    **report["pretrain"]["programs"])
     for name in base["require_programs"]:
-        if name not in SERVE_PROGRAMS:
-            skip(f"require_programs.{name}", _MESH)
-            continue
         r = programs.get(name)
         if r is None:
             bad.append(f"program {name} not attributed")
             continue
+        leg = "serve" if name in SERVE_PROGRAMS else "pretrain"
         for field in ("flops", "bytes_accessed", "peak_hbm", "mfu"):
-            key = f"serve.programs.{name}.{field}"
+            key = f"{leg}.programs.{name}.{field}"
             if r.get(field) is not None:
                 continue
             if key in skipped:
@@ -250,9 +354,6 @@ def check(baseline_path, device):
                 bad.append(f"{name}.{field} missing")
     exact = dict(base.get("exact", {}), **PORT_EXACT)
     for dotted, want in exact.items():
-        if dotted.startswith("pretrain."):
-            skip(dotted, _MESH)
-            continue
         got = _lookup(report, dotted)
         if got != want:
             bad.append(f"{dotted}: {got!r} != required {want!r}")
@@ -260,9 +361,6 @@ def check(baseline_path, device):
         print("bounds: the baseline's are CPU numbers at head dim 16; on "
               "the card (head dim 32) they are not compared")
     for dotted, (lo, hi) in base.get("bounds", {}).items():
-        if dotted.startswith("pretrain."):
-            skip(dotted, _MESH)
-            continue
         if dotted in skipped:
             skip(dotted, skipped[dotted])
             continue
@@ -276,13 +374,12 @@ def check(baseline_path, device):
     for key, why in skips:
         print(f"  skipped {key}: {why}")
     if bad:
-        print(f"train_obs gate (port, serve leg): FAIL ({len(bad)} "
-              "problems)")
+        print(f"train_obs gate (port): FAIL ({len(bad)} problems)")
         for b in bad:
             print("  " + b)
         return 1
-    print(f"train_obs gate (port, serve leg) OK: "
-          f"{len(SERVE_PROGRAMS)} programs attributed, "
+    print(f"train_obs gate (port) OK: "
+          f"{len(base['require_programs'])} programs attributed, "
           f"{len(exact)} exact fields, {len(base.get('bounds', {}))} "
           f"bounds, {len(skips)} skipped by name")
     return 0

@@ -1214,45 +1214,25 @@ CHAOS_INVARIANTS = ("survivors_token_exact", "partials_prefix_exact",
 
 class ThreadRanks:
     """A tensor-parallel group whose ranks are threads of this process
-    (a ``HashStore`` and gloo, every operation bounded by `timeout`):
-    ``engine`` is rank 0's engine, built by `build(rank, group)` as every
-    follower's is; followers ``serve_follower()`` until ``close()``,
-    which stops and joins them (within `timeout`) and returns their
-    replay counts."""
+    (``testing.ThreadRankSet``: a ``HashStore`` and gloo, every operation
+    bounded by `timeout`): ``engine`` is rank 0's engine, built by
+    `build(rank, group)` on the caller's thread as every follower's is
+    on its own; followers ``serve_follower()`` until ``close()``, which
+    stops and joins them (within `timeout`) and returns their replay
+    counts."""
 
     def __init__(self, tp, build, timeout=TP_TIMEOUT_S):
-        import torch.distributed as dist
+        from paddle_tpu_torch.testing import ThreadRankSet
 
-        from paddle_tpu_torch.distributed.collective import new_group
-
-        store = dist.HashStore()
         self.timeout = timeout
-        self.stats, self.errors = {}, {}
-
-        def follow(rank):
-            try:
-                eng = build(rank, new_group(rank, tp, store,
-                                            timeout=timeout))
-                self.stats[rank] = eng.serve_follower()
-            except Exception as e:      # read by close()
-                self.errors[rank] = e
-
-        self.threads = [threading.Thread(target=follow, args=(r,),
-                                         daemon=True, name=f"tp-rank{r}")
-                        for r in range(1, tp)]
-        for t in self.threads:
-            t.start()
-        self.engine = build(0, new_group(0, tp, store, timeout=timeout))
+        self.ranks = ThreadRankSet(
+            tp, lambda rank, g: build(rank, g).serve_follower(), timeout,
+            ranks=range(1, tp))
+        self.engine = build(0, self.ranks.group(0))
 
     def close(self):
         self.engine.stop_followers()
-        for t in self.threads:
-            t.join(self.timeout)
-        alive = [t.name for t in self.threads if t.is_alive()]
-        if alive or self.errors:
-            raise RuntimeError(f"tp followers: alive {alive}, errors "
-                               f"{self.errors}")
-        return self.stats
+        return self.ranks.join(self.timeout)
 
 
 TP_KEYS = ("shape", "tps", "workload", "token_exact", "steps", "spec",
