@@ -173,7 +173,9 @@ Phases (any failure exits non-zero and prints no result line):
      within 1e-2 relative of phase 7's at the same step, each of the 147
      tensors' step-0 gradient within 4 times its spread over two repeats
      of phase 7's step 0 (read from the first moment, clip scale taken
-     out), peak memory below phase 7's; tokens/s, ms/step, MFU (phase 7's flops per token, the
+     out; these step-0 runs take the two-pass flash backward, whose dq
+     is summed in order, in place of K2, whose dq atomics make every run
+     differ), peak memory below phase 7's; tokens/s, ms/step, MFU (phase 7's flops per token, the
      recomputed forward not counted) and peak memory beside phase 7's;
  22. the flagship with ``telemetry=True`` and a ``TrainHealthMonitor``
      (tools/train_health.json's monitor block, the healthy run's 30 s
@@ -228,7 +230,7 @@ Phases (any failure exits non-zero and prints no result line):
      mesh block with two device rows; prints ms/step, tokens/s, rank 0's
      idle share and K3's device ms a step beside tp=1. Followers are
      joined with a timeout; one that fails or hangs fails the phase;
- 26. (last, with autograd) the sharded pretrain mesh over gloo, every
+ 26. (with autograd) the sharded pretrain mesh over gloo, every
      rank a process on the one card (``--mesh-rank`` runs one; the test
      bed, not a deployment): (a) the pretrain flagship (L=24, B=8,
      S=2048, bf16 AMP-O2) on fsdp 2 x mp 2, phase 7's seeded weights and
@@ -237,8 +239,10 @@ Phases (any failure exits non-zero and prints no result line):
      ``MESH_GNORM_RTOL`` of phase 7's, each rank's bytes at rest equal to
      the analytic figure from ``spec_for_param``, its collective calls
      and bytes equal to ``sharded.step_comm``, exactly 24 + 24 flash
-     launches, 49 + 49 norm, 24 + 24 SwiGLU, 1 + 1 token CE and 2 AdamW
-     a step on every rank, finite losses; prints ms/step, global
+     launches, 49 + 49 norm, 24 + 24 SwiGLU, 1 + 1 token CE (the LM head
+     vocab-parallel over mp: kernel C's sharded forward and its backward
+     with the shard's offset) and 2 AdamW a step on every rank, finite
+     losses; prints ms/step, global
      tokens/s, MFU against one card, each rank's peak memory and bytes
      at rest, rank 0's idle share and collectives by op and axis. (b)
      f32 at full width and L=2 on dp 2 x fsdp 2 x mp 2 (eight ranks),
@@ -248,6 +252,20 @@ Phases (any failure exits non-zero and prints no result line):
      step), at least 99.9% of every tensor's elements and every element
      of a 1-D tensor within ``MESH_MASTER_BULK``. Ranks are joined with a
      timeout; one that fails or hangs fails the phase;
+ 27. (after 26) kernel C's vocab-sharded form
+     (``ops.token_ce.token_ce_fwd_partial``: the row partials, and the
+     backward with the shard's offset) against its plain versions at
+     phase 26 (a)'s rank shard [8192, 16000] in bf16 and f32 and at
+     [4099, 16001] with labels on both shard edges and a quarter ignored
+     (device ms beside the plain version, torch.logsumexp over the shard
+     plus the gold gather, and the byte bound); then ``fleet.init`` with
+     mp 2 on two gloo rank processes on the card (``--fleet-rank`` runs
+     one; a test bed, not a deployment), f32 and bf16 at the flagship's
+     widths: ColumnParallelLinear(1024, 2816) -> RowParallelLinear(2816,
+     1024) with biases, VocabParallelEmbedding(32000, 1024) and
+     ParallelCrossEntropy on [8192, 32000] logits, each forward and
+     gradient against the whole computation on the card (``FLEET_REL``,
+     ``FLEET_CE_ATOL``), the sharded CE kernel launched once each way;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -673,7 +691,8 @@ def reset_counts():
     from paddle_tpu_torch.ops import adamw, fused_norm, swiglu, token_ce
     for fn in (fused_norm.rms_norm_fwd, fused_norm.rms_norm_bwd,
                swiglu.swiglu_fwd, swiglu.swiglu_bwd, token_ce.token_ce_fwd,
-               token_ce.token_ce_bwd, adamw.adamw_step):
+               token_ce.token_ce_bwd, adamw.adamw_step,
+               token_ce.token_ce_fwd_partial):
         fn.launches = 0
     adamw.adamw_step.telemetry_launches = 0
 
@@ -688,15 +707,23 @@ def read_tier_counts():
             token_ce.token_ce_bwd.launches, adamw.adamw_step.launches)
 
 
-def tier_counts_per_step(cfg, fused_loss):
+def tier_counts_per_step(cfg, fused_loss, vocab_parallel=False):
     """The fused tier's launches a training step of ``cfg``: two norms a
     layer and the final one, forward and backward; one SwiGLU a layer,
     forward and backward; the token CE once each way unless the LM-head
-    loss is fused; kernel D's two launches."""
+    loss is fused (with the vocab-parallel head of the mesh: its
+    sharded forward, ``read_partial_counts``, in place of the whole
+    one); kernel D's two launches."""
     n_norm = 2 * cfg.num_hidden_layers + 1
     n_ce = 0 if fused_loss else 1
     return (n_norm, n_norm, cfg.num_hidden_layers, cfg.num_hidden_layers,
-            n_ce, n_ce, 2)
+            0 if vocab_parallel else n_ce, n_ce, 2)
+
+
+def read_partial_counts():
+    """Launches of kernel C's vocab-sharded forward."""
+    from paddle_tpu_torch.ops import token_ce
+    return token_ce.token_ce_fwd_partial.launches
 
 
 def read_counts():
@@ -3817,7 +3844,8 @@ RECOMPUTE_GNORM_RTOL = 1e-2   # grad norms vs phase 7: K2's dq sums in f32
                               # atomics, so gradients differ run to run
 F32_EPS = 2.0 ** -23
 RECOMPUTE_SPREAD_K = 4        # step-0 gradients: each tensor within 4x its
-                              # spread over two repeats of phase 7's step 0
+                              # spread over two repeats of phase 7's step 0,
+                              # all with the in-order two-pass backward
 
 
 def flagship_batches(cfg, batch, seq, n):
@@ -3854,10 +3882,18 @@ def phase_recompute(torch, base):
     launched twice (flash forward 48 a step), grad norms within
     RECOMPUTE_GNORM_RTOL of phase 7's at the same step, each tensor's
     step-0 gradient within RECOMPUTE_SPREAD_K times its spread over two
-    repeats of phase 7's step 0 (K2's dq atomics: the only difference a
-    correct recompute leaves), and peak memory below phase 7's. Returns
-    {mode: stats}."""
+    repeats of phase 7's step 0, and peak memory below phase 7's. K2 sums
+    dq with f32 atomics, so no two runs of a step agree in the last bits,
+    and 24 layers grow that to 1e-2 in the first layers' gradients; a
+    spread over two such runs is too few samples to bound a third. So
+    the step-0 gradient runs take the two-pass flash backward (the
+    FlashMask kernels' no-interval form, dq summed in order) in K2's
+    place: each tensor's spread is then one f32 epsilon unless some other
+    kernel differs run to run. The timed steps run K2; their step-0
+    gradients against phase 7's step 0 on K2 are printed, not held.
+    Returns {mode: stats}."""
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     def first_step(mode):
         cfg, batch, seq = pretrain.flagship_config()
@@ -3870,27 +3906,56 @@ def phase_recompute(torch, base):
                                          pretrain.batch_to_device(host))
         return float(loss), float(gnorm), opt_state["m"], meta["grad_clip"]
 
-    # phase 7's step 0 from a fresh model: the reference, then two repeats
-    # whose error against it is each tensor's run-to-run spread
+    # phase 7's step 0 from a fresh model on K2: the reference the timed
+    # runs' step-0 gradients are printed against
     loss, gnorm, m, clip = first_step(False)
     check(loss == base["losses"][0], f"phase 7's step 0 again: loss "
           f"{loss!r} is not phase 7's {base['losses'][0]!r}")
     ref = (gnorm, {n: t.cpu() for n, t in m.items()})
     del m
-    spread = {}
-    for _ in range(2):
+    # the same step with the in-order backward: the reference, two repeats
+    # whose error against it is each tensor's run-to-run spread, and each
+    # recompute mode's step 0
+    saved = fa.flash_bwd
+    fa.flash_bwd = fa.flash_bwd_twopass
+    try:
         _, gnorm, m, _ = first_step(False)
-        for n, r in step0_grad_rel(torch, ref, m, gnorm, clip).items():
-            # a tensor that no dq reaches differs only by the rounding of
-            # the scale: one f32 epsilon is its floor
-            spread[n] = max(spread.get(n, F32_EPS), r)
+        det = (gnorm, {n: t.cpu() for n, t in m.items()})
         del m
+        spread = {}
+        for _ in range(2):
+            _, gnorm, m, _ = first_step(False)
+            for n, r in step0_grad_rel(torch, det, m, gnorm, clip).items():
+                # the rounding of the scale: one f32 epsilon is the floor
+                spread[n] = max(spread.get(n, F32_EPS), r)
+            del m
+        rel_det = {}
+        for mode in (True, "dots_saveable"):
+            loss, gnorm, m, _ = first_step(mode)
+            check(loss == base["losses"][0],
+                  f"recompute={mode!r}, two-pass backward: step-0 loss "
+                  f"{loss!r} is not phase 7's {base['losses'][0]!r}")
+            rel_det[mode] = step0_grad_rel(torch, det, m, gnorm, clip)
+            del m
+    finally:
+        fa.flash_bwd = saved
     torch.cuda.empty_cache()
     lo, hi = min(spread, key=spread.get), max(spread, key=spread.get)
-    print(f"  step-0 gradients of phase 7 run twice more against a third: "
-          f"relative spread {spread[lo]:.3e} ({lo}) to {spread[hi]:.3e} "
-          f"({hi}); limit {RECOMPUTE_SPREAD_K} x each tensor's",
-          flush=True)
+    print(f"  step-0 gradients with the two-pass backward, phase 7 run "
+          f"twice more against a third: relative spread {spread[lo]:.3e} "
+          f"({lo}) to {spread[hi]:.3e} ({hi}); limit {RECOMPUTE_SPREAD_K} "
+          "x each tensor's", flush=True)
+    for mode, rel in rel_det.items():
+        worst = max(rel, key=lambda n: rel[n] / spread[n])
+        print(f"    recompute={mode!r}: step-0 gradients "
+              f"{min(rel.values()):.3e} to {max(rel.values()):.3e} relative "
+              f"to phase 7's, worst against its spread {worst} at "
+              f"{rel[worst] / spread[worst]:.2f} x", flush=True)
+        check(all(rel[n] <= RECOMPUTE_SPREAD_K * spread[n] for n in rel),
+              f"recompute={mode!r}: step-0 gradient of {worst} "
+              f"{rel[worst]:.3e} relative to phase 7's, over "
+              f"{RECOMPUTE_SPREAD_K} x its spread {spread[worst]:.3e} "
+              "(both with the two-pass backward)")
     out = {}
     for mode in (True, "dots_saveable"):
         cfg, batch, seq = pretrain.flagship_config()
@@ -3911,11 +3976,6 @@ def phase_recompute(torch, base):
             if len(losses) == 1:
                 rel0 = step0_grad_rel(torch, ref, opt_state["m"], gnorms[0],
                                       clip)
-        worst = max(rel0, key=lambda n: rel0[n] / spread[n])
-        check(all(rel0[n] <= RECOMPUTE_SPREAD_K * spread[n] for n in rel0),
-              f"recompute={mode!r}: step-0 gradient of {worst} "
-              f"{rel0[worst]:.3e} relative to phase 7's, over "
-              f"{RECOMPUTE_SPREAD_K} x its spread {spread[worst]:.3e}")
         timed = 3
         batches = [pretrain.batch_to_device(b) for b in host[2:]]
         torch.cuda.synchronize()
@@ -3971,10 +4031,10 @@ def phase_recompute(torch, base):
               f"tier {tier}; step-0 loss {losses[0]!r} (phase 7 "
               f"{base['losses'][0]!r}); grad norms "
               f"{['%.5f' % g for g in gnorms]} (worst relative to phase 7 "
-              f"{rel:.2e}); step-0 gradients {min(rel0.values()):.3e} to "
-              f"{max(rel0.values()):.3e} relative to phase 7's, worst "
-              f"against its spread {worst} at "
-              f"{rel0[worst] / spread[worst]:.2f} x", flush=True)
+              f"{rel:.2e}); on K2, step-0 gradients "
+              f"{min(rel0.values()):.3e} to {max(rel0.values()):.3e} "
+              "relative to phase 7's on K2 (not held: dq atomics)",
+              flush=True)
         spare = iter(batches)
 
         def one_step():
@@ -3990,8 +4050,12 @@ def phase_recompute(torch, base):
             "grad_norms": gnorms, "flash_fwd_launches": fwd,
             "flash_bwd_launches": bwd, "tier_launches": list(tier),
             "grad_norm_worst_rel": rel,
-            "step0_grad_rel": [min(rel0.values()), max(rel0.values())],
-            "step0_worst_vs_spread": [worst, rel0[worst] / spread[worst]],
+            "step0_grad_rel_k2": [min(rel0.values()), max(rel0.values())],
+            "step0_grad_rel": [min(rel_det[mode].values()),
+                               max(rel_det[mode].values())],
+            "step0_worst_vs_spread": max(
+                ([n, r / spread[n]] for n, r in rel_det[mode].items()),
+                key=lambda x: x[1]),
             "profile": prof}
         del model, params, opt_state, batches, res, step, spare
         torch.cuda.empty_cache()
@@ -5286,6 +5350,7 @@ def mesh_rank(spec_path):
     hist += [(float(x), float(g)) for x, g in res]
     out.update(hist=hist, timed=timed, ms_per_step=wall / timed * 1e3,
                flash=list(read_flash_counts()), tier=list(read_tier_counts()),
+               ce_partial=read_partial_counts(),
                comm=dict(step.comm),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     if spec["leg"] == "a":
@@ -5307,30 +5372,24 @@ def mesh_rank(spec_path):
     return 0
 
 
-def run_mesh_leg(leg, tmp):
-    """Start every rank of `leg` as a process of this script over a
-    FileStore in `tmp`, join them (bounded) and return their outputs in
-    rank order; a rank that fails or hangs fails the phase with its log's
-    tail."""
-    name, mesh_kw, world, dtype, layers, seed, bseed, steps = leg
+def run_rank_procs(flag, name, specs, tmp, join_s):
+    """Start a process of this script (``flag SPEC``) for each spec (rank
+    order; each names its JSON ``out``), join them (bounded by `join_s`
+    together) and return their outputs in rank order; a rank that fails
+    or hangs fails the phase with its log's tail."""
     procs = []
     try:
-        for rank in range(world):
-            spec = {"rank": rank, "world": world, "leg": name,
-                    "store": os.path.join(tmp, f"store_{name}"),
-                    "mesh": mesh_kw, "dtype": dtype, "layers": layers,
-                    "seed": seed, "batch_seed": bseed, "steps": steps,
-                    "out": os.path.join(tmp, f"{name}_rank{rank}.json"),
-                    "masters": os.path.join(tmp, f"{name}_masters.npz")}
+        for spec in specs:
+            rank = spec["rank"]
             path = os.path.join(tmp, f"{name}_rank{rank}_spec.json")
             with open(path, "w") as f:
                 json.dump(spec, f)
             log = open(os.path.join(tmp, f"{name}_rank{rank}.log"), "w")
             procs.append((subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-                 path], stdout=log, stderr=subprocess.STDOUT), spec, log))
+                [sys.executable, os.path.abspath(__file__), flag, path],
+                stdout=log, stderr=subprocess.STDOUT), spec, log))
         results = []
-        deadline = time.monotonic() + MESH_JOIN_S
+        deadline = time.monotonic() + join_s
         for proc, spec, log in procs:
             try:
                 rc = proc.wait(max(1.0, deadline - time.monotonic()))
@@ -5340,13 +5399,29 @@ def run_mesh_leg(leg, tmp):
             if rc != 0:
                 with open(log.name) as f:
                     tail = f.read()[-3000:]
-                raise SmokeFailure(f"mesh leg {name} rank {spec['rank']} "
-                                   f"ended {rc}:\n{tail}")
+                raise SmokeFailure(f"{name} rank {spec['rank']} ended "
+                                   f"{rc}:\n{tail}")
             with open(spec["out"]) as f:
                 results.append(json.load(f))
-        return results, procs[0][1]
+        return results
     finally:
         kill_followers(procs)   # kills a rank still running, closes logs
+
+
+def run_mesh_leg(leg, tmp):
+    """Every rank of `leg` as a process of this script over a FileStore
+    in `tmp` (``run_rank_procs``): their outputs in rank order and rank
+    0's spec."""
+    name, mesh_kw, world, dtype, layers, seed, bseed, steps = leg
+    specs = [{"rank": rank, "world": world, "leg": name,
+              "store": os.path.join(tmp, f"store_{name}"),
+              "mesh": mesh_kw, "dtype": dtype, "layers": layers,
+              "seed": seed, "batch_seed": bseed, "steps": steps,
+              "out": os.path.join(tmp, f"{name}_rank{rank}.json"),
+              "masters": os.path.join(tmp, f"{name}_masters.npz")}
+             for rank in range(world)]
+    return run_rank_procs("--mesh-rank", f"mesh leg {name}", specs, tmp,
+                          MESH_JOIN_S), specs[0]
 
 
 def mesh_reference(torch, leg):
@@ -5388,7 +5463,10 @@ def phase_mesh(torch, train_stats):
         t0 = time.perf_counter()
         ranks, _ = run_mesh_leg(leg_a, tmp)
         out["a_wall_s"] = time.perf_counter() - t0
-        per_step = tier_counts_per_step(cfg, False)
+        # the LM head is vocab-parallel over mp: kernel C's sharded
+        # forward once a step in place of the whole one, the backward
+        # with the shard's offset
+        per_step = tier_counts_per_step(cfg, False, vocab_parallel=True)
         for r in ranks:
             n = r["timed"]
             check(r["flash"] == [cfg.num_hidden_layers * n] * 2,
@@ -5398,6 +5476,10 @@ def phase_mesh(torch, train_stats):
             check(r["tier"] == [n * k for k in per_step],
                   f"mesh (a) rank {r['rank']}: fused tier launches "
                   f"{r['tier']} in {n} steps (want {per_step} a step)")
+            check(r["ce_partial"] == n,
+                  f"mesh (a) rank {r['rank']}: {r['ce_partial']} launches "
+                  f"of the sharded CE forward in {n} steps (want 1 a "
+                  "step)")
             check(r["rest_bytes"] == rest,
                   f"mesh (a) rank {r['rank']}: {r['rest_bytes']} bytes at "
                   f"rest, the specs give {rest}")
@@ -5437,7 +5519,7 @@ def phase_mesh(torch, train_stats):
             "rest_bytes": rest, "rank0_idle": idle,
             "collectives": r0["comm"], "launches_rank0": {
                 "flash": r0["flash"], "tier": r0["tier"],
-                "timed_steps": r0["timed"]},
+                "ce_partial": r0["ce_partial"], "timed_steps": r0["timed"]},
             "rank0_profile": prof}
         print(f"  (a) fsdp 2 x mp 2, L={cfg.num_hidden_layers} B={batch} "
               f"S={seq} bf16: {r0['ms_per_step']:.1f} ms/step, "
@@ -5452,7 +5534,13 @@ def phase_mesh(torch, train_stats):
               f"a rank; rank 0 idle "
               f"{'not measured' if idle is None else '%.1f%%' % (idle * 100)}"
               f"; launches a rank in {r0['timed']} steps: flash "
-              f"{r0['flash']}, tier {r0['tier']}", flush=True)
+              f"{r0['flash']}, tier {r0['tier']}, sharded CE forward "
+              f"{r0['ce_partial']}", flush=True)
+        print(f"  (a) beside the whole LM head of the mesh slice's runs "
+              f"(4285.7 / 4988.6 / 5336.4 ms/step, peak 7.08 GB a rank): "
+              f"{r0['ms_per_step']:.1f} ms/step, peak "
+              f"{max(r['peak_gb'] for r in ranks):.2f} GB; gloo processes "
+              f"on one card, a test bed, not a deployment", flush=True)
         print(f"  (a) collectives a step on rank 0: "
               f"{json.dumps(r0['comm'])}", flush=True)
         inside = r0["collective_ms_per_step"]
@@ -5510,6 +5598,286 @@ def phase_mesh(torch, train_stats):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# -- phase 27: fleet's tensor-parallel layers over gloo on the one card ------
+
+FLEET_TIMEOUT_S = 300.0    # every gloo operation of phase 27's groups
+FLEET_JOIN_S = 600.0       # the ranks' exit after their last case
+FLEET_SEED = 27
+FLEET_MP = 2
+# each output and gradient of a layer against the whole computation on one
+# card, max |err| over max |ref|: f32 sums the same products in another
+# order (TF32 off); bf16 rounds each rank's partial product (and the sum
+# of the two) to bf16 where the whole product rounds once: a few units of
+# 2**-8 at the largest element
+FLEET_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+# the per-row loss of ParallelCrossEntropy against kernel C on the whole
+# rows, absolute: f32 sums of exps in another order (rows near log V = 10);
+# bf16 rounds x - m_r on each shard where the whole row rounds x - M
+# (JAX's order), an error that averages over the 16000 columns a shard
+FLEET_CE_ATOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# kernel C's vocab-sharded form alone: (name, rows, V_r, dtype, start,
+# every k-th row ignored (0: none), the forward's route); phase 26 (a)'s
+# rank shard of the flagship's vocabulary in bf16 and f32, and a shard
+# off 8 with labels on both of its edges and a quarter of the rows ignored
+SHARD_CE_SPECS = (
+    ("rank_n8192_v16000_bf16", MESH_ROWS, V // 2, "bfloat16", V // 2, 0,
+     "rows"),
+    ("rank_n8192_v16000_f32", MESH_ROWS, V // 2, "float32", V // 2, 0,
+     "rows"),
+    ("edges_n4099_v16001", 4099, 16001, "bfloat16", 16001, 4, "rows"),
+)
+
+
+def shard_ce_case(torch, gen, spec):
+    """Inputs of one SHARD_CE_SPECS case: logits [N, V_r], labels over
+    the whole vocabulary (2 V_r wide) with the shard's edges (start - 1,
+    start, start + V_r - 1, start + V_r) among them, the row gradient and
+    the shard's stats."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    name, n, v, dtn, start, ign, route = spec
+    dt = getattr(torch, dtn)
+    x = (2 * torch.randn(n, v, generator=gen, device="cuda")).to(dt)
+    lab = torch.randint(0, 2 * v, (n,), generator=gen, device="cuda")
+    edges = torch.tensor([start - 1, start, start + v - 1, start + v],
+                         device="cuda")
+    lab[1:1 + 4 * 7:7] = edges
+    if ign:
+        lab[::ign] = -100
+    g = torch.randn(n, generator=gen, device="cuda")
+    part = tc.token_ce_fwd_partial_plain(x, lab, start)
+    return x, lab, g, part[:, :2].contiguous()
+
+
+def shard_ce_cases(torch):
+    """Kernel C's vocab-sharded forward (the row partials) and its
+    backward with the shard's offset against their plain versions;
+    library: torch.logsumexp over the shard plus the gold gather."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    from paddle_tpu_torch.ops import work
+    gen = torch.Generator(device="cuda").manual_seed(87)
+    rows = {"fwd": [], "bwd": []}
+    with torch.no_grad():
+        for spec in SHARD_CE_SPECS:
+            name, n, v, dtn, start, _, want = spec
+            x, lab, g, stats = shard_ce_case(torch, gen, spec)
+            eb = x.element_size()
+            idx = (lab - start).clamp(0, v - 1)[:, None]
+            rows["fwd"].append(tier_case(
+                torch, "token_ce_fwd_partial", name,
+                lambda: (tc.token_ce_fwd_partial(x, lab, start),),
+                lambda: (tc.token_ce_fwd_partial_plain(x, lab, start),),
+                (CE_SUM_ATOL,), work.token_ce_fwd_partial(n, v, eb)[0],
+                library=lambda: (torch.logsumexp(x.float(), -1),
+                                 torch.gather(x, 1, idx)),
+                route=lambda: (tc.token_ce_fwd_partial.route, want)))
+            rows["bwd"].append(tier_case(
+                torch, "token_ce_bwd_sharded", name,
+                lambda: (tc.token_ce_bwd(x, lab, stats, g, None, -100, 0.0,
+                                         "none", start),),
+                lambda: (tc.token_ce_bwd_plain(x, lab, stats, g, None, -100,
+                                               0.0, "none", start),),
+                (lambda ref: 2.0 ** -22 * float(ref.abs().max()),),
+                work.token_ce_bwd(n, v, eb)[0]))
+            del x, lab, g, stats
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fleet_inputs(torch, dtype):
+    """The whole tensors of phase 27's layers at the flagship's widths,
+    the same in every process (seeded on the card): x [8192, E] through
+    Column(E, F) -> Row(F, E) with biases and a cotangent; ids and a
+    cotangent for the [V, E] table; [8192, V] logits, labels (a quarter
+    ignored, the shards' edges among them) and a row gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(FLEET_SEED)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")
+                ).to(dt)
+    n, half = MESH_ROWS, V // FLEET_MP
+    t = {"x": rnd(n, E), "wc": rnd(E, F, scale=E ** -0.5),
+         "bc": rnd(F, scale=0.1), "wr": rnd(F, E, scale=F ** -0.5),
+         "br": rnd(E, scale=0.1), "ct": rnd(n, E),
+         "table": rnd(V, E, scale=0.02), "ect": rnd(n, E),
+         "logits": rnd(n, V, scale=2.0),
+         "g": torch.randn(n, generator=gen, device="cuda")}
+    edges = torch.tensor([0, half - 1, half, V - 1], device="cuda")
+    t["ids"] = torch.randint(0, V, (n,), generator=gen, device="cuda")
+    t["ids"][:4] = edges
+    t["labels"] = torch.randint(0, V, (n,), generator=gen, device="cuda")
+    t["labels"][::4] = -100
+    t["labels"][1:1 + 4 * 5:5] = edges
+    return t
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def fleet_rank(spec_path):
+    """A rank of phase 27 (``chip_smoke.py --fleet-rank SPEC``): joins the
+    world group, ``fleet.init`` with mp 2 on the card, and for f32 and
+    bf16 runs the Column -> Row pair, VocabParallelEmbedding and
+    ParallelCrossEntropy forward and backward on its shards beside the
+    whole computation on the card; writes the worst errors, the sharded
+    CE kernel's launches and each layer's ms as JSON to the spec's
+    ``out``."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.fleet import mp_layers
+    from paddle_tpu_torch.ops import token_ce as tc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = collective.new_group(spec["rank"], FLEET_MP, spec["store"],
+                                 timeout=FLEET_TIMEOUT_S)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update({"mp_degree": FLEET_MP})
+    hcg = fleet.init(is_collective=True, strategy=strategy, group=group,
+                     device="cuda")
+    r = hcg.get_model_parallel_rank()
+    out = {"rank": spec["rank"], "mp_rank": r, "cases": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    for dtype in ("float32", "bfloat16"):
+        t = fleet_inputs(torch, dtype)
+        dt = getattr(torch, dtype)
+        errs, ms = {}, {}
+        # Column(E, F, gather_output=False) -> Row(F, E, parallel input)
+        ref = {k: _leaf(t[k]) for k in ("x", "wc", "bc", "wr", "br")}
+        y = (ref["x"] @ ref["wc"] + ref["bc"]) @ ref["wr"] + ref["br"]
+        (y * t["ct"]).sum().backward()
+        col = mp_layers.shard_state_from_numpy(
+            fleet.ColumnParallelLinear(E, F, gather_output=False),
+            {"weight": np32(t["wc"]), "bias": np32(t["bc"])}).to(dt)
+        row = mp_layers.shard_state_from_numpy(
+            fleet.RowParallelLinear(F, E, input_is_parallel=True),
+            {"weight": np32(t["wr"]), "bias": np32(t["br"])}).to(dt)
+        model = fleet.distributed_model(torch.nn.Sequential(col, row))
+        xp = _leaf(t["x"])
+
+        def pair():
+            got = model(xp)
+            (got * t["ct"]).sum().backward()
+            return got
+        got, ms["column_row"] = timed(pair)
+        errs["column_row"] = max(
+            _rel_err(got, y), _rel_err(xp.grad, ref["x"].grad),
+            _rel_err(col.weight.grad, ref["wc"].grad.chunk(FLEET_MP, 1)[r]),
+            _rel_err(col.bias.grad, ref["bc"].grad.chunk(FLEET_MP, 0)[r]),
+            _rel_err(row.weight.grad, ref["wr"].grad.chunk(FLEET_MP, 0)[r]),
+            _rel_err(row.bias.grad, ref["br"].grad))
+        del ref, y, col, row, model, xp, got
+        # VocabParallelEmbedding(V, E)
+        table = _leaf(t["table"])
+        ye = Fn.embedding(t["ids"], table)
+        (ye * t["ect"]).sum().backward()
+        emb = mp_layers.shard_state_from_numpy(
+            fleet.VocabParallelEmbedding(V, E),
+            {"weight": np32(t["table"])}).to(dt)
+
+        def lookup():
+            got = emb(t["ids"])
+            (got * t["ect"]).sum().backward()
+            return got
+        got, ms["vocab_embedding"] = timed(lookup)
+        errs["vocab_embedding"] = max(
+            _rel_err(got, ye),
+            _rel_err(emb.weight.grad, table.grad.chunk(FLEET_MP, 0)[r]))
+        del table, ye, emb, got
+        # ParallelCrossEntropy on this rank's [8192, V / 2] columns against
+        # kernel C on the whole rows
+        with torch.no_grad():
+            wl, stats, totals = tc.token_ce_fwd(t["logits"], t["labels"],
+                                                -100, 0.0)
+            wdx = tc.token_ce_bwd(t["logits"], t["labels"], stats, t["g"],
+                                  totals, -100, 0.0, "none")
+        xs = _leaf(t["logits"].chunk(FLEET_MP, 1)[r])
+        pce = fleet.ParallelCrossEntropy()
+        n0 = (tc.token_ce_fwd_partial.launches, tc.token_ce_bwd.launches)
+
+        def ce():
+            loss = pce(xs, t["labels"])
+            (loss * t["g"]).sum().backward()
+            return loss
+        loss, ms["parallel_ce"] = timed(ce)
+        launches = (tc.token_ce_fwd_partial.launches - n0[0],
+                    tc.token_ce_bwd.launches - n0[1])
+        errs["parallel_ce_loss_abs"] = float((loss - wl).abs().max())
+        errs["parallel_ce_dx"] = _rel_err(xs.grad,
+                                          wdx.chunk(FLEET_MP, 1)[r])
+        out["cases"][dtype] = {"errors": errs, "ms": ms,
+                               "ce_launches": list(launches),
+                               "ce_route": tc.token_ce_fwd_partial.route}
+        del t, wl, stats, totals, wdx, xs, loss
+        torch.cuda.empty_cache()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_fleet(torch):
+    """Phase 27: kernel C's sharded form against its plain version, then
+    fleet's layers on two gloo rank processes (mp 2) on the card against
+    the whole computation. Returns (kernel rows, stats)."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    rows = shard_ce_cases(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        specs = [{"rank": r, "store": os.path.join(tmp, "store"),
+                  "out": os.path.join(tmp, f"fleet_rank{r}.json")}
+                 for r in range(FLEET_MP)]
+        ranks = run_rank_procs("--fleet-rank", "fleet", specs, tmp,
+                               FLEET_JOIN_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = {"backend": "gloo, one card", "mp": FLEET_MP, "ranks": ranks}
+    for rk in ranks:
+        for dtype, c in rk["cases"].items():
+            e = c["errors"]
+            rel = FLEET_REL[dtype]
+            for key in ("column_row", "vocab_embedding", "parallel_ce_dx"):
+                check(e[key] <= rel, f"fleet rank {rk['rank']} {dtype} "
+                      f"{key}: max err {e[key]:.3e} of max |ref| (allowed "
+                      f"{rel:g})")
+            check(e["parallel_ce_loss_abs"] <= FLEET_CE_ATOL[dtype],
+                  f"fleet rank {rk['rank']} {dtype} ParallelCrossEntropy "
+                  f"loss off by {e['parallel_ce_loss_abs']:.3e} (allowed "
+                  f"{FLEET_CE_ATOL[dtype]:g})")
+            check(c["ce_launches"] == [1, 1],
+                  f"fleet rank {rk['rank']} {dtype}: sharded CE launches "
+                  f"{c['ce_launches']} (want 1 forward, 1 backward)")
+            print(f"  rank {rk['rank']} (mp {rk['mp_rank']}) {dtype}: "
+                  f"Column(1024, 2816) -> Row(2816, 1024) rel err "
+                  f"{e['column_row']:.3e}, VocabParallelEmbedding(32000, "
+                  f"1024) {e['vocab_embedding']:.3e}, ParallelCrossEntropy "
+                  f"[8192, 32000] loss abs {e['parallel_ce_loss_abs']:.3e} "
+                  f"dx rel {e['parallel_ce_dx']:.3e} (route "
+                  f"{c['ce_route']}, launches {c['ce_launches']}); host ms "
+                  f"fwd + bwd over gloo: {json.dumps(c['ms'])}", flush=True)
+    return rows, stats
 
 
 def kernel_entry(name, source, replaces, launches, rows, main_case):
@@ -5648,6 +6016,10 @@ def main():
           "the card: (a) the flagship on fsdp 2 x mp 2, bf16; (b) f32 L=2 "
           "on dp 2 x fsdp 2 x mp 2", flush=True)
     mesh_stats = phase_mesh(torch, train_stats)
+    print("phase 27: kernel C's vocab-sharded form, then fleet's "
+          "tensor-parallel layers over gloo in two processes on the card "
+          "(mp 2; f32 and bf16)", flush=True)
+    fleet_rows, fleet_stats = phase_fleet(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -5735,7 +6107,19 @@ def main():
         "paddle_tpu/models/pretrain.py:205",
         health_stats["telemetry_launches"], tel_rows,
         tel_rows[0]["case"]))
-    check(len(kernels) == 22 and all(e["launches"] > 0 for e in kernels),
+    # kernel C's vocab-sharded form: its launches are phase 26 (a)'s rank
+    # 0 (the vocab-parallel LM head, 1 + 1 a step); no pallas_call stands
+    # behind it either: the JAX package's ParallelCrossEntropy is a
+    # shard_map that XLA fuses
+    mesh_a = mesh_stats["a"]["launches_rank0"]
+    for name, launches, key in (
+            ("token_ce_fwd_partial", mesh_a["ce_partial"], "fwd"),
+            ("token_ce_bwd_sharded", mesh_a["tier"][5], "bwd")):
+        kernels.append(kernel_entry(
+            name, "paddle_tpu_torch/csrc/token_ce.cu",
+            "paddle_tpu/distributed/fleet/mp_layers.py:147", launches,
+            fleet_rows[key], SHARD_CE_SPECS[0][0]))
+    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -5760,6 +6144,8 @@ def main():
           flush=True)
     print(f"card: {card}; sharded pretrain mesh: {json.dumps(mesh_stats)}",
           flush=True)
+    print(f"card: {card}; fleet layers: {json.dumps(fleet_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5773,6 +6159,8 @@ if __name__ == "__main__":
             rc = tp_follower(sys.argv[2])
         elif sys.argv[1:2] == ["--mesh-rank"]:
             rc = mesh_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--fleet-rank"]:
+            rc = fleet_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

@@ -39,6 +39,16 @@
 // into the last block would save one launch gap and make that block read
 // all N losses alone.
 //
+// The vocab-sharded form (token_ce_fwd_partial, fleet's
+// ParallelCrossEntropy and the mesh step's vocab-parallel LM head): x
+// holds columns [start, start + V) of a vocabulary split over ranks, and
+// the same launch on the same route writes the row's partials (m_r, S_r =
+// sum exp(round_T(x - m_r)), x[label - start] or 0) instead of its loss;
+// the caller combines them over the ranks (a max, then one sum) and the
+// backward below runs with the combined (M, S) and the offset `start`.
+// JAX computes this with a shard_map (paddle_tpu/distributed/fleet/
+// mp_layers.py:147) that XLA fuses: no pallas_call stands behind it.
+//
 // Backward, one block a row, one pass: dx = round_T(g_r (exp(f32(round_T(x
 // - m))) / S - (1 - eps) [x is the label] - eps / V)), where g_r is the
 // row's gradient: given per row (reduction none), one scalar (sum), or
@@ -69,7 +79,7 @@ __global__ void __launch_bounds__(NT)
 token_ce_fwd_kernel(const T* __restrict__ x, const long long* __restrict__ lab,
                     float* __restrict__ loss, float* __restrict__ stats,
                     long long stride, int V, long long ignore, float one_m,
-                    float smooth) {
+                    float smooth, long long start, float* __restrict__ part) {
   __shared__ float red[NT / 32];
   const long long row = blockIdx.x;
   const T* xr = x + row * stride;
@@ -97,11 +107,18 @@ token_ce_fwd_kernel(const T* __restrict__ x, const long long* __restrict__ lab,
   }
   s = block_sum<NT>(s, red);
   if (threadIdx.x == 0) {
-    const long long l = lab[row];
+    const long long l = lab[row], li = l - start;
+    const bool in = li >= 0 && li < V;
+    if (part != nullptr) {
+      part[3 * row] = m;
+      part[3 * row + 1] = s;
+      part[3 * row + 2] = in ? to_f<T>(xr[li]) : 0.0f;
+      return;
+    }
     const float lse = logf(s) + m;
     float out = 0.0f;
     if (l != ignore) {
-      const float gold = (l >= 0 && l < V) ? to_f<T>(xr[l]) : NAN;
+      const float gold = in ? to_f<T>(xr[li]) : NAN;
       out = lse - gold;
       if (smooth != 0.0f)
         out = one_m * out + smooth * (lse - tot / (float)V);
@@ -170,7 +187,8 @@ token_ce_fwd_row_kernel(const T* __restrict__ x,
                         const long long* __restrict__ lab,
                         float* __restrict__ loss, float* __restrict__ stats,
                         long long stride, int V, long long ignore,
-                        float one_m, float smooth) {
+                        float one_m, float smooth, long long start,
+                        float* __restrict__ part) {
   __shared__ float red[2][2][NT_ROW / 32];
   __shared__ float peer[3][CLUSTER_MAX];     // m, sum, exp-sum of each rank
   extern __shared__ uint4 srow[];            // the block's chunks
@@ -208,7 +226,9 @@ token_ce_fwd_row_kernel(const T* __restrict__ x,
   float gold = 0.0f;
   if (threadIdx.x == 0 && rank == 0) {
     l = lab[row];
-    gold = (l >= 0 && l < V) ? to_f<T>(xr[l]) : NAN;
+    const long long li = l - start;
+    gold = (li >= 0 && li < V) ? to_f<T>(xr[li])
+                               : (part != nullptr ? 0.0f : NAN);
   }
   cp_async_wait<0>();
   float mx = -INFINITY, tot = 0.0f;
@@ -270,6 +290,12 @@ token_ce_fwd_row_kernel(const T* __restrict__ x,
     for (int q = 1; q < cs; ++q) s += peer[2][q];
   }
   if (threadIdx.x == 0) {
+    if (part != nullptr) {
+      part[3 * row] = m;
+      part[3 * row + 1] = s;
+      part[3 * row + 2] = gold;
+      return;
+    }
     const float lse = logf(s) + m;
     float out = 0.0f;
     if (l != ignore) {
@@ -287,7 +313,7 @@ template <typename T, int NC>
 int launch_rows(int cluster, const void* x, const long long* lab,
                 float* loss, float* stats, long long N, long long stride,
                 int V, long long ignore, float one_m, float smooth,
-                cudaStream_t s) {
+                long long start, float* part, cudaStream_t s) {
   const size_t smem = (size_t)NT_ROW * NC * sizeof(Pack8<T>);
   auto k = cluster == 1 ? token_ce_fwd_row_kernel<T, NC, false>
                         : token_ce_fwd_row_kernel<T, NC, true>;
@@ -298,7 +324,8 @@ int launch_rows(int cluster, const void* x, const long long* lab,
   }
   if (cluster == 1) {
     k<<<(unsigned)N, NT_ROW, smem, s>>>((const T*)x, lab, loss, stats,
-                                          stride, V, ignore, one_m, smooth);
+                                          stride, V, ignore, one_m, smooth,
+                                          start, part);
     return (int)cudaGetLastError();
   }
   if (N * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -316,7 +343,7 @@ int launch_rows(int cluster, const void* x, const long long* lab,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, k, (const T*)x, lab, loss,
                                            stats, stride, V, ignore, one_m,
-                                           smooth);
+                                           smooth, start, part);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -349,7 +376,8 @@ token_ce_bwd_kernel(const T* __restrict__ x, const long long* __restrict__ lab,
                     const float* __restrict__ g,
                     const float* __restrict__ totals, T* __restrict__ dx,
                     long long stride, long long dstride, int V,
-                    long long ignore, float one_m, float smooth, int gmode) {
+                    long long ignore, long long start, float one_m,
+                    float smooth, int gmode) {
   const long long row = blockIdx.x;
   const long long l = lab[row];
   float gr = gmode == 0 ? g[row] : g[0];
@@ -368,7 +396,7 @@ token_ce_bwd_kernel(const T* __restrict__ x, const long long* __restrict__ lab,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float d = t * expf(round_to<T>(v[i] - m)) - flat;
-      if (c + i == l) d -= hit;
+      if (c + i + start == l) d -= hit;
       o[i] = gr == 0.0f ? 0.0f : d;
     }
     store8<T, VEC>(dr + c, n, o);
@@ -379,7 +407,8 @@ template <typename T>
 int launch_fwd(int chunks, int cluster, bool vec, const void* x,
                const long long* lab, float* loss, float* stats,
                float* totals, long long N, long long stride, int V,
-               long long ignore, float one_m, float smooth, cudaStream_t s) {
+               long long ignore, float one_m, float smooth, long long start,
+               float* part, cudaStream_t s) {
   // the rows routes run what they are given or nothing: a compiled chunk
   // count (up to 64 KB a block), a cluster of 1 to 8 that holds the row
   if (chunks < 0 || (chunks > 0 && (chunks * (int)sizeof(Pack8<T>) > 128 ||
@@ -390,7 +419,7 @@ int launch_fwd(int chunks, int cluster, bool vec, const void* x,
   int rc = 0;
 #define ROWS(NC)                                                            \
   launch_rows<T, NC>(cluster, x, lab, loss, stats, N, stride, V, ignore,    \
-                     one_m, smooth, s)
+                     one_m, smooth, start, part, s)
   if (chunks == 1) rc = ROWS(1);
   else if (chunks == 2) rc = ROWS(2);
   else if (chunks == 4) rc = ROWS(4);
@@ -398,15 +427,17 @@ int launch_fwd(int chunks, int cluster, bool vec, const void* x,
     if constexpr (sizeof(T) == 2) rc = ROWS(8);     // 8 only for 16-bit T
   } else if (vec) {
     token_ce_fwd_kernel<T, true><<<(unsigned)N, NT, 0, s>>>(
-        (const T*)x, lab, loss, stats, stride, V, ignore, one_m, smooth);
+        (const T*)x, lab, loss, stats, stride, V, ignore, one_m, smooth,
+        start, part);
   } else {
     token_ce_fwd_kernel<T, false><<<(unsigned)N, NT, 0, s>>>(
-        (const T*)x, lab, loss, stats, stride, V, ignore, one_m, smooth);
+        (const T*)x, lab, loss, stats, stride, V, ignore, one_m, smooth,
+        start, part);
   }
 #undef ROWS
   if (rc != 0) return rc;
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || part != nullptr) return (int)e;
   token_ce_sum_kernel<<<1, NT_SUM, 0, s>>>(loss, lab, N, ignore, totals);
   return (int)cudaGetLastError();
 }
@@ -415,16 +446,16 @@ template <typename T>
 int launch_bwd(bool vec, const void* x, const long long* lab,
                const float* stats, const float* g, const float* totals,
                void* dx, long long N, long long stride, long long dstride,
-               int V, long long ignore, float one_m, float smooth, int gmode,
-               cudaStream_t s) {
+               int V, long long ignore, long long start, float one_m,
+               float smooth, int gmode, cudaStream_t s) {
   if (vec)
     token_ce_bwd_kernel<T, true><<<(unsigned)N, NT, 0, s>>>(
         (const T*)x, lab, stats, g, totals, (T*)dx, stride, dstride, V,
-        ignore, one_m, smooth, gmode);
+        ignore, start, one_m, smooth, gmode);
   else
     token_ce_bwd_kernel<T, false><<<(unsigned)N, NT, 0, s>>>(
         (const T*)x, lab, stats, g, totals, (T*)dx, stride, dstride, V,
-        ignore, one_m, smooth, gmode);
+        ignore, start, one_m, smooth, gmode);
   return (int)cudaGetLastError();
 }
 
@@ -455,7 +486,31 @@ int token_ce_fwd(int dtype, int vec, const void* x, const void* labels,
 #define CALL(T)                                                             \
   launch_fwd<T>(chunks, cluster, vec != 0, x, (const long long*)labels,    \
                 (float*)loss, (float*)stats, (float*)totals, N, stride, V,  \
-                ignore, one_m, smooth, s)
+                ignore, one_m, smooth, 0, nullptr, s)
+  if (dtype == F32) return CALL(float);
+  if (dtype == BF16) return CALL(__nv_bfloat16);
+  if (dtype == F16) return CALL(__half);
+#undef CALL
+  return -1;
+}
+
+// The vocab-sharded form: x [N, V] holds columns [start, start + V) of a
+// vocabulary split over ranks. One launch on the same route as
+// token_ce_fwd writes part [N, 3] f32 per row: the shard's max m_r, its
+// sum of exp(round_T(x - m_r)) and the label's logit x[label - start]
+// where the label falls in the shard, else 0. The caller combines the
+// ranks' rows (ops.token_ce.combine_partials); no loss, no totals.
+int token_ce_fwd_partial(int dtype, int vec, const void* x,
+                         const void* labels, void* part, long long N,
+                         long long stride, int V, long long start,
+                         int chunks, int cluster, void* stream) {
+  if (N < 0 || V < 1 || N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(T)                                                             \
+  launch_fwd<T>(chunks, cluster, vec != 0, x, (const long long*)labels,    \
+                nullptr, nullptr, nullptr, N, stride, V, 0, 1.0f, 0.0f,     \
+                start, (float*)part, s)
   if (dtype == F32) return CALL(float);
   if (dtype == BF16) return CALL(__nv_bfloat16);
   if (dtype == F16) return CALL(__half);
@@ -464,12 +519,15 @@ int token_ce_fwd(int dtype, int vec, const void* x, const void* labels,
 }
 
 // g: [N] f32 (gmode 0) or a 0-dim f32 (1: sum, 2: mean over totals[1]);
-// dx [N, V] in the logits' dtype at row stride dstride.
+// dx [N, V] in the logits' dtype at row stride dstride. start: the first
+// vocabulary column x holds (0 but for the vocab-sharded form, whose
+// stats are the combined (M, S) of the whole row): the one-hot lands at
+// column label - start, nowhere for a label outside the shard.
 int token_ce_bwd(int dtype, int vec, const void* x, const void* labels,
                  const void* stats, const void* g, const void* totals,
                  void* dx, long long N, long long stride, int V,
-                 long long ignore, float one_m, float smooth, int gmode,
-                 void* stream) {
+                 long long ignore, long long start, float one_m,
+                 float smooth, int gmode, void* stream) {
   if (N < 0 || V < 1 || N > 0x7fffffffLL || gmode < 0 || gmode > 2)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
@@ -477,7 +535,7 @@ int token_ce_bwd(int dtype, int vec, const void* x, const void* labels,
 #define CALL(T)                                                             \
   launch_bwd<T>(vec != 0, x, (const long long*)labels, (const float*)stats, \
                 (const float*)g, (const float*)totals, dx, N, stride, V,    \
-                V, ignore, one_m, smooth, gmode, s)
+                V, ignore, start, one_m, smooth, gmode, s)
   if (dtype == F32) return CALL(float);
   if (dtype == BF16) return CALL(__nv_bfloat16);
   if (dtype == F16) return CALL(__half);

@@ -17,7 +17,11 @@ as well as one from ``dist.new_group``.
 Every call waits for its work, bounded by the group's timeout (or the
 call's own ``timeout``): a peer that died or stopped answering makes the
 call raise, never hang. Each call is counted in the
-function's ``calls``. ``all_reduce``, ``all_gather`` and
+function's ``calls`` (and tallied into ``stats``, and its payload bytes
+into the comm watchdog's ``collective_bytes_total``) BEFORE it is
+dispatched: with ranks that are threads of one process, a peer's call
+is on the count by the time any rank's call of the same collective can
+return. ``all_reduce``, ``all_gather`` and
 ``reduce_scatter`` take the mesh axis they run on (``axis``: "dp",
 "fsdp", "mp", "data" or "world") and an optional per-rank ``stats``
 dict: a call with an axis goes through the comm watchdog's
@@ -48,9 +52,11 @@ DEFAULT_TIMEOUT_S = 60.0
 
 class ReduceOp:
     SUM = "sum"
+    MAX = "max"
 
 
-_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM}
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
+              ReduceOp.MAX: dist.ReduceOp.MAX}
 
 
 def _timedelta(seconds):
@@ -139,12 +145,12 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
     g = _group(group)
     opts = dist.AllreduceOptions()
     opts.reduceOp = _TORCH_OPS[op]
+    _count(all_reduce)
+    _tally(stats, "all_reduce", axis, _nbytes(tensor))
     with _scope("all_reduce", axis, _nbytes(tensor)):
         work = g.allreduce([tensor], opts)
-        _count(all_reduce)
         if sync_op:
             work.wait()
-    _tally(stats, "all_reduce", axis, _nbytes(tensor))
     return tensor
 
 
@@ -166,12 +172,12 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True,
         raise ValueError(f"all_gather: {len(tensor_list)} outputs for a "
                          f"group of {n}")
     nbytes = n * _nbytes(tensor)
+    _count(all_gather)
+    _tally(stats, "all_gather", axis, nbytes)
     with _scope("all_gather", axis, nbytes):
         work = g.allgather([tensor_list], [tensor.contiguous()])
-        _count(all_gather)
         if sync_op:
             work.wait()
-    _tally(stats, "all_gather", axis, nbytes)
     return tensor_list
 
 
@@ -191,13 +197,13 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
     opts = dist.ReduceScatterOptions()
     opts.reduceOp = _TORCH_OPS[op]
     nbytes = sum(_nbytes(t) for t in tensor_list)
+    _count(reduce_scatter)
+    _tally(stats, "reduce_scatter", axis, nbytes)
     with _scope("reduce_scatter", axis, nbytes):
         work = g.reduce_scatter([tensor], [[t.contiguous()
                                             for t in tensor_list]], opts)
-        _count(reduce_scatter)
         if sync_op:
             work.wait()
-    _tally(stats, "reduce_scatter", axis, nbytes)
     return tensor
 
 
@@ -215,8 +221,8 @@ def broadcast(tensor, src=0, group=None, sync_op=True, timeout=None):
     opts.rootTensor = 0
     if timeout is not None:
         opts.timeout = _timedelta(timeout)
-    work = g.broadcast([tensor], opts)
     _count(broadcast)
+    work = g.broadcast([tensor], opts)
     if sync_op:
         work.wait()
     return tensor

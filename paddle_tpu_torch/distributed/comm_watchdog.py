@@ -146,6 +146,11 @@ class CommTaskManager:
             self._tasks[t.task_id] = t
             n = len(self._tasks)
         _inflight_gauge().set(n)
+        # the payload is counted at dispatch, as the collective's call
+        # count is: a peer's bytes are on the counter by the time any
+        # rank's call of the same collective returns
+        if t.nbytes:
+            _collective_bytes().labels(op=t.op, axis=t.group).inc(t.nbytes)
         return t
 
     def end_task(self, task):
@@ -154,17 +159,14 @@ class CommTaskManager:
             self._tasks.pop(task.task_id, None)
             n = len(self._tasks)
         _inflight_gauge().set(n)
-        # bytes + latency per (op, axis): what tensor-parallel serving
-        # sizes its collectives against
+        # latency and bandwidth per (op, axis): what tensor-parallel
+        # serving sizes its collectives against
         el = task.elapsed
         _collective_seconds().labels(op=task.op,
                                      axis=task.group).observe(el)
-        if task.nbytes:
-            _collective_bytes().labels(op=task.op,
-                                       axis=task.group).inc(task.nbytes)
-            if el > 0:
-                _collective_bandwidth().labels(
-                    op=task.op, axis=task.group).set(task.nbytes / el)
+        if task.nbytes and el > 0:
+            _collective_bandwidth().labels(
+                op=task.op, axis=task.group).set(task.nbytes / el)
         # timeline span on the profiler clock: collectives line up
         # against the serve/train host ranges in one chrome view
         _tracing.get_tracer().record_span(

@@ -1,9 +1,120 @@
-"""``fleet`` of the PyTorch port: activation recompute
-(``recompute``, ``recompute_sequential``, ``recompute_hybrid``) and the
-training mesh's sharded compute (``sharded``: ZeRO-3 over fsdp, Megatron
-over mp)."""
+"""``fleet`` of the PyTorch port (counterpart of
+``paddle_tpu/distributed/fleet/__init__.py``; reference
+python/paddle/distributed/fleet/fleet.py:218): the hybrid topology
+(``init``, ``DistributedStrategy``, ``HybridCommunicateGroup``), the
+tensor- and sequence-parallel layers (``mp_layers``, ``sp_layers``),
+activation recompute (``recompute``, ``recompute_sequential``,
+``recompute_hybrid``) and the training mesh's sharded compute
+(``sharded``: ZeRO-3 over fsdp, Megatron over mp).
+
+``init`` takes the caller's world group and device (``group=``,
+``device=``), as the port's mesh does; nothing here calls
+``init_process_group``. The pipeline and sep axes, ``DataParallel``, the
+sharding stages and ``distributed_optimizer`` are later slices of the
+port and raise, naming their ROADMAP item.
+"""
 from . import sharded  # noqa: F401
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa
+                        RowParallelLinear, TensorParallel,
+                        VocabParallelEmbedding, parallel_cross_entropy,
+                        shard_state_from_numpy)
 from .recompute import (recompute, recompute_hybrid,  # noqa: F401
                         recompute_sequential)
+from .sp_layers import (ColumnSequenceParallelLinear,  # noqa: F401
+                        RowSequenceParallelLinear, all_gather_sequence,
+                        mark_as_sequence_parallel_parameter,
+                        reduce_scatter_sequence)
+from .topology import (AXES, CommunicateTopology,  # noqa: F401
+                       HybridCommunicateGroup, get_hcg, set_hcg)
+from ..mesh import ProcessMesh, set_mesh
 
-__all__ = ["recompute", "recompute_sequential", "recompute_hybrid"]
+__all__ = ["recompute", "recompute_sequential", "recompute_hybrid",
+           "CommunicateTopology", "HybridCommunicateGroup",
+           "DistributedStrategy", "init", "get_hybrid_communicate_group",
+           "distributed_model", "distributed_optimizer",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "TensorParallel", "ColumnSequenceParallelLinear",
+           "RowSequenceParallelLinear"]
+
+
+class DistributedStrategy:
+    """Knob bundle (reference: distributed_strategy.proto wrapped by
+    fleet/base/distributed_strategy.py); plain attributes, as in the JAX
+    package. ``init`` reads ``hybrid_configs``."""
+
+    def __init__(self):
+        self.hybrid_configs = {
+            "dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+            "sharding_degree": 1, "sep_degree": 1,
+            "pp_configs": {},
+        }
+        self.amp = False
+        self.amp_configs = {}
+        self.recompute = False
+        self.recompute_configs = {}
+        self.sharding = False
+        self.sharding_configs = {}
+        self.gradient_merge = False
+        self.gradient_merge_configs = {}
+        self.pipeline = False
+        self.pipeline_configs = {}
+        self.tensor_parallel = False
+        self.tensor_parallel_configs = {}
+        self.find_unused_parameters = False
+
+
+def init(role_maker=None, is_collective=False, strategy=None, log_level=None,
+         group=None, device="cuda"):
+    """Build this rank's ``HybridCommunicateGroup`` from the strategy's
+    ``hybrid_configs`` over the caller's world group (``group``: a
+    ``collective.new_group`` group or a ``torch.distributed`` one; None
+    for a world of one rank) on ``device``, make it this thread's
+    (``get_hybrid_communicate_group``) and return it. pp_degree or
+    sep_degree above 1 raises ``NotImplementedError``."""
+    strategy = strategy or DistributedStrategy()
+    hc = strategy.hybrid_configs
+    hcg = HybridCommunicateGroup(
+        dp_degree=hc.get("dp_degree", 1), mp_degree=hc.get("mp_degree", 1),
+        pp_degree=hc.get("pp_degree", 1),
+        sharding_degree=hc.get("sharding_degree", 1),
+        sep_degree=hc.get("sep_degree", 1), group=group, device=device)
+    set_hcg(hcg)
+    set_mesh(ProcessMesh(hcg.mesh))
+    hcg.strategy = strategy
+    return hcg
+
+
+def get_hybrid_communicate_group():
+    return get_hcg()
+
+
+def distributed_model(model):
+    """The parallel wrapper of ``model`` (reference fleet/model.py):
+    ``TensorParallel`` when the model-parallel degree is above 1. Data
+    parallelism alone (the JAX package's ``DataParallel``) is a later
+    slice and raises."""
+    hcg = get_hcg()
+    if hcg is None:
+        raise RuntimeError("call fleet.init first")
+    if hcg.get_pipe_parallel_world_size() > 1:
+        raise NotImplementedError(
+            "distributed_model: pipeline parallelism is a later slice of "
+            "the port (ROADMAP Queue 1 item 9)")
+    if hcg.get_model_parallel_world_size() > 1:
+        return TensorParallel(model, hcg)
+    raise NotImplementedError(
+        "distributed_model: data parallelism without a model axis "
+        "(DataParallel, paddle_tpu/distributed/parallel.py:76) is a later "
+        "slice of the port (ROADMAP Queue 1 item 7c)")
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """Refused: the port has no ``optimizer`` package yet, so there is no
+    optimizer for ``HybridParallelOptimizer`` to wrap (ROADMAP Queue 1
+    items 7c and 10)."""
+    raise NotImplementedError(
+        "distributed_optimizer: the port has no optimizer package yet "
+        "(HybridParallelOptimizer comes with it, ROADMAP Queue 1 items 7c "
+        "and 10); the training mesh's step runs AdamW itself "
+        "(models.pretrain.make_train_step)")

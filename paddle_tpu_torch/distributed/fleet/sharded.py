@@ -26,9 +26,15 @@ split evenly over mp runs Megatron-style on its local part, between the
 two operators of its ``_tp`` binding: ``enter`` before it (identity
 forward, all_reduce of the input's gradient backward) and ``leave``
 after its row-parallel projection (all_reduce forward, identity
-backward). The embedding and
-the LM head run whole. Under recompute a layer's weights are gathered
-again in the backward.
+backward). The LM head runs vocab-parallel where its spec keeps mp on the
+vocabulary dim (``HEAD``: not with tied embeddings, a vocabulary that mp
+does not divide, or the fused LM-head loss, which need the whole
+weight): it is gathered over fsdp only, enters with ``enter`` and leaves
+its logits split over the vocabulary, [rows, V / mp], for fleet's
+``parallel_cross_entropy`` (kernel C's vocab-sharded form and two
+all_reduces over mp of [rows] partials). The embedding runs whole: its
+spec splits the hidden dim over mp, not the vocabulary. Under recompute
+a layer's weights are gathered again in the backward.
 
 Gradients left after the backward (a weight replicated over a data axis)
 are summed over the data axes that remain, one flat all_reduce a set of
@@ -56,6 +62,7 @@ _COLUMN = ("q_proj", "k_proj", "v_proj", "qkv_proj", "gate_proj", "up_proj",
            "gate_up_fused_proj")
 _ATTN = ("q_proj", "k_proj", "v_proj", "qkv_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "gate_up_fused_proj", "down_proj")
+HEAD = "lm_head"    # the module prefix of a vocab-parallel LM head in split
 
 
 class ParamLayout:
@@ -155,10 +162,21 @@ def _mp_split(config, specs, prefix, kind, mp):
     return seen
 
 
+def _vocab_parallel_head(config, specs, mp):
+    """Whether the LM head runs vocab-parallel: its own weight (no tied
+    embeddings) with mp on the vocabulary dim, and no fused LM-head loss
+    (whose blockwise kernels take the whole weight)."""
+    spec = specs.get(f"{HEAD}.weight")
+    return (mp > 1 and spec is not None and len(spec) == 2
+            and spec[1] == "mp"
+            and not getattr(config, "fused_lm_loss", False))
+
+
 def plan_params(config, shapes, specs, mesh_shape):
     """{name: ParamPlan} for a Llama model's parameters (``shapes`` and
     ``specs`` by name) on a mesh of ``mesh_shape``, and the set of module
-    prefixes that run Megatron style."""
+    prefixes that run Megatron style (``HEAD`` for a vocab-parallel LM
+    head)."""
     split = set()
     for name in shapes:
         prefix, leaf = _leaf(name)
@@ -166,12 +184,16 @@ def plan_params(config, shapes, specs, mesh_shape):
             kind = "attn" if leaf in _ATTN else "mlp"
             if _mp_split(config, specs, prefix, kind, mesh_shape["mp"]):
                 split.add(prefix)
+    if _vocab_parallel_head(config, specs, mesh_shape["mp"]):
+        split.add(HEAD)
     plans = {}
     h, kvh = config.num_attention_heads, config.num_key_value_heads
     d = config.hidden_size // h
     for name, shape in shapes.items():
         spec = specs[name]
         prefix, leaf = _leaf(name)
+        if name == f"{HEAD}.weight":
+            prefix = HEAD
         in_split = prefix in split
         groups = None
         if in_split and leaf == "qkv_proj":
@@ -261,18 +283,87 @@ class _ReduceFromMp(torch.autograd.Function):
         return g, None, None
 
 
+class _SplitToMp(torch.autograd.Function):
+    """The rank's slice along ``dim`` forward; all_gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, stats):
+        ctx.args = (mesh, dim, stats)
+        n = mesh.shape["mp"]
+        return x.chunk(n, dim)[mesh.coords["mp"]].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, stats = ctx.args
+        parts = collective.all_gather([], g.contiguous(),
+                                      group=mesh.groups["mp"], axis="mp",
+                                      stats=stats)
+        return torch.cat(parts, dim), None, None, None
+
+
+class _ReduceScatterMp(_SplitToMp):
+    """reduce_scatter along ``dim`` forward; all_gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, stats):
+        ctx.args = (mesh, dim, stats)
+        parts = [p.contiguous() for p in x.chunk(mesh.shape["mp"], dim)]
+        out = torch.empty_like(parts[0])
+        return collective.reduce_scatter(out, parts, group=mesh.groups["mp"],
+                                         axis="mp", stats=stats)
+
+
 class _MpRegion:
     """The Megatron operators of one module, bound to the mesh's mp
-    group and the step's collective tally."""
+    group and the step's collective tally: ``enter`` (identity forward,
+    all_reduce of the gradient backward) and ``leave`` (all_reduce
+    forward, identity backward) around a column- / row-parallel pair;
+    ``gather`` along a dim (all_gather forward; backward the rank's
+    slice, or with ``reduce`` a reduce_scatter: the sequence-parallel
+    AllGatherOp), ``split`` (the rank's slice forward, all_gather
+    backward) and ``reduce_scatter`` (reduce_scatter forward, all_gather
+    backward). fleet's tensor-parallel layers and the mesh step's
+    vocab-parallel LM head use the same operators. On an mp axis of one
+    rank every operator is the identity."""
 
     def __init__(self, mesh, stats):
         self.mesh, self.stats = mesh, stats
+        self.size = mesh.shape["mp"]
+        self.rank = mesh.coords["mp"]
 
     def enter(self, x):
+        if self.size == 1:
+            return x
         return _CopyToMp.apply(x, self.mesh, self.stats)
 
     def leave(self, y):
+        if self.size == 1:
+            return y
         return _ReduceFromMp.apply(y, self.mesh, self.stats)
+
+    def gather(self, x, dim, reduce=False):
+        if self.size == 1:
+            return x
+        return _Gather.apply(x, self.mesh, [(dim % x.dim(), "mp", reduce)],
+                             None, self.stats)
+
+    def split(self, x, dim):
+        if self.size == 1:
+            return x
+        return _SplitToMp.apply(x, self.mesh, dim % x.dim(), self.stats)
+
+    def reduce_scatter(self, x, dim):
+        if self.size == 1:
+            return x
+        return _ReduceScatterMp.apply(x, self.mesh, dim % x.dim(),
+                                      self.stats)
+
+    def all_reduce(self, t, op=collective.ReduceOp.SUM):
+        """``t`` reduced in place over mp (no autograd)."""
+        if self.size == 1:
+            return t
+        return collective.all_reduce(t, op, group=self.mesh.groups["mp"],
+                                     axis="mp", stats=self.stats)
 
 
 class _WeightBinding:
@@ -346,7 +437,12 @@ def step_comm(plans, split, mesh_shape, tokens_local, hidden, act_bytes,
     count them: the whole gathered / scattered tensor, the all_reduced
     tensor). ``tokens_local`` the rank's B*S, ``act_bytes`` the
     activations' element size, ``compute_bytes`` the gathered weights'
-    (2 under AMP-O2, else 4); the step runs without recompute."""
+    (2 under AMP-O2, else 4); the step runs without recompute. Each
+    Megatron module all_reduces its [rows, hidden] activations twice
+    over mp (``leave`` forward, ``enter`` backward); a vocab-parallel
+    head once (its input's gradient), and its cross entropy twice: the
+    rows' maxima [rows] f32, then their sums of exps and target logits
+    [rows, 2] f32."""
     out = {}
 
     def add(op, ax, calls, nbytes):
@@ -367,7 +463,10 @@ def step_comm(plans, split, mesh_shape, tokens_local, hidden, act_bytes,
                 add("reduce_scatter", ax, 1, numel * 4)
     if mesh_shape["mp"] > 1:
         act = tokens_local * hidden * act_bytes
-        add("all_reduce", "mp", 2 * len(split), 2 * len(split) * act)
+        blocks = len(split - {HEAD})
+        add("all_reduce", "mp", 2 * blocks, 2 * blocks * act)
+        if HEAD in split:
+            add("all_reduce", "mp", 3, act + tokens_local * (4 + 8))
     buckets = {}
     for plan in plans.values():
         if plan.remaining:

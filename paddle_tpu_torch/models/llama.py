@@ -41,8 +41,11 @@ the weight its module is bound to (``_weight``: the gathered compute form
 of the rank's shard), and the attention and the MLP take their local
 head and column counts from it: a module split over mp runs its own
 heads (the flash kernels on ``[B, S, H/mp, D]``) between the Megatron
-operators of its ``_tp`` binding. Off the mesh nothing is bound and the
-modules compute as above.
+operators of its ``_tp`` binding. An LM head bound to them runs
+vocab-parallel: its logits are this rank's vocabulary columns, [B, S,
+V/mp], and the criterion's loss is fleet's ``parallel_cross_entropy``
+over them (kernel C's vocab-sharded form). Off the mesh nothing is bound
+and the modules compute as above.
 """
 import numpy as np
 import torch
@@ -52,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import resolve_device
 from ..core.random import make_generator
 from .. import nn
+from ..distributed.fleet.mp_layers import parallel_cross_entropy
 from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..nn.layers.common import normal_
@@ -323,7 +327,11 @@ class LlamaLMHead(torch.nn.Module):
 
     def forward(self, hidden_states):
         # the logits product runs in the hidden states' dtype; the
-        # criterion upcasts inside the softmax
+        # criterion upcasts inside the softmax. Vocab-parallel on the
+        # mesh (``_tp``): the input's gradient is summed over mp
+        tp = self.__dict__.get("_tp")
+        if tp is not None:
+            hidden_states = tp.enter(hidden_states)
         return F.linear(hidden_states,
                         self.get_weight().to(hidden_states.dtype))
 
@@ -331,10 +339,21 @@ class LlamaLMHead(torch.nn.Module):
 class LlamaPretrainingCriterion(torch.nn.Module):
     """Mean token cross entropy in float32 over already-shifted labels.
     ``denominator`` (a 0-dim f32 tensor) replaces the count of the labels
-    kept: the training mesh divides a rank's sum by the global count."""
+    kept: the training mesh divides a rank's sum by the global count.
+    ``vocab_parallel`` (the mp operators of a vocab-parallel LM head):
+    the logits are this rank's vocabulary columns, and the loss runs
+    through ``parallel_cross_entropy``."""
 
-    def forward(self, logits, labels, denominator=None):
+    def forward(self, logits, labels, denominator=None, vocab_parallel=None):
         v = logits.shape[-1]
+        if vocab_parallel is not None:
+            lbl = labels.reshape(-1)
+            rows = parallel_cross_entropy(logits.reshape(-1, v), lbl,
+                                          vocab_parallel)
+            if denominator is None:
+                denominator = (lbl != -100).sum().to(
+                    torch.float32).clamp_min(1.0)
+            return rows.sum() / denominator
         if denominator is None:
             return F.cross_entropy(logits.reshape(-1, v), labels.reshape(-1),
                                    reduction="mean")
@@ -375,8 +394,9 @@ class LlamaForCausalLM(torch.nn.Module):
                 denominator=loss_denominator)
         logits = self.lm_head(hidden_states)
         if labels is not None:
-            return logits, LlamaPretrainingCriterion()(logits, labels,
-                                                       loss_denominator)
+            return logits, LlamaPretrainingCriterion()(
+                logits, labels, loss_denominator,
+                self.lm_head.__dict__.get("_tp"))
         return logits
 
 

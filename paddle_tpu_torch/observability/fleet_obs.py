@@ -59,6 +59,11 @@ import os
 import threading
 import time
 
+try:
+    import fcntl
+except ImportError:         # not POSIX: the manifest goes unlocked
+    fcntl = None
+
 from .exporters import parse_prometheus
 from .metrics import get_registry
 from .timeseries import TimeSeries
@@ -267,24 +272,31 @@ class RankExporter:
 
     def _update_manifest(self, seq, wall):
         """Read-merge-write the shared manifest (this rank's entry
-        only). Concurrent ranks can lose each other's update between
-        read and rename; every export rewrites, so the index converges
-        — and discover_snapshots treats the rank FILES as authority,
-        the manifest as an index."""
+        only), under an exclusive ``flock`` of a lock file beside it:
+        ranks that export at the same moment (a training step in lock
+        step over a collective ends on every rank at once) would
+        otherwise lose each other's entry between read and rename, and
+        a last export has no later one to mend it. discover_snapshots
+        still treats the rank FILES as authority, the manifest as an
+        index."""
         path = os.path.join(self.fleet_dir, FLEET_MANIFEST_NAME)
         try:
-            data = load_fleet_manifest(self.fleet_dir)
-        except (OSError, ValueError):
-            data = {"schema": FLEET_MANIFEST_SCHEMA, "ranks": {}}
-        data["run_id"] = self.run_id
-        data["world_size"] = self.world_size
-        data["ranks"][str(self.rank)] = {
-            "file": _rank_file(self.rank), "seq": seq, "time": wall}
-        tmp = path + f".tmp.{self.rank}"
-        try:
-            with open(tmp, "w") as f:
-                json.dump(data, f, indent=1)
-            os.replace(tmp, path)
+            with open(path + ".lock", "a") as lock:
+                if fcntl is not None:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                try:
+                    data = load_fleet_manifest(self.fleet_dir)
+                except (OSError, ValueError):
+                    data = {"schema": FLEET_MANIFEST_SCHEMA, "ranks": {}}
+                data["run_id"] = self.run_id
+                data["world_size"] = self.world_size
+                data["ranks"][str(self.rank)] = {
+                    "file": _rank_file(self.rank), "seq": seq,
+                    "time": wall}
+                tmp = path + f".tmp.{self.rank}"
+                with open(tmp, "w") as f:
+                    json.dump(data, f, indent=1)
+                os.replace(tmp, path)
         except OSError:
             pass                    # the next export retries
 

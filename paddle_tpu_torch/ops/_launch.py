@@ -66,8 +66,10 @@ PROTOTYPES = {
     "token_ce": {
         "token_ce_fwd": [_I, _I] + [_P] * 5 + [_L, _L, _I, _L, _F, _F,
                                                _I, _I, _P],
-        "token_ce_bwd": [_I, _I] + [_P] * 6 + [_L, _L, _I, _L, _F, _F,
-                                               _I, _P],
+        "token_ce_fwd_partial": [_I, _I] + [_P] * 3 + [_L, _L, _I, _L,
+                                                       _I, _I, _P],
+        "token_ce_bwd": [_I, _I] + [_P] * 6 + [_L, _L, _I, _L, _L, _F,
+                                               _F, _I, _P],
     },
     "adamw": {
         "adamw_max_tensors": [],

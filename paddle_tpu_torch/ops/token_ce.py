@@ -24,6 +24,20 @@ and then the totals) and run ``token_ce_fwd_plain`` / ``token_ce_bwd_plain``
 for CPU tensors. ``token_cross_entropy`` is the public op, a
 ``torch.autograd.Function``.
 
+The vocab-sharded form (fleet's ``ParallelCrossEntropy`` and the mesh
+step's vocab-parallel LM head): x [N, V_r] holds the vocabulary columns
+[start, start + V_r) of a V split evenly over the model-parallel ranks.
+``token_ce_fwd_partial`` (one launch, the forward's route) writes each
+row's partials f32 [N, 3]: (m_r, s_r = sum exp(x - m_r), t_r = x[label -
+start] where the label falls in the shard, else 0).
+``combine_partials`` merges the ranks' partials with the caller's
+collectives (an all_reduce MAX of m, then one all_reduce SUM of (s_r
+exp(m_r - M), t_r - M on the rank holding the label)) into the loss, log
+S - (x[label] - M) as JAX's ``ParallelCrossEntropy`` takes it on shifted
+logits (0 on ignored rows), and the stats (M, S) with which
+``token_ce_bwd(..., start=)`` writes the shard's dx = g (exp(x - M) / S -
+[x is the label]). No label smoothing: the JAX layer has none.
+
 The forward takes one of three routes, chosen by ``fwd_plan`` from the
 logits' dtype and V alone and passed to the kernel, which runs that route
 or refuses it: "rows" (a block a row, the row kept in shared memory
@@ -37,7 +51,9 @@ from . import _launch as L
 from . import work as _work
 
 __all__ = ["token_cross_entropy", "token_ce_fwd", "token_ce_bwd",
-           "token_ce_fwd_plain", "token_ce_bwd_plain", "fwd_plan"]
+           "token_ce_fwd_plain", "token_ce_bwd_plain", "fwd_plan",
+           "token_ce_fwd_partial", "token_ce_fwd_partial_plain",
+           "combine_partials"]
 
 # the forward's shapes (csrc/token_ce.cu)
 ROW_THREADS = 512                   # routes "rows" / "cluster": NT_ROW
@@ -102,8 +118,9 @@ def token_ce_fwd_plain(x, labels, ignore, smoothing):
 
 
 def token_ce_bwd_plain(x, labels, stats, g, totals, ignore, smoothing,
-                       reduction):
-    """dx [N, V] in x's dtype, in plain PyTorch."""
+                       reduction, start=0):
+    """dx [N, V] in x's dtype, in plain PyTorch; ``start`` the first
+    vocabulary column x holds (the vocab-sharded form)."""
     n, vocab = x.shape
     if reduction == "none":
         gr = g
@@ -116,7 +133,7 @@ def token_ce_bwd_plain(x, labels, stats, g, totals, ignore, smoothing,
     t = ((1 - smoothing) * gr + smoothing * gr) / stats[:, 1]
     d = t[:, None] * e - (smoothing * gr / vocab)[:, None]
     cols = torch.arange(vocab, device=x.device)
-    hit = (cols[None, :] == labels[:, None]).to(torch.float32)
+    hit = (cols[None, :] + start == labels[:, None]).to(torch.float32)
     d = d - hit * ((1 - smoothing) * gr)[:, None]
     return d.to(x.dtype)
 
@@ -169,14 +186,17 @@ token_ce_fwd.launches = 0
 token_ce_fwd.route = None
 
 
-def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction):
+def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction,
+                 start=0):
     """dx [N, V] in x's dtype for the row-loss gradient ``g`` ([N] for
-    reduction "none", else a 0-dim f32 of the sum or mean). A CPU tensor
-    runs the plain version; a CUDA tensor launches the backward kernel
+    reduction "none", else a 0-dim f32 of the sum or mean); ``start`` the
+    first vocabulary column x holds (the vocab-sharded form, with the
+    combined stats; ``totals`` is read for "mean" only). A CPU tensor runs
+    the plain version; a CUDA tensor launches the backward kernel
     (counted in ``token_ce_bwd.launches``) or raises."""
     if not L.on_cuda("token_ce_bwd", x):
         return token_ce_bwd_plain(x, labels, stats, g, totals, ignore,
-                                  smoothing, reduction)
+                                  smoothing, reduction, start)
     _check("token_ce_bwd", x, labels)
     n, vocab = x.shape
     g = g.to(torch.float32).contiguous()
@@ -186,9 +206,9 @@ def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction):
     rc = L.entry("token_ce", "token_ce_bwd")(
         L.dtype_code("token_ce_bwd", x), int(_vec(x) and _vec(dx)),
         x.data_ptr(), labels.data_ptr(), stats.data_ptr(), g.data_ptr(),
-        totals.data_ptr(), dx.data_ptr(), n, x.stride(0), vocab, int(ignore),
-        float(1 - smoothing), float(smoothing), _GMODE[reduction],
-        L.stream(x))
+        L.ptr(totals), dx.data_ptr(), n, x.stride(0), vocab, int(ignore),
+        int(start), float(1 - smoothing), float(smoothing),
+        _GMODE[reduction], L.stream(x))
     L.raise_on("token_ce_bwd", rc)
     token_ce_bwd.launches += 1
     if _work.counting():
@@ -198,6 +218,69 @@ def token_ce_bwd(x, labels, stats, g, totals, ignore, smoothing, reduction):
 
 
 token_ce_bwd.launches = 0
+
+
+def token_ce_fwd_partial_plain(x, labels, start):
+    """The shard's partials [N, 3] f32 (m_r, s_r, t_r) in plain PyTorch."""
+    vocab = x.shape[1]
+    m = x.amax(dim=-1, keepdim=True)
+    s = torch.exp((x - m).to(torch.float32)).sum(-1)
+    local = labels - start
+    inr = (local >= 0) & (local < vocab)
+    t = torch.gather(x, 1, local.clamp(0, vocab - 1)[:, None])[:, 0]
+    t = torch.where(inr, t.to(torch.float32),
+                    torch.zeros((), dtype=torch.float32, device=x.device))
+    return torch.stack([m[:, 0].to(torch.float32), s, t], dim=-1)
+
+
+def token_ce_fwd_partial(x, labels, start):
+    """The shard's partials [N, 3] f32 for logits x [N, V_r] holding the
+    vocabulary columns [start, start + V_r). A CPU tensor runs the plain
+    version; a CUDA tensor launches the forward kernel on ``fwd_plan``'s
+    route (counted in ``token_ce_fwd_partial.launches``, the route in
+    ``.route``) or raises."""
+    if not L.on_cuda("token_ce_fwd_partial", x):
+        return token_ce_fwd_partial_plain(x, labels, start)
+    _check("token_ce_fwd_partial", x, labels)
+    n, vocab = x.shape
+    plan = fwd_plan(n, vocab, x.dtype)
+    part = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    rc = L.entry("token_ce", "token_ce_fwd_partial")(
+        L.dtype_code("token_ce_fwd_partial", x), int(_vec(x)), x.data_ptr(),
+        labels.data_ptr(), part.data_ptr(), n, x.stride(0), vocab,
+        int(start), plan["chunks"], plan["cluster"], L.stream(x))
+    L.raise_on("token_ce_fwd_partial", rc)
+    token_ce_fwd_partial.launches += 1
+    token_ce_fwd_partial.route = plan["route"]
+    if _work.counting():
+        _work.note("token_ce_fwd_partial", *_work.token_ce_fwd_partial(
+            n, vocab, x.element_size()))
+    return part
+
+
+token_ce_fwd_partial.launches = 0
+token_ce_fwd_partial.route = None
+
+
+def combine_partials(part, labels, start, vocab_local, ignore, reduce_max,
+                     reduce_sum):
+    """(loss [N] f32, stats [N, 2] f32 (M, S)) of the whole rows from this
+    rank's partials; ``reduce_max`` / ``reduce_sum`` reduce a float32
+    tensor in place over the ranks that hold the vocabulary's shards (the
+    identity on one rank). The loss is JAX's ``ParallelCrossEntropy``'s:
+    log S less the label's shifted logit (0 where no shard holds the
+    label), 0 on rows labelled ``ignore``."""
+    m_r = part[:, 0]
+    big_m = reduce_max(m_r.clone())
+    local = labels - start
+    hit = (local >= 0) & (local < vocab_local)
+    st = torch.stack([part[:, 1] * torch.exp(m_r - big_m),
+                      torch.where(hit, part[:, 2] - big_m,
+                                  torch.zeros_like(m_r))], dim=-1)
+    st = reduce_sum(st)
+    loss = torch.log(st[:, 0]) - st[:, 1]
+    loss = torch.where(labels == ignore, torch.zeros_like(loss), loss)
+    return loss, torch.stack([big_m, st[:, 0]], dim=-1)
 
 
 class TokenCrossEntropy(torch.autograd.Function):

@@ -207,6 +207,11 @@ def token_ce_fwd(n, vocab, eb):
     return n * vocab * eb + n * (8 + 12), 0
 
 
+def token_ce_fwd_partial(n, vocab, eb):
+    """The shard's logits and labels in; three row partials out."""
+    return n * vocab * eb + n * (8 + 12), 0
+
+
 def token_ce_bwd(n, vocab, eb):
     return 2 * n * vocab * eb + n * 16, 0
 

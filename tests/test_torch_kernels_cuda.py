@@ -6,7 +6,9 @@ the blockwise cross entropy at token counts, vocabularies and hidden
 widths off its tiles, with ignored rows, the legacy paged decode
 kernel at ctx 0, past the table's capacity and with free-slot ids past
 the last used block, and the fused tier's kernels A-D, A's backward and
-C's forward on every route their plans name.
+C's forward on every route their plans name, and C's vocab-sharded form
+at shard widths of 1, odd and past one block, with labels on the
+shard's edges and every row ignored.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -1583,6 +1585,50 @@ def test_token_ce_kernel_matches_plain(dtype, n, v, smooth, reduction):
     assert dx.dtype == dtype and dx.shape == x.shape
     assert _two_ulps(dx, rdx, 2.0 ** -22 * float(rdx.abs().max())) <= 1
     assert (dx[::3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("v", [1, 7, 1001, 16000, 16001, 50257])
+@pytest.mark.parametrize("ignored", ["some", "all"])
+def test_token_ce_sharded_form_matches_plain(dtype, v, ignored):
+    """Kernel C's vocab-sharded form on a shard of V_r = v columns at
+    start = 3 v: the forward's row partials (on the route its plan names)
+    and the backward with the shard's offset against their plain
+    versions, with labels at start - 1, start, start + V_r - 1 and start
+    + V_r, labels elsewhere in the vocabulary, and some or all rows
+    ignored."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator(device="cuda").manual_seed(v + 11)
+    n, start = 37, 3 * v
+    x = (2 * torch.randn(n, v, generator=gen, device="cuda")).to(dtype)
+    lab = torch.randint(0, 8 * v, (n,), generator=gen, device="cuda")
+    lab[:4] = torch.tensor([start - 1, start, start + v - 1, start + v])
+    if ignored == "all":
+        lab[:] = -100
+    else:
+        lab[5::3] = -100
+    part = tc.token_ce_fwd_partial(x, lab, start)
+    again = tc.token_ce_fwd_partial(x, lab, start)
+    ref = tc.token_ce_fwd_partial_plain(x, lab, start)
+    torch.cuda.synchronize()
+    assert tc.token_ce_fwd_partial.route == tc.fwd_plan(n, v, dtype)["route"]
+    assert torch.equal(part, again)
+    assert torch.equal(part[:, 0], ref[:, 0])              # the max
+    assert torch.equal(part[:, 2], ref[:, 2])              # the gold logit
+    assert _two_ulps(part[:, 1], ref[:, 1], 1e-2) <= 1     # the exp-sum
+    inr = (lab >= start) & (lab < start + v)
+    assert bool((part[~inr, 2] == 0).all())
+    stats = ref[:, :2].contiguous()
+    g = torch.randn(n, generator=gen, device="cuda")
+    dx = tc.token_ce_bwd(x, lab, stats, g, None, -100, 0.0, "none", start)
+    rdx = tc.token_ce_bwd_plain(x, lab, stats, g, None, -100, 0.0, "none",
+                                start)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _two_ulps(dx, rdx, 2.0 ** -22 * max(float(rdx.abs().max()),
+                                               1e-30)) <= 1
+    assert bool((dx[lab == -100] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -283,6 +283,12 @@ STEP_CASES = {
     "mqa-kvh1-mp2": (dict(FUSED, num_key_value_heads=1), 8,
                      MESHES["dp2-fsdp2-mp2"], {}),
     "ignored-labels": (FUSED, 8, MESHES["dp4-fsdp2"], dict(ignore=True)),
+    # the LM head stays whole: tied embeddings; a vocabulary mp does not
+    # divide (the spec drops mp)
+    "tied-mp2": (dict(FUSED, tie_word_embeddings=True), 8,
+                 MESHES["dp2-fsdp2-mp2"], {}),
+    "v129-mp2": (dict(FUSED, vocab_size=129), 8, MESHES["dp2-fsdp2-mp2"],
+                 {}),
 }
 
 
@@ -299,16 +305,22 @@ def test_step_matches_jax_sharded_step(case):
     for k in jfinal:
         _close(final[k], jfinal[k], _spread(jone[k], jfinal[k]), atol=1e-5,
                what=k)
+    cfg = LlamaConfig.tiny(dtype="float32", **cfg_kw)
+    mesh = tpre.make_mesh(n, device="cpu", **mesh_kw)
+    shapes = _jax_shapes(_jax_model(cfg_kw))
+    specs = {k: tpre.spec_for_param(k, s, mesh, tpre.llama_sharding_rules())
+             for k, s in shapes.items()}
+    plans, split = sharded.plan_params(cfg, shapes, specs, mesh.shape)
+    # the LM head runs vocab-parallel wherever its spec keeps mp on the
+    # vocabulary and it has its own weight; gathered over fsdp alone
+    head = mesh.shape["mp"] > 1 and case not in ("tied-mp2", "v129-mp2")
+    assert (sharded.HEAD in split) == head
+    if head:
+        assert [ax for _, ax, _ in plans["lm_head.weight"].steps] == \
+            ["fsdp"]
     if case == "mqa-kvh1-mp2":          # heads do not split: run whole
-        cfg = LlamaConfig.tiny(dtype="float32", **cfg_kw)
-        mesh = tpre.make_mesh(8, device="cpu", **mesh_kw)
-        shapes = _jax_shapes(_jax_model(cfg_kw))
-        specs = {k: tpre.spec_for_param(k, s, mesh,
-                                        tpre.llama_sharding_rules())
-                 for k, s in shapes.items()}
         assert specs["llama.layers.0.self_attn.qkv_proj.weight"] == \
             ("fsdp", "mp")
-        _, split = sharded.plan_params(cfg, shapes, specs, mesh.shape)
         assert "llama.layers.0.self_attn" not in split
         assert "llama.layers.0.mlp" in split
 

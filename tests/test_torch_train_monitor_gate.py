@@ -27,6 +27,20 @@ def test_gate_holds_the_committed_jax_baseline():
         in proc.stdout
 
 
+def test_gate_holds_the_committed_jax_baseline_on_the_jax_gates_mesh():
+    """The JAX gate's (dp2, fsdp2, mp2) mesh: eight thread ranks over
+    gloo, the port's sharded step with the vocab-parallel LM head."""
+    proc = subprocess.run(
+        [sys.executable, TOOL, "--device", "cpu", "--mesh", "dp2,fsdp2,mp2",
+         "--check", os.path.join("tools", "train_health.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "train_health gate OK (cpu, mesh dp2,fsdp2,mp2): 18 exact " \
+        "fields, 9 bounds" in proc.stdout
+    assert "fired={'update_ratio': 1, 'loss_spike': 1, 'grad_spike': 1}" \
+        in proc.stdout
+
+
 def test_gate_refuses_to_run_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the gate would run on it")

@@ -25,8 +25,11 @@ port's form of ``tools/metrics_snapshot.py``).
   prometheus ingestion, the straggler monitor and its dump). It prints
   ``metrics selfcheck: OK`` or lists its problems, and exits non-zero on
   any. Not covered until the port has their modules: the kernel-autotune
-  families (ROADMAP Queue 1 item 8) and the comm watchdog's collective
-  telemetry (Queue 1 item 7).
+  families (ROADMAP Queue 1 item 8). The JAX tool's selfcheck has no
+  section for the comm watchdog's collective telemetry either; the
+  port's watchdog (``distributed/comm_watchdog.py``) is held by its own
+  tests (``tests/test_torch_tp_serving.py``,
+  ``tests/test_torch_collective_order.py``).
 
 The selfcheck runs stdlib-only: when ``paddle_tpu_torch`` is not already
 imported, ``paddle_tpu_torch/observability`` (and ``serving``, under a
