@@ -266,6 +266,35 @@ Phases (any failure exits non-zero and prints no result line):
      ParallelCrossEntropy on [8192, 32000] logits, each forward and
      gradient against the whole computation on the card (``FLEET_REL``,
      ``FLEET_CE_ATOL``), the sharded CE kernel launched once each way;
+ 28. (after 27) the eager training path: (a) phase 7's weights and
+     batches (the flagship, AMP-O2 layout: matrices bf16, AdamW with f32
+     masters) through ``loss.backward()`` and ``optimizer.AdamW`` with
+     ``nn.ClipGradByGlobalNorm(1.0)`` and decay by name, two warm steps
+     and 3 timed, as phase 7: the step-0 loss equal to phase 7's, its grad norm within
+     ``EAGER_GNORM_RTOL``, exactly 24 + 24 flash, 49 + 49 norm, 24 + 24
+     SwiGLU, 1 + 1 token CE and 2 launches of kernel D's eager form a step
+     (none of the pretrain form); ms/step, tokens/s, MFU, peak memory and
+     a profiled step beside phase 7's; kernel D's eager form on the
+     step's own tensors against ``adamw_eager_plain`` (two calls
+     bit-equal, 2 ulps) with its device ms beside the plain version, the
+     byte bound and clip_grad_norm_ + fused torch AdamW. (b) f32 at full
+     width and L=2 (phase 8's weights and batches): 3 eager AdamW steps
+     without the clip against ``make_train_step`` (losses within
+     ``TRAIN_RTOL``; masters ``EAGER_BULK`` within ``EAGER_REL`` of each
+     tensor's scale, every element within ``EAGER_ATOL``), and 3
+     with it at ``EAGER_F32_CLIP`` (under every step's norm), the
+     reference of (c) / (d). (c) two gloo rank processes on
+     the card (``--eager-rank`` runs one): ``fleet.init`` dp 2,
+     ``distributed_model`` -> DataParallel, ``distributed_optimizer``,
+     each rank on half of each batch: the parameters against (b)'s
+     clipped run, each step's clip norm within ``EAGER_GNORM_DP_RTOL`` of
+     its, one all_reduce a bucket a step carrying the parameters'
+     bytes, a no_sync backward and a synced one giving twice one synced
+     backward's gradients; (d) the same processes at sharding 2,
+     ``group_sharded_parallel`` at "os", "os_g" and "p_g_os": the
+     parameters against (c), the clip norms against (b)'s, the optimizer
+     state a rank and (p_g_os) the parameters at rest equal to the
+     closed form of the dim-0 rule;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -692,7 +721,7 @@ def reset_counts():
     for fn in (fused_norm.rms_norm_fwd, fused_norm.rms_norm_bwd,
                swiglu.swiglu_fwd, swiglu.swiglu_bwd, token_ce.token_ce_fwd,
                token_ce.token_ce_bwd, adamw.adamw_step,
-               token_ce.token_ce_fwd_partial):
+               token_ce.token_ce_fwd_partial, adamw.adamw_eager):
         fn.launches = 0
     adamw.adamw_step.telemetry_launches = 0
 
@@ -5880,6 +5909,530 @@ def phase_fleet(torch):
     return rows, stats
 
 
+# -- phase 28: the eager training path -------------------------------------
+
+EAGER_TIMEOUT_S = 300.0    # every gloo operation of phase 28's groups
+EAGER_JOIN_S = 480.0       # the two ranks' exit after their last leg
+EAGER_STEPS = 3
+EAGER_WARM = 2             # (a)'s warm-up steps, as phase 7
+EAGER_LR = 3e-4            # the pretrain step's AdamW settings
+EAGER_CLIP = 1.0
+EAGER_F32_CLIP = 0.5       # (b)'s clipped run, (c) and (d): under the L=2
+#                            run's grad norms (0.91-0.93), so that the clip
+#                            scales every step
+EAGER_LOSS_RTOL = 0.0      # step-0 loss against phase 7's: the same
+#                            forward on the same weights and batch
+EAGER_GNORM_RTOL = 1e-3    # step-0 grad norm against phase 7's: K2's dq
+#                            atomics move it 7e-5 to 1.0e-4 run to run
+EAGER_REL = 1e-5           # parameters after 3 f32 steps: 99.9% of each
+EAGER_BULK = 0.999         # tensor's elements within EAGER_REL of its
+#                            largest element, and every element within
+EAGER_ATOL = 1e-4          # EAGER_ATOL, about 2x the worst element read
+#                            (5.3e-5): Adam divides each element by its RMS
+#                            plus eps, so where a gradient element is ~0
+#                            its summation noise reaches the update with a
+#                            gain up to 1 / eps
+EAGER_GNORM_DP_RTOL = 1e-5  # (c) / (d): each step's clip norm against (b)'s
+#                            one-card run on the whole batch; Adam and the
+#                            clip hide an error that scales every gradient
+#                            by one factor from the parameters, the norm
+#                            does not
+EAGER_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def eager_o2(model):
+    """The pretrain step's AMP-O2 layout for the eager loop: parameters of
+    ndim >= 2 cast to bf16 in place, the norm weights f32 (AdamW's
+    multi_precision keeps f32 masters of the bf16 ones)."""
+    import torch
+    for p in model.parameters():
+        if p.dim() >= 2:
+            p.data = p.data.to(torch.bfloat16)
+    return model
+
+
+def eager_optimizer(model, clip, multi_precision):
+    """AdamW with the pretrain step's settings: decay on the matrices (by
+    name), the global-norm clip (or none)."""
+    from paddle_tpu_torch import nn, optimizer
+    ndims = {n: p.dim() for n, p in model.named_parameters()}
+    return optimizer.AdamW(
+        learning_rate=EAGER_LR, beta1=0.9, beta2=0.95, epsilon=1e-8,
+        weight_decay=0.1, parameters=model.named_parameters(),
+        apply_decay_param_fun=lambda n: ndims[n] >= 2,
+        grad_clip=nn.ClipGradByGlobalNorm(clip) if clip else None,
+        multi_precision=multi_precision)
+
+
+def eager_step(net, opt, batch):
+    """One step of the eager loop; returns the loss (a 0-dim tensor)."""
+    _, loss = net(batch["input_ids"], labels=batch["labels"])
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def eager_agreement(got, ref):
+    """(the smallest share of a tensor's elements within EAGER_REL of its
+    largest |ref|, the largest |got - ref|, the largest of that over the
+    tensor's largest |ref|) over {name: array}."""
+    share, worst, rel = 1.0, 0.0, 0.0
+    for n, r in ref.items():
+        d = np.abs(got[n] - r)
+        scale = float(np.abs(r).max()) or 1.0
+        share = min(share, float((d <= EAGER_REL * scale).mean()))
+        worst = max(worst, float(d.max()))
+        rel = max(rel, float(d.max()) / scale)
+    return share, worst, rel
+
+
+def check_eager_agreement(what, got, ref):
+    share, worst, rel = eager_agreement(got, ref)
+    print(f"  {what}: worst element {worst:.3e} ({rel:.3e} of its tensor's "
+          f"largest), at least {share:.5%} of every tensor within "
+          f"{EAGER_REL:g} of its largest", flush=True)
+    check(share >= EAGER_BULK and worst <= EAGER_ATOL,
+          f"{what}: {share:.5%} of a tensor within {EAGER_REL:g} of its "
+          f"scale (want {EAGER_BULK:.1%}), worst element {worst:.3e} "
+          f"(allowed {EAGER_ATOL:g})")
+    return {"within_share": share, "worst_abs": worst, "worst_rel": rel}
+
+
+def check_eager_norms(what, norms, ref):
+    """Each step's clip norm within EAGER_GNORM_DP_RTOL of (b)'s one-card
+    run on the whole batch: a reducer that sums instead of averaging, a
+    stage that skips its 1 / n, or a tensor counted on both ranks moves
+    it."""
+    rel = max(abs(a - b) / b for a, b in zip(norms, ref))
+    print(f"  {what}: clip norms {norms} against one card's {ref} (worst "
+          f"relative {rel:.3e})", flush=True)
+    check(len(norms) == len(ref) and rel <= EAGER_GNORM_DP_RTOL,
+          f"{what}: clip norms {norms} off one card's {ref} by {rel:.3e} "
+          f"(allowed {EAGER_GNORM_DP_RTOL:g})")
+
+
+def eager_kernel_rows(torch, opt, batch, net):
+    """Kernel D's eager form on the flagship step's own tensors (one more
+    forward and backward; the optimizer's own arguments for its next
+    step): two kernel calls bit-equal, each output within 2 ulps of
+    ``adamw_eager_plain``; device ms beside the plain version, the byte
+    bound and clip_grad_norm_ + torch.optim.AdamW(fused=True) on f32
+    copies."""
+    from paddle_tpu_torch.ops import adamw as ad
+    from paddle_tpu_torch.ops import work
+    from paddle_tpu_torch.optimizer.optimizer import _Item
+    _, loss = net(batch["input_ids"], labels=batch["labels"])
+    loss.backward()
+    items = [_Item(p, p.detach(), g) for p, g in opt._params_grads()]
+    args, kw = opt._kernel_args(items, opt.get_lr(), opt._grad_clip, None,
+                                count=opt._step_count + 1)
+    ps, gs, ms, vs = args[:4]
+    outs = kw["outs"]
+
+    def fresh():
+        a = ([p.clone() for p in ps], gs, [m.clone() for m in ms],
+             [v.clone() for v in vs]) + tuple(args[4:])
+        k = dict(kw, outs=[None if o is None else o.clone() for o in outs])
+        return a, k
+    runs = []
+    for fn in (ad.adamw_eager, ad.adamw_eager, ad.adamw_eager_plain):
+        a, k = fresh()
+        gn = fn(*a, **k)
+        runs.append((a[0] + [o for o in k["outs"] if o is not None], a[2],
+                     a[3], gn))
+        torch.cuda.synchronize()
+    (k1, k2, ref) = runs
+    same = torch.equal(k1[3], k2[3]) and all(
+        torch.equal(x, y) for a, b in zip(k1[:3], k2[:3])
+        for x, y in zip(a, b))
+    check(same, "adamw_eager: two calls from the same state differ")
+    err = ratio = 0.0
+    for a, b in zip(k1[:3], ref[:3]):
+        for x, y in zip(a, b):
+            e, q = two_ulp_agreement(x, y, 0.0)
+            err, ratio = max(err, e), max(ratio, q)
+    ge, gq = two_ulp_agreement(k1[3].reshape(1), ref[3].reshape(1), 0.0)
+    print(f"  adamw_eager on the flagship step's {len(ps)} tensors: gnorm "
+          f"kernel {float(k1[3]):.9g} plain {float(ref[3]):.9g} ({gq:.3f} "
+          f"of 2 ulps); p, out, m, v worst {ratio:.3f} of 2 ulps (max abs "
+          f"err {err:.3e}); two calls bit-equal", flush=True)
+    check(ratio <= 1.0 and gq <= 1.0, f"adamw_eager: outputs off by "
+          f"{ratio:.2f}x, gnorm by {gq:.2f}x their 2-ulp allowance")
+    del runs, k1, k2, ref
+    a, k = fresh()
+    ms_k = device_time_ms(lambda: ad.adamw_eager(*a, **k), iters=20)
+    a, k = fresh()
+    ms_p = device_time_ms(lambda: ad.adamw_eager_plain(*a, **k), iters=5)
+    del a, k
+    params = [torch.nn.Parameter(p.detach().float().clone()) for p in ps]
+    for prm, g in zip(params, gs):
+        prm.grad = g.float()
+    lib = torch.optim.AdamW(params, lr=EAGER_LR, betas=(0.9, 0.95),
+                            eps=1e-8, weight_decay=0.1, fused=True)
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(params, EAGER_CLIP, foreach=True)
+        lib.step()
+    ms_l = device_time_ms(library, iters=20)
+    del params, lib
+    nbytes = sum(work.adamw_eager(p.numel(), p.element_size(),
+                                  g.element_size(),
+                                  0 if o is None else o.element_size())[0]
+                 for p, g, o in zip(ps, gs, outs))
+    b_ms, b_by = bound(nbytes, 0)
+    n = sum(p.numel() for p in ps)
+    case = f"flagship_o2_{n / 1e6:.1f}M"
+    print(f"  adamw_eager[{case}]: device ms kernel {ms_k:.4f} plain "
+          f"{ms_p:.4f} bound {b_ms:.4f} ({b_by}, {nbytes / 1e9:.2f} GB) "
+          f"library {ms_l:.4f}", flush=True)
+    opt.clear_grad()
+    torch.cuda.empty_cache()
+    return [{"case": case, "max_abs_err": max(err, ge),
+             "worst_over_allowed": max(ratio, gq), "ms": ms_k,
+             "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": ms_l}]
+
+
+def eager_flagship(torch, train_stats):
+    """Phase 28 (a): phase 7's weights and batches through the eager loop
+    (AMP-O2 layout, AdamW with f32 masters and the clip on kernel D's
+    eager form)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import adamw as ad
+    cfg, batch, seq = pretrain.flagship_config()
+    model = eager_o2(LlamaForCausalLM(cfg, device="cuda", seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = eager_optimizer(model, EAGER_CLIP, True)
+    host = flagship_batches(cfg, batch, seq, EAGER_WARM + EAGER_STEPS + 2)
+    batches = [pretrain.batch_to_device(b) for b in host]
+    torch.cuda.reset_peak_memory_stats()
+    # two warm-up steps, as phase 7 takes: the first creates the
+    # optimizer's state (4.5 GB), the second grows the allocator's pool
+    # for the gradients around it (69 cudaMallocs, ~300 ms once)
+    loss0 = float(eager_step(model, opt, batches[0]))
+    gnorm0 = float(opt._last_grad_norm)
+    warm = [loss0] + [float(eager_step(model, opt, b))
+                      for b in batches[1:EAGER_WARM]]
+    torch.cuda.synchronize()
+    reset_counts()
+    ad.adamw_eager.launches = 0
+    # an event at each step's end (no sync): the device-side time of each
+    # step, beside the host wall of the three
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(EAGER_STEPS + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    losses = []
+    for b, mark in zip(batches[EAGER_WARM:EAGER_WARM + EAGER_STEPS],
+                       marks[1:]):
+        losses.append(eager_step(model, opt, b))
+        mark.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    d_launches = ad.adamw_eager.launches
+    flash, tier = read_flash_counts(), read_tier_counts()
+    losses = warm + [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_tier = tuple(EAGER_STEPS * n for n in
+                      tier_counts_per_step(cfg, False)[:6]) + (0,)
+    check(flash == (cfg.num_hidden_layers * EAGER_STEPS,) * 2,
+          f"eager step: flash fwd / bwd {flash} in {EAGER_STEPS} steps")
+    check(tier == want_tier, f"eager step: fused tier launches {tier} in "
+          f"{EAGER_STEPS} steps (want {want_tier}: no pretrain-form AdamW)")
+    check(d_launches == 2 * EAGER_STEPS, f"eager step: kernel D's eager "
+          f"form launched {d_launches} times in {EAGER_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses + [gnorm0]),
+          f"eager step: non-finite loss / grad norm {losses} {gnorm0}")
+    ref_loss, ref_gn = train_stats["losses"][0], train_stats["grad_norms"][0]
+    loss_rel = abs(loss0 - ref_loss) / abs(ref_loss)
+    gn_rel = abs(gnorm0 - ref_gn) / ref_gn
+    print(f"  step 0: loss {loss0!r} (phase 7 {ref_loss!r}, relative "
+          f"difference {loss_rel:.3e}), grad norm {gnorm0:.6f} (phase 7 "
+          f"{ref_gn:.6f}, {gn_rel:.3e})", flush=True)
+    check(loss_rel <= EAGER_LOSS_RTOL, f"eager step-0 loss {loss0!r} is not "
+          f"phase 7's {ref_loss!r}")
+    check(gn_rel <= EAGER_GNORM_RTOL, f"eager step-0 grad norm {gnorm0} off "
+          f"phase 7's {ref_gn} by {gn_rel:.3e}")
+    tokens_per_s = batch * seq * EAGER_STEPS / wall
+    mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
+        BF16_FLOPS_PER_S
+    print(f"  eager B={batch} S={seq} L={cfg.num_hidden_layers}: "
+          f"{wall / EAGER_STEPS * 1e3:.1f} ms/step (phase 7 "
+          f"{train_stats['ms_per_step']:.1f}), {tokens_per_s:.1f} tokens/s "
+          f"(phase 7 {train_stats['tokens_per_s']:.1f}), MFU {mfu:.4f} "
+          f"(phase 7 {train_stats['mfu']:.4f}), peak memory {peak_gb:.2f} "
+          f"GB (phase 7 {train_stats['peak_memory_gb']:.2f}); steps by "
+          f"CUDA events {['%.1f' % x for x in step_ms]} ms; launches in "
+          f"{EAGER_STEPS} steps: flash {flash}, tier {tier}, D eager "
+          f"{d_launches}", flush=True)
+    spare = iter(batches[EAGER_WARM + EAGER_STEPS:])
+
+    def one_step():
+        float(eager_step(model, opt, next(spare)))
+        return 1
+    prof = profile_window(torch, one_step, "eager step")
+    p7 = train_stats["profile"]
+    if prof.get("device_busy_s") and p7.get("device_busy_s"):
+        print(f"  idle share of a profiled step: eager "
+              f"{1 - prof['device_busy_s'] / prof['wall_s']:.1%}, phase 7 "
+              f"{1 - p7['device_busy_s'] / p7['wall_s']:.1%}", flush=True)
+    rows = eager_kernel_rows(torch, opt, next(spare), model)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return rows, {"ms_per_step": wall / EAGER_STEPS * 1e3,
+                  "step_event_ms": step_ms,
+                  "tokens_per_s": tokens_per_s, "mfu": mfu,
+                  "peak_memory_gb": peak_gb, "losses": losses,
+                  "step0_grad_norm": gnorm0, "step0_loss_rel": loss_rel,
+                  "step0_gnorm_rel": gn_rel, "flash_launches": list(flash),
+                  "tier_launches": list(tier),
+                  "adamw_eager_launches": d_launches, "profile": prof}
+
+
+def eager_f32_runs(torch):
+    """Phase 28 (b): f32 at full width and L=2 on phase 8's weights and
+    batches, 3 steps each: the pretrain step without the clip, the eager
+    loop without it, and the eager loop with it (the reference of (c) and
+    (d)). Returns {run: (losses, {name: masters}, clip norms a step)}."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, batch, seq = mesh_config("float32", 2)
+    host = mesh_batches(cfg, batch, seq, 1, EAGER_STEPS)
+    runs = {}
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    params, opt_state, meta = pretrain.make_train_state(
+        model, None, lr=EAGER_LR, betas=(0.9, 0.95), eps=1e-8,
+        weight_decay=0.1, grad_clip=0.0)
+    step = pretrain.make_train_step(model, None, meta)
+    losses = []
+    for b in host:
+        params, opt_state, loss, _ = step(params, opt_state,
+                                          pretrain.batch_to_device(b))
+        losses.append(float(loss))
+    runs["pretrain"] = (losses, {n: t.cpu().numpy()
+                                 for n, t in params.items()}, None)
+    del model, params, opt_state, step
+    for name, clip in (("eager", None), ("eager_clip", EAGER_F32_CLIP)):
+        model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+        opt = eager_optimizer(model, clip, False)
+        losses, norms = [], []
+        for b in host:
+            losses.append(float(eager_step(model, opt,
+                                           pretrain.batch_to_device(b))))
+            norms.append(float(opt._last_grad_norm))
+        runs[name] = (losses, {n: p.detach().cpu().numpy()
+                               for n, p in model.named_parameters()}, norms)
+        del model, opt
+    torch.cuda.empty_cache()
+    return runs
+
+
+def eager_rank(spec_path):
+    """A rank of phase 28 (c) / (d) (``chip_smoke.py --eager-rank SPEC``):
+    joins the two-rank gloo group; (c) ``fleet.init`` dp 2,
+    ``distributed_model`` (DataParallel) and ``distributed_optimizer``
+    (AdamW + clip) on its half of each batch, the reducer's calls and
+    bytes a step and the clip norm of each step, then a no_sync backward and a synced one against a
+    synced one alone; (d) ``fleet.init`` sharding 2 and
+    ``group_sharded_parallel`` at each level. Rank 0 writes the whole
+    parameters of each leg to the spec's npz paths; every rank writes its
+    numbers as JSON to the spec's ``out``."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.distributed import collective, fleet, sharding
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = spec["rank"]
+    group = collective.new_group(rank, 2, spec["store"],
+                                 timeout=EAGER_TIMEOUT_S)
+    cfg, batch, seq = mesh_config("float32", 2)
+    host = mesh_batches(cfg, batch, seq, 1, EAGER_STEPS)
+    rows = slice(rank * batch // 2, (rank + 1) * batch // 2)
+
+    def local(b):
+        return {k: torch.tensor(v[rows], device="cuda")
+                for k, v in b.items()}
+
+    def save(key, tensors):
+        if rank == 0:
+            np.savez(spec[key], **{n: t.detach().cpu().numpy()
+                                   for n, t in tensors.items()})
+    out = {"rank": rank}
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update({"dp_degree": 2})
+    fleet.init(is_collective=True, strategy=s, group=group, device="cuda")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    net = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(eager_optimizer(model, EAGER_F32_CLIP,
+                                                      False))
+    red = net._reducer
+    calls, nbytes, ms, norms = [], [], [], []
+    for b in host:
+        c0, b0 = red.stats["allreduce_calls"], red.stats["bytes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(eager_step(net, opt, local(b)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(opt._last_grad_norm))
+        calls.append(red.stats["allreduce_calls"] - c0)
+        nbytes.append(red.stats["bytes"] - b0)
+    save("c_params", dict(model.named_parameters()))
+    b = local(host[0])
+
+    def backward():
+        _, loss = net(b["input_ids"], labels=b["labels"])
+        loss.backward()
+    backward()
+    once = [p.grad.clone() for p in model.parameters()]
+    opt.clear_grad()
+    with net.no_sync():
+        backward()
+    backward()
+    no_sync_rel = max(float((p.grad - 2 * g).abs().max())
+                      / max(float(2 * g.abs().max()), 1e-30)
+                      for p, g in zip(model.parameters(), once))
+    opt.clear_grad()
+    out["c"] = {"buckets": len(red.buckets), "calls": calls,
+                "bytes": nbytes, "ms": ms, "norms": norms,
+                "no_sync_rel": no_sync_rel,
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in model.parameters())}
+    net.cleanup()
+    del model, net, opt, once
+    torch.cuda.empty_cache()
+    out["d"] = {}
+    for level in EAGER_LEVELS:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update({"sharding_degree": 2})
+        fleet.init(is_collective=True, strategy=s, group=group,
+                   device="cuda")
+        model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+        inner = eager_optimizer(model, EAGER_F32_CLIP, False)
+        net, opt, _ = sharding.group_sharded_parallel(model, inner, level)
+        ms, norms = [], []
+        for b in host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(eager_step(net, opt, local(b)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(opt._last_grad_norm))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for st in inner._accumulators.values()
+                          for t in st.values())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        whole = net.state_dict() if level == "p_g_os" else \
+            dict(model.named_parameters())
+        save(f"d_{level}", whole)
+        out["d"][level] = {"state_bytes": state_bytes,
+                           "param_bytes": param_bytes, "ms": ms,
+                           "norms": norms, "comm": opt.comm}
+        del model, inner, net, opt, whole
+        torch.cuda.empty_cache()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_eager(torch, train_stats):
+    """Phase 28: (a) the flagship through the eager loop against phase 7,
+    with kernel D's eager form on the step's own tensors; (b) f32 L=2 eager
+    AdamW against the pretrain step; (c) DataParallel and (d) the ZeRO
+    stages over two gloo rank processes on the card against (b)'s eager
+    run with the clip. Returns (kernel rows, stats)."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    print("  (a) the flagship through loss.backward() and optimizer.AdamW "
+          "(AMP-O2 layout, f32 masters, clip on kernel D)", flush=True)
+    rows, stats = eager_flagship(torch, train_stats)
+    print("  (b) f32 L=2: the eager loop against make_train_step (no clip), "
+          "and with the clip for (c) / (d)", flush=True)
+    runs = eager_f32_runs(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["eager"][0],
+                                                  runs["pretrain"][0]))
+    print(f"  (b) losses eager {runs['eager'][0]} pretrain "
+          f"{runs['pretrain'][0]} (worst relative {rel:.3e})", flush=True)
+    check(rel <= TRAIN_RTOL, f"(b) eager losses off the pretrain step's by "
+          f"{rel:.3e}")
+    stats["b"] = check_eager_agreement(
+        "(b) eager AdamW vs make_train_step, masters after 3 steps",
+        runs["eager"][1], runs["pretrain"][1])
+    ref_losses, ref, ref_norms = runs["eager_clip"]
+    del runs
+    check(min(ref_norms) > EAGER_F32_CLIP, f"(b) clip norms {ref_norms}: "
+          f"the clip at {EAGER_F32_CLIP:g} left a step unscaled")
+    cfg, _, _ = mesh_config("float32", 2)
+    shapes = llama_shapes(cfg)
+    whole_bytes = 4 * sum(int(np.prod(s)) for s in shapes.values())
+    half = 4 * sum(int(np.prod(s)) // 2 if s[0] % 2 == 0 else
+                   int(np.prod(s)) for s in shapes.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eager_")
+    try:
+        specs = [{"rank": r, "store": os.path.join(tmp, "store"),
+                  "out": os.path.join(tmp, f"eager_rank{r}.json"),
+                  "c_params": os.path.join(tmp, "c.npz"),
+                  **{f"d_{lv}": os.path.join(tmp, f"d_{lv}.npz")
+                     for lv in EAGER_LEVELS}} for r in range(2)]
+        print("  (c) / (d): two gloo rank processes on the card", flush=True)
+        ranks = run_rank_procs("--eager-rank", "eager", specs, tmp,
+                               EAGER_JOIN_S)
+        c_params = dict(np.load(specs[0]["c_params"]))
+        d_params = {lv: dict(np.load(specs[0][f"d_{lv}"]))
+                    for lv in EAGER_LEVELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rk in ranks:
+        c = rk["c"]
+        print(f"  (c) rank {rk['rank']}: {c['buckets']} buckets, all_reduce "
+              f"calls a step {c['calls']}, bytes {c['bytes']} (params "
+              f"{c['param_bytes']}), host ms a step {c['ms']}; no_sync then "
+              f"synced: {c['no_sync_rel']:.3e} off 2x one synced backward",
+              flush=True)
+        check(c["calls"] == [c["buckets"]] * EAGER_STEPS,
+              f"(c) rank {rk['rank']}: all_reduce calls {c['calls']}, want "
+              f"one a bucket ({c['buckets']}) a step")
+        check(c["bytes"] == [c["param_bytes"]] * EAGER_STEPS,
+              f"(c) rank {rk['rank']}: all_reduce bytes {c['bytes']}, want "
+              f"the parameters' {c['param_bytes']} a step")
+        check(c["no_sync_rel"] <= EAGER_REL, f"(c) rank {rk['rank']}: a "
+              f"no_sync backward and a synced one are {c['no_sync_rel']:.3e}"
+              f" off twice the gradients")
+        check_eager_norms(f"(c) rank {rk['rank']}", c["norms"], ref_norms)
+        for lv in EAGER_LEVELS:
+            d = rk["d"][lv]
+            want_rest = half if lv == "p_g_os" else whole_bytes
+            print(f"  (d) rank {rk['rank']} {lv}: optimizer state "
+                  f"{d['state_bytes']} bytes (whole {2 * whole_bytes}, "
+                  f"closed form {2 * half}), parameters at rest "
+                  f"{d['param_bytes']} (closed form {want_rest}), host ms a "
+                  f"step {d['ms']}, collectives {json.dumps(d['comm'])}",
+                  flush=True)
+            check(d["state_bytes"] == 2 * half, f"(d) {lv}: state bytes "
+                  f"{d['state_bytes']}, closed form {2 * half}")
+            check(d["param_bytes"] == want_rest, f"(d) {lv}: parameter "
+                  f"bytes {d['param_bytes']}, closed form {want_rest}")
+            check_eager_norms(f"(d) rank {rk['rank']} {lv}", d["norms"],
+                              ref_norms)
+    stats["c"] = dict(check_eager_agreement(
+        "(c) DataParallel dp 2 vs one card's eager run on the whole batch",
+        c_params, ref), ranks=[rk["c"] for rk in ranks])
+    stats["d"] = {}
+    for lv in EAGER_LEVELS:
+        stats["d"][lv] = dict(check_eager_agreement(
+            f"(d) group_sharded_parallel {lv!r} vs (c)", d_params[lv],
+            c_params), ranks=[rk["d"][lv] for rk in ranks])
+    stats["reference_losses"] = ref_losses
+    stats["reference_norms"] = ref_norms
+    return rows, stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -6020,6 +6573,12 @@ def main():
           "tensor-parallel layers over gloo in two processes on the card "
           "(mp 2; f32 and bf16)", flush=True)
     fleet_rows, fleet_stats = phase_fleet(torch)
+    print("phase 28: the eager training path: (a) the flagship through "
+          "loss.backward() and optimizer.AdamW on kernel D's eager form; "
+          "(b) f32 L=2 against the pretrain step; (c) DataParallel and (d) "
+          "the ZeRO stages over gloo in two processes on the card",
+          flush=True)
+    eager_rows, eager_stats = phase_eager(torch, train_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -6119,7 +6678,15 @@ def main():
             name, "paddle_tpu_torch/csrc/token_ce.cu",
             "paddle_tpu/distributed/fleet/mp_layers.py:147", launches,
             fleet_rows[key], SHARD_CE_SPECS[0][0]))
-    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels),
+    # kernel D's eager form: its launches are phase 28 (a)'s timed steps
+    # (no pallas_call: the JAX optimizer's _adamw_update and the global-norm
+    # clip are XLA fusions)
+    kernels.append(kernel_entry(
+        "adamw_eager", "paddle_tpu_torch/csrc/adamw.cu",
+        "paddle_tpu/optimizer/optimizers.py:35",
+        eager_stats["adamw_eager_launches"], eager_rows,
+        eager_rows[0]["case"]))
+    check(len(kernels) == 25 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -6146,6 +6713,8 @@ def main():
           flush=True)
     print(f"card: {card}; fleet layers: {json.dumps(fleet_stats)}",
           flush=True)
+    print(f"card: {card}; eager training path: {json.dumps(eager_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6161,6 +6730,8 @@ if __name__ == "__main__":
             rc = mesh_rank(sys.argv[2])
         elif sys.argv[1:2] == ["--fleet-rank"]:
             rc = fleet_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--eager-rank"]:
+            rc = eager_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

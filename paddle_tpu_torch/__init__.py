@@ -15,4 +15,13 @@ Slice 2 covers the Llama forward and the single-device pretraining step:
 ``models`` (``LlamaForCausalLM``, ``pretrain``), ``nn`` (the layers and
 functionals the model calls) and flash attention in ``ops`` with its
 forward and fused backward kernels.
+
+Later slices (see CHANGES.md) add the serving front door, the training
+step's options, tensor-parallel serving, the training mesh and fleet's
+tensor-parallel layers. Slice 22 adds the eager training path:
+``optimizer`` (the fifteen optimizers and the ``lr`` schedulers; Adam and
+AdamW on kernel D's eager form), ``nn.clip``, ``distributed.parallel``
+(``DataParallel`` with the bucketed reducer of
+``distributed.fleet.reducer``), ``fleet.distributed_optimizer`` and the
+ZeRO stages (``distributed.fleet.sharding``, ``distributed.sharding``).
 """

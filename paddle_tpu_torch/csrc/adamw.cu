@@ -72,17 +72,27 @@ constexpr int MAX_T = 256;
 constexpr int MAX_G = 32;   // telemetry groups
 constexpr int WS_SLOTS = 6;  // g^2, end flag, nonfinite, p^2, du^2, group
 
+// a tensor's flags: decayed; clipped (the eager form's need_clip); counted
+// in the sums of squares (owned once over the ranks, and in the eager form
+// need_clip too)
+constexpr int F_DECAY = 1, F_CLIP = 2, F_NORM = 4;
+
+// The tensors of one launch, both forms. The pretrain form reads p, m, v
+// as f32 and leaves out, lr, keep, wd, ptype and otype unset.
 struct TensorList {
-  float* p[MAX_T];
+  void* p[MAX_T];
+  void* out[MAX_T];       // eager: the parameter written as round(p), or null
   const void* g[MAX_T];
   float* m[MAX_T];
   float* v[MAX_T];
   long long n[MAX_T];
   int chunk0[MAX_T + 1];  // first chunk of each tensor, in this launch
-  int gtype[MAX_T];       // 0 f32, 1 bf16, 2 f16
-  int decay[MAX_T];
-  int group[MAX_T];       // telemetry group of each tensor
-  int owned[MAX_T];       // 0: left out of every sum (a replica's shard)
+  float lr[MAX_T];        // eager: the tensor's rate
+  float keep[MAX_T];      // eager: 1 - lr wd (AdamW, decayed), else 1
+  float wd[MAX_T];        // eager: the tensor's weight decay (Adam's L2)
+  // dtypes 0 f32, 1 bf16, 2 f16; F_* flags; telemetry group of each tensor
+  unsigned char gtype[MAX_T], ptype[MAX_T], otype[MAX_T], flags[MAX_T];
+  unsigned char group[MAX_T];
   int count;
 };
 
@@ -93,7 +103,7 @@ __device__ __forceinline__ float load_g(const void* g, int type,
   return ((const float*)g)[i];
 }
 
-// four grads at g[i..i+4), i a multiple of 4 and the tensor aligned
+// four elements at g[i..i+4), i a multiple of 4 and the array aligned
 __device__ __forceinline__ void load_g4(const void* g, int type, long long i,
                                         float (&f)[4]) {
   if (type == 0) {
@@ -121,11 +131,17 @@ __device__ __forceinline__ int find_tensor(const TensorList& L, int b) {
   return lo;
 }
 
+// a dtype-`type` array aligned to 4 of its elements (16 bytes for f32, 8
+// for 16-bit)
+__device__ __forceinline__ bool aligned4(const void* x, int type) {
+  return (uintptr_t)x % (type == 0 ? 16 : 8) == 0;
+}
+
+// the pretrain form's 16-byte route: f32 p, m, v and g aligned
 __device__ __forceinline__ bool vec_ok(const TensorList& L, int t) {
   const uintptr_t a = (uintptr_t)L.p[t] | (uintptr_t)L.m[t] |
                       (uintptr_t)L.v[t];
-  const uintptr_t ga = (uintptr_t)L.g[t];
-  return (a % 16) == 0 && ga % (L.gtype[t] == 0 ? 16 : 8) == 0;
+  return (a % 16) == 0 && aligned4(L.g[t], L.gtype[t]);
 }
 
 __device__ double block_sum_d(double v, double* red) {
@@ -138,16 +154,30 @@ __device__ double block_sum_d(double v, double* red) {
   return t;
 }
 
-// sumsq_out (the mesh form, else null): the last block writes the sum of
-// the chunks' sums there instead of gnorm and the scale.
+// The eager form's clip scale, min(clip / max(gnorm, 1e-12), 1); a NaN
+// gnorm gives a NaN scale, as jnp.minimum / jnp.maximum propagate it.
+__device__ __forceinline__ float eager_scale(float gnorm, float clip) {
+  const float den = isnan(gnorm) ? gnorm : fmaxf(gnorm, 1e-12f);
+  const float r = __fdiv_rn(clip, den);
+  return isnan(r) ? r : fminf(r, 1.0f);
+}
+
+// Launch 1 of both forms: each block writes its chunk's f64 sum of g^2 (0
+// for a tensor without F_NORM) and whether the chunk ends its tensor into
+// ws; the last block of the last launch sums the chunks in order.
 // ws: [2 * total chunks] f64 (the chunks' sums, then 1.0 where a chunk ends
 // its tensor; with telemetry WS_SLOTS * total, slot 2 the chunks' counts of
 // non-finite grads); base: this launch's first chunk; out: [2] f32 (gnorm,
-// scale) written by the last block of the last launch.
+// scale) written by the last block of the last launch:
+//   pretrain: gnorm = sqrt of the sum of the squared f32 tensor norms,
+//     scale min(1, clip * (1 / (gnorm + 1e-6))) (1 for clip 0);
+//   eager: gnorm = sqrt(sum), scale eager_scale (1 for clip <= 0).
+// sumsq_out (the mesh form, else null): the last block writes the sum of
+// the chunks' sums there instead of gnorm and the scale.
 __global__ void __launch_bounds__(NT)
 adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
                    int last_launch, unsigned int* counter, float* out,
-                   float clip, int telemetry, double* sumsq_out) {
+                   float clip, int telemetry, int eager, double* sumsq_out) {
   __shared__ double red[NT / 32];
   __shared__ bool is_last;
   const int b = blockIdx.x;
@@ -158,26 +188,22 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   const int type = L.gtype[t];
   double acc = 0.0;
   int bad = 0;  // non-finite grads (counted only with telemetry)
-  if (!L.owned[t]) {
-    // a replica's shard: counted on its owner, writes 0
-  } else if (vec_ok(L, t)) {
-    const long long end4 = start + ((end - start) & ~3LL);
-    for (long long i = start + threadIdx.x * 4; i < end4; i += NT * 4) {
-      float f[4];
-      load_g4(g, type, i, f);
+  if (L.flags[t] & F_NORM) {  // else a replica's shard: writes 0
+    long long tail = start;
+    if (aligned4(g, type)) {
+      const long long end4 = start + ((end - start) & ~3LL);
+      for (long long i = start + threadIdx.x * 4; i < end4; i += NT * 4) {
+        float f[4];
+        load_g4(g, type, i, f);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        acc += (double)f[k] * f[k];
-        bad += !isfinite(f[k]);
+        for (int k = 0; k < 4; ++k) {
+          acc += (double)f[k] * f[k];
+          bad += !isfinite(f[k]);
+        }
       }
+      tail = end4;
     }
-    for (long long i = end4 + threadIdx.x; i < end; i += NT) {
-      const float f = load_g(g, type, i);
-      acc += (double)f * f;
-      bad += !isfinite(f);
-    }
-  } else {
-    for (long long i = start + threadIdx.x; i < end; i += NT) {
+    for (long long i = tail + threadIdx.x; i < end; i += NT) {
       const float f = load_g(g, type, i);
       acc += (double)f * f;
       bad += !isfinite(f);
@@ -201,31 +227,42 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
   if (!is_last || !last_launch) return;
   // the last block of the last launch: every chunk is written. The chunks'
   // sums come through shared memory a tile at a time; thread 0 walks them
-  // in order.
+  // in order. Only the pretrain form on one device takes each tensor's
+  // norm; the others need the plain sum, whose walk has no branch on the
+  // data (with the branch, the walk took 0.13 of the eager form's 0.45 ms
+  // launch 1 at the flagship).
+  const bool norms = !eager && sumsq_out == nullptr;
   __shared__ double sv[NT], sf[NT];
   double s = 0.0, sq = 0.0, all = 0.0;
   for (int c0 = 0; c0 < total; c0 += NT) {
     const int c = c0 + threadIdx.x;
     sv[threadIdx.x] = c < total ? __ldcg(ws + c) : 0.0;
-    sf[threadIdx.x] = c < total ? __ldcg(ws + total + c) : 0.0;
+    if (norms) sf[threadIdx.x] = c < total ? __ldcg(ws + total + c) : 0.0;
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && norms) {
       const int lim = min(NT, total - c0);
       for (int i = 0; i < lim; ++i) {
         s += sv[i];
-        all += sv[i];
         if (sf[i] != 0.0) {
           const float norm = (float)sqrt(s);
           sq += (double)norm * norm;
           s = 0.0;
         }
       }
+    } else if (threadIdx.x == 0) {
+      const int lim = min(NT, total - c0);
+      for (int i = 0; i < lim; ++i) all += sv[i];
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0 && sumsq_out != nullptr) {
+  if (threadIdx.x != 0) return;
+  if (sumsq_out != nullptr) {
     *sumsq_out = all;
-  } else if (threadIdx.x == 0) {
+  } else if (eager) {
+    const float gnorm = (float)sqrt(all);
+    out[0] = gnorm;
+    out[1] = clip > 0.0f ? eager_scale(gnorm, clip) : 1.0f;
+  } else {
     const float gnorm = (float)sqrt(sq);
     out[0] = gnorm;
     // a NaN gnorm gives a NaN scale, as the plain version's clamp does
@@ -233,6 +270,8 @@ adamw_sumsq_kernel(const TensorList L, double* ws, int base, int total,
     out[1] = clip != 0.0f ? (isnan(r) ? r : fminf(r, 1.0f)) : 1.0f;
   }
 }
+
+// -- the pretrain form's launch 2 ----------------------------------------
 
 struct Hyper {
   float b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr;
@@ -292,8 +331,8 @@ __device__ __forceinline__ void update_chunk(const TensorList& L, int t,
                                              long long start, long long end,
                                              float scale, const Hyper& h,
                                              TelSums& tel) {
-  const bool decay = L.decay[t] != 0;
-  float* p = L.p[t];
+  const bool decay = (L.flags[t] & F_DECAY) != 0;
+  float* p = (float*)L.p[t];
   float* m = L.m[t];
   float* v = L.v[t];
   const void* g = L.g[t];
@@ -372,7 +411,7 @@ adamw_update_tel_kernel(const TensorList L, float* out,
   const long long end = min(L.n[t], start + CHUNK);
   TelSums tel;
   update_chunk<true>(L, t, start, end, block_scale(out, h), h, tel);
-  if (!L.owned[t]) tel = TelSums();  // a replica's shard writes 0
+  if (!(L.flags[t] & F_NORM)) tel = TelSums();  // a replica's shard: 0
   const double p2 = block_sum_d(tel.p2, red);
   __syncthreads();
   const double u2 = block_sum_d(tel.u2, red);
@@ -439,30 +478,250 @@ adamw_update_tel_kernel(const TensorList L, float* out,
   }
 }
 
-// Fills L with tensors [t0, t0 + count) of the caller's arrays; returns
-// this launch's chunks.
-int fill(TensorList& L, int t0, int count, void* const* p, void* const* g,
-         void* const* m, void* const* v, const long long* n,
-         const int* gtype, const int* decay, const int* group = nullptr,
-         const int* owned = nullptr) {
+
+// ---------------------------------------------------------------------------
+// The eager form: the eager optimizer's AdamW and Adam with the global-norm
+// clip (paddle_tpu_torch/optimizer), the math of the JAX package's
+// paddle_tpu/optimizer/optimizers.py:25-42 _adam_update / _adamw_update,
+// optimizer.py:141-146 _l2 and nn/clip.py:63-103 ClipGradByGlobalNorm, which
+// XLA fuses (no pallas_call). Per tensor: p the f32 master or the
+// parameter itself (f32 / bf16 / f16), out null or the parameter written as
+// round(p) under multi_precision, g f32 / bf16 / f16, m and v f32, the
+// tensor's own learning rate and weight decay (f32, lr_ratio, optimize_attr
+// and its group folded in by the caller), 1 - lr wd for a decayed AdamW
+// tensor, and flags: F_DECAY, F_CLIP (need_clip: the scale applies) and
+// F_NORM (counted in the global norm; need_clip and, on sharded state,
+// owned once over the ranks).
+//   Launch 1: adamw_sumsq_kernel with eager set: gnorm = sqrt(sum of the
+//   chunks' sums) rounded to f32, and the scale
+//   min(clip / max(gnorm, 1e-12), 1), both left on the card. The mesh
+//   form writes the sum to sumsq_out for the caller's all_reduce and
+//   launch 2 takes gnorm and the scale from the global sum.
+//   Launch 2: per element, in JAX's expression order with one rounding an
+//   operation (no fused multiply-add, true divisions):
+//     g = round_to_g(g * scale) where clipped (nn/clip.py:102)
+//     g = g + wd * p            Adam's coupled L2 on decayed tensors
+//     m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) (g g)
+//     p = p (1 - lr wd) - (lr (m / c1)) / (sqrt(v / c2) + eps)
+//   and p (and out) stored rounded to their dtypes.
+// Bound: bytes. Launch 1 reads g, launch 2 reads g, p, m, v and writes p,
+// m, v (and out). Each thread takes four elements at a time, each array in
+// one 16-byte (f32) or 8-byte (16-bit) access, where the tensor's arrays
+// are aligned to four elements; the rest elementwise.
+
+__device__ __forceinline__ void store_any(void* x, int type, long long i,
+                                          float f) {
+  if (type == 1) ((__nv_bfloat16*)x)[i] = __float2bfloat16_rn(f);
+  else if (type == 2) ((__half*)x)[i] = __float2half_rn(f);
+  else ((float*)x)[i] = f;
+}
+
+// f rounded to the dtype `type` and back (the value a cast stores)
+__device__ __forceinline__ float round_any(int type, float f) {
+  if (type == 1) return __bfloat162float(__float2bfloat16_rn(f));
+  if (type == 2) return __half2float(__float2half_rn(f));
+  return f;
+}
+
+struct EagerHyper {
+  float b1, omb1, b2, omb2, c1, c2, eps;
+  int adam_l2, clip_on;
+  float clip;
+  const double* gsumsq;  // the mesh form: the all_reduced sum of squares
+};
+
+// One element's update from its grad g (as loaded) and base (the master
+// or the parameter, as loaded); m and v in and out. Returns the new p.
+__device__ __forceinline__ float eager_math(float g, float base, float& m,
+                                           float& v, float scale,
+                                           const EagerHyper& h, int gt,
+                                           int fl, float lr, float keep,
+                                           float wd) {
+  if (h.clip_on && (fl & F_CLIP)) g = round_any(gt, __fmul_rn(g, scale));
+  if (h.adam_l2 && (fl & F_DECAY)) g = __fadd_rn(g, __fmul_rn(wd, base));
+  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
+  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(h.omb2, __fmul_rn(g, g)));
+  const float denom = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, h.c2)), h.eps);
+  const float upd = __fdiv_rn(__fmul_rn(lr, __fdiv_rn(m, h.c1)), denom);
+  return __fsub_rn(__fmul_rn(base, keep), upd);
+}
+
+// four elements of a dtype-`type` array written at x[i..i+4), i a multiple
+// of 4 and x aligned to 4 elements (the packing load_g4 reads)
+__device__ __forceinline__ void store4_any(void* x, int type, long long i,
+                                           const float (&f)[4]) {
+  if (type == 0) {
+    *reinterpret_cast<float4*>((float*)x + i) =
+        make_float4(f[0], f[1], f[2], f[3]);
+    return;
+  }
+  unsigned int e[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    e[k] = type == 1 ? __bfloat16_as_ushort(__float2bfloat16_rn(f[k]))
+                     : __half_as_ushort(__float2half_rn(f[k]));
+  *reinterpret_cast<uint2*>((unsigned short*)x + i) =
+      make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+// every array of tensor t aligned to 4 of its elements: the 16- or 8-byte
+// route
+__device__ __forceinline__ bool eager_vec_ok(const TensorList& L, int t) {
+  return aligned4(L.g[t], L.gtype[t]) && aligned4(L.p[t], L.ptype[t]) &&
+         (L.out[t] == nullptr || aligned4(L.out[t], L.otype[t])) &&
+         aligned4(L.m[t], 0) && aligned4(L.v[t], 0);
+}
+
+__global__ void __launch_bounds__(NT)
+adamw_eager_update_kernel(const TensorList L, float* out,
+                          const EagerHyper h) {
+  const int b = blockIdx.x;
+  const int t = find_tensor(L, b);
+  const long long start = (long long)(b - L.chunk0[t]) * CHUNK;
+  const long long end = min(L.n[t], start + CHUNK);
+  float scale = 1.0f;
+  if (h.gsumsq != nullptr) {
+    const float gnorm = (float)sqrt(*h.gsumsq);
+    scale = h.clip > 0.0f ? eager_scale(gnorm, h.clip) : 1.0f;
+    if (b == 0 && threadIdx.x == 0) {
+      out[0] = gnorm;
+      out[1] = scale;
+    }
+  } else {
+    scale = out[1];
+  }
+  const int gt = L.gtype[t], pt = L.ptype[t], fl = L.flags[t];
+  const float lr = L.lr[t], keep = L.keep[t], wd = L.wd[t];
+  float* m = L.m[t];
+  float* v = L.v[t];
+  long long tail = start;
+  if (eager_vec_ok(L, t)) {
+    // four elements a thread, each array in one 16- (or 8-) byte access
+    const long long end4 = start + ((end - start) & ~3LL);
+    for (long long i = start + threadIdx.x * 4; i < end4; i += NT * 4) {
+      float g4[4], p4[4], np[4];
+      load_g4(L.g[t], gt, i, g4);
+      load_g4(L.p[t], pt, i, p4);
+      float4 mm = *reinterpret_cast<const float4*>(m + i);
+      float4 vv = *reinterpret_cast<const float4*>(v + i);
+      np[0] = eager_math(g4[0], p4[0], mm.x, vv.x, scale, h, gt, fl, lr,
+                         keep, wd);
+      np[1] = eager_math(g4[1], p4[1], mm.y, vv.y, scale, h, gt, fl, lr,
+                         keep, wd);
+      np[2] = eager_math(g4[2], p4[2], mm.z, vv.z, scale, h, gt, fl, lr,
+                         keep, wd);
+      np[3] = eager_math(g4[3], p4[3], mm.w, vv.w, scale, h, gt, fl, lr,
+                         keep, wd);
+      *reinterpret_cast<float4*>(m + i) = mm;
+      *reinterpret_cast<float4*>(v + i) = vv;
+      store4_any(L.p[t], pt, i, np);
+      if (L.out[t] != nullptr) store4_any(L.out[t], L.otype[t], i, np);
+    }
+    tail = end4;
+  }
+  for (long long i = tail + threadIdx.x; i < end; i += NT) {
+    float mi = m[i], vi = v[i];
+    const float np = eager_math(load_g(L.g[t], gt, i),
+                                load_g(L.p[t], pt, i), mi, vi, scale, h,
+                                gt, fl, lr, keep, wd);
+    m[i] = mi;
+    v[i] = vi;
+    store_any(L.p[t], pt, i, np);
+    if (L.out[t] != nullptr) store_any(L.out[t], L.otype[t], i, np);
+  }
+}
+
+// -- host side ------------------------------------------------------------
+
+// The caller's arrays, T long; a null array leaves its field at its
+// default (null, 0, keep 1). flags null: the pretrain form's, from decay
+// (F_DECAY) and owned (null: all owned; F_NORM).
+struct Sources {
+  void* const* p = nullptr;
+  const int* ptype = nullptr;
+  void* const* out = nullptr;
+  const int* otype = nullptr;
+  void* const* g = nullptr;
+  const int* gtype = nullptr;
+  void* const* m = nullptr;
+  void* const* v = nullptr;
+  const long long* n = nullptr;
+  const float* lr = nullptr;
+  const float* keep = nullptr;
+  const float* wd = nullptr;
+  const int* flags = nullptr;
+  const int* decay = nullptr;
+  const int* owned = nullptr;
+  const int* group = nullptr;
+};
+
+// Fills L with tensors [t0, t0 + count) of S; returns this launch's chunks.
+int fill(TensorList& L, int t0, int count, const Sources& S) {
   int c = 0;
   L.count = count;
   for (int i = 0; i < count; ++i) {
     const int t = t0 + i;
-    L.p[i] = p ? (float*)p[t] : nullptr;
-    L.g[i] = g[t];
-    L.m[i] = m ? (float*)m[t] : nullptr;
-    L.v[i] = v ? (float*)v[t] : nullptr;
-    L.n[i] = n[t];
-    L.gtype[i] = gtype[t];
-    L.decay[i] = decay ? decay[t] : 0;
-    L.group[i] = group ? group[t] : 0;
-    L.owned[i] = owned ? owned[t] : 1;
+    L.p[i] = S.p ? S.p[t] : nullptr;
+    L.out[i] = S.out ? S.out[t] : nullptr;
+    L.g[i] = S.g[t];
+    L.m[i] = S.m ? (float*)S.m[t] : nullptr;
+    L.v[i] = S.v ? (float*)S.v[t] : nullptr;
+    L.n[i] = S.n[t];
+    L.lr[i] = S.lr ? S.lr[t] : 0.0f;
+    L.keep[i] = S.keep ? S.keep[t] : 1.0f;
+    L.wd[i] = S.wd ? S.wd[t] : 0.0f;
+    L.gtype[i] = (unsigned char)S.gtype[t];
+    L.ptype[i] = (unsigned char)(S.ptype ? S.ptype[t] : 0);
+    L.otype[i] = (unsigned char)(S.otype ? S.otype[t] : 0);
+    L.flags[i] = (unsigned char)(
+        S.flags ? S.flags[t]
+                : ((S.decay && S.decay[t]) ? F_DECAY : 0) |
+                      ((!S.owned || S.owned[t]) ? F_NORM : 0));
+    L.group[i] = (unsigned char)(S.group ? S.group[t] : 0);
     L.chunk0[i] = c;
-    c += (int)((n[t] + CHUNK - 1) / CHUNK);
+    c += (int)((S.n[t] + CHUNK - 1) / CHUNK);
   }
   L.chunk0[count] = c;
   return c;
+}
+
+// The chunks of T tensors of n[T] elements (0 if more than an int holds).
+long long total_chunks(int T, const long long* n) {
+  long long total = 0;
+  for (int t = 0; t < T; ++t) total += (n[t] + CHUNK - 1) / CHUNK;
+  return total > 0x7fffffffLL ? 0 : total;
+}
+
+// The batch of MAX_T tensors whose launch finishes a reduction: that of
+// the last tensor with elements.
+int last_batch(int T, const long long* n) {
+  int last = T - 1;
+  while (last > 0 && n[last] == 0) --last;
+  return last / MAX_T;
+}
+
+// Launch 1 of either form over S.g (ceil(T / MAX_T) launches).
+int launch_sumsq(int T, const Sources& S, void* ws, void* counter, void* out,
+                 float clip, int telemetry, int eager, void* sumsq_out,
+                 cudaStream_t s) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const long long total = total_chunks(T, S.n);
+  if (total < 1) return (int)cudaErrorInvalidValue;
+  const int lb = last_batch(T, S.n);
+  int base = 0;
+  for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
+    TensorList L;
+    const int chunks = fill(L, t0, std::min(MAX_T, T - t0), S);
+    if (chunks > 0)
+      adamw_sumsq_kernel<<<chunks, NT, 0, s>>>(
+          L, (double*)ws, base, (int)total, bi == lb,
+          (unsigned int*)counter, (float*)out, clip, telemetry, eager,
+          (double*)sumsq_out);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    base += chunks;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -486,31 +745,13 @@ int adamw_sumsq(int T, void* const* g, const long long* n, const int* gtype,
                 void* ws, void* counter, void* out, float clip,
                 int telemetry, const int* owned, void* sumsq_out,
                 void* stream) {
-  if (T < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  long long total = 0;
-  for (int t = 0; t < T; ++t) total += (n[t] + CHUNK - 1) / CHUNK;
-  if (total < 1 || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // the last launch with chunks finishes the reduction
-  int last = T - 1;
-  while (last > 0 && n[last] == 0) --last;
-  const int last_batch = last / MAX_T;
-  int base = 0;
-  for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
-    TensorList L;
-    const int chunks = fill(L, t0, std::min(MAX_T, T - t0), nullptr, g,
-                            nullptr, nullptr, n, gtype, nullptr, nullptr,
-                            owned);
-    if (chunks > 0)
-      adamw_sumsq_kernel<<<chunks, NT, 0, s>>>(
-          L, (double*)ws, base, (int)total, bi == last_batch,
-          (unsigned int*)counter, (float*)out, clip, telemetry,
-          (double*)sumsq_out);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    base += chunks;
-  }
-  return 0;
+  Sources S;
+  S.g = g;
+  S.n = n;
+  S.gtype = gtype;
+  S.owned = owned;
+  return launch_sumsq(T, S, ws, counter, out, clip, telemetry, 0, sumsq_out,
+                      (cudaStream_t)stream);
 }
 
 // Launch 2: p, m, v [T] f32 updated in place from g (as in adamw_sumsq),
@@ -538,34 +779,105 @@ int adamw_update(int T, void* const* p, void* const* g, void* const* m,
   if (tel) {
     if (!group || !ws || !counter || !loss || groups < 1 || groups > MAX_G)
       return (int)cudaErrorInvalidValue;
-    for (int t = 0; t < T; ++t) {
+    for (int t = 0; t < T; ++t)
       if (group[t] < 0 || group[t] >= groups)
         return (int)cudaErrorInvalidValue;
-      total += (n[t] + CHUNK - 1) / CHUNK;
-    }
-    if (total < 1 || total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    total = total_chunks(T, n);
+    if (total < 1) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const Hyper h{b1, omb1, b2, omb2, rc1, rc2, eps, wd, neg_lr, clip_on,
                 clip, (const double*)gsumsq};
   const TelOut to{(const float*)loss, (float*)vec, groups, (double*)raw};
-  int last = T - 1;
-  while (last > 0 && n[last] == 0) --last;
-  const int last_batch = last / MAX_T;
+  Sources S;
+  S.p = p;
+  S.g = g;
+  S.m = m;
+  S.v = v;
+  S.n = n;
+  S.gtype = gtype;
+  S.decay = decay;
+  S.owned = owned;
+  S.group = tel ? group : nullptr;
+  const int lb = last_batch(T, n);
   int base = 0;
   for (int t0 = 0, bi = 0; t0 < T; t0 += MAX_T, ++bi) {
     TensorList L;
-    const int chunks = fill(L, t0, std::min(MAX_T, T - t0), p, g, m, v, n,
-                            gtype, decay, tel ? group : nullptr, owned);
+    const int chunks = fill(L, t0, std::min(MAX_T, T - t0), S);
     if (chunks > 0 && tel)
       adamw_update_tel_kernel<<<chunks, NT, 0, s>>>(
-          L, (float*)out, h, (double*)ws, base, (int)total,
-          bi == last_batch, (unsigned int*)counter, to);
+          L, (float*)out, h, (double*)ws, base, (int)total, bi == lb,
+          (unsigned int*)counter, to);
     else if (chunks > 0)
       adamw_update_kernel<<<chunks, NT, 0, s>>>(L, (float*)out, h);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     base += chunks;
+  }
+  return 0;
+}
+
+// The eager form's launch 1 over T tensors' grads g[T] (n[T] elements,
+// gtype[T] 0 f32 / 1 bf16 / 2 f16, flags[T] as F_*): ws holds 2 x (the
+// sum of ceil(n / CHUNK)) doubles, counter one zeroed unsigned int (left
+// zeroed), out [2] f32 receives (gnorm, scale); clip <= 0 leaves the scale
+// at 1. The mesh form: sumsq_out (one f64 on the card) receives the sum of
+// squares instead of out. Returns the CUDA error of the launches.
+int adamw_eager_sumsq(int T, void* const* g, const long long* n,
+                      const int* gtype, const int* flags, void* ws,
+                      void* counter, void* out, float clip, void* sumsq_out,
+                      void* stream) {
+  Sources S;
+  S.g = g;
+  S.n = n;
+  S.gtype = gtype;
+  S.flags = flags;
+  return launch_sumsq(T, S, ws, counter, out, clip, 0, 1, sumsq_out,
+                      (cudaStream_t)stream);
+}
+
+// The eager form's launch 2: p[T] (ptype[T]) updated in place, outp[T]
+// (null entries allowed; otype[T]) written as round(p), g as launch 1 had
+// it, m, v [T] f32 in place, lr[T], keep[T] and wd[T] f32, flags[T]; out as
+// launch 1 left it (the scale is read when clip_on). c1 = 1 - b1^t and
+// c2 = 1 - b2^t are f32. adam_l2 1 adds Adam's wd p to the decayed
+// tensors' grads. The mesh form: gsumsq the all_reduced f64 sum of squares
+// (gnorm and the scale written to out by block 0).
+int adamw_eager_update(int T, void* const* p, const int* ptype,
+                       void* const* outp, const int* otype, void* const* g,
+                       const int* gtype, void* const* m, void* const* v,
+                       const long long* n, const float* lr,
+                       const float* keep, const float* wd,
+                       const int* flags, void* out, float b1, float omb1,
+                       float b2, float omb2, float c1, float c2, float eps,
+                       int adam_l2,
+                       int clip_on, float clip, const void* gsumsq,
+                       void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const EagerHyper h{b1, omb1, b2, omb2, c1, c2, eps, adam_l2, clip_on,
+                     clip, (const double*)gsumsq};
+  Sources S;
+  S.p = p;
+  S.ptype = ptype;
+  S.out = outp;
+  S.otype = otype;
+  S.g = g;
+  S.gtype = gtype;
+  S.m = m;
+  S.v = v;
+  S.n = n;
+  S.lr = lr;
+  S.keep = keep;
+  S.wd = wd;
+  S.flags = flags;
+  for (int t0 = 0; t0 < T; t0 += MAX_T) {
+    TensorList L;
+    const int chunks = fill(L, t0, std::min(MAX_T, T - t0), S);
+    if (chunks > 0)
+      adamw_eager_update_kernel<<<chunks, NT, 0, s>>>(L, (float*)out, h);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }

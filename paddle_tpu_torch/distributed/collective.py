@@ -141,7 +141,9 @@ def _scope(op, axis, nbytes):
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
                axis=None, stats=None):
     """Reduce `tensor` over the group's ranks IN PLACE (every rank gets
-    the result) and return it. Counted in ``all_reduce.calls``."""
+    the result) and return it; with ``sync_op=False`` return the
+    operation's work instead, not waited for (Paddle's task: ``wait()``
+    it before reading `tensor`). Counted in ``all_reduce.calls``."""
     g = _group(group)
     opts = dist.AllreduceOptions()
     opts.reduceOp = _TORCH_OPS[op]
@@ -149,8 +151,9 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
     _tally(stats, "all_reduce", axis, _nbytes(tensor))
     with _scope("all_reduce", axis, _nbytes(tensor)):
         work = g.allreduce([tensor], opts)
-        if sync_op:
-            work.wait()
+        if not sync_op:
+            return work
+        work.wait()
     return tensor
 
 

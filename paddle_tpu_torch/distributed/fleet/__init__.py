@@ -4,14 +4,18 @@ python/paddle/distributed/fleet/fleet.py:218): the hybrid topology
 (``init``, ``DistributedStrategy``, ``HybridCommunicateGroup``), the
 tensor- and sequence-parallel layers (``mp_layers``, ``sp_layers``),
 activation recompute (``recompute``, ``recompute_sequential``,
-``recompute_hybrid``) and the training mesh's sharded compute
-(``sharded``: ZeRO-3 over fsdp, Megatron over mp).
+``recompute_hybrid``), the training mesh's sharded compute (``sharded``:
+ZeRO-3 over fsdp, Megatron over mp), the eager loop's wrappers
+(``distributed_model``: ``TensorParallel`` with a model axis, else
+``DataParallel`` and its bucketed ``reducer``; ``distributed_optimizer``:
+``HybridParallelOptimizer`` with ``HybridParallelClipGrad``) and the ZeRO
+stages (``sharding``: ``DygraphShardingOptimizer``,
+``GroupShardedStage2`` / ``3``, ``group_sharded_parallel``).
 
 ``init`` takes the caller's world group and device (``group=``,
 ``device=``), as the port's mesh does; nothing here calls
-``init_process_group``. The pipeline and sep axes, ``DataParallel``, the
-sharding stages and ``distributed_optimizer`` are later slices of the
-port and raise, naming their ROADMAP item.
+``init_process_group``. The pipeline and sep axes are a later slice of
+the port and raise, naming their ROADMAP item (Queue 1 item 9).
 """
 from . import sharded  # noqa: F401
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa
@@ -20,6 +24,11 @@ from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa
                         shard_state_from_numpy)
 from .recompute import (recompute, recompute_hybrid,  # noqa: F401
                         recompute_sequential)
+from .hybrid_optimizer import (HybridParallelClipGrad,  # noqa: F401
+                               HybridParallelOptimizer)
+from .sharding import (DygraphShardingOptimizer,  # noqa: F401
+                       GroupShardedStage2, GroupShardedStage3,
+                       group_sharded_parallel)
 from .sp_layers import (ColumnSequenceParallelLinear,  # noqa: F401
                         RowSequenceParallelLinear, all_gather_sequence,
                         mark_as_sequence_parallel_parameter,
@@ -35,7 +44,10 @@ __all__ = ["recompute", "recompute_sequential", "recompute_hybrid",
            "ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelCrossEntropy",
            "TensorParallel", "ColumnSequenceParallelLinear",
-           "RowSequenceParallelLinear"]
+           "RowSequenceParallelLinear", "HybridParallelOptimizer",
+           "HybridParallelClipGrad", "DygraphShardingOptimizer",
+           "GroupShardedStage2", "GroupShardedStage3",
+           "group_sharded_parallel"]
 
 
 class DistributedStrategy:
@@ -91,9 +103,9 @@ def get_hybrid_communicate_group():
 
 def distributed_model(model):
     """The parallel wrapper of ``model`` (reference fleet/model.py):
-    ``TensorParallel`` when the model-parallel degree is above 1. Data
-    parallelism alone (the JAX package's ``DataParallel``) is a later
-    slice and raises."""
+    ``TensorParallel`` when the model-parallel degree is above 1, else
+    ``DataParallel`` over the data-parallel group, as the JAX package
+    picks them."""
     hcg = get_hcg()
     if hcg is None:
         raise RuntimeError("call fleet.init first")
@@ -103,18 +115,17 @@ def distributed_model(model):
             "the port (ROADMAP Queue 1 item 9)")
     if hcg.get_model_parallel_world_size() > 1:
         return TensorParallel(model, hcg)
-    raise NotImplementedError(
-        "distributed_model: data parallelism without a model axis "
-        "(DataParallel, paddle_tpu/distributed/parallel.py:76) is a later "
-        "slice of the port (ROADMAP Queue 1 item 7c)")
+    from ..parallel import DataParallel
+    return DataParallel(model, group=hcg.get_data_parallel_group())
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """Refused: the port has no ``optimizer`` package yet, so there is no
-    optimizer for ``HybridParallelOptimizer`` to wrap (ROADMAP Queue 1
-    items 7c and 10)."""
-    raise NotImplementedError(
-        "distributed_optimizer: the port has no optimizer package yet "
-        "(HybridParallelOptimizer comes with it, ROADMAP Queue 1 items 7c "
-        "and 10); the training mesh's step runs AdamW itself "
-        "(models.pretrain.make_train_step)")
+    """``HybridParallelOptimizer`` around ``optimizer`` on this thread's
+    hybrid group: the clip over the model-parallel shards, and ZeRO stage
+    1 with a sharding degree above 1."""
+    hcg = get_hcg()
+    if hcg is None:
+        raise RuntimeError("call fleet.init first")
+    return HybridParallelOptimizer(optimizer, hcg,
+                                   strategy or getattr(hcg, "strategy",
+                                                       None))

@@ -93,8 +93,11 @@ class _ShardedModule(torch.nn.Module):
         t = whole
         if dim is not None:
             t = whole.chunk(self.nranks, dim)[self.region.rank]
-        self.register_parameter(name, torch.nn.Parameter(
-            t.contiguous().to(self.device)))
+        param = torch.nn.Parameter(t.contiguous().to(self.device))
+        # a shard of its own on each mp rank: the hybrid clip counts it on
+        # every rank (Paddle's attribute)
+        param.is_distributed = dim is not None and self.nranks > 1
+        self.register_parameter(name, param)
 
 
 class ColumnParallelLinear(_ShardedModule):

@@ -18,6 +18,7 @@ mesh set by a training step's ``run()`` is kept per thread, because
 ranks may be threads of one process.
 """
 import threading
+import weakref
 
 import numpy as np
 import torch.distributed as dist
@@ -31,7 +32,9 @@ __all__ = ["AXES", "DATA_AXES", "Mesh", "ProcessMesh", "get_mesh",
 AXES = ("pp", "dp", "fsdp", "sp", "mp")
 DATA_AXES = ("dp", "fsdp")    # the batch's axes (JAX's ("dp", "fsdp"))
 
-_builds = {}                  # (id(store), world rank) -> meshes built
+# store -> {world rank: meshes built}; keyed by the store itself, not its
+# id(), which a later store may reuse with other ranks' counts
+_builds = weakref.WeakKeyDictionary()
 _builds_lock = threading.Lock()
 
 
@@ -82,8 +85,8 @@ class Mesh:
         store, world_timeout = collective.group_store(world)
         timeout = world_timeout if timeout is None else timeout
         with _builds_lock:
-            key = (id(store), self.rank)
-            n = _builds[key] = _builds.get(key, 0) + 1
+            counts = _builds.setdefault(store, {})
+            n = counts[self.rank] = counts.get(self.rank, 0) + 1
         for name, axes in [(a, (a,)) for a in AXES] + [("data", DATA_AXES)]:
             members = self._members(axes)
             if len(members) < 2:

@@ -79,6 +79,9 @@ PROTOTYPES = {
         "adamw_sumsq": [_I] + [_P] * 6 + [_F, _I, _P, _P, _P],
         "adamw_update": [_I] + [_P] * 9 + [_F] * 9 + [_I] + [_P] * 4
                         + [_I, _P, _P, _F, _P, _P],
+        "adamw_eager_sumsq": [_I] + [_P] * 7 + [_F, _P, _P],
+        "adamw_eager_update": [_I] + [_P] * 14 + [_F] * 7 + [_I, _I, _F,
+                                                             _P, _P],
     },
 }
 

@@ -32,6 +32,18 @@ launches also count in ``adamw_step.telemetry_launches``. p, m, v and
 gnorm are bit-equal with and without it. ``pack_telemetry_plain`` is its
 plain version: the CPU's route, and what the card is held against.
 
+The eager form (``adamw_eager``; its plain version ``adamw_eager_plain``)
+is the step of the eager optimizer (``optimizer.Adam`` / ``AdamW``): the
+JAX package's ``paddle_tpu/optimizer/optimizers.py`` ``_adamw_update`` /
+``_adam_update`` (Adam with ``_l2``'s coupled term) after
+``nn/clip.py`` ``ClipGradByGlobalNorm``, in two launches counted in
+``adamw_eager.launches``: the parameter in f32 / bf16 / f16 or its f32
+master with the parameter written as round(master), grads of any of the
+three dtypes (the clipped grad rounded back to its dtype), a rate and a
+decay a tensor, need_clip flags, and the clip scale
+min(clip / max(gnorm, 1e-12), 1). Its ``owned`` / ``reduce`` split is the
+mesh form's.
+
 On the training mesh (``owned`` and ``reduce`` given) each rank holds
 shards and the norm is global: launch 1 writes the sum of squares of the
 grads of the tensors this rank ``owned`` (a shard replicated over ranks
@@ -43,12 +55,14 @@ after. The plain versions take the same split.
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _launch as L
 from . import work as _work
 
-__all__ = ["adamw_step", "adamw_step_plain", "pack_telemetry_plain"]
+__all__ = ["adamw_step", "adamw_step_plain", "pack_telemetry_plain",
+           "adamw_eager", "adamw_eager_plain"]
 
 
 def adamw_step_plain(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip,
@@ -252,3 +266,194 @@ def adamw_step(ps, gs, ms, vs, decay, lr, b1, b2, eps, wd, clip, count,
 
 adamw_step.launches = 0
 adamw_step.telemetry_launches = 0
+
+
+# -- the eager form -------------------------------------------------------
+
+def _eager_scalars(b1, b2, eps, count):
+    """The step's f32 scalars as jnp takes them: (b1, 1 - b1, b2, 1 - b2,
+    1 - b1^t, 1 - b2^t, eps), each operation rounded to f32."""
+    f = np.float32
+    b1, b2, t = f(b1), f(b2), f(count)
+    return (b1, f(1) - b1, b2, f(1) - b2, f(1) - b1 ** t, f(1) - b2 ** t,
+            f(eps))
+
+
+def _eager_wds(wd, n):
+    """Each tensor's weight decay: ``wd`` a number (or None) for all, or a
+    sequence of one a tensor."""
+    if wd is None or isinstance(wd, (int, float)):
+        return [float(wd or 0.0)] * n
+    wds = [float(w or 0.0) for w in wd]
+    if len(wds) != n:
+        raise ValueError("adamw_eager: one weight decay a tensor")
+    return wds
+
+
+def _eager_keep(mode, lrs, decay, wds):
+    """AdamW's 1 - lr wd (f32) for each decayed tensor, else 1."""
+    f = np.float32
+    return [f(1) - f(lr) * f(w) if mode == "adamw" and d and w else f(1)
+            for lr, d, w in zip(lrs, decay, wds)]
+
+
+def _eager_flags(n, clip_flags, owned):
+    clip_flags = [True] * n if clip_flags is None else list(clip_flags)
+    owned = [True] * n if owned is None else list(owned)
+    if len(clip_flags) != n or len(owned) != n:
+        raise ValueError("adamw_eager: clip_flags and owned need a flag for "
+                         "every tensor")
+    return clip_flags, owned
+
+
+def adamw_eager_plain(ps, gs, ms, vs, lrs, decay, b1, b2, eps, wd, count,
+                      mode="adamw", clip=None, clip_flags=None, outs=None,
+                      owned=None, reduce=None):
+    """The eager optimizer's AdamW / Adam step with the global-norm clip in
+    plain PyTorch, the JAX package's expressions op by op (one rounding an
+    operation, true divisions by 0-dim f32 tensors):
+
+    * gnorm = sqrt of the f64 sum of g^2 over the tensors flagged in both
+      ``clip_flags`` (need_clip) and ``owned``, rounded to f32; the mesh
+      form all_reduces the [1] f64 sum with ``reduce`` (in place) first;
+    * ``clip`` (a float) scales the flagged grads by
+      min(clip / max(gnorm, 1e-12), 1) and rounds them back to the grad's
+      dtype (``paddle_tpu/nn/clip.py:91-102``);
+    * ``mode`` "adam" adds wd * p to the grads of the ``decay`` tensors
+      (``optimizer.py`` ``_l2``); "adamw" decays p by 1 - lr wd
+      (``optimizers.py:35-42``); ``wd`` a number, or one a tensor;
+    * m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2 and
+      p = p (1 - lr wd) - lr (m / c1) / (sqrt(v / c2) + eps) with
+      c1 = 1 - b1^t, c2 = 1 - b2^t in f32 and ``lrs`` each tensor's lr.
+
+    ``ps`` are the f32 masters or the parameters themselves (f32 / bf16 /
+    f16), updated in place; ``outs`` (None, or a tensor or None a tensor)
+    the parameters written as round(p) where ``ps`` holds a master. ms, vs
+    f32 in place. Returns gnorm, a 0-dim f32 tensor."""
+    n = len(ps)
+    clip_flags, owned = _eager_flags(n, clip_flags, owned)
+    dev = ps[0].device if ps else torch.device("cpu")
+    total = torch.zeros((), dtype=torch.float64, device=dev)
+    for g, c, o in zip(gs, clip_flags, owned):
+        if c and o:
+            total = total + g.double().square().sum()
+    if reduce is not None:
+        total = reduce(total.reshape(1))[0]
+    gnorm = total.sqrt().to(torch.float32)
+    scale = None
+    if clip:
+        den = gnorm.clamp_min(1e-12)          # NaN stays NaN
+        scale = torch.div(torch.full_like(gnorm, clip), den).clamp(max=1.0)
+
+    def s(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    b1, omb1, b2, omb2, c1, c2, eps_ = (
+        s(x) for x in _eager_scalars(b1, b2, eps, count))
+    wds = _eager_wds(wd, n)
+    keep = _eager_keep(mode, lrs, decay, wds)
+    for i in range(n):
+        g = gs[i]
+        gf = g.to(torch.float32)
+        if scale is not None and clip_flags[i]:
+            gf = torch.mul(gf, scale).to(g.dtype).to(torch.float32)
+        base = ps[i].to(torch.float32)
+        if mode == "adam" and decay[i] and wds[i]:
+            gf = torch.add(gf, torch.mul(s(np.float32(wds[i])), base))
+        m = torch.add(torch.mul(b1, ms[i]), torch.mul(omb1, gf))
+        v = torch.add(torch.mul(b2, vs[i]),
+                      torch.mul(omb2, torch.mul(gf, gf)))
+        denom = torch.add(torch.sqrt(torch.div(v, c2)), eps_)
+        upd = torch.div(torch.mul(s(np.float32(lrs[i])), torch.div(m, c1)),
+                        denom)
+        new = torch.sub(torch.mul(base, s(keep[i])), upd)
+        ms[i].copy_(m)
+        vs[i].copy_(v)
+        ps[i].copy_(new)
+        if outs is not None and outs[i] is not None:
+            outs[i].copy_(new)
+    return gnorm
+
+
+def adamw_eager(ps, gs, ms, vs, lrs, decay, b1, b2, eps, wd, count,
+                mode="adamw", clip=None, clip_flags=None, outs=None,
+                owned=None, reduce=None):
+    """``adamw_eager_plain``'s step through kernel D's eager form for CUDA
+    tensors (two launches up to 256 tensors, counted in
+    ``adamw_eager.launches``), the plain version for CPU ones. Same
+    arguments; every tensor contiguous on one device, g, p and the outs
+    f32 / bf16 / f16, m and v f32 of p's shape. Returns gnorm."""
+    if mode not in ("adamw", "adam"):
+        raise ValueError(f"adamw_eager: mode must be 'adamw' or 'adam', got "
+                         f"{mode!r}")
+    if not ps or not L.on_cuda("adamw_eager", ps[0]):
+        return adamw_eager_plain(ps, gs, ms, vs, lrs, decay, b1, b2, eps,
+                                 wd, count, mode, clip, clip_flags, outs,
+                                 owned, reduce)
+    t = len(ps)
+    clip_flags, owned = _eager_flags(t, clip_flags, owned)
+    outs = [None] * t if outs is None else list(outs)
+    dev = ps[0].device
+    for p, g, m, v, o in zip(ps, gs, ms, vs, outs):
+        ok = (p.dtype in L.DTYPE_CODE and g.dtype in L.DTYPE_CODE
+              and m.dtype == v.dtype == torch.float32
+              and p.shape == g.shape == m.shape == v.shape
+              and (o is None or (o.dtype in L.DTYPE_CODE
+                                 and o.shape == p.shape)))
+        if not ok or any(x.device != dev or not x.is_contiguous()
+                         for x in (p, g, m, v) + (() if o is None else (o,))):
+            raise ValueError("adamw_eager: p, g and out must be contiguous "
+                             "f32 / bf16 / f16 and m, v contiguous f32, all "
+                             f"of p's shape on {dev}")
+    mesh = reduce is not None
+    chunk = L.entry("adamw", "adamw_chunk_elems")()
+    chunks = sum(-(-p.numel() // chunk) for p in ps)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    if chunks == 0 and mesh:
+        raise ValueError("adamw_eager: the mesh form needs a tensor with "
+                         "elements on every rank")
+    if chunks == 0:
+        return out.zero_()[0]
+    ints = ctypes.c_int * t
+    n = (ctypes.c_longlong * t)(*(p.numel() for p in ps))
+    gtype = ints(*(L.DTYPE_CODE[g.dtype] for g in gs))
+    wds = _eager_wds(wd, t)
+    flags = ints(*((1 if d and w else 0) | (2 if c else 0)
+                   | (4 if c and o else 0)
+                   for d, w, c, o in zip(decay, wds, clip_flags, owned)))
+    ws = torch.empty(2 * chunks, dtype=torch.float64, device=dev)
+    total = torch.empty(1, dtype=torch.float64, device=dev) if mesh \
+        else None
+    stream = L.stream(ps[0])
+    gp = _ptrs(gs)
+    rc = L.entry("adamw", "adamw_eager_sumsq")(
+        t, gp, n, gtype, flags, ws.data_ptr(), _counter(dev).data_ptr(),
+        out.data_ptr(), float(clip or 0.0),
+        total.data_ptr() if mesh else None, stream)
+    L.raise_on("adamw_eager_sumsq", rc)
+    if mesh:
+        reduce(total)           # the global sum of squares, in place
+    scalars = _eager_scalars(b1, b2, eps, count)
+    floats = ctypes.c_float * t
+    rc = L.entry("adamw", "adamw_eager_update")(
+        t, _ptrs(ps), ints(*(L.DTYPE_CODE[p.dtype] for p in ps)),
+        (ctypes.c_void_p * t)(*(None if o is None else o.data_ptr()
+                                for o in outs)),
+        ints(*(0 if o is None else L.DTYPE_CODE[o.dtype] for o in outs)),
+        gp, gtype, _ptrs(ms), _ptrs(vs), n,
+        floats(*(float(np.float32(lr)) for lr in lrs)),
+        floats(*(float(k) for k in _eager_keep(mode, lrs, decay, wds))),
+        floats(*wds), flags, out.data_ptr(), *(float(x) for x in scalars),
+        int(mode == "adam"), int(bool(clip)), float(clip or 0.0),
+        total.data_ptr() if mesh else None, stream)
+    L.raise_on("adamw_eager_update", rc)
+    batches = -(-t // L.entry("adamw", "adamw_max_tensors")())
+    adamw_eager.launches += 2 * batches
+    if _work.counting():
+        _work.note("adamw_eager", sum(_work.adamw_eager(
+            p.numel(), p.element_size(), g.element_size(),
+            0 if o is None else o.element_size())[0]
+            for p, g, o in zip(ps, gs, outs)), 0)
+    return out[0]
+
+
+adamw_eager.launches = 0

@@ -219,3 +219,10 @@ def token_ce_bwd(n, vocab, eb):
 def adamw(n, grad_itemsize=4):
     """p, g, m, v read and p, m, v written; all f32 but g."""
     return n * (4 * 6 + grad_itemsize), 0
+
+
+def adamw_eager(n, p_itemsize=4, grad_itemsize=4, out_itemsize=0):
+    """The eager form: g read; p (the master or the parameter), m and v
+    read and written (m, v f32); the parameter copy written where a
+    master is kept (``out_itemsize``, 0 for none)."""
+    return n * (grad_itemsize + 2 * p_itemsize + 16 + out_itemsize), 0

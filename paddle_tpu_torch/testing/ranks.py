@@ -6,7 +6,11 @@ A real deployment runs one process a rank (``examples/
 torch_llama_pretrain_sharded.py`` over a ``FileStore``); threads let a
 test hold eight ranks in one interpreter. Each rank needs its own model
 instance: the training step's ``functional_call`` patches the module's
-attributes while it runs."""
+attributes while it runs. Each rank runs its torch operations on one
+intra-op thread (the count is restored at ``join``): ranks that share a
+process's intra-op pool would otherwise reduce in an order that depends
+on what the other ranks run at the same time, where a rank that is a
+process of its own does not."""
 import threading
 
 __all__ = ["ThreadRankSet", "run_thread_ranks"]
@@ -21,12 +25,15 @@ class ThreadRankSet:
 
     def __init__(self, world, fn, timeout=60.0, ranks=None):
         import torch.distributed as dist
+        import torch
         self.world, self.timeout = world, timeout
         self.store = dist.HashStore()
         self.results, self.errors = {}, {}
+        self._threads_before = torch.get_num_threads()
 
         def body(rank):
             try:
+                torch.set_num_threads(1)
                 self.results[rank] = fn(rank, self.group(rank))
             except BaseException as e:      # read by join()
                 self.errors[rank] = e
@@ -45,8 +52,10 @@ class ThreadRankSet:
         """Wait up to `wait` seconds a thread; a rank still running, or
         one that raised, makes this raise (the first error, with every
         failing rank named)."""
+        import torch
         for t in self.threads:
             t.join(wait)
+        torch.set_num_threads(self._threads_before)
         alive = [t.name for t in self.threads if t.is_alive()]
         if alive:
             raise RuntimeError(f"thread ranks still running: {alive}")

@@ -330,8 +330,6 @@ def test_refusals(jhcg):
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             fleet.init(is_collective=True,
                        strategy=_strategy(fleet, **{key: 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="optimizer package"):
-        fleet.distributed_optimizer(object())
     with pytest.raises(ValueError):
         jfleet.VocabParallelEmbedding(30, 8)
 
@@ -347,8 +345,15 @@ def test_refusals(jhcg):
         return errors
     assert _ranks(body) == [[True] * 3] * WORLD
 
+    # data parallelism alone and the optimizer wrapper are ported: no
+    # longer refused
     def dp_only(r, hcg):
-        with pytest.raises(NotImplementedError, match="DataParallel"):
-            fleet.distributed_model(torch.nn.Linear(2, 2))
-        return True
+        from paddle_tpu_torch.distributed import DataParallel
+        from paddle_tpu_torch.optimizer import SGD
+        net = torch.nn.Linear(2, 2)
+        model = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(SGD(parameters=net.parameters()))
+        model.cleanup()
+        return (isinstance(model, DataParallel)
+                and isinstance(opt, fleet.HybridParallelOptimizer))
     assert all(_ranks(dp_only, world=2, dp_degree=2))

@@ -1854,3 +1854,133 @@ def test_fused_tier_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ad.adamw_step([x.double()], [x], [x.clone()], [x.clone()], [True],
                       1e-3, 0.9, 0.95, 1e-8, 0.1, 1.0, 1)
+
+
+EAGER_CASES = {
+    # sizes, parameter dtype, master kept, grad dtype
+    "edge_f32": ([(0,), (1,), (7, 3), (65537,), (33, 65)], torch.float32,
+                 False, torch.float32),
+    "two_launches": ([(0,), (1,), (5, 2), (300,)] * 65, torch.float32,
+                     False, torch.bfloat16),
+    "bf16_master": ([(1,), (7, 3), (65537,), (64, 48)], torch.bfloat16,
+                    True, torch.bfloat16),
+    "bf16_in_place": ([(1,), (7, 3), (65537,), (64, 48)], torch.bfloat16,
+                      False, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("clip", [None, 1e-2, 1e4])
+@pytest.mark.parametrize("mode", ["adamw", "adam"])
+@pytest.mark.parametrize("case", sorted(EAGER_CASES))
+def test_adamw_eager_kernel_matches_plain(case, mode, clip):
+    """Kernel D's eager form against ``adamw_eager_plain``: 0- and
+    1-element tensors, one past a chunk, a tensor one element off the
+    vector alignment (the elementwise route), 260 tensors (two launches of
+    each kernel), bf16 parameters with an f32 master and the bf16 copy
+    written, bf16 parameters updated in place; the clip off, active and
+    idle, one tensor left out of it (need_clip), per-tensor rates and
+    decays. Two runs bit-equal; every output within 2 ulps of its dtype
+    (the norm's f64 sums run in another order)."""
+    from paddle_tpu_torch.ops import adamw as ad
+    sizes, pdt, master, gdt = EAGER_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(len(sizes))
+    t = len(sizes)
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    p0 = [rnd(s, 0.02) for s in sizes]
+    g0 = [rnd(s, 1e-2).to(gdt) for s in sizes]
+    m0 = [rnd(s, 1e-3) for s in sizes]
+    v0 = [rnd(s, 1e-3) ** 2 for s in sizes]
+    lrs = [1e-3 * (1 + i % 3) for i in range(t)]
+    decay = [len(s) >= 2 for s in sizes]
+    wds = [0.1 * (i % 2) for i in range(t)]
+    flags = [i != 1 for i in range(t)]
+    def off(x):
+        """x in a tensor that starts one element past its storage's start
+        (the elementwise route: 4 or 2 bytes off the vector alignment)."""
+        return torch.empty(x.numel() + 1, dtype=x.dtype,
+                           device="cuda")[1:].view(x.shape).copy_(x)
+    outs = []
+    for fn in (ad.adamw_eager, ad.adamw_eager, ad.adamw_eager_plain):
+        ps = [x.clone() if master else x.to(pdt) for x in p0]
+        ps[2] = off(ps[2])
+        out = [x.to(pdt) for x in p0] if master else None
+        ms, vs = [x.clone() for x in m0], [x.clone() for x in v0]
+        before = ad.adamw_eager.launches
+        gn = fn(ps, g0, ms, vs, lrs, decay, 0.9, 0.95, 1e-8, wds, 3,
+                mode=mode, clip=clip, clip_flags=flags, outs=out)
+        outs.append((ps + (out or []), ms, vs, gn,
+                     ad.adamw_eager.launches - before))
+    torch.cuda.synchronize()
+    (k1, k2, ref) = outs
+    want = 2 * -(-t // 256)
+    assert (k1[4], k2[4], ref[4]) == (want, want, 0)
+    assert torch.equal(k1[3], k2[3]) and _two_ulps(k1[3].reshape(1),
+                                                  ref[3].reshape(1)) <= 1
+    for a, b, c in zip(k1[:3], k2[:3], ref[:3]):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y)
+            if x.numel():
+                assert _two_ulps(x, z) <= 1
+    if master:
+        for o, p in zip(k1[0][t:], k1[0][:t]):
+            assert torch.equal(o, p.to(pdt))
+
+
+def test_adamw_eager_mesh_form_matches_plain():
+    """The mesh form: half the tensors owned, ``reduce`` doubling the
+    [1] f64 sum in place (two ranks holding the same parts), the clip
+    active, against the plain version's mesh form."""
+    from paddle_tpu_torch.ops import adamw as ad
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sizes = [(3,), (64, 48), (65537,), (7, 3)]
+    p0 = [0.02 * torch.randn(s, generator=gen, device="cuda") for s in sizes]
+    g0 = [torch.randn(s, generator=gen, device="cuda") for s in sizes]
+    owned = [True, False, True, False]
+    outs = []
+    for fn in (ad.adamw_eager, ad.adamw_eager_plain):
+        ps = [x.clone() for x in p0]
+        ms = [torch.zeros_like(x) for x in p0]
+        vs = [torch.zeros_like(x) for x in p0]
+        gn = fn(ps, g0, ms, vs, [1e-3] * 4, [True] * 4, 0.9, 0.95, 1e-8,
+                0.1, 1, clip=1.0, owned=owned,
+                reduce=lambda x: x.mul_(2.0))
+        outs.append((ps, ms, vs, gn))
+    torch.cuda.synchronize()
+    (k, ref) = outs
+    want = float(torch.stack([g.double().square().sum() for g, o in
+                              zip(g0, owned) if o]).sum().mul(2).sqrt())
+    assert abs(float(k[3]) - want) <= 2e-7 * want
+    assert _two_ulps(k[3].reshape(1), ref[3].reshape(1)) <= 1
+    for a, c in zip(k[:3], ref[:3]):
+        for x, z in zip(a, c):
+            assert _two_ulps(x, z) <= 1
+
+
+def test_adamw_optimizer_steps_on_kernel_d():
+    """``optimizer.AdamW`` with a global-norm clip on CUDA parameters:
+    two launches of the eager form a step and no plain route; the result
+    within 2 ulps of the same step on the CPU (the plain version)."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.ops import adamw as ad
+    gen = torch.Generator().manual_seed(3)
+    init = [torch.randn(s, generator=gen) for s in ((64, 48), (48,))]
+    grads = [torch.randn(s, generator=gen) for s in ((64, 48), (48,))]
+    res = []
+    for dev in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(x.to(dev)) for x in init]
+        opt = topt.AdamW(learning_rate=1e-3, parameters=ps,
+                         grad_clip=tnn.ClipGradByGlobalNorm(1.0))
+        before = ad.adamw_eager.launches
+        for _ in range(3):
+            for p, g in zip(ps, grads):
+                p.grad = g.to(dev)
+            opt.step()
+        res.append(([p.detach().cpu() for p in ps],
+                    ad.adamw_eager.launches - before))
+    (kp, kn), (cp, cn) = res
+    assert (kn, cn) == (6, 0)
+    for a, b in zip(kp, cp):
+        assert _two_ulps(a, b) <= 1
