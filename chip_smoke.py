@@ -295,6 +295,50 @@ Phases (any failure exits non-zero and prints no result line):
      parameters against (c), the clip norms against (b)'s, the optimizer
      state a rank and (p_g_os) the parameters at rest equal to the
      closed form of the dim-0 rule;
+ 29. (after 28, under no_grad) the serving autotuner on the card
+     (``ops.autotune``): (a) K3 at each ``split_waves`` of (1, 2, 4) on
+     phase 2's shape class (a decode bucket at phase 1's decode lengths,
+     a C=64 prefill bucket) and K7 at each on phase 16's serving cache,
+     every plan against its plain version (phase 1's and phase 16's
+     gates) with its device time; ``sweep_ragged_serve(measure=True)``
+     over the two buckets (split_waves alone, pack and chunk the
+     bucket's own; winners, trials, plans' device times); (b)
+     ``sweep_wo_gemm`` over bn (64, 128) x waves (1, 2, 4) at 20 shapes
+     (the flagship's 4 projections at one M of each of the five M classes
+     a paged step gives, phase 17's 12 shapes among them), int8 and int4,
+     every candidate's output against the plain version
+     (``bf16_agreement``), a second sweep all cache hits (one a shape
+     class, no trial), each winner's device time beside the rule's plan
+     and torch.matmul on the dequantized copy, the C plans equal to
+     ``quant_matmul.make_plan``; (c) the cache saved and loaded back; an
+     untuned engine serving phase 2's 12 requests in phase 2's steps and
+     K3 launches; an engine and a scheduler built from the cache serving
+     them in the same schedule, held to the untuned run by ``at_hold``
+     (every slot whose history is the same: logits within
+     ``AT_BF16_LOGIT_ATOL``, a parted sample only at a near tie; the first
+     step whose K3 split differs from the rule's named); phase 17's int8
+     engine and requests from the cache: every GEMM call on a tuned plan
+     (counted by M class), held the same way (``AT_INT8_LOGIT_ATOL``);
+     phase 3's f32 L=2 engine from caches whose winner is split_waves 1
+     and 4: tokens equal to the untuned engine's, every one;
+ 30. (after 29) ``amp`` on the eager flagship: (a) ``amp.decorate(...,
+     level="O2")`` without auto_cast against phase 28 (a)'s hand layout,
+     step 0 on the two-pass flash backward: the loss equal to phase 28
+     (a)'s, every master and parameter bit-equal; (b) 2 warm-up and 3
+     timed steps of the flagship under ``auto_cast(level="O2",
+     dtype="bfloat16")`` on decorate's layout, then O1 on f32 parameters:
+     24 + 24 flash, 49 + 49 norm (kernel A on its f32 route: "rms_norm"
+     is black), 24 + 24 SwiGLU, 1 + 1 token CE (C on its f32 route) and 2
+     kernel D launches a step, the named entries' input dtypes (operator
+     stats), ms/step and peak memory beside phase 28 (a); f32 L=2 under
+     O2 bf16 through the kernels against the plain attention, norm and
+     CE paths (losses within ``MESH_LOSS_RTOL``); (c) fp16 O2 with
+     ``GradScaler(2**15, incr_every_n_steps=2)`` at L=2, an inf planted
+     at step 1: that step leaves every parameter bit-equal, the scale
+     halves and grows back after two clean steps, one host read a step;
+     (d) two gloo rank processes (``--amp-rank``) under
+     ``group_sharded_parallel("os_g", scaler=...)`` with the inf on rank
+     1's shard alone: both ranks skip the step and halve the scale;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -303,6 +347,7 @@ Nothing here imports JAX or the JAX package.
 """
 import asyncio
 import contextlib
+import io
 import json
 import math
 import os
@@ -416,10 +461,11 @@ def llama_weights(seed, layers, scale=0.02):
         embedding=mk(V, E), lm_head=mk(E, V))
 
 
-def make_engine(weights, dtype, weight_quant=None, tp=1, group=None):
+def make_engine(weights, dtype, weight_quant=None, tp=1, group=None,
+                autotune_cache=None):
     """The serving flagship's engine on the card; at tp > 1 one rank's
     (the full weights stay on the host until the engine cuts its
-    shard)."""
+    shard); ``autotune_cache`` passes through."""
     from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
                                             engine_weights_from_numpy)
     return FusedMultiTransformerEngine(
@@ -427,7 +473,7 @@ def make_engine(weights, dtype, weight_quant=None, tp=1, group=None):
                                   dtype), num_heads=H,
         head_dim=D, max_seq_len=SMAX, dtype=dtype, norm_type="rmsnorm",
         activation="swiglu", gqa_group_size=KVH, weight_quant=weight_quant,
-        tp=tp, group=group, device="cuda")
+        tp=tp, group=group, autotune_cache=autotune_cache, device="cuda")
 
 
 def requests(seed, n, prompt=(16, 384), new=(16, 64)):
@@ -3130,7 +3176,13 @@ def plain_int8():
     from paddle_tpu_torch import inference
     from paddle_tpu_torch.ops import quant_matmul as qm
     saved = inference.weight_only_matmul
-    inference.weight_only_matmul = qm.weight_only_matmul_plain
+
+    def plain(x, w, s, quant, block_n, out_dtype, bn=None, waves=None):
+        # the plain version has no plan: the knobs stay behind
+        return qm.weight_only_matmul_plain(x, w, s, quant, block_n,
+                                           out_dtype)
+    inference.weight_only_matmul = \
+        lambda x, w, s, **kw: plain(x, w, s, **kw)
     try:
         yield
     finally:
@@ -4859,18 +4911,22 @@ def kill_followers(procs):
 
 @contextlib.contextmanager
 def step_record(engine):
-    """Record each paged step's slab width and rank 0's step-0 logits
-    while the block runs: yields {"widths": [...], "logits": tensor}."""
-    rec = {"widths": [], "logits": None}
+    """Record each paged step while the block runs: its slab, q_lens and
+    lens (host copies), the logits it samples from (on the card) and the
+    tokens it samples (None on a follower). Yields the list of step
+    records."""
+    rec = []
     inner, select = engine._paged_step, engine._select
 
     def step(*a, **k):
-        rec["widths"].append(int(np.asarray(a[2]).shape[1]))
-        return inner(*a, **k)
+        rec.append({"toks": np.array(a[2]), "qlens": np.array(a[3]),
+                    "lens": np.array(a[6]), "max_nb": int(a[5].shape[1])})
+        out = inner(*a, **k)
+        rec[-1]["sampled"] = None if out[0] is None else out[0].clone()
+        return out
 
     def sel(logits, *a, **k):
-        if rec["logits"] is None:
-            rec["logits"] = logits.float().cpu()
+        rec[-1]["logits"] = logits.detach().clone()
         return select(logits, *a, **k)
 
     engine._paged_step, engine._select = step, sel
@@ -5115,8 +5171,8 @@ def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
     check(calls == 2 * layers * steps2, f"{name}: {calls} all_reduce calls "
           f"in {steps2} steps (want {2 * layers * steps2})")
     want_coll = sum(e2.tp_step_comm_bytes(MAX_BATCH, c)
-                    for c in r2["widths"])
-    check(coll == want_coll and len(r2["widths"]) == steps2,
+                    for c in (r["toks"].shape[1] for r in r2))
+    check(coll == want_coll and len(r2) == steps2,
           f"{name}: collective_bytes_total moved {coll}, the steps' "
           f"tp_step_comm_bytes sum to {want_coll}")
     check(bytes2 * tp == rec["tp1"]["cache_bytes"]
@@ -5135,7 +5191,7 @@ def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
         rec["largest_tie_gap"] = tp_tie_gap(torch, e1, reqs, toks1, toks2,
                                             f"{name} tp={tp}")
     else:
-        l1, l2 = r1["logits"], r2["logits"]
+        l1, l2 = (r[0]["logits"].float().cpu() for r in (r1, r2))
         err = float((l1 - l2).abs().max())
         tol = TP_LOGIT_RTOL * float(l1.abs().max())
         rec.update(step0_logit_err=err, step0_logit_tol=tol)
@@ -6433,6 +6489,865 @@ def phase_eager(torch, train_stats):
     return rows, stats
 
 
+# -- phase 29: the serving autotuner on the card ------------------------------
+
+AT_WAVES = (1, 2, 4)           # the split knob's candidates
+AT_BNS = (64, 128)             # K4's column tiles
+AT_REPS = 20                   # timed calls a candidate in the sweeps
+AT_F32_WAVES = (1, 4)          # winners forced on the f32 token gate
+AT_GEMM_M = (8, 64, 128, 256, 512)   # one M of each class a paged step
+#                               # gives (8 rows x slab widths 1..64)
+AT_BF16_LOGIT_ATOL = 0.25      # (c): a slot's logits, tuned vs untuned
+AT_INT8_LOGIT_ATOL = 0.25      # run, while its history is the same: the
+#                               # first card run read 0.1016 in both legs
+#                               # (|logit| up to ~6, bf16 units of 1/32 at
+#                               # 4-8), parted samples at gaps up to 0.0625
+
+
+def at_buckets():
+    """Phase 29 (a)'s two buckets of phase 2's shape class: (chunk, the
+    sequences' post-step lengths): the decode bucket at phase 1's decode
+    lengths, the chunked-prefill bucket (C = 64) at lengths of its mixed
+    step."""
+    return ((None, [1, 512, 17, 100, 256, 333, 64, 480]),
+            (CHUNK, [64, 130, 200, 5, 512, 300, 77, 40]))
+
+
+def at_gemm_shapes():
+    """The 20 serving shapes (M, K, N): the flagship's 4 projections at
+    one M of each class (``quant_matmul.m_class``) that a paged step of
+    MAX_BATCH rows gives, phase 17's 8 / 128 / 512 among them."""
+    return [(m, k, n) for m in AT_GEMM_M
+            for k, n in ((E, (H + 2 * KVH) * D), (H * D, E), (E, 2 * F),
+                         (F, E))]
+
+
+def at_split_rows(torch):
+    """(a): K3 at each split_waves candidate on the two buckets' live
+    inputs (``autotune.bucket_inputs``) against its plain version with
+    phase 1's gate, and K7 at each on phase 16's serving cache against its
+    plain version with phase 16's; each plan's device time. Returns the
+    rows."""
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rows = []
+    for chunk, lens in at_buckets():
+        q, kc, vc, tb, ln, ql = at.bucket_inputs(KVH, H // KVH, D, BS, lens,
+                                                 chunk, "bfloat16", 29)
+        ref = pa.ragged_paged_attention_plain(q, kc, vc, tb, ln, q_lens=ql)
+        c = 1 if chunk is None else chunk
+        for w in AT_WAVES:
+            plan = pa.ragged_plan(len(lens), c, H, KVH, tb.shape[1], BS, D,
+                                  q.dtype, waves=w)
+            out = pa.ragged_paged_attention(q, kc, vc, tb, ln, q_lens=ql,
+                                            split_waves=w)
+            torch.cuda.synchronize()
+            err, ratio = bf16_agreement(out, ref, ATTN_ATOL)
+            name = f"K3_{'decode' if chunk is None else f'c{chunk}'}_w{w}"
+            check(ratio <= 1.0, f"{name}: max abs err {err}, an element off "
+                  f"by {ratio:.2f}x its allowance")
+            ms = device_time_ms(lambda: pa.ragged_paged_attention(
+                q, kc, vc, tb, ln, q_lens=ql, split_waves=w))
+            rows.append(dict(case=name, max_abs_err=err,
+                             worst_err_over_allowed=ratio, device_ms=ms,
+                             plan=plan))
+            print(f"  {name}: err {err:.3e} (worst {ratio:.3f} of atol "
+                  f"{ATTN_ATOL:g} + 2 bf16 ulps); device {ms:.4f} ms; "
+                  f"{ragged_plan_text(plan)}", flush=True)
+    q, kc, vc, tb, ln = decode_step_caches(torch)
+    b, h, _ = q.shape
+    ref = pa.paged_attention_plain(q, kc, vc, tb, ln)
+    for w in AT_WAVES:
+        plan = pa.decode_plan(b, h, kc.shape[0], tb.shape[1], kc.shape[2], D,
+                              q.dtype, waves=w)
+        out = pa.paged_attention(q, kc, vc, tb, ln, split_waves=w)
+        torch.cuda.synchronize()
+        err, ratio = ulp_agreement(out, ref, DECODE_ATOL)
+        name = f"K7_serving_cache_w{w}"
+        check(ratio <= 1.0, f"{name}: max abs err {err}, an element off by "
+              f"{ratio:.2f}x its allowance")
+        ms = device_time_ms(lambda: pa.paged_attention(q, kc, vc, tb, ln,
+                                                       split_waves=w))
+        rows.append(dict(case=name, max_abs_err=err,
+                         worst_err_over_allowed=ratio, device_ms=ms,
+                         plan=plan))
+        print(f"  {name}: err {err:.3e} (worst {ratio:.3f} of atol "
+              f"{DECODE_ATOL:g} + 1 ulp); device {ms:.4f} ms; "
+              f"{decode_plan_text(plan)}", flush=True)
+    return rows
+
+
+def at_sweep_serve(torch, cache=None, dtype="bfloat16", buckets=None):
+    """(a): ``sweep_ragged_serve(measure=True)`` over the buckets on the
+    card; prints each bucket's winner and its plans' device times.
+    Returns the cache."""
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import paged_attention as pa
+    for chunk, lens in buckets or at_buckets():
+        cache = at.sweep_ragged_serve(KVH, H // KVH, D, BS, lens,
+                                      chunk=chunk, dtype=dtype,
+                                      waves=AT_WAVES, reps=AT_REPS,
+                                      measure=True, cache=cache, seed=29)
+    cls = at.serve_shape_class(KVH, H // KVH, BS, D, dtype)
+    sec = cache["shapes"][cls]
+    for bucket, e in sorted(sec["buckets"].items()):
+        # on the card only split_waves is swept: pack and chunk stay the
+        # bucket's own
+        check(e["measured"] and e["card"] and e["skipped"] == 0
+              and e["trials"] == len(AT_WAVES)
+              and e["pack"] == pa.default_pack(MAX_BATCH, H // KVH)
+              and e["prefill_chunk"] in (1, CHUNK),
+              f"sweep {cls}/{bucket}: {e}")
+        print(f"  sweep {cls}/{bucket}: winner pack {e['pack']} "
+              f"prefill_chunk {e['prefill_chunk']} split_waves "
+              f"{e['split_waves']} ({e['splits']} x {e['pages_per_split']} "
+              f"pages), {e['trials']} trials, {e['skipped']} skipped, "
+              f"suspect {e['suspect']}; device us by split_waves "
+              f"{e['plan_us']}", flush=True)
+    print(f"  {cls} winner: {sec['winner']}", flush=True)
+    return cache
+
+
+def at_gemm_inputs(torch, rng, kind, m, k, n):
+    """Seeded bf16 x, quantized w, scales, block_n and the dequantized
+    bf16 copy of one K4 shape on the card."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    w = rng.standard_normal((k, n), dtype=np.float32) * 0.02
+    if kind == "int4":
+        block_n = qm.kernel_block_n(n)
+        pk, sc = qm.pack_int4_blocked(w, block_n)
+        wt, st = torch.as_tensor(pk).cuda(), torch.as_tensor(sc).cuda()
+        wdq = (qm.unpack_int4_blocked(wt, block_n).float()
+               * st[None, :]).bfloat16()
+    else:
+        block_n = qm.pick_block_n(n, "int8")
+        sc = (np.abs(w).max(0) / 127.0).astype(np.float32)
+        pk = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+        wt, st = torch.as_tensor(pk).cuda(), torch.as_tensor(sc).cuda()
+        wdq = (wt.float() * st[None, :]).bfloat16()
+    x = torch.as_tensor(rng.standard_normal((m, k), dtype=np.float32)).cuda()
+    return x.bfloat16(), wt, st, block_n, wdq
+
+
+def at_gemm(torch, cache):
+    """(b): ``sweep_wo_gemm`` over AT_BNS x AT_WAVES at the 20 shapes, int8
+    and int4, every candidate's output held against the plain version;
+    a second sweep hits the cache (no trial, one hit a shape); each
+    winner's device time beside the rule's plan and torch.matmul on the
+    dequantized bf16 copy. Returns (rows, cache)."""
+    from paddle_tpu_torch.observability import instrument
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    refs, worst = {}, {}
+
+    def on_trial(shape, cand, out, inputs):
+        x, w, s, block_n, kind = inputs
+        key = (kind,) + tuple(shape)
+        if key not in refs:
+            refs[key] = qm.weight_only_matmul_plain(x, w, s, kind, block_n)
+        torch.cuda.synchronize()
+        err, ratio = bf16_agreement(out, refs[key], INT8_ATOL if kind ==
+                                    "int8" else INT4_ATOL)
+        check(ratio <= 1.0, f"wo_gemm {key} bn {cand[0]} waves {cand[1]}: "
+              f"max abs err {err}, {ratio:.2f}x its allowance")
+        worst[key] = max(worst.get(key, 0.0), ratio)
+    shapes = at_gemm_shapes()
+    trials = instrument.autotune_trials()
+
+    def n_trials():
+        return {k: trials.labels(kernel=f"wo_gemm_{k}").value
+                for k in ("int8", "int4")}
+    t0 = n_trials()
+    for kind in ("int8", "int4"):
+        cache = at.sweep_wo_gemm(shapes, kind, "bfloat16", bns=AT_BNS,
+                                 waves=AT_WAVES, reps=AT_REPS, cache=cache,
+                                 seed=29, on_trial=on_trial)
+    first = {k: v - t0[k] for k, v in n_trials().items()}
+    want = len(shapes) * len(AT_BNS) * len(AT_WAVES)
+    check(first == {"int8": want, "int4": want} and len(refs) ==
+          2 * len(shapes), f"wo_gemm sweep: trials {first}, {len(refs)} "
+          f"shapes checked")
+    refs.clear()
+    hits0, t1 = instrument.autotune_cache_hits().value, n_trials()
+    again = None
+    for kind in ("int8", "int4"):
+        again = at.sweep_wo_gemm(shapes, kind, "bfloat16", bns=AT_BNS,
+                                 waves=AT_WAVES, reps=AT_REPS, cache=again,
+                                 seed=29)
+    hits = instrument.autotune_cache_hits().value - hits0
+    more = {k: v - t1[k] for k, v in n_trials().items()}
+    check(hits == 2 * len(shapes) and not any(more.values())
+          and again["wo_gemm"] == cache["wo_gemm"],
+          f"wo_gemm second sweep: {hits} hits, trials {more}")
+    print(f"  wo_gemm: {first} trials, every candidate within its "
+          f"allowance; the second sweep: {hits:.0f} cache hits (one a "
+          f"shape class, {len(shapes)} x int8 / int4), trials {more}",
+          flush=True)
+    rows = []
+    rng = np.random.default_rng(290)
+    for kind in ("int8", "int4"):
+        for m, k, n in shapes:
+            e = cache["wo_gemm"][kind][
+                f"mc{qm.m_class(m)}_k{k}_n{n}_bfloat16"]
+            check(e["m"] == m, f"wo_gemm {kind} M{m}: the entry of its "
+                  f"class was timed at M {e['m']}")
+            x, wt, st, block_n, wdq = at_gemm_inputs(torch, rng, kind, m, k,
+                                                     n)
+            win_ms = device_time_ms(lambda: qm.weight_only_matmul(
+                x, wt, st, kind, block_n, bn=e["bn"], waves=e["waves"]))
+            rule_ms = device_time_ms(lambda: qm.weight_only_matmul(
+                x, wt, st, kind, block_n))
+            mm_ms = device_time_ms(lambda: torch.matmul(x, wdq))
+            rule = qm.plan(m, k, n, x.dtype)
+            plan = qm.plan(m, k, n, x.dtype, bn=e["bn"], waves=e["waves"])
+            sms = qm._sms(x.device)
+            check(qm.make_plan(m, k, n, x.dtype, sms, e["bn"], e["waves"])
+                  == plan and qm.make_plan(m, k, n, x.dtype, sms) == rule,
+                  f"wo_gemm {kind} M{m}_K{k}_N{n}: the C plans {plan} / "
+                  f"{rule} are not make_plan's")
+            name = f"{kind}_M{m}_K{k}_N{n}"
+            rows.append(dict(case=name, bn=e["bn"], waves=e["waves"],
+                             worst_err_over_allowed=worst[(kind, m, k, n)],
+                             winner_ms=win_ms, rule_ms=rule_ms,
+                             matmul_ms=mm_ms, plan=plan, rule_plan=rule))
+            print(f"  wo_gemm[{name}]: winner bn {e['bn']} waves "
+                  f"{e['waves']} {win_ms:.4f} ms ({plan_text(plan)}); rule "
+                  f"{rule_ms:.4f} ms ({plan_text(rule)}); torch.matmul on "
+                  f"the dequantized copy {mm_ms:.4f} ms (device ms); "
+                  f"candidates' worst {worst[(kind, m, k, n)]:.3f} of their "
+                  "allowance", flush=True)
+            del x, wt, st, wdq
+    return rows, cache
+
+
+def at_serve(torch, eng, reqs, tune):
+    """Serve `reqs` on `eng` with a scheduler read from `tune` (None: the
+    defaults): (tokens a request, step records, paged steps, K3
+    launches, scheduler, wall s)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    reset_counts()
+    with step_record(eng) as rec:
+        cb, greqs, steps, wall = serve(eng, reqs, autotune_cache=tune)
+    toks = [list(map(int, cb.finished[r.request_id])) for r in greqs]
+    return (toks, rec, steps, pa.ragged_paged_attention.launches, cb, wall)
+
+
+def at_hold(torch, ref, got, atol, label, waves=None):
+    """(c)'s gate between an untuned run's step records ``ref`` and a tuned
+    one's ``got``: the same schedule (every step's slab width, q_lens and
+    lens); then, for every live slot whose history is still the same in
+    both runs (its tokens fed so far equal since its sequence started),
+    the logits it samples from within ``atol``, and where such a slot
+    samples different tokens, both runs' gaps between the two tokens
+    within 2 x atol (a near tie: what a logit error under atol can flip).
+    With ``waves`` (the tuned split_waves, the only change between the
+    runs) also names the first step whose K3 split of some live slot's
+    pages differs from the rule's, and holds every step before it
+    bit-equal. Returns a stats dict."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    check(len(ref) == len(got), f"{label}: {len(got)} steps against the "
+          f"untuned run's {len(ref)}")
+    same = np.ones(MAX_BATCH, bool)
+    worst, worst_at, held, flips, gaps = 0.0, None, 0, 0, []
+    first_split, first_split_err, before_split = None, None, 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        check(r["toks"].shape == g["toks"].shape
+              and np.array_equal(r["qlens"], g["qlens"])
+              and np.array_equal(r["lens"], g["lens"]),
+              f"{label}: the schedules part at step {i}")
+        live = r["qlens"] > 0
+        same[live & (r["lens"] == 0)] = True     # a sequence starts here
+        for j in np.flatnonzero(live):
+            n = int(r["qlens"][j])
+            if not np.array_equal(r["toks"][j, :n], g["toks"][j, :n]):
+                same[j] = False
+        if waves is not None and first_split is None:
+            c = r["toks"].shape[1]
+            pages = -(-(r["lens"] + r["qlens"])[live] // BS)
+            p = [pa.ragged_plan(MAX_BATCH, c, H, KVH, r["max_nb"], BS, D,
+                                torch.bfloat16, waves=w)["pages_per_split"]
+                 for w in (None, waves)]
+            if p[0] != p[1] and pages.size and pages.max() > min(p):
+                first_split = i
+        rows = np.flatnonzero(live & same)
+        if rows.size == 0:
+            continue
+        idx = torch.as_tensor(rows, device=r["logits"].device)
+        lr, lg = r["logits"][idx].float(), g["logits"][idx].float()
+        err = float((lr - lg).abs().max())
+        held += int(rows.size)
+        if err > worst:
+            worst, worst_at = err, (i, int(rows[int((lr - lg).abs().amax(
+                dim=tuple(range(1, lr.dim()))).argmax())]))
+        if first_split is None:
+            before_split = max(before_split, err)
+        elif first_split == i:
+            first_split_err = err
+        sr, sg = r["sampled"][idx], g["sampled"][idx]
+        for q in torch.nonzero(sr != sg).tolist():
+            a, b = int(sr[tuple(q)]), int(sg[tuple(q)])
+            gap_r = float(lr[tuple(q)][a] - lr[tuple(q)][b])
+            gap_g = float(lg[tuple(q)][b] - lg[tuple(q)][a])
+            flips += 1
+            gaps.append(max(gap_r, gap_g))
+            check(gap_r <= 2 * atol and gap_g <= 2 * atol,
+                  f"{label}: step {i} slot {int(rows[q[0]])} samples {a} "
+                  f"untuned, {b} tuned with logit gaps {gap_r} / {gap_g} "
+                  f"> 2 x {atol}")
+    check(worst <= atol, f"{label}: a slot's logits {worst} apart at "
+          f"(step, slot) {worst_at} with its history the same (atol "
+          f"{atol})")
+    # until a split differs the two runs do the same arithmetic
+    check(waves is None or before_split == 0.0, f"{label}: logits "
+          f"{before_split} apart before the first step whose split differs "
+          f"({first_split})")
+    return {"held_rows": held, "logits_max_err": worst,
+            "logits_max_err_at": worst_at, "atol": atol,
+            "flips": flips, "largest_flip_gap": max(gaps, default=0.0),
+            "first_split_step": first_split,
+            "first_split_step_err": first_split_err,
+            "err_before_first_split": before_split}
+
+
+def at_hold_text(st):
+    return (f"{st['held_rows']} slot-steps held: logits max err "
+            f"{st['logits_max_err']:.4e} at (step, slot) "
+            f"{st['logits_max_err_at']} (atol {st['atol']:g}); "
+            f"{st['flips']} samples parted, largest gap "
+            f"{st['largest_flip_gap']:.4e}")
+
+
+def at_f32_tokens(torch, cache, tmp):
+    """(c)'s f32 gate: phase 3's L=2 engine and requests served untuned,
+    then from caches whose winner is each of AT_F32_WAVES (the f32 shape
+    class swept on the card, its winner's split_waves forced): the tokens
+    equal to the untuned run's, every one, in the untuned run's steps."""
+    import copy
+    from paddle_tpu_torch.ops import autotune as at
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cache = at_sweep_serve(torch, copy.deepcopy(cache), "float32")
+    cls = at.serve_shape_class(KVH, H // KVH, BS, D, "float32")
+    w = llama_weights(3, 2)
+    reqs = requests(4, 8)
+    eng = make_engine(w, "float32")
+    ref, _, steps0, _, cb0, _ = at_serve(torch, eng, reqs, None)
+    sched0 = (cb0._pack, cb0.prefill_chunk)
+    del eng, cb0
+    out = {"swept_winner": dict(cache["shapes"][cls]["winner"])}
+    for waves in AT_F32_WAVES:
+        forced = copy.deepcopy(cache)
+        sec = forced["shapes"][cls]
+        for e in list(sec["buckets"].values()) + [sec["winner"]]:
+            e.update(split_waves=waves)
+        path = os.path.join(tmp, f"f32_w{waves}.json")
+        at.save_serve_cache(forced, path)
+        eng = make_engine(w, "float32", autotune_cache=path)
+        check(eng.split_waves == waves, f"f32 engine took split_waves "
+              f"{eng.split_waves}, not {waves}")
+        got, _, steps, k3, cb, _ = at_serve(torch, eng, reqs, path)
+        check((cb._pack, cb.prefill_chunk) == sched0, f"f32 scheduler "
+              f"from the cache: pack / chunk {(cb._pack, cb.prefill_chunk)}"
+              f", untuned {sched0}")
+        eq, n, first = token_agreement(ref, got)
+        print(f"  f32 L=2, split_waves {waves}: {eq} / {n} tokens equal to "
+              f"the untuned engine's, {steps} paged steps ({steps0} "
+              f"untuned), {k3} K3 launches", flush=True)
+        check(got == ref and steps == steps0, f"f32 tokens with "
+              f"split_waves {waves} differ from the untuned engine's at "
+              f"{first} ({steps} steps, {steps0} untuned)")
+        out[f"w{waves}"] = {"equal_tokens": eq, "tokens": n, "steps": steps}
+        del eng, cb
+    torch.cuda.empty_cache()
+    return out
+
+
+def at_int8(torch, path):
+    """(c)'s int8 leg: phase 17's int8 engine and requests served untuned,
+    then with the engine and the scheduler from the saved cache; every
+    GEMM call counted by whether it carried a tuned plan (its M class
+    found in the cache's table) and by M class; the tuned run held to the
+    untuned one by ``at_hold``. Returns stats."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    w = llama_weights(8, L)
+    reqs = requests(9, 6)
+    eng = make_engine(w, "bfloat16", weight_quant="int8")
+    serve(eng, requests(99, 2, prompt=(16, 80), new=(2, 4)))   # warm-up
+    toks0, rec0, steps0, _, _, wall0 = at_serve(torch, eng, reqs, None)
+    del eng
+    eng = make_engine(w, "bfloat16", weight_quant="int8",
+                      autotune_cache=path)
+    check(len(eng._wo_plans) == 4 * len(AT_GEMM_M), f"int8 engine closed "
+          f"in {len(eng._wo_plans)} GEMM plans (want {4 * len(AT_GEMM_M)})")
+    serve(eng, requests(99, 2, prompt=(16, 80), new=(2, 4)),
+          autotune_cache=path)
+    calls = {"tuned": 0, "rule": 0, "classes": {}}
+    real = inference.weight_only_matmul
+
+    def counted(x, *a, **kw):
+        calls["tuned" if kw.get("bn") is not None else "rule"] += 1
+        c = qm.m_class(x.shape[0])
+        calls["classes"][c] = calls["classes"].get(c, 0) + 1
+        return real(x, *a, **kw)
+    inference.weight_only_matmul = counted
+    try:
+        toks1, rec1, steps1, _, _, wall1 = at_serve(torch, eng, reqs, path)
+    finally:
+        inference.weight_only_matmul = real
+    st = at_hold(torch, rec0, rec1, AT_INT8_LOGIT_ATOL, "int8 tuned vs "
+                 "untuned")
+    int8 = qm.weight_only_matmul.int8_launches
+    check(calls["rule"] == 0 and calls["tuned"] == 4 * L * steps1 == int8,
+          f"int8 from the cache: {calls['tuned']} GEMM calls on a tuned "
+          f"plan, {calls['rule']} on the rule, {int8} int8 launches in "
+          f"{steps1} steps (want {4 * L * steps1} tuned)")
+    eq, n, first = token_agreement(toks0, toks1)
+    tps0 = sum(map(len, toks0)) / wall0
+    tps1 = sum(map(len, toks1)) / wall1
+    print(f"  int8 (phase 17's engine and requests): {calls['tuned']} of "
+          f"{calls['tuned'] + calls['rule']} GEMM calls on a tuned plan, by "
+          f"M class {dict(sorted(calls['classes'].items()))}; {steps1} "
+          f"paged steps ({steps0} untuned), {tps1:.1f} tokens/s "
+          f"({tps0:.1f} untuned, one run each); {at_hold_text(st)}; equal "
+          f"tokens {eq} / {n} (first difference {first})", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(st, gemm_calls_tuned=calls["tuned"],
+                gemm_calls_rule=calls["rule"],
+                gemm_calls_by_class={str(k): v for k, v in
+                                     sorted(calls["classes"].items())},
+                steps_untuned=steps0, steps_tuned=steps1,
+                tokens_per_s_untuned=tps0, tokens_per_s_tuned=tps1,
+                equal_tokens=eq, tokens=n, first_difference=first)
+
+
+def phase_autotune(torch, serve_stats):
+    """Phase 29: (a) K3 and K7 at each split knob and the measured sweep,
+    (b) K4's knobs, (c) an engine and a scheduler built from the saved
+    cache serving phase 2's requests in bf16 (held to the untuned engine,
+    which launches what phase 2 launched, by ``at_hold``), phase 17's
+    int8 engine from the cache (every GEMM call on a tuned plan), then
+    f32 at L=2 (phase 3's engine): tokens exact. Returns stats."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.ops import autotune as at
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    saved_env = os.environ.get("PADDLE_TPU_AUTOTUNE_CACHE")
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.join(tmp, "at.json")
+    at._mem = None
+    try:
+        print("  (a) K3 and K7 at each split_waves against their plain "
+              "versions, then the measured sweep", flush=True)
+        split_rows = at_split_rows(torch)
+        cache = at_sweep_serve(torch)
+        print(f"  (b) K4's knobs (bn x waves) at the {len(at_gemm_shapes())}"
+              " serving shapes, int8 and int4", flush=True)
+        gemm_rows, cache = at_gemm(torch, cache)
+        path = os.path.join(tmp, "serve_cache.json")
+        at.save_serve_cache(cache, path)
+        check(at.load_serve_cache(path, at.card_of("cuda")) == cache,
+              "the saved cache does not load back on this card")
+        print("  (c) engines and schedulers from the saved cache serving "
+              "phase 2's requests (bf16), phase 17's (int8), and phase 3's "
+              "(f32)", flush=True)
+        reqs = requests(1, 12)
+        w = llama_weights(0, L)
+        eng = make_engine(w, "bfloat16")
+        toks0, rec0, steps0, k3_0, cb0, wall0 = at_serve(torch, eng, reqs,
+                                                         None)
+        check(steps0 == serve_stats["steps"]
+              and k3_0 == serve_stats["attn_launches"],
+              f"the rule's plans: {steps0} steps, {k3_0} K3 launches against "
+              f"phase 2's {serve_stats['steps']} / "
+              f"{serve_stats['attn_launches']}")
+        sched0 = (cb0._pack, cb0.prefill_chunk)
+        del eng, cb0
+        eng = make_engine(w, "bfloat16", autotune_cache=path)
+        toks1, rec1, steps1, k3_1, cb1, wall1 = at_serve(torch, eng, reqs,
+                                                         path)
+        check(k3_1 == L * steps1 and (cb1._pack, cb1.prefill_chunk) ==
+              sched0 and all(bool(torch.isfinite(r["logits"]).all())
+                             for r in rec1),
+              f"tuned engine: {k3_1} K3 launches in {steps1} steps, "
+              f"scheduler {(cb1._pack, cb1.prefill_chunk)} (untuned "
+              f"{sched0})")
+        bf16 = at_hold(torch, rec0, rec1, AT_BF16_LOGIT_ATOL,
+                       "bf16 tuned vs untuned", waves=eng.split_waves)
+        eq, n, first = token_agreement(toks0, toks1)
+        tps0 = sum(len(t) for t in toks0) / wall0
+        tps1 = sum(len(t) for t in toks1) / wall1
+        print(f"  bf16: tuned engine split_waves {eng.split_waves}, "
+              f"scheduler pack {cb1._pack} prefill_chunk "
+              f"{cb1.prefill_chunk} (as untuned); {steps1} paged steps "
+              f"({steps0} untuned, as phase 2), {tps1:.1f} tokens/s "
+              f"({tps0:.1f} untuned); first step whose K3 split differs "
+              f"from the rule's: {bf16['first_split_step']} (logit err "
+              f"there {bf16['first_split_step_err']}, before it "
+              f"{bf16['err_before_first_split']:.3e}); {at_hold_text(bf16)};"
+              f" equal tokens {eq} / {n} (first difference {first})",
+              flush=True)
+        del eng, w, cb1, rec0, rec1
+        torch.cuda.empty_cache()
+        int8 = at_int8(torch, path)
+        f32 = at_f32_tokens(torch, cache, tmp)
+    finally:
+        if saved_env is None:
+            os.environ.pop("PADDLE_TPU_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = saved_env
+        at._mem = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    cls = at.serve_shape_class(KVH, H // KVH, BS, D, "bfloat16")
+    return {"split_rows": split_rows, "gemm_rows": gemm_rows,
+            "sweep": cache["shapes"][cls],
+            "bf16": dict(bf16, steps_untuned=steps0, steps_tuned=steps1,
+                         k3_launches_untuned=k3_0, k3_launches_tuned=k3_1,
+                         tokens_per_s_untuned=tps0,
+                         tokens_per_s_tuned=tps1, equal_tokens=eq,
+                         tokens=n, first_difference=first),
+            "int8": int8, "f32": f32}
+
+
+# -- phase 30: amp on the eager flagship -----------------------------------------
+
+AMP_SCALE0 = 2.0 ** 15         # (c) / (d): the GradScaler's first scale
+AMP_GROW = 2                   # ... grown after this many clean steps
+AMP_PLANT = 1                  # the step whose gradient gets the inf
+AMP_FP16_STEPS = 4             # (c): clean, inf, clean, clean
+AMP_RANK_STEPS = 2             # (d): clean, inf on rank 1's shard
+
+
+def amp_step(net, opt, batch, cast, scaler=None, plant=None):
+    """One eager step with the forward under ``cast`` (an auto_cast
+    context, or None); ``plant(model)`` runs between the backward and the
+    step. Returns the loss (0-dim)."""
+    with cast() if cast else contextlib.nullcontext():
+        _, loss = net(batch["input_ids"], labels=batch["labels"])
+    (scaler.scale(loss) if scaler else loss).backward()
+    if plant is not None:
+        plant()
+    if scaler:
+        scaler.step(opt)
+        scaler.update()
+    else:
+        opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def amp_first_step(torch, decorate):
+    """(a): phase 28 (a)'s step 0 from a fresh flagship with the AMP-O2
+    layout by hand (``eager_o2``) or by ``amp.decorate``, on the two-pass
+    flash backward (its dq has no atomics, so two runs agree bit for bit):
+    (loss, masters, parameters) in parameter order."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg, batch, seq = pretrain.flagship_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    if decorate:
+        opt = eager_optimizer(model, EAGER_CLIP, False)
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    else:
+        model = eager_o2(model)
+        opt = eager_optimizer(model, EAGER_CLIP, True)
+    host = flagship_batches(cfg, batch, seq, 1)[0]
+    saved = fa.flash_bwd
+    fa.flash_bwd = fa.flash_bwd_twopass
+    try:
+        loss = float(eager_step(model, opt, pretrain.batch_to_device(host)))
+    finally:
+        fa.flash_bwd = saved
+    masters = [opt._accumulators[id(p)].get("master")
+               for p in opt._parameter_list]
+    params = [p.detach() for p in model.parameters()]
+    return loss, masters, params
+
+
+def amp_flagship(torch, level, eager_stats):
+    """(b): phase 28 (a)'s flagship with the forward under
+    ``auto_cast(level, bf16)``: O2 on ``amp.decorate``'s layout, O1 on f32
+    parameters; 2 warm-up and 3 timed steps. Gates the launches a step
+    (K1 / K2 24 + 24, A 49 + 49 and C 1 + 1 on their f32 routes, B 24 +
+    24, D's eager form 2) and the f32 inputs of "rms_norm" and
+    "cross_entropy" (the operator stats of one more step), then a
+    profiled step. Returns stats."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    from paddle_tpu_torch.ops import adamw as ad
+    from paddle_tpu_torch.ops import fused_norm, token_ce
+    cfg, batch, seq = pretrain.flagship_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    opt = eager_optimizer(model, EAGER_CLIP, False)
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    def cast():
+        return amp.auto_cast(level=level, dtype="bfloat16")
+    host = flagship_batches(cfg, batch, seq, EAGER_WARM + EAGER_STEPS + 1)
+    batches = [pretrain.batch_to_device(b) for b in host]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(amp_step(model, opt, b, cast))
+              for b in batches[:EAGER_WARM]]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches[EAGER_WARM:EAGER_WARM + EAGER_STEPS]:
+        losses.append(amp_step(model, opt, b, cast))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    flash, tier = read_flash_counts(), read_tier_counts()
+    d_launches = ad.adamw_eager.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_tier = tuple(EAGER_STEPS * n for n in
+                      tier_counts_per_step(cfg, False)[:6]) + (0,)
+    check(flash == (cfg.num_hidden_layers * EAGER_STEPS,) * 2,
+          f"amp {level}: flash fwd / bwd {flash} in {EAGER_STEPS} steps")
+    check(tier == want_tier, f"amp {level}: fused tier launches {tier} in "
+          f"{EAGER_STEPS} steps (want {want_tier})")
+    check(d_launches == 2 * EAGER_STEPS, f"amp {level}: kernel D's eager "
+          f"form launched {d_launches} times in {EAGER_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"amp {level}: losses "
+          f"{losses}")
+    amp.debugging.enable_operator_stats_collection()
+    try:
+        amp_step(model, opt, batches[-1], cast)
+        stats = {k: dict(v) for k, v in amp.debugging._stats.items()}
+    finally:
+        with contextlib.redirect_stdout(io.StringIO()):   # its op table
+            amp.debugging.disable_operator_stats_collection()
+    routes = {op: sorted(k for k in stats.get(op, {})
+                         if k in ("float32", "bfloat16", "float16"))
+              for op in ("rms_norm", "cross_entropy", "linear",
+                         "flash_attention", "swiglu")}
+    check(routes["rms_norm"] == ["float32"]
+          and routes["cross_entropy"] == ["float32"]
+          and routes["linear"] == ["bfloat16"]
+          and routes["flash_attention"] == ["bfloat16"],
+          f"amp {level}: the named entries took {routes}")
+    prof = profile_window(torch, lambda: [amp_step(model, opt, batches[-1],
+                                                   cast), 1][1],
+                          f"amp {level} step")
+    ms = wall / EAGER_STEPS * 1e3
+    print(f"  {level}: {ms:.1f} ms/step (phase 28 (a) "
+          f"{eager_stats['ms_per_step']:.1f}), peak memory {peak_gb:.2f} GB "
+          f"(phase 28 (a) {eager_stats['peak_memory_gb']:.2f}), losses "
+          f"{[round(x, 4) for x in losses]}; launches in {EAGER_STEPS} "
+          f"steps: flash {flash}, tier {tier}, D eager {d_launches}; inputs "
+          f"by entry {routes}; A's backward route "
+          f"{fused_norm.rms_norm_bwd.route!r}, C's forward route "
+          f"{token_ce.token_ce_fwd.route!r}", flush=True)
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "peak_memory_gb": peak_gb, "losses": losses,
+            "flash_launches": list(flash), "tier_launches": list(tier),
+            "adamw_eager_launches": d_launches, "entry_dtypes": routes,
+            "norm_bwd_route": fused_norm.rms_norm_bwd.route,
+            "ce_fwd_route": token_ce.token_ce_fwd.route, "profile": prof}
+
+
+def amp_f32_against_plain(torch):
+    """(b): f32 at full width and L=2 (phase 8's weights and batches) under
+    ``amp.decorate`` + ``auto_cast(O2, bf16)``, 3 steps through the
+    kernels and through the plain attention, norm and CE paths: the
+    losses within MESH_LOSS_RTOL (the bf16 step's tolerance)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    cfg, batch, seq = mesh_config("float32", 2)
+    host = mesh_batches(cfg, batch, seq, 1, EAGER_STEPS)
+
+    def cast():
+        return amp.auto_cast(level="O2", dtype="bfloat16")
+    runs = {}
+    for name in ("kernels", "plain"):
+        model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+        opt = eager_optimizer(model, None, False)
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+        ctx = contextlib.ExitStack()
+        if name == "plain":
+            ctx.enter_context(plain_attention())
+            ctx.enter_context(plain_fused())
+        with ctx:
+            runs[name] = [float(amp_step(model, opt,
+                                         pretrain.batch_to_device(b), cast))
+                          for b in host]
+        del model, opt
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["kernels"],
+                                                  runs["plain"]))
+    print(f"  f32 L=2 under O2 bf16: losses kernels {runs['kernels']} plain "
+          f"{runs['plain']} (worst relative {rel:.3e}, allowed "
+          f"{MESH_LOSS_RTOL:g})", flush=True)
+    check(rel <= MESH_LOSS_RTOL, f"O2 f32 L=2: kernel losses off the plain "
+          f"paths' by {rel:.3e}")
+    torch.cuda.empty_cache()
+    return {"losses": runs, "worst_rel": rel}
+
+
+def amp_fp16_scaler(torch):
+    """(c): fp16 O2 (``amp.decorate`` + ``auto_cast(O2, float16)``) with
+    ``GradScaler(AMP_SCALE0, incr_every_n_steps=AMP_GROW)`` at full width
+    and L=2, an inf planted in one gradient at step AMP_PLANT: that step
+    leaves every parameter bit-equal, the others change them; the scale
+    halves, then grows after two clean steps; one host read a step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    cfg, batch, seq = mesh_config("float32", 2)
+    host = mesh_batches(cfg, batch, seq, 1, AMP_FP16_STEPS)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    opt = eager_optimizer(model, EAGER_CLIP, False)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=AMP_SCALE0,
+                            incr_every_n_steps=AMP_GROW)
+
+    def cast():
+        return amp.auto_cast(level="O2", dtype="float16")
+
+    def plant():
+        p = next(model.parameters())
+        p.grad.view(-1)[7] = float("inf")
+    rows = []
+    for i, b in enumerate(host):
+        before = [p.detach().clone() for p in model.parameters()]
+        loss = float(amp_step(model, opt, pretrain.batch_to_device(b), cast,
+                              scaler, plant if i == AMP_PLANT else None))
+        same = all(torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+        rows.append({"loss": loss, "unchanged": same,
+                     "scale": scaler._scale})
+        del before
+    want = [AMP_SCALE0, AMP_SCALE0 / 2, AMP_SCALE0 / 2, AMP_SCALE0]
+    print(f"  (c) fp16 O2 L=2, inf planted at step {AMP_PLANT}: "
+          f"{rows}; host reads {scaler.host_reads}", flush=True)
+    check([r["unchanged"] for r in rows] == [i == AMP_PLANT for i in
+                                             range(AMP_FP16_STEPS)],
+          f"(c): parameters unchanged by step {[r['unchanged'] for r in rows]}")
+    check([r["scale"] for r in rows] == want, f"(c): scales "
+          f"{[r['scale'] for r in rows]}, want {want}")
+    check(scaler.host_reads == AMP_FP16_STEPS, f"(c): {scaler.host_reads} "
+          f"host reads in {AMP_FP16_STEPS} steps")
+    check(all(math.isfinite(r["loss"]) for r in rows), f"(c): losses {rows}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"steps": rows, "host_reads": scaler.host_reads}
+
+
+def amp_rank(spec_path):
+    """A rank of phase 30 (d) (``chip_smoke.py --amp-rank SPEC``): joins
+    the two-rank gloo group, ``fleet.init`` sharding 2, the f32 L=2 model
+    under ``group_sharded_parallel(..., "os_g", scaler=GradScaler)``, the
+    forward under ``auto_cast(O1, float16)``; at step 1 rank 1 alone
+    plants an inf in its own shard of the embedding's gradient. Writes
+    each step's (parameters unchanged, scale) and the host reads as JSON
+    to the spec's ``out``."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import collective, fleet, sharding
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    rank = spec["rank"]
+    group = collective.new_group(rank, 2, spec["store"],
+                                 timeout=EAGER_TIMEOUT_S)
+    cfg, batch, seq = mesh_config("float32", 2)
+    host = mesh_batches(cfg, batch, seq, 1, AMP_RANK_STEPS)
+    rows = slice(rank * batch // 2, (rank + 1) * batch // 2)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update({"sharding_degree": 2})
+    fleet.init(is_collective=True, strategy=s, group=group, device="cuda")
+    model = LlamaForCausalLM(cfg, device="cuda", seed=1)
+    inner = eager_optimizer(model, EAGER_F32_CLIP, False)
+    scaler = amp.GradScaler(init_loss_scaling=AMP_SCALE0,
+                            incr_every_n_steps=AMP_GROW)
+    net, opt, scaler = sharding.group_sharded_parallel(model, inner, "os_g",
+                                                       scaler=scaler)
+    emb = model.llama.embed_tokens.weight
+
+    def cast():
+        return amp.auto_cast(level="O1", dtype="float16")
+
+    def plant():
+        if rank == 1:
+            emb.grad.chunk(2, 0)[1].view(-1)[0] = float("inf")
+    out = {"rank": rank, "steps": []}
+    for i, b in enumerate(host):
+        before = [p.detach().clone() for p in model.parameters()]
+        batch_d = {k: torch.tensor(v[rows], device="cuda")
+                   for k, v in b.items()}
+        loss = float(amp_step(net, opt, batch_d, cast, scaler,
+                              plant if i == AMP_PLANT else None))
+        same = all(torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+        out["steps"].append({"loss": loss, "unchanged": same,
+                             "scale": scaler._scale})
+    out["host_reads"] = scaler.host_reads
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_amp(torch, eager_stats):
+    """Phase 30: (a) ``amp.decorate`` O2 without auto_cast against the hand
+    layout of phase 28 (a), step 0 bit for bit; (b) the flagship's timed
+    steps under auto_cast O2, then O1, and f32 L=2 under O2 against the
+    plain paths; (c) the fp16 GradScaler on one card; (d) the scaler under
+    ZeRO stage 2 on two gloo rank processes. Returns stats."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    print("  (a) amp.decorate O2 without auto_cast against phase 28 (a)'s "
+          "layout: step 0 on the two-pass backward", flush=True)
+    loss_h, masters_h, params_h = amp_first_step(torch, False)
+    loss_d, masters_d, params_d = amp_first_step(torch, True)
+    same_m = len(masters_h) == len(masters_d) and all(
+        (a is None and b is None) or (a is not None and b is not None
+                                      and torch.equal(a, b))
+        for a, b in zip(masters_h, masters_d))
+    same_p = all(a.dtype == b.dtype and torch.equal(a, b)
+                 for a, b in zip(params_h, params_d))
+    n_masters = sum(m is not None for m in masters_d)
+    ref = eager_stats["losses"][0]
+    print(f"  (a) step-0 loss decorate {loss_d!r}, by hand {loss_h!r}, phase "
+          f"28 (a) {ref!r}; {n_masters} f32 masters and every parameter "
+          f"bit-equal: {same_m and same_p}", flush=True)
+    check(loss_d == loss_h == ref, f"(a) step-0 loss {loss_d!r} / "
+          f"{loss_h!r} against phase 28 (a)'s {ref!r}")
+    check(same_m and same_p, "(a) decorate's masters or parameters differ "
+          "from the hand layout's")
+    del masters_h, masters_d, params_h, params_d
+    torch.cuda.empty_cache()
+    out = {"a": {"loss": loss_d, "masters": n_masters}}
+    print("  (b) the flagship under auto_cast(O2), then O1, bf16", flush=True)
+    out["b"] = {lv: amp_flagship(torch, lv, eager_stats)
+                for lv in ("O2", "O1")}
+    out["b"]["f32_L2"] = amp_f32_against_plain(torch)
+    print("  (c) fp16 O2 with the GradScaler, L=2", flush=True)
+    out["c"] = amp_fp16_scaler(torch)
+    print("  (d) the GradScaler under ZeRO stage 2, two gloo rank processes",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_amp_")
+    try:
+        specs = [{"rank": r, "store": os.path.join(tmp, "store"),
+                  "out": os.path.join(tmp, f"amp_rank{r}.json")}
+                 for r in range(2)]
+        ranks = run_rank_procs("--amp-rank", "amp", specs, tmp, EAGER_JOIN_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rk in ranks:
+        print(f"  (d) rank {rk['rank']}: {rk['steps']}, host reads "
+              f"{rk['host_reads']}", flush=True)
+        check([s["unchanged"] for s in rk["steps"]] == [False, True]
+              and [s["scale"] for s in rk["steps"]] ==
+              [AMP_SCALE0, AMP_SCALE0 / 2]
+              and rk["host_reads"] == AMP_RANK_STEPS,
+              f"(d) rank {rk['rank']}: {rk}")
+    out["d"] = ranks
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -6579,6 +7494,19 @@ def main():
           "the ZeRO stages over gloo in two processes on the card",
           flush=True)
     eager_rows, eager_stats = phase_eager(torch, train_stats)
+    with torch.no_grad():
+        print("phase 29: the serving autotuner on the card: (a) K3 and K7 at "
+              "each split_waves and the measured sweep of phase 2's shape "
+              "class, (b) K4's plan knobs at the 20 serving shapes (five M "
+              "classes), (c) engines and schedulers from the saved cache "
+              "serving phase 2's requests (bf16), phase 17's (int8) and "
+              "f32 tokens at L=2", flush=True)
+        at_stats = phase_autotune(torch, serve_stats)
+    print("phase 30: amp on the eager flagship: (a) decorate O2 against "
+          "phase 28 (a)'s layout, (b) auto_cast O2 / O1 and f32 L=2 under O2 "
+          "against the plain paths, (c) the fp16 GradScaler, (d) the "
+          "GradScaler under ZeRO stage 2 over gloo", flush=True)
+    amp_stats = phase_amp(torch, eager_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -6715,6 +7643,9 @@ def main():
           flush=True)
     print(f"card: {card}; eager training path: {json.dumps(eager_stats)}",
           flush=True)
+    print(f"card: {card}; serving autotuner: {json.dumps(at_stats)}",
+          flush=True)
+    print(f"card: {card}; amp: {json.dumps(amp_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6732,6 +7663,8 @@ if __name__ == "__main__":
             rc = fleet_rank(sys.argv[2])
         elif sys.argv[1:2] == ["--eager-rank"]:
             rc = eager_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--amp-rank"]:
+            rc = amp_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

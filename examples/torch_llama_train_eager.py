@@ -3,8 +3,13 @@
 (kernel D's eager form on the card), ``step``, ``clear_grad``.
 
 Run on the card (the flagship: B=8, S=2048, L=24; matrices in bf16 with
-f32 masters, as the pretrain step's AMP-O2):
+f32 masters, as the pretrain step's AMP-O2, through
+``amp.decorate(model, opt, level="O2", dtype="bfloat16")``):
   python examples/torch_llama_train_eager.py
+With ``--amp O1`` the parameters stay f32 and every forward runs under
+``amp.auto_cast(level="O1", dtype="bfloat16")`` (the white list in bf16,
+norms and the loss in f32):
+  python examples/torch_llama_train_eager.py --amp O1
 Data parallel over N processes (``fleet.distributed_model`` ->
 ``DataParallel``, ``fleet.distributed_optimizer``), or ZeRO over N:
   python examples/torch_llama_train_eager.py --dp 2 --layers 2
@@ -21,6 +26,7 @@ data-parallel one. Rank 0 prints the loss (its own rows'), the grad
 norm kernel D computed and the step's wall time.
 """
 import argparse
+import contextlib
 import os
 import shutil
 import subprocess
@@ -32,23 +38,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 
-def amp_o2(model):
-    """The pretrain step's AMP-O2 layout on a bf16 config: every
-    parameter of ndim >= 2 cast to bf16 in place, the norm weights kept
-    f32 (AdamW's ``multi_precision`` keeps f32 masters)."""
-    import torch
-    if model.config.dtype == "bfloat16":
-        for p in model.parameters():
-            if p.dim() >= 2:
-                p.data = p.data.to(torch.bfloat16)
-    return model
-
-
 def train(args, rank=0, world=1, group=None):
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch import amp, nn, optimizer
     from paddle_tpu_torch.distributed import fleet, sharding
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
 
@@ -58,14 +52,22 @@ def train(args, rank=0, world=1, group=None):
     cfg, batch, seq = pretrain.flagship_config(on_tpu=args.device == "cuda")
     if args.layers:
         cfg.num_hidden_layers = args.layers
-    model = amp_o2(LlamaForCausalLM(cfg, device=device, seed=0))
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
     ndims = {n: p.dim() for n, p in model.named_parameters()}
     opt = optimizer.AdamW(
         learning_rate=3e-4, beta1=0.9, beta2=0.95, epsilon=1e-8,
         weight_decay=0.1, parameters=model.named_parameters(),
         apply_decay_param_fun=lambda n: ndims[n] >= 2,
-        grad_clip=nn.ClipGradByGlobalNorm(1.0),
-        multi_precision=cfg.dtype == "bfloat16")
+        grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    low = cfg.dtype == "bfloat16"
+    if low:
+        # O2: the matrices in bf16 (the RMSNorm weights, the only 1-D
+        # parameters, stay f32) with f32 masters; O1 casts nothing
+        model, opt = amp.decorate(model, opt, level=args.amp,
+                                  dtype="bfloat16")
+    def cast():
+        return amp.auto_cast(level="O1", dtype="bfloat16") \
+            if low and args.amp == "O1" else contextlib.nullcontext()
     net = model
     if world > 1:
         s = fleet.DistributedStrategy()
@@ -90,7 +92,8 @@ def train(args, rank=0, world=1, group=None):
         ids = torch.tensor(host["input_ids"][rows], device=device)
         labels = torch.tensor(host["labels"][rows], device=device)
         t0 = time.perf_counter()
-        _, loss = net(ids, labels=labels)
+        with cast():
+            _, loss = net(ids, labels=labels)
         loss.backward()
         opt.step()
         opt.clear_grad()
@@ -120,6 +123,9 @@ def main():
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: the config's)")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--amp", default="O2", choices=["O1", "O2"],
+                    help="O2 (default): bf16 matrices with f32 masters; "
+                    "O1: f32 parameters, forwards under auto_cast O1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--timeout", type=float, default=300.0,
                     help="bound of every collective, seconds")

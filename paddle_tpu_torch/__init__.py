@@ -24,4 +24,8 @@ AdamW on kernel D's eager form), ``nn.clip``, ``distributed.parallel``
 (``DataParallel`` with the bucketed reducer of
 ``distributed.fleet.reducer``), ``fleet.distributed_optimizer`` and the
 ZeRO stages (``distributed.fleet.sharding``, ``distributed.sharding``).
+The next slice adds the serving autotuner on the port's kernel plans
+(``ops.autotune``, the engines' ``autotune_cache``) and ``amp``
+(``auto_cast``, ``decorate``, ``GradScaler``, ``debugging``;
+``distributed.fleet.utils.mix_precision_utils``).
 """

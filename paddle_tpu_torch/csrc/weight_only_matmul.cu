@@ -231,7 +231,7 @@ int launch_t(const void* x, const int8_t* w, const float* scales, void* out,
 constexpr int TC_NT = 128;       // four warps
 constexpr int TC_BK = 64;        // K rows per stage
 constexpr int SLICE_MIN = 128;   // shallowest K slice of a split
-constexpr int TC_WAVES = 2;      // knob two: a split grid covers the SMs this often
+constexpr int TC_WAVES = 2;      // knob two's rule: a split grid covers the SMs this often
 
 template <int BM, int BN, bool INT4>
 struct TcShape {
@@ -542,25 +542,29 @@ struct Plan {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Knob one: the column tile. 128 unless the grid of 128-wide tiles
-// leaves SMs idle (decode M), then 64.
+// Knob one: the column tile. The rule: 128 unless the grid of 128-wide
+// tiles leaves SMs idle (decode M), then 64.
 int pick_bn(int M, int N, int bm, int sms) {
   return cdiv(M, bm) * (N / 128) < sms ? 64 : 128;
 }
 
-Plan make_plan(int M, int K, int N, int dtype, int sms) {
+// The plan of the tensor-core body. `bn` (64 or 128) and `waves` (>= 1)
+// override the two knobs, 0 keeps each one's rule; the f32 body takes
+// neither.
+Plan make_plan(int M, int K, int N, int dtype, int sms, int bn, int waves) {
   Plan p{};
   p.bm = M <= 16 ? 16 : 64;
-  p.bn = dtype == 0 ? 128 : pick_bn(M, N, p.bm, sms);
+  p.bn = dtype == 0 ? 128 : bn ? bn : pick_bn(M, N, p.bm, sms);
+  if (waves == 0 || dtype == 0) waves = TC_WAVES;
   p.mtiles = cdiv(M, p.bm);
   p.ntiles = N / p.bn;
   p.nsplit = 1;
   p.kslice = K;
   const long long tiles = (long long)p.mtiles * p.ntiles;
   if (dtype != 0 && tiles < sms) {      // the unsplit grid leaves SMs idle
-    // the split nearest TC_WAVES waves (a grid just short of one wave
+    // the split nearest `waves` waves (a grid just short of one wave
     // takes 2 splits, not 3)
-    int s = (int)(((long long)TC_WAVES * sms + tiles / 2) / tiles);
+    int s = (int)(((long long)waves * sms + tiles / 2) / tiles);
     const int smax = K / SLICE_MIN;
     if (s > smax) s = smax;
     if (s > 1) {
@@ -626,17 +630,22 @@ bool bad_sizes(int M, int K, int N, int block_n, int dtype, int sms) {
          N % block_n != 0 || dtype < 0 || dtype > 2 || sms <= 0;
 }
 
+bool bad_knobs(int bn, int waves) {
+  return !(bn == 0 || bn == 64 || bn == 128) || waves < 0 || waves > 64;
+}
+
 template <bool INT4>
 int launch(int dtype, const void* x, const void* w, const void* scales, void* out,
            int M, int K, int N, int block_n, void* ws, long long ws_bytes, int sms,
-           void* stream) {
-  if (bad_sizes(M, K, N, block_n, dtype, sms)) return (int)cudaErrorInvalidValue;
+           int bn, int waves, void* stream) {
+  if (bad_sizes(M, K, N, block_n, dtype, sms) || bad_knobs(bn, waves))
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t* wp = (const int8_t*)w;
   const float* sp = (const float*)scales;
   if (dtype == 0) return launch_t<float, INT4>(x, wp, sp, out, M, K, N, block_n, s);
-  const Plan p = make_plan(M, K, N, dtype, sms);
+  const Plan p = make_plan(M, K, N, dtype, sms, bn, waves);
   if (p.ws_bytes > 0 && (ws == nullptr || ws_bytes < p.ws_bytes))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
@@ -648,17 +657,23 @@ int launch(int dtype, const void* x, const void* w, const void* scales, void* ou
 
 extern "C" {
 
+// The argument list of the entry points below: 2 since the plan's knobs
+// became launch arguments (a build without this symbol takes none).
+int weight_only_matmul_abi() { return 2; }
+
 // dtype: 0 float32, 1 bfloat16, 2 float16 (x and out). w is the packed
 // [K, N/2] int8 array, 16-byte aligned; scales [N] float32. block_n must
 // be a multiple of 128 that divides N. `ws` holds at least the plan's
 // workspace bytes (null when the plan has none); sms is the card's SM
-// count the plan was made for. Returns the CUDA error code of the launch.
+// count the plan was made for, `bn` / `waves` its two knobs (0: the
+// rule; weight_only_plan gives the plan they make). Returns the CUDA
+// error code of the launch.
 int weight_only_int4_launch(int dtype, const void* x, const void* w,
                             const void* scales, void* out, int M, int K, int N,
                             int block_n, void* ws, long long ws_bytes, int sms,
-                            void* stream) {
+                            int bn, int waves, void* stream) {
   return launch<true>(dtype, x, w, scales, out, M, K, N, block_n, ws, ws_bytes, sms,
-                      stream);
+                      bn, waves, stream);
 }
 
 // The same for int8: w is the [K, N] int8 array, 16-byte aligned. The
@@ -667,18 +682,21 @@ int weight_only_int4_launch(int dtype, const void* x, const void* w,
 int weight_only_int8_launch(int dtype, const void* x, const void* w,
                             const void* scales, void* out, int M, int K, int N,
                             int block_n, void* ws, long long ws_bytes, int sms,
-                            void* stream) {
+                            int bn, int waves, void* stream) {
   return launch<false>(dtype, x, w, scales, out, M, K, N, block_n, ws, ws_bytes, sms,
-                       stream);
+                       bn, waves, stream);
 }
 
 // The launch plan, the same for both modes, for x [M, K] of `dtype`
-// against a weight of N columns on a card with `sms` SMs: out[0] BM, [1]
-// BN, [2] S (K splits), [3] blocks, [4] workspace bytes the caller
-// allocates. Returns 5, or -1 on bad sizes.
-int weight_only_plan(int M, int K, int N, int dtype, int sms, long long* out) {
-  if (bad_sizes(M, K, N, 128, dtype, sms) || N % 128 != 0) return -1;
-  const Plan p = make_plan(M, K, N, dtype, sms);
+// against a weight of N columns on a card with `sms` SMs, with the knobs
+// `bn` and `waves` (0: the rule): out[0] BM, [1] BN, [2] S (K splits),
+// [3] blocks, [4] workspace bytes the caller allocates. Returns 5, or -1
+// on bad sizes or knobs.
+int weight_only_plan(int M, int K, int N, int dtype, int sms, int bn, int waves,
+                     long long* out) {
+  if (bad_sizes(M, K, N, 128, dtype, sms) || N % 128 != 0 || bad_knobs(bn, waves))
+    return -1;
+  const Plan p = make_plan(M, K, N, dtype, sms, bn, waves);
   out[0] = p.bm;
   out[1] = p.bn;
   out[2] = p.nsplit;

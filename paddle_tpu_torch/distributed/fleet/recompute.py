@@ -22,7 +22,7 @@ kernels (launched through ctypes into buffers that ATen allocates) run
 again in the recompute whatever the policy, and none of them writes into
 a tensor that a policy keeps.
 
-Two things the region must carry itself. A module is called with its
+Three things the region must carry itself. A module is called with its
 parameters as explicit inputs (``torch.func.functional_call``), so that
 the recompute sees the tensors of the forward even when the forward ran
 under another ``functional_call`` (the pretraining step's bf16 casts)
@@ -30,12 +30,16 @@ that has ended by the time the backward runs. And the port's default
 seed chain (``core.random``), which ``torch.utils.checkpoint`` does not
 stash, is replayed: the recompute starts from the chain's state at the
 forward, so a dropout mask drawn in the region is drawn again the same.
+And the amp context (``amp.auto_cast``, per thread, which the backward's
+thread does not have) is replayed: the recompute runs under the
+auto_cast stack of the forward, so it casts as the forward did.
 """
 import functools
 
 import torch
 from torch.utils import checkpoint as _cp
 
+from ...amp import _hook as _amp
 from ...core import random as _random
 
 __all__ = ["recompute", "recompute_sequential", "recompute_hybrid",
@@ -86,18 +90,21 @@ def policy_fn(policy):
 
 def _replaying(fn):
     """``fn`` that, called a second time (the recompute), runs from the
-    default seed chain's state at its first call and then puts back the
-    chain's state of that moment."""
+    default seed chain's state at its first call, under the auto_cast
+    stack of its first call, and then puts back the chain's state of that
+    moment."""
     state = {}
 
     def run(*args, **kwargs):
         if "chain" not in state:
             state["chain"] = _random.get_state()
+            state["amp"] = _amp.snapshot()
             return fn(*args, **kwargs)
         now = _random.get_state()
         _random.set_state(state["chain"])
         try:
-            return fn(*args, **kwargs)
+            with _amp.restored(state["amp"]):
+                return fn(*args, **kwargs)
         finally:
             _random.set_state(now)
     return run

@@ -283,7 +283,10 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     "os_g" or "p_g_os" for stages 1 / 2 / 3 over ``group`` (default the
     hybrid group's sharding group); returns (model, optimizer, scaler).
     ``offload`` and the buffer sizes are accepted and change nothing, as
-    in the JAX package."""
+    in the JAX package. A ``scaler`` (``amp.GradScaler``) is made
+    group-aware: its found-inf flag is all-reduced (MAX) over the
+    sharding group before it is read, since each rank's gradients are its
+    own before the step (the reference's ``GroupShardedScaler``)."""
     if level == "os":
         optimizer = DygraphShardingOptimizer(optimizer, stage=1, group=group)
     elif level == "os_g":
@@ -293,4 +296,6 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
         optimizer = DygraphShardingOptimizer(optimizer, stage=2, group=group)
     else:
         raise ValueError(f"unknown level {level}")
+    if scaler is not None:
+        scaler._group = optimizer._group
     return model, optimizer, scaler

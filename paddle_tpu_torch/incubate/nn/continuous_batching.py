@@ -10,7 +10,8 @@ programs run eagerly and update the caches in place; under
 tensor-parallel serving (an engine built with ``tp > 1`` over a
 ``torch.distributed`` group) this scheduler runs on rank 0 alone and the
 engine broadcasts each program to the other ranks (inference/tp_worker);
-the autotune cache is a later slice.
+the autotune cache is the port's own (``ops.autotune``: ``pack`` and
+``prefill_chunk`` as in JAX, read once at construction).
 
 The vLLM-style serving loop the ROADMAP's "heavy traffic from millions of
 users" regime needs: requests of wildly different lengths share one fixed
@@ -614,8 +615,6 @@ class ContinuousBatchingEngine:
                  shed_priority_min=1, autotune_cache=None,
                  host_fastpath=True, host_debug_check=False,
                  overlap_fetch=False):
-        if autotune_cache is not None:
-            raise NotImplementedError("autotune_cache is a later slice")
         self.engine = engine
         self.block_size = int(block_size)
         self.max_batch = int(max_batch)
@@ -741,6 +740,29 @@ class ContinuousBatchingEngine:
         kvh = self.caches[0].shape[1]
         num_q = engine.num_heads
         self._pack = default_pack(self.max_batch, num_q // kvh)
+        # the serving autotuner's winners (ops/autotune.py): a cache (path
+        # or dict) opts the scheduler into the swept (pack, prefill_chunk)
+        # of this EXACT shape class, resolved once here (no per-step host
+        # work). The tuned chunk comes from the sweep's pow2 candidates, so
+        # warm-up covers the same (t_total, c) buckets as ever; a missing,
+        # broken, foreign or other-card cache leaves the values above.
+        if autotune_cache is not None:
+            from ...ops import autotune as _autotune
+            cache_d = _autotune.load_serve_cache(
+                autotune_cache, _autotune.card_of(engine.device))
+            cfg = None
+            if cache_d is not None:
+                # the shape class of the whole engine: under tp the caches
+                # hold each rank's kv-head shard
+                kvh_all = kvh * self._tp
+                cfg = _autotune.serve_winner(
+                    cache_d, _autotune.serve_shape_class(
+                        kvh_all, num_q // kvh_all, self.block_size,
+                        engine.head_dim,
+                        getattr(engine, "_dtype", "float32")))
+            if cfg is not None:
+                self._pack = max(1, min(int(cfg["pack"]), self.max_batch))
+                self.prefill_chunk = max(1, int(cfg["prefill_chunk"]))
         # host fast path (ISSUE 20): incremental work lists + in-place
         # step inputs. Built AFTER autotune so the builder bakes in the
         # final pack. ON by default — every array it hands the compiled

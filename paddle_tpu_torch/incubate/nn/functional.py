@@ -35,7 +35,9 @@ its cast points:
 Caches are updated IN PLACE; the function returns the output hidden
 states. The TPU work-list arguments of the JAX signature (``ragged_work``,
 ``ragged_pack``, ``kv_buffer_depth``) have no counterpart: the CUDA
-kernel walks the block tables. The options, as the JAX package has them:
+kernel walks the block tables (the knob the port tunes in
+``kv_buffer_depth``'s place is the kernel's page-split waves,
+``ops.autotune``). The options, as the JAX package has them:
 ``pre_caches`` (per layer [2, B, KVH, S_pre, D]) put a prompt prefix's
 keys before the new ones in dense prefill, every new row seeing the whole
 prefix, and the cache fills with prefix + new from position 0;
@@ -212,7 +214,7 @@ def fused_multi_transformer(
         trans_qkvw=True, ring_id=-1, norm_type="layernorm",
         use_neox_rotary_style=False, gqa_group_size=-1, name=None,
         block_tables=None, chunk_lens=None, _dequant=None, _mm=None,
-        _tp_reduce=None):
+        _tp_reduce=None, _split_waves=None):
     """Whole-decoder-stack fused transformer: [LN -> QKV proj (+rope) ->
     cached attention -> out proj + residual -> LN -> FFN -> residual] x
     n_layers, one call for every layer.
@@ -237,7 +239,9 @@ def fused_multi_transformer(
     kind, li)`` maps a stored weight to its float form; ``_tp_reduce(t)``
     sums the out-projection's and ffn2's partial products over the
     tensor-parallel ranks (before their biases) when the weights are one
-    rank's shard.
+    rank's shard. ``_split_waves`` is the paged attention kernel's split
+    knob (None: its rule), which the serving engine resolves once from
+    its autotune cache.
 
     Returns the output hidden states [B, S, E]; caches are updated in
     place."""
@@ -381,7 +385,8 @@ def fused_multi_transformer(
                 else q[:, 0].contiguous()
             ctx = _pa.ragged_paged_attention(
                 qa, cache[0], cache[1], paged["tables"], paged["attn_lens"],
-                scale=scale, q_lens=paged["q_lens"])
+                scale=scale, q_lens=paged["q_lens"],
+                split_waves=_split_waves)
             if chunk_lens is None:
                 ctx = ctx[:, None]
             ctx = ctx.to(x.dtype)                     # [B, S, H, D]

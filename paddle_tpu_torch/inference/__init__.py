@@ -55,7 +55,7 @@ from ..observability import costs as _costs
 from ..observability import instrument as _instrument
 from ..observability import tracing as _tracing
 from ..ops import paged_attention as _pa
-from ..ops.quant_matmul import (kernel_block_n, pack_int4_values,
+from ..ops.quant_matmul import (kernel_block_n, m_class, pack_int4_values,
                                 pick_block_n, quantize_int4_values,
                                 weight_only_matmul)
 from . import tp_worker as _tpw
@@ -221,8 +221,18 @@ class FusedMultiTransformerEngine:
     `dtype` and moved to `device` at construction.
 
     `device` defaults to "cuda" and raises without a GPU; pass
-    device="cpu" for the plain path. ``autotune_cache`` belongs to a
-    later slice.
+    device="cpu" for the plain path.
+
+    ``autotune_cache`` (a path or a dict, ``ops.autotune``'s serve cache)
+    is read once, here: the winner of this engine's shape class gives the
+    paged attention kernel's ``split_waves``, and under ``weight_quant``
+    the cache's ``wo_gemm`` table gives the weight-only GEMM's plan knobs
+    per (class of M, K, N) (``ops.quant_matmul.m_class``: a step's M is
+    its batch rows times the slab width, so it changes from step to
+    step); both are closed into the steps, and a GEMM call looks its
+    class up in a dict. A missing, broken, foreign (the JAX package's schema)
+    or other-card cache leaves the defaults (``split_waves`` None, the
+    rule). The JAX engine's ``kv_buffer_depth`` has no counterpart.
 
     ``tp > 1`` needs ``group``: a ``torch.distributed`` process group of
     `tp` ranks (``distributed.collective.new_group``, or any group whose
@@ -246,14 +256,14 @@ class FusedMultiTransformerEngine:
             # every mesh-aware surface (healthz mesh.tp, per-device
             # gauges) downstream
             raise ValueError(f"tp must be >= 1, got {tp}")
-        if autotune_cache is not None:
-            raise NotImplementedError("autotune_cache is a later slice")
         if weight_quant not in (None, "int4", "int8"):
             raise ValueError(f"weight_quant must be None/int4/int8, got "
                              f"{weight_quant!r}")
         self.device = resolve_device(device)
         self._tdtype = _torch_dtype(dtype)
         self._dtype = str(self._tdtype).replace("torch.", "")
+        self._resolve_autotune(autotune_cache, num_heads, head_dim,
+                               gqa_group_size, weight_quant)
         # under tp the full weights stay on the host until each rank's
         # shard is cut from them
         stage = torch.device("cpu") if self.tp > 1 else self.device
@@ -275,7 +285,8 @@ class FusedMultiTransformerEngine:
             else 0
         self._kw = dict(norm_type=norm_type, activation=activation,
                         use_neox_rotary_style=use_neox_rotary_style,
-                        gqa_group_size=gqa_group_size)
+                        gqa_group_size=gqa_group_size,
+                        _split_waves=self.split_waves)
         self.group = group
         self.rank = 0
         kvh_n = self._kv_heads()
@@ -358,6 +369,26 @@ class FusedMultiTransformerEngine:
         self._paged_rewind = _dispatch_span("paged_rewind", rewind)
         self._paged_copy = _dispatch_span("paged_copy", copy)
 
+    def _resolve_autotune(self, autotune_cache, num_heads, head_dim, gqa,
+                          weight_quant):
+        """The serving autotuner's winners for this engine, once (class
+        docstring): ``split_waves`` and ``_wo_plans`` {(M class, K, N):
+        (bn, waves)}."""
+        from ..ops import autotune as _autotune
+        self._autotune_cache = None if autotune_cache is None \
+            else _autotune.load_serve_cache(autotune_cache,
+                                            _autotune.card_of(self.device))
+        cfg = None
+        if self._autotune_cache:
+            kvh = gqa if gqa and gqa > 0 else num_heads
+            cfg = _autotune.serve_winner_for_engine(
+                self._autotune_cache, kvh, num_heads // kvh, head_dim,
+                self._dtype)
+        self.split_waves = int(cfg["split_waves"]) if cfg else None
+        self._wo_plans = _autotune.wo_gemm_plans(
+            self._autotune_cache, weight_quant, self._dtype) \
+            if weight_quant else {}
+
     # -- weight-only quantization -----------------------------------------
     @staticmethod
     def _matrix(kind, a):
@@ -424,6 +455,7 @@ class FusedMultiTransformerEngine:
             self._w[key] = packed_l
             scales[kind] = sc_l
         dtype = self._tdtype
+        plans = self._wo_plans
 
         def mm(z2d, w, kind, li):
             if not kernel:
@@ -431,9 +463,13 @@ class FusedMultiTransformerEngine:
                     if quant == "int4" else w
                 full = (full.float() * scales[kind][li]).to(dtype)
                 return torch.matmul(z2d.to(dtype), self._matrix(kind, full))
+            bn, waves = plans.get((m_class(z2d.shape[0]), z2d.shape[1],
+                                   scales[kind][li].shape[0]), (None, None)) \
+                if plans else (None, None)
             return weight_only_matmul(z2d.to(dtype).contiguous(), w,
                                       scales[kind][li], quant=quant,
-                                      block_n=blocks[kind], out_dtype=dtype)
+                                      block_n=blocks[kind], out_dtype=dtype,
+                                      bn=bn, waves=waves)
 
         mm.qkv_out = qkv_out
         mm.blocks = blocks

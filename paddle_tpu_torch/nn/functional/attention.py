@@ -18,11 +18,16 @@ seeded with a seed drawn from the default chain in the forward
 package passes in as an input. Autograd keeps the mask for the backward,
 and activation recompute replays the chain, so a recomputed forward draws
 the same mask. A dropout-free call keeps the flash kernels.
+
+``flash_attention`` (its q, k and v; the rope tables stay f32) and
+``scaled_dot_product_attention`` are named entries of the amp hook
+(``amp._hook.amp_op``).
 """
 import math
 
 import torch
 
+from ...amp._hook import amp_op
 from ...core import random as _random
 from ...ops import flash_attention as _fa
 from .rope import apply_rotary_pos_emb
@@ -73,6 +78,7 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, dropout=0.0, seed=None):
     return out.transpose(1, 2)
 
 
+@amp_op("flash_attention", only=("query", "key", "value"))
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None,
                     training=True, rope_cos=None, rope_sin=None):
@@ -95,6 +101,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                      dropout=dropout if drop else 0.0, seed=seed), None
 
 
+@amp_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):

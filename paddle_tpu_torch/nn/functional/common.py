@@ -1,9 +1,13 @@
 """Common functionals for the PyTorch port (counterpart of
 ``paddle_tpu/nn/functional/common.py``). Only what the Llama model
-calls."""
+calls. ``linear`` and ``embedding`` are named entries of the amp hook
+(``amp._hook.amp_op``)."""
 import torch
 
+from ...amp._hook import amp_op
 
+
+@amp_op("linear")
 def linear(x, weight):
     """paddle convention: weight is [in_features, out_features], so this
     is ``x @ weight``. Mixed dtypes promote as in the JAX package (a bf16
@@ -13,6 +17,7 @@ def linear(x, weight):
     return torch.matmul(x.to(dtype), weight.to(dtype))
 
 
+@amp_op("embedding")
 def embedding(x, weight):
     """Rows of ``weight`` [V, E] at the ids ``x``, as the JAX package's
     ``jnp.take`` (fill mode) gathers them: an id in [-V, V) reads its row,

@@ -8,8 +8,12 @@ kernel (``ops.token_ce``: the CUDA kernels on the card, their plain
 versions on the CPU), which never forms an [N, V] f32 tensor. Soft
 labels, class weights, another axis and ``use_softmax=False`` are plain
 PyTorch, as the JAX package computes them in plain XLA.
+``cross_entropy`` is a named entry of the amp hook (``amp._hook.amp_op``:
+on the black list, so under auto_cast it takes f32 logits).
 """
 import torch
+
+from ...amp._hook import amp_op
 
 from ...ops.token_ce import token_cross_entropy
 
@@ -36,6 +40,7 @@ def _take(x, idx, axis):
     return torch.where(inr, got, torch.full_like(got, float("nan")))
 
 
+@amp_op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):

@@ -4,8 +4,12 @@
 Layout as in the JAX package: [batch, seq, heads, head_dim]. The cos/sin
 tables are computed in float32 and cast to the activation's dtype before
 the rotation, so a bf16 activation rotates in bf16.
+``fused_rotary_position_embedding`` is a named entry of the amp hook
+(``amp._hook.amp_op``).
 """
 import torch
+
+from ...amp._hook import amp_op
 
 __all__ = [
     "rotary_embedding_cos_sin", "apply_rotary_pos_emb",
@@ -53,6 +57,7 @@ def apply_rotary_pos_emb(x, cos, sin, use_neox_rotary_style=True):
     return _rotate(x, cos.to(x.dtype), sin.to(x.dtype), use_neox_rotary_style)
 
 
+@amp_op("fused_rotary_position_embedding")
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,

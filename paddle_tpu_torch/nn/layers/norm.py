@@ -3,7 +3,7 @@
 import torch
 
 from ...core.device import DEFAULT_DEVICE, resolve_device
-from ...ops import fused_norm
+from .. import functional as F
 
 
 class RMSNorm(torch.nn.Module):
@@ -22,6 +22,6 @@ class RMSNorm(torch.nn.Module):
         """RMSNorm of x, or with ``residual`` of h = x + residual (rounded
         to x's dtype): then (out, h), the add handed to the norm's kernel
         (the JAX layer's ``residual + hidden_states`` before the next
-        norm). The scale is cast to the activation's dtype either way."""
-        return fused_norm.rms_norm(x, self.weight, self.epsilon,
-                                   residual=residual)
+        norm). The scale is cast to the activation's dtype either way.
+        Through ``F.rms_norm``, the amp hook's named entry."""
+        return F.rms_norm(x, self.weight, self.epsilon, residual=residual)

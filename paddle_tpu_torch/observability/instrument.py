@@ -485,7 +485,7 @@ def train_host_seconds():
              "(optimizer bookkeeping, logging, sharding the batch)")
 
 
-# -- kernel autotuning (ops/pallas/autotune.py) --------------------------
+# -- kernel autotuning (ops/autotune.py) ---------------------------------
 
 def autotune_trials():
     # the kernel label is the family prefix of the tune key (flash_bshd,
@@ -516,7 +516,7 @@ def autotune_winner():
     return get_registry().gauge(
         "autotune_winner_config",
         help="last swept winner's tunable values, one child per "
-             "(kernel, param): pack / prefill_chunk / buffer_depth",
+             "(kernel, param): pack / prefill_chunk / split_waves",
         labels=("kernel", "param"))
 
 

@@ -578,15 +578,20 @@ PLAN_KEYS = ("route", "splits", "pages_per_split", "tiles", "blocks",
              "workspace_bytes")
 
 
-def split_pages(unsplit, max_nb, sms):
+def split_pages(unsplit, max_nb, sms, waves=None):
     """(splits S, pages per split P) of a page walk of ``max_nb`` pages
     whose unsplit grid has ``unsplit`` blocks, on a card of ``sms`` SMs:
     one split (P = max_nb) when the unsplit grid already covers the SMs
-    ``SPLIT_WAVES`` times; else P is the largest power of two that lets
-    the grid reach that many waves, at least ceil(max_nb / MAX_SPLITS),
-    and S = ceil(max_nb / P). The rule of both paged-attention plans."""
+    ``waves`` times (None: ``SPLIT_WAVES``, the rule); else P is the
+    largest power of two that lets the grid reach that many waves, at
+    least ceil(max_nb / MAX_SPLITS), and S = ceil(max_nb / P). The rule of
+    both paged-attention plans; ``waves`` is the knob the serving
+    autotuner sweeps (``ops.autotune``)."""
     max_nb = max(int(max_nb), 1)
-    target = SPLIT_WAVES * int(sms)
+    waves = SPLIT_WAVES if waves is None else int(waves)
+    if waves < 1:
+        raise ValueError(f"split waves must be >= 1, got {waves}")
+    target = waves * int(sms)
     pps = max_nb
     if 0 < unsplit < target:
         fit = max(1, max_nb // -(-target // unsplit))
@@ -596,7 +601,7 @@ def split_pages(unsplit, max_nb, sms):
 
 
 def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
-                sms=None):
+                sms=None, waves=None):
     """The kernel's launch plan for q [B, C, H, D] against caches of block
     size ``bs`` and tables of ``max_nb`` columns, from shapes alone (never
     from the lengths on the device, so a CUDA graph could capture the
@@ -605,7 +610,8 @@ def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
     * ``tiles``: row tiles of 64 per (kv head, sequence): ceil(C*G / 64);
     * ``splits`` S and ``pages_per_split`` P: the page walk cut into S
       pieces of P pages by ``split_pages`` over the unsplit grid of
-      B x KVH x tiles blocks (two waves, 32 splits at most);
+      B x KVH x tiles blocks (``waves`` waves, None for the rule's two;
+      32 splits at most);
     * ``blocks``: S x B x KVH x tiles;
     * ``workspace_bytes``: the f32 partials of a split plan, S x B x KVH x
       tiles x min(64, C*G) x (D + 2) x 4 (0 at one split);
@@ -620,7 +626,7 @@ def ragged_plan(b, c, h, kvh, max_nb, bs, d, dtype=torch.bfloat16,
     span = c * g
     tiles = -(-span // ROW_TILE)
     unsplit = b * kvh * tiles
-    splits, pps = split_pages(unsplit, max_nb, sms)
+    splits, pps = split_pages(unsplit, max_nb, sms, waves)
     route = "mma" if dtype in (torch.bfloat16, torch.float16) \
         and span >= MMA_MIN_ROWS else "decode"
     ws = splits * unsplit * min(ROW_TILE, span) * (d + 2) * 4 \
@@ -694,7 +700,7 @@ def ragged_split_plain(q, k_cache, v_cache, block_tables, context_lens,
 
 
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
-                           scale=None, q_lens=None):
+                           scale=None, q_lens=None, split_waves=None):
     """Mixed decode/prefill attention over a paged KV cache.
 
     q:            [B, H, D] (one query per sequence) or [B, C, H, D] (a
@@ -711,7 +717,9 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
 
     A CPU tensor runs ``ragged_paged_attention_plain``. A CUDA tensor
     launches the kernel of ``csrc/ragged_paged_attention.cu`` once, with
-    the plan of ``ragged_plan`` (counted in
+    the plan of ``ragged_plan`` with ``split_waves`` (None: the rule's
+    waves; an int from the serving autotuner's cache, which the engine
+    resolves once) (counted in
     ``ragged_paged_attention.launches``, the plan's route in
     ``ragged_paged_attention.route``), or raises. A split plan takes its
     f32 workspace from ``torch.empty`` and its counters from a zeroed
@@ -767,7 +775,7 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     plan = ragged_plan(b, c, h, kvh, tables.shape[1], bs, d, q.dtype,
-                       _sms(q.device))
+                       _sms(q.device), split_waves)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = counters = None
     if plan["splits"] > 1:
@@ -892,7 +900,8 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens,
 DECODE_PLAN_KEYS = ("splits", "pages_per_split", "blocks", "workspace_bytes")
 
 
-def decode_plan(b, h, kvh, max_nb, bs, d, dtype=torch.bfloat16, sms=None):
+def decode_plan(b, h, kvh, max_nb, bs, d, dtype=torch.bfloat16, sms=None,
+                waves=None):
     """The decode kernel's launch plan for q [B, H, D] against caches of
     block size ``bs`` and tables of ``max_nb`` columns, from shapes alone
     (never from the lengths on the device, so a CUDA graph could capture
@@ -901,7 +910,8 @@ def decode_plan(b, h, kvh, max_nb, bs, d, dtype=torch.bfloat16, sms=None):
 
     * ``splits`` S and ``pages_per_split`` P: ``split_pages`` over the
       unsplit grid of B x KVH blocks, the ragged kernel's rule (B=8,
-      KVH=8, 32 pages: 8 splits of 4 pages);
+      KVH=8, 32 pages: 8 splits of 4 pages), at ``waves`` waves (None:
+      the rule's);
     * ``blocks``: S x B x KVH;
     * ``workspace_bytes``: the f32 partials of a split plan,
       S x B x H x (D + 2) x 4 (0 at one split).
@@ -911,7 +921,7 @@ def decode_plan(b, h, kvh, max_nb, bs, d, dtype=torch.bfloat16, sms=None):
     if sms is None:
         sms = _sms(torch.device("cuda", torch.cuda.current_device()))
     unsplit = b * kvh
-    splits, pps = split_pages(unsplit, max_nb, sms)
+    splits, pps = split_pages(unsplit, max_nb, sms, waves)
     ws = splits * b * h * (d + 2) * 4 if splits > 1 else 0
     return dict(zip(DECODE_PLAN_KEYS, (splits, pps, splits * unsplit, ws)))
 
@@ -934,7 +944,7 @@ def paged_attention_split_plain(q, k_cache, v_cache, block_tables,
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
-                    scale=None):
+                    scale=None, split_waves=None):
     """Decode-step attention over a paged KV cache.
 
     q:            [B, H, D] one query token per sequence; query heads
@@ -948,8 +958,8 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
 
     A CPU tensor runs ``paged_attention_plain``. A CUDA tensor launches
     the kernel of ``csrc/paged_decode_attention.cu`` once, with the plan
-    of ``decode_plan`` (counted in ``paged_attention.launches``), or
-    raises. A split plan takes its f32 workspace from ``torch.empty`` and
+    of ``decode_plan`` at ``split_waves`` (None: the rule's) (counted in
+    ``paged_attention.launches``), or raises. A split plan takes its f32 workspace from ``torch.empty`` and
     its counters from the zeroed buffer kept per card and stream, which
     the kernel leaves zeroed. Nothing here reads the lengths back to the
     host."""
@@ -997,7 +1007,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     plan = decode_plan(b, h, kvh, tables.shape[1], bs, d, q.dtype,
-                       _sms(q.device))
+                       _sms(q.device), split_waves)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = counters = None
     if plan["splits"] > 1:

@@ -17,7 +17,11 @@ with its own launch count) and runs the plain
 ``weight_only_matmul_plain`` for a CPU tensor. bf16 / fp16 activations
 take the tensor-core body, whose plan (``plan``: tile, K splits, blocks,
 workspace) the kernel's source chooses from the shape and the card's SM
-count; f32 takes the CUDA-core body.
+count; f32 takes the CUDA-core body. The plan's two knobs, the column
+tile ``bn`` (64 or 128) and the ``waves`` of SMs a K split aims to cover,
+are launch arguments: None (0 in C) keeps each one's rule, an int from
+the serving autotuner (``ops.autotune.sweep_wo_gemm``) overrides it.
+``make_plan`` is the C rule written again in Python, for the tests.
 """
 import ctypes
 import functools
@@ -134,7 +138,8 @@ def weight_only_matmul_plain(x, w_packed, scales, quant="int4",
 
 
 def weight_only_matmul(x, w_packed, scales, quant="int4",
-                       block_n=DEFAULT_BLOCK_N, out_dtype=None):
+                       block_n=DEFAULT_BLOCK_N, out_dtype=None, bn=None,
+                       waves=None):
     """x @ dequant(w_packed) * scales, the quantized weights never expanded
     to float in device memory. A CPU tensor runs the plain version; a CUDA
     tensor launches the int4 kernel (counted in
@@ -144,7 +149,9 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     equal to the output dtype, float32 scales [N], and ``block_n`` a
     multiple of 128 dividing N, with w 16-byte aligned. A bf16 / fp16
     call whose plan splits K gets its f32 workspace from ``torch.empty``;
-    it is still one kernel launch."""
+    it is still one kernel launch. ``bn`` / ``waves`` set the plan's knobs
+    (None: the rule's; module docstring); the CPU's plain version has no
+    plan and ignores them."""
     dev = x.device
     if dev.type == "cpu":
         return weight_only_matmul_plain(x, w_packed, scales, quant=quant,
@@ -183,13 +190,14 @@ def weight_only_matmul(x, w_packed, scales, quant="int4",
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    ws_bytes, sms = _workspace(m, k, n, code, dev.index)
+    bn, waves = _knobs(bn, waves)
+    ws_bytes, sms = _workspace(m, k, n, code, dev.index, bn, waves)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) \
         if ws_bytes else None
     rc = _launcher(quant)(code, x.data_ptr(), w_packed.data_ptr(),
                           scales.data_ptr(), out.data_ptr(), m, k, n,
                           int(block_n), None if ws is None else ws.data_ptr(),
-                          ws_bytes, sms,
+                          ws_bytes, sms, bn, waves,
                           torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"weight_only_matmul: {quant} kernel launch "
@@ -211,15 +219,77 @@ weight_only_matmul.int8_launches = 0    # int8 kernel launches
 PLAN_KEYS = ("bm", "bn", "splits", "blocks", "workspace_bytes")
 
 
-def plan(m, k, n, dtype=torch.bfloat16, device=None):
+TC_BK = 64              # the tensor-core body's K rows a stage
+SLICE_MIN = 128         # shallowest K slice of a split
+TC_WAVES = 2            # the waves knob's rule
+KNOB_BN = (64, 128)     # the column tiles the body is built for
+
+
+def _knobs(bn, waves):
+    """(bn, waves) as the C entry points take them: 0 for the rule."""
+    bn = 0 if bn is None else int(bn)
+    waves = 0 if waves is None else int(waves)
+    if bn not in (0,) + KNOB_BN or not 0 <= waves <= 64:
+        raise ValueError(f"weight_only_matmul: bn {bn} must be 64 or 128 "
+                         f"and waves {waves} in 1..64 (None: the rule)")
+    return bn, waves
+
+
+def plan(m, k, n, dtype=torch.bfloat16, device=None, bn=None, waves=None):
     """The kernel's launch plan (the same for int8 and int4) for x [M, K]
     of ``dtype`` against a weight of N columns on the card, from
     ``csrc/weight_only_matmul.cu``: rows ``bm`` and columns ``bn`` of a
     block's tile, K ``splits``, ``blocks`` in the grid and the
-    ``workspace_bytes`` the wrapper allocates (0 at one split)."""
+    ``workspace_bytes`` the wrapper allocates (0 at one split), with the
+    knobs ``bn`` / ``waves`` (None: the rule's)."""
     device = torch.device("cuda") if device is None else torch.device(device)
     return dict(zip(PLAN_KEYS, _plan(int(m), int(k), int(n),
-                                     _DTYPE_CODE[dtype], _sms(device))))
+                                     _DTYPE_CODE[dtype], _sms(device),
+                                     *_knobs(bn, waves))))
+
+
+def m_class(m):
+    """The class of M that a tuned plan serves: the rule's row tile (16
+    rows at M <= 16, else 64) and the count of row tiles rounded up to a
+    power of two, as the class's largest M (16, 64, 128, 256, ...). Two
+    M of a class run the same tile and a grid at most twice as tall, so
+    one (bn, waves) setting stands for all of them; a serving step's M
+    (its batch rows times the slab width) changes from step to step."""
+    m = int(m)
+    if m <= 16:
+        return 16
+    tiles = -(-m // 64)
+    return 64 * (1 << (tiles - 1).bit_length())
+
+
+def make_plan(m, k, n, dtype, sms, bn=None, waves=None):
+    """``make_plan`` of ``csrc/weight_only_matmul.cu`` in Python: the plan
+    ``plan`` gives on a card of ``sms`` SMs, as a dict of PLAN_KEYS. BM 16
+    at M <= 16, else 64; BN 128 for f32, else ``bn`` or the rule (64 when
+    the grid of 128-wide tiles leaves SMs idle); where the unsplit grid
+    of bf16 / fp16 tiles is under one wave, K splits into the count
+    nearest ``waves`` waves (the rule's 2), at most K / 128, in slices of
+    whole 64-row stages."""
+    def cdiv(a, b):
+        return -(-a // b)
+    bn, waves = _knobs(bn, waves)
+    m, k, n = int(m), int(k), int(n)
+    code = _DTYPE_CODE[dtype]
+    bm = 16 if m <= 16 else 64
+    if code == 0:
+        bn, waves = 128, TC_WAVES
+    else:
+        bn = bn or (64 if cdiv(m, bm) * (n // 128) < sms else 128)
+        waves = waves or TC_WAVES
+    tiles = cdiv(m, bm) * (n // bn)
+    nsplit = 1
+    if code != 0 and tiles < sms:
+        s = min((waves * sms + tiles // 2) // tiles, k // SLICE_MIN)
+        if s > 1:
+            ks = max(cdiv(cdiv(k, s), TC_BK) * TC_BK, SLICE_MIN)
+            nsplit = cdiv(k, ks)
+    ws = nsplit * m * n * 4 + tiles * 4 if nsplit > 1 else 0
+    return dict(zip(PLAN_KEYS, (bm, bn, nsplit, tiles * nsplit, ws)))
 
 
 @functools.cache
@@ -228,19 +298,19 @@ def _sms(device):
 
 
 @functools.lru_cache(maxsize=1024)
-def _workspace(m, k, n, code, index):
+def _workspace(m, k, n, code, index, bn=0, waves=0):
     """(workspace bytes of the plan, SM count) on card ``index``."""
     sms = _sms(torch.device("cuda", index))
-    return _plan(m, k, n, code, sms)[4], sms
+    return _plan(m, k, n, code, sms, bn, waves)[4], sms
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(m, k, n, code, sms):
+def _plan(m, k, n, code, sms, bn=0, waves=0):
     out = (ctypes.c_longlong * len(PLAN_KEYS))()
-    got = _launcher("plan")(m, k, n, code, sms, out)
+    got = _launcher("plan")(m, k, n, code, sms, bn, waves, out)
     if got != len(PLAN_KEYS):
         raise ValueError(f"weight_only_matmul: no plan for M={m}, K={k}, "
-                         f"N={n}")
+                         f"N={n}, bn={bn}, waves={waves}")
     return tuple(out)
 
 
@@ -253,11 +323,11 @@ def _launcher(which):
     if which == "plan":
         fn = lib.weight_only_plan
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         return fn
     fn = getattr(lib, f"weight_only_{which}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_longlong,
-                                ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_longlong] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fn

@@ -17,9 +17,12 @@ silu in f32, with the eager ops' roundings (``csrc/swiglu.cu``).
 ``swiglu_fwd`` / ``swiglu_bwd`` launch the kernels for CUDA tensors (each
 call counted in ``.launches``) and run ``swiglu_fwd_plain`` /
 ``swiglu_bwd_plain`` for CPU tensors. ``swiglu`` is the public op, a
-``torch.autograd.Function``.
+``torch.autograd.Function``, and a named entry of the amp hook
+(``amp._hook.amp_op``).
 """
 import torch
+
+from ..amp._hook import amp_op
 
 from . import _launch as L
 from . import work as _work
@@ -129,6 +132,7 @@ class SwiGLU(torch.autograd.Function):
         return dg, du
 
 
+@amp_op("swiglu")
 def swiglu(x, y=None):
     """silu(x) * y through kernel B; with y None, x [..., 2 im] is split in
     half on the last axis (gate first). Mixed dtypes promote first."""

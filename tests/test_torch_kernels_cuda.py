@@ -8,7 +8,12 @@ kernel at ctx 0, past the table's capacity and with free-slot ids past
 the last used block, and the fused tier's kernels A-D, A's backward and
 C's forward on every route their plans name, and C's vocab-sharded form
 at shard widths of 1, odd and past one block, with labels on the
-shard's edges and every row ignored.
+shard's edges and every row ignored. The plan knobs the serving
+autotuner sets: K3's and K7's ``split_waves`` at one split, at
+``MAX_SPLITS`` and at one wave on a grid already past it, and K4's
+``bn`` / ``waves`` at an odd count of 128-column tiles and at the
+smallest K, each against its plain version and its plan the Python
+form's.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -411,7 +416,7 @@ def _forced_plan(monkeypatch, pa, splits):
         s = max_nb if splits == "maxnb" else splits
         return -(-max_nb // s)
 
-    def forced(b, h, kvh, max_nb, bs, d, dtype=None, sms=None):
+    def forced(b, h, kvh, max_nb, bs, d, dtype=None, sms=None, waves=None):
         p = pps(max_nb)
         s = -(-max_nb // p)
         return {"splits": s, "pages_per_split": p, "blocks": s * b * kvh,
@@ -1984,3 +1989,120 @@ def test_adamw_optimizer_steps_on_kernel_d():
     assert (kn, cn) == (6, 0)
     for a, b in zip(kp, cp):
         assert _two_ulps(a, b) <= 1
+
+
+# -- the plan knobs of the serving autotuner ----------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,waves,splits", [
+    (64, None, 1, 1),           # a grid already past one wave: no split
+    (64, None, 4, None),        # ... which four waves split
+    (1, None, 4, "max"),        # one sequence: MAX_SPLITS
+    (1, 64, 1, None), (8, 64, 4, None)])
+def test_ragged_kernel_at_each_split_knob(dtype, b, c, waves, splits):
+    """``split_waves`` overrides K3's rule: the plan the knob gives, one
+    launch, the plain version's output; one split writes directly, the
+    most splits (one page each at MAX_SPLITS) combine the most
+    partials."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.ragged_plan(b, 1 if c is None else c, SERVE["h"], SERVE["kvh"],
+                          SERVE["max_nb"], SERVE["bs"], SERVE["d"], dtype,
+                          sms, waves)
+    unsplit = plan["blocks"] // plan["splits"]
+    if splits == 1:
+        assert unsplit >= waves * sms and plan["splits"] == 1, plan
+    elif splits == "max":
+        assert plan["splits"] == min(pa.MAX_SPLITS, SERVE["max_nb"]), plan
+    elif sms == 132:                        # H100 SXM
+        assert plan["splits"] > 1, plan
+    rng = np.random.default_rng(b + waves)
+    lens = rng.integers(0, 600, b)
+    lens[:3] = [512, 1, 0][:b]
+    qls = None if c is None else np.minimum(rng.integers(0, c + 1, b), lens)
+    q, kc, vc, tables, lens_d, qls_d = _serving_case(b, c, lens, qls, dtype,
+                                                     seed=34)
+    before = pa.ragged_paged_attention.launches
+    out = pa.ragged_paged_attention(q, kc, vc, tables, lens_d, q_lens=qls_d,
+                                    split_waves=waves)
+    ref = pa.ragged_paged_attention_plain(q, kc, vc, tables, lens_d,
+                                          q_lens=qls_d)
+    split_ref = pa.ragged_split_plain(q, kc, vc, tables, lens_d,
+                                      plan["splits"],
+                                      plan["pages_per_split"], q_lens=qls_d)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    for r in (ref, split_ref):
+        err = float((out.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,kvh,waves", [(64, 8, 1), (1, 1, 4), (8, 8, 4),
+                                         (8, 2, 1)])
+def test_paged_decode_kernel_at_each_split_knob(dtype, b, kvh, waves):
+    """``split_waves`` overrides K7's rule (the ragged kernel's): one
+    split at B x KVH = 512 blocks and one wave, MAX_SPLITS for one
+    sequence of one kv head, and between; against the plain version and
+    the split arithmetic at the knob's plan."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    h, d, bs, max_nb = 2 * kvh, 64, 16, 32
+    plan = pa.decode_plan(b, h, kvh, max_nb, bs, d, dtype, sms, waves)
+    if b * kvh >= waves * sms:
+        assert plan["splits"] == 1, plan
+    if (b, kvh) == (1, 1):
+        assert plan["splits"] == pa.MAX_SPLITS, plan
+    cap = max_nb * bs
+    lens = ([cap + 7, 0, 1, bs, cap, 2 * bs + 5] * b)[:b]
+    q, kc, vc, tables, lens = _decode_case(b, h, kvh, d, bs, b * max_nb + 8,
+                                           max_nb, lens, dtype, b + waves)
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, kc, vc, tables, lens, split_waves=waves)
+    ref = pa.paged_attention_plain(q, kc, vc, tables, lens)
+    split_ref = pa.paged_attention_split_plain(
+        q, kc, vc, tables, lens, plan["splits"], plan["pages_per_split"])
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    for r in (ref, split_ref):
+        err = float((out.float() - r.float()).abs().max())
+        assert err <= _tol(r, dtype), err
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n,bn,waves", [
+    (8, 1024, 1152, 64, 0),     # 9 tiles of 128 columns: bn 64 gives 18
+    (128, 1024, 1152, 64, 2),
+    (8, 128, 1024, 0, 4),       # the smallest K: one 128-row slice
+    (8, 256, 2048, 128, 4),     # two slices, four waves asked
+    (512, 2816, 1024, 64, 1)])
+def test_gemm_at_each_plan_knob(quant, dtype, m, k, n, bn, waves):
+    """``bn`` / ``waves`` override K4's rule (0: the rule): the C plan is
+    ``make_plan``'s, one launch, the plain version's output, and two calls
+    bit-equal."""
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = qm.plan(m, k, n, dtype, bn=bn or None, waves=waves or None)
+    assert plan == qm.make_plan(m, k, n, dtype, sms, bn or None,
+                                waves or None)
+    if bn:
+        assert plan["bn"] == bn
+    if k == 128:
+        assert plan["splits"] == 1, plan
+    block_n = 384 if n == 1152 else 512
+    x, w, sc = _gemm_inputs(quant, m, k, n, block_n, dtype, m + k + n)
+    counter = "launches" if quant == "int4" else "int8_launches"
+    before = getattr(qm.weight_only_matmul, counter)
+    a = qm.weight_only_matmul(x, w, sc, quant, block_n, bn=bn or None,
+                              waves=waves or None)
+    again = qm.weight_only_matmul(x, w, sc, quant, block_n, bn=bn or None,
+                                  waves=waves or None)
+    ref = qm.weight_only_matmul_plain(x, w, sc, quant, block_n)
+    torch.cuda.synchronize()
+    assert getattr(qm.weight_only_matmul, counter) == before + 2
+    assert torch.equal(a, again)
+    assert float((a.float() - ref.float()).abs().max()) <= _tol(ref, dtype)
+    with pytest.raises(ValueError, match="bn"):
+        qm.weight_only_matmul(x, w, sc, quant, block_n, bn=96)
+

@@ -177,12 +177,14 @@ def test_later_slice_engine_options_raise():
     # this engine's one kv head does not split over two ranks
     with pytest.raises(ValueError, match="kv_heads .1. divisible by tp"):
         FusedMultiTransformerEngine(_tiny_weights(), tp=2, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        FusedMultiTransformerEngine(_tiny_weights(), autotune_cache={}, **kw)
-    eng = FusedMultiTransformerEngine(_tiny_weights(), **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousBatchingEngine(eng, num_blocks=4, block_size=4,
-                                 autotune_cache={})
+    # the autotune cache is served now (ops.autotune); a dict without the
+    # port's schema is a broken cache and leaves both at their defaults
+    eng = FusedMultiTransformerEngine(_tiny_weights(), autotune_cache={},
+                                      **kw)
+    assert eng.split_waves is None
+    cb = ContinuousBatchingEngine(eng, num_blocks=4, block_size=4,
+                                  autotune_cache={})
+    assert cb.prefill_chunk == 64
 
 
 def test_chip_smoke_refuses_without_a_gpu():

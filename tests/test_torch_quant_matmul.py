@@ -456,8 +456,9 @@ def _knob_tool():
 
 
 class TestKnobTool:
-    """``tools/wo_gemm_knobs.py`` builds copies of the GEMM's source with
-    its two plan knobs rewritten, and measures only on a card."""
+    """``tools/wo_gemm_knobs.py`` calls the tree's build with the GEMM's
+    two plan knobs as launch arguments (and other builds, such as the
+    parent's, at the rule), and measures only on a card."""
 
     def test_refuses_without_a_card(self):
         import os
@@ -475,20 +476,21 @@ class TestKnobTool:
     @pytest.mark.parametrize("waves,bn", [(1, "auto"), (3, "64"),
                                           (2, "128")])
     def test_rewrites_exactly_the_two_knob_lines(self, waves, bn):
+        """The knobs no longer rewrite the source: ``--set WAVES,BN``
+        becomes exactly the two launch arguments of the tree's build (0
+        keeps a knob's rule), and the source's two rule lines stand as
+        they are."""
         import os
         tool = _knob_tool()
+        got = tool.settings_of([f"{waves},{bn}"], ["parent"])
+        assert got == {"tree": ("tree", 0, 0),
+                       f"w{waves}_bn{bn}": ("tree",
+                                            0 if bn == "auto" else int(bn),
+                                            waves),
+                       "parent": ("parent", 0, 0)}
+        assert not hasattr(tool, "variant_source")
         with open(os.path.join(tool.SRC, "weight_only_matmul.cu")) as f:
-            tree = f.read().splitlines()
-        got = tool.variant_source(waves, bn).splitlines()
-        assert len(got) == len(tree)
-        changed = [(a.strip(), b.strip()) for a, b in zip(tree, got)
-                   if a != b]
-        want = [] if waves == 2 else [
-            ("constexpr int TC_WAVES = 2;      // knob two: a split grid "
-             "covers the SMs this often",
-             f"constexpr int TC_WAVES = {waves};      // knob two: a split "
-             "grid covers the SMs this often")]
-        if bn != "auto":
-            want.append(("return cdiv(M, bm) * (N / 128) < sms ? 64 : 128;",
-                         f"return {bn};"))
-        assert changed == want
+            tree = f.read()
+        assert tree.count("constexpr int TC_WAVES = 2;") == 1
+        assert tree.count("return cdiv(M, bm) * (N / 128) < sms ? 64 : 128;") \
+            == 1

@@ -1,5 +1,5 @@
 """``tools/torch_serve_gates.py`` on the CPU: the port's gateway, replica,
-chaos and tensor-parallel gates reproduce every host-deterministic field
+chaos, tensor-parallel and autotune gates reproduce every host-deterministic field
 of the committed JAX baselines (``tools/serve_{gateway,replica,chaos,
 tp}.json``: tokens, statuses, per-event token widths, routing tables,
 cache counters, per-rank KV bytes, collective payload) and hold every
@@ -40,6 +40,23 @@ def test_tp_gate_reproduces_the_committed_baseline(tps):
         cwd=REPO, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
     assert "tp leg OK [cpu]: tps [%s]" % tps.replace(",", ", ") \
+        in proc.stdout
+    assert "MISMATCH" not in proc.stdout and "REGRESSION" not in proc.stdout
+
+
+def test_autotune_gate_reproduces_the_committed_baseline():
+    """tools/serve_autotune.json's gate.autotune (the JAX package's
+    serve_bench --autotune baseline): the port's model-ranked sweep gives
+    the committed pack / prefill_chunk winners per bucket (split_waves in
+    buffer_depth's place), twice; the tuned scheduler serves the same
+    tokens in the same steps as the untuned one, with zero new buckets
+    after warm-up and cache lookups at construction only."""
+    proc = subprocess.run(
+        [sys.executable, TOOL, "--device", "cpu", "--check",
+         os.path.join("tools", "serve_autotune.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "autotune leg OK [cpu]: winner pack 4 prefill_chunk 8" \
         in proc.stdout
     assert "MISMATCH" not in proc.stdout and "REGRESSION" not in proc.stdout
 

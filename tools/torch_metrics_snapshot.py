@@ -24,9 +24,10 @@ port's form of ``tools/metrics_snapshot.py``).
   and families, and the fleet layer (rank exporter, exact merges, the
   prometheus ingestion, the straggler monitor and its dump). It prints
   ``metrics selfcheck: OK`` or lists its problems, and exits non-zero on
-  any. Not covered until the port has their modules: the kernel-autotune
-  families (ROADMAP Queue 1 item 8). The JAX tool's selfcheck has no
-  section for the comm watchdog's collective telemetry either; the
+  any. The kernel-autotune families are checked as the JAX tool checks
+  them, with ``split_waves`` among the winner gauge's params in
+  ``buffer_depth``'s place. The JAX tool's selfcheck has no
+  section for the comm watchdog's collective telemetry; the
   port's watchdog (``distributed/comm_watchdog.py``) is held by its own
   tests (``tests/test_torch_tp_serving.py``,
   ``tests/test_torch_collective_order.py``).
@@ -876,6 +877,34 @@ def selfcheck():
               for n, lbl, v
               in parsedR["routed_requests_total"]["samples"]),
           "parse_prometheus lost the routed-requests counter")
+
+    # kernel-autotune families: sweep accounting and the winner-config
+    # gauges export under their bounded label sets (kernel names are code
+    # literals; `param` is the port's fixed 3-tuple, split_waves in
+    # buffer_depth's place)
+    inst.autotune_trials().labels(kernel="ragged_paged_attention").inc(9)
+    inst.autotune_cache_hits().inc(2)
+    inst.autotune_cache_misses().inc()
+    for param, val in (("pack", 4), ("prefill_chunk", 8),
+                       ("split_waves", 2)):
+        inst.autotune_winner().labels(
+            kernel="ragged_paged_attention", param=param).set(val)  # graftlint: disable=GL112 - fixed 3-element literal label set
+    promA = obs.to_prometheus()
+    for needle in (
+            'autotune_trials_total{kernel="ragged_paged_attention"} 9',
+            "autotune_cache_hits_total 2",
+            "autotune_cache_misses_total 1",
+            "# TYPE autotune_winner_config gauge",
+            'autotune_winner_config{kernel="ragged_paged_attention"'
+            ',param="split_waves"} 2'):
+        check(needle in promA,
+              f"autotune family missing from exposition: {needle!r}")
+    parsedA = obs.parse_prometheus(promA)
+    check(any(n == "autotune_winner_config" and v == 8
+              and lbl.get("param") == "prefill_chunk"
+              for n, lbl, v
+              in parsedA["autotune_winner_config"]["samples"]),
+          "parse_prometheus lost the autotune winner gauge")
 
     # fleet layer: per-rank mirroring through RankExporter
     # (atomic snapshot files + manifest, seq adoption), merge math

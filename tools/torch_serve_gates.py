@@ -33,7 +33,18 @@ schemas, driven from the configs of the committed baselines
   token-exact against tp=1, per-rank KV high-water bytes exactly 1/tp,
   the collective payload and zero new buckets after warmup. It runs on
   the CPU (8 q / 8 kv heads of 8 dims, below the card's attention
-  kernel; chip_smoke.py's phase 25 serves tp on the card).
+  kernel; chip_smoke.py's phase 25 serves tp on the card);
+* **autotune** — the serving autotuner (``tools/serve_autotune.json``'s
+  ``gate.autotune``, the JAX package's ``serve_bench.py --autotune``
+  baseline): the model-ranked sweep of ``ops.autotune`` over the tiny
+  engine's decode and chunk-8 buckets gives the committed pack /
+  prefill_chunk winners (``split_waves``, the port's knob, in
+  ``buffer_depth``'s place), twice; the scheduler built from the cache
+  serves the workload's tokens in the untuned run's steps, with zero new
+  buckets after warm-up and the cache counters moved at construction
+  only. On the card the engine's head dim is 32, so the shape class is
+  another and only these invariants hold (phase 29 of chip_smoke.py
+  sweeps on the card).
 
 The engine is the tiny serving engine of ``tools/serve_bench.py``
 (V=128, E=64, 4 q / 2 kv heads, L=2, f32) built from the same numpy
@@ -52,6 +63,8 @@ Usage:
       --check tools/serve_gateway.json
   python tools/torch_serve_gates.py --device cpu \
       --check tools/serve_tp.json
+  python tools/torch_serve_gates.py --device cpu \
+      --check tools/serve_autotune.json
 """
 import argparse
 import asyncio
@@ -69,7 +82,8 @@ sys.path.insert(0, REPO)
 BASELINES = {"gateway": "tools/serve_gateway.json",
              "replica": "tools/serve_replica.json",
              "chaos": "tools/serve_chaos.json",
-             "tp": "tools/serve_tp.json"}
+             "tp": "tools/serve_tp.json",
+             "autotune": "tools/serve_autotune.json"}
 SCHEMAS = {"gateway": "paddle_tpu.serve_gateway/1",
            "replica": "paddle_tpu.serve_replica/1",
            "chaos": "paddle_tpu.serve_chaos/1"}
@@ -106,10 +120,10 @@ def tiny_weights(rng, dims):
         embedding=mk(V, E), lm_head=mk(E, V))
 
 
-def tiny_engine(rng, max_seq_len, device):
+def tiny_engine(rng, max_seq_len, device, autotune_cache=None):
     """(the port's f32 engine on `device`, vocab). Takes the caller's rng
     so the weight draws stay at the head of its stream, as in
-    tools/serve_bench.py."""
+    tools/serve_bench.py; ``autotune_cache`` passes through."""
     from paddle_tpu_torch.inference import (FusedMultiTransformerEngine,
                                             engine_weights_from_numpy)
 
@@ -120,7 +134,7 @@ def tiny_engine(rng, max_seq_len, device):
                                   "float32"),
         num_heads=H, head_dim=D, max_seq_len=max_seq_len, dtype="float32",
         norm_type="rmsnorm", activation="swiglu", gqa_group_size=G,
-        device=device)
+        autotune_cache=autotune_cache, device=device)
     return eng, V
 
 
@@ -1427,6 +1441,191 @@ def check_tp(base, device):
     return bad
 
 
+# -- the serving autotuner ----------------------------------------------------
+
+AUTOTUNE_WORKLOAD = [(5, 3), (11, 4), (3, 5), (8, 2)]
+# the baseline's knobs that the port has; JAX's buffer_depth (the Pallas
+# DMA depth) has no counterpart, and the port reports split_waves instead
+AUTOTUNE_KNOBS = ("pack", "prefill_chunk")
+AUTOTUNE_KEYS = ("shape_class", "winner", "buckets", "deterministic",
+                 "workload", "tokens", "steps_default", "steps_tuned",
+                 "token_exact_tuned_vs_default", "default_config",
+                 "tuned_config", "new_buckets_after_warmup_tuned")
+# the bucket fields both caches carry with the same meaning
+AUTOTUNE_BUCKET_FIELDS = AUTOTUNE_KNOBS + ("intensity", "measured",
+                                          "suspect", "trials")
+
+
+def _autotune_sweep(at, dims):
+    """tools/serve_bench.py's committed sweep, model-ranked: the tiny
+    engine's shape class (kvh=2, g=2, block=8, its head dim, f32) over its
+    two occupancy buckets, the decode bucket at the workload's post-prefill
+    lengths and the chunk-8 prefill bucket."""
+    _, _, H, G, D, _, _ = dims
+    lens = [p + n for p, n in AUTOTUNE_WORKLOAD]
+    cache = None
+    for chunk in (None, 8):
+        cache = at.sweep_ragged_serve(G, H // G, D, 8, lens, chunk=chunk,
+                                      measure=False, cache=cache)
+    return cache
+
+
+def autotune_leg(config, device):
+    """The serving autotuner end to end (tools/serve_bench.py's
+    ``autotune_leg``): sweep (pack, prefill_chunk, split_waves) per
+    occupancy bucket by the analytic model, twice (the same winners), and
+    drive the same continuous-batching workload untuned and tuned from
+    the cache: tokens equal, zero new step buckets after warm-up, and the
+    cache counters moved by construction alone."""
+    import numpy as np
+
+    from paddle_tpu_torch.incubate.nn import (ContinuousBatchingEngine,
+                                              GenerationRequest)
+    from paddle_tpu_torch.observability import instrument
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops.paged_attention import SPLIT_WAVES
+
+    dims = TINY_DIMS if device == "cpu" else CARD_DIMS
+    V, _, H, G, D, _, _ = dims
+    workload = [tuple(t) for t in config.get("workload", AUTOTUNE_WORKLOAD)]
+    cache = _autotune_sweep(at, dims)
+    deterministic = _autotune_sweep(at, dims) == cache
+    shape_cls = at.serve_shape_class(G, H // G, 8, D, "float32")
+
+    def counters():
+        return (instrument.autotune_cache_hits().value,
+                instrument.autotune_cache_misses().value)
+
+    def drive(tune):
+        rng = np.random.default_rng(0)
+        c0 = counters()
+        eng, _ = tiny_engine(rng, 64, device, autotune_cache=tune)
+        cb = ContinuousBatchingEngine(eng, num_blocks=24, block_size=8,
+                                      max_batch=4, autotune_cache=tune)
+        built = counters()
+
+        def submit():
+            prng = np.random.default_rng(7)
+            reqs = [GenerationRequest(
+                prng.integers(1, V, p).astype(np.int32), n)
+                for p, n in workload]
+            for r in reqs:
+                cb.submit(r)
+            return reqs
+        reqs = submit()
+        out = cb.run()
+        toks = [list(map(int, out[r.request_id])) for r in reqs]
+        steps = cb._step_count
+        warm = set(cb._seen_buckets)
+        submit()                     # the same workload again: warm replay
+        cb.run()
+        return {
+            "tokens": toks, "steps": steps,
+            "new_buckets": len(set(cb._seen_buckets) - warm),
+            "config": {"pack": cb._pack, "prefill_chunk": cb.prefill_chunk,
+                       "split_waves": eng.split_waves or SPLIT_WAVES},
+            "lookups_at_construction": [b - a for a, b in zip(c0, built)],
+            "lookups_while_serving": [b - a for a, b in
+                                      zip(built, counters())],
+        }
+
+    default = drive(None)
+    tuned = drive(cache)
+    ntok = sum(n for _, n in workload)
+    sec = cache["shapes"][shape_cls]
+    out = {
+        "interpret": False,
+        "shape_class": shape_cls,
+        "winner": dict(sec["winner"]),
+        "buckets": {k: {p: b[p] for p in AUTOTUNE_KNOBS + ("split_waves",)}
+                    for k, b in sec["buckets"].items()},
+        "deterministic": deterministic,
+        "workload": [list(t) for t in workload],
+        "tokens": ntok,
+        "steps_default": default["steps"],
+        "steps_tuned": tuned["steps"],
+        "steps_per_token_default": round(default["steps"] / ntok, 4),
+        "steps_per_token_tuned": round(tuned["steps"] / ntok, 4),
+        "token_exact_tuned_vs_default": tuned["tokens"] == default["tokens"],
+        "default_config": default["config"],
+        "tuned_config": tuned["config"],
+        "new_buckets_after_warmup_tuned": tuned["new_buckets"],
+        "cache_lookups": {"default": default["lookups_at_construction"],
+                          "tuned": tuned["lookups_at_construction"],
+                          "while_serving": [default["lookups_while_serving"],
+                                            tuned["lookups_while_serving"]]},
+        "cache": cache,
+    }
+    print(f"autotune[{shape_cls}]: winner {out['winner']}, "
+          f"{out['steps_tuned']} tuned vs {out['steps_default']} default "
+          f"steps for {ntok} tokens; {out['new_buckets_after_warmup_tuned']} "
+          f"new buckets after warmup; deterministic={deterministic}; cache "
+          f"hits/misses at construction {out['cache_lookups']}")
+    return out
+
+
+def _knobs_of(d):
+    return {k: d[k] for k in AUTOTUNE_KNOBS}
+
+
+def check_autotune(base, device):
+    """The autotune gate (tools/serve_bench.py's ``check_autotune``): on
+    the CPU every key of the baseline's ``gate.autotune`` over
+    AUTOTUNE_KEYS, the winner / bucket / config dicts on the knobs the port
+    has (AUTOTUNE_KNOBS; ``split_waves`` is printed in ``buffer_depth``'s
+    place), and the sweep's buckets against the committed ``shapes``
+    section on AUTOTUNE_BUCKET_FIELDS; on both devices tokens exact,
+    deterministic winners, zero new buckets after warm-up and cache
+    lookups at construction only. Returns the list of failed keys."""
+    gate = base["gate"]["autotune"]
+    cur = autotune_leg({"workload": gate["workload"]}, device)
+    bad = []
+    if device == "cpu":
+        want = dict(gate)
+        for k in ("winner", "default_config", "tuned_config"):
+            want[k] = _knobs_of(gate[k])
+        want["buckets"] = {b: _knobs_of(v) for b, v in gate["buckets"].items()}
+        got = dict(cur)
+        for k in ("winner", "default_config", "tuned_config"):
+            got[k] = _knobs_of(cur[k])
+        got["buckets"] = {b: _knobs_of(v) for b, v in cur["buckets"].items()}
+        for k in AUTOTUNE_KEYS:
+            if got[k] != want.get(k):
+                print(f"MISMATCH {k}: current {got[k]!r} != baseline "
+                      f"{want.get(k)!r}")
+                bad.append(k)
+        base_sec = base["shapes"].get(cur["shape_class"], {})
+        cur_sec = cur["cache"]["shapes"][cur["shape_class"]]
+        rows = {b: {f: v[f] for f in AUTOTUNE_BUCKET_FIELDS}
+                for b, v in cur_sec["buckets"].items()}
+        base_rows = {b: {f: v.get(f) for f in AUTOTUNE_BUCKET_FIELDS}
+                     for b, v in base_sec.get("buckets", {}).items()}
+        if rows != base_rows:
+            print(f"MISMATCH shapes: current buckets {rows!r} != baseline "
+                  f"{base_rows!r}")
+            bad.append("shapes")
+    for k in ("deterministic", "token_exact_tuned_vs_default"):
+        if cur[k] is not True:
+            print(f"REGRESSION: {k} is {cur[k]!r}")
+            bad.append(k)
+    if cur["new_buckets_after_warmup_tuned"] != 0:
+        print("REGRESSION: the tuned engine compiled "
+              f"{cur['new_buckets_after_warmup_tuned']} new buckets after "
+              "warm-up")
+        bad.append("new_buckets_after_warmup_tuned")
+    looks = cur["cache_lookups"]
+    if looks["while_serving"] != [[0, 0], [0, 0]] or looks["tuned"][0] < 2:
+        print(f"REGRESSION: cache lookups {looks}: want two hits at the "
+              "tuned construction and none while serving")
+        bad.append("cache_lookups")
+    print(f"autotune leg {'OK' if not bad else 'FAILED'} [{device}]: winner "
+          f"pack {cur['winner']['pack']} prefill_chunk "
+          f"{cur['winner']['prefill_chunk']}, split_waves (in buffer_depth's "
+          f"place) {cur['winner']['split_waves']}; tuned config "
+          f"{cur['tuned_config']}")
+    return bad
+
+
 # -- checking -----------------------------------------------------------------
 
 LEGS = {"gateway": (gateway_leg, GATEWAY_KEYS, GATEWAY_INVARIANTS),
@@ -1470,13 +1669,14 @@ def check(name, base, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="serving gates of the PyTorch port: gateway, replica "
-                    "router, chaos, tensor parallel")
+                    "router, chaos, tensor parallel, autotune")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
     ap.add_argument("--check", metavar="BASELINE_JSON", action="append",
                     default=None,
                     help="gate against a committed baseline "
-                         "(tools/serve_{gateway,replica,chaos,tp}.json); "
+                         "(tools/serve_{gateway,replica,chaos,tp,autotune}"
+                         ".json); "
                          "may repeat")
     ap.add_argument("--json", default=None,
                     help="write the legs' full reports here")
@@ -1491,11 +1691,15 @@ def main(argv=None):
             with open(path) as f:
                 base = json.load(f)
             names = [n for n in list(LEGS) + ["tp"] if n in base]
+            if "autotune" in base.get("gate", {}):
+                names.append("autotune")
             if len(names) != 1:
-                print(f"{path}: want one of {sorted(LEGS) + ['tp']} "
-                      "sections")
+                print(f"{path}: want one of "
+                      f"{sorted(LEGS) + ['tp', 'gate.autotune']} sections")
                 return 1
-            if names[0] == "tp":
+            if names[0] == "autotune":
+                failed += check_autotune(base, device)
+            elif names[0] == "tp":
                 failed += check_tp(base["tp"], device)
             else:
                 failed += check(names[0], base[names[0]], device)
@@ -1504,7 +1708,11 @@ def main(argv=None):
     out = {}
     for name, path in BASELINES.items():
         with open(os.path.join(REPO, path)) as f:
-            base = json.load(f)[name]
+            base = json.load(f)
+        base = base["gate"][name] if name == "autotune" else base[name]
+        if name == "autotune":
+            out[name] = autotune_leg(base, device)
+            continue
         if name == "tp":
             if device == "cpu":
                 out[name] = tp_leg(base, device, tuple(base["tps"]))
