@@ -30,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
   5. the flash-attention forward and backward kernels against their plain
      versions in bf16: the flagship training shape (B=8, S=2048, H=16,
      D=64, causal), the forward entry's shape (B=4, S=128, H=8, KVH=4,
-     D=32), a length off the tile and a non-causal case; each prints its
+     D=32), a length off the tile, a non-causal case and phase 31's ring
+     blocks (B=8, H=16, D=64: a causal 512-row diagonal block, a full
+     512-row block and a full 500-row one); each prints its
      worst element against its tolerance (the gradients' includes the
      one-ulp flips that f32 summation order can cause where p and ds are
      rounded to bf16, as o's includes p's rounding) and the kernel,
@@ -339,6 +341,32 @@ Phases (any failure exits non-zero and prints no result line):
      (d) two gloo rank processes (``--amp-rank``) under
      ``group_sharded_parallel("os_g", scaler=...)`` with the inf on rank
      1's shard alone: both ranks skip the step and halve the scale;
+ 31. (after 30) context parallelism (``fleet.context_parallel``) over
+     gloo on the one card: (d) the ring's forward and backward
+     (``ring_attention_fwd`` / ``ring_attention_bwd``) on 4 thread ranks
+     at the flagship's shard (B=8, S_loc=512, H=16, D=64) and GQA 16/4 in
+     bf16: two calls (o, dk, dv bit-equal), 10 + 10 flash launches a
+     call, every element against ``ring_attention_plain`` on the gathered
+     sequence within phase 5's atol, two bf16 ulps and the roundings the
+     kernels take (``cp_ring_rounding``); phase 5 holds and times the
+     ring's blocks (a causal 512-row diagonal block, a full one, a full
+     one of 500 rows); (a) ring and (b) Ulysses attention on the
+     flagship (phase 7's config, weights and batches, L=24, bf16 AMP-O2)
+     at sp 4, four rank processes (``--mesh-rank``), one warm step and
+     one timed each: the step-0 loss and grad norm within
+     ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` of phase 7's, exactly 24 x
+     (i + 1) K1 and K2 launches a step on ring rank i (24 each under
+     Ulysses), the fused tier's launches, the collectives equal to
+     ``sharded.step_comm``'s closed form (ring hops or all_to_alls by
+     (op, axis), the sp gradient sum); ms/step, tokens/s, MFU, peak
+     memory by rank, rank 0's idle share and each rank's K1 / K2 device
+     ms a step; (c) both in f32 at L=2 on dp 2 x mp 2 x sp 2 (eight
+     processes, phase 8's weights and batches): losses within
+     ``TRAIN_RTOL`` of phase 26 (b)'s one-card run and the masters after
+     3 steps within phase 26 (b)'s bounds (``MESH_MASTER_ATOL`` for every
+     element, ``MESH_MASTER_BULK`` for 99.9% of each tensor's), the
+     elements past ``EAGER_ATOL`` counted, the collectives the closed
+     form's;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -1716,7 +1744,13 @@ def flash_cases(torch, seed=21):
             ("rank_shard_b4_s2048_h8_d64", 4, 2048, 8, 8, 64, True),
             ("entry_b4_s128_h8_kvh4_d32", 4, 128, 8, 4, 32, True),
             ("off_tile_b2_s2000_h16_d64", 2, 2000, 16, 16, 64, True),
-            ("full_b2_s1000_h8_d128", 2, 1000, 8, 8, 128, False)):
+            ("full_b2_s1000_h8_d128", 2, 1000, 8, 8, 128, False),
+            # the blocks of phase 31's ring: the flagship on sp = 4, a
+            # rank's causal diagonal block and a full earlier one, and a
+            # full block off the 64-row tile
+            ("ring_diag_b8_s512_h16_d64", 8, 512, 16, 16, 64, True),
+            ("ring_full_b8_s512_h16_d64", 8, 512, 16, 16, 64, False),
+            ("ring_full_b8_s500_h16_d64", 8, 500, 16, 16, 64, False)):
         rep = h // kvh
         q, k, v, do = bshd(b, s, h, d), bshd(b, s, kvh, d), \
             bshd(b, s, kvh, d), bshd(b, s, h, d)
@@ -5351,9 +5385,10 @@ def llama_shapes(cfg):
     return shapes
 
 
-def mesh_analytic(cfg, mesh_kw, world, tokens_local):
-    """(bytes at rest a rank, one step's collectives a rank) from the
-    specs of ``spec_for_param`` and ``sharded.step_comm``."""
+def mesh_analytic(cfg, mesh_kw, world, tokens_local, cp=None):
+    """(bytes at rest a rank, one step's collectives a rank, parameter
+    count) from the specs of ``spec_for_param`` and ``sharded.step_comm``
+    (``cp``: its context-parallel argument)."""
     from paddle_tpu_torch.distributed.fleet import sharded
     from paddle_tpu_torch.models import pretrain
     mesh = pretrain.make_mesh(world, device="cpu", **mesh_kw)
@@ -5369,16 +5404,20 @@ def mesh_analytic(cfg, mesh_kw, world, tokens_local):
     bf16 = cfg.dtype == "bfloat16"
     comm = sharded.step_comm(plans, split, mesh.shape, tokens_local,
                              cfg.hidden_size, 2 if bf16 else 4,
-                             2 if bf16 else 4)
+                             2 if bf16 else 4, cp=cp)
     return rest, comm, sum(int(np.prod(s)) for s in shapes.values())
 
 
 def mesh_rank(spec_path):
-    """A rank of phase 26 (``chip_smoke.py --mesh-rank SPEC``): joins the
-    world group, builds the seeded model on the card, keeps its shards of
-    the state (the whole weights go to the meta device), runs the leg's
-    steps and writes its numbers as JSON to the spec's ``out``; leg (b)'s
-    rank 0 also writes the gathered masters."""
+    """A rank of phases 26 and 31 (``chip_smoke.py --mesh-rank SPEC``):
+    joins the world group, builds the seeded model on the card and, for
+    each of the spec's ``modes`` (context-parallel modes; [None] for
+    none), keeps its shards of a fresh state, runs ``warm`` + timed
+    steps and writes its numbers as JSON to the spec's ``out`` (the one
+    run's at the top level, several under "runs" by mode). ``profile``:
+    rank 0 profiles one more step; ``masters``: rank 0 writes the
+    gathered masters (``masters`` path, formatted with the mode). The
+    whole weights go to the meta device once the last state is made."""
     import torch
     with open(spec_path) as f:
         spec = json.load(f)
@@ -5397,61 +5436,75 @@ def mesh_rank(spec_path):
     cfg, batch, seq = mesh_config(spec["dtype"], spec["layers"])
     mesh = pretrain.make_mesh(spec["world"], group=group, **spec["mesh"])
     model = LlamaForCausalLM(cfg, device="cuda", seed=spec["seed"])
-    params, opt, meta = pretrain.make_train_state(model, mesh)
-    model.to("meta")
-    torch.cuda.empty_cache()
-    step = pretrain.make_train_step(model, mesh, meta)
-    rest = sum(t.numel() * t.element_size()
-               for tree in (params, opt["m"], opt["v"])
-               for t in tree.values())
-    batches = [pretrain.shard_batch(b, mesh) for b in mesh_batches(
-        cfg, batch, seq, spec["batch_seed"], spec["steps"])]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    hist, out = [], {"rank": spec["rank"], "rest_bytes": rest}
-    warm = 1 if spec["leg"] == "a" else 0
-    for b in batches[:warm]:
-        params, opt, loss, gnorm = step(params, opt, b)
-        hist.append((float(loss), float(gnorm)))
-    torch.cuda.synchronize()
-    reset_counts()
-    # the watchdog's collective_seconds{op, axis}: host seconds from each
-    # collective's dispatch to its result (waits for peers included)
-    comm_watchdog.enable_comm_watchdog(timeout=MESH_TIMEOUT_S,
-                                       poll_interval=60)
-    c0 = coll_seconds()
-    t0 = time.perf_counter()
-    res = []
-    for b in batches[warm:]:
-        params, opt, loss, gnorm = step(params, opt, b)
-        res.append((loss, gnorm))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    timed = len(batches) - warm
-    c1 = coll_seconds()
-    comm_watchdog.disable_comm_watchdog()
-    out["collective_ms_per_step"] = {
-        k: (v - c0.get(k, 0.0)) / timed * 1e3 for k, v in c1.items()}
-    hist += [(float(x), float(g)) for x, g in res]
-    out.update(hist=hist, timed=timed, ms_per_step=wall / timed * 1e3,
-               flash=list(read_flash_counts()), tier=list(read_tier_counts()),
-               ce_partial=read_partial_counts(),
-               comm=dict(step.comm),
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if spec["leg"] == "a":
-        def one_step():
-            nonlocal params, opt
-            params, opt, loss, _ = step(params, opt, batches[-1])
-            float(loss)
-            return 1
-        if spec["rank"] == 0:
-            out["profile"] = profile_window(torch, one_step, "mesh step")
-        else:
-            one_step()
-    else:
-        masters = pretrain.gather_state_to_numpy(params, mesh, meta)
-        if spec["rank"] == 0:
-            np.savez(spec["masters"], **masters)
+    host_batches = mesh_batches(cfg, batch, seq, spec["batch_seed"],
+                                spec["steps"])
+    modes = spec.get("modes", [None])
+    runs = {}
+    for i, mode in enumerate(modes):
+        if mode is not None:
+            cfg.context_parallel, cfg.context_parallel_mode = True, mode
+        params, opt, meta = pretrain.make_train_state(model, mesh)
+        if i == len(modes) - 1:
+            model.to("meta")
+        torch.cuda.empty_cache()
+        step = pretrain.make_train_step(model, mesh, meta)
+        rest = sum(t.numel() * t.element_size()
+                   for tree in (params, opt["m"], opt["v"])
+                   for t in tree.values())
+        batches = [pretrain.shard_batch(b, mesh) for b in host_batches]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hist, out = [], {"rank": spec["rank"], "rest_bytes": rest}
+        warm = spec["warm"]
+        for b in batches[:warm]:
+            params, opt, loss, gnorm = step(params, opt, b)
+            hist.append((float(loss), float(gnorm)))
+        torch.cuda.synchronize()
+        reset_counts()
+        # the watchdog's collective_seconds{op, axis}: host seconds from
+        # each collective's dispatch to its result (waits for peers
+        # included)
+        comm_watchdog.enable_comm_watchdog(timeout=MESH_TIMEOUT_S,
+                                           poll_interval=60)
+        c0 = coll_seconds()
+        t0 = time.perf_counter()
+        res = []
+        for b in batches[warm:]:
+            params, opt, loss, gnorm = step(params, opt, b)
+            res.append((loss, gnorm))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = len(batches) - warm
+        c1 = coll_seconds()
+        comm_watchdog.disable_comm_watchdog()
+        out["collective_ms_per_step"] = {
+            k: (v - c0.get(k, 0.0)) / timed * 1e3 for k, v in c1.items()}
+        hist += [(float(x), float(g)) for x, g in res]
+        out.update(hist=hist, timed=timed, ms_per_step=wall / timed * 1e3,
+                   flash=list(read_flash_counts()),
+                   tier=list(read_tier_counts()),
+                   ce_partial=read_partial_counts(), comm=dict(step.comm),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if spec["profile"]:
+            def one_step():
+                nonlocal params, opt
+                params, opt, loss, _ = step(params, opt, batches[-1])
+                float(loss)
+                return 1
+            if spec["rank"] == 0:
+                out["profile"] = profile_window(torch, one_step,
+                                                "mesh step")
+            else:
+                one_step()
+        if spec["masters"]:
+            masters = pretrain.gather_state_to_numpy(params, mesh, meta)
+            if spec["rank"] == 0:
+                np.savez(spec["masters"].format(mode=mode), **masters)
+        runs[mode] = out
+        del params, opt, step, batches
+        torch.cuda.empty_cache()
+    out = runs[modes[0]] if modes == [None] else {"rank": spec["rank"],
+                                                   "runs": runs}
     with open(spec["out"], "w") as f:
         json.dump(out, f)
     return 0
@@ -5497,24 +5550,42 @@ def run_mesh_leg(leg, tmp):
     """Every rank of `leg` as a process of this script over a FileStore
     in `tmp` (``run_rank_procs``): their outputs in rank order and rank
     0's spec."""
-    name, mesh_kw, world, dtype, layers, seed, bseed, steps = leg
+    name, mesh_kw, world, dtype, layers, seed, bseed, steps = leg[:8]
+    modes = leg[8] if len(leg) > 8 else [None]
+    # a bf16 leg (the flagship) warms one step and profiles; an f32 leg
+    # gathers the masters; phase 31's legs name their modes
+    timed_leg = dtype == "bfloat16"
     specs = [{"rank": rank, "world": world, "leg": name,
               "store": os.path.join(tmp, f"store_{name}"),
               "mesh": mesh_kw, "dtype": dtype, "layers": layers,
               "seed": seed, "batch_seed": bseed, "steps": steps,
-              "out": os.path.join(tmp, f"{name}_rank{rank}.json"),
-              "masters": os.path.join(tmp, f"{name}_masters.npz")}
+              "modes": modes, "warm": 1 if timed_leg else 0,
+              "profile": timed_leg,
+              "masters": None if timed_leg
+              else os.path.join(tmp, f"{name}_masters_{{mode}}.npz"),
+              "out": os.path.join(tmp, f"{name}_rank{rank}.json")}
              for rank in range(world)]
     return run_rank_procs("--mesh-rank", f"mesh leg {name}", specs, tmp,
                           MESH_JOIN_S), specs[0]
 
 
+_MESH_REFERENCES = {}
+
+
 def mesh_reference(torch, leg):
     """Leg (b)'s reference: the one-card f32 step (kernels on) from the
     same seeded weights and batches: the (loss, gnorm) of each step and
-    the masters after the last, as numpy."""
+    the masters after the last, as numpy. Kept for phase 31 (c), which
+    runs from the same weights and batches."""
+    key = tuple(leg[3:8])
+    if key not in _MESH_REFERENCES:
+        _MESH_REFERENCES[key] = _mesh_reference(torch, leg)
+    return _MESH_REFERENCES[key]
+
+
+def _mesh_reference(torch, leg):
     from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
-    _, _, _, dtype, layers, seed, bseed, steps = leg
+    _, _, _, dtype, layers, seed, bseed, steps = leg[:8]
     cfg, batch, seq = mesh_config(dtype, layers)
     model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
     params, opt, meta = pretrain.make_train_state(model, None)
@@ -5648,7 +5719,7 @@ def phase_mesh(torch, train_stats):
         check(float(rel.max()) <= TRAIN_RTOL,
               f"mesh (b) (loss, gnorm) {got.tolist()} against the one-card "
               f"step {ref_hist.tolist()}: worst rel {float(rel.max()):.2e}")
-        masters = np.load(spec0["masters"])
+        masters = np.load(spec0["masters"].format(mode=None))
         # per tensor: its largest difference and the one that 99.9% of its
         # elements stay within (every element of a 1-D tensor)
         per = {}
@@ -7348,6 +7419,396 @@ def phase_amp(torch, eager_stats):
     return out
 
 
+# -- phase 31: context parallelism over gloo on the one card ----------------
+
+CP_SP = 4                  # the flagship's ring: four blocks of 512
+CP_TIMEOUT_S = 300.0       # every gloo operation of (d)'s thread ranks
+CP_JOIN_S = 600.0
+CP_LEGS = (
+    # (leg, mesh, world, dtype, layers, weight seed, batch seed, steps,
+    #  modes): (a) / (b) phase 7's weights and batches, one warm step and
+    #  one timed (and rank 0's profiled one: gloo's ~10 s steps bound the
+    #  phase's time), ring then Ulysses in the same rank processes; (c)
+    #  phase 8's (phase 26 (b)'s one-card f32 run is the reference)
+    ("cp_ab", {"sp": CP_SP}, CP_SP, "bfloat16", L, 0, 0, 2,
+     ["ring", "ulysses"]),
+    ("cp_c", {"dp": 2, "mp": 2, "sp": 2}, 8, "float32", 2, 1, 1, 3,
+     ["ring", "ulysses"]),
+)
+CP_RING_CASES = (
+    # (case, B, S_loc, H, KVH, D): the flagship's shard on sp = 4, and GQA
+    ("mha_b8_sloc512_h16_d64", 8, 512, 16, 16, 64),
+    ("gqa_b8_sloc512_h16_kvh4_d64", 8, 512, 16, 4, 64),
+)
+CP_O_EXTRA = 2.0 ** -7     # o: K1 rounds p to bf16 and each block's o
+#                            before the lse fold, half an ulp each (2**-8
+#                            of p @ |v| / l each); the plain fold rounds
+#                            neither
+CP_GRAD_EXTRA = 2.0 ** -8  # a gradient term's rounding: ds (dq, dk) or p
+#                            (dv) to bf16 in K2, each block's dk / dv
+#                            partial before the f32 sum, and the o that K2
+#                            reads for delta, half an ulp each
+
+
+def cp_ring_rounding(torch, q, k, v, do, o, scale):
+    """Per element, the roundings that the ring's kernels take and the
+    plain f32 fold does not, bounded over the gathered causal sequence
+    ([B, S, H, D]; k, v at their kv heads): (o term, dq, dk, dv terms).
+    p and ds are the f32 values from the reference's o; each bound is
+    half an ulp of the rounded value (2**-8 of it) times the other
+    operand's magnitudes, summed over the products: |ds| @ |k| for dq,
+    twice |ds|^T @ |q| for dk and p^T @ |do| for dv (the partial's own
+    rounding is bounded by the same sum); and K2's delta = rowsum(do o)
+    reads the forward's bf16 o, moving ds by p w with w = 2**-8 scale
+    rowsum(|do| |o|): (p @ |k|) w for dq, p^T @ (w |q|) for dk. GQA's
+    terms are summed over each group.
+    Computed over slices of B*H that keep each [n, S, S] f32 temporary
+    near 128 MiB."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+
+    def fold(x, r=1):
+        x = torch.repeat_interleave(x, r, dim=2) if r > 1 else x
+        return x.float().transpose(1, 2).reshape(b * h, s, d)
+    qf, kf, vf, dof, of = (fold(q), fold(k, rep), fold(v, rep), fold(do),
+                           fold(o))
+    vis = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    parts = ([], [], [], [])
+    step = max(1, (1 << 25) // (s * s))
+    for c in range(0, b * h, step):
+        sl = slice(c, c + step)
+        sc = torch.matmul(qf[sl], kf[sl].transpose(1, 2)) * scale
+        sc = sc.masked_fill(~vis, float("-inf"))
+        p = torch.exp(sc - torch.logsumexp(sc, -1, keepdim=True))
+        del sc
+        dp = torch.matmul(dof[sl], vf[sl].transpose(1, 2))
+        delta = (dof[sl] * of[sl]).sum(-1, keepdim=True)
+        ds = (p * (dp - delta) * scale).abs()
+        del dp
+        w = CP_GRAD_EXTRA * scale * (dof[sl].abs() * of[sl].abs()).sum(
+            -1, keepdim=True)
+        parts[0].append(CP_O_EXTRA * torch.matmul(p, vf[sl].abs()))
+        parts[1].append(torch.matmul(
+            CP_GRAD_EXTRA * ds + w * p, kf[sl].abs()))
+        parts[2].append(torch.matmul(
+            ds.transpose(1, 2), 2 * CP_GRAD_EXTRA * qf[sl].abs())
+            + torch.matmul(p.transpose(1, 2), w * qf[sl].abs()))
+        parts[3].append(2 * CP_GRAD_EXTRA * torch.matmul(
+            p.transpose(1, 2), dof[sl].abs()))
+        del p, ds
+
+    def unfold(x, heads):
+        x = torch.cat(x).reshape(b, h, s, d)
+        if heads != h:
+            x = x.reshape(b, heads, h // heads, s, d).sum(2)
+        return x.transpose(1, 2)
+    return (unfold(parts[0], h), unfold(parts[1], h), unfold(parts[2], kvh),
+            unfold(parts[3], kvh))
+
+
+def cp_ring_check(torch):
+    """(d): the ring's forward and backward (``ring_attention_fwd`` /
+    ``ring_attention_bwd``, the passes ``ring_attention`` runs) on
+    ``CP_SP`` thread ranks on the card, at the flagship's shard and at
+    GQA 16/4, in bf16: twice (o, dk and dv bit-equal; dq, which K2 sums
+    with atomics, compared), the launches counted, every rank's block
+    against ``ring_attention_plain`` on the gathered sequence (f32
+    autograd of the bf16 inputs) within phase 5's atol and two bf16
+    ulps plus the roundings the kernels take (``cp_ring_rounding``)."""
+    from paddle_tpu_torch.distributed.fleet import context_parallel as cp
+    from paddle_tpu_torch.models import pretrain
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import ThreadRankSet
+    rows = []
+    p = CP_SP
+    for case, b, s_loc, h, kvh, d in CP_RING_CASES:
+        s = p * s_loc
+        scale = 1.0 / math.sqrt(d)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(31)
+
+        def randn(heads):
+            return torch.randn(b, s, heads, d, device="cuda",
+                               generator=gen).bfloat16()
+        q, k, v, do = randn(h), randn(kvh), randn(kvh), randn(h)
+
+        def rank(r, group):
+            mesh = pretrain.make_mesh(p, sp=p, group=group)
+            blk = slice(r * s_loc, (r + 1) * s_loc)
+            qi, ki, vi, doi = (x[:, blk].contiguous() for x in (q, k, v, do))
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                o, lse = cp.ring_attention_fwd(qi, ki, vi, True, scale, mesh,
+                                               "sp")
+                grads = cp.ring_attention_bwd(qi, ki, vi, o, lse, doi, True,
+                                              scale, mesh, "sp")
+                torch.cuda.synchronize()
+                runs.append(((o,) + grads, time.perf_counter() - t0))
+            return runs
+        f0, b0 = read_flash_counts()
+        got = ThreadRankSet(p, rank, timeout=CP_TIMEOUT_S).join(CP_JOIN_S)
+        f1, b1 = read_flash_counts()
+        want_launches = 2 * sum(i + 1 for i in range(p))
+        check((f1 - f0, b1 - b0) == (want_launches,) * 2,
+              f"ring (d) {case}: flash launches {(f1 - f0, b1 - b0)} in two "
+              f"calls on {p} ranks (want {want_launches} each)")
+        calls = [[torch.cat([got[r][j][0][t] for r in range(p)], 1)
+                  for t in range(4)] for j in range(2)]
+        equal = {n: bool(torch.equal(a, c)) for n, a, c in
+                 zip(("o", "dq", "dk", "dv"), calls[0], calls[1])}
+        dq_rerun = float((calls[0][1].float() - calls[1][1].float())
+                         .abs().max())
+        check(equal["o"] and equal["dk"] and equal["dv"],
+              f"ring (d) {case}: two calls not bit-equal {equal}")
+        leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+        ref = cp.ring_attention_plain(*leaves, p, causal=True, scale=scale)
+        ref.backward(do.float())
+        refs = [ref.detach()] + [x.grad for x in leaves]
+        extras = cp_ring_rounding(torch, q, k, v, do, ref.detach(), scale)
+        res = {}
+        for n, g, r, x, atol in zip(
+                ("o", "dq", "dk", "dv"), calls[0], refs, extras,
+                (FLASH_O_ATOL,) + (FLASH_GRAD_ATOL,) * 3):
+            check(bool(torch.isfinite(g.float()).all()),
+                  f"ring (d) {case}: non-finite {n}")
+            err, ratio = bf16_agreement(g, r, atol, x)
+            res[n] = {"max_abs_err": err, "worst_over_allowed": ratio}
+            check(ratio <= 1.0, f"ring (d) {case}: {n} max abs err {err}, "
+                  f"an element off by {ratio:.2f}x its allowance")
+        wall_ms = [1e3 * max(got[r][j][1] for r in range(p))
+                   for j in range(2)]
+        row = {"case": case, "ring": p, "errors": res, "bit_equal": equal,
+               "dq_rerun_max_abs": dq_rerun,
+               "launches_per_call": want_launches // 2,
+               "host_ms_per_call": wall_ms[1]}
+        rows.append(row)
+        print(f"  (d) ring[{case}] on {p} thread ranks: "
+              + ", ".join(f"{n} err {v['max_abs_err']:.3e} "
+                          f"({v['worst_over_allowed']:.3f} of allowed)"
+                          for n, v in res.items())
+              + f"; o, dk, dv bit-equal over two calls, dq apart by "
+              f"{dq_rerun:.2e} (K2's atomics); {want_launches // 2} K1 + "
+              f"{want_launches // 2} K2 launches a call; host "
+              f"{wall_ms[1]:.1f} ms a forward + backward (gloo through "
+              "the host)", flush=True)
+        del q, k, v, do, got, calls, leaves, ref, refs, extras
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cp_block_ms(flash_rows):
+    """{kernel: {case: device ms}} of phase 5's ring-block and flagship
+    rows (K1 "fwd", K2 "bwd"), and SDPA's at the flagship."""
+    out = {}
+    for key in ("fwd", "bwd"):
+        out[key] = {r["case"]: r["ms"] for r in flash_rows[key]}
+        out[key + "_sdpa"] = {r["case"]: r["library_ms"]
+                              for r in flash_rows[key]}
+    return out
+
+
+def cp_rank_kernel_ms(torch, blocks, layers, mode, rank, b, s, h, d):
+    """(K1, K2) device ms a step on ``rank``: the ring's blocks from phase
+    5's block rows (its diagonal block and ``rank`` full ones a layer);
+    Ulysses' one call a layer over the whole sequence at H / CP_SP heads,
+    timed here."""
+    if mode == "ring":
+        return tuple(layers * (blocks[k]["ring_diag_b8_s512_h16_d64"]
+                               + rank * blocks[k]["ring_full_b8_s512_h16_d64"])
+                     for k in ("fwd", "bwd"))
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    bh = b * h // CP_SP
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    f = device_time_ms(lambda: fa.flash_fwd(q, k, v, scale, True), iters=20)
+    g = device_time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale,
+                                            True), iters=20)
+    return layers * f, layers * g
+
+
+def phase_cp(torch, train_stats, flash_rows):
+    import shutil
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    out = {"backend": "gloo, one card", "d": cp_ring_check(torch)}
+    blocks = cp_block_ms(flash_rows)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    try:
+        leg = CP_LEGS[0]
+        _, mesh_kw, world, dtype, layers, _, _, _, modes = leg
+        cfg, batch, seq = mesh_config(dtype, layers)
+        s_loc = seq // CP_SP
+        t0 = time.perf_counter()
+        ranks, _ = run_mesh_leg(leg, tmp)
+        out["ab_wall_s"] = time.perf_counter() - t0
+        per_step = tier_counts_per_step(cfg, False)
+        for tag, mode in zip("ab", modes):
+            rest, comm, n_params = mesh_analytic(
+                cfg, mesh_kw, world, batch * s_loc, cp=dict(
+                    mode=mode, layers=layers, heads=cfg.num_attention_heads,
+                    kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim))
+            rr = [r["runs"][mode] for r in ranks]
+            for i, r in enumerate(rr):
+                n = r["timed"]
+                per = layers * ((i + 1) if mode == "ring" else 1)
+                check(r["flash"] == [n * per] * 2,
+                      f"cp ({tag}) {mode} rank {i}: flash fwd / bwd launches "
+                      f"{r['flash']} in {n} steps (want {per} each a step)")
+                check(r["tier"] == [n * k for k in per_step],
+                      f"cp ({tag}) rank {i}: fused tier launches {r['tier']} "
+                      f"in {n} steps (want {per_step} a step)")
+                check(r["rest_bytes"] == rest,
+                      f"cp ({tag}) rank {i}: {r['rest_bytes']} bytes at rest, "
+                      f"the specs give {rest}")
+                check(r["comm"] == comm, f"cp ({tag}) {mode} rank {i}: "
+                      f"collectives {r['comm']}, the formula gives {comm}")
+                check(all(math.isfinite(x) for hh in r["hist"] for x in hh),
+                      f"cp ({tag}) rank {i}: non-finite {r['hist']}")
+                check(r["hist"] == rr[0]["hist"],
+                      f"cp ({tag}) rank {i}: (loss, gnorm) {r['hist']} differ "
+                      f"from rank 0's {rr[0]['hist']}")
+            r0 = rr[0]
+            loss0, ref0 = r0["hist"][0][0], train_stats["losses"][0]
+            check(abs(loss0 - ref0) <= MESH_LOSS_RTOL * abs(ref0),
+                  f"cp ({tag}) {mode} step-0 loss {loss0} against phase 7's "
+                  f"{ref0} (rtol {MESH_LOSS_RTOL:g})")
+            gn0, gref0 = r0["hist"][0][1], train_stats["grad_norms"][0]
+            gn_rel = abs(gn0 - gref0) / abs(gref0)
+            check(gn_rel <= MESH_GNORM_RTOL,
+                  f"cp ({tag}) {mode} step-0 grad norm {gn0} against phase "
+                  f"7's {gref0}: relative {gn_rel:.3e} (rtol "
+                  f"{MESH_GNORM_RTOL:g})")
+            tokens_per_s = batch * seq / (r0["ms_per_step"] / 1e3)
+            mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
+                BF16_FLOPS_PER_S
+            prof = r0.get("profile", {})
+            idle = None if prof.get("device_busy_s") is None \
+                else 1 - prof["device_busy_s"] / prof["wall_s"]
+            idle_txt = "not measured" if idle is None \
+                else f"{idle * 100:.1f}%"
+            sdpa = [layers * blocks[k]["flagship_b8_s2048_h16_d64"]
+                    for k in ("fwd_sdpa", "bwd_sdpa")]
+            kern = [cp_rank_kernel_ms(torch, blocks, layers, mode, i, batch,
+                                      seq, cfg.num_attention_heads,
+                                      cfg.head_dim)
+                    for i in range(world if mode == "ring" else 1)]
+            kern *= world // len(kern)      # Ulysses: every rank alike
+            inside = r0["collective_ms_per_step"]
+            out[tag] = {
+                "mode": mode, "mesh": mesh_kw,
+                "ms_per_step": r0["ms_per_step"],
+                "tokens_per_s": tokens_per_s, "mfu": mfu,
+                "step0_loss": loss0, "phase7_step0_loss": ref0,
+                "step0_grad_norm": gn0, "phase7_step0_grad_norm": gref0,
+                "step0_grad_norm_rel": gn_rel,
+                "losses": [hh[0] for hh in r0["hist"]],
+                "grad_norms": [hh[1] for hh in r0["hist"]],
+                "ms_per_step_by_rank": [r["ms_per_step"] for r in rr],
+                "peak_gb_by_rank": [r["peak_gb"] for r in rr],
+                "rank0_idle": idle, "collectives": r0["comm"],
+                "sdpa_gathered_ms_per_step": sdpa,
+                "collective_ms_per_step_rank0": inside,
+                "flash_launches_by_rank": [r["flash"] for r in rr],
+                "kernel_ms_per_step_by_rank": kern,
+                "rank0_profile": prof}
+            print(f"  ({tag}) {mode} on sp {CP_SP}, L={layers} B={batch} "
+                  f"S={seq} (S_loc {s_loc}) bf16: {r0['ms_per_step']:.1f} "
+                  f"ms/step, {tokens_per_s:.1f} global tokens/s, MFU "
+                  f"{mfu:.4f} (phase 7 {train_stats['ms_per_step']:.1f} "
+                  f"ms/step); step-0 loss {loss0:.5f} vs phase 7's "
+                  f"{ref0:.5f}, grad norm {gn0:.6f} vs {gref0:.6f} (relative "
+                  f"{gn_rel:.2e}); peak GB by rank "
+                  f"{['%.2f' % r['peak_gb'] for r in rr]} (phase 7 "
+                  f"{train_stats['peak_memory_gb']:.2f}); rank 0 idle "
+                  f"{idle_txt}; flash launches by rank in {r0['timed']} steps "
+                  f"{[r['flash'] for r in rr]}", flush=True)
+            print(f"  ({tag}) K1 / K2 device ms a step by rank (phase 5's "
+                  f"block times x launches): "
+                  f"{[('%.2f' % f, '%.2f' % g) for f, g in kern]}; SDPA "
+                  f"over the gathered sequence x {layers}: fwd "
+                  f"{sdpa[0]:.2f}, bwd {sdpa[1]:.2f}; rank 0's host ms a "
+                  f"step inside collectives "
+                  f"{sum(inside.values()):.1f} of {r0['ms_per_step']:.1f}: "
+                  f"{json.dumps({k: round(v, 1) for k, v in inside.items()})}",
+                  flush=True)
+
+        leg = CP_LEGS[1]
+        _, mesh_kw, world, dtype, layers, _, _, steps, modes = leg
+        cfg, batch, seq = mesh_config(dtype, layers)
+        ref_hist, ref_masters = mesh_reference(torch, MESH_LEGS[1])
+        ranks, spec0 = run_mesh_leg(leg, tmp)
+        mp, sp, data = mesh_kw["mp"], mesh_kw["sp"], mesh_kw["dp"]
+        out["c"] = {"mesh": mesh_kw, "one_card": ref_hist.tolist()}
+        for mode in modes:
+            _, comm, _ = mesh_analytic(
+                cfg, mesh_kw, world, batch // data * seq // sp, cp=dict(
+                    mode=mode, layers=layers,
+                    heads=cfg.num_attention_heads // mp,
+                    kv_heads=cfg.num_key_value_heads // mp,
+                    head_dim=cfg.head_dim))
+            rr = [r["runs"][mode] for r in ranks]
+            got = np.array(rr[0]["hist"])
+            for i, r in enumerate(rr):
+                check(np.array_equal(np.array(r["hist"]), got),
+                      f"cp (c) {mode} rank {i}: (loss, gnorm) {r['hist']} "
+                      f"differ from rank 0's {got.tolist()}")
+                check(r["comm"] == comm, f"cp (c) {mode} rank {i}: "
+                      f"collectives {r['comm']}, the formula gives {comm}")
+            rel = np.abs(got - ref_hist) / np.abs(ref_hist)
+            check(float(rel[:, 0].max()) <= TRAIN_RTOL,
+                  f"cp (c) {mode} losses {got[:, 0].tolist()} against the "
+                  f"one-card step {ref_hist[:, 0].tolist()}: worst rel "
+                  f"{float(rel[:, 0].max()):.2e}")
+            masters = np.load(spec0["masters"].format(mode=mode))
+            # phase 26 (b)'s bound, for the same cause: per tensor its
+            # largest difference and the one 99.9% of its elements stay
+            # within (every element of a 1-D tensor); the elements past
+            # EAGER_ATOL counted
+            per, over = {}, 0
+            for n in ref_masters:
+                d = np.abs(masters[n] - ref_masters[n]).ravel()
+                per[n] = (float(d.max()), float(
+                    d.max() if ref_masters[n].ndim == 1
+                    else np.quantile(d, 0.999)))
+                over += int((d > EAGER_ATOL).sum())
+            worst_n = max(per, key=lambda n: per[n][0])
+            bulk_n = max(per, key=lambda n: per[n][1])
+            worst, q999 = per[worst_n][0], per[bulk_n][1]
+            check(worst <= MESH_MASTER_ATOL and q999 <= MESH_MASTER_BULK,
+                  f"cp (c) {mode} masters after {steps} steps: max abs diff "
+                  f"{worst} in {worst_n} (allowed {MESH_MASTER_ATOL:g}); "
+                  f"worst tensor's 99.9th percentile (max for a 1-D "
+                  f"tensor) {q999} in {bulk_n} (allowed "
+                  f"{MESH_MASTER_BULK:g})")
+            out["c"][mode] = {"hist": got.tolist(),
+                              "worst_rel": float(rel.max()),
+                              "masters_max_abs": worst,
+                              "masters_max_tensor": worst_n,
+                              "masters_q999_worst_tensor": q999,
+                              "masters_q999_tensor": bulk_n,
+                              "masters_over_eager_atol": over,
+                              "collectives_rank0": rr[0]["comm"]}
+            print(f"  (c) {mode} on dp 2 x mp 2 x sp 2, f32 L={layers}: "
+                  f"(loss, gnorm) {got.tolist()} vs one card "
+                  f"{ref_hist.tolist()}, worst rel {float(rel.max()):.2e} "
+                  f"(losses within {TRAIN_RTOL:g}); masters max abs diff "
+                  f"{worst:.3e} ({worst_n}; allowed {MESH_MASTER_ATOL:g}), "
+                  f"worst tensor's 99.9th percentile {q999:.3e} ({bulk_n}; "
+                  f"allowed {MESH_MASTER_BULK:g}), {over} elements past "
+                  f"{EAGER_ATOL:g}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -7359,6 +7820,14 @@ def kernel_entry(name, source, replaces, launches, rows, main_case):
             "cases": rows}
 
 
+_T0 = time.monotonic()
+
+
+def phase(*parts, flush=True):
+    """A phase's header line, with the seconds since the script began."""
+    print(f"[{time.monotonic() - _T0:7.1f} s]", *parts, flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7367,7 +7836,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops import _build
 
-    print("phase 0: device", flush=True)
+    phase("phase 0: device", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -7386,46 +7855,46 @@ def main():
                 print(f"  [{name}] {line.strip()}", flush=True)
 
     with torch.no_grad():
-        print("phase 1: kernels against their plain versions (bf16)",
+        phase("phase 1: kernels against their plain versions (bf16)",
               flush=True)
         rows = phase_kernels(torch)
-        print("phase 2: continuous-batching serving, full width, bf16",
+        phase("phase 2: continuous-batching serving, full width, bf16",
               flush=True)
         serve_stats = phase_serve(torch)
-        print("phase 3: f32 parity, full width, L=2", flush=True)
+        phase("phase 3: f32 parity, full width, L=2", flush=True)
         phase_parity(torch)
-        print("phase 4: int4 serving, full width, bf16", flush=True)
+        phase("phase 4: int4 serving, full width, bf16", flush=True)
         int4_stats = phase_int4(torch)
-        print("phase 19: the HTTP/SSE gateway and its stepper thread, full "
+        phase("phase 19: the HTTP/SSE gateway and its stepper thread, full "
               "width, bf16", flush=True)
         gateway_stats = phase_gateway(torch)
-        print("phase 20: two replicas behind EngineRouter, full width, bf16 "
+        phase("phase 20: two replicas behind EngineRouter, full width, bf16 "
               "(f32 at L=2 for the tokens)", flush=True)
         router_stats = phase_router(torch)
-        print("phase 25: kv-head-sharded tensor-parallel serving, full "
+        phase("phase 25: kv-head-sharded tensor-parallel serving, full "
               "width: tp=2 over gloo in two processes on the card (f32, "
               "bf16, int8 and int4), tp=4 at L=2", flush=True)
         tp_stats = phase_tp(torch)
 
     # training needs autograd: phases 5-8 run outside no_grad
-    print("phase 5: flash kernels against their plain versions (bf16)",
+    phase("phase 5: flash kernels against their plain versions (bf16)",
           flush=True)
     flash_rows = phase_flash(torch)
-    print("phase 6: Llama forward at the forward entry's shape, bf16",
+    phase("phase 6: Llama forward at the forward entry's shape, bf16",
           flush=True)
     fwd_stats = phase_forward(torch)
-    print("phase 7: flagship pretraining, bf16 AMP-O2, B=8 S=2048",
+    phase("phase 7: flagship pretraining, bf16 AMP-O2, B=8 S=2048",
           flush=True)
     train_stats = phase_train(torch)
-    print("phase 8: f32 training parity, full width, L=2", flush=True)
+    phase("phase 8: f32 training parity, full width, L=2", flush=True)
     parity_stats = phase_train_parity(torch)
-    print("phase 9: blockwise cross-entropy kernels against their plain "
+    phase("phase 9: blockwise cross-entropy kernels against their plain "
           "versions (bf16)", flush=True)
     ce_rows = phase_ce(torch)
-    print("phase 10: flash kernels with rope against their plain versions "
+    phase("phase 10: flash kernels with rope against their plain versions "
           "(bf16)", flush=True)
     rope_rows = phase_flash_rope(torch)
-    print("phase 11: flagship pretraining with the fused LM-head loss and "
+    phase("phase 11: flagship pretraining with the fused LM-head loss and "
           "rope in the flash kernels, bf16 AMP-O2, B=8 S=2048", flush=True)
     fused_stats = phase_train(torch, FUSED_OPTIONS)
     print(f"  beside phase 7: tokens/s {fused_stats['tokens_per_s']:.1f} vs "
@@ -7438,75 +7907,81 @@ def main():
     check(fused_stats["peak_memory_gb"] < train_stats["peak_memory_gb"],
           f"peak memory with the fused loss {fused_stats['peak_memory_gb']} "
           f"GB is not below phase 7's {train_stats['peak_memory_gb']} GB")
-    print("phase 12: f32 training parity with both options, full width, L=2",
+    phase("phase 12: f32 training parity with both options, full width, L=2",
           flush=True)
     fused_parity = phase_train_parity(torch, FUSED_OPTIONS)
-    print("phase 13: FlashMask kernels against their plain versions (bf16), "
+    phase("phase 13: FlashMask kernels against their plain versions (bf16), "
           f"then {L} layers' FlashMask attention", flush=True)
     fm_rows = phase_flashmask(torch)
     fm_step = phase_flashmask_step(torch)
-    print("phase 14: FlashMask in f32, B=2 S=2048", flush=True)
+    phase("phase 14: FlashMask in f32, B=2 S=2048", flush=True)
     fm_f32 = phase_flashmask_f32(torch)
-    print("phase 15: the two-pass flash backward at the flagship shape (A/B "
+    phase("phase 15: the two-pass flash backward at the flagship shape (A/B "
           "against the fused backward)", flush=True)
     tp_rows, tp_launches = phase_twopass(torch)
     with torch.no_grad():
-        print("phase 16: legacy paged decode attention (bf16; f32 for one "
+        phase("phase 16: legacy paged decode attention (bf16; f32 for one "
               f"case), then {DECODE_STEPS} steps x {L} layers of "
               "block_multihead_attention", flush=True)
         decode_rows, decode_stats = phase_paged_decode(torch)
-        print("phase 17: int8 weight-only GEMM, int8 serving, dense decode "
+        phase("phase 17: int8 weight-only GEMM, int8 serving, dense decode "
               "and f32 parity", flush=True)
         int8_rows, int8_stats = phase_int8(torch)
-    print("phase 18: the training step's fused tier (RMSNorm + residual, "
+    phase("phase 18: the training step's fused tier (RMSNorm + residual, "
           "SwiGLU, token cross entropy, AdamW) against its plain versions",
           flush=True)
     tier_rows = phase_fused_tier(torch)
-    print("phase 21: flagship pretraining with activation recompute (True, "
+    phase("phase 21: flagship pretraining with activation recompute (True, "
           "then \"dots_saveable\"), bf16 AMP-O2, B=8 S=2048", flush=True)
     recompute_stats = phase_recompute(torch, train_stats)
-    print("phase 22: the flagship with in-step telemetry, the health "
+    phase("phase 22: the flagship with in-step telemetry, the health "
           "monitor and the instrumented DataLoader; the NaN'd batch; the "
           "train_health gate on the card; kernel D's telemetry alone",
           flush=True)
     health_stats, tel_rows = phase_health(torch, train_stats)
     with torch.no_grad():
-        print("phase 23: fused_multi_transformer's pre_caches, attn_mask and "
+        phase("phase 23: fused_multi_transformer's pre_caches, attn_mask and "
               "dropout and FusedMultiTransformer at the serving flagship's "
               "width (L=24), f32 and bf16", flush=True)
         incubate_stats = phase_incubate(torch)
-        print("phase 24: phase 2's serving with the memory monitor, pressure "
+        phase("phase 24: phase 2's serving with the memory monitor, pressure "
               "shedding and the cost catalog; the pressure leg", flush=True)
         obs_stats = phase_observability(torch)
-    print("phase 24 (c): phase 7's step with the cost catalog", flush=True)
+    phase("phase 24 (c): phase 7's step with the cost catalog", flush=True)
     obs_stats["train"] = phase_train_catalog(torch, train_stats)
-    print("phase 26: the sharded pretrain mesh over gloo in processes on "
+    phase("phase 26: the sharded pretrain mesh over gloo in processes on "
           "the card: (a) the flagship on fsdp 2 x mp 2, bf16; (b) f32 L=2 "
           "on dp 2 x fsdp 2 x mp 2", flush=True)
     mesh_stats = phase_mesh(torch, train_stats)
-    print("phase 27: kernel C's vocab-sharded form, then fleet's "
+    phase("phase 27: kernel C's vocab-sharded form, then fleet's "
           "tensor-parallel layers over gloo in two processes on the card "
           "(mp 2; f32 and bf16)", flush=True)
     fleet_rows, fleet_stats = phase_fleet(torch)
-    print("phase 28: the eager training path: (a) the flagship through "
+    phase("phase 28: the eager training path: (a) the flagship through "
           "loss.backward() and optimizer.AdamW on kernel D's eager form; "
           "(b) f32 L=2 against the pretrain step; (c) DataParallel and (d) "
           "the ZeRO stages over gloo in two processes on the card",
           flush=True)
     eager_rows, eager_stats = phase_eager(torch, train_stats)
     with torch.no_grad():
-        print("phase 29: the serving autotuner on the card: (a) K3 and K7 at "
+        phase("phase 29: the serving autotuner on the card: (a) K3 and K7 at "
               "each split_waves and the measured sweep of phase 2's shape "
               "class, (b) K4's plan knobs at the 20 serving shapes (five M "
               "classes), (c) engines and schedulers from the saved cache "
               "serving phase 2's requests (bf16), phase 17's (int8) and "
               "f32 tokens at L=2", flush=True)
         at_stats = phase_autotune(torch, serve_stats)
-    print("phase 30: amp on the eager flagship: (a) decorate O2 against "
+    phase("phase 30: amp on the eager flagship: (a) decorate O2 against "
           "phase 28 (a)'s layout, (b) auto_cast O2 / O1 and f32 L=2 under O2 "
           "against the plain paths, (c) the fp16 GradScaler, (d) the "
           "GradScaler under ZeRO stage 2 over gloo", flush=True)
     amp_stats = phase_amp(torch, eager_stats)
+    phase("phase 31: context parallelism over gloo in processes on the "
+          "card: (d) the ring's passes at the flagship's shard against "
+          "ring_attention_plain, (a) ring and (b) Ulysses on the flagship "
+          f"at sp {CP_SP}, bf16, (c) both in f32 L=2 on dp 2 x mp 2 x sp 2",
+          flush=True)
+    cp_stats = phase_cp(torch, train_stats, flash_rows)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -7646,6 +8121,8 @@ def main():
     print(f"card: {card}; serving autotuner: {json.dumps(at_stats)}",
           flush=True)
     print(f"card: {card}; amp: {json.dumps(amp_stats)}", flush=True)
+    print(f"card: {card}; context parallelism: {json.dumps(cp_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,23 @@
-"""Sharded Llama pretraining over a dp x fsdp x mp mesh, the PyTorch port
-(counterpart of ``examples/llama_pretrain_sharded.py``).
+"""Sharded Llama pretraining over a dp x fsdp x sp x mp mesh, the PyTorch
+port (counterpart of ``examples/llama_pretrain_sharded.py``).
 
 Run on the card (one process a rank, all on the visible cards in turn):
   python examples/torch_llama_pretrain_sharded.py --dp 2 --fsdp 2 --mp 2
 Run on the CPU:
   python examples/torch_llama_pretrain_sharded.py --dp 2 --fsdp 2 --mp 2 \\
       --device cpu
+Context parallelism (each rank a block of the sequence, ring or Ulysses):
+  python examples/torch_llama_pretrain_sharded.py --dp 2 --sp 2 \\
+      --cp-mode ulysses --device cpu
 
 The script starts one process a rank (this script with ``--rank``) over a
 ``FileStore`` in a temporary directory and a gloo world group; each rank
 builds the model from the same seed, keeps its shards of the masters and
 moments (ZeRO-3 over fsdp, Megatron over mp, the batch over dp x fsdp),
-and prints the global loss and grad norm; rank 0's lines are shown. The
-mesh's sp and pp axes are a later slice of the port.
+and prints the global loss and grad norm; rank 0's lines are shown. With
+``--sp`` each rank holds a contiguous block of its rows' sequence and the
+attention runs over the sp axis (``--cp-mode``). The mesh's pp axis is a
+later slice of the port.
 """
 import argparse
 import os
@@ -33,7 +38,7 @@ def rank_main(args):
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          pretrain)
 
-    world = args.dp * args.fsdp * args.mp
+    world = args.dp * args.fsdp * args.sp * args.mp
     device = args.device
     if device == "cuda":
         device = f"cuda:{args.rank % max(1, torch.cuda.device_count())}"
@@ -42,10 +47,11 @@ def rank_main(args):
     cfg = LlamaConfig(
         vocab_size=2048, hidden_size=256, intermediate_size=688,
         num_hidden_layers=4, num_attention_heads=8, num_key_value_heads=4,
-        max_position_embeddings=args.seq, dtype=args.dtype)
+        max_position_embeddings=args.seq, dtype=args.dtype,
+        context_parallel=args.sp > 1, context_parallel_mode=args.cp_mode)
     model = LlamaForCausalLM(cfg, device=device, seed=0)
     mesh = pretrain.make_mesh(world, dp=args.dp, fsdp=args.fsdp, mp=args.mp,
-                              group=group, device=device)
+                              sp=args.sp, group=group, device=device)
     params, opt_state, meta = pretrain.make_train_state(model, mesh)
     step = pretrain.make_train_step(model, mesh, meta)
     rng = np.random.default_rng(0)
@@ -73,6 +79,9 @@ def main():
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--mp", type=int, default=1)
+    ap.add_argument("--sp", type=int, default=1,
+                    help="context-parallel degree (the sequence's blocks)")
+    ap.add_argument("--cp-mode", default="ring", choices=["ring", "ulysses"])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -87,7 +96,7 @@ def main():
     args = ap.parse_args()
     if args.rank is not None:
         return rank_main(args)
-    world = args.dp * args.fsdp * args.mp
+    world = args.dp * args.fsdp * args.sp * args.mp
     tmp = tempfile.mkdtemp(prefix="torch_pretrain_sharded_")
     store = os.path.join(tmp, "store")
     base = [sys.executable, os.path.abspath(__file__)] + [

@@ -3,6 +3,9 @@
 python/paddle/distributed/fleet/fleet.py:218): the hybrid topology
 (``init``, ``DistributedStrategy``, ``HybridCommunicateGroup``), the
 tensor- and sequence-parallel layers (``mp_layers``, ``sp_layers``),
+context parallelism over the sep axis (``context_parallel``:
+``ring_attention``, ``ulysses_attention``, ``split_sequence``,
+``SegmentParallel``),
 activation recompute (``recompute``, ``recompute_sequential``,
 ``recompute_hybrid``), the training mesh's sharded compute (``sharded``:
 ZeRO-3 over fsdp, Megatron over mp), the eager loop's wrappers
@@ -14,10 +17,12 @@ stages (``sharding``: ``DygraphShardingOptimizer``,
 
 ``init`` takes the caller's world group and device (``group=``,
 ``device=``), as the port's mesh does; nothing here calls
-``init_process_group``. The pipeline and sep axes are a later slice of
-the port and raise, naming their ROADMAP item (Queue 1 item 9).
+``init_process_group``. The pipeline axis is a later slice of the port
+and raises, naming its ROADMAP item (Queue 1 item 9).
 """
 from . import sharded  # noqa: F401
+from .context_parallel import (SegmentParallel, ring_attention,  # noqa
+                               split_sequence, ulysses_attention)
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa
                         RowParallelLinear, TensorParallel,
                         VocabParallelEmbedding, parallel_cross_entropy,
@@ -47,7 +52,8 @@ __all__ = ["recompute", "recompute_sequential", "recompute_hybrid",
            "RowSequenceParallelLinear", "HybridParallelOptimizer",
            "HybridParallelClipGrad", "DygraphShardingOptimizer",
            "GroupShardedStage2", "GroupShardedStage3",
-           "group_sharded_parallel"]
+           "group_sharded_parallel", "ring_attention", "ulysses_attention",
+           "split_sequence", "SegmentParallel"]
 
 
 class DistributedStrategy:
@@ -82,8 +88,8 @@ def init(role_maker=None, is_collective=False, strategy=None, log_level=None,
     ``hybrid_configs`` over the caller's world group (``group``: a
     ``collective.new_group`` group or a ``torch.distributed`` one; None
     for a world of one rank) on ``device``, make it this thread's
-    (``get_hybrid_communicate_group``) and return it. pp_degree or
-    sep_degree above 1 raises ``NotImplementedError``."""
+    (``get_hybrid_communicate_group``) and return it. pp_degree above 1
+    raises ``NotImplementedError``."""
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
     hcg = HybridCommunicateGroup(
@@ -103,9 +109,13 @@ def get_hybrid_communicate_group():
 
 def distributed_model(model):
     """The parallel wrapper of ``model`` (reference fleet/model.py):
-    ``TensorParallel`` when the model-parallel degree is above 1, else
-    ``DataParallel`` over the data-parallel group, as the JAX package
-    picks them."""
+    with a sep degree above 1, ``DataParallel`` over the data and sep
+    axes (``get_dp_sep_parallel_group``: each rank's gradients of its
+    rows and sequence block averaged, as the reference's sep-axis
+    all_reduce does; the JAX package's pick needs none, its one program
+    reducing over the global batch); else ``TensorParallel`` when the
+    model-parallel degree is above 1, and ``DataParallel`` over the
+    data-parallel group otherwise, as the JAX package picks them."""
     hcg = get_hcg()
     if hcg is None:
         raise RuntimeError("call fleet.init first")
@@ -113,9 +123,11 @@ def distributed_model(model):
         raise NotImplementedError(
             "distributed_model: pipeline parallelism is a later slice of "
             "the port (ROADMAP Queue 1 item 9)")
+    from ..parallel import DataParallel
+    if hcg.get_sep_parallel_world_size() > 1:
+        return DataParallel(model, group=hcg.get_dp_sep_parallel_group())
     if hcg.get_model_parallel_world_size() > 1:
         return TensorParallel(model, hcg)
-    from ..parallel import DataParallel
     return DataParallel(model, group=hcg.get_data_parallel_group())
 
 

@@ -39,7 +39,14 @@ a layer's weights are gathered again in the backward.
 Gradients left after the backward (a weight replicated over a data axis)
 are summed over the data axes that remain, one flat all_reduce a set of
 axes (``reduce_grads``); the mp axis is never summed: a weight computed
-whole on every mp rank has the same gradient on each of them.
+whole on every mp rank has the same gradient on each of them. With a
+context-parallel axis (sp > 1) each rank holds a block of its rows'
+sequence, so every parameter (none is split over sp) is summed over sp
+too, in the same all_reduce as its data axes (the mesh's group over
+them: ``mesh.group_name``), and the loss and its count over the batch's
+group (``batch_group``); the attention modules run
+``fleet.context_parallel`` over sp, its hops or all_to_alls tallied in
+the step's collectives (``bound``).
 ``owned`` marks the shards a rank counts in the clip norm and the
 telemetry, so that a tensor replicated over ranks counts once.
 """
@@ -50,10 +57,10 @@ import numpy as np
 import torch
 
 from .. import collective
-from ..mesh import AXES, DATA_AXES
+from ..mesh import AXES, DATA_AXES, group_name
 
 __all__ = ["ParamLayout", "ParamPlan", "plan_params", "bound",
-           "reduce_grads", "owned", "step_comm"]
+           "reduce_grads", "owned", "step_comm", "batch_group"]
 
 # Megatron roles of the Llama projections: column-parallel ones split
 # their output dim (1) over mp, the row-parallel o_proj / down_proj their
@@ -213,6 +220,8 @@ def plan_params(config, shapes, specs, mesh_shape):
         remaining = tuple(a for a in DATA_AXES
                           if mesh_shape[a] > 1 and a not in reduced
                           and a not in spec)
+        if mesh_shape.get("sp", 1) > 1:
+            remaining += ("sp",)
         plans[name] = ParamPlan(layout, steps, remaining)
     return plans, split
 
@@ -380,15 +389,30 @@ class _WeightBinding:
                              self.stats)
 
 
+def batch_group(mesh_shape):
+    """The mesh group the batch's sums run over (the loss and its count):
+    "data" over (dp, fsdp); with sp > 1 the group of sp and the data
+    axes above 1 (``group_name``: "sp", "dp_sp", "fsdp_sp", "data_sp");
+    None for a batch that one rank holds whole."""
+    if mesh_shape.get("sp", 1) > 1:
+        return group_name(tuple(a for a in DATA_AXES + ("sp",)
+                                if mesh_shape[a] > 1))
+    return "data" if mesh_shape["dp"] * mesh_shape["fsdp"] > 1 else None
+
+
 @contextlib.contextmanager
-def bound(model, mesh, plans, split, dtype, stats):
+def bound(model, mesh, plans, split, dtype, stats, context_parallel=False):
     """Within the block, every module of `model` whose weight's plan
     gathers it computes with the gathered weight (``_shard_weight``) and
-    each module of `split` runs its Megatron operators (``_tp``); with no
-    plans (one rank) nothing is bound. The model is left as it was after
-    the block."""
+    each module of `split` runs its Megatron operators (``_tp``); with
+    ``context_parallel`` each attention module tallies its collectives
+    over sp into `stats` (``_cp_stats``). With no plans (one rank) nothing
+    is bound. The model is left as it was after the block."""
     set_attrs = []
     for mname, mod in model.named_modules():
+        if context_parallel and hasattr(mod, "_context_parallel_axis"):
+            mod._cp_stats = stats
+            set_attrs.append((mod, "_cp_stats"))
         for pname, p in mod.named_parameters(recurse=False):
             full = f"{mname}.{pname}" if mname else pname
             plan = plans.get(full)
@@ -416,7 +440,7 @@ def reduce_grads(names, grads, plans, mesh, stats):
         if rem:
             buckets.setdefault(rem, []).append(i)
     for rem in sorted(buckets):
-        axis = "data" if len(rem) == 2 else rem[0]
+        axis = group_name(rem)
         idx = buckets[rem]
         flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
                           for i in idx])
@@ -431,18 +455,27 @@ def reduce_grads(names, grads, plans, mesh, stats):
 
 
 def step_comm(plans, split, mesh_shape, tokens_local, hidden, act_bytes,
-              compute_bytes, telemetry_groups=0):
+              compute_bytes, telemetry_groups=0, cp=None):
     """The collectives of one training step on a rank, in closed form:
     {"op,axis": {"calls", "bytes"}} (payload bytes as the collectives
     count them: the whole gathered / scattered tensor, the all_reduced
-    tensor). ``tokens_local`` the rank's B*S, ``act_bytes`` the
+    tensor, what a rank sends or receives). ``tokens_local`` the rank's
+    B*S (its rows times its block of the sequence), ``act_bytes`` the
     activations' element size, ``compute_bytes`` the gathered weights'
     (2 under AMP-O2, else 4); the step runs without recompute. Each
     Megatron module all_reduces its [rows, hidden] activations twice
     over mp (``leave`` forward, ``enter`` backward); a vocab-parallel
     head once (its input's gradient), and its cross entropy twice: the
     rows' maxima [rows] f32, then their sums of exps and target logits
-    [rows, 2] f32."""
+    [rows, 2] f32.
+
+    ``cp`` (sp > 1): {"mode", "layers", "heads", "kv_heads",
+    "head_dim"}, the heads a rank's attention holds (after mp). A ring
+    layer sends and receives p - 1 hops of its K/V block forward, p - 1
+    of K/V with their f32 dK/dV backward and one of dK/dV home; an
+    Ulysses layer makes 4 all_to_alls forward (q, k, v, out) and 4
+    backward, of [tokens, heads, head_dim] (K/V at kv_heads where p
+    divides them, else at heads)."""
     out = {}
 
     def add(op, ax, calls, nbytes):
@@ -450,10 +483,24 @@ def step_comm(plans, split, mesh_shape, tokens_local, hidden, act_bytes,
         row["calls"] += calls
         row["bytes"] += int(nbytes)
 
-    data = mesh_shape["dp"] * mesh_shape["fsdp"]
     world = int(np.prod([mesh_shape[a] for a in AXES]))
-    if data > 1:
-        add("all_reduce", "data", 2, 2 * 4)       # label count, loss
+    batch = batch_group(mesh_shape)
+    if batch is not None:
+        add("all_reduce", batch, 2, 2 * 4)        # label count, loss
+    p = mesh_shape.get("sp", 1)
+    if p > 1:
+        n, h, d = cp["layers"], cp["heads"], cp["head_dim"]
+        kvh = cp["kv_heads"]
+        if cp["mode"] == "ring":
+            kv = 2 * tokens_local * kvh * d
+            for op in ("send", "recv"):
+                add(op, "sp", n * (2 * p - 1),
+                    n * ((p - 1) * kv * act_bytes
+                         + (p - 1) * kv * (act_bytes + 4) + kv * 4))
+        else:
+            kvx = kvh if kvh % p == 0 else h
+            add("all_to_all", "sp", 8 * n,
+                n * 2 * (2 * h + 2 * kvx) * tokens_local * d * act_bytes)
     for name, plan in plans.items():
         numel = int(np.prod(plan.layout.local_shape))
         for dim, ax, reduce in plan.steps:
@@ -473,7 +520,7 @@ def step_comm(plans, split, mesh_shape, tokens_local, hidden, act_bytes,
             buckets[plan.remaining] = buckets.get(plan.remaining, 0) + \
                 int(np.prod(plan.layout.local_shape))
     for rem, numel in buckets.items():
-        add("all_reduce", "data" if len(rem) == 2 else rem[0], 1, numel * 4)
+        add("all_reduce", group_name(rem), 1, numel * 4)
     if world > 1:
         add("all_reduce", "world", 1, 8)           # the clip norm's sum
         if telemetry_groups:

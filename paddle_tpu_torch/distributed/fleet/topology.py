@@ -7,12 +7,14 @@ builds one communicator per axis. The JAX package makes them the axes
 of one device mesh. In the port every rank is a process (or, in tests,
 a thread) with a ``torch.distributed`` world group, and the topology is
 that rank's ``distributed.mesh.Mesh``: Paddle's "data" is the mesh's
-``dp``, "sharding" its ``fsdp`` and "model" its ``mp``; each axis's
-group is the mesh's group of that axis (one group a rank for an axis of
-size 1, so that every getter hands back a group). The rank order is the
-mesh's, row-major over ``(dp, fsdp, mp)``, which is Paddle's over
-``(data, sharding, model)`` when ``pipe`` and ``sep`` are 1. The pipe
-and sep axes are a later slice of the port: a degree above 1 raises.
+``dp``, "sharding" its ``fsdp``, "sep" its ``sp`` (context parallelism:
+``fleet.context_parallel``) and "model" its ``mp``; each axis's group is
+the mesh's group of that axis (one group a rank for an axis of size 1,
+so that every getter hands back a group), and
+``get_dp_sep_parallel_group`` the mesh's group over dp and sp. The rank
+order is the mesh's, row-major over ``(dp, fsdp, sp, mp)``, which is
+Paddle's over ``(data, sharding, sep, model)`` when ``pipe`` is 1. The
+pipe axis is a later slice of the port: a degree above 1 raises.
 
 The caller passes its world group and its device, as ``Mesh`` takes
 them; nothing here calls ``init_process_group``. ``set_hcg`` /
@@ -30,7 +32,8 @@ __all__ = ["AXES", "CommunicateTopology", "HybridCommunicateGroup",
            "set_hcg", "get_hcg"]
 
 AXES = ["data", "pipe", "sharding", "sep", "model"]
-_MESH_AXIS = {"data": "dp", "sharding": "fsdp", "model": "mp"}
+_MESH_AXIS = {"data": "dp", "sharding": "fsdp", "sep": "sp",
+              "model": "mp", "dp_sep": "dp_sp"}
 
 
 class CommunicateTopology:
@@ -48,13 +51,11 @@ class CommunicateTopology:
         return int(np.prod(self._dims))
 
 
-def _refuse_later_axes(pp_degree, sep_degree):
-    for name, deg in (("pp_degree", pp_degree), ("sep_degree", sep_degree)):
-        if deg > 1:
-            raise NotImplementedError(
-                f"HybridCommunicateGroup: {name}={deg}: the pipeline and "
-                "sequence (sep) axes are a later slice of the port "
-                "(ROADMAP Queue 1 item 9)")
+def _refuse_later_axes(pp_degree):
+    if pp_degree > 1:
+        raise NotImplementedError(
+            f"HybridCommunicateGroup: pp_degree={pp_degree}: the pipeline "
+            "axis is a later slice of the port (ROADMAP Queue 1 item 9)")
 
 
 class HybridCommunicateGroup:
@@ -73,19 +74,21 @@ class HybridCommunicateGroup:
             sharding_degree = dims.get("sharding", sharding_degree)
             sep_degree = dims.get("sep", sep_degree)
             mp_degree = dims.get("model", mp_degree)
-        _refuse_later_axes(pp_degree, sep_degree)
+        _refuse_later_axes(pp_degree)
         self._dp_degree = int(dp_degree)
         self._mp_degree = int(mp_degree)
         self._pp_degree = int(pp_degree)
         self._sharding_degree = int(sharding_degree)
         self._sep_degree = int(sep_degree)
-        world = self._dp_degree * self._sharding_degree * self._mp_degree
+        world = self._dp_degree * self._sharding_degree * \
+            self._sep_degree * self._mp_degree
         if group is None and world > 1:
             raise ValueError(
                 f"HybridCommunicateGroup: a world of {world} ranks needs "
                 "the caller's world group (group=)")
         self.mesh = Mesh({"dp": self._dp_degree,
                           "fsdp": self._sharding_degree,
+                          "sp": self._sep_degree,
                           "mp": self._mp_degree}, group=group,
                          device=device)
         self._groups = {}
@@ -124,7 +127,7 @@ class HybridCommunicateGroup:
         return self.mesh.coords["fsdp"]
 
     def get_sep_parallel_rank(self):
-        return 0
+        return self.mesh.coords["sp"]
 
     def get_global_rank(self):
         return self.mesh.rank
@@ -157,6 +160,17 @@ class HybridCommunicateGroup:
 
     def get_sep_parallel_group(self):
         return self._group("sep")
+
+    def get_dp_sep_parallel_group(self):
+        """The group over the data and sep axes: the ranks whose
+        gradients of a replicated parameter are averaged under context
+        parallelism (the dp group when sep is 1, the sep group when dp
+        is)."""
+        if self._sep_degree == 1:
+            return self._group("data")
+        if self._dp_degree == 1:
+            return self._group("sep")
+        return self._group("dp_sep")
 
     def get_check_parallel_group(self, *a):
         return self._group("data")

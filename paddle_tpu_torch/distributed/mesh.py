@@ -10,8 +10,13 @@ mesh is that rank's view of the layout: the axis sizes in the order
 row-major order over the axes, the JAX mesh's device order), and one
 process group per axis of size > 1 plus the data group over
 ``(dp, fsdp)``, built over the world group's store with prefixes, as
-``collective.new_group`` builds a group. A mesh of one rank has no
-groups and needs none.
+``collective.new_group`` builds a group. With a context-parallel axis
+(sp > 1) every rank holds a block of the sequence of its rows, so what
+the data group sums (the loss and the gradients of what sp replicates)
+is summed over sp too: the mesh then also builds a group over each set
+of reduced axes of size > 1 that contains sp, ``("dp", "fsdp", "sp")``
+as "data_sp" (``group_name``). A mesh of one rank has no groups and needs
+none.
 
 ``ProcessMesh`` / ``get_mesh`` / ``set_mesh`` are the JAX package's; the
 mesh set by a training step's ``run()`` is kept per thread, because
@@ -27,10 +32,22 @@ from ..core.device import resolve_device
 from . import collective
 
 __all__ = ["AXES", "DATA_AXES", "Mesh", "ProcessMesh", "get_mesh",
-           "set_mesh"]
+           "set_mesh", "group_name"]
 
 AXES = ("pp", "dp", "fsdp", "sp", "mp")
 DATA_AXES = ("dp", "fsdp")    # the batch's axes (JAX's ("dp", "fsdp"))
+# the groups of reduced axes: the data group and, with sp > 1, each set
+# of data axes joined by sp
+_REDUCED = {("dp", "fsdp"): "data", ("dp", "sp"): "dp_sp",
+            ("fsdp", "sp"): "fsdp_sp", ("dp", "fsdp", "sp"): "data_sp"}
+
+
+def group_name(axes):
+    """The name of the mesh's group over `axes` (in AXES order): the
+    axis itself for one axis, "data" for (dp, fsdp), "data_sp" for (dp,
+    fsdp, sp), "dp_sp" / "fsdp_sp" for one data axis with sp."""
+    axes = tuple(a for a in AXES if a in axes)
+    return axes[0] if len(axes) == 1 else _REDUCED[axes]
 
 # store -> {world rank: meshes built}; keyed by the store itself, not its
 # id(), which a later store may reuse with other ranks' counts
@@ -47,7 +64,11 @@ class Mesh:
     ``groups`` {axis or "data": group} for the axes of size > 1 (an axis
     of size 1 maps to None: its collectives are the identity).
     ``data_index`` / ``data_size``: this rank's place in the batch split
-    over (dp, fsdp), row-major as JAX's combined axis. A mesh built
+    over (dp, fsdp), row-major as JAX's combined axis; the sequence of
+    those rows is split over sp (``coords["sp"]`` the block), and the
+    sums over the batch (the loss and its count, the replicated
+    gradients) run over the ``data_size * shape["sp"]`` ranks of the
+    data axes and sp (the data group when sp is 1). A mesh built
     without a world group (``group`` None) and more than one rank is a
     layout only: ``spec_for_param`` reads it, a training step refuses
     it."""
@@ -69,7 +90,7 @@ class Mesh:
         self.data_size = self.shape["dp"] * self.shape["fsdp"]
         self.data_index = (self.coords["dp"] * self.shape["fsdp"]
                            + self.coords["fsdp"])
-        self.groups = {a: None for a in AXES + ("data",)}
+        self.groups = {a: None for a in AXES + tuple(_REDUCED.values())}
         if group is not None and self.size > 1:
             self._build_groups(group, timeout)
 
@@ -87,7 +108,12 @@ class Mesh:
         with _builds_lock:
             counts = _builds.setdefault(store, {})
             n = counts[self.rank] = counts.get(self.rank, 0) + 1
-        for name, axes in [(a, (a,)) for a in AXES] + [("data", DATA_AXES)]:
+        # the sets with sp: only where each of their axes is above 1 (a
+        # set with an axis of 1 is a smaller set's group)
+        sets = [(a, (a,)) for a in AXES] + [("data", DATA_AXES)] + [
+            (name, axes) for axes, name in _REDUCED.items()
+            if "sp" in axes and all(self.shape[x] > 1 for x in axes)]
+        for name, axes in sets:
             members = self._members(axes)
             if len(members) < 2:
                 continue
@@ -106,17 +132,22 @@ class Mesh:
 class ProcessMesh:
     """The JAX package's ``ProcessMesh`` surface (shape, dim_names,
     process_ids) over a port ``Mesh``, a nested list of ranks, or
-    another ProcessMesh."""
+    another ProcessMesh. ``mesh`` is the port ``Mesh`` it views (None
+    for a nested list): its groups are what a collective on an axis
+    runs on."""
 
     def __init__(self, mesh, dim_names=None, process_ids=None):
+        self.mesh = None    # the port Mesh this one views, if any
         if isinstance(mesh, ProcessMesh):
             self._shape = mesh.shape
             self._dim_names = list(mesh.dim_names)
             self._process_ids = list(mesh.process_ids)
+            self.mesh = mesh.mesh
         elif isinstance(mesh, Mesh):
             self._shape = [mesh.shape[a] for a in AXES]
             self._dim_names = list(AXES)
             self._process_ids = list(range(mesh.size))
+            self.mesh = mesh
         else:
             arr = np.asarray(mesh)
             self._shape = list(arr.shape)

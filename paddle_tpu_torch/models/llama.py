@@ -30,10 +30,21 @@ Parameter names match ``jit.functional.state_arrays`` of the JAX model
 ``distributed.fleet.recompute``) runs each decoder layer through
 ``recompute`` while the model trains: the layer's activations are rebuilt
 in the backward, the flash forward kernel then launching twice a layer.
-Options of the JAX model that are not ported yet raise
-``NotImplementedError``: context parallelism and the pipeline form.
-``sequence_parallel`` only shards activations over a mesh and has no
-effect on one device, as in the JAX package off-mesh.
+The pipeline form of the JAX model is not ported yet and raises
+``NotImplementedError``. ``sequence_parallel`` only shards activations
+over a mesh and has no effect on one device, as in the JAX package
+off-mesh.
+
+``context_parallel`` (True, or the name of the mesh axis; default "sp")
+with ``context_parallel_mode`` "ring" (default) or "ulysses": when the
+mesh of the step (``distributed.mesh.get_mesh()``) has that axis at a
+size above 1 and there is no ``attn_mask``, each rank holds its
+contiguous block of the sequence and the attention runs as
+``fleet.context_parallel``'s ``ring_attention`` or ``ulysses_attention``
+over the axis; any other mode raises ``ValueError``. RoPE then rotates
+by the block's global positions (the block's index times its length,
+onward) with ``fused_rotary_position_embedding``, and
+``fuse_rope_in_attention`` is ignored, as the JAX model ignores it.
 
 On the training mesh (``pretrain.make_train_step`` with a mesh of more
 than one rank, ``distributed.fleet.sharded``) each layer computes with
@@ -112,13 +123,6 @@ class LlamaConfig:
         return cls(**base)
 
 
-def _refuse_later_slice(config):
-    for opt in ("context_parallel",):
-        if getattr(config, opt, False):
-            raise NotImplementedError(
-                f"LlamaConfig.{opt} is a later slice of the port")
-
-
 def _weight(mod):
     """The weight a layer computes with: the module's parameter, or on the
     training mesh its gathered compute form (``sharded.bound``)."""
@@ -161,6 +165,21 @@ class LlamaAttention(torch.nn.Module):
             self.v_proj = init.linear(h, kv_out)
         self.o_proj = init.linear(h, h)
 
+    def _context_parallel_axis(self):
+        """(mesh, axis) of the active context-parallel axis when
+        ``config.context_parallel`` is on and the mesh of the step carries
+        the axis with a size above 1; None otherwise."""
+        cp = getattr(self.config, "context_parallel", False)
+        if not cp:
+            return None
+        from ..distributed.mesh import get_mesh
+        axis = cp if isinstance(cp, str) else "sp"
+        mesh = get_mesh()
+        if mesh is not None and axis in mesh.dim_names \
+                and mesh.get_dim_size(axis) > 1:
+            return mesh, axis
+        return None
+
     def forward(self, hidden_states, position_ids=None, attn_mask=None):
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         d = self.head_dim
@@ -187,6 +206,17 @@ class LlamaAttention(torch.nn.Module):
             k = F.linear(hidden_states, wk).reshape(b, s, nkv, d)
             v = F.linear(hidden_states, wv).reshape(b, s, nkv, d)
         rope = {}
+        cp = self._context_parallel_axis()
+        mode = getattr(self.config, "context_parallel_mode", "ring")
+        if cp is not None and mode not in ("ring", "ulysses"):
+            raise ValueError(f"context_parallel_mode={mode!r}: expected "
+                             "'ring' or 'ulysses'")
+        if cp is not None and position_ids is None:
+            # this rank's block of the sequence at its global positions
+            from ..distributed.fleet.context_parallel import _sep_axis
+            offset = _sep_axis(*cp).index * s
+            position_ids = torch.arange(offset, offset + s,
+                                        device=hidden_states.device)
         if getattr(self.config, "fuse_rope_in_attention", False) \
                 and position_ids is None and attn_mask is None:
             # the flash kernels rotate q and k themselves
@@ -199,7 +229,19 @@ class LlamaAttention(torch.nn.Module):
                 q, k, v, position_ids=position_ids,
                 use_neox_rotary_style=True,
                 rotary_emb_base=self.config.rope_theta)
-        if attn_mask is None:
+        if cp is not None and attn_mask is not None:
+            # the JAX model attends over the whole sequence there (GSPMD
+            # gathers it); a rank here holds its block alone
+            raise NotImplementedError(
+                "an attn_mask under context parallelism: the port attends "
+                "over a sequence split by the mesh without masks only")
+        if cp is not None:
+            from ..distributed.fleet import context_parallel as _cp
+            attn = _cp.ulysses_attention if mode == "ulysses" \
+                else _cp.ring_attention
+            out = attn(q, k, v, causal=True, mesh=cp[0], axis_name=cp[1],
+                       stats=self.__dict__.get("_cp_stats"))
+        elif attn_mask is None:
             out, _ = F.flash_attention(q, k, v, causal=True, **rope)
         else:
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
@@ -370,7 +412,6 @@ class LlamaForCausalLM(torch.nn.Module):
 
     def __init__(self, config, device="cuda", seed=0):
         super().__init__()
-        _refuse_later_slice(config)
         dev = resolve_device(device)
         init = _Init(config, dev, make_generator(seed, dev))
         self.config = config

@@ -30,8 +30,17 @@ the labels kept (each rank's sum over the global count, both summed over
 the data group), gradients are summed over the data group in float32,
 and kernel D runs on the local shards with the clip norm's sum of squares
 all_reduced between its two launches. ``shard_batch`` gives a rank its
-rows of the batch. The mesh's ``sp`` and ``pp`` axes (context
-parallelism and the pipeline) raise ``NotImplementedError``.
+rows of the batch.
+
+The mesh's ``sp`` axis is context parallelism: ``shard_batch`` also
+gives a rank its contiguous block of the sequence, the model (which
+needs ``LlamaConfig(context_parallel=True)``) attends over the axis
+(``fleet.context_parallel``: ring or Ulysses, RoPE at the block's global
+positions), and the loss, its count and the gradients of every
+parameter (each replicated over sp) are summed over the data axes and
+sp together (the mesh's group over sp and the data axes above 1:
+``sharded.batch_group``). The ``pp`` axis (the pipeline) raises
+``NotImplementedError``.
 """
 import re
 import time
@@ -146,7 +155,9 @@ def make_mesh(n_devices=None, dp=None, fsdp=None, mp=None, sp=1, pp=1,
     the axis groups' bound in seconds (default: the world group's).
     ``n_devices`` defaults to the group's size (1 without one):
     ``make_mesh(1)`` is the single-rank mesh, on which the step is the
-    one-card step. sp > 1 and pp > 1 raise ``NotImplementedError``."""
+    one-card step. sp > 1 splits each row's sequence into contiguous
+    blocks (context parallelism); pp > 1 raises
+    ``NotImplementedError``."""
     n = n_devices or (group.size() if group is not None else 1)
     mp = 1 if mp is None else mp
     fsdp = 1 if fsdp is None else fsdp
@@ -154,10 +165,10 @@ def make_mesh(n_devices=None, dp=None, fsdp=None, mp=None, sp=1, pp=1,
         dp = n // (mp * fsdp * sp * pp)
     assert pp * dp * fsdp * mp * sp == n, \
         f"pp{pp}*dp{dp}*fsdp{fsdp}*mp{mp}*sp{sp} != {n}"
-    if sp > 1 or pp > 1:
+    if pp > 1:
         raise NotImplementedError(
-            "make_mesh: the sp (context parallel) and pp (pipeline) axes "
-            "are a later slice of the port (ROADMAP Queue 1 item 9)")
+            "make_mesh: the pp (pipeline) axis is a later slice of the "
+            "port (ROADMAP Queue 1 item 9)")
     return Mesh(dict(pp=pp, dp=dp, fsdp=fsdp, sp=sp, mp=mp), group=group,
                 device=device, timeout=timeout)
 
@@ -372,12 +383,19 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
     comm = {}           # this rank's collectives of the last step
     plans, split = meta.get("plans", {}), meta.get("split", set())
     owned = {n: sharded.owned(plans[n], mesh) for n in plans}
-    data = mesh.data_size if on_mesh else 1
+    # the ranks the batch is split over: its rows over (dp, fsdp), each
+    # row's sequence over sp
+    red = sharded.batch_group(mesh.shape) if on_mesh else None
+    if on_mesh and mesh.shape["sp"] > 1 and not getattr(
+            getattr(model, "config", None), "context_parallel", False):
+        raise ValueError(
+            "make_train_step: a mesh with sp > 1 splits the sequence; the "
+            "model needs LlamaConfig(context_parallel=True)")
     cdtype = torch.bfloat16 if bf16_compute else None
 
     def data_sum(t):
-        if data > 1:
-            collective.all_reduce(t, group=mesh.groups["data"], axis="data",
+        if red is not None:
+            collective.all_reduce(t, group=mesh.groups[red], axis=red,
                                   stats=comm)
         return t
 
@@ -402,13 +420,15 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
                        and not (n in plans and plans[n].steps) else p)
                    for n, p in zip(names, leaves)}
             kw = {"labels": batch["labels"]}
-            if data > 1:
-                # the global mean: each rank's sum over the data group's
-                # count of the labels kept
+            if red is not None:
+                # the global mean: each rank's sum over the count of the
+                # labels kept on every rank of the batch's split
                 count = data_sum((batch["labels"] != -100).sum().to(
                     torch.float32).reshape(1))
                 kw["loss_denominator"] = count.clamp_min(1.0)[0]
-            with sharded.bound(model, mesh, plans, split, cdtype, comm):
+            with sharded.bound(model, mesh, plans, split, cdtype, comm,
+                               context_parallel=on_mesh
+                               and mesh.shape["sp"] > 1):
                 _, loss = torch.func.functional_call(
                     model, fwd, (batch["input_ids"],), kw)
                 loss = loss.to(torch.float32)
@@ -514,11 +534,13 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
 
 
 def shard_batch(batch, mesh):
-    """This rank's rows of a host batch dict of integer arrays, as int64
+    """This rank's part of a host batch dict of integer arrays, as int64
     tensors on the mesh's device: the batch dim split over (dp, fsdp) in
     the row-major order of JAX's combined axis (data index
-    dp_idx * fsdp + fsdp_idx). ``mesh`` None is ``batch_to_device`` on the
-    card."""
+    dp_idx * fsdp + fsdp_idx), and the sequence dim (dim 1) over sp in
+    contiguous blocks, block ``coords["sp"]`` (JAX's P(("dp", "fsdp"),
+    "sp")). The labels are already shifted, so no shift crosses a
+    block's edge. ``mesh`` None is ``batch_to_device`` on the card."""
     if mesh is None:
         return batch_to_device(batch)
     out = {}
@@ -530,6 +552,14 @@ def shard_batch(batch, mesh):
                              f"not a multiple of dp * fsdp = {n}")
         rows = a.shape[0] // n
         part = a[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+        sp = mesh.shape["sp"]
+        if sp > 1 and part.ndim >= 2:
+            if part.shape[1] % sp:
+                raise ValueError(f"shard_batch: {k} has {part.shape[1]} "
+                                 f"positions, not a multiple of sp = {sp}")
+            cols = part.shape[1] // sp
+            i = mesh.coords["sp"]
+            part = part[:, i * cols:(i + 1) * cols]
         out[k] = torch.as_tensor(part, dtype=torch.int64).to(mesh.device)
     return out
 

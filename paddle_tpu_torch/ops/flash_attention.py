@@ -97,9 +97,11 @@ def flash_fwd_plain(q, k, v, scale, causal, rope_cos=None, rope_sin=None):
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos=None,
-                    rope_sin=None):
+                    rope_sin=None, dq_acc=None):
     """Gradients (dq, dk, dv) of flash attention from the saved o and lse,
-    in plain PyTorch, each in its input's dtype."""
+    in plain PyTorch, each in its input's dtype; with ``dq_acc`` (f32,
+    shaped like q) dq is added into it in f32 and ``dq_acc`` comes back
+    in dq's place."""
     rope = rope_cos is not None
     if rope:
         q, k = _rope(q, rope_cos, rope_sin), _rope(k, rope_cos, rope_sin)
@@ -120,6 +122,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     if rope:
         dq, dk = _rope_bwd(dq, rope_cos, rope_sin), \
             _rope_bwd(dk, rope_cos, rope_sin)
+    if dq_acc is not None:
+        return dq_acc.add_(dq), dk.to(k.dtype), dv.to(v.dtype)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -215,16 +219,22 @@ flash_fwd.rope_launches = 0
 
 
 def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
-              rope_sin=None):
+              rope_sin=None, dq_acc=None):
     """(dq, dk, dv) of flash attention from the saved o and lse, the
     gradients of the unrotated q and k when the rope tables are given. A
     CPU tensor runs the plain version; a CUDA tensor launches the backward
     kernel (counted in ``flash_bwd.launches``, and in
     ``flash_bwd.rope_launches`` when it took the tables) on the current
-    stream, the forward's when autograd calls it, or raises."""
+    stream, the forward's when autograd calls it, or raises. ``dq_acc``
+    (a contiguous f32 tensor shaped like q): the kernel adds dq into it,
+    as it adds into its own zeroed buffer, and it comes back uncast in
+    dq's place; the ring of context parallelism sums a rank's blocks
+    there. o and lse may be any attention's over a longer key sequence
+    (the ring's combined ones): the kernel reads p as exp(s - lse) and
+    delta from o and do."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos,
-                               rope_sin)
+                               rope_sin, dq_acc)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     _check("flash_bwd", q, k, v, o, do)
@@ -232,11 +242,19 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     rcos, rsin = _rope_ptrs("flash_bwd", q, k, rope_cos, rope_sin)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    if dq_acc is None:
+        dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    else:
+        if dq_acc.shape != q.shape or dq_acc.dtype != torch.float32 \
+                or dq_acc.device != q.device or not dq_acc.is_contiguous():
+            raise ValueError(f"flash_bwd: dq_acc must be a contiguous "
+                             f"float32 {tuple(q.shape)} on {q.device}")
+        dq = dq_acc
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if sq == 0:
-        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+        return (dq if dq_acc is not None else dq.to(q.dtype)), \
+            dk.zero_(), dv.zero_()
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     rc = _launcher("bwd")(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -252,6 +270,8 @@ def flash_bwd(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     if _work.counting():
         _work.note("flash_bwd", *_work.flash_bwd(
             bh, sq, sk, d, causal, q.element_size(), rcos is not None))
+    if dq_acc is not None:
+        return dq, dk, dv
     return dq.to(q.dtype), dk, dv
 
 

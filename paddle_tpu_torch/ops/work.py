@@ -91,6 +91,19 @@ def flash_bwd(bh, sq, sk, d, causal, itemsize=2, rope=False):
     return nbytes, flops
 
 
+def ring_flash(p, rank, bh, s_loc, d, causal, itemsize=2):
+    """[(forward (bytes, flops), backward (bytes, flops))] of each flash
+    launch that rank ``rank`` of a ring of ``p`` makes for one attention
+    (``fleet.context_parallel.ring_attention``), in ring order: its
+    diagonal block (causal under ``causal``), then under ``causal`` its
+    ``rank`` earlier blocks in full, without it the p - 1 others in full.
+    Over the ring the pairs add up to one causal (or full) attention over
+    the p blocks."""
+    blocks = [causal] + [False] * (rank if causal else p - 1)
+    return [(flash_fwd(bh, s_loc, s_loc, d, c, itemsize),
+             flash_bwd(bh, s_loc, s_loc, d, c, itemsize)) for c in blocks]
+
+
 def flashmask_pairs(sr, er, h, sq, causal):
     """Visible pairs of a FlashMask case from its [B, MH, Sk] start / end
     row bounds (numpy), counted per column: its causal rows less the

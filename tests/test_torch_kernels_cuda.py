@@ -2106,3 +2106,55 @@ def test_gemm_at_each_plan_knob(quant, dtype, m, k, n, bn, waves):
     with pytest.raises(ValueError, match="bn"):
         qm.weight_only_matmul(x, w, sc, quant, block_n, bn=96)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [100, 500, 512])
+def test_flash_ring_blocks_match_plain(dtype, d, s):
+    """The blocks of ring attention: a full (non-causal) block with as
+    many keys as queries, on and off the 64-row tile, and its causal
+    diagonal twin."""
+    _flash_check(dtype, d, s, s, False, s + d)
+    _flash_check(dtype, d, s, s, True, s + d + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [96, 500])
+def test_flash_bwd_takes_a_combined_lse_and_sums_dq(dtype, s):
+    """The ring's backward: K2 on each of two key blocks with the o and
+    lse of attention over both (o and lse from the plain version over the
+    concatenated keys, the causal mask of the second block's queries),
+    dq summed across the two launches in one f32 ``dq_acc``; dq and each
+    block's dk / dv against the plain backward over the whole keys."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    d = 64
+    q, _, _, do = _flash_inputs(3, s, s, d, dtype, 7 * s)
+    _, k, v, _ = _flash_inputs(3, 2 * s, 2 * s, d, dtype, 7 * s + 1)
+    scale = d ** -0.5
+    # queries of the second block: full on block 0, causal on block 1 ==
+    # the top-left causal mask of [s, 2 s] shifted by s; built whole
+    rows = torch.arange(s, device="cuda")[:, None] + s
+    cols = torch.arange(2 * s, device="cuda")[None, :]
+    sc = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    sc = sc.masked_fill(rows < cols, fa.NEG_INF)
+    lse = torch.logsumexp(sc, -1).contiguous()
+    p = torch.exp(sc - lse[..., None])
+    o = torch.matmul(p.to(dtype).float(), v.float()).to(dtype).contiguous()
+    acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    got = []
+    for j, causal in ((0, False), (1, True)):
+        kj = k[:, j * s:(j + 1) * s].contiguous()
+        vj = v[:, j * s:(j + 1) * s].contiguous()
+        acc, dk, dv = fa.flash_bwd(q, kj, vj, o, lse, do, scale, causal,
+                                   dq_acc=acc)
+        ref = fa.flash_bwd_plain(q, kj, vj, o, lse, do, scale, causal)
+        for name, g, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= _tol(r, dtype), (j, name, err)
+        got.append(ref[0].float())
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.float32
+    want = got[0] + got[1]
+    err = float((acc - want).abs().max())
+    assert err <= _tol(want, dtype), ("dq", err)

@@ -426,9 +426,18 @@ def test_seeded_init_and_later_slice_options():
     assert not np.array_equal(w, c["llama.layers.0.self_attn.q_proj.weight"])
     assert abs(float(w.std()) - 0.02) < 0.004
     assert (a["llama.norm.weight"] == 1.0).all()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LlamaForCausalLM(LlamaConfig.tiny(context_parallel=True),
-                         device="cpu")
+    # context_parallel is taken now (tests/test_torch_context_parallel.py):
+    # off a mesh with an sp axis it draws the same weights and computes
+    # the same logits
+    cp = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32",
+                                           context_parallel=True),
+                          device="cpu", seed=3)
+    assert all(np.array_equal(a[n], v) for n, v in
+               llama_state_to_numpy(cp).items())
+    ids0 = torch.as_tensor(np.arange(32).reshape(2, 16) % 128)
+    base = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    with torch.no_grad():
+        assert torch.equal(cp(ids0), base(ids0))
     with pytest.raises(NotImplementedError, match="later slice"):
         tllama.LlamaForCausalLMPipe(cfg, 2)
     # recompute is taken now (tests/test_torch_recompute.py holds it

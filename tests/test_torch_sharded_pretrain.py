@@ -215,9 +215,10 @@ def test_make_mesh_axes_assertion_and_refusals():
     with pytest.raises(AssertionError) as e_jax:
         jpre.make_mesh(8, dp=3, fsdp=2, mp=2)
     assert str(e_port.value) == str(e_jax.value) == "pp1*dp3*fsdp2*mp2*sp1 != 8"
-    for kw in (dict(dp=4, sp=2), dict(dp=4, pp=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            tpre.make_mesh(8, device="cpu", **kw)
+    assert tpre.make_mesh(8, dp=4, sp=2, device="cpu").shape == \
+        {"pp": 1, "dp": 4, "fsdp": 1, "sp": 2, "mp": 1}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        tpre.make_mesh(8, device="cpu", dp=4, pp=2)
     one = tpre.make_mesh(1, device="cpu")
     assert one.size == 1 and one.groups["mp"] is None
 
