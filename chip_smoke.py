@@ -29,8 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      requests served with 96 int4-kernel launches per paged step;
   5. the flash-attention forward and backward kernels against their plain
      versions in bf16: the flagship training shape (B=8, S=2048, H=16,
-     D=64, causal), the forward entry's shape (B=4, S=128, H=8, KVH=4,
-     D=32), a length off the tile, a non-causal case and phase 31's ring
+     D=64, causal), phase 32's micro-batch (B=1, S=2048), the forward
+     entry's shape (B=4, S=128, H=8, KVH=4, D=32), a length off the
+     tile, a non-causal case and phase 31's ring
      blocks (B=8, H=16, D=64: a causal 512-row diagonal block, a full
      512-row block and a full 500-row one); each prints its
      worst element against its tolerance (the gradients' includes the
@@ -223,15 +224,18 @@ Phases (any failure exits non-zero and prints no result line):
      shapes (K x N 1024 x 1024, 512 x 1024, 1024 x 2816, 1408 x 1024, 704
      x 1024) against their plain versions; then tp=2 at the serving
      flagship's width on phase 2's 12 requests, each leg beside a tp=1
-     engine: f32, bf16, int8 and int4 in f32 and in bf16, and tp=4 at
-     L=2 in f32. Gates: f32 tokens equal to tp=1's (a part only at a
-     near tie, phase 3's rule), bf16 step-0 logits within 5% of the
-     logit range, on every rank 24 ragged launches, 48 all_reduces (and
-     96 GEMM launches when quantized) a step and cache bytes 1/tp, the
+     engine of its depth: bf16 at L=24 (the headline), f32, int8 and int4
+     in f32 and in bf16 at L=4, and tp=4 at L=2 in f32. Gates: f32 tokens
+     equal to tp=1's (a part only at a near tie, phase 3's rule), bf16
+     step-0 logits within 5% of the logit range, on every rank a ragged
+     launch and two all_reduces a layer (and four GEMM launches a layer
+     when quantized) a step and cache bytes 1/tp, the
      collective bytes equal to the steps' analytic payload, /healthz's
      mesh block with two device rows; prints ms/step, tokens/s, rank 0's
-     idle share and K3's device ms a step beside tp=1. Followers are
-     joined with a timeout; one that fails or hangs fails the phase;
+     idle share and K3's device ms a step beside tp=1 (the bf16 leg's
+     profiled windows serve phase 2's profiled requests) and each leg's
+     seconds. Followers are joined with a timeout; one that fails or
+     hangs fails the phase;
  26. (with autograd) the sharded pretrain mesh over gloo, every
      rank a process on the one card (``--mesh-rank`` runs one; the test
      bed, not a deployment): (a) the pretrain flagship (L=24, B=8,
@@ -367,6 +371,29 @@ Phases (any failure exits non-zero and prints no result line):
      element, ``MESH_MASTER_BULK`` for 99.9% of each tensor's), the
      elements past ``EAGER_ATOL`` counted, the collectives the closed
      form's;
+ 32. (after 31) pipeline parallelism (``fleet.pipeline_parallel``) over
+     gloo on the one card, the ranks processes (``--pipe-rank``): (a)
+     the flagship as ``LlamaForCausalLMPipe`` at pp 4 (phase 7's weights
+     and batches, six decoder blocks a stage, phase 28 (a)'s layout: bf16
+     parameters, AdamW with f32 masters and the clip), 8 micro-batches of
+     one row, under 1F1B, FThenB, VPP (two chunks of 3 blocks a rank) and
+     ZB-H1 in the same processes, each from the initial weights: a warm
+     step, a timed one and one more (profiled on rank 0). Gates: the
+     step-0 loss and grad norm within ``MESH_LOSS_RTOL`` /
+     ``MESH_GNORM_RTOL`` of phase 7's, (loss, grad norm) equal on every
+     rank, 48 + 48 flash launches a step a rank, the fused tier's
+     launches of the stage's blocks (the final norm and 8 + 8 token CE
+     on the last stage), 2 of kernel D's eager form, the collectives
+     equal to ``pipeline_comm``'s closed form, the micro-batches in
+     flight equal to the schedule's bound on every stage, and rank 0's
+     peak memory under 1F1B below its peak under FThenB; prints ms/step,
+     global tokens/s, MFU, rank 0's idle share, its host ms in
+     collectives and the peak by rank; (b) f32 L=2 on pp 2 x dp 2 x mp 2
+     (eight processes, phase 8's weights and batches, 3 steps) under
+     1F1B and ZB-H1: (loss, grad norm) within ``TRAIN_RTOL`` of phase 26
+     (b)'s one-card run, the stages' masters within
+     ``MESH_MASTER_ATOL`` / ``MESH_MASTER_BULK``, the collectives and the
+     micro-batches in flight as in (a);
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -1740,6 +1767,8 @@ def flash_cases(torch, seed=21):
     cases = []
     for name, b, s, h, kvh, d, causal in (
             ("flagship_b8_s2048_h16_d64", 8, 2048, 16, 16, 64, True),
+            # a micro-batch of phase 32 (a)'s pipeline: one row
+            ("pipe_micro_b1_s2048_h16_d64", 1, 2048, 16, 16, 64, True),
             # a rank's shard of phase 26 (a): B / (dp fsdp), H / mp
             ("rank_shard_b4_s2048_h8_d64", 4, 2048, 8, 8, 64, True),
             ("entry_b4_s128_h8_kvh4_d32", 4, 128, 8, 4, 32, True),
@@ -4845,12 +4874,15 @@ TP_TIMEOUT_S = 120.0    # every gloo operation of phase 25's groups
 TP_IDLE_S = 900.0       # a follower's wait for rank 0's next op
 TP_JOIN_S = 120.0       # a follower's exit after its last leg
 TP_SEED = 0             # phase 2's weights
-# (leg, dtype, weight_quant, layers) of the tp=2 group, in order
-TP2_LEGS = (("f32", "float32", None, L), ("bf16", "bfloat16", None, L),
-            ("int8_f32", "float32", "int8", L),
-            ("int4_f32", "float32", "int4", L),
-            ("int8_bf16", "bfloat16", "int8", L),
-            ("int4_bf16", "bfloat16", "int4", L))
+TP_CUT = 4              # the depth of the legs beside the headline
+# (leg, dtype, weight_quant, layers) of the tp=2 group, in order: the bf16
+# leg (the headline) at full depth, the others cut to TP_CUT layers (each
+# beside a tp=1 engine of its own depth)
+TP2_LEGS = (("f32", "float32", None, TP_CUT), ("bf16", "bfloat16", None, L),
+            ("int8_f32", "float32", "int8", TP_CUT),
+            ("int4_f32", "float32", "int4", TP_CUT),
+            ("int8_bf16", "bfloat16", "int8", TP_CUT),
+            ("int4_bf16", "bfloat16", "int4", TP_CUT))
 TP4_LEGS = (("f32_L2", "float32", None, 2),)
 TP_LOGIT_RTOL = 0.05    # bf16 step-0 logits: 5% of the logit range
 
@@ -5157,29 +5189,42 @@ def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
     followers replaying), the same requests; returns the leg's record."""
     name, dtype, quant, layers = leg
     rec = {"leg": name, "tp": tp}
+    marks = [("start", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
     e1 = make_engine(w, dtype, quant)
+    mark("tp1_build")
     serve(e1, warm)
+    mark("tp1_warm")
     reset_counts()
     with step_record(e1) as r1:
         cb1, g1, steps1, wall1 = serve(e1, reqs)
+    mark("tp1_serve")
     toks1 = [list(cb1.finished[r.request_id]) for r in g1]
     rec["tp1"] = {"steps": steps1, "wall_s": wall1,
                   "ms_per_step": wall1 / steps1 * 1e3,
                   "tokens_per_s": sum(map(len, toks1)) / wall1,
                   "cache_bytes": cache_bytes(cb1.caches),
                   "kv_block_bytes": e1.kv_device_block_bytes(BS)}
+    # the profiled windows: phase 2's 4 requests of 16 new tokens (the
+    # profiler's cost grows with the steps it traces)
+    prof_reqs = requests(7, 4, new=(16, 16))
     if name == "bf16":
         rec["tp1"]["profile"] = profile_window(
-            torch, lambda: serve(e1, reqs)[2], "paged steps (tp=1)")
+            torch, lambda: serve(e1, prof_reqs)[2], "paged steps (tp=1)")
+        mark("tp1_profile")
     del cb1
     t0 = time.perf_counter()
     e2 = make_engine(w, dtype, quant, tp=tp, group=group)
     rec["build_s"] = time.perf_counter() - t0
+    mark("tp_build")
     routes = set(e2.quant_routes.values())
     check(quant is None or routes == {"kernel"}, f"{name}: tp={tp} routes "
           f"{e2.quant_routes}: every rank's widths fit a kernel block")
     with counted_steps(e2) as leg_steps:
         serve(e2, warm)
+        mark("tp_warm")
         reset_counts()
         calls0, coll0 = collective.all_reduce.calls, collective_bytes()
         with step_record(e2) as r2:
@@ -5190,11 +5235,14 @@ def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
         coll = collective_bytes() - coll0
         toks2 = [list(cb2.finished[r.request_id]) for r in g2]
         bytes2 = cache_bytes(cb2.caches)
+        mark("tp_serve")
         if name == "bf16":
             rec["healthz_mesh"] = tp_healthz(torch, cb2)
+            mark("tp_healthz")
             rec["profile"] = profile_window(
-                torch, lambda: serve(e2, reqs)[2], f"paged steps (tp={tp}, "
-                "rank 0)")
+                torch, lambda: serve(e2, prof_reqs)[2],
+                f"paged steps (tp={tp}, rank 0)")
+            mark("tp_profile")
     want_k4 = {"int4": (4 * layers * steps2, 0),
                "int8": (0, 4 * layers * steps2), None: (0, 0)}[quant]
     check(attn == layers * steps2, f"{name}: ragged kernel launched {attn} "
@@ -5246,6 +5294,11 @@ def tp_leg(torch, w, reqs, warm, leg, group, tp, collective):
     e2.stop_followers()
     del e1, e2, cb2
     torch.cuda.empty_cache()
+    mark("checks")
+    rec["seconds"] = {label: t - marks[i][1]
+                      for i, (label, t) in enumerate(marks[1:])}
+    print(f"  {name} leg seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()), flush=True)
     return rec
 
 
@@ -5277,14 +5330,20 @@ def phase_tp(torch):
     procs = []
     try:
         procs = spawn_followers(2, TP2_LEGS, tmp)
+        t0 = time.perf_counter()
         out["kernels"] = tp_kernel_rows(torch)
-        w = llama_weights(TP_SEED, L)
+        t1 = time.perf_counter()
+        weights = {n: llama_weights(TP_SEED, n)
+                   for n in sorted({leg[3] for leg in TP2_LEGS})}
+        print(f"  kernel rows {t1 - t0:.1f} s, weights "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
         reqs = requests(1, 12)
         warm = requests(99, 2, prompt=(16, 80), new=(2, 4))
         group = collective.new_group(0, 2, os.path.join(tmp, "store2"),
                                      timeout=TP_TIMEOUT_S)
-        recs = [tp_leg(torch, w, reqs, warm, leg, group, 2, collective)
-                for leg in TP2_LEGS]
+        recs = [tp_leg(torch, weights[leg[3]], reqs, warm, leg, group, 2,
+                       collective) for leg in TP2_LEGS]
+        del weights
         check_followers(join_followers(procs), recs, TP2_LEGS,
                         {leg[0]: leg[3] for leg in TP2_LEGS})
         procs = spawn_followers(4, TP4_LEGS, tmp)
@@ -7809,6 +7868,376 @@ def phase_cp(torch, train_stats, flash_rows):
     return out
 
 
+# -- phase 32: pipeline parallelism over gloo on the one card ----------------
+
+PIPE_TIMEOUT_S = 180.0     # every gloo operation of phase 32's groups
+PIPE_JOIN_S = 600.0        # the ranks' exit after their last schedule
+PIPE_LEGS = (
+    # (leg, mesh, world, dtype, layers, weight seed, batch seed, steps,
+    #  accumulate_steps, schedules)
+    ("a", {"pp": 4}, 4, "bfloat16", L, 0, 0, 3, 8,
+     ("1F1B", "FThenB", "VPP", "ZBH1")),
+    ("b", {"pp": 2, "dp": 2, "mp": 2}, 8, "float32", 2, 1, 1, 3, 4,
+     ("1F1B", "ZBH1")),
+)
+PIPE_VPP = 2               # (a)'s VPP: two chunks of 3 layers a rank
+PIPE_DEVICE = "cuda"       # the ranks' device
+
+
+def pipe_strategy(fleet, mesh_kw, micro, schedule):
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs.update(
+        pp_degree=mesh_kw.get("pp", 1), dp_degree=mesh_kw.get("dp", 1),
+        mp_degree=mesh_kw.get("mp", 1), pp_configs={
+            "accumulate_steps": micro, "schedule_mode": schedule,
+            "vpp_degree": PIPE_VPP if schedule == "VPP" else 1})
+    return s
+
+
+def pipe_rank(spec_path):
+    """A rank of phase 32 (``chip_smoke.py --pipe-rank SPEC``): joins the
+    world group, takes the seeded model's weights (phase 7's or phase
+    8's) to the host, and for each schedule of the spec builds its stage
+    of ``LlamaForCausalLMPipe`` through ``fleet.init`` /
+    ``distributed_model`` / ``distributed_optimizer`` (bf16: phase 28
+    (a)'s layout, AdamW with f32 masters and the clip), runs
+    ``train_batch`` on its rows of the seeded batches and writes its
+    numbers as JSON to the spec's ``out``. A bf16 leg runs a warm step,
+    a timed one (counted, collectives' host seconds, peak memory) and a
+    profiled one (rank 0); an f32 leg runs its steps and writes its
+    stage's trained masters (dp and mp rank 0)."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import collective, comm_watchdog, fleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLMPipe,
+                                               llama_pipe_state_from_numpy,
+                                               llama_pipe_state_to_numpy)
+    from paddle_tpu_torch.ops import adamw as ad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = collective.new_group(spec["rank"], spec["world"], spec["store"],
+                                 timeout=PIPE_TIMEOUT_S)
+
+    def coll_seconds():
+        fam = obs.get_registry().snapshot().get("collective_seconds", {})
+        return {k: c["sum"] for k, c in fam.get("children", {}).items()}
+    cfg, batch, seq = mesh_config(spec["dtype"], spec["layers"])
+    bf16 = spec["dtype"] == "bfloat16"
+    whole = LlamaForCausalLM(cfg, device=PIPE_DEVICE, seed=spec["seed"])
+    init = {n: p.detach().cpu() for n, p in whole.named_parameters()}
+    n_params = sum(t.numel() for t in init.values())
+    del whole
+    torch.cuda.empty_cache()
+    host = mesh_batches(cfg, batch, seq, spec["batch_seed"], spec["steps"])
+    runs = {}
+    for schedule in spec["schedules"]:
+        marks = [time.perf_counter()]
+        hcg = fleet.init(is_collective=True, group=group,
+                         device=PIPE_DEVICE,
+                         strategy=pipe_strategy(fleet, spec["mesh"],
+                                                spec["micro"], schedule))
+        model = LlamaForCausalLMPipe(cfg, num_stages=spec["mesh"]["pp"])
+        llama_pipe_state_from_numpy(init, model)
+        if bf16:
+            eager_o2(model)
+        dm = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(
+            eager_optimizer(model, EAGER_CLIP, bf16))
+        dp, d = hcg.get_data_parallel_world_size(), \
+            hcg.get_data_parallel_rank()
+        rows = slice(d * batch // dp, (d + 1) * batch // dp)
+        data = [(b["input_ids"][rows], b["labels"][rows]) for b in host]
+        out = {"rank": spec["rank"], "stage": hcg.get_stage_id(),
+               "mp_rank": hcg.get_model_parallel_rank(), "dp_rank": d,
+               "params": sum(p.numel() for p in model.parameters()),
+               "n_params": n_params}
+        hist = []
+
+        def step(i):
+            loss = dm.train_batch(data[i], opt)
+            hist.append((float(loss), float(opt._inner._last_grad_norm)))
+        marks.append(time.perf_counter())
+        if bf16:
+            step(0)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            comm_watchdog.enable_comm_watchdog(timeout=PIPE_TIMEOUT_S,
+                                               poll_interval=60)
+            c0 = coll_seconds()
+            t0 = time.perf_counter()
+            step(1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c1 = coll_seconds()
+            comm_watchdog.disable_comm_watchdog()
+            out.update(
+                ms_per_step=wall * 1e3, flash=list(read_flash_counts()),
+                tier=list(read_tier_counts()),
+                ce_partial=read_partial_counts(),
+                adamw_eager=ad.adamw_eager.launches, comm=dict(dm.comm),
+                in_flight=dm.max_in_flight,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collective_ms={k: (v - c0.get(k, 0.0)) * 1e3
+                               for k, v in c1.items()})
+            if spec["rank"] == 0:
+                out["profile"] = profile_window(
+                    torch, lambda: step(2) or 1, f"{schedule} step")
+            else:
+                step(2)
+        else:
+            for i in range(spec["steps"]):
+                step(i)
+            out.update(comm=dict(dm.comm), in_flight=dm.max_in_flight,
+                       flash=list(read_flash_counts()))
+            masters = llama_pipe_state_to_numpy(dm, names="causal_lm")
+            if d == 0 and out["mp_rank"] == 0:
+                np.savez(spec["masters"].format(schedule=schedule,
+                                                stage=out["stage"]),
+                         **masters)
+        marks.append(time.perf_counter())
+        out["seconds"] = np.diff(marks).tolist()
+        out["hist"] = hist
+        out["plans"] = {n: [list(p.layout.local_shape),
+                            [list(st) for st in p.steps]]
+                        for n, p in model._plans.items()}
+        out["split"] = sorted(model._split)
+        runs[schedule] = out
+        del dm, opt, model
+        torch.cuda.empty_cache()
+    with open(spec["out"], "w") as f:
+        json.dump({"rank": spec["rank"], "runs": runs}, f)
+    return 0
+
+
+def pipe_expected_comm(schedule, leg, r, cfg, seq):
+    """``pipeline_comm``'s closed form of rank record `r`'s step."""
+    from paddle_tpu_torch.distributed.fleet import pipeline_parallel as ppl
+    from paddle_tpu_torch.distributed.fleet.sharded import ParamLayout
+    _, mesh_kw, _, dtype, _, _, _, _, micro, _ = leg
+    act = 2 if dtype == "bfloat16" else 4
+    rows = 8 // mesh_kw.get("dp", 1) // micro
+    tokens = rows * seq
+    mp = mesh_kw.get("mp", 1)
+
+    class Plan:
+        def __init__(self, local, steps):
+            self.layout = ParamLayout(local, [None] * len(local), {})
+            self.steps = [tuple(st) for st in steps]
+    plans = {n: Plan(*v) for n, v in r["plans"].items()}
+    return ppl.pipeline_comm(
+        schedule, mesh_kw["pp"], PIPE_VPP, micro, r["stage"],
+        2 * tokens * cfg.hidden_size * act, dp=mesh_kw.get("dp", 1), mp=mp,
+        grad_elems=r["params"], clip=True, plans=plans, split=r["split"],
+        tokens=tokens, hidden=cfg.hidden_size, act_bytes=act,
+        compute_bytes=act)
+
+
+def pipe_tier(cfg, layers, micro, last, vocab_parallel):
+    """The fused tier's launches a step on a stage of `layers` decoder
+    blocks over `micro` micro-batches (the last stage adds the final norm
+    and the CE)."""
+    n_norm = micro * (2 * layers + (1 if last else 0))
+    ce = micro if last else 0
+    return [n_norm, n_norm, micro * layers, micro * layers,
+            0 if vocab_parallel else ce, ce, 0]
+
+
+def phase_pipeline(torch, train_stats):
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed.fleet.pipeline_schedule import (
+        in_flight_bound)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    out = {"backend": "gloo, one card"}
+    try:
+        for leg in PIPE_LEGS:
+            name, mesh_kw, world, dtype, layers, seed, bseed, steps, micro, \
+                schedules = leg
+            specs = [{"rank": rank, "world": world, "mesh": mesh_kw,
+                      "store": os.path.join(tmp, f"store_{name}"),
+                      "dtype": dtype, "layers": layers, "seed": seed,
+                      "batch_seed": bseed, "steps": steps, "micro": micro,
+                      "schedules": list(schedules),
+                      "masters": os.path.join(
+                          tmp, f"{name}_masters_{{schedule}}_{{stage}}.npz"),
+                      "out": os.path.join(tmp, f"pipe_{name}_rank{rank}.json")}
+                     for rank in range(world)]
+            t0 = time.perf_counter()
+            ranks = run_rank_procs("--pipe-rank", f"pipeline leg {name}",
+                                   specs, tmp, PIPE_JOIN_S)
+            out[f"{name}_wall_s"] = time.perf_counter() - t0
+            cfg, batch, seq = mesh_config(dtype, layers)
+            if name == "a":
+                out["a"] = pipe_leg_a(torch, leg, ranks, cfg, batch, seq,
+                                      train_stats, in_flight_bound)
+            else:
+                out["b"] = pipe_leg_b(torch, leg, ranks, cfg, seq, specs[0],
+                                      in_flight_bound)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def pipe_leg_a(torch, leg, ranks, cfg, batch, seq, train_stats, bound_of):
+    name, mesh_kw, world, _, layers, _, _, _, micro, schedules = leg
+    S = mesh_kw["pp"]
+    per_rank = layers // S
+    res = {}
+    ref_loss, ref_gn = train_stats["losses"][0], train_stats["grad_norms"][0]
+    for schedule in schedules:
+        rr = [r["runs"][schedule] for r in ranks]
+        hist = rr[0]["hist"]
+        for r in rr:
+            tag = f"pipeline (a) {schedule} rank {r['rank']}"
+            check(r["hist"] == hist, f"{tag}: (loss, grad norm) {r['hist']} "
+                  f"differ from rank 0's {hist}")
+            check(r["flash"] == [micro * per_rank] * 2, f"{tag}: flash fwd "
+                  f"/ bwd launches {r['flash']} in a step (want "
+                  f"{micro * per_rank} each)")
+            want = pipe_tier(cfg, per_rank, micro, r["stage"] == S - 1,
+                             False)
+            check(r["tier"] == want and r["adamw_eager"] == 2,
+                  f"{tag}: fused tier launches {r['tier']} and kernel D's "
+                  f"eager form {r['adamw_eager']} in a step (want {want} "
+                  "and 2)")
+            comm = pipe_expected_comm(schedule, leg, r, cfg, seq)
+            check(r["comm"] == comm, f"{tag}: collectives {r['comm']}, the "
+                  f"closed form gives {comm}")
+            b = bound_of(schedule, S, micro, r["stage"],
+                         PIPE_VPP if schedule == "VPP" else 1)
+            check(r["in_flight"] == b, f"{tag}: {r['in_flight']} "
+                  f"micro-batches in flight, the schedule's bound is {b}")
+            check(all(math.isfinite(x) for h in r["hist"] for x in h),
+                  f"{tag}: non-finite {r['hist']}")
+        loss0, gn0 = hist[0]
+        loss_rel = abs(loss0 - ref_loss) / abs(ref_loss)
+        gn_rel = abs(gn0 - ref_gn) / ref_gn
+        check(loss_rel <= MESH_LOSS_RTOL, f"pipeline (a) {schedule} step-0 "
+              f"loss {loss0} against phase 7's {ref_loss} (relative "
+              f"{loss_rel:.3e}, rtol {MESH_LOSS_RTOL:g})")
+        check(gn_rel <= MESH_GNORM_RTOL, f"pipeline (a) {schedule} step-0 "
+              f"grad norm {gn0} against phase 7's {ref_gn} (relative "
+              f"{gn_rel:.3e}, rtol {MESH_GNORM_RTOL:g})")
+        r0 = rr[0]
+        # a step ends on every rank together (the loss's all_reduce over
+        # pp), so each rank's wall is the step's
+        ms = max(r["ms_per_step"] for r in rr)
+        tokens_per_s = batch * seq / (ms / 1e3)
+        mfu = train_flops_per_token(cfg, r0["n_params"], seq) * \
+            tokens_per_s / BF16_FLOPS_PER_S
+        prof = r0.get("profile", {})
+        idle = None if prof.get("device_busy_s") is None \
+            else 1 - prof["device_busy_s"] / prof["wall_s"]
+        coll = sum(r0["collective_ms"].values())
+        res[schedule] = {
+            "ms_per_step": ms, "ms_per_step_by_rank":
+                [r["ms_per_step"] for r in rr],
+            "tokens_per_s": tokens_per_s, "mfu": mfu,
+            "step0_loss": loss0, "step0_grad_norm": gn0,
+            "step0_loss_rel": loss_rel, "step0_grad_norm_rel": gn_rel,
+            "hist": hist, "peak_gb_by_rank": [r["peak_gb"] for r in rr],
+            "in_flight_by_rank": [r["in_flight"] for r in rr],
+            "rank0_idle": idle, "rank0_collective_ms": coll,
+            "rank0_collective_ms_by_op": r0["collective_ms"],
+            "collectives_by_rank": [r["comm"] for r in rr],
+            "launches_by_rank": [{"flash": r["flash"], "tier": r["tier"],
+                                  "adamw_eager": r["adamw_eager"]}
+                                 for r in rr],
+            "rank0_profile": prof}
+        print(f"  (a) {schedule} pp {S} x {micro} micro-batches of 1 row, "
+              f"L={layers} bf16: {ms:.1f} ms/step (by rank "
+              f"{['%.1f' % r['ms_per_step'] for r in rr]}), "
+              f"{tokens_per_s:.1f} global tokens/s, MFU {mfu:.4f} (one "
+              f"card's 989 TFLOP/s; phase 7 {train_stats['ms_per_step']:.1f}"
+              f" ms/step); step-0 loss {loss0:.6f} (phase 7 {ref_loss:.6f}, "
+              f"relative {loss_rel:.2e}), grad norm {gn0:.6f} ({ref_gn:.6f},"
+              f" {gn_rel:.2e}); rank 0 idle "
+              f"{'not measured' if idle is None else '%.1f%%' % (idle * 100)}"
+              f", {coll:.1f} host ms in collectives (dispatch to result, "
+              f"overlapping sends counted whole); peak GB by rank "
+              f"{['%.2f' % r['peak_gb'] for r in rr]}; in flight by rank "
+              f"{[r['in_flight'] for r in rr]}; launches a step a rank: "
+              f"flash {r0['flash']}, tier {[r['tier'] for r in rr]}",
+              flush=True)
+    print("  (a) rank 0's seconds a schedule (build, warm step, timed and "
+          "profiled steps): " + "; ".join(
+              f"{s} " + " / ".join("%.1f" % x for x in
+                                   ranks[0]["runs"][s]["seconds"])
+              for s in schedules), flush=True)
+    p1, pg = (res[s]["peak_gb_by_rank"][0] for s in ("1F1B", "FThenB"))
+    check(p1 < pg, f"pipeline (a): rank 0's peak memory under 1F1B {p1:.3f} "
+          f"GB is not below its peak under FThenB {pg:.3f} GB")
+    print(f"  (a) rank 0's peak: 1F1B {p1:.2f} GB < FThenB {pg:.2f} GB; "
+          f"gloo processes on one card, a test bed, not a deployment",
+          flush=True)
+    return res
+
+
+def pipe_leg_b(torch, leg, ranks, cfg, seq, spec0, bound_of):
+    name, mesh_kw, world, _, layers, _, _, steps, micro, schedules = leg
+    ref_hist, ref_masters = mesh_reference(torch, MESH_LEGS[1])
+    S = mesh_kw["pp"]
+    res = {}
+    for schedule in schedules:
+        rr = [r["runs"][schedule] for r in ranks]
+        got = np.array(rr[0]["hist"])
+        for r in rr:
+            tag = f"pipeline (b) {schedule} rank {r['rank']}"
+            check(np.array_equal(np.array(r["hist"]), got),
+                  f"{tag}: (loss, gnorm) {r['hist']} differ from rank 0's")
+            comm = pipe_expected_comm(schedule, leg, r, cfg, seq)
+            check(r["comm"] == comm, f"{tag}: collectives {r['comm']}, the "
+                  f"closed form gives {comm}")
+            check(r["in_flight"] == bound_of(schedule, S, micro, r["stage"]),
+                  f"{tag}: {r['in_flight']} micro-batches in flight")
+        rel = np.abs(got - ref_hist) / np.abs(ref_hist)
+        check(float(rel.max()) <= TRAIN_RTOL,
+              f"pipeline (b) {schedule} (loss, gnorm) {got.tolist()} against "
+              f"the one-card step {ref_hist.tolist()}: worst rel "
+              f"{float(rel.max()):.2e}")
+        masters = {}
+        for stage in range(S):
+            masters.update(np.load(spec0["masters"].format(
+                schedule=schedule, stage=stage)))
+        check(sorted(masters) == sorted(ref_masters),
+              f"pipeline (b) {schedule}: the stages' masters {sorted(masters)}"
+              f" are not the model's")
+        per = {}
+        for n in ref_masters:
+            dd = np.abs(masters[n] - ref_masters[n]).ravel()
+            per[n] = (float(dd.max()), float(dd.max() if ref_masters[n].ndim
+                                             == 1 else np.quantile(dd, 0.999)))
+        worst_n = max(per, key=lambda n: per[n][0])
+        bulk_n = max(per, key=lambda n: per[n][1])
+        worst, q999 = per[worst_n][0], per[bulk_n][1]
+        check(worst <= MESH_MASTER_ATOL and q999 <= MESH_MASTER_BULK,
+              f"pipeline (b) {schedule} masters after {steps} steps: max abs "
+              f"diff {worst} in {worst_n} (allowed {MESH_MASTER_ATOL:g}); "
+              f"worst tensor's 99.9th percentile {q999} in {bulk_n} (allowed"
+              f" {MESH_MASTER_BULK:g})")
+        res[schedule] = {"hist": got.tolist(), "one_card": ref_hist.tolist(),
+                         "worst_rel": float(rel.max()),
+                         "masters_max_abs": worst,
+                         "masters_max_tensor": worst_n,
+                         "masters_q999_worst_tensor": q999,
+                         "collectives_by_rank": [r["comm"] for r in rr]}
+        print(f"  (b) {schedule} pp 2 x dp 2 x mp 2, f32 L={layers}: (loss, "
+              f"gnorm) {got.tolist()} vs one card {ref_hist.tolist()}, worst "
+              f"rel {float(rel.max()):.2e} (rtol {TRAIN_RTOL:g}); masters "
+              f"max abs diff {worst:.3e} ({worst_n}), worst tensor's 99.9th "
+              f"percentile {q999:.3e} ({bulk_n})", flush=True)
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -7982,6 +8411,11 @@ def main():
           f"at sp {CP_SP}, bf16, (c) both in f32 L=2 on dp 2 x mp 2 x sp 2",
           flush=True)
     cp_stats = phase_cp(torch, train_stats, flash_rows)
+    phase("phase 32: pipeline parallelism over gloo in processes on the "
+          f"card: (a) the flagship as LlamaForCausalLMPipe at pp 4 (1F1B, "
+          "FThenB, VPP, ZBH1), bf16; (b) f32 L=2 on pp 2 x dp 2 x mp 2 "
+          "(1F1B, ZBH1)", flush=True)
+    pipe_stats = phase_pipeline(torch, train_stats)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -8123,6 +8557,8 @@ def main():
     print(f"card: {card}; amp: {json.dumps(amp_stats)}", flush=True)
     print(f"card: {card}; context parallelism: {json.dumps(cp_stats)}",
           flush=True)
+    print(f"card: {card}; pipeline parallelism: {json.dumps(pipe_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8142,6 +8578,8 @@ if __name__ == "__main__":
             rc = eager_rank(sys.argv[2])
         elif sys.argv[1:2] == ["--amp-rank"]:
             rc = amp_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--pipe-rank"]:
+            rc = pipe_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

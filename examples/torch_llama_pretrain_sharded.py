@@ -9,6 +9,10 @@ Run on the CPU:
 Context parallelism (each rank a block of the sequence, ring or Ulysses):
   python examples/torch_llama_pretrain_sharded.py --dp 2 --sp 2 \\
       --cp-mode ulysses --device cpu
+Pipeline parallelism (each rank a stage of ``LlamaForCausalLMPipe``,
+through ``fleet.distributed_model``; 1F1B, FThenB, VPP or ZBH1):
+  python examples/torch_llama_pretrain_sharded.py --pp 2 --dp 2 --mp 2 \\
+      --schedule ZBH1 --device cpu
 
 The script starts one process a rank (this script with ``--rank``) over a
 ``FileStore`` in a temporary directory and a gloo world group; each rank
@@ -16,8 +20,10 @@ builds the model from the same seed, keeps its shards of the masters and
 moments (ZeRO-3 over fsdp, Megatron over mp, the batch over dp x fsdp),
 and prints the global loss and grad norm; rank 0's lines are shown. With
 ``--sp`` each rank holds a contiguous block of its rows' sequence and the
-attention runs over the sp axis (``--cp-mode``). The mesh's pp axis is a
-later slice of the port.
+attention runs over the sp axis (``--cp-mode``). With ``--pp`` each rank
+holds one stage (with ``--schedule VPP`` two chunks) and trains it with
+``train_batch`` on its rows, ``--micro`` micro-batches a step; fsdp and
+sp do not combine with pp yet.
 """
 import argparse
 import os
@@ -38,7 +44,7 @@ def rank_main(args):
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          pretrain)
 
-    world = args.dp * args.fsdp * args.sp * args.mp
+    world = args.pp * args.dp * args.fsdp * args.sp * args.mp
     device = args.device
     if device == "cuda":
         device = f"cuda:{args.rank % max(1, torch.cuda.device_count())}"
@@ -50,6 +56,8 @@ def rank_main(args):
         max_position_embeddings=args.seq, dtype=args.dtype,
         context_parallel=args.sp > 1, context_parallel_mode=args.cp_mode)
     model = LlamaForCausalLM(cfg, device=device, seed=0)
+    if args.pp > 1:
+        return pipe_main(args, cfg, model, group, device)
     mesh = pretrain.make_mesh(world, dp=args.dp, fsdp=args.fsdp, mp=args.mp,
                               sp=args.sp, group=group, device=device)
     params, opt_state, meta = pretrain.make_train_state(model, mesh)
@@ -74,8 +82,57 @@ def rank_main(args):
     return 0
 
 
+def pipe_main(args, cfg, whole, group, device):
+    """The pipeline: this rank's stage of the seeded model, trained by
+    ``PipelineParallel.train_batch`` on its rows of each batch."""
+    import numpy as np
+
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLMPipe,
+                                               llama_pipe_state_from_numpy)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(
+        pp_degree=args.pp, dp_degree=args.dp, mp_degree=args.mp,
+        sharding_degree=args.fsdp, sep_degree=args.sp,
+        pp_configs={"accumulate_steps": args.micro,
+                    "schedule_mode": args.schedule, "vpp_degree": 2})
+    hcg = fleet.init(is_collective=True, strategy=strategy, group=group,
+                     device=device)
+    pipe = LlamaForCausalLMPipe(cfg, num_stages=args.pp)
+    llama_pipe_state_from_numpy(dict(whole.named_parameters()), pipe)
+    del whole
+    model = fleet.distributed_model(pipe)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=3e-4, parameters=pipe.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(1.0)))
+    d = hcg.get_data_parallel_rank()
+    rows = slice(d * args.batch // args.dp, (d + 1) * args.batch // args.dp)
+    rng = np.random.default_rng(0)
+    for i in range(args.steps):
+        ids = rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
+        labels = rng.integers(0, cfg.vocab_size, (args.batch, args.seq))
+        loss = model.train_batch((ids[rows], labels[rows]), opt)
+        if args.rank == 0:
+            print(f"step {i}: loss {float(loss):.4f} gnorm "
+                  f"{float(opt._last_grad_norm):.3f}", flush=True)
+    if args.rank == 0:
+        print(f"rank 0, stage {hcg.get_stage_id()} of {args.pp} "
+              f"({args.schedule}): {model.max_in_flight} micro-batches in "
+              f"flight at most; collectives of the last step: "
+              f"{ {k: v['calls'] for k, v in model.comm.items()} }",
+              flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (fleet.distributed_model)")
+    ap.add_argument("--schedule", default="1F1B",
+                    choices=["1F1B", "FThenB", "VPP", "ZBH1"])
+    ap.add_argument("--micro", type=int, default=2,
+                    help="micro-batches a step a rank (accumulate_steps)")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--fsdp", type=int, default=1)
     ap.add_argument("--mp", type=int, default=1)
@@ -96,7 +153,7 @@ def main():
     args = ap.parse_args()
     if args.rank is not None:
         return rank_main(args)
-    world = args.dp * args.fsdp * args.sp * args.mp
+    world = args.pp * args.dp * args.fsdp * args.sp * args.mp
     tmp = tempfile.mkdtemp(prefix="torch_pretrain_sharded_")
     store = os.path.join(tmp, "store")
     base = [sys.executable, os.path.abspath(__file__)] + [

@@ -20,8 +20,11 @@ gradients (stage 2 reduce-scatters them in the step, stage 3 holds
 chunks), so ``group_sharded_parallel(..., scaler=)`` gives the scaler the
 sharding group and the flag is all-reduced (MAX) over it before it is
 read: every rank skips the same steps (the reference's
-``GroupShardedScaler``). After ``DataParallel``'s reducer every rank
-holds the same averaged gradients and finds the same flag.
+``GroupShardedScaler``). The pipeline (``PipelineParallel.train_batch(...,
+scaler=)``) gives it the pp group (and the mp group) the same way, so
+that every stage skips a step that one stage's gradients overflowed.
+After ``DataParallel``'s reducer every rank holds the same averaged
+gradients and finds the same flag.
 """
 import enum
 
@@ -96,8 +99,11 @@ class AmpScaler:
             found = torch.zeros(1, dtype=torch.float32, device=dev)
         if self._group is not None:
             from ..distributed import collective
-            collective.all_reduce(found, op=collective.ReduceOp.MAX,
-                                  group=self._group)
+            groups = self._group if isinstance(self._group, (list, tuple)) \
+                else (self._group,)
+            for g in groups:
+                collective.all_reduce(found, op=collective.ReduceOp.MAX,
+                                      group=g)
         self._found_inf_t = found
         self._found_inf = None
         self._opt_states[id(optimizer)] = OptimizerState.UNSCALED

@@ -412,10 +412,12 @@ def _p2p(dispatch, op, axis, nbytes, copies=(), keep=None):
         raise
 
 
-def isend(tensor, dst=0, group=None, axis=None, stats=None):
+def isend(tensor, dst=0, group=None, axis=None, stats=None, tag=0):
     """Start sending `tensor` to rank `dst` of the group and return the
     work (``wait()`` before writing `tensor`). Counted in
-    ``isend.calls``; tallied as "send"."""
+    ``isend.calls``; tallied as "send". Messages between two ranks with
+    one ``tag`` arrive in the order they were sent; a receive matches a
+    send of its own tag only."""
     g = _group(group)
     x = tensor.contiguous()
     nbytes = _nbytes(x)
@@ -424,15 +426,15 @@ def isend(tensor, dst=0, group=None, axis=None, stats=None):
     if _staged(g, "send", x):
         x = _host_like(x).copy_(x)
         isend.staged_bytes += nbytes
-    return _p2p(lambda: g.send([x], int(dst), 0), "send", axis, nbytes,
-                keep=x)
+    return _p2p(lambda: g.send([x], int(dst), int(tag)), "send", axis,
+                nbytes, keep=x)
 
 
 isend.calls = 0
 isend.staged_bytes = 0
 
 
-def irecv(tensor, src=0, group=None, axis=None, stats=None):
+def irecv(tensor, src=0, group=None, axis=None, stats=None, tag=0):
     """Start receiving rank `src`'s tensor into `tensor` (contiguous, of
     the sender's shape and dtype) and return the work: `tensor` holds
     the data once ``wait()`` returns. Counted in ``irecv.calls``; tallied
@@ -446,9 +448,9 @@ def irecv(tensor, src=0, group=None, axis=None, stats=None):
     if _staged(g, "recv", tensor):
         host = _host_like(tensor)
         irecv.staged_bytes += nbytes
-        return _p2p(lambda: g.recv([host], int(src), 0), "recv", axis,
-                    nbytes, copies=[(tensor, host)])
-    return _p2p(lambda: g.recv([tensor], int(src), 0), "recv", axis,
+        return _p2p(lambda: g.recv([host], int(src), int(tag)), "recv",
+                    axis, nbytes, copies=[(tensor, host)])
+    return _p2p(lambda: g.recv([tensor], int(src), int(tag)), "recv", axis,
                 nbytes)
 
 
@@ -456,22 +458,24 @@ irecv.calls = 0
 irecv.staged_bytes = 0
 
 
-def send(tensor, dst=0, group=None, sync_op=True, axis=None, stats=None):
+def send(tensor, dst=0, group=None, sync_op=True, axis=None, stats=None,
+         tag=0):
     """Send `tensor` to rank `dst` of the group; returns `tensor` once
     sent, or the work with ``sync_op=False``. A real transfer: the peer
     must ``recv`` it, within the group's timeout."""
-    work = isend(tensor, dst, group, axis=axis, stats=stats)
+    work = isend(tensor, dst, group, axis=axis, stats=stats, tag=tag)
     if not sync_op:
         return work
     work.wait()
     return tensor
 
 
-def recv(tensor, src=0, group=None, sync_op=True, axis=None, stats=None):
+def recv(tensor, src=0, group=None, sync_op=True, axis=None, stats=None,
+         tag=0):
     """Receive rank `src`'s tensor into `tensor` and return it, or the
     work with ``sync_op=False``; raises when the peer sends nothing
     within the group's timeout."""
-    work = irecv(tensor, src, group, axis=axis, stats=stats)
+    work = irecv(tensor, src, group, axis=axis, stats=stats, tag=tag)
     if not sync_op:
         return work
     work.wait()
@@ -480,15 +484,17 @@ def recv(tensor, src=0, group=None, sync_op=True, axis=None, stats=None):
 
 class P2POp:
     """One point-to-point operation of ``batch_isend_irecv``: ``op`` is
-    ``isend`` or ``irecv``, ``peer`` a rank of ``group``."""
+    ``isend`` or ``irecv``, ``peer`` a rank of ``group``, ``tag`` the
+    message's tag."""
 
-    def __init__(self, op, tensor, peer, group=None):
+    def __init__(self, op, tensor, peer, group=None, tag=0):
         if op not in (isend, irecv):
             raise ValueError("P2POp: op must be isend or irecv")
         self.op = op
         self.tensor = tensor
         self.peer = peer
         self.group = group
+        self.tag = tag
 
 
 def batch_isend_irecv(p2p_op_list, axis=None, stats=None):
@@ -496,8 +502,8 @@ def batch_isend_irecv(p2p_op_list, axis=None, stats=None):
     so a ring shift cannot deadlock) and return their works in list
     order. Counted in ``batch_isend_irecv.calls``."""
     _count(batch_isend_irecv)
-    return [op.op(op.tensor, op.peer, op.group, axis=axis, stats=stats)
-            for op in p2p_op_list]
+    return [op.op(op.tensor, op.peer, op.group, axis=axis, stats=stats,
+                  tag=op.tag) for op in p2p_op_list]
 
 
 batch_isend_irecv.calls = 0

@@ -11,14 +11,18 @@ activation recompute (``recompute``, ``recompute_sequential``,
 ZeRO-3 over fsdp, Megatron over mp), the eager loop's wrappers
 (``distributed_model``: ``TensorParallel`` with a model axis, else
 ``DataParallel`` and its bucketed ``reducer``; ``distributed_optimizer``:
-``HybridParallelOptimizer`` with ``HybridParallelClipGrad``) and the ZeRO
+``HybridParallelOptimizer`` with ``HybridParallelClipGrad``), the ZeRO
 stages (``sharding``: ``DygraphShardingOptimizer``,
-``GroupShardedStage2`` / ``3``, ``group_sharded_parallel``).
+``GroupShardedStage2`` / ``3``, ``group_sharded_parallel``) and pipeline
+parallelism over the pp axis (``pipeline_parallel``: ``PipelineLayer``,
+``LayerDesc``, ``SharedLayerDesc``, ``PipelineParallel``,
+``ZeroBubblePipelineParallel``, ``WeightGradStore``,
+``split_weight_grad``; ``pipeline_schedule``: the 1F1B, FThenB, VPP and
+ZB-H1 runners under the JAX names and ``stack_stage_params``).
 
 ``init`` takes the caller's world group and device (``group=``,
 ``device=``), as the port's mesh does; nothing here calls
-``init_process_group``. The pipeline axis is a later slice of the port
-and raises, naming its ROADMAP item (Queue 1 item 9).
+``init_process_group``.
 """
 from . import sharded  # noqa: F401
 from .context_parallel import (SegmentParallel, ring_attention,  # noqa
@@ -31,6 +35,14 @@ from .recompute import (recompute, recompute_hybrid,  # noqa: F401
                         recompute_sequential)
 from .hybrid_optimizer import (HybridParallelClipGrad,  # noqa: F401
                                HybridParallelOptimizer)
+from .pipeline_parallel import (LayerDesc, PipelineLayer,  # noqa: F401
+                                PipelineParallel, SharedLayerDesc,
+                                WeightGradStore,
+                                ZeroBubblePipelineParallel,
+                                split_weight_grad)
+from .pipeline_schedule import (pipeline_1f1b, pipeline_gpipe,  # noqa
+                                pipeline_interleaved, pipeline_zero_bubble,
+                                stack_stage_params)
 from .sharding import (DygraphShardingOptimizer,  # noqa: F401
                        GroupShardedStage2, GroupShardedStage3,
                        group_sharded_parallel)
@@ -53,7 +65,12 @@ __all__ = ["recompute", "recompute_sequential", "recompute_hybrid",
            "HybridParallelClipGrad", "DygraphShardingOptimizer",
            "GroupShardedStage2", "GroupShardedStage3",
            "group_sharded_parallel", "ring_attention", "ulysses_attention",
-           "split_sequence", "SegmentParallel"]
+           "split_sequence", "SegmentParallel", "PipelineLayer",
+           "LayerDesc", "SharedLayerDesc", "PipelineParallel",
+           "ZeroBubblePipelineParallel", "WeightGradStore",
+           "split_weight_grad", "pipeline_1f1b", "pipeline_gpipe",
+           "pipeline_interleaved", "pipeline_zero_bubble",
+           "stack_stage_params"]
 
 
 class DistributedStrategy:
@@ -88,8 +105,8 @@ def init(role_maker=None, is_collective=False, strategy=None, log_level=None,
     ``hybrid_configs`` over the caller's world group (``group``: a
     ``collective.new_group`` group or a ``torch.distributed`` one; None
     for a world of one rank) on ``device``, make it this thread's
-    (``get_hybrid_communicate_group``) and return it. pp_degree above 1
-    raises ``NotImplementedError``."""
+    (``get_hybrid_communicate_group``) and return it. The pp axis is the
+    mesh's (``get_stage_id``, ``get_pipe_parallel_group``)."""
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
     hcg = HybridCommunicateGroup(
@@ -109,7 +126,8 @@ def get_hybrid_communicate_group():
 
 def distributed_model(model):
     """The parallel wrapper of ``model`` (reference fleet/model.py):
-    with a sep degree above 1, ``DataParallel`` over the data and sep
+    ``PipelineParallel`` with a pp degree above 1 (the schedule of the
+    strategy's ``pp_configs``); else with a sep degree above 1, ``DataParallel`` over the data and sep
     axes (``get_dp_sep_parallel_group``: each rank's gradients of its
     rows and sequence block averaged, as the reference's sep-axis
     all_reduce does; the JAX package's pick needs none, its one program
@@ -120,9 +138,7 @@ def distributed_model(model):
     if hcg is None:
         raise RuntimeError("call fleet.init first")
     if hcg.get_pipe_parallel_world_size() > 1:
-        raise NotImplementedError(
-            "distributed_model: pipeline parallelism is a later slice of "
-            "the port (ROADMAP Queue 1 item 9)")
+        return PipelineParallel(model, hcg, getattr(hcg, "strategy", None))
     from ..parallel import DataParallel
     if hcg.get_sep_parallel_world_size() > 1:
         return DataParallel(model, group=hcg.get_dp_sep_parallel_group())
@@ -133,8 +149,9 @@ def distributed_model(model):
 
 def distributed_optimizer(optimizer, strategy=None):
     """``HybridParallelOptimizer`` around ``optimizer`` on this thread's
-    hybrid group: the clip over the model-parallel shards, and ZeRO stage
-    1 with a sharding degree above 1."""
+    hybrid group: the clip over the model-parallel shards and the
+    pipeline's stages, and ZeRO stage 1 with a sharding degree above
+    1."""
     hcg = get_hcg()
     if hcg is None:
         raise RuntimeError("call fleet.init first")

@@ -10,8 +10,12 @@ and the ZeRO stages hand the optimizer dim-0 chunks. The global norm
 counts every element once: an mp-split shard counts on its rank, a
 parameter replicated over mp only on mp rank 0, and the sum of squares is
 all_reduced over the model-parallel group after the sharding group's sum
-(``_norm_split``). On the card that split runs inside kernel D's eager
-form (its ``owned`` flags and ``reduce`` between the two launches).
+(``_norm_split``). Under pipeline parallelism every parameter lives on
+one stage, and the sum is all_reduced over the pp group as well (after
+mp's). On the card that split runs inside kernel D's eager form (its
+``owned`` flags and ``reduce`` between the two launches). ``stats`` (a
+dict, None by default) tallies those all_reduces by "op,axis", as the
+pipeline's step reads them.
 Gradients are averaged over the data-parallel group by ``DataParallel``
 (``fleet.distributed_model``), not here."""
 from .. import collective
@@ -28,22 +32,37 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
     def __init__(self, clip, hcg=None):
         super().__init__(getattr(clip, "clip_norm", 1.0))
         self._hcg = hcg or get_hcg()
+        self.stats = None
 
     def _norm_split(self, params, owned, reduce):
         hcg = self._hcg
-        if hcg is None or hcg.get_model_parallel_world_size() == 1:
+        if hcg is None:
             return owned, reduce
-        first = hcg.get_model_parallel_rank() == 0
-        # ``is True``: a torch tensor's own ``is_distributed`` is a method
-        owned = [o and (getattr(p, "is_distributed", False) is True
-                        or first) for p, o in zip(params, owned)]
-        group, inner = hcg.get_model_parallel_group(), reduce
+        mp = hcg.get_model_parallel_world_size() > 1
+        pp = hcg.get_pipe_parallel_world_size() > 1
+        if not (mp or pp):
+            return owned, reduce
+        if mp:
+            first = hcg.get_model_parallel_rank() == 0
+            # ``is True``: a torch tensor's own ``is_distributed`` is a
+            # method
+            owned = [o and (getattr(p, "is_distributed", False) is True
+                            or first) for p, o in zip(params, owned)]
+        inner = reduce
 
-        def mp_reduce(t):
+        def hybrid_reduce(t):
             if inner is not None:
                 t = inner(t)
-            return collective.all_reduce(t, group=group, axis="mp")
-        return owned, mp_reduce
+            if mp:
+                t = collective.all_reduce(
+                    t, group=hcg.get_model_parallel_group(), axis="mp",
+                    stats=self.stats)
+            if pp:
+                t = collective.all_reduce(
+                    t, group=hcg.get_pipe_parallel_group(), axis="pp",
+                    stats=self.stats)
+            return t
+        return owned, hybrid_reduce
 
 
 class HybridParallelOptimizer:

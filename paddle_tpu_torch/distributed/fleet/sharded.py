@@ -169,21 +169,22 @@ def _mp_split(config, specs, prefix, kind, mp):
     return seen
 
 
-def _vocab_parallel_head(config, specs, mp):
-    """Whether the LM head runs vocab-parallel: its own weight (no tied
-    embeddings) with mp on the vocabulary dim, and no fused LM-head loss
-    (whose blockwise kernels take the whole weight)."""
-    spec = specs.get(f"{HEAD}.weight")
+def _vocab_parallel_head(config, specs, mp, head=HEAD):
+    """Whether the LM head (module `head`) runs vocab-parallel: its own
+    weight (no tied embeddings) with mp on the vocabulary dim, and no
+    fused LM-head loss (whose blockwise kernels take the whole
+    weight)."""
+    spec = specs.get(f"{head}.weight")
     return (mp > 1 and spec is not None and len(spec) == 2
             and spec[1] == "mp"
             and not getattr(config, "fused_lm_loss", False))
 
 
-def plan_params(config, shapes, specs, mesh_shape):
+def plan_params(config, shapes, specs, mesh_shape, head=HEAD):
     """{name: ParamPlan} for a Llama model's parameters (``shapes`` and
     ``specs`` by name) on a mesh of ``mesh_shape``, and the set of module
-    prefixes that run Megatron style (``HEAD`` for a vocab-parallel LM
-    head)."""
+    prefixes that run Megatron style (``head``, the LM head's module
+    name, ``HEAD`` by default, for a vocab-parallel LM head)."""
     split = set()
     for name in shapes:
         prefix, leaf = _leaf(name)
@@ -191,16 +192,16 @@ def plan_params(config, shapes, specs, mesh_shape):
             kind = "attn" if leaf in _ATTN else "mlp"
             if _mp_split(config, specs, prefix, kind, mesh_shape["mp"]):
                 split.add(prefix)
-    if _vocab_parallel_head(config, specs, mesh_shape["mp"]):
-        split.add(HEAD)
+    if _vocab_parallel_head(config, specs, mesh_shape["mp"], head):
+        split.add(head)
     plans = {}
     h, kvh = config.num_attention_heads, config.num_key_value_heads
     d = config.hidden_size // h
     for name, shape in shapes.items():
         spec = specs[name]
         prefix, leaf = _leaf(name)
-        if name == f"{HEAD}.weight":
-            prefix = HEAD
+        if name == f"{head}.weight":
+            prefix = head
         in_split = prefix in split
         groups = None
         if in_split and leaf == "qkv_proj":

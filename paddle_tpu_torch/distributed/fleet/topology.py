@@ -11,10 +11,20 @@ that rank's ``distributed.mesh.Mesh``: Paddle's "data" is the mesh's
 ``fleet.context_parallel``) and "model" its ``mp``; each axis's group is
 the mesh's group of that axis (one group a rank for an axis of size 1,
 so that every getter hands back a group), and
-``get_dp_sep_parallel_group`` the mesh's group over dp and sp. The rank
-order is the mesh's, row-major over ``(dp, fsdp, sp, mp)``, which is
-Paddle's over ``(data, sharding, sep, model)`` when ``pipe`` is 1. The
-pipe axis is a later slice of the port: a degree above 1 raises.
+``get_dp_sep_parallel_group`` the mesh's group over dp and sp. "pipe" is
+the mesh's ``pp`` (pipeline parallelism: ``fleet.pipeline_parallel``),
+and a rank's stage is its coordinate there (``get_stage_id``,
+``is_first_stage`` / ``is_last_stage``, the previous and next stage's
+rank in the pp group: ``get_p2p_prev_rank`` / ``get_p2p_next_rank``).
+
+The rank order is the port mesh's, row-major over ``(pp, dp, fsdp, sp,
+mp)`` (``distributed.mesh.AXES``, the order ``make_mesh(pp=)`` of both
+packages uses), where the JAX package's topology lays Paddle's axes out
+as ``[data, pipe, sharding, sep, model]``. The two agree while dp is 1 or
+pp is 1; with both above 1 world rank r sits at other coordinates (with
+pp 2 x dp 2 x mp 2, rank 2 is pp 0, dp 1 here and dp 0, pp 1 there).
+``topology()`` gives the ranks in Paddle's axis order, each at its
+coordinates here.
 
 The caller passes its world group and its device, as ``Mesh`` takes
 them; nothing here calls ``init_process_group``. ``set_hcg`` /
@@ -32,7 +42,7 @@ __all__ = ["AXES", "CommunicateTopology", "HybridCommunicateGroup",
            "set_hcg", "get_hcg"]
 
 AXES = ["data", "pipe", "sharding", "sep", "model"]
-_MESH_AXIS = {"data": "dp", "sharding": "fsdp", "sep": "sp",
+_MESH_AXIS = {"data": "dp", "pipe": "pp", "sharding": "fsdp", "sep": "sp",
               "model": "mp", "dp_sep": "dp_sp"}
 
 
@@ -51,13 +61,6 @@ class CommunicateTopology:
         return int(np.prod(self._dims))
 
 
-def _refuse_later_axes(pp_degree):
-    if pp_degree > 1:
-        raise NotImplementedError(
-            f"HybridCommunicateGroup: pp_degree={pp_degree}: the pipeline "
-            "axis is a later slice of the port (ROADMAP Queue 1 item 9)")
-
-
 class HybridCommunicateGroup:
     """One rank's view of the hybrid topology over a port ``Mesh``
     (``mesh``). ``group`` is the caller's world group (None for a world
@@ -74,19 +77,18 @@ class HybridCommunicateGroup:
             sharding_degree = dims.get("sharding", sharding_degree)
             sep_degree = dims.get("sep", sep_degree)
             mp_degree = dims.get("model", mp_degree)
-        _refuse_later_axes(pp_degree)
         self._dp_degree = int(dp_degree)
         self._mp_degree = int(mp_degree)
         self._pp_degree = int(pp_degree)
         self._sharding_degree = int(sharding_degree)
         self._sep_degree = int(sep_degree)
-        world = self._dp_degree * self._sharding_degree * \
-            self._sep_degree * self._mp_degree
+        world = self._pp_degree * self._dp_degree * \
+            self._sharding_degree * self._sep_degree * self._mp_degree
         if group is None and world > 1:
             raise ValueError(
                 f"HybridCommunicateGroup: a world of {world} ranks needs "
                 "the caller's world group (group=)")
-        self.mesh = Mesh({"dp": self._dp_degree,
+        self.mesh = Mesh({"pp": self._pp_degree, "dp": self._dp_degree,
                           "fsdp": self._sharding_degree,
                           "sp": self._sep_degree,
                           "mp": self._mp_degree}, group=group,
@@ -118,10 +120,31 @@ class HybridCommunicateGroup:
         return self.mesh.coords["mp"]
 
     def get_stage_id(self):
-        return 0
+        return self.mesh.coords["pp"]
 
     def get_pipe_parallel_rank(self):
-        return 0
+        return self.mesh.coords["pp"]
+
+    def is_first_stage(self):
+        return self.mesh.coords["pp"] == 0
+
+    def is_last_stage(self):
+        return self.mesh.coords["pp"] == self._pp_degree - 1
+
+    def get_p2p_prev_rank(self):
+        """The previous stage's rank in the pp group (the last stage's
+        for the first stage: the ring's wrap)."""
+        return (self.mesh.coords["pp"] - 1) % self._pp_degree
+
+    def get_p2p_next_rank(self):
+        """The next stage's rank in the pp group (the first stage's for
+        the last stage)."""
+        return (self.mesh.coords["pp"] + 1) % self._pp_degree
+
+    def get_rank_from_stage(self, stage_id):
+        """The world rank of stage `stage_id` with this rank's other
+        coordinates."""
+        return self.mesh._members(("pp",))[stage_id]
 
     def get_sharding_parallel_rank(self):
         return self.mesh.coords["fsdp"]
@@ -182,11 +205,12 @@ class HybridCommunicateGroup:
 
     def topology(self):
         """The ranks as a ``ProcessMesh`` over Paddle's five axes (the JAX
-        package's topology)."""
-        dims = [self._dp_degree, self._pp_degree, self._sharding_degree,
-                self._sep_degree, self._mp_degree]
-        return ProcessMesh(np.arange(int(np.prod(dims))).reshape(dims),
-                           dim_names=AXES)
+        package's topology): the entry at (data, pipe, sharding, sep,
+        model) is the world rank at those coordinates of this mesh."""
+        grid = np.arange(self.mesh.size).reshape(
+            [self._pp_degree, self._dp_degree, self._sharding_degree,
+             self._sep_degree, self._mp_degree])
+        return ProcessMesh(grid.transpose(1, 0, 2, 3, 4), dim_names=AXES)
 
 
 _local = threading.local()

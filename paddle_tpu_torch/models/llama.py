@@ -30,10 +30,12 @@ Parameter names match ``jit.functional.state_arrays`` of the JAX model
 ``distributed.fleet.recompute``) runs each decoder layer through
 ``recompute`` while the model trains: the layer's activations are rebuilt
 in the backward, the flash forward kernel then launching twice a layer.
-The pipeline form of the JAX model is not ported yet and raises
-``NotImplementedError``. ``sequence_parallel`` only shards activations
-over a mesh and has no effect on one device, as in the JAX package
-off-mesh.
+``LlamaForCausalLMPipe`` is the pipeline form (``fleet.pipeline_parallel``:
+a rank builds its stage's elements; ``llama_pipe_state_from_numpy`` /
+``llama_pipe_state_to_numpy`` carry weights across under the JAX
+``PipelineLayer``'s or ``LlamaForCausalLM``'s names).
+``sequence_parallel`` only shards activations over a mesh and has no
+effect on one device, as in the JAX package off-mesh.
 
 ``context_parallel`` (True, or the name of the mesh axis; default "sp")
 with ``context_parallel_mode`` "ring" (default) or "ulysses": when the
@@ -76,8 +78,10 @@ from ..ops.swiglu import swiglu
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaLMHead", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "LlamaForCausalLMPipe",
-           "fused_lm_head_loss", "llama_state_from_numpy",
-           "llama_state_to_numpy"]
+           "LlamaEmbeddingPipe", "LlamaDecoderLayerPipe",
+           "LlamaRMSNormHeadPipe", "fused_lm_head_loss",
+           "llama_state_from_numpy", "llama_state_to_numpy",
+           "llama_pipe_state_from_numpy", "llama_pipe_state_to_numpy"]
 
 
 class LlamaConfig:
@@ -492,10 +496,214 @@ def fused_lm_head_loss(hidden_states, weight, labels, ignore_index=-100,
                   else denominator)
 
 
-def LlamaForCausalLMPipe(config, num_stages, loss_fn=None):
-    """The pipeline-parallel model form of the JAX package."""
-    raise NotImplementedError(
-        "LlamaForCausalLMPipe: pipeline parallelism is a later slice")
+# -- the pipeline-parallel form (reference: paddlenlp LlamaForCausalLMPipe;
+# the JAX package's models/llama.py:411-469) ---------------------------------
+
+def _pipe_init(config, device, seed):
+    dev = _pipe_device(device)
+    return _Init(config, dev, make_generator(seed, dev))
+
+
+def _pipe_device(device):
+    """The device of a pipe element: the one named, else the device of
+    this thread's hybrid topology, else the card."""
+    if device is not None:
+        return resolve_device(device)
+    from ..distributed.fleet.topology import get_hcg
+    hcg = get_hcg()
+    return hcg.mesh.device if hcg is not None else resolve_device("cuda")
+
+
+class LlamaEmbeddingPipe(torch.nn.Module):
+    """First pipeline element: ids -> hidden states (cast to bf16 when
+    ``config.dtype`` is "bfloat16")."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        init = _pipe_init(config, device, seed)
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size, init.std,
+                                         init.generator, init.device)
+
+    def forward(self, input_ids):
+        h = F.embedding(input_ids, _weight(self.embed_tokens))
+        if self.config.dtype == "bfloat16":
+            h = h.to(torch.bfloat16)
+        return h
+
+
+class LlamaDecoderLayerPipe(LlamaDecoderLayer):
+    """A decoder block of the pipe: carry -> (hidden, residual), the
+    one-card model's pair (the residual add goes into the next norm's
+    kernel), so a stage boundary carries both tensors. The first block
+    takes the embedding's hidden states alone. ``config.recompute``
+    checkpoints the block while it trains, as ``LlamaModel`` does."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__(config, _pipe_init(config, device, seed))
+        self.config = config
+
+    def forward(self, carry, _inner=False):
+        policy = self.config.recompute
+        if policy and not _inner and self.training \
+                and torch.is_grad_enabled():
+            return recompute(self, carry, True,
+                             policy=policy if isinstance(policy, str)
+                             else None)
+        hidden, residual = carry if isinstance(carry, tuple) \
+            else (carry, None)
+        return super().forward(hidden, None, None, residual)
+
+
+class LlamaRMSNormHeadPipe(torch.nn.Module):
+    """Last pipeline element: the final RMSNorm (with the last block's
+    residual add) and the LM head -> logits; on the training mesh's mp
+    axis the head runs vocab-parallel (``vocab_parallel()`` gives the
+    criterion its operators)."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        init = _pipe_init(config, device, seed)
+        self.norm = nn.RMSNorm(config.hidden_size, config.rms_norm_eps,
+                               init.device)
+        self.lm_head = LlamaLMHead(config, init)
+
+    def forward(self, carry):
+        hidden, residual = carry if isinstance(carry, tuple) \
+            else (carry, None)
+        h = self.norm(hidden) if residual is None \
+            else self.norm(hidden, residual)[0]
+        return self.lm_head(h)
+
+    def vocab_parallel(self):
+        return self.lm_head.__dict__.get("_tp")
+
+
+def LlamaForCausalLMPipe(config, num_stages, loss_fn=None, device=None,
+                         seed=0):
+    """The llama model in ``PipelineLayer`` form: the embedding, the
+    ``num_hidden_layers`` decoder blocks and the norm + head, as
+    ``LayerDesc``s (a rank of a pp axis builds its stage's only), the
+    loss ``LlamaPretrainingCriterion`` unless `loss_fn` is given, and
+    ``_shard_rules`` (``pretrain.llama_sharding_rules``) for the mp
+    axis. Element i draws its weights from ``seed * 100003 + i`` on
+    `device` (default this thread's ``fleet.init`` device, else the
+    card); ``llama_pipe_state_from_numpy`` loads given ones."""
+    from ..distributed.fleet.pipeline_parallel import (LayerDesc,
+                                                      PipelineLayer)
+    from .pretrain import llama_sharding_rules
+    n = config.num_hidden_layers
+
+    def desc(cls, i):
+        return LayerDesc(cls, config, device=device, seed=seed * 100003 + i)
+    descs = [desc(LlamaEmbeddingPipe, 0)]
+    descs += [desc(LlamaDecoderLayerPipe, i + 1) for i in range(n)]
+    descs += [desc(LlamaRMSNormHeadPipe, n + 1)]
+    pipe = PipelineLayer(layers=descs, num_stages=num_stages,
+                         loss_fn=loss_fn or LlamaPretrainingCriterion())
+    pipe._shard_rules = llama_sharding_rules()
+    pipe._config = config
+    return pipe
+
+
+def _pipe_name(name, n_layers):
+    """A ``LlamaForCausalLM`` parameter name as the pipe's, or the name
+    itself when it is already one."""
+    if name.startswith("llama.embed_tokens."):
+        return "layers.0." + name[len("llama."):]
+    if name.startswith("llama.layers."):
+        i, rest = name[len("llama.layers."):].split(".", 1)
+        return f"layers.{int(i) + 1}.{rest}"
+    if name.startswith("llama.norm."):
+        return f"layers.{n_layers + 1}." + name[len("llama."):]
+    if name.startswith("lm_head."):
+        return f"layers.{n_layers + 1}.{name}"
+    return name
+
+
+def _causal_lm_name(name, n_layers):
+    i, rest = name[len("layers."):].split(".", 1)
+    i = int(i)
+    if i == 0:
+        return "llama." + rest
+    if i == n_layers + 1:
+        return rest if rest.startswith("lm_head.") else "llama." + rest
+    return f"llama.layers.{i - 1}.{rest}"
+
+
+def _pipe_layer(pipe):
+    return getattr(pipe, "_layers", pipe)
+
+
+def llama_pipe_state_from_numpy(params, pipe, dtype=None):
+    """Load this rank's stage (or chunks) of ``pipe`` (a
+    ``LlamaForCausalLMPipe``, or the ``PipelineParallel`` around it) from
+    whole weights: {name: array or tensor} under the JAX
+    ``PipelineLayer``'s names (``layers.0.embed_tokens.weight``,
+    ``layers.{i}.…``, ``layers.{L+1}.lm_head.weight``) or
+    ``LlamaForCausalLM``'s (``llama.…``, ``lm_head.weight``). Names of
+    other stages are skipped; one of this stage that is missing raises.
+    A stage cut to its mp shards takes its shard. ``dtype`` casts every
+    weight (default float32). Returns ``pipe``."""
+    net = _pipe_layer(pipe)
+    n = net._config.num_hidden_layers
+    given = {_pipe_name(k, n): v for k, v in params.items()}
+    own = dict(net.named_parameters())
+    missing = sorted(set(own) - set(given))
+    if missing:
+        raise KeyError(f"llama_pipe_state_from_numpy: missing {missing}")
+    mesh = getattr(pipe, "mesh", None)
+    with torch.no_grad():
+        for name, p in own.items():
+            v = given[name]
+            t = v.detach().to(torch.float32) if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.array(v, dtype=np.float32))
+            plan = net._plans.get(name)
+            if plan is not None:
+                if tuple(t.shape) != plan.layout.shape:
+                    raise ValueError(f"llama_pipe_state_from_numpy: {name} "
+                                     f"has shape {tuple(t.shape)}, the model "
+                                     f"{plan.layout.shape}")
+                t = plan.layout.take(t.to(p.device), mesh.coords)
+            elif tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"llama_pipe_state_from_numpy: {name} has "
+                                 f"shape {tuple(t.shape)}, the model "
+                                 f"{tuple(p.shape)}")
+            # a copy of its own: training updates the parameter in place
+            p.data = t.to(device=p.device, dtype=dtype or torch.float32,
+                          copy=True)
+    return pipe
+
+
+def llama_pipe_state_to_numpy(pipe, names="pipe"):
+    """{name: whole float32 np.ndarray} of this rank's stage of ``pipe``,
+    under the JAX ``PipelineLayer``'s names, or ``LlamaForCausalLM``'s
+    with ``names="causal_lm"``; the inverse of
+    ``llama_pipe_state_from_numpy``. A stage cut to mp shards gathers
+    them over the mp group (a collective: every mp rank of the stage
+    calls it)."""
+    net = _pipe_layer(pipe)
+    n = net._config.num_hidden_layers
+    mesh = getattr(pipe, "mesh", None)
+    out = {}
+    for name, p in net.named_parameters():
+        a = p.detach().to(torch.float32)
+        plan = net._plans.get(name)
+        if plan is not None and "mp" in plan.layout.spec:
+            from ..distributed import collective
+            parts = collective.all_gather([], a.contiguous(),
+                                          group=mesh.groups["mp"])
+            whole = np.empty(plan.layout.shape, np.float32)
+            for r, part in enumerate(parts):
+                plan.layout.put(whole, part.cpu().numpy(),
+                                dict(mesh.coords, mp=r))
+            arr = whole
+        else:
+            arr = a.cpu().numpy().copy()    # not a view of the parameter
+        key = _causal_lm_name(name, n) if names == "causal_lm" else name
+        out[key] = arr
+    return out
 
 
 def llama_state_from_numpy(params, config, device="cuda", dtype=None):

@@ -39,8 +39,11 @@ needs ``LlamaConfig(context_parallel=True)``) attends over the axis
 positions), and the loss, its count and the gradients of every
 parameter (each replicated over sp) are summed over the data axes and
 sp together (the mesh's group over sp and the data axes above 1:
-``sharded.batch_group``). The ``pp`` axis (the pipeline) raises
-``NotImplementedError``.
+``sharded.batch_group``). ``make_mesh(pp=)`` builds the pipeline axis
+(its group is ``mesh.groups["pp"]``), which the pipeline's
+``fleet.distributed_model(LlamaForCausalLMPipe(...))`` trains on
+(``distributed.fleet.pipeline_parallel``); ``make_train_step`` on a mesh
+with pp > 1 raises, naming it (the JAX step has no pp handling).
 """
 import re
 import time
@@ -156,8 +159,8 @@ def make_mesh(n_devices=None, dp=None, fsdp=None, mp=None, sp=1, pp=1,
     ``n_devices`` defaults to the group's size (1 without one):
     ``make_mesh(1)`` is the single-rank mesh, on which the step is the
     one-card step. sp > 1 splits each row's sequence into contiguous
-    blocks (context parallelism); pp > 1 raises
-    ``NotImplementedError``."""
+    blocks (context parallelism); pp > 1 is the pipeline's axis, the
+    slowest-varying one (``fleet.pipeline_parallel``)."""
     n = n_devices or (group.size() if group is not None else 1)
     mp = 1 if mp is None else mp
     fsdp = 1 if fsdp is None else fsdp
@@ -165,10 +168,6 @@ def make_mesh(n_devices=None, dp=None, fsdp=None, mp=None, sp=1, pp=1,
         dp = n // (mp * fsdp * sp * pp)
     assert pp * dp * fsdp * mp * sp == n, \
         f"pp{pp}*dp{dp}*fsdp{fsdp}*mp{mp}*sp{sp} != {n}"
-    if pp > 1:
-        raise NotImplementedError(
-            "make_mesh: the pp (pipeline) axis is a later slice of the "
-            "port (ROADMAP Queue 1 item 9)")
     return Mesh(dict(pp=pp, dp=dp, fsdp=fsdp, sp=sp, mp=mp), group=group,
                 device=device, timeout=timeout)
 
@@ -365,6 +364,11 @@ def make_train_step(model, mesh, meta, donate=True, telemetry=False,
     updates the masters and moments in place, where the JAX step donates
     its input buffers."""
     on_mesh = _on_mesh(mesh)
+    if on_mesh and mesh.shape["pp"] > 1:
+        raise NotImplementedError(
+            "make_train_step: a mesh with pp > 1 is the pipeline's; train "
+            "it through fleet.distributed_model(LlamaForCausalLMPipe(...))"
+            ".train_batch")
     lr, (b1, b2) = meta["lr"], meta["betas"]
     eps, wd, clip = meta["eps"], meta["weight_decay"], meta["grad_clip"]
     telemetry = telemetry or monitor is not None

@@ -2,9 +2,22 @@
 ``paddle_tpu/nn/functional/common.py``). Only what the Llama model
 calls. ``linear`` and ``embedding`` are named entries of the amp hook
 (``amp._hook.amp_op``)."""
+import threading
+
 import torch
 
 from ...amp._hook import amp_op
+
+# the pipeline's weight-gradient split (ZB-H1): while a thread is inside
+# ``distributed.fleet.pipeline_parallel.split_weight_grad``, its ``fn``
+# computes this thread's linears
+weight_grad_split = threading.local()
+
+
+def plain_linear(x, weight):
+    """``x @ weight`` with the JAX package's dtype promotion."""
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    return torch.matmul(x.to(dtype), weight.to(dtype))
 
 
 @amp_op("linear")
@@ -12,9 +25,12 @@ def linear(x, weight):
     """paddle convention: weight is [in_features, out_features], so this
     is ``x @ weight``. Mixed dtypes promote as in the JAX package (a bf16
     activation against an f32 weight computes in f32); torch's matmul
-    would refuse them."""
-    dtype = torch.promote_types(x.dtype, weight.dtype)
-    return torch.matmul(x.to(dtype), weight.to(dtype))
+    would refuse them. Inside ``split_weight_grad`` the weight's gradient
+    is deferred (``fleet.pipeline_parallel``)."""
+    split = getattr(weight_grad_split, "fn", None)
+    if split is not None:
+        return split(x, weight)
+    return plain_linear(x, weight)
 
 
 @amp_op("embedding")

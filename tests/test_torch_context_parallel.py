@@ -426,12 +426,22 @@ def test_sp_mesh_needs_context_parallel_and_pipeline_still_refused():
             tpre.make_train_step(model, m, meta)
         return True
     assert run_thread_ranks(2, rank, timeout=30) == [True, True]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpre.make_mesh(4, pp=2, device="cpu")
-    strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs.update({"pp_degree": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        fleet.init(is_collective=True, strategy=strategy, device="cpu")
+    # the pp axis builds now (tests/test_torch_pipeline.py); the pipeline
+    # together with the sep axis still raises, naming its ROADMAP item
+    assert tpre.make_mesh(4, pp=2, device="cpu").shape["pp"] == 2
+    from paddle_tpu_torch.models import LlamaForCausalLMPipe
+
+    def pipe(r, group):
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs.update({"pp_degree": 2, "sep_degree": 2})
+        hcg = fleet.init(is_collective=True, strategy=strategy, group=group,
+                         device="cpu")
+        m = LlamaForCausalLMPipe(LlamaConfig.tiny(dtype="float32"), 2)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            fleet.distributed_model(m)
+        return hcg.get_stage_id(), hcg.get_sep_parallel_rank()
+    assert run_thread_ranks(4, pipe, timeout=30) == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
 def test_shard_batch_splits_rows_then_the_sequence():

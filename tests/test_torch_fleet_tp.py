@@ -326,11 +326,17 @@ def test_row_sequence_parallel_bias_gradient_sums_over_the_model_axis():
 # -- refusals ------------------------------------------------------------------
 
 def test_refusals(jhcg):
-    # the sep axis is taken now (tests/test_torch_context_parallel.py);
-    # the pipeline axis still raises
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        fleet.init(is_collective=True,
-                   strategy=_strategy(fleet, pp_degree=2), device="cpu")
+    # the sep axis is taken (tests/test_torch_context_parallel.py), and
+    # the pipeline axis now too (tests/test_torch_pipeline.py):
+    # distributed_model gives the pipeline wrapper there
+    def pp_only(r, hcg):
+        from paddle_tpu_torch.models import (LlamaConfig,
+                                             LlamaForCausalLMPipe)
+        m = LlamaForCausalLMPipe(LlamaConfig.tiny(dtype="float32"), 2)
+        return (hcg.get_pipe_parallel_world_size(), hcg.get_stage_id(),
+                type(fleet.distributed_model(m)).__name__)
+    assert _ranks(pp_only, world=2, pp_degree=2) == \
+        [(2, 0, "PipelineParallel"), (2, 1, "PipelineParallel")]
     with pytest.raises(ValueError):
         jfleet.VocabParallelEmbedding(30, 8)
 

@@ -438,8 +438,13 @@ def test_seeded_init_and_later_slice_options():
     base = LlamaForCausalLM(cfg, device="cpu", seed=3)
     with torch.no_grad():
         assert torch.equal(cp(ids0), base(ids0))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tllama.LlamaForCausalLMPipe(cfg, 2)
+    # the pipe form builds now (tests/test_torch_pipeline.py trains it):
+    # off a pp axis every element, under the JAX PipelineLayer's names,
+    # partitioned [embedding + block 1 | block 2 + norm and head]
+    pipe = tllama.LlamaForCausalLMPipe(cfg, 2, device="cpu")
+    assert pipe.segments == [[0, 1], [2, 3]]
+    assert sorted(tllama.llama_pipe_state_to_numpy(
+        pipe, names="causal_lm")) == sorted(a)
     # recompute is taken now (tests/test_torch_recompute.py holds it
     # against the JAX model): the same weights and the same loss
     rc = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32", recompute=True),

@@ -238,19 +238,22 @@ def test_cuda_is_the_default_and_raises_without_a_gpu():
 
 
 def test_later_slice_options_raise():
-    """The mesh's pp axis still raises (the mesh itself runs:
-    ``tests/test_torch_sharded_pretrain.py``), and a mesh that is not the
-    port's is refused; telemetry, the monitor and lr_scale run
+    """The mesh's pp axis builds now (the pipeline trains on it:
+    ``tests/test_torch_pipeline.py``, which also holds the one-program
+    step's refusal of it), and a mesh that is not the port's is refused;
+    telemetry, the monitor and lr_scale run
     (``test_lifted_options_run_and_match_the_jax_package``); sharding
     rules on one device place nothing."""
     cfg, _, _ = tpre.flagship_config(on_tpu=False)
     tm = LlamaForCausalLM(cfg, device="cpu")
     params, opt, meta = tpre.make_train_state(tm)
-    # the sp axis builds now (tests/test_torch_context_parallel.py); pp
-    # still raises
+    # the sp axis builds (tests/test_torch_context_parallel.py), and so
+    # does pp now; a layout of more than one rank still needs its group
     assert tpre.make_mesh(2, sp=2, device="cpu").shape["sp"] == 2
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpre.make_mesh(2, device="cpu", pp=2)
+    pp_mesh = tpre.make_mesh(2, device="cpu", pp=2)
+    assert pp_mesh.shape["pp"] == 2 and pp_mesh.layout_only
+    with pytest.raises(ValueError, match="world group"):
+        tpre.make_train_step(tm, pp_mesh, meta)
     with pytest.raises(TypeError, match="make_mesh"):
         tpre.make_train_state(tm, mesh=object())
     with pytest.raises(TypeError, match="make_mesh"):

@@ -217,8 +217,19 @@ def test_make_mesh_axes_assertion_and_refusals():
     assert str(e_port.value) == str(e_jax.value) == "pp1*dp3*fsdp2*mp2*sp1 != 8"
     assert tpre.make_mesh(8, dp=4, sp=2, device="cpu").shape == \
         {"pp": 1, "dp": 4, "fsdp": 1, "sp": 2, "mp": 1}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpre.make_mesh(8, device="cpu", dp=4, pp=2)
+    # the pipeline's axis builds now, the JAX layout's shape; the
+    # one-program step still refuses it (tests/test_torch_pipeline.py)
+    assert tpre.make_mesh(8, device="cpu", dp=4, pp=2).shape == \
+        dict(jpre.make_mesh(8, dp=4, pp=2).shape)
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype="float32"), device="cpu")
+
+    def rank(r, group):
+        mesh = tpre.make_mesh(2, pp=2, group=group, device="cpu")
+        _, _, meta = tpre.make_train_state(model, mesh)
+        with pytest.raises(NotImplementedError, match="distributed_model"):
+            tpre.make_train_step(model, mesh, meta)
+        return mesh.coords["pp"]
+    assert run_thread_ranks(2, rank, timeout=30) == [0, 1]
     one = tpre.make_mesh(1, device="cpu")
     assert one.size == 1 and one.groups["mp"] is None
 
