@@ -224,8 +224,8 @@ Phases (any failure exits non-zero and prints no result line):
      shapes (K x N 1024 x 1024, 512 x 1024, 1024 x 2816, 1408 x 1024, 704
      x 1024) against their plain versions; then tp=2 at the serving
      flagship's width on phase 2's 12 requests, each leg beside a tp=1
-     engine of its depth: bf16 at L=24 (the headline), f32, int8 and int4
-     in f32 and in bf16 at L=4, and tp=4 at L=2 in f32. Gates: f32 tokens
+     engine of its depth: bf16 at L=8 (the headline, ``TP_HEAD``), f32,
+     int8 and int4 in f32 and in bf16 at L=4, and tp=4 at L=2 in f32. Gates: f32 tokens
      equal to tp=1's (a part only at a near tie, phase 3's rule), bf16
      step-0 logits within 5% of the logit range, on every rank a ragged
      launch and two all_reduces a layer (and four GEMM launches a layer
@@ -355,12 +355,13 @@ Phases (any failure exits non-zero and prints no result line):
      kernels take (``cp_ring_rounding``); phase 5 holds and times the
      ring's blocks (a causal 512-row diagonal block, a full one, a full
      one of 500 rows); (a) ring and (b) Ulysses attention on the
-     flagship (phase 7's config, weights and batches, L=24, bf16 AMP-O2)
-     at sp 4, four rank processes (``--mesh-rank``), one warm step and
-     one timed each: the step-0 loss and grad norm within
-     ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` of phase 7's, exactly 24 x
-     (i + 1) K1 and K2 launches a step on ring rank i (24 each under
-     Ulysses), the fused tier's launches, the collectives equal to
+     flagship cut to ``CP_CUT`` = 8 layers (phase 7's config, weights and
+     batches otherwise, bf16 AMP-O2) at sp 4, four rank processes
+     (``--mesh-rank``), one warm step and one timed each: the step-0 loss
+     and grad norm within ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` of the
+     one-card step at that depth, exactly 8 x (i + 1) K1 and K2 launches
+     a step on ring rank i (8 each under Ulysses), the fused tier's
+     launches, the collectives equal to
      ``sharded.step_comm``'s closed form (ring hops or all_to_alls by
      (op, axis), the sp gradient sum); ms/step, tokens/s, MFU, peak
      memory by rank, rank 0's idle share and each rank's K1 / K2 device
@@ -394,6 +395,33 @@ Phases (any failure exits non-zero and prints no result line):
      (b)'s one-card run, the stages' masters within
      ``MESH_MASTER_ATOL`` / ``MESH_MASTER_BULK``, the collectives and the
      micro-batches in flight as in (a);
+ 33. (after 32) mixture of experts: (a) ``incubate.nn.functional.
+     fused_moe`` at Mixtral-8x7B's MoE block (d 4096, F 14336, 8
+     experts, top-2, GLU; seeded N(0, 0.02) weights, 2.82 GB in bf16,
+     their per-channel int8 form 1.41 GB) at prefill (T=4096) and decode
+     (T=8): the port's routes equal the dense plain version's
+     (``fused_moe_dense``, the JAX formulation in torch), the bf16
+     sparse route against it and int8 on K4 against the bf16 route on
+     the dequantized weights within ``MOE_REL`` / ``MOE_MAX_REL``, the
+     counted int8 call launching K4 exactly twice and kernel B once for
+     each expert with rows; each call's K4 launches against their plain
+     versions with their bound (``ops.work``), beside ``torch.matmul``
+     on the dequantized bf16 copy, and ms a call of the int8, bf16 and
+     dense calls; (b) ``MoELayer`` at the flagship's widths (d 1024, F
+     2816, E 8, ``GShardGate`` top-2, capacity factor 1.25, T = 8 x
+     2048) in bf16, forward and backward: the slots equal the plain
+     [T, E, C] version's (``moe_layer_plain``) exactly, y, l_aux and the
+     gradients of x, the gate and the experts within ``MOE_REL`` /
+     ``MOE_MAX_REL``, the same in f32 within ``MOE_F32``, ms/step and
+     peak memory beside the plain version's; (c) expert parallelism at
+     ep 4 over gloo on the card (E 8, two experts a
+     rank, 2 x 2048 tokens a rank, f32; the ranks are ``--moe-rank``
+     processes): each rank's y and gradients
+     against the one-rank layer on its tokens within ``MOE_F32`` (the
+     expert gradients against the sum over the ranks), 2 + 2 all_to_alls
+     of E x C x d elements a rank, ms/step by rank; (d) ASP 2:4 on the
+     flagship's 48 MLP weights: the card's masks equal the CPU's,
+     density 0.5 after 3 steps of the decorated AdamW;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -4875,10 +4903,15 @@ TP_IDLE_S = 900.0       # a follower's wait for rank 0's next op
 TP_JOIN_S = 120.0       # a follower's exit after its last leg
 TP_SEED = 0             # phase 2's weights
 TP_CUT = 4              # the depth of the legs beside the headline
+TP_HEAD = 8             # the bf16 leg's (the headline's): a third of the
+#                         serving flagship's 24 layers, since its gloo
+#                         all_reduces (two a layer a step) and profiled
+#                         windows held 61 of the smoke's 1063 s at L=24
 # (leg, dtype, weight_quant, layers) of the tp=2 group, in order: the bf16
-# leg (the headline) at full depth, the others cut to TP_CUT layers (each
-# beside a tp=1 engine of its own depth)
-TP2_LEGS = (("f32", "float32", None, TP_CUT), ("bf16", "bfloat16", None, L),
+# leg (the headline) at TP_HEAD layers, the others cut to TP_CUT layers
+# (each beside a tp=1 engine of its own depth)
+TP2_LEGS = (("f32", "float32", None, TP_CUT),
+            ("bf16", "bfloat16", None, TP_HEAD),
             ("int8_f32", "float32", "int8", TP_CUT),
             ("int4_f32", "float32", "int4", TP_CUT),
             ("int8_bf16", "bfloat16", "int8", TP_CUT),
@@ -7481,6 +7514,11 @@ def phase_amp(torch, eager_stats):
 # -- phase 31: context parallelism over gloo on the one card ----------------
 
 CP_SP = 4                  # the flagship's ring: four blocks of 512
+CP_CUT = 8                 # (a) / (b)'s depth: the ring's hops and the
+#                            all_to_alls grow with the layers, and at L=24
+#                            the two legs held 96 of the smoke's 1063 s;
+#                            their step-0 reference is the one-card step at
+#                            this depth (``mesh_reference``)
 CP_TIMEOUT_S = 300.0       # every gloo operation of (d)'s thread ranks
 CP_JOIN_S = 600.0
 CP_LEGS = (
@@ -7489,7 +7527,7 @@ CP_LEGS = (
     #  one timed (and rank 0's profiled one: gloo's ~10 s steps bound the
     #  phase's time), ring then Ulysses in the same rank processes; (c)
     #  phase 8's (phase 26 (b)'s one-card f32 run is the reference)
-    ("cp_ab", {"sp": CP_SP}, CP_SP, "bfloat16", L, 0, 0, 2,
+    ("cp_ab", {"sp": CP_SP}, CP_SP, "bfloat16", CP_CUT, 0, 0, 2,
      ["ring", "ulysses"]),
     ("cp_c", {"dp": 2, "mp": 2, "sp": 2}, 8, "float32", 2, 1, 1, 3,
      ["ring", "ulysses"]),
@@ -7691,7 +7729,7 @@ def cp_rank_kernel_ms(torch, blocks, layers, mode, rank, b, s, h, d):
     return layers * f, layers * g
 
 
-def phase_cp(torch, train_stats, flash_rows):
+def phase_cp(torch, flash_rows):
     import shutil
     import tempfile
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7705,6 +7743,8 @@ def phase_cp(torch, train_stats, flash_rows):
         _, mesh_kw, world, dtype, layers, _, _, _, modes = leg
         cfg, batch, seq = mesh_config(dtype, layers)
         s_loc = seq // CP_SP
+        # the one-card step from the legs' weights and first batch
+        ref, _ = mesh_reference(torch, leg[:7] + (1,))
         t0 = time.perf_counter()
         ranks, _ = run_mesh_leg(leg, tmp)
         out["ab_wall_s"] = time.perf_counter() - t0
@@ -7735,15 +7775,15 @@ def phase_cp(torch, train_stats, flash_rows):
                       f"cp ({tag}) rank {i}: (loss, gnorm) {r['hist']} differ "
                       f"from rank 0's {rr[0]['hist']}")
             r0 = rr[0]
-            loss0, ref0 = r0["hist"][0][0], train_stats["losses"][0]
+            loss0, ref0 = r0["hist"][0][0], float(ref[0][0])
             check(abs(loss0 - ref0) <= MESH_LOSS_RTOL * abs(ref0),
-                  f"cp ({tag}) {mode} step-0 loss {loss0} against phase 7's "
-                  f"{ref0} (rtol {MESH_LOSS_RTOL:g})")
-            gn0, gref0 = r0["hist"][0][1], train_stats["grad_norms"][0]
+                  f"cp ({tag}) {mode} step-0 loss {loss0} against the "
+                  f"one-card step's {ref0} (rtol {MESH_LOSS_RTOL:g})")
+            gn0, gref0 = r0["hist"][0][1], float(ref[0][1])
             gn_rel = abs(gn0 - gref0) / abs(gref0)
             check(gn_rel <= MESH_GNORM_RTOL,
-                  f"cp ({tag}) {mode} step-0 grad norm {gn0} against phase "
-                  f"7's {gref0}: relative {gn_rel:.3e} (rtol "
+                  f"cp ({tag}) {mode} step-0 grad norm {gn0} against the "
+                  f"one-card step's {gref0}: relative {gn_rel:.3e} (rtol "
                   f"{MESH_GNORM_RTOL:g})")
             tokens_per_s = batch * seq / (r0["ms_per_step"] / 1e3)
             mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
@@ -7765,8 +7805,8 @@ def phase_cp(torch, train_stats, flash_rows):
                 "mode": mode, "mesh": mesh_kw,
                 "ms_per_step": r0["ms_per_step"],
                 "tokens_per_s": tokens_per_s, "mfu": mfu,
-                "step0_loss": loss0, "phase7_step0_loss": ref0,
-                "step0_grad_norm": gn0, "phase7_step0_grad_norm": gref0,
+                "step0_loss": loss0, "one_card_step0_loss": ref0,
+                "step0_grad_norm": gn0, "one_card_step0_grad_norm": gref0,
                 "step0_grad_norm_rel": gn_rel,
                 "losses": [hh[0] for hh in r0["hist"]],
                 "grad_norms": [hh[1] for hh in r0["hist"]],
@@ -7781,12 +7821,10 @@ def phase_cp(torch, train_stats, flash_rows):
             print(f"  ({tag}) {mode} on sp {CP_SP}, L={layers} B={batch} "
                   f"S={seq} (S_loc {s_loc}) bf16: {r0['ms_per_step']:.1f} "
                   f"ms/step, {tokens_per_s:.1f} global tokens/s, MFU "
-                  f"{mfu:.4f} (phase 7 {train_stats['ms_per_step']:.1f} "
-                  f"ms/step); step-0 loss {loss0:.5f} vs phase 7's "
-                  f"{ref0:.5f}, grad norm {gn0:.6f} vs {gref0:.6f} (relative "
-                  f"{gn_rel:.2e}); peak GB by rank "
-                  f"{['%.2f' % r['peak_gb'] for r in rr]} (phase 7 "
-                  f"{train_stats['peak_memory_gb']:.2f}); rank 0 idle "
+                  f"{mfu:.4f}; step-0 loss {loss0:.5f} vs the one-card "
+                  f"step's {ref0:.5f}, grad norm {gn0:.6f} vs {gref0:.6f} "
+                  f"(relative {gn_rel:.2e}); peak GB by rank "
+                  f"{['%.2f' % r['peak_gb'] for r in rr]}; rank 0 idle "
                   f"{idle_txt}; flash launches by rank in {r0['timed']} steps "
                   f"{[r['flash'] for r in rr]}", flush=True)
             print(f"  ({tag}) K1 / K2 device ms a step by rank (phase 5's "
@@ -8238,6 +8276,610 @@ def pipe_leg_b(torch, leg, ranks, cfg, seq, spec0, bound_of):
     return res
 
 
+# -- phase 33: mixture of experts -------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1 config.json: hidden 4096, intermediate 14336,
+# 8 local experts, 2 experts a token; the experts are GLU FFNs
+MIXTRAL_D, MIXTRAL_F, MIXTRAL_E, MIXTRAL_K = 4096, 14336, 8, 2
+MOE_CASES = (("mixtral_prefill_t4096", 1, 4096), ("mixtral_decode_t8", 8, 1))
+MOE_E, MOE_K, MOE_CF = 8, 2, 1.25     # (b), (c): GShardGate top-2
+MOE_B, MOE_S = 8, 2048                # (b): the flagship's batch
+MOE_EP = 4                            # (c): rank processes on the card
+MOE_EP_B = 2                          # (c): 2 x 2048 tokens a rank
+MOE_REL = 1e-2        # bf16 against its plain version: |got - ref| over |ref|
+                      # (L2) of each tensor; the two round the same f32 sums
+                      # at other points (per-expert GEMMs beside dense
+                      # ones, the dequantized weight's bf16 rounding)
+MOE_MAX_REL = 5e-2    # ... and the worst element within this share of the
+                      # tensor's largest
+MOE_F32 = 1e-5        # f32 runs: the worst element within this share of the
+                      # tensor's largest (at least 1)
+MOE_TIMEOUT_S = 120.0
+MOE_JOIN_S = 300.0
+
+
+def moe_rel(got, ref):
+    """(relative L2 error, worst element over the largest reference)."""
+    g, r = got.float(), ref.float()
+    rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+    worst = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+    return rel, worst
+
+
+def moe_check_bf16(what, got, ref):
+    check(bool(got.float().isfinite().all()), f"{what}: non-finite")
+    rel, worst = moe_rel(got, ref)
+    check(rel <= MOE_REL and worst <= MOE_MAX_REL,
+          f"{what}: relative L2 error {rel:.3e} (bound {MOE_REL:g}), worst "
+          f"element {worst:.3e} of the largest (bound {MOE_MAX_REL:g})")
+    return {"rel_l2": rel, "worst_over_max": worst}
+
+
+def moe_check_f32(what, got, ref):
+    """The worst element's error over the tensor's largest (at least 1),
+    held to ``MOE_F32``."""
+    err = float((got.float() - ref.float()).abs().max())
+    rel = err / max(1.0, float(ref.float().abs().max()))
+    check(rel <= MOE_F32, f"{what}: max abs err {err:.3e}, {rel:.3e} of "
+          f"the largest element (bound {MOE_F32:g})")
+    return rel
+
+
+def fused_moe_dense(torch, x, gw, w1, w2, k):
+    """The JAX package's ``fused_moe`` formulation in torch (plain): every
+    expert on every token ([E, T, F1] ffn1), weighted by a dense [T, E]
+    combine of the top-k (``torch.topk``). Returns (out, routes)."""
+    import torch.nn.functional as Fn
+    b, s, d = x.shape
+    e = w1.shape[0]
+    t = x.reshape(b * s, d)
+    probs = torch.softmax(t.float() @ gw.float(), dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    combine = torch.zeros(b * s, e, dtype=torch.float32, device=x.device)
+    combine.scatter_add_(1, topi, topv)
+    h = torch.einsum("td,edf->etf", t, w1)
+    half = h.shape[-1] // 2
+    h = Fn.silu(h[..., :half]) * h[..., half:]
+    y = torch.einsum("etf,efd->etd", h, w2)
+    out = torch.einsum("etd,te->td", y.float(), combine)
+    return out.reshape(b, s, d).to(x.dtype), topi
+
+
+def mixtral_weights(torch, gen):
+    """Mixtral's expert weights in bf16 (N(0, 0.02), seeded), their int8
+    form (per expert and output channel, absmax / 127) and its
+    dequantized bf16 copy."""
+    e, d, f = MIXTRAL_E, MIXTRAL_D, MIXTRAL_F
+    w1 = torch.empty(e, d, 2 * f, dtype=torch.bfloat16, device="cuda")
+    w2 = torch.empty(e, f, d, dtype=torch.bfloat16, device="cuda")
+    out = {"w1": w1, "w2": w2}
+    for name, w in (("1", w1), ("2", w2)):
+        q = torch.empty(w.shape, dtype=torch.int8, device="cuda")
+        s = torch.empty(e, w.shape[2], dtype=torch.float32, device="cuda")
+        wd = torch.empty_like(w)
+        for ex in range(e):
+            wf = torch.randn(w.shape[1:], device="cuda", generator=gen) * 0.02
+            w[ex] = wf.bfloat16()
+            wf = w[ex].float()
+            s[ex] = wf.abs().amax(dim=0) / 127.0 + 1e-12
+            q[ex] = torch.round(wf / s[ex]).clamp(-127, 127).to(torch.int8)
+            wd[ex] = (q[ex].float() * s[ex]).bfloat16()
+            del wf
+        out["q" + name], out["s" + name], out["wd" + name] = q, s, wd
+    out["gw"] = (torch.randn(d, e, device="cuda", generator=gen) * 0.02
+                 ).bfloat16()
+    return out
+
+
+def moe_k4_row(torch, case, x, w, routes):
+    """K4's launches of one int8 ``fused_moe`` call (ffn1 and ffn2 of each
+    expert with rows, at its rows), timed together beside their plain
+    versions and ``torch.matmul`` on the dequantized bf16 copy, the bound
+    summed over the launches from ``ops.work``."""
+    import torch.nn.functional as Fn
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import work
+    d = x.shape[-1]
+    t = x.reshape(-1, d)
+    flat = routes.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = order // routes.shape[1]
+    counts = torch.bincount(flat, minlength=MIXTRAL_E).tolist()
+    calls, start, nbytes, flops = [], 0, 0, 0
+    for ex, m in enumerate(counts):
+        if not m:
+            continue
+        xs = t.index_select(0, rows[start:start + m]).contiguous()
+        h = xs @ w["wd1"][ex]
+        h = (Fn.silu(h[:, :MIXTRAL_F]) * h[:, MIXTRAL_F:]).contiguous()
+        start += m
+        for inp, q, s, wd in ((xs, w["q1"][ex], w["s1"][ex], w["wd1"][ex]),
+                              (h, w["q2"][ex], w["s2"][ex], w["wd2"][ex])):
+            calls.append((inp, q, s, wd))
+            b_, f_ = work.weight_only_matmul(m, q.shape[0], q.shape[1], 8)
+            nbytes, flops = nbytes + b_, flops + f_
+    worst = (0.0, 0.0)
+    for inp, q, s, wd in calls:
+        out = qm.weight_only_matmul(inp, q, s, "int8", 512)
+        ref = qm.weight_only_matmul_plain(inp, q, s, "int8")
+        err, ratio = bf16_agreement(out, ref, INT8_ATOL)
+        worst = max(worst, (err, ratio), key=lambda v: v[1])
+    torch.cuda.synchronize()
+    check(worst[1] <= 1.0, f"K4 in fused_moe {case}: max abs err "
+          f"{worst[0]}, an element off by {worst[1]:.2f}x its allowance")
+
+    def kernel():
+        for inp, q, s, _ in calls:
+            qm.weight_only_matmul(inp, q, s, "int8", 512)
+
+    def plain():
+        for inp, q, s, _ in calls:
+            qm.weight_only_matmul_plain(inp, q, s, "int8")
+
+    def library():
+        for inp, _, _, wd in calls:
+            torch.matmul(inp, wd)
+
+    b_ms, b_by = bound(nbytes, flops)
+    dev = device_times(kernel, plain, library)
+    row = dict(case=case, max_abs_err=worst[0], atol=INT8_ATOL,
+               worst_err_over_allowed=worst[1], ms=time_ms(kernel),
+               plain_ms=time_ms(plain, iters=5), bound_ms=b_ms,
+               bound_by=b_by, library_ms=time_ms(library),
+               launches_per_call=len(calls),
+               rows_per_expert=counts, **dev)
+    print(f"  K4 in fused_moe[{case}]: {len(calls)} launches, rows an "
+          f"expert {counts}; err {worst[0]:.3e} (worst {worst[1]:.3f} of "
+          f"atol {INT8_ATOL:g} + 2 bf16 ulps) kernel {row['ms']:.4f} ms "
+          f"plain {row['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
+          f"matmul on the dequantized bf16 copy {row['library_ms']:.4f} ms; "
+          f"{device_text(dev)}", flush=True)
+    return row
+
+
+def moe_fused_case(torch, w, case, b, s, gen):
+    """(a) one input: routes, the bf16 sparse route against the dense
+    plain version, int8 on K4 against the bf16 route on the dequantized
+    weights, the counted int8 call's launches, times."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import swiglu as sw
+    x = torch.randn(b, s, MIXTRAL_D, device="cuda", generator=gen).bfloat16()
+    gw = w["gw"]
+    t = x.reshape(-1, MIXTRAL_D)
+    probs = torch.softmax(t.float() @ gw.float(), dim=-1)
+    _, routes = IF._topk_stable(probs, MIXTRAL_K)
+    ref, plain_routes = fused_moe_dense(torch, x, gw, w["w1"], w["w2"],
+                                        MIXTRAL_K)
+    check(torch.equal(routes, plain_routes),
+          f"fused_moe {case}: routes differ from the plain version's")
+    sparse = IF.fused_moe(x, gw, w["w1"], w["w2"], moe_topk=MIXTRAL_K)
+    res = {"bf16_vs_dense": moe_check_bf16(f"fused_moe {case} bf16", sparse,
+                                           ref)}
+    del ref
+    int8_kw = dict(ffn1_scale=w["s1"], ffn2_scale=w["s2"],
+                   quant_method="weight_only_int8", moe_topk=MIXTRAL_K)
+    deq = IF.fused_moe(x, gw, w["wd1"], w["wd2"], moe_topk=MIXTRAL_K)
+    ran = int((torch.bincount(routes.reshape(-1),
+                              minlength=MIXTRAL_E) > 0).sum())
+    # the counted main-path call
+    reset_counts()
+    got = IF.fused_moe(x, gw, w["q1"], w["q2"], **int8_kw)
+    torch.cuda.synchronize()
+    launches = (qm.weight_only_matmul.int8_launches,
+                sw.swiglu_fwd.launches)
+    check(launches == (2 * ran, ran) and IF.fused_moe.last_experts == ran,
+          f"fused_moe {case}: K4 / B launches {launches} for {ran} experts "
+          f"with rows (want {(2 * ran, ran)})")
+    res["int8_vs_dequantized_bf16"] = moe_check_bf16(
+        f"fused_moe {case} int8", got, deq)
+    del got, deq, sparse
+
+    def int8():
+        return IF.fused_moe(x, gw, w["q1"], w["q2"], **int8_kw)
+
+    def bf16_deq():
+        return IF.fused_moe(x, gw, w["wd1"], w["wd2"], moe_topk=MIXTRAL_K)
+
+    def dense():
+        return fused_moe_dense(torch, x, gw, w["w1"], w["w2"], MIXTRAL_K)
+
+    # events around whole calls: a call reads its experts' row counts on
+    # the host (one synchronisation), so no queue of calls runs ahead
+    times = {"int8_ms": time_ms(int8, iters=10),
+             "bf16_ms": time_ms(bf16_deq, iters=10),
+             "dense_plain_ms": time_ms(dense, iters=5)}
+    row = moe_k4_row(torch, case, x, w, routes)
+    stats = dict(case=case, tokens=b * s, experts_with_rows=ran,
+                 k4_launches=launches[0], swiglu_launches=launches[1],
+                 errors=res, **times)
+    print(f"  (a) fused_moe[{case}]: T={b * s}, {ran} experts with rows, "
+          f"routes equal; bf16 sparse vs dense rel "
+          f"{res['bf16_vs_dense']['rel_l2']:.2e} (worst "
+          f"{res['bf16_vs_dense']['worst_over_max']:.2e}), int8 vs the "
+          f"dequantized bf16 route rel "
+          f"{res['int8_vs_dequantized_bf16']['rel_l2']:.2e} (worst "
+          f"{res['int8_vs_dequantized_bf16']['worst_over_max']:.2e}); "
+          f"K4 {launches[0]} + B {launches[1]} launches; ms a call: int8 "
+          f"{times['int8_ms']:.3f}, bf16 on the dequantized copy "
+          f"{times['bf16_ms']:.3f}, dense plain "
+          f"{times['dense_plain_ms']:.3f}", flush=True)
+    return row, stats
+
+
+def moe_layer_plain(torch, x, gw, w1, b1, w2, b2, k, cf):
+    """The JAX package's MoE layer in torch (plain): ``topk_capacity_
+    dispatch``'s dense [T, E, C] one-hot combine and dispatch, the
+    dispatch / expert / combine einsums, gelu's tanh form. Returns (y,
+    aux, dispatch)."""
+    import torch.nn.functional as Fn
+    d = x.shape[-1]
+    t = x.reshape(-1, d)
+    n, e = t.shape[0], gw.shape[1]
+    cap = max(int(cf * n * k / e), 1)
+    probs = torch.softmax((t @ gw).float(), dim=-1)
+    remaining, base = probs, torch.zeros(e, dtype=torch.int64,
+                                         device=x.device)
+    gates, slots, first = [], [], None
+    for _ in range(k):
+        idx = torch.argmax(remaining, dim=1)
+        onehot = Fn.one_hot(idx, e).to(probs.dtype)
+        first = onehot if first is None else first
+        pos = (onehot.cumsum(0) - 1).to(torch.int64) + base[None, :]
+        mask = onehot * (pos < cap).to(probs.dtype)
+        base = base + mask.sum(0).to(torch.int64)
+        gates.append((probs * mask).sum(1))
+        slot = torch.zeros(n, e, cap, dtype=probs.dtype, device=x.device)
+        slot.scatter_(2, pos.clamp(0, cap - 1)[..., None], 1.0)
+        slots.append(mask[..., None] * slot)
+        del slot
+        remaining = remaining * (1.0 - onehot)
+    denom = gates[0]
+    for g in gates[1:]:
+        denom = denom + g
+    denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+    combine = None
+    for g, sl in zip(gates, slots):
+        part = (g / denom)[:, None, None] * sl
+        combine = part if combine is None else combine + part
+    del slots
+    dispatch = combine > 0
+    aux = e * torch.sum(first.mean(0) * probs.mean(0))
+    buf = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), t)
+    h = Fn.gelu(torch.einsum("ecd,edf->ecf", buf, w1) + b1,
+                approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", h, w2) + b2
+    y = torch.einsum("tec,ecd->td", combine.to(x.dtype), out)
+    return y.reshape(x.shape), aux.to(x.dtype), dispatch
+
+
+MOE_GRADS = ("x", "gate.weight", "w1", "b1", "w2", "b2")
+
+
+def moe_layer_step(torch, layer, x, dy):
+    """The port layer's forward and backward: (y, l_aux, {name: grad})."""
+    xl = x.detach().clone().requires_grad_(True)
+    for p in layer.parameters():
+        p.grad = None
+    y = layer(xl)
+    torch.autograd.backward((y, layer.l_aux),
+                            (dy, torch.full_like(layer.l_aux, 0.7)))
+    ex = layer.experts
+    grads = dict(zip(MOE_GRADS, (xl.grad, layer.gate.weight.grad, ex.w1.grad,
+                                 ex.b1.grad, ex.w2.grad, ex.b2.grad)))
+    return y.detach(), layer.l_aux.detach(), grads
+
+
+def moe_plain_step(torch, layer, x, dy):
+    """The plain version's forward and backward on leaves copied from
+    ``layer``: (y, aux, dispatch, {name: grad})."""
+    ex = layer.experts
+    leaves = [t.detach().clone().requires_grad_(True) for t in
+              (x, layer.gate.weight, ex.w1, ex.b1, ex.w2, ex.b2)]
+    y, aux, dispatch = moe_layer_plain(torch, *leaves, MOE_K, MOE_CF)
+    torch.autograd.backward((y, aux), (dy, torch.full_like(aux, 0.7)))
+    return y.detach(), aux.detach(), dispatch, dict(
+        zip(MOE_GRADS, (t.grad for t in leaves)))
+
+
+def moe_layer(torch, dtype, gen, device="cuda"):
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    layer = moe.MoELayer(
+        d_model=E, experts=moe.ExpertMLP(MOE_E, E, F, device=device,
+                                         generator=gen),
+        gate=moe.GShardGate(E, MOE_E, top_k=MOE_K, capacity_factor=MOE_CF,
+                            device=device, generator=gen))
+    with torch.no_grad():           # biases off zero, as a trained layer's
+        for b in (layer.experts.b1, layer.experts.b2):
+            b.normal_(0.0, 0.02, generator=gen)
+    return layer.to(dtype)
+
+
+def moe_slots_equal(torch, layer, x, dispatch):
+    """Whether the port's (token, expert, slot) triples equal the plain
+    version's dispatch mask exactly."""
+    with torch.no_grad():
+        t = x.reshape(-1, x.shape[-1])
+        (expert, slot, _, _), cap = layer.gate.route(t)
+    live = slot >= 0
+    tok = torch.arange(t.shape[0], device=t.device)[:, None].expand_as(slot)
+    keys = ((tok * MOE_E + expert) * cap + slot)[live].sort().values
+    plain = dispatch.reshape(-1).nonzero()[:, 0]
+    return (dispatch.shape[2] == cap and keys.shape == plain.shape
+            and bool(torch.equal(keys, plain))), int(live.sum())
+
+
+def moe_copy(layer, dtype):
+    """A copy of ``layer`` in ``dtype`` (the last forward's ``l_aux``, a
+    non-leaf tensor, dropped first: deepcopy takes leaves only)."""
+    import copy
+    layer.l_aux = None
+    return copy.deepcopy(layer).to(dtype)
+
+
+def moe_peak_gb(torch, fn):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def moe_layer_phase(torch, gen):
+    """(b) the MoE layer at the flagship's widths, bf16 then f32."""
+    layer = moe_layer(torch, torch.bfloat16, gen)
+    x = torch.randn(MOE_B, MOE_S, E, device="cuda",
+                    generator=gen).bfloat16()
+    dy = torch.randn(MOE_B, MOE_S, E, device="cuda",
+                     generator=gen).bfloat16()
+    y, aux, grads = moe_layer_step(torch, layer, x, dy)
+    py, paux, dispatch, pgrads = moe_plain_step(torch, layer, x, dy)
+    exact, dispatched = moe_slots_equal(torch, layer, x, dispatch)
+    check(exact, "(b) MoE layer: slots differ from the plain version's")
+    del dispatch
+    errs = {"y": moe_check_bf16("(b) y", y, py),
+            "l_aux": moe_check_bf16("(b) l_aux", aux.reshape(1),
+                                    paux.reshape(1))}
+    for n in MOE_GRADS:
+        errs["d" + n] = moe_check_bf16(f"(b) d{n}", grads[n], pgrads[n])
+    del y, py, grads, pgrads
+    ms = time_ms(lambda: moe_layer_step(torch, layer, x, dy), iters=5,
+                 warmup=1)
+    plain_ms = time_ms(lambda: moe_plain_step(torch, layer, x, dy), iters=3,
+                       warmup=1)
+    peak = moe_peak_gb(torch, lambda: moe_layer_step(torch, layer, x, dy))
+    plain_peak = moe_peak_gb(torch, lambda: moe_plain_step(torch, layer, x,
+                                                           dy))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layer32 = moe_copy(layer, torch.float32)
+    x32, dy32 = x.float(), dy.float()
+    y, aux, grads = moe_layer_step(torch, layer32, x32, dy32)
+    py, paux, dispatch, pgrads = moe_plain_step(torch, layer32, x32, dy32)
+    exact32, _ = moe_slots_equal(torch, layer32, x32, dispatch)
+    check(exact32, "(b) f32 MoE layer: slots differ from the plain version's")
+    del dispatch
+    f32 = {"y": moe_check_f32("(b) f32 y", y, py),
+           "l_aux": moe_check_f32("(b) f32 l_aux", aux, paux)}
+    for n in MOE_GRADS:
+        f32["d" + n] = moe_check_f32(f"(b) f32 d{n}", grads[n], pgrads[n])
+    del y, py, grads, pgrads, layer32
+    torch.cuda.empty_cache()
+    stats = dict(tokens=MOE_B * MOE_S, dispatched=dispatched,
+                 capacity=layer.gate.capacity(MOE_B * MOE_S), bf16=errs,
+                 f32_worst_over_max=f32, ms_per_step=ms,
+                 plain_ms_per_step=plain_ms,
+                 peak_gb=peak, plain_peak_gb=plain_peak)
+    print(f"  (b) MoELayer d={E} F={F} E={MOE_E} top-{MOE_K} cf {MOE_CF}, "
+          f"T={MOE_B * MOE_S} bf16: slots equal the plain version's "
+          f"({dispatched} dispatched, C={stats['capacity']}); worst relative "
+          f"L2 error {max(v['rel_l2'] for v in errs.values()):.2e} over y, "
+          f"l_aux and {len(MOE_GRADS)} gradients (bound {MOE_REL:g}); f32 "
+          f"worst element {max(f32.values()):.2e} of the largest (bound "
+          f"{MOE_F32:g}); ms/step {ms:.2f} (plain "
+          f"{plain_ms:.2f}), peak {peak:.2f} GB (plain {plain_peak:.2f})",
+          flush=True)
+    return layer, stats
+
+
+def moe_ep_inputs(torch, rank):
+    """(c): rank ``rank``'s seeded tokens and upstream gradient, f32 [2,
+    2048, d] on the card (the same in the rank's process and the
+    parent)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(330 + rank)
+    x = torch.randn(MOE_EP_B, MOE_S, E, device="cuda", generator=gen)
+    return x, torch.randn(x.shape, device="cuda", generator=gen)
+
+
+def moe_rank(spec_path):
+    """A rank of phase 33 (c) (``chip_smoke.py --moe-rank SPEC``): joins
+    the world group, builds the expert-parallel ``MoELayer`` (its
+    ``MOE_E`` / world experts of the parent's f32 weights), runs a
+    forward and backward on its seeded tokens and writes y, l_aux and
+    the gradients (npz) and its exchanges and the next step's host ms
+    (JSON). Autograd runs every CUDA backward of a process on one device
+    thread, so ranks whose backward waits for its peers are processes,
+    not threads."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = spec["rank"]
+    group = collective.new_group(rank, spec["world"], spec["store"],
+                                 timeout=MOE_TIMEOUT_S)
+    stats = {}
+    layer = moe.MoELayer(
+        d_model=E, experts=moe.ExpertMLP(MOE_E, E, F, device="cuda"),
+        gate=moe.GShardGate(E, MOE_E, top_k=MOE_K, capacity_factor=MOE_CF,
+                            device="cuda"), moe_group=group, stats=stats)
+    with np.load(spec["state"]) as st:
+        moe.moe_state_from_numpy(layer, dict(st))
+    x, dy = moe_ep_inputs(torch, rank)
+    y, aux, grads = moe_layer_step(torch, layer, x, dy)
+    torch.cuda.synchronize()
+    comm = {k: dict(v) for k, v in stats.items()}
+    np.savez(spec["arrays"], y=y.cpu().numpy(), l_aux=aux.cpu().numpy(),
+             **{"d" + n: g.cpu().numpy() for n, g in grads.items()})
+    t0 = time.perf_counter()
+    moe_layer_step(torch, layer, x, dy)
+    torch.cuda.synchronize()
+    with open(spec["out"], "w") as f:
+        json.dump({"comm": comm,
+                   "ms": 1e3 * (time.perf_counter() - t0)}, f)
+    return 0
+
+
+def moe_ep_phase(torch, layer):
+    """(c) expert parallelism, ep ``MOE_EP`` over gloo in rank processes
+    on the card, f32: each rank against the one-rank layer on its
+    tokens."""
+    import shutil
+    import tempfile
+    one = moe_copy(layer, torch.float32)
+    refs = [moe_layer_step(torch, one, *moe_ep_inputs(torch, r))
+            for r in range(MOE_EP)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        state = os.path.join(tmp, "state.npz")
+        np.savez(state, **{n: p.detach().cpu().numpy()
+                           for n, p in one.named_parameters()})
+        specs = [{"rank": r, "world": MOE_EP, "state": state,
+                  "store": os.path.join(tmp, "store"),
+                  "arrays": os.path.join(tmp, f"moe_rank{r}.npz"),
+                  "out": os.path.join(tmp, f"moe_rank{r}.json")}
+                 for r in range(MOE_EP)]
+        ranks = run_rank_procs("--moe-rank", "moe (c)", specs, tmp,
+                               MOE_JOIN_S)
+        got = []
+        for spec in specs:
+            with np.load(spec["arrays"]) as a:
+                got.append({k: torch.from_numpy(a[k]) for k in a.files})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    local = MOE_E // MOE_EP
+    cap = layer.gate.capacity(MOE_EP_B * MOE_S)
+    want_comm = {"all_to_all,ep": {"calls": 4,
+                                   "bytes": 4 * MOE_E * cap * E * 4}}
+    worst = 0.0
+    for r in range(MOE_EP):
+        g, (ry, raux, rgrads) = got[r], refs[r]
+        check(ranks[r]["comm"] == want_comm, f"(c) rank {r}: exchanges "
+              f"{ranks[r]['comm']} (want {want_comm})")
+        errs = [moe_check_f32(f"(c) rank {r} y", g["y"], ry.cpu()),
+                moe_check_f32(f"(c) rank {r} l_aux", g["l_aux"], raux.cpu())]
+        for n in ("x", "gate.weight"):
+            errs.append(moe_check_f32(f"(c) rank {r} d{n}", g["d" + n],
+                                      rgrads[n].cpu()))
+        sl = slice(r * local, (r + 1) * local)
+        for n in ("w1", "b1", "w2", "b2"):
+            want = sum(refs[q][2][n] for q in range(MOE_EP))[sl].cpu()
+            errs.append(moe_check_f32(f"(c) rank {r} d{n}", g["d" + n],
+                                      want))
+        worst = max(worst, max(errs))
+    ms = [ranks[r]["ms"] for r in range(MOE_EP)]
+    stats = dict(ep=MOE_EP, tokens_per_rank=MOE_EP_B * MOE_S, capacity=cap,
+                 comm_per_rank=want_comm, f32_worst_over_max=worst,
+                 ms_per_step_by_rank=ms)
+    print(f"  (c) expert parallelism ep {MOE_EP} ({local} experts a rank, "
+          f"T={MOE_EP_B * MOE_S} a rank, f32): every rank's worst element "
+          f"{worst:.2e} of the largest against the one-rank layer on its "
+          f"tokens (bound {MOE_F32:g}; expert "
+          f"gradients: the sum over ranks); 2 + 2 all_to_all of "
+          f"{MOE_E * cap * E * 4 / 1e6:.1f} MB a rank a step; ms/step by "
+          f"rank {', '.join(f'{v:.1f}' for v in ms)} (gloo through the "
+          "host, four processes on one card)", flush=True)
+    del one, refs, got
+    torch.cuda.empty_cache()
+    return stats
+
+
+def moe_asp_phase(torch):
+    """(d) ASP 2:4 on the flagship's MLP weights: masks against the CPU's,
+    density 0.5, the zeros through 3 steps of the decorated AdamW."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.models import LlamaForCausalLM, pretrain
+    cfg, _, _ = pretrain.flagship_config()
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    mlps = torch.nn.ModuleList([blk.mlp for blk in model.llama.layers])
+    del model
+    cpu_masks = {n: asp.create_mask(p.detach().cpu())
+                 for n, p in mlps.named_parameters()}
+    asp.reset_excluded_layers()
+    masks = asp.prune_model(mlps)
+    check(sorted(masks) == sorted(cpu_masks),
+          f"(d) pruned {sorted(masks)[:4]}... not the MLP weights")
+    for n, m in masks.items():
+        check(torch.equal(m.cpu(), cpu_masks[n]),
+              f"(d) {n}: the card's 2:4 mask differs from the CPU's")
+    opt = asp.decorate(optimizer.AdamW(learning_rate=1e-3,
+                                       parameters=mlps.parameters(),
+                                       weight_decay=0.1))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    x = torch.randn(2048, E, device="cuda", generator=gen)
+    for _ in range(3):
+        loss = sum(m(x).square().mean() for m in mlps)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    torch.cuda.synchronize()
+    dens = {n: asp.calculate_density(p) for n, p in mlps.named_parameters()}
+    for n, p in mlps.named_parameters():
+        check(dens[n] == 0.5 and asp.check_mask_1d(p)
+              and not bool((p.detach() * (1 - masks[n])).any()),
+              f"(d) {n}: density {dens[n]} after 3 decorated AdamW steps")
+    stats = dict(weights=len(masks), params=sum(p.numel() for p in
+                                               mlps.parameters()),
+                 density=0.5, steps=3)
+    print(f"  (d) ASP 2:4 on the flagship's {len(masks)} MLP weights "
+          f"({stats['params'] / 1e6:.1f}M elements): masks equal the CPU's, "
+          "density 0.5, zeros kept through 3 decorated AdamW steps",
+          flush=True)
+    del mlps, opt
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_moe(torch):
+    """Phase 33: (a) fused_moe at Mixtral-8x7B's widths (prefill T=4096,
+    decode T=8), bf16 and int8 on K4; (b) the MoE layer at the flagship's
+    widths; (c) expert parallelism over gloo in processes; (d) ASP 2:4.
+    Returns (K4's MoE rows, stats)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        w = mixtral_weights(torch, gen)
+        rows, fused = [], []
+        for case, b, s in MOE_CASES:
+            row, st = moe_fused_case(torch, w, case, b, s, gen)
+            rows.append(row)
+            fused.append(st)
+        del w
+    torch.cuda.empty_cache()
+    stats = {"fused_moe": fused, "a_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    layer, stats["layer"] = moe_layer_phase(torch, gen)
+    stats["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["ep"] = moe_ep_phase(torch, layer)
+    stats["c_s"] = time.perf_counter() - t0
+    del layer
+    t0 = time.perf_counter()
+    stats["asp"] = moe_asp_phase(torch)
+    stats["d_s"] = time.perf_counter() - t0
+    print(f"  phase 33 seconds by part: (a) {stats['a_s']:.1f}, (b) "
+          f"{stats['b_s']:.1f}, (c) {stats['c_s']:.1f}, (d) "
+          f"{stats['d_s']:.1f}", flush=True)
+    return rows, stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -8410,12 +9052,17 @@ def main():
           "ring_attention_plain, (a) ring and (b) Ulysses on the flagship "
           f"at sp {CP_SP}, bf16, (c) both in f32 L=2 on dp 2 x mp 2 x sp 2",
           flush=True)
-    cp_stats = phase_cp(torch, train_stats, flash_rows)
+    cp_stats = phase_cp(torch, flash_rows)
     phase("phase 32: pipeline parallelism over gloo in processes on the "
           f"card: (a) the flagship as LlamaForCausalLMPipe at pp 4 (1F1B, "
           "FThenB, VPP, ZBH1), bf16; (b) f32 L=2 on pp 2 x dp 2 x mp 2 "
           "(1F1B, ZBH1)", flush=True)
     pipe_stats = phase_pipeline(torch, train_stats)
+    phase("phase 33: mixture of experts: (a) fused_moe at Mixtral-8x7B's "
+          "widths (bf16, int8 on K4), (b) MoELayer at the flagship's widths, "
+          f"(c) expert parallelism ep {MOE_EP} over gloo in processes, (d) "
+          "ASP 2:4 on the flagship's MLP weights", flush=True)
+    moe_rows, moe_stats = phase_moe(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -8523,7 +9170,15 @@ def main():
         "paddle_tpu/optimizer/optimizers.py:35",
         eager_stats["adamw_eager_launches"], eager_rows,
         eager_rows[0]["case"]))
-    check(len(kernels) == 25 and all(e["launches"] > 0 for e in kernels),
+    # K4's int8 launches on the MoE path: phase 33 (a)'s counted int8
+    # fused_moe call at Mixtral's prefill (ragged M, one launch an expert
+    # with rows for each of ffn1 and ffn2)
+    kernels.append(kernel_entry(
+        "weight_only_int8_moe", "paddle_tpu_torch/csrc/weight_only_matmul.cu",
+        "paddle_tpu/ops/pallas/quant_matmul.py:65",
+        moe_stats["fused_moe"][0]["k4_launches"], moe_rows,
+        MOE_CASES[0][0]))
+    check(len(kernels) == 26 and all(e["launches"] > 0 for e in kernels),
           f"kernel entries {[(e['name'], e['launches']) for e in kernels]}")
     print(f"card: {card}; FlashMask step: {json.dumps(fm_step)}; f32: "
           f"{json.dumps(fm_f32)}", flush=True)
@@ -8559,6 +9214,8 @@ def main():
           flush=True)
     print(f"card: {card}; pipeline parallelism: {json.dumps(pipe_stats)}",
           flush=True)
+    print(f"card: {card}; mixture of experts: {json.dumps(moe_stats)}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8580,6 +9237,8 @@ if __name__ == "__main__":
             rc = amp_rank(sys.argv[2])
         elif sys.argv[1:2] == ["--pipe-rank"]:
             rc = pipe_rank(sys.argv[2])
+        elif sys.argv[1:2] == ["--moe-rank"]:
+            rc = moe_rank(sys.argv[2])
         else:
             rc = main()
     except Exception as e:  # every phase failure ends the run non-zero

@@ -3,7 +3,9 @@ attention functions, the fused decode-attention ops and FlashMask
 attention of the PyTorch port (counterpart of
 ``paddle_tpu/incubate/nn/functional/__init__.py``:
 ``fused_multi_transformer`` with its helpers and its int8 / int4
-wrappers, ``masked_multihead_attention``, ``block_multihead_attention``,
+wrappers, ``fused_moe`` (sparse routing; int8 experts on kernel K4, the
+GLU on kernel B), ``masked_multihead_attention``,
+``block_multihead_attention``,
 ``block_kv_cache_rewind``, ``blha_get_max_len``, ``flashmask_attention``),
 and the training step's fused tier of that module: ``fused_rms_norm``
 (RMSNorm of x + bias + residual, kernel A of ``ops.fused_norm``),
@@ -73,6 +75,7 @@ from ...core.random import make_generator
 from ...ops import flashmask as _fm
 from ...ops import fused_norm as _fn
 from ...ops import paged_attention as _pa
+from ...ops import quant_matmul as _qm
 from ...ops.swiglu import swiglu as _swiglu
 
 NEG_INF_F = -1e30
@@ -83,8 +86,9 @@ __all__ = ["blha_get_max_len", "block_kv_cache_rewind",
            "fused_dropout_add", "fused_feedforward", "fused_layer_norm",
            "fused_linear", "fused_linear_activation",
            "fused_linear_param_grad_add", "fused_matmul_bias",
-           "fused_multi_head_attention", "fused_multi_transformer",
-           "fused_multi_transformer_int4", "fused_multi_transformer_int8",
+           "fused_moe", "fused_multi_head_attention",
+           "fused_multi_transformer", "fused_multi_transformer_int4",
+           "fused_multi_transformer_int8",
            "fused_rms_norm", "masked_multihead_attention", "quantize_int4",
            "swiglu", "variable_length_memory_efficient_attention"]
 
@@ -975,3 +979,121 @@ def fused_layer_norm(x, norm_weight, norm_bias, epsilon, residual_alpha=1.0,
     out = _maybe_quant(out, quant_scale, quant_round_type, quant_max_bound,
                        quant_min_bound)
     return out, h
+
+
+# -- MoE (JAX :1118-1181) -------------------------------------------------
+
+class _Int8Experts(torch.autograd.Function):
+    """x [M, K] @ dequant(w [K, N] int8, s [N] f32) on kernel K4
+    (``ops.quant_matmul.weight_only_matmul``, int8; its plain version on
+    the CPU). dx comes from the dequantized weight in the gradient's
+    dtype, as JAX differentiates its dequantized einsum; w and s get
+    none."""
+
+    @staticmethod
+    def forward(ctx, x, w, s):
+        ctx.save_for_backward(w, s)
+        n = w.shape[1]
+        return _qm.weight_only_matmul(
+            x, w, s, "int8", _qm.kernel_block_n(n) or _qm.DEFAULT_BLOCK_N)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, s = ctx.saved_tensors
+        wd = (w.to(torch.float32) * s[None, :]).to(g.dtype)
+        return g @ wd.T, None, None
+
+
+def _expert_matmul(x, w, s, e):
+    """Expert e's product x @ w[e] in x's dtype: K4 for int8 weights (unit
+    scales when ``s`` is None, as JAX casts int8 to x's dtype), else the
+    float weight, dequantized by ``s`` in f32 when given, cast to x's
+    dtype (JAX :1143-1148, :1165)."""
+    if w.dtype == torch.int8:
+        n = w.shape[-1]
+        sc = torch.ones(n, dtype=torch.float32, device=w.device) \
+            if s is None else s.reshape(w.shape[0], n)[e].to(torch.float32)
+        return _Int8Experts.apply(x.contiguous(), w[e], sc.contiguous())
+    we = w[e]
+    if s is not None:
+        we = we.to(torch.float32) * s.reshape(w.shape[0], 1, -1)[e].to(
+            torch.float32)
+    return x @ we.to(x.dtype)
+
+
+def _topk_stable(probs, k):
+    """jax.lax.top_k: the k largest along the last axis, the lower index
+    first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
+              ffn1_scale=None, ffn2_bias=None, ffn2_scale=None,
+              quant_method="None", moe_topk=2, norm_topk_prob=True):
+    """Fused MoE FFN (reference fused_moe.py:20): gate -> top-k -> each
+    expert's FFN (GLU when ffn2's input width is half of ffn1's output)
+    -> the weighted sum of the k outputs a token.
+
+    x [B, S, D]; ``gate_weight`` logits [B, S, E] or a weight [D, E]
+    (the logits then x @ w in f32); ``ffn1_weight`` [E, D, F1],
+    ``ffn2_weight`` [E, F, D] (float, or int8 with ``ffn*_scale`` [E, N]
+    per output channel); biases [E, 1, N]. The JAX function evaluates
+    every expert on every token and weights the results by a dense
+    [T, E] combine matrix, for the TPU's static shapes; the port routes
+    sparsely, as the reference's CUDA op does: the (token, choice) pairs
+    are grouped by expert (a stable sort) and each expert with at least
+    one token gathers its rows, runs ffn1, the activation and ffn2 and
+    adds its weighted rows into an f32 sum, which is cast to x's dtype at
+    the end. The same function: a token's output takes only its k
+    experts. int8 experts run on kernel K4 (two launches an expert with
+    rows, none for an expert without), the GLU on kernel B
+    (``ops.swiglu``), the float products in ``torch.matmul``; on the CPU
+    both kernels run their plain versions. The top-k is a stable sort
+    (``jax.lax.top_k``'s order on ties). ``fused_moe.last_experts`` is
+    the count of experts the last call ran."""
+    if quant_method not in (None, "None", "none", "weight_only_int8"):
+        raise NotImplementedError(
+            f"fused_moe: quant_method={quant_method!r} unsupported "
+            "(weight-only int8 via ffn*_scale, or float weights)")
+    b, s, d = x.shape
+    e = ffn1_weight.shape[0]
+    t = b * s
+    tokens = x.reshape(t, d)
+    if gate_weight.dim() == 3:
+        logits = gate_weight.reshape(t, e)
+    else:
+        logits = tokens.to(torch.float32) @ gate_weight.to(torch.float32)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    topv, topi = _topk_stable(probs, moe_topk)
+    if norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    glu = ffn2_weight.shape[1] * 2 == ffn1_weight.shape[-1]
+    flat = topi.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = order // moe_topk
+    weights = topv.reshape(-1).index_select(0, order)
+    counts = torch.bincount(flat, minlength=e).tolist()
+    out = torch.zeros(t, d, dtype=torch.float32, device=x.device)
+    start, ran = 0, 0
+    for ex, m in enumerate(counts):
+        if not m:
+            continue
+        tok = rows[start:start + m]
+        h = _expert_matmul(tokens.index_select(0, tok), ffn1_weight,
+                           ffn1_scale, ex)
+        if ffn1_bias is not None:
+            h = _add(h, ffn1_bias.reshape(e, 1, -1)[ex])
+        h = _swiglu(h) if glu else _gelu(h)
+        y = _expert_matmul(h, ffn2_weight, ffn2_scale, ex)
+        if ffn2_bias is not None:
+            y = _add(y, ffn2_bias.reshape(e, 1, -1)[ex])
+        out.index_add_(0, tok, y.to(torch.float32)
+                       * weights[start:start + m, None])
+        start += m
+        ran += 1
+    fused_moe.last_experts = ran
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+fused_moe.last_experts = 0

@@ -13,7 +13,8 @@ autotuner sets: K3's and K7's ``split_waves`` at one split, at
 ``MAX_SPLITS`` and at one wave on a grid already past it, and K4's
 ``bn`` / ``waves`` at an odd count of 128-column tiles and at the
 smallest K, each against its plain version and its plan the Python
-form's.
+form's. ``fused_moe``'s int8 experts on K4 at 1, 3 and 1000 rows an
+expert, with the GLU on kernel B.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -2158,3 +2159,50 @@ def test_flash_bwd_takes_a_combined_lse_and_sums_dq(dtype, s):
     want = got[0] + got[1]
     err = float((acc - want).abs().max())
     assert err <= _tol(want, dtype), ("dq", err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("glu", [True, False])
+def test_fused_moe_int8_experts_at_ragged_rows(dtype, glu):
+    """``fused_moe``'s int8 experts on K4 at 1, 3 and 1000 rows an expert
+    (top-1 over 3-D logits; the other experts get none and launch
+    nothing) against the same call on CPU copies (K4's and kernel B's
+    plain versions)."""
+    from paddle_tpu_torch.incubate.nn import functional as F
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.ops import swiglu as sw
+    rng = np.random.default_rng(11)
+    e, d, f = 6, 256, 128
+    rows = {0: 1, 1: 3, 2: 1000}
+    t = sum(rows.values())
+    pick = np.concatenate([np.full(n, ex) for ex, n in rows.items()])
+    rng.shuffle(pick)
+    logits = np.full((t, e), -30.0, np.float32)
+    logits[np.arange(t), pick] = 5.0
+    x = rng.standard_normal((1, t, d)).astype(np.float32)
+    w1 = rng.standard_normal((e, d, 2 * f if glu else f)) * 0.05
+    w2 = rng.standard_normal((e, f, d)) * 0.05
+    qs = []
+    for w in (w1, w2):
+        sc = (np.abs(w).max(axis=1) / 127.0 + 1e-6).astype(np.float32)
+        qs.append((np.clip(np.round(w / sc[:, None, :]), -127, 127)
+                   .astype(np.int8), sc))
+    args = [x, logits.reshape(1, t, e), qs[0][0], qs[1][0]]
+    kw = dict(ffn1_scale=qs[0][1], ffn2_scale=qs[1][1])
+
+    def run(dev):
+        a = [torch.tensor(v, device=dev) for v in args]
+        a[0] = a[0].to(dtype)
+        k = {n: torch.tensor(v, device=dev) for n, v in kw.items()}
+        return F.fused_moe(*a, quant_method="weight_only_int8", moe_topk=1,
+                           **k)
+
+    ref = run("cpu")
+    n8, nb = qm.weight_only_matmul.int8_launches, sw.swiglu_fwd.launches
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert F.fused_moe.last_experts == 3
+    assert qm.weight_only_matmul.int8_launches - n8 == 2 * 3
+    assert sw.swiglu_fwd.launches - nb == (3 if glu else 0)
+    err = (got.cpu().float() - ref.float()).abs().max()
+    assert float(err) <= 2 * _tol(ref, dtype), float(err)
