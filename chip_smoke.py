@@ -224,8 +224,8 @@ Phases (any failure exits non-zero and prints no result line):
      shapes (K x N 1024 x 1024, 512 x 1024, 1024 x 2816, 1408 x 1024, 704
      x 1024) against their plain versions; then tp=2 at the serving
      flagship's width on phase 2's 12 requests, each leg beside a tp=1
-     engine of its depth: bf16 at L=8 (the headline, ``TP_HEAD``), f32,
-     int8 and int4 in f32 and in bf16 at L=4, and tp=4 at L=2 in f32. Gates: f32 tokens
+     engine of its depth: bf16 at L=4 (the headline, ``TP_HEAD``), f32,
+     int8 and int4 in f32 and in bf16 at L=2, and tp=4 at L=2 in f32. Gates: f32 tokens
      equal to tp=1's (a part only at a near tie, phase 3's rule), bf16
      step-0 logits within 5% of the logit range, on every rank a ragged
      launch and two all_reduces a layer (and four GEMM launches a layer
@@ -238,14 +238,15 @@ Phases (any failure exits non-zero and prints no result line):
      hangs fails the phase;
  26. (with autograd) the sharded pretrain mesh over gloo, every
      rank a process on the one card (``--mesh-rank`` runs one; the test
-     bed, not a deployment): (a) the pretrain flagship (L=24, B=8,
-     S=2048, bf16 AMP-O2) on fsdp 2 x mp 2, phase 7's seeded weights and
-     batches, one warm step and 3 timed ones: the step-0 loss within
-     ``MESH_LOSS_RTOL`` and the step-0 grad norm within
-     ``MESH_GNORM_RTOL`` of phase 7's, each rank's bytes at rest equal to
+     bed, not a deployment): (a) the pretrain flagship cut to
+     ``MESH_CUT`` = 8 layers (B=8, S=2048, bf16 AMP-O2) on fsdp 2 x mp 2,
+     phase 7's seeded weights and batches otherwise, one warm step and 3
+     timed ones: the step-0 loss within ``MESH_LOSS_RTOL`` and the step-0
+     grad norm within ``MESH_GNORM_RTOL`` of the one-card step at that
+     depth, each rank's bytes at rest equal to
      the analytic figure from ``spec_for_param``, its collective calls
-     and bytes equal to ``sharded.step_comm``, exactly 24 + 24 flash
-     launches, 49 + 49 norm, 24 + 24 SwiGLU, 1 + 1 token CE (the LM head
+     and bytes equal to ``sharded.step_comm``, exactly 8 + 8 flash
+     launches, 17 + 17 norm, 8 + 8 SwiGLU, 1 + 1 token CE (the LM head
      vocab-parallel over mp: kernel C's sharded forward and its backward
      with the shard's offset) and 2 AdamW a step on every rank, finite
      losses; prints ms/step, global
@@ -355,12 +356,12 @@ Phases (any failure exits non-zero and prints no result line):
      kernels take (``cp_ring_rounding``); phase 5 holds and times the
      ring's blocks (a causal 512-row diagonal block, a full one, a full
      one of 500 rows); (a) ring and (b) Ulysses attention on the
-     flagship cut to ``CP_CUT`` = 8 layers (phase 7's config, weights and
+     flagship cut to ``CP_CUT`` = 4 layers (phase 7's config, weights and
      batches otherwise, bf16 AMP-O2) at sp 4, four rank processes
      (``--mesh-rank``), one warm step and one timed each: the step-0 loss
      and grad norm within ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` of the
-     one-card step at that depth, exactly 8 x (i + 1) K1 and K2 launches
-     a step on ring rank i (8 each under Ulysses), the fused tier's
+     one-card step at that depth, exactly 4 x (i + 1) K1 and K2 launches
+     a step on ring rank i (4 each under Ulysses), the fused tier's
      launches, the collectives equal to
      ``sharded.step_comm``'s closed form (ring hops or all_to_alls by
      (op, axis), the sp gradient sum); ms/step, tokens/s, MFU, peak
@@ -374,15 +375,17 @@ Phases (any failure exits non-zero and prints no result line):
      form's;
  32. (after 31) pipeline parallelism (``fleet.pipeline_parallel``) over
      gloo on the one card, the ranks processes (``--pipe-rank``): (a)
-     the flagship as ``LlamaForCausalLMPipe`` at pp 4 (phase 7's weights
-     and batches, six decoder blocks a stage, phase 28 (a)'s layout: bf16
+     the flagship cut to ``PIPE_CUT`` = 8 layers as
+     ``LlamaForCausalLMPipe`` at pp 4 (phase 7's weights and batches
+     otherwise, two decoder blocks a stage, phase 28 (a)'s layout: bf16
      parameters, AdamW with f32 masters and the clip), 8 micro-batches of
-     one row, under 1F1B, FThenB, VPP (two chunks of 3 blocks a rank) and
-     ZB-H1 in the same processes, each from the initial weights: a warm
-     step, a timed one and one more (profiled on rank 0). Gates: the
+     one row, under 1F1B, FThenB, VPP (two chunks of one block a rank)
+     and ZB-H1 in the same processes, each from the initial weights: a
+     warm step, a timed one and one more (profiled on rank 0). Gates: the
      step-0 loss and grad norm within ``MESH_LOSS_RTOL`` /
-     ``MESH_GNORM_RTOL`` of phase 7's, (loss, grad norm) equal on every
-     rank, 48 + 48 flash launches a step a rank, the fused tier's
+     ``MESH_GNORM_RTOL`` of the one-card step at that depth, (loss, grad
+     norm) equal on every rank, 16 + 16 flash launches a step a rank, the
+     fused tier's
      launches of the stage's blocks (the final norm and 8 + 8 token CE
      on the last stage), 2 of kernel D's eager form, the collectives
      equal to ``pipeline_comm``'s closed form, the micro-batches in
@@ -422,6 +425,31 @@ Phases (any failure exits non-zero and prints no result line):
      of E x C x d elements a rank, ms/step by rank; (d) ASP 2:4 on the
      flagship's 48 MLP weights: the card's masks equal the CPU's,
      density 0.5 after 3 steps of the decorated AdamW;
+ 34. (after 33) the other model families, on K1 / K2: (a) GPT-2 small
+     (``GPTConfig()``: V=50304, H=768, L=12, 12 heads) at B=8, S=1024
+     through ``pretrain.make_train_step`` (bf16 weights; the blocks
+     compute in f32, as the JAX model's f32 biases promote them), a warm
+     step and 3 timed ones on one seeded batch: the loss falls, exactly
+     12 + 12 flash launches a step, tokens/s and MFU; f32 at L=2 within
+     ``TRAIN_RTOL`` of the same two steps under ``plain_attention()``;
+     (b) ViT-B/16 at 224 x 224, B=32, bf16 under ``amp`` O2: an eval
+     forward (12 K1) and a training step (12 + 12 at S=197, D=64,
+     non-causal), images/s; f32 at depth 2, the logits and every
+     gradient within ``FAMILY_RTOL`` of their largest magnitude under
+     ``plain_attention()``; (c) ERNIE-base ``ErnieForMaskedLM`` in eval
+     at B=8, S=512: f32 without a mask (12 K1, the f32 route) and with a
+     padding mask (0: the plain route, as the JAX package's), each
+     against ``plain_attention()``, and bf16 under ``amp`` O2 (12);
+     (d) ``UNet2DConditionModel`` at its defaults on a 4 x 64 x 64
+     latent, B=2, context [2, 77, 128], the denoising MSE's forward and
+     backward in bf16 under ``amp`` O2: 14 + 14 launches, by (D, Sq, Sk)
+     3 + 3 at D=16 over 4096 rows (self, and against the 77 context
+     rows) and 4 + 4 at D=32 over 1024; f32 against ``plain_attention()``
+     as (b); (e) K1 / K2 alone at each of those shapes (GPT-2's in f32 as
+     its path gives them and in bf16, ERNIE's in f32 and bf16), as phase
+     5 holds and times its cases (f32: ``FLASH_O_ATOL`` /
+     ``FLASH_GRAD_ATOL`` times the largest magnitude; the bound on the
+     f32 route at 67 TFLOP/s); prints the seconds by part;
   then a ``{"kernels": [...]}`` line and the result line.
 
 The last line of standard output is
@@ -442,6 +470,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
 V, E, H, KVH, D, L, F = 32000, 1024, 16, 8, 64, 24, 2816
 BS, NUM_BLOCKS, MAX_BATCH, CHUNK, SMAX = 16, 257, 8, 64, 512
@@ -1816,89 +1845,120 @@ def flash_cases(torch, seed=21):
     return cases
 
 
-def phase_flash(torch):
+def flash_row(torch, name, q, k, v, do, causal, rows, fast=False):
+    """One case of K1 / K2 against their plain versions on [BH, Sq, D] /
+    [BH, Sk, D] tensors (phases 5 and 34): the worst element against its
+    allowance (bf16: ``bf16_agreement`` with p's and ds's rounding
+    flips; f32: ``FLASH_O_ATOL`` / ``FLASH_GRAD_ATOL`` times the largest
+    magnitude, at least 1), then the kernel, plain, bound and SDPA times
+    (``fast``: fewer calls); appends a row to ``rows["fwd"]`` and
+    ``rows["bwd"]``."""
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import flash_attention as fa
-    rows = {"fwd": [], "bwd": []}
-    for name, q, k, v, do, causal in flash_cases(torch):
-        bh, s, d = q.shape
-        scale = 1.0 / math.sqrt(d)
-        o, lse = fa.flash_fwd(q, k, v, scale, causal)
-        ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
-        grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal)
-        refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
-        torch.cuda.synchronize()
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (o, lse) + tuple(grads))
+    from paddle_tpu_torch.ops import work
+    bh, s, d = q.shape
+    sk = k.shape[1]
+    f32 = q.dtype == torch.float32
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, scale, causal)
+    grads = fa.flash_bwd(q, k, v, ro, rlse, do, scale, causal)
+    refs = fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale, causal)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (o, lse) + tuple(grads))
+
+    def f32_agreement(got, ref, atol):
+        err = float((got - ref).abs().max())
+        return err, err / (atol * max(1.0, float(ref.abs().max())))
+
+    if f32:
+        err_o, ratio_o = f32_agreement(o, ro, FLASH_O_ATOL)
+    else:
         p_abs_v = fa.flash_fwd_plain(q, k, v.abs(), scale, causal)[0]
         err_o, ratio_o = bf16_agreement(o, ro, FLASH_O_ATOL,
                                         2.0 ** -8 * p_abs_v.float())
-        err_l = float((lse - rlse).abs().max())
-        gerr, gratio, worst = 0.0, 0.0, "dq"
-        extras = flash_grad_rounding(torch, fa, q, k, v, ro, rlse, do, scale,
-                                     causal)
-        for gname, g, r, x in zip(("dq", "dk", "dv"), grads, refs, extras):
-            e, ratio = bf16_agreement(g, r, FLASH_GRAD_ATOL, x)
-            if ratio >= gratio:
-                worst = gname
-            gerr, gratio = max(gerr, e), max(gratio, ratio)
-        print(f"  flash[{name}]: fwd o err {err_o:.3e} (worst {ratio_o:.3f} "
-              f"of its allowance: atol {FLASH_O_ATOL:g} + 2**-8 (p @ |v|) / l "
-              f"+ 2 bf16 ulps), lse err {err_l:.2e}; bwd err {gerr:.3e} "
-              f"(worst {gratio:.3f}, in {worst}, of atol {FLASH_GRAD_ATOL:g} "
-              f"+ flips of p, ds + 2 bf16 ulps)", flush=True)
-        check(finite, f"flash {name}: non-finite output")
-        check(ratio_o <= 1.0, f"flash fwd {name}: o max abs err {err_o}, an "
-              f"element off by {ratio_o:.2f}x its allowance")
-        check(err_l <= LSE_ATOL, f"flash fwd {name}: lse err {err_l}")
-        check(gratio <= 1.0, f"flash bwd {name}: {worst} max abs err {gerr},"
-              f" an element off by {gratio:.2f}x its allowance")
-        del p_abs_v, extras
-        big = bh * s >= 65536
-        it = 10 if big else 25
-        ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), iters=it)
-        ms_b = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
-                                            causal), iters=it)
-        pl_f = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
-                       iters=5 if big else 20)
-        pl_b = time_ms(lambda: fa.flash_bwd_plain(q, k, v, ro, rlse, do,
-                                                  scale, causal),
-                       iters=5 if big else 20)
-        # library yardstick (timed only; the port never calls it): SDPA on
-        # the same [B*H, 1, S, D] data, forward and forward + backward
-        q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
-        lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal, scale=scale), iters=it)
-        leaves = [x.detach().clone().requires_grad_(True)
-                  for x in (q4, k4, v4)]
+        del p_abs_v
+        extras = flash_grad_rounding(torch, fa, q, k, v, ro, rlse, do,
+                                     scale, causal)
+    err_l = float((lse - rlse).abs().max())
+    gerr, gratio, worst = 0.0, 0.0, "dq"
+    for i, (gname, g, r) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
+        e, ratio = f32_agreement(g, r, FLASH_GRAD_ATOL) if f32 else \
+            bf16_agreement(g, r, FLASH_GRAD_ATOL, extras[i])
+        if ratio >= gratio:
+            worst = gname
+        gerr, gratio = max(gerr, e), max(gratio, ratio)
+    allowance = "x max(1, |ref|)" if f32 else "+ 2 bf16 ulps"
+    print(f"  flash[{name}]: fwd o err {err_o:.3e} (worst {ratio_o:.3f} of "
+          f"its allowance: atol {FLASH_O_ATOL:g} {allowance}"
+          f"{'' if f32 else ' + 2**-8 (p @ |v|) / l'}), lse err "
+          f"{err_l:.2e}; bwd err {gerr:.3e} (worst {gratio:.3f}, in "
+          f"{worst}, of atol {FLASH_GRAD_ATOL:g} {allowance}"
+          f"{'' if f32 else ' + flips of p, ds'})", flush=True)
+    check(finite, f"flash {name}: non-finite output")
+    check(ratio_o <= 1.0, f"flash fwd {name}: o max abs err {err_o}, an "
+          f"element off by {ratio_o:.2f}x its allowance")
+    check(err_l <= LSE_ATOL, f"flash fwd {name}: lse err {err_l}")
+    check(gratio <= 1.0, f"flash bwd {name}: {worst} max abs err {gerr}, "
+          f"an element off by {gratio:.2f}x its allowance")
+    if not f32:
+        del extras
+    big = bh * s >= 65536
+    it = 10 if big or fast else 25
+    it_plain = 3 if fast else (5 if big else 20)
+    ms_f = time_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), iters=it)
+    ms_b = time_ms(lambda: fa.flash_bwd(q, k, v, ro, rlse, do, scale,
+                                        causal), iters=it)
+    pl_f = time_ms(lambda: fa.flash_fwd_plain(q, k, v, scale, causal),
+                   iters=it_plain)
+    pl_b = time_ms(lambda: fa.flash_bwd_plain(q, k, v, ro, rlse, do, scale,
+                                              causal), iters=it_plain)
+    # library yardstick (timed only; the port never calls it): SDPA on
+    # the same [B*H, 1, S, D] data, forward and forward + backward
+    q4, k4, v4, do4 = (x[:, None] for x in (q, k, v, do))
+    lib_f = time_ms(lambda: Fn.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal, scale=scale), iters=it)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
 
-        def sdpa_fb():
-            out = Fn.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                                  scale=scale)
-            torch.autograd.grad(out, leaves, do4)
+    def sdpa_fb():
+        out = Fn.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              scale=scale)
+        torch.autograd.grad(out, leaves, do4)
 
-        lib_fb = time_ms(sdpa_fb, iters=it)
-        fb, ff, bb, bf = flash_work(bh, s, s, d, causal)
-        bf_ms, bf_by = bound(fb, ff)
-        bb_ms, bb_by = bound(bb, bf)
-        rows["fwd"].append(dict(
-            case=name, max_abs_err=err_o, lse_err=err_l, atol=FLASH_O_ATOL,
-            worst_err_over_allowed=ratio_o, ms=ms_f, plain_ms=pl_f,
-            bound_ms=bf_ms, bound_by=bf_by, library_ms=lib_f,
-            tflops=ff / ms_f / 1e9))
-        rows["bwd"].append(dict(
-            case=name, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
-            worst_err_over_allowed=gratio, ms=ms_b, plain_ms=pl_b,
-            bound_ms=bb_ms, bound_by=bb_by, library_ms=lib_fb - lib_f,
-            sdpa_fwd_bwd_ms=lib_fb, tflops=bf / ms_b / 1e9))
-        print(f"    fwd kernel {ms_f:.4f} ms ({ff / ms_f / 1e9:.2f} TFLOP/s) "
-              f"plain {pl_f:.4f} ms bound {bf_ms:.4f} ms ({bf_by}) sdpa "
-              f"{lib_f:.4f} ms; bwd kernel {ms_b:.4f} ms "
-              f"({bf / ms_b / 1e9:.2f} TFLOP/s) plain {pl_b:.4f} ms bound "
-              f"{bb_ms:.4f} ms ({bb_by}) sdpa fwd+bwd {lib_fb:.4f} ms",
-              flush=True)
-        del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves
-        torch.cuda.empty_cache()
+    lib_fb = time_ms(sdpa_fb, iters=it)
+    item = q.element_size()
+    fb, ff = work.flash_fwd(bh, s, sk, d, causal, item)
+    bb, bf = work.flash_bwd(bh, s, sk, d, causal, item)
+    peak = F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+    bf_ms, bf_by = work.bound_ms(fb, ff, HBM_BYTES_PER_S, peak)
+    bb_ms, bb_by = work.bound_ms(bb, bf, HBM_BYTES_PER_S, peak)
+    dtype = str(q.dtype).replace("torch.", "")
+    rows["fwd"].append(dict(
+        case=name, dtype=dtype, max_abs_err=err_o, lse_err=err_l,
+        atol=FLASH_O_ATOL, worst_err_over_allowed=ratio_o, ms=ms_f,
+        plain_ms=pl_f, bound_ms=bf_ms, bound_by=bf_by, library_ms=lib_f,
+        tflops=ff / ms_f / 1e9))
+    rows["bwd"].append(dict(
+        case=name, dtype=dtype, max_abs_err=gerr, atol=FLASH_GRAD_ATOL,
+        worst_err_over_allowed=gratio, ms=ms_b, plain_ms=pl_b,
+        bound_ms=bb_ms, bound_by=bb_by, library_ms=lib_fb - lib_f,
+        sdpa_fwd_bwd_ms=lib_fb, tflops=bf / ms_b / 1e9))
+    print(f"    fwd kernel {ms_f:.4f} ms ({ff / ms_f / 1e9:.2f} TFLOP/s) "
+          f"plain {pl_f:.4f} ms bound {bf_ms:.4f} ms ({bf_by}) sdpa "
+          f"{lib_f:.4f} ms; bwd kernel {ms_b:.4f} ms "
+          f"({bf / ms_b / 1e9:.2f} TFLOP/s) plain {pl_b:.4f} ms bound "
+          f"{bb_ms:.4f} ms ({bb_by}) sdpa fwd+bwd {lib_fb:.4f} ms",
+          flush=True)
+    del o, lse, ro, rlse, grads, refs, leaves
+    torch.cuda.empty_cache()
+
+
+def phase_flash(torch):
+    rows = {"fwd": [], "bwd": []}
+    for name, q, k, v, do, causal in flash_cases(torch):
+        flash_row(torch, name, q, k, v, do, causal, rows)
+        del q, k, v, do
     return rows
 
 
@@ -4902,11 +4962,13 @@ TP_TIMEOUT_S = 120.0    # every gloo operation of phase 25's groups
 TP_IDLE_S = 900.0       # a follower's wait for rank 0's next op
 TP_JOIN_S = 120.0       # a follower's exit after its last leg
 TP_SEED = 0             # phase 2's weights
-TP_CUT = 4              # the depth of the legs beside the headline
-TP_HEAD = 8             # the bf16 leg's (the headline's): a third of the
+TP_CUT = 2              # the depth of the legs beside the headline
+TP_HEAD = 4             # the bf16 leg's (the headline's): a sixth of the
 #                         serving flagship's 24 layers, since its gloo
 #                         all_reduces (two a layer a step) and profiled
-#                         windows held 61 of the smoke's 1063 s at L=24
+#                         windows held 61 of the smoke's 1063 s at L=24;
+#                         8 and 4 until phase 34 came (the phase ran
+#                         74-105 s at 8 / 4)
 # (leg, dtype, weight_quant, layers) of the tp=2 group, in order: the bf16
 # leg (the headline) at TP_HEAD layers, the others cut to TP_CUT layers
 # (each beside a tp=1 engine of its own depth)
@@ -5434,9 +5496,12 @@ MESH_MASTER_BULK = 1e-4    # ... and within this: 99.9% of every tensor's
 #                            elements, and every element of a 1-D tensor
 #                            (norm weights: whole on every rank, their
 #                            gradients summed over the data group)
+MESH_CUT = 8               # (a)'s depth (24 until phase 34 came: the leg
+#                            ran 49-60 s); its step-0 reference is the
+#                            one-card step at this depth
 MESH_LEGS = (
     # (leg, mesh, world, dtype, layers, weight seed, batch seed, steps)
-    ("a", {"fsdp": 2, "mp": 2}, 4, "bfloat16", L, 0, 0, 4),
+    ("a", {"fsdp": 2, "mp": 2}, 4, "bfloat16", MESH_CUT, 0, 0, 4),
     ("b", {"dp": 2, "fsdp": 2, "mp": 2}, 8, "float32", 2, 1, 1, 3),
 )
 
@@ -5739,15 +5804,17 @@ def phase_mesh(torch, train_stats):
         check(batch // data * seq == MESH_ROWS,
               f"mesh (a): {batch // data * seq} rows a rank, phase 18's "
               f"rank cases hold the tier at {MESH_ROWS}")
-        loss0, ref0 = r0["hist"][0][0], train_stats["losses"][0]
+        # the one-card step at this depth from the same weights and batch
+        ref = mesh_reference(torch, leg_a[:7] + (1,))[0][0]
+        loss0, ref0 = r0["hist"][0][0], float(ref[0])
         check(abs(loss0 - ref0) <= MESH_LOSS_RTOL * abs(ref0),
-              f"mesh (a) step-0 loss {loss0} against phase 7's {ref0} "
-              f"(rtol {MESH_LOSS_RTOL:g})")
-        gn0, gref0 = r0["hist"][0][1], train_stats["grad_norms"][0]
+              f"mesh (a) step-0 loss {loss0} against the one-card step's "
+              f"{ref0} (rtol {MESH_LOSS_RTOL:g})")
+        gn0, gref0 = r0["hist"][0][1], float(ref[1])
         gn_rel = abs(gn0 - gref0) / abs(gref0)
         check(gn_rel <= MESH_GNORM_RTOL,
-              f"mesh (a) step-0 grad norm {gn0} against phase 7's {gref0}: "
-              f"relative {gn_rel:.3e} (rtol {MESH_GNORM_RTOL:g})")
+              f"mesh (a) step-0 grad norm {gn0} against the one-card step's "
+              f"{gref0}: relative {gn_rel:.3e} (rtol {MESH_GNORM_RTOL:g})")
         tokens_per_s = batch * seq / (r0["ms_per_step"] / 1e3)
         mfu = train_flops_per_token(cfg, n_params, seq) * tokens_per_s / \
             BF16_FLOPS_PER_S
@@ -5757,8 +5824,8 @@ def phase_mesh(torch, train_stats):
         out["a"] = {
             "mesh": mesh_kw, "ms_per_step": r0["ms_per_step"],
             "tokens_per_s": tokens_per_s, "mfu": mfu,
-            "step0_loss": loss0, "phase7_step0_loss": ref0,
-            "step0_grad_norm": gn0, "phase7_step0_grad_norm": gref0,
+            "step0_loss": loss0, "one_card_step0_loss": ref0,
+            "step0_grad_norm": gn0, "one_card_step0_grad_norm": gref0,
             "step0_grad_norm_rel": gn_rel,
             "losses": [h[0] for h in r0["hist"]],
             "grad_norms": [h[1] for h in r0["hist"]],
@@ -5773,8 +5840,9 @@ def phase_mesh(torch, train_stats):
               f"S={seq} bf16: {r0['ms_per_step']:.1f} ms/step, "
               f"{tokens_per_s:.1f} global tokens/s, MFU {mfu:.4f} (one "
               f"card's 989 TFLOP/s; phase 7 {train_stats['ms_per_step']:.1f}"
-              f" ms/step, {train_stats['tokens_per_s']:.1f} tokens/s); "
-              f"step-0 loss {loss0:.5f} vs phase 7's {ref0:.5f}, grad norm "
+              f" ms/step, {train_stats['tokens_per_s']:.1f} tokens/s at "
+              f"L={L}); step-0 loss {loss0:.5f} vs the one-card step's "
+              f"{ref0:.5f}, grad norm "
               f"{gn0:.6f} vs {gref0:.6f} (relative {gn_rel:.2e}, rtol "
               f"{MESH_GNORM_RTOL:g}); peak GB by "
               f"rank {['%.2f' % r['peak_gb'] for r in ranks]} (phase 7 "
@@ -5784,9 +5852,9 @@ def phase_mesh(torch, train_stats):
               f"; launches a rank in {r0['timed']} steps: flash "
               f"{r0['flash']}, tier {r0['tier']}, sharded CE forward "
               f"{r0['ce_partial']}", flush=True)
-        print(f"  (a) beside the whole LM head of the mesh slice's runs "
-              f"(4285.7 / 4988.6 / 5336.4 ms/step, peak 7.08 GB a rank): "
-              f"{r0['ms_per_step']:.1f} ms/step, peak "
+        print(f"  (a) beside the whole LM head of the mesh slice's runs at "
+              f"L=24 (4285.7 / 4988.6 / 5336.4 ms/step, peak 7.08 GB a "
+              f"rank): at L={layers} {r0['ms_per_step']:.1f} ms/step, peak "
               f"{max(r['peak_gb'] for r in ranks):.2f} GB; gloo processes "
               f"on one card, a test bed, not a deployment", flush=True)
         print(f"  (a) collectives a step on rank 0: "
@@ -7514,9 +7582,10 @@ def phase_amp(torch, eager_stats):
 # -- phase 31: context parallelism over gloo on the one card ----------------
 
 CP_SP = 4                  # the flagship's ring: four blocks of 512
-CP_CUT = 8                 # (a) / (b)'s depth: the ring's hops and the
+CP_CUT = 4                 # (a) / (b)'s depth: the ring's hops and the
 #                            all_to_alls grow with the layers, and at L=24
-#                            the two legs held 96 of the smoke's 1063 s;
+#                            the two legs held 96 of the smoke's 1063 s
+#                            (8 layers until phase 34 came: 51-64 s);
 #                            their step-0 reference is the one-card step at
 #                            this depth (``mesh_reference``)
 CP_TIMEOUT_S = 300.0       # every gloo operation of (d)'s thread ranks
@@ -7910,15 +7979,20 @@ def phase_cp(torch, flash_rows):
 
 PIPE_TIMEOUT_S = 180.0     # every gloo operation of phase 32's groups
 PIPE_JOIN_S = 600.0        # the ranks' exit after their last schedule
+PIPE_CUT = 8               # (a)'s depth: two blocks a stage (phase 34's
+#                            time came from here: at L=24 the phase ran
+#                            111 s); its step-0 reference is the one-card
+#                            step at this depth (``mesh_reference``), the
+#                            one phase 31 (a) / (b) computes
 PIPE_LEGS = (
     # (leg, mesh, world, dtype, layers, weight seed, batch seed, steps,
     #  accumulate_steps, schedules)
-    ("a", {"pp": 4}, 4, "bfloat16", L, 0, 0, 3, 8,
+    ("a", {"pp": 4}, 4, "bfloat16", PIPE_CUT, 0, 0, 3, 8,
      ("1F1B", "FThenB", "VPP", "ZBH1")),
     ("b", {"pp": 2, "dp": 2, "mp": 2}, 8, "float32", 2, 1, 1, 3, 4,
      ("1F1B", "ZBH1")),
 )
-PIPE_VPP = 2               # (a)'s VPP: two chunks of 3 layers a rank
+PIPE_VPP = 2               # (a)'s VPP: two chunks of one block a rank
 PIPE_DEVICE = "cuda"       # the ranks' device
 
 
@@ -8130,7 +8204,9 @@ def pipe_leg_a(torch, leg, ranks, cfg, batch, seq, train_stats, bound_of):
     S = mesh_kw["pp"]
     per_rank = layers // S
     res = {}
-    ref_loss, ref_gn = train_stats["losses"][0], train_stats["grad_norms"][0]
+    # the one-card step at this depth from the same weights and batch
+    ref_loss, ref_gn = (float(x) for x in
+                        mesh_reference(torch, leg[:7] + (1,))[0][0])
     for schedule in schedules:
         rr = [r["runs"][schedule] for r in ranks]
         hist = rr[0]["hist"]
@@ -8160,11 +8236,11 @@ def pipe_leg_a(torch, leg, ranks, cfg, batch, seq, train_stats, bound_of):
         loss_rel = abs(loss0 - ref_loss) / abs(ref_loss)
         gn_rel = abs(gn0 - ref_gn) / ref_gn
         check(loss_rel <= MESH_LOSS_RTOL, f"pipeline (a) {schedule} step-0 "
-              f"loss {loss0} against phase 7's {ref_loss} (relative "
-              f"{loss_rel:.3e}, rtol {MESH_LOSS_RTOL:g})")
+              f"loss {loss0} against the one-card step's {ref_loss} "
+              f"(relative {loss_rel:.3e}, rtol {MESH_LOSS_RTOL:g})")
         check(gn_rel <= MESH_GNORM_RTOL, f"pipeline (a) {schedule} step-0 "
-              f"grad norm {gn0} against phase 7's {ref_gn} (relative "
-              f"{gn_rel:.3e}, rtol {MESH_GNORM_RTOL:g})")
+              f"grad norm {gn0} against the one-card step's {ref_gn} "
+              f"(relative {gn_rel:.3e}, rtol {MESH_GNORM_RTOL:g})")
         r0 = rr[0]
         # a step ends on every rank together (the loss's all_reduce over
         # pp), so each rank's wall is the step's
@@ -8196,8 +8272,9 @@ def pipe_leg_a(torch, leg, ranks, cfg, batch, seq, train_stats, bound_of):
               f"{['%.1f' % r['ms_per_step'] for r in rr]}), "
               f"{tokens_per_s:.1f} global tokens/s, MFU {mfu:.4f} (one "
               f"card's 989 TFLOP/s; phase 7 {train_stats['ms_per_step']:.1f}"
-              f" ms/step); step-0 loss {loss0:.6f} (phase 7 {ref_loss:.6f}, "
-              f"relative {loss_rel:.2e}), grad norm {gn0:.6f} ({ref_gn:.6f},"
+              f" ms/step at L={L}); step-0 loss {loss0:.6f} (one card "
+              f"{ref_loss:.6f}, relative {loss_rel:.2e}), grad norm "
+              f"{gn0:.6f} ({ref_gn:.6f},"
               f" {gn_rel:.2e}); rank 0 idle "
               f"{'not measured' if idle is None else '%.1f%%' % (idle * 100)}"
               f", {coll:.1f} host ms in collectives (dispatch to result, "
@@ -8880,6 +8957,439 @@ def phase_moe(torch):
     return rows, stats
 
 
+# -- phase 34: the other model families ---------------------------------------
+
+FAMILY_RTOL = TRAIN_RTOL   # f32 against plain_attention(): each output and
+#                            gradient tensor within this share of its
+#                            largest magnitude (the kernels and the plain
+#                            version sum in another order, dq with atomics)
+GPT_B = 8                  # (a): GPT-2 small at B=8, S=1024
+GPT_STEPS = 3
+VIT_B = 32                 # (b): ViT-B/16 at 224 x 224
+ERNIE_B, ERNIE_S = 8, 512  # (c): ERNIE-base
+UNET_B, UNET_HW, UNET_CTX = 2, 64, 77   # (d): SD's 512-pixel latent
+# the kernels alone (e): (case, B, Sq, Sk, H, D, causal, dtype) at each
+# new shape the families give K1 / K2, in the dtype their path gives it
+FAMILY_FLASH_CASES = (
+    ("gpt2_b8_s1024_h12_d64_f32", 8, 1024, 1024, 12, 64, True, "float32"),
+    ("gpt2_b8_s1024_h12_d64", 8, 1024, 1024, 12, 64, True, "bfloat16"),
+    ("vit_b16_b32_s197_h12_d64", 32, 197, 197, 12, 64, False, "bfloat16"),
+    ("ernie_b8_s512_h12_d64_f32", 8, 512, 512, 12, 64, False, "float32"),
+    ("ernie_b8_s512_h12_d64", 8, 512, 512, 12, 64, False, "bfloat16"),
+    ("unet_self_b2_s4096_h4_d16", 2, 4096, 4096, 4, 16, False, "bfloat16"),
+    ("unet_cross_b2_s4096_k77_h4_d16", 2, 4096, 77, 4, 16, False,
+     "bfloat16"),
+    ("unet_self_b2_s1024_h4_d32", 2, 1024, 1024, 4, 32, False, "bfloat16"),
+    ("unet_cross_b2_s1024_k77_h4_d32", 2, 1024, 77, 4, 32, False,
+     "bfloat16"),
+)
+
+
+def rel_to_max(got, ref, floor=0.0):
+    """max |got - ref| over max(max |ref|, ``floor``) (1 where both are
+    zero)."""
+    scale = max(float(ref.abs().max()), floor)
+    return float((got.float() - ref.float()).abs().max()) / (scale or 1.0)
+
+
+FAMILY_FLOOR = 1e-3        # ... or of this share of the largest gradient
+#                            magnitude of the model, whichever is larger: a
+#                            gradient that is zero in exact arithmetic (a
+#                            key projection's bias: the softmax ignores a
+#                            shift shared by a row's scores) holds only
+#                            rounding noise on both sides
+
+
+def check_f32_family(what, got, ref):
+    """(output, {name: grad}) pairs of a kernel run and a plain_attention()
+    run: the output and every gradient within ``FAMILY_RTOL`` of its
+    largest magnitude (``FAMILY_FLOOR``). Returns the worst share and
+    where."""
+    floor = FAMILY_FLOOR * max(float(r.abs().max()) for r in ref[1].values())
+    worst = {"output": rel_to_max(got[0], ref[0])}
+    for n, g in got[1].items():
+        worst[n] = rel_to_max(g, ref[1][n], floor)
+    name = max(worst, key=worst.get)
+    check(all(math.isfinite(x) for x in worst.values()),
+          f"{what}: non-finite outputs or gradients")
+    check(worst[name] <= FAMILY_RTOL, f"{what}: {name} {worst[name]:.3e} of "
+          f"its largest magnitude from the plain attention's (bound "
+          f"{FAMILY_RTOL:g})")
+    return worst[name], name
+
+
+def grads_of(model):
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+@contextlib.contextmanager
+def attention_shapes(model):
+    """Record (head dim, Sq, Sk) of every ``nn.MultiHeadAttention`` call
+    in ``model`` (forward pre-hooks); the wrappers' counts say how many of
+    them reached K1 / K2."""
+    from paddle_tpu_torch import nn
+    seen = []
+
+    def hook(mod, args, kwargs):
+        q = args[0]
+        k = args[1] if len(args) > 1 and args[1] is not None \
+            else kwargs.get("key", q)
+        seen.append((mod.head_dim, q.shape[1],
+                     q.shape[1] if k is None else k.shape[1]))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules()
+               if isinstance(m, nn.MultiHeadAttention)]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def family_gpt(torch):
+    """(a) GPT-2 small through ``pretrain.make_train_step``: a warm step
+    and GPT_STEPS timed ones on one seeded batch (the loss falls), 12 + 12
+    flash launches a step; then f32 at L=2, two steps through the kernels
+    and under ``plain_attention()``."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, pretrain
+    cfg = GPTConfig()
+    seq = cfg.max_position_embeddings
+    rng = np.random.default_rng(34)
+    batch = pretrain.batch_to_device(
+        {"input_ids": rng.integers(0, cfg.vocab_size, (GPT_B, seq)),
+         "labels": rng.integers(0, cfg.vocab_size, (GPT_B, seq))})
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    params, opt, meta = pretrain.make_train_state(model, None)
+    step = pretrain.make_train_step(model, None, meta)
+    n_params = sum(p.numel() for p in params.values())
+    params, opt, loss, gnorm = step(params, opt, batch)       # warm
+    losses, gnorms = [float(loss)], [float(gnorm)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = []
+    for _ in range(GPT_STEPS):
+        params, opt, loss, gnorm = step(params, opt, batch)
+        out.append((loss, gnorm))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = read_flash_counts()
+    losses += [float(x) for x, _ in out]
+    gnorms += [float(g) for _, g in out]
+    L = cfg.num_hidden_layers
+    check((fwd, bwd) == (L * GPT_STEPS,) * 2, f"(a) GPT-2: flash launched "
+          f"fwd {fwd} / bwd {bwd} times in {GPT_STEPS} steps (want {L} "
+          "each a step)")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"(a) GPT-2: losses {losses}, grad norms {gnorms}")
+    check(losses[-1] < losses[0], f"(a) GPT-2: the loss did not fall on one "
+          f"repeated batch: {losses}")
+    ms = wall / GPT_STEPS * 1e3
+    tps = GPT_B * seq / (wall / GPT_STEPS)
+    mfu = train_flops_per_token(cfg, n_params, seq) * tps / BF16_FLOPS_PER_S
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    # f32 at L=2: the kernels against plain attention, the same weights
+    # and batch
+    cfg2 = GPTConfig(num_hidden_layers=2, dtype="float32")
+    hists = []
+    for plain in (False, True):
+        m2 = GPTForCausalLM(cfg2, device="cuda", seed=1)
+        p2, o2, meta2 = pretrain.make_train_state(m2, None)
+        s2 = pretrain.make_train_step(m2, None, meta2)
+        hist = []
+        with plain_attention() if plain else contextlib.nullcontext():
+            for _ in range(2):
+                p2, o2, loss, gnorm = s2(p2, o2, batch)
+                hist.append((float(loss), float(gnorm)))
+        hists.append(np.array(hist))
+        del m2, p2, o2, s2
+    f32_rel = float((np.abs(hists[0] - hists[1]) / np.abs(hists[1])).max())
+    check(f32_rel <= TRAIN_RTOL, f"(a) GPT-2 f32 L=2: (loss, grad norm) "
+          f"{hists[0].tolist()} against the plain attention's "
+          f"{hists[1].tolist()} (relative {f32_rel:.3e}, rtol "
+          f"{TRAIN_RTOL:g})")
+    torch.cuda.empty_cache()
+    print(f"  (a) GPT-2 small (V={cfg.vocab_size}, H={cfg.hidden_size}, "
+          f"L={L}, 12 heads) B={GPT_B} S={seq}, make_train_step with bf16 "
+          f"weights (the blocks compute in f32: each f32 bias promotes its "
+          f"product, as in the JAX model, so K1 / K2 take their f32 route): "
+          f"{ms:.1f} ms/step, {tps:.1f} tokens/s, MFU {mfu:.4f} (989 "
+          f"TFLOP/s); losses {['%.4f' % x for x in losses]}; flash "
+          f"{fwd // GPT_STEPS} + {bwd // GPT_STEPS} a step; f32 L=2 against "
+          f"plain attention: relative {f32_rel:.2e} (rtol {TRAIN_RTOL:g})",
+          flush=True)
+    return {"ms_per_step": ms, "tokens_per_s": tps, "mfu": mfu,
+            "n_params": n_params, "losses": losses, "grad_norms": gnorms,
+            "flash_launches_per_step": [fwd // GPT_STEPS, bwd // GPT_STEPS],
+            "f32_l2": hists[0].tolist(), "f32_l2_plain": hists[1].tolist(),
+            "f32_l2_rel": f32_rel}
+
+
+def family_vit(torch):
+    """(b) ViT-B/16 at 224 x 224: bf16 under ``amp`` O2 (an eval forward,
+    12 K1; a training step, cross entropy and backward, 12 + 12), then f32
+    at depth 2 through the kernels against ``plain_attention()``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import (VisionTransformer,
+                                         vit_base_patch16_224)
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+    x = torch.randn(VIT_B, 3, 224, 224, device="cuda", generator=gen)
+    labels = torch.randint(0, 1000, (VIT_B,), device="cuda", generator=gen)
+    model = amp.decorate(vit_base_patch16_224(device="cuda", seed=0),
+                         level="O2", dtype="bfloat16")
+
+    def forward():
+        with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model(x)
+
+    def train_step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), labels)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        return loss
+
+    model.eval()
+    forward()
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = forward()
+    torch.cuda.synchronize()
+    eval_counts = read_flash_counts()
+    check(eval_counts == (12, 0), f"(b) ViT eval forward: flash launches "
+          f"{eval_counts} (want 12 forward)")
+    check(logits.dtype == torch.bfloat16 and bool(
+        torch.isfinite(logits).all()), "(b) ViT: bf16 logits not finite")
+    model.train()
+    train_step()
+    torch.cuda.synchronize()
+    reset_counts()
+    with attention_shapes(model) as seen:
+        loss = train_step()
+    torch.cuda.synchronize()
+    step_counts = read_flash_counts()
+    check(step_counts == (12, 12), f"(b) ViT training step: flash launches "
+          f"{step_counts} (want 12 + 12)")
+    check(seen == [(64, 197, 197)] * 12, f"(b) ViT: attention calls by "
+          f"(D, Sq, Sk) {seen} (want 12 at D=64, S=197)")
+    loss = float(loss.detach())
+    check(math.isfinite(loss), f"(b) ViT: loss {loss}")
+    model.eval()
+    fwd_ms = time_ms(forward, iters=5, warmup=1)
+    model.train()
+    step_ms = time_ms(train_step, iters=5, warmup=1)
+    del model
+    torch.cuda.empty_cache()
+    # f32 at depth 2: logits and every gradient, kernels against plain
+    m2 = VisionTransformer(patch_size=16, embed_dim=768, depth=2,
+                           num_heads=12, device="cuda", seed=1)
+    runs = []
+    for plain in (False, True):
+        with plain_attention() if plain else contextlib.nullcontext():
+            out = m2(x[:8])
+            F.cross_entropy(out, labels[:8]).backward()
+        runs.append((out.detach(), grads_of(m2)))
+    worst, where = check_f32_family("(b) ViT f32 depth 2", *runs)
+    del m2, runs
+    torch.cuda.empty_cache()
+    print(f"  (b) ViT-B/16 B={VIT_B} 224x224 bf16 (amp O2): eval forward "
+          f"{fwd_ms:.2f} ms ({VIT_B / fwd_ms * 1e3:.1f} images/s), training "
+          f"step {step_ms:.2f} ms ({VIT_B / step_ms * 1e3:.1f} images/s); "
+          f"flash {eval_counts[0]} in the forward, {step_counts[0]} + "
+          f"{step_counts[1]} in the step at S=197, D=64, non-causal; f32 "
+          f"depth 2 against plain attention: worst {worst:.2e} ({where})",
+          flush=True)
+    return {"fwd_ms": fwd_ms, "step_ms": step_ms,
+            "fwd_images_per_s": VIT_B / fwd_ms * 1e3,
+            "step_images_per_s": VIT_B / step_ms * 1e3,
+            "flash_eval": list(eval_counts), "flash_step": list(step_counts),
+            "f32_worst": worst, "f32_worst_in": where}
+
+
+def family_ernie(torch):
+    """(c) ERNIE-base ``ErnieForMaskedLM`` in eval, B=8 S=512: f32 with no
+    mask (12 K1 on the f32 route) and with a padding mask (0: the plain
+    path), each against ``plain_attention()``; bf16 under ``amp`` O2
+    (``dtype="bfloat16"`` sets the mask's dtype), 12 K1."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForMaskedLM
+    cfg = ErnieConfig()
+    rng = np.random.default_rng(36)
+    ids = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                       (ERNIE_B, ERNIE_S)), device="cuda")
+    lens = rng.integers(ERNIE_S // 4, ERNIE_S + 1, ERNIE_B)
+    mask = torch.as_tensor((np.arange(ERNIE_S)[None] < lens[:, None])
+                           .astype(np.float32), device="cuda")
+    model = ErnieForMaskedLM(cfg, device="cuda", seed=0).eval()
+    out = {}
+    with torch.no_grad():
+        for tag, kw, want in (("no mask", {}, (12, 0)),
+                              ("padding mask", {"attention_mask": mask},
+                               (0, 0))):
+            model(ids, **kw)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = model(ids, **kw)
+            torch.cuda.synchronize()
+            counts = read_flash_counts()
+            check(counts == want, f"(c) ERNIE f32 {tag}: flash launches "
+                  f"{counts} (want {want})")
+            with plain_attention():
+                ref = model(ids, **kw)
+            rel = rel_to_max(got, ref)
+            check(rel <= FAMILY_RTOL, f"(c) ERNIE f32 {tag}: logits "
+                  f"{rel:.3e} of their largest magnitude from the plain "
+                  f"attention's (bound {FAMILY_RTOL:g})")
+            ms = time_ms(lambda: model(ids, **kw), iters=5, warmup=1)
+            out[tag] = {"flash": list(counts), "rel": rel, "ms": ms}
+        del model, got, ref
+        torch.cuda.empty_cache()
+        mb = amp.decorate(ErnieForMaskedLM(ErnieConfig(dtype="bfloat16"),
+                                           device="cuda", seed=0).eval(),
+                          level="O2", dtype="bfloat16")
+
+        def bf16_forward():
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                return mb(ids)
+
+        bf16_forward()
+        torch.cuda.synchronize()
+        reset_counts()
+        logits = bf16_forward()
+        torch.cuda.synchronize()
+        counts = read_flash_counts()
+        check(counts == (12, 0), f"(c) ERNIE bf16: flash launches {counts} "
+              "(want 12)")
+        check(bool(torch.isfinite(logits.float()).all()),
+              "(c) ERNIE bf16: non-finite logits")
+        ms = time_ms(bf16_forward, iters=5, warmup=1)
+        out["bf16"] = {"flash": list(counts), "ms": ms}
+        del mb, logits
+    torch.cuda.empty_cache()
+    tok = ERNIE_B * ERNIE_S
+    print(f"  (c) ERNIE-base MLM B={ERNIE_B} S={ERNIE_S} eval: f32 no mask "
+          f"{out['no mask']['ms']:.2f} ms ({tok / out['no mask']['ms'] * 1e3:.0f}"
+          f" tokens/s, flash {out['no mask']['flash'][0]}, against plain "
+          f"{out['no mask']['rel']:.2e}); f32 padding mask "
+          f"{out['padding mask']['ms']:.2f} ms (flash "
+          f"{out['padding mask']['flash'][0]}: the plain route, as the JAX "
+          f"package's); bf16 (amp O2) {ms:.2f} ms "
+          f"({tok / ms * 1e3:.0f} tokens/s, flash {counts[0]})", flush=True)
+    return out
+
+
+def family_unet(torch):
+    """(d) ``UNet2DConditionModel`` at its defaults on a 4 x 64 x 64 latent,
+    B=2, context [2, 77, 128]: one forward and backward of the denoising
+    MSE in bf16 under ``amp`` O2 (14 + 14 flash launches: D=16 at S=4096,
+    self and against the 77 context rows, 3 each; D=32 at S=1024, 4
+    each), then f32 through the kernels against ``plain_attention()``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import UNet2DConditionModel
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    x = torch.randn(UNET_B, 4, UNET_HW, UNET_HW, device="cuda",
+                    generator=gen)
+    noise = torch.randn(x.shape, device="cuda", generator=gen)
+    t = torch.randint(0, 1000, (UNET_B,), device="cuda", generator=gen)
+    ctx = torch.randn(UNET_B, UNET_CTX, 128, device="cuda", generator=gen)
+    model = amp.decorate(UNet2DConditionModel(device="cuda", seed=0),
+                         level="O2", dtype="bfloat16")
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = ((model(x, t, ctx) - noise) ** 2).mean()
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        return loss
+
+    step()
+    torch.cuda.synchronize()
+    reset_counts()
+    with attention_shapes(model) as seen:
+        loss = step()
+    torch.cuda.synchronize()
+    counts = read_flash_counts()
+    hw, lo = UNET_HW * UNET_HW, (UNET_HW // 2) ** 2
+    want = {(16, hw, hw): 3, (16, hw, UNET_CTX): 3, (32, lo, lo): 4,
+            (32, lo, UNET_CTX): 4}
+    got = {}
+    for shape in seen:
+        got[shape] = got.get(shape, 0) + 1
+    check(got == want, f"(d) UNet: attention calls by (D, Sq, Sk) {got} "
+          f"(want {want})")
+    check(counts == (14, 14), f"(d) UNet: flash launches {counts} (want "
+          "14 + 14: every attention call on K1 and K2)")
+    loss = float(loss.detach())
+    check(math.isfinite(loss), f"(d) UNet: loss {loss}")
+    ms = time_ms(step, iters=5, warmup=1)
+    del model
+    torch.cuda.empty_cache()
+    m32 = UNet2DConditionModel(device="cuda", seed=1)
+    runs = []
+    for plain in (False, True):
+        with plain_attention() if plain else contextlib.nullcontext():
+            pred = m32(x, t, ctx)
+            ((pred - noise) ** 2).mean().backward()
+        runs.append((pred.detach(), grads_of(m32)))
+    worst, where = check_f32_family("(d) UNet f32", *runs)
+    del m32, runs
+    torch.cuda.empty_cache()
+    print(f"  (d) UNet2DConditionModel (64 base channels, mults (1, 2), 4 "
+          f"heads) B={UNET_B} latent 4x{UNET_HW}x{UNET_HW}, context "
+          f"{UNET_CTX}x128, bf16 (amp O2): forward + backward {ms:.2f} ms; "
+          f"flash {counts[0]} + {counts[1]} (D=16: S={hw} self and x "
+          f"{UNET_CTX} cross, 3 + 3; D=32: S={lo}, 4 + 4); f32 against "
+          f"plain attention: worst {worst:.2e} ({where})", flush=True)
+    return {"step_ms": ms, "flash": list(counts), "f32_worst": worst,
+            "f32_worst_in": where}
+
+
+def family_flash_cases(torch, seed=38):
+    """(e)'s [BH, S, D] tensors, heads folded as flash_attention_bshd
+    folds them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for name, b, sq, sk, h, d, causal, dtype in FAMILY_FLASH_CASES:
+        dt = getattr(torch, dtype)
+
+        def mk(s):
+            return torch.randn(b * h, s, d, device="cuda",
+                               generator=gen).to(dt)
+
+        yield name, mk(sq), mk(sk), mk(sk), mk(sq), causal
+
+
+def phase_families(torch):
+    """Phase 34: the other model families on K1 / K2 ((a)-(d)), then the
+    kernels alone at their new shapes (e). Returns (K1 / K2 rows, stats)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats, secs = {}, {}
+    for part, fn in (("a", family_gpt), ("b", family_vit),
+                     ("c", family_ernie), ("d", family_unet)):
+        t0 = time.perf_counter()
+        stats[part] = fn(torch)
+        secs[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = {"fwd": [], "bwd": []}
+    for name, q, k, v, do, causal in family_flash_cases(torch):
+        flash_row(torch, name, q, k, v, do, causal, rows, fast=True)
+        del q, k, v, do
+    secs["e"] = time.perf_counter() - t0
+    stats["seconds"] = secs
+    print("  phase 34 seconds by part: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()), flush=True)
+    return rows, stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -9063,6 +9573,11 @@ def main():
           f"(c) expert parallelism ep {MOE_EP} over gloo in processes, (d) "
           "ASP 2:4 on the flagship's MLP weights", flush=True)
     moe_rows, moe_stats = phase_moe(torch)
+    phase("phase 34: the other model families on K1 / K2: (a) GPT-2 small "
+          "through make_train_step, (b) ViT-B/16, (c) ERNIE-base, (d) the "
+          "conditional UNet (head dims 16 and 32, cross-attention against "
+          "77 rows), (e) K1 / K2 alone at their shapes", flush=True)
+    family_rows, family_stats = phase_families(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -9078,14 +9593,14 @@ def main():
                      "paddle_tpu_torch/csrc/flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:78",
                      train_stats["flash_fwd_launches"],
-                     flash_rows["fwd"] + rope_rows["fwd"],
-                     "flagship_b8_s2048_h16_d64"),
+                     flash_rows["fwd"] + rope_rows["fwd"]
+                     + family_rows["fwd"], "flagship_b8_s2048_h16_d64"),
         kernel_entry("flash_attention_bwd",
                      "paddle_tpu_torch/csrc/flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:223",
                      train_stats["flash_bwd_launches"],
-                     flash_rows["bwd"] + rope_rows["bwd"],
-                     "flagship_b8_s2048_h16_d64"),
+                     flash_rows["bwd"] + rope_rows["bwd"]
+                     + family_rows["bwd"], "flagship_b8_s2048_h16_d64"),
     ]
     # the rope cases' launches are phase 11's, where every flash launch
     # carried the tables
@@ -9215,6 +9730,8 @@ def main():
     print(f"card: {card}; pipeline parallelism: {json.dumps(pipe_stats)}",
           flush=True)
     print(f"card: {card}; mixture of experts: {json.dumps(moe_stats)}",
+          flush=True)
+    print(f"card: {card}; model families: {json.dumps(family_stats)}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

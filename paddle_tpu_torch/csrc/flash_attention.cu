@@ -22,8 +22,8 @@
 //   dk, dv     [BH, Sk, D]     q's dtype
 //   rcos, rsin [S, D/2] f32    rope tables, S >= Sq and Sk, or both null;
 //                              row p rotates the q and k rows at position p
-// D is 32, 64 or 128. Any Sq, Sk: tiles past the end are zero-filled and
-// masked. The causal mask is top-left aligned (row >= col), as the TPU
+// D is 16, 32, 64 or 128. Any Sq, Sk: tiles past the end are zero-filled
+// and masked. The causal mask is top-left aligned (row >= col), as the TPU
 // kernel's (:121).
 //
 // Arithmetic follows the Pallas bodies step for step: products of the
@@ -423,10 +423,13 @@ __device__ __forceinline__ void rope_tile16(T* X, const float* __restrict__ rcos
 // (i / QH) * (D / 16) + wc * QH + i % QH with QH = D / 32, so the neox
 // partner of column j (j + D / 2) sits in local tile i + QH of the same
 // thread, at the same element: the counter-rotation needs no shuffle.
+// At D = 16 (QH = 0) warp wc holds the one tile wc, and the partner sits
+// in the other warp of the pair (rope_bwd_frag16).
 template <int D>
 __device__ __forceinline__ int d_tile(int i, int wc) {
   constexpr int QH = D / 32;
-  return (i / QH) * (D / 16) + wc * QH + i % QH;
+  if constexpr (QH == 0) return wc;
+  else return (i / QH) * (D / 16) + wc * QH + i % QH;
 }
 
 // Counter-rotation (the transpose of the neox rotation, in f32) of a
@@ -458,13 +461,57 @@ __device__ __forceinline__ void rope_bwd_frag(float (&x)[D / 16][4], const float
   }
 }
 
+// The counter-rotation at D = 16, where warps (wr, 0) and (wr, 1) hold the
+// two halves of rows 16 wr ..: the pair trades its f32 values through X
+// ([64][16] f32 in shared memory), then each thread rotates its own as
+// rope_bwd_frag does. Every thread of the block calls it (it holds two
+// __syncthreads).
+__device__ __forceinline__ void rope_bwd_frag16(float (&x)[1][4], float* X,
+                                                const float* __restrict__ rcos,
+                                                const float* __restrict__ rsin, int row_base,
+                                                int total, int wr, int wc) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* xr = X + (16 * wr + g + 8 * h) * 16 + 8 * wc + 2 * t;
+    xr[0] = x[0][2 * h];
+    xr[1] = x[0][2 * h + 1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_base + g + 8 * h;
+    if (row >= total) continue;
+    const float* other = X + (16 * wr + g + 8 * h) * 16 + 8 * (wc ^ 1) + 2 * t;
+    const float2 c = __ldg(reinterpret_cast<const float2*>(rcos + (size_t)row * 8 + 2 * t));
+    const float2 s = __ldg(reinterpret_cast<const float2*>(rsin + (size_t)row * 8 + 2 * t));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float cc = e ? c.y : c.x, ss = e ? s.y : s.x;
+      const float own = __fmul_rn(x[0][2 * h + e], cc), part = __fmul_rn(other[e], ss);
+      x[0][2 * h + e] = wc == 0 ? __fadd_rn(own, part) : __fsub_rn(own, part);
+    }
+  }
+  __syncthreads();
+}
+
+// the counter-rotation of a warp's [16, D / 2] accumulator slice, either form
+template <int D>
+__device__ __forceinline__ void rope_bwd_acc(float (&x)[D / 16][4], float* X,
+                                             const float* __restrict__ rcos,
+                                             const float* __restrict__ rsin, int row_base,
+                                             int total, int wr, int wc) {
+  if constexpr (D == 16) rope_bwd_frag16(x, X, rcos, rsin, row_base, total, wr, wc);
+  else rope_bwd_frag<D>(x, rcos, rsin, row_base, total, wc);
+}
+
 // acc[i] += A B[:, 8 d_tile(i) ..] for the warp's NH tiles of D columns;
 // B stored [k][n] (dO, Q or K rows), the A fragment given
 template <typename T, int D>
 __device__ __forceinline__ void mma_d_tiles(float (&acc)[D / 16][4], const uint32_t (&a)[4],
                                             const T* B, int ld, int k0, int wc) {
   constexpr int NH = D / 16, QH = D / 32;
-  if constexpr (QH % 2 == 0) {
+  if constexpr (QH >= 2) {
 #pragma unroll
     for (int i = 0; i < NH; i += 2) {           // tiles i, i + 1 are adjacent
       uint32_t b[4];
@@ -707,6 +754,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dSs = Ps + BQT * LDP;                       // [BQT][LDP]
   float* Ls = reinterpret_cast<float*>(dSs + BQT * LDP);   // [2][BQT] lse
   float* Dl = Ls + 2 * BQT;                                 // [2][BQT] delta
+  float* Xr = Dl + 2 * BQT;       // D = 16 with rope: [BQT][16] f32 (rope_bwd_frag16)
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BKT;               // the longest causal walks first
@@ -831,7 +879,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       frag_a(a, dSs, LDP, 16 * wr, 16 * kk);
       mma_d_tiles<T, D>(dq, a, Ks, LD, 16 * kk, wc);
     }
-    if (rcos) rope_bwd_frag<D>(dq, rcos, rsin, q0 + 16 * wr, Sq, wc);
+    if (rcos) rope_bwd_acc<D>(dq, Xr, rcos, rsin, q0 + 16 * wr, Sq, wr, wc);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + 16 * wr + g + 8 * h;
@@ -847,7 +895,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_wait<0>();
 
-  if (rcos) rope_bwd_frag<D>(dKa, rcos, rsin, k0 + 16 * wr, Sk, wc);
+  if (rcos) rope_bwd_acc<D>(dKa, Xr, rcos, rsin, k0 + 16 * wr, Sk, wr, wc);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = k0 + 16 * wr + g + 8 * h;
@@ -911,7 +959,7 @@ int bwd_t(const void* q, const void* k, const void* v, const void* o,
   } else {
     const size_t smem = sizeof(T) * ((2 * TC_BK + 4 * TC_BQB) * (D + 8) +
                                      2 * TC_BQB * (TC_BK + 8)) +
-                        sizeof(float) * 4 * TC_BQB;
+                        sizeof(float) * (4 + (D == 16 ? 16 : 0)) * TC_BQB;
     auto kern = flash_bwd_kernel<T, D>;
     static const cudaError_t attr = allow_smem(kern, smem);
     if (attr != cudaSuccess) return (int)attr;
@@ -928,6 +976,7 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, float* lse,
           const float* rc, const float* rs, int BH, int Sq, int Sk, int D,
           float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return fwd_t<T, 16>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 32: return fwd_t<T, 32>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 64: return fwd_t<T, 64>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 128: return fwd_t<T, 128>(q, k, v, o, lse, rc, rs, BH, Sq, Sk, scale, causal, s);
@@ -941,6 +990,7 @@ int bwd_d(const void* q, const void* k, const void* v, const void* o,
           void* dv, float* delta, const float* rc, const float* rs, int BH,
           int Sq, int Sk, int D, float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return bwd_t<T, 16>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 32: return bwd_t<T, 32>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 64: return bwd_t<T, 64>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);
     case 128: return bwd_t<T, 128>(q, k, v, o, lse, dout, dq_acc, dk, dv, delta, rc, rs, BH, Sq, Sk, scale, causal, s);

@@ -172,15 +172,19 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [row0, row0 + ROWS) of a row-major [total, D] 16-bit matrix into
 // dst[r * LD + c] by NTH threads, 16 bytes per copy; rows past `total`
-// are zero-filled. The caller commits the group.
+// are zero-filled. The caller commits the group. Narrow tiles (D = 16: 2
+// copies a row) may need fewer copies than there are threads.
 template <int D, int LD, int ROWS, int NTH, typename T>
 __device__ __forceinline__ void load_rows_async(T* dst, const T* __restrict__ src, int row0,
                                                 int total) {
   constexpr int CPR = D / 8;                     // 16-byte chunks per row
-  static_assert((ROWS * CPR) % NTH == 0, "whole copies per thread");
+  constexpr int COPIES = ROWS * CPR;
+  static_assert(COPIES % NTH == 0 || COPIES < NTH,
+                "whole copies per thread, or fewer copies than threads");
 #pragma unroll
-  for (int it = 0; it < ROWS * CPR / NTH; ++it) {
+  for (int it = 0; it < (COPIES + NTH - 1) / NTH; ++it) {
     const int i = threadIdx.x + it * NTH;
+    if (COPIES < NTH && i >= COPIES) break;
     const int r = i / CPR, c = i % CPR, gr = row0 + r;
     const bool live = gr < total;
     cp_async16(dst + r * LD + c * 8, live ? src + (size_t)gr * D + c * 8 : src, live);

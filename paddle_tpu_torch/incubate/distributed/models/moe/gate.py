@@ -29,9 +29,10 @@ import math
 
 import torch
 
-from ....nn.layers import _Init, _fans
+from ....nn.layers import _Init
 from .....core import random as _random
 from .....core.random import make_generator
+from .....nn.initializer import fan_in_out
 
 __all__ = ["BaseGate", "NaiveGate", "SwitchGate", "GShardGate",
            "topk_capacity_route", "topk_capacity_dispatch"]
@@ -105,7 +106,7 @@ def topk_capacity_dispatch(probs, top_k, capacity):
 
 
 def _xavier_normal(init, shape):
-    fi, fo = _fans(shape)
+    fi, fo = fan_in_out(shape)
     w = torch.empty(shape, dtype=torch.float32, device=init.device)
     return torch.nn.Parameter(w.normal_(0.0, math.sqrt(2.0 / (fi + fo)),
                                         generator=init.generator))

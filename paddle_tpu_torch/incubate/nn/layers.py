@@ -25,6 +25,7 @@ import torch
 from ...core import random as _random
 from ...core.device import resolve_device
 from ...core.random import make_generator
+from ...nn.initializer import fan_in_out
 from . import functional as F
 
 __all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
@@ -32,17 +33,6 @@ __all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
            "FusedBiasDropoutResidualLayerNorm", "FusedLinear",
            "FusedDropoutAdd", "FusedMultiTransformer",
            "fused_layer_state_from_numpy"]
-
-
-def _fans(shape):
-    """paddle's (fan_in, fan_out): [in, out] for a matrix; dims 1 and 0
-    times the receptive field otherwise."""
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    rec = math.prod(shape[2:])
-    return shape[1] * rec, shape[0] * rec
 
 
 class _Init:
@@ -54,7 +44,7 @@ class _Init:
             make_generator(_random.fresh_seed(self.device), self.device)
 
     def xavier(self, shape):
-        fi, fo = _fans(shape)
+        fi, fo = fan_in_out(shape)
         lim = math.sqrt(6.0 / (fi + fo))
         w = torch.empty(shape, dtype=torch.float32, device=self.device)
         return torch.nn.Parameter(w.uniform_(-lim, lim,

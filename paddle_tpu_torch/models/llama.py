@@ -74,6 +74,7 @@ from ..nn import functional as F
 from ..nn.layers.common import normal_
 from ..ops.blockwise_ce import blockwise_lm_head_ce
 from ..ops.swiglu import swiglu
+from .state import load_numpy, state_to_numpy
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaLMHead", "LlamaForCausalLM",
@@ -713,26 +714,11 @@ def llama_state_from_numpy(params, config, device="cuda", dtype=None):
     gives it for the JAX model (names and [in, out] layouts are the
     same). ``dtype`` casts every weight (default: keep float32). The key
     sets must match exactly."""
-    model = LlamaForCausalLM(config, device=device)
-    own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
-    if missing or extra:
-        raise KeyError(f"llama_state_from_numpy: missing {missing}, "
-                       f"unexpected {extra}")
-    with torch.no_grad():
-        for name, p in own.items():
-            arr = np.array(params[name], dtype=np.float32)
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"llama_state_from_numpy: {name} has shape "
-                                 f"{arr.shape}, the model {tuple(p.shape)}")
-            p.data = torch.from_numpy(arr).to(device=p.device,
-                                              dtype=dtype or torch.float32)
-    return model
+    return load_numpy(LlamaForCausalLM(config, device=device), params, dtype,
+                      "llama_state_from_numpy")
 
 
 def llama_state_to_numpy(model):
     """{name: float32 np.ndarray} of a port model's parameters, the
     inverse of ``llama_state_from_numpy``."""
-    return {n: p.detach().to(torch.float32).cpu().numpy()
-            for n, p in model.named_parameters()}
+    return state_to_numpy(model)

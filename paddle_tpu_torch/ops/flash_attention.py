@@ -42,7 +42,10 @@ import torch
 from . import work as _work
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
+# the FlashMask kernels (``csrc/flashmask.cu``), which the two-pass
+# backward launches, take no head dim 16
+FM_HEAD_DIMS = (32, 64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -127,7 +130,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(name, q, k, v, *more):
+def _check(name, q, k, v, *more, head_dims=HEAD_DIMS):
     """Refuse what the kernels do not take: ``more`` are further tensors
     of q's dtype and device (o and do)."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
@@ -135,8 +138,8 @@ def _check(name, q, k, v, *more):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must be [BH, Sq, D], "
                          "[BH, Sk, D], [BH, Sk, D]")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[2]} not in {HEAD_DIMS}")
+    if q.shape[2] not in head_dims:
+        raise ValueError(f"{name}: head dim {q.shape[2]} not in {head_dims}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {q.dtype} must be float32, "
                          "bfloat16 or float16")
@@ -299,7 +302,7 @@ def flash_bwd_twopass(q, k, v, o, lse, do, scale, causal, rope_cos=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_twopass: unsupported device {q.device}")
     from . import flashmask as _fm
-    _check("flash_bwd_twopass", q, k, v, o, do)
+    _check("flash_bwd_twopass", q, k, v, o, do, head_dims=FM_HEAD_DIMS)
     _check_saved("flash_bwd_twopass", q, o, lse, do)
     return _fm._bwd_kernels(flash_bwd_twopass, _fm.MODE_TWOPASS, q, k, v, o,
                             lse, do, None, None, scale, causal)

@@ -5,7 +5,7 @@ top of the causal mask, so a document, sliding-window or shared-prompt
 mask costs O(S) memory instead of O(S^2).
 
 Kernel contract (heads folded into batch, as the JAX package's):
-  q, o, do  [BH, Sq, D]   float32 / bfloat16 / float16, D in HEAD_DIMS
+  q, o, do  [BH, Sq, D]   float32 / bfloat16 / float16, D in FM_HEAD_DIMS
   k, v      [BH, Sk, D]
   sr, er    [B, MH, Sk]   int32, BH = B * H and H a multiple of MH: head
             h reads mask head h // (H / MH) (MH = H is one mask per head)
@@ -42,7 +42,8 @@ import math
 import torch
 
 from . import work as _work
-from .flash_attention import _DTYPE_CODE, NEG_INF, _check, _check_saved
+from .flash_attention import (_DTYPE_CODE, FM_HEAD_DIMS, NEG_INF, _check,
+                              _check_saved)
 
 PLAIN_CHUNK_ELEMS = 1 << 28     # f32 elements of one [heads, Sq, Sk] temporary
 FM_PARTS = 2    # 16-bit parts of FlashMask's p and ds in the tensor-core
@@ -172,7 +173,7 @@ def flashmask_fwd(q, k, v, sr, er, scale, causal):
         return flashmask_fwd_plain(q, k, v, sr, er, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flashmask_fwd: unsupported device {q.device}")
-    _check("flashmask_fwd", q, k, v)
+    _check("flashmask_fwd", q, k, v, head_dims=FM_HEAD_DIMS)
     h, mh = _check_mask("flashmask_fwd", q, k, sr, er)
     bh, sq, d = q.shape
     o = torch.empty_like(q)
@@ -283,7 +284,7 @@ def flashmask_bwd(q, k, v, o, lse, do, sr, er, scale, causal):
         return flashmask_bwd_plain(q, k, v, o, lse, do, sr, er, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flashmask_bwd: unsupported device {q.device}")
-    _check("flashmask_bwd", q, k, v, o, do)
+    _check("flashmask_bwd", q, k, v, o, do, head_dims=FM_HEAD_DIMS)
     _check_saved("flashmask_bwd", q, o, lse, do)
     return _bwd_kernels(flashmask_bwd, MODE_FLASHMASK, q, k, v, o, lse, do,
                         sr, er, scale, causal)

@@ -14,7 +14,10 @@ autotuner sets: K3's and K7's ``split_waves`` at one split, at
 ``bn`` / ``waves`` at an odd count of 128-column tiles and at the
 smallest K, each against its plain version and its plan the Python
 form's. ``fused_moe``'s int8 experts on K4 at 1, 3 and 1000 rows an
-expert, with the GLU on kernel B.
+expert, with the GLU on kernel B. The flash kernels at head dim 16
+(the UNet's first level) and on cross-attention lengths, ``nn.
+MultiHeadAttention`` launching them, and their launch counts from eight
+threads at once.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. On a
 machine with the card:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -590,14 +593,16 @@ def _flash_inputs(bh, sq, sk, d, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (130, 130, False),
                                           (64, 64, True), (37, 200, False),
-                                          (200, 77, True)])
+                                          (200, 77, True), (197, 197, False),
+                                          (1024, 77, False)])
 def test_flash_kernels_match_plain(dtype, d, sq, sk, causal):
     """Forward (o, lse) and backward (dq, dk, dv from the same o / lse /
     do) at lengths on and off the 64-row tile, q and k lengths apart,
-    causal (top-left) and full."""
+    causal (top-left) and full: ViT's 197 rows, a cross-attention's 1024
+    queries against 77 keys."""
     from paddle_tpu_torch.ops import flash_attention as fa
     q, k, v, do = _flash_inputs(3, sq, sk, d, dtype, sq + sk + d)
     scale = d ** -0.5
@@ -663,20 +668,22 @@ def test_flash_tensor_core_causal_lengths_apart(dtype, d, sq, sk):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [16, 32, 128])
 @pytest.mark.parametrize("sq,sk,causal", [(15, 15, True), (127, 127, True),
                                           (1000, 1000, True),
                                           (300, 100, True), (100, 300, False)])
 def test_flash_tensor_core_rope_lengths(dtype, d, sq, sk, causal):
     """Rope inside the tensor-core bodies at the narrowest and widest head
     dims: q rotated once per tile, each k tile after it lands, dq and dk
-    counter-rotated in the accumulator layout."""
+    counter-rotated in the accumulator layout (at head dim 16 the neox
+    partner of a column sits in the other warp of a pair, and the two
+    trade their values through shared memory)."""
     _flash_check(dtype, d, sq, sk, causal, sq + sk + d + 1, rope=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_backward_dk_dv_are_deterministic(dtype, d):
     """dk and dv are summed in registers in a fixed order: two calls on the
     same inputs give the same bits. Only dq, added with atomics, may
@@ -723,6 +730,93 @@ def test_flash_autograd_matches_plain_autograd(h, kvh, causal):
         assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (1, 1, True), (1, 1, False), (17, 17, True), (17, 17, False),
+    (4096, 77, False), (77, 4096, False), (1000, 1000, True),
+    (300, 100, True)])
+def test_flash_head_dim_16_matches_plain(dtype, sq, sk, causal):
+    """Head dim 16 (the UNet's first level: 64 channels over 4 heads):
+    one k-step of q k^T and two 8-column tiles of p v on the tensor
+    cores, 2 copies a row in the loaders, the f32 route on CUDA cores; at
+    one row, off the tile (17; ViT's 197 is ``test_flash_kernels_match_
+    plain``'s), the cross-attention's 4096 queries against 77 keys (and
+    the reverse), and causal at 1000."""
+    _flash_check(dtype, 16, sq, sk, causal, sq + 2 * sk + 16)
+
+
+@pytest.mark.parametrize("kdim", [None, 48])
+def test_multi_head_attention_at_head_dim_16_launches_the_kernels(kdim):
+    """``nn.MultiHeadAttention`` at 64 channels over 4 heads sends its
+    attention to K1 / K2 (one launch each), never to the plain version,
+    and agrees with the plain route (``_sdpa_ref`` under a zero mask)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    mha = nn.MultiHeadAttention(64, 4, kdim=kdim, vdim=kdim, device="cuda",
+                                generator=gen)
+    x = torch.randn(2, 300, 64, device="cuda", generator=gen)
+    ctx = x if kdim is None else torch.randn(2, 77, kdim, device="cuda",
+                                             generator=gen)
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    out = mha(x, ctx, ctx)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (f0 + 1, b0 + 1)
+    zero = torch.zeros(1, 1, 1, ctx.shape[1], device="cuda")
+    want = mha(x, ctx, ctx, attn_mask=zero)
+    assert fa.flash_fwd.launches == f0 + 1
+    err = float((out - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+def test_flash_launch_counts_from_threads_add_up():
+    """Eight threads each launch K1 and K2 ``N`` times on their own
+    tensors: ``flash_fwd.launches`` and ``flash_bwd.launches`` grow by
+    exactly 8 N each (the count is taken where the kernel launches,
+    possibly from threads: router replicas, thread ranks)."""
+    import sys
+    import threading
+    from paddle_tpu_torch.ops import flash_attention as fa
+    n, threads = 200, 8
+    inputs = [_flash_inputs(2, 64, 64, 32, torch.bfloat16, 40 + i)
+              for i in range(threads)]
+    o, lse = fa.flash_fwd_plain(*inputs[0][:3], 32 ** -0.5, True)
+    fa.flash_fwd(*inputs[0][:3], 32 ** -0.5, True)     # built and loaded
+    torch.cuda.synchronize()
+    f0, b0 = fa.flash_fwd.launches, fa.flash_bwd.launches
+    barrier = threading.Barrier(threads)
+    errors = []
+
+    def work(i):
+        try:
+            q, k, v, do = inputs[i]
+            barrier.wait()
+            for _ in range(n):
+                fa.flash_fwd(q, k, v, 32 ** -0.5, True)
+                fa.flash_bwd(q, k, v, o, lse, do, 32 ** -0.5, True)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    pool = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)     # hand the interpreter over often
+    try:
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in pool)
+    assert not errors, errors
+    assert (fa.flash_fwd.launches - f0, fa.flash_bwd.launches - b0) == (
+        threads * n, threads * n)
+
+
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
     from paddle_tpu_torch.ops import flash_attention as fa
     q = torch.zeros(2, 16, 48, device="cuda")           # head dim 48
@@ -746,7 +840,7 @@ def _rope_tables(s, d, base=10000.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("s,causal", [(100, True), (64, False), (200, True)])
 def test_flash_kernels_with_rope_match_plain(dtype, d, s, causal):
     """The rope operands: q and k rotated in the input dtype inside both
