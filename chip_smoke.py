@@ -1019,6 +1019,13 @@ def _kernel_class(name):
         return "flash_fwd"
     if "flash_bwd" in n:
         return "flash_bwd"
+    if any(t in n for t in ("convolution", "conv2d", "convolve", "fprop",
+                            "dgrad", "wgrad", "implicit_gemm", "winograd")):
+        return "convolution"
+    if any(t in n for t in ("batch_norm", "bn_fw", "bn_bw", "batchnorm")):
+        return "batch_norm"
+    if "pool" in n:
+        return "pooling"
     if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "splitk", "nvjet")):
         return "library_gemm"
@@ -3802,20 +3809,22 @@ CE_SPECS = (
      "cluster"))
 
 
-def ce_case(torch, gen, spec):
+def ce_case(torch, gen, spec, x=None, lab=None):
     """Kernel C's inputs, gates and bytes for one of CE_SPECS: a dict with
     the forward's and backward's arguments in the wrappers' order, their
     atols and bytes, and the library calls (F.cross_entropy; its backward
-    share)."""
+    share). The logits ``x`` and labels ``lab`` are drawn from ``gen``
+    unless given."""
     from paddle_tpu_torch.ops import work
     import torch.nn.functional as Fn
     from paddle_tpu_torch.ops import token_ce as tc
     name, n, vocab, dtn, eps, ign, want_route = spec
     dt = getattr(torch, dtn)
-    x = (2 * torch.randn(n, vocab, generator=gen, device="cuda")).to(dt)
-    lab = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
-    if ign:
-        lab[::ign] = -100
+    if x is None:
+        x = (2 * torch.randn(n, vocab, generator=gen, device="cuda")).to(dt)
+        lab = torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+        if ign:
+            lab[::ign] = -100
     g = torch.ones((), device="cuda")
     eb = torch.finfo(dt).bits // 8
     _, stats, totals = tc.token_ce_fwd_plain(x, lab, -100, eps)
@@ -3888,21 +3897,28 @@ def token_ce_cases(torch, rows):
     from paddle_tpu_torch.ops import token_ce as tc
     gen = torch.Generator(device="cuda").manual_seed(83)
     for spec in CE_SPECS:
-        c = ce_case(torch, gen, spec)
-        rows["fwd"].append(tier_case(
-            torch, "token_ce_fwd", c["name"],
-            lambda: tc.token_ce_fwd(*c["fwd_args"]),
-            lambda: tc.token_ce_fwd_plain(*c["fwd_args"]), c["fwd_atols"],
-            c["fwd_bytes"], library=c["lib_fwd"], route=c["fwd_route"]))
-        rows["bwd"].append(tier_case(
-            torch, "token_ce_bwd", c["name"],
-            lambda: (tc.token_ce_bwd(*c["bwd_args"]),),
-            lambda: (tc.token_ce_bwd_plain(*c["bwd_args"]),),
-            c["bwd_atols"], c["bwd_bytes"], library=c["lib_grad"],
-            library_minus=c["lib_grad_minus"]))
-        del c
+        fwd, bwd = ce_tier_pair(torch, ce_case(torch, gen, spec))
+        rows["fwd"].append(fwd)
+        rows["bwd"].append(bwd)
         torch.cuda.empty_cache()
     rows["nan_label_routes"] = ce_nan_label_check(torch)
+
+
+def ce_tier_pair(torch, c):
+    """Kernel C's forward and backward rows (``tier_case``) of one
+    ``ce_case``."""
+    from paddle_tpu_torch.ops import token_ce as tc
+    return (tier_case(
+        torch, "token_ce_fwd", c["name"],
+        lambda: tc.token_ce_fwd(*c["fwd_args"]),
+        lambda: tc.token_ce_fwd_plain(*c["fwd_args"]), c["fwd_atols"],
+        c["fwd_bytes"], library=c["lib_fwd"], route=c["fwd_route"]),
+        tier_case(
+        torch, "token_ce_bwd", c["name"],
+        lambda: (tc.token_ce_bwd(*c["bwd_args"]),),
+        lambda: (tc.token_ce_bwd_plain(*c["bwd_args"]),),
+        c["bwd_atols"], c["bwd_bytes"], library=c["lib_grad"],
+        library_minus=c["lib_grad_minus"]))
 
 
 def adamw_case(torch):
@@ -9390,6 +9406,296 @@ def phase_families(torch):
     return rows, stats
 
 
+# -- phase 35: the vision training path ------------------------------------
+
+VIS_B = 64                 # (a) / (b): ResNet-50's usual per-card batch
+VIS_HW = 224
+VIS_CLASSES = 1000
+VIS_WARM, VIS_STEPS = 2, 5
+VIS_EVAL_BATCHES = 4       # (b): timed batches after one warm-up batch
+# (a)'s arithmetic: ResNet-50's forward is 4.1 GMAC an image at 224 x 224;
+# forward + backward are 3 x that, 2 operations a MAC
+VIS_FLOPS = 3 * 4.1e9 * 2 * VIS_B
+VIS_RTOL = 1e-4            # (c): card against CPU, each tensor's worst
+#                            element over its largest magnitude
+ZOO_B = 8                  # (d)
+
+
+def vision_dataset(torch, n, hw, classes, seed, channels=3):
+    """A port ``io.TensorDataset`` of ``n`` seeded images [C, hw, hw]
+    (normal) and int64 labels [1], made on the host in bulk."""
+    from paddle_tpu_torch import io
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, channels, hw, hw), generator=gen)
+    y = torch.randint(0, classes, (n, 1), generator=gen)
+    return io.TensorDataset([x, y])
+
+
+def vision_model(torch, net):
+    """A prepared ``paddle_tpu_torch.Model``: Momentum(0.1, 0.9, wd 1e-4),
+    CrossEntropyLoss, Accuracy(topk=(1, 5))."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import metric, nn, optimizer
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             weight_decay=1e-4, parameters=net.parameters())
+    return paddle.Model(net).prepare(opt, nn.CrossEntropyLoss(),
+                                     metric.Accuracy(topk=(1, 5)))
+
+
+def vision_fit(torch):
+    """(a) ResNet-50 through ``Model.fit``, f32, B=64 at 224 x 224: 2 warm-up
+    and 5 timed steps; kernel C's launches (1 + 1 a step), then kernel C
+    against its plain version on the last step's logits and labels; a
+    profiled step."""
+    from paddle_tpu_torch.hapi.callbacks import Callback, ProgBarLogger
+    from paddle_tpu_torch.ops import token_ce
+    from paddle_tpu_torch.vision import models
+
+    class StepClock(Callback):
+        """Wall clock at each train step's begin and end (its
+        ``loss.item()`` syncs the card before ``on_batch_end``) and its
+        logs. The DataLoader's collation of a batch runs between one
+        step's end and the next one's begin."""
+
+        def __init__(self):
+            self.begins, self.ends, self.logs = [], [], []
+
+        def on_batch_begin(self, mode, step, logs=None):
+            self.begins.append(time.perf_counter())
+
+        def on_batch_end(self, mode, step, logs=None):
+            self.ends.append(time.perf_counter())
+            self.logs.append(dict(logs))
+
+    net = models.resnet50(num_classes=VIS_CLASSES, device="cuda", seed=0)
+    model = vision_model(torch, net)
+    steps = VIS_WARM + VIS_STEPS
+    data = vision_dataset(torch, steps * VIS_B, VIS_HW, VIS_CLASSES, 350)
+    clock = StepClock()
+    seen = []
+
+    def keep_logits(m, i, o):
+        seen[:] = [o.detach()]
+    hook = net.register_forward_hook(keep_logits)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model.fit(data, batch_size=VIS_B, epochs=1, shuffle=False,
+                  callbacks=[ProgBarLogger(log_freq=1, verbose=2), clock])
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ce = (token_ce.token_ce_fwd.launches, token_ce.token_ce_bwd.launches)
+    check(ce == (steps, steps), f"(a) kernel C launches {ce}, want "
+          f"({steps}, {steps}): 1 + 1 a step")
+    check(len(clock.ends) == steps, f"(a) {len(clock.ends)} steps")
+    for lg in clock.logs:
+        check(math.isfinite(lg["loss"]) and 0.0 <= lg["acc_top1"]
+              <= lg["acc_top5"] <= 1.0, f"(a) logs {lg}")
+    # kernel C on the main path's own input: the last step's logits
+    # [64, 1000] f32 and its labels, against its plain version at phase
+    # 18's f32 gates (route "rows", one chunk a thread)
+    logits = seen[0]
+    labels = data.tensors[1][-VIS_B:].reshape(-1).to("cuda")
+    check(tuple(logits.shape) == (VIS_B, VIS_CLASSES)
+          and logits.dtype == torch.float32, f"(a) logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    ce_fwd, ce_bwd = ce_tier_pair(torch, ce_case(
+        torch, None, (f"vision_resnet50_n{VIS_B}_v{VIS_CLASSES}", VIS_B,
+                      VIS_CLASSES, "float32", 0.0, 0, "rows"),
+        x=logits, lab=labels))
+    secs = [e - b for b, e in zip(clock.begins, clock.ends)]
+    ms = 1e3 * float(np.median(secs[VIS_WARM:]))
+    # the timed steps' wall clock with the loader's collation of each
+    # batch: from the last warm-up step's end to the last step's end
+    loop_ms = 1e3 * (clock.ends[-1] - clock.ends[VIS_WARM - 1]) / VIS_STEPS
+    bound_ms = VIS_FLOPS / F32_FLOPS_PER_S * 1e3
+    x = data.tensors[0][:VIS_B]
+    y = data.tensors[1][:VIS_B]
+
+    def one_step():
+        model.train_batch(x, y)
+        return 1
+    prof = profile_window(torch, one_step, "step")
+    stats = {"ms_per_step": ms, "images_per_s": VIS_B / (ms / 1e3),
+             "loop_ms_per_step": loop_ms,
+             "loop_images_per_s": VIS_B / (loop_ms / 1e3),
+             "step_ms": [1e3 * t for t in secs],
+             "peak_memory_gb": peak, "bound_ms": bound_ms,
+             "bound_share": bound_ms / ms, "ce_launches": list(ce),
+             "ce_launches_per_step": [c // steps for c in ce],
+             "ce_rows": {"fwd": ce_fwd, "bwd": ce_bwd},
+             "logs": clock.logs, "profile": prof}
+    busy = prof.get("device_busy_s")
+    idle = None if busy is None else 1 - busy / prof["wall_s"]
+    stats["idle_share"] = idle
+    print(f"  (a) ResNet-50 Model.fit f32 B={VIS_B}: {ms:.2f} ms/step "
+          f"(median of {VIS_STEPS}, on_batch_begin to on_batch_end), "
+          f"{stats['images_per_s']:.1f} images/s; with the loader's "
+          f"collation {loop_ms:.2f} ms/step (the {VIS_STEPS} steps' wall "
+          f"clock), {stats['loop_images_per_s']:.1f} images/s; "
+          f"peak {peak:.2f} GB, bound {bound_ms:.2f} ms "
+          f"({VIS_FLOPS / 1e12:.3f} TFLOP at 67 TFLOP/s): "
+          f"{stats['bound_share']:.1%} of it; idle share "
+          f"{'not measured' if idle is None else f'{idle:.1%}'}; kernel C "
+          f"{ce[0] // steps} + {ce[1] // steps} a step", flush=True)
+    return model, stats
+
+
+def vision_eval(torch, model):
+    """(b) ``Model.evaluate`` on (a)'s ResNet-50 under auto_cast O1 bf16,
+    B=64: the convolutions in bf16 (a hook reads conv1's output), the
+    batch norms in f32; ms a batch and images/s."""
+    from paddle_tpu_torch import amp
+    seen = []
+    hook = model.network.conv1.register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype))
+    warm = vision_dataset(torch, VIS_B, VIS_HW, VIS_CLASSES, 351)
+    data = vision_dataset(torch, VIS_EVAL_BATCHES * VIS_B, VIS_HW,
+                          VIS_CLASSES, 352)
+    try:
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            model.evaluate(warm, batch_size=VIS_B, verbose=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = model.evaluate(data, batch_size=VIS_B, verbose=0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    check(seen and all(d == torch.bfloat16 for d in seen),
+          f"(b) conv1 outputs {set(seen)}, want bfloat16 under O1")
+    check(math.isfinite(logs["loss"]) and 0.0 <= logs["acc_top1"]
+          <= logs["acc_top5"] <= 1.0, f"(b) logs {logs}")
+    ms = 1e3 * secs / VIS_EVAL_BATCHES
+    print(f"  (b) ResNet-50 Model.evaluate, auto_cast O1 bf16, B={VIS_B}: "
+          f"{ms:.2f} ms a batch, {VIS_B / (ms / 1e3):.1f} images/s; "
+          f"logs {logs}", flush=True)
+    return {"ms_per_batch": ms, "images_per_s": VIS_B / (ms / 1e3),
+            "logs": logs}
+
+
+def vision_card_vs_cpu(torch):
+    """(c) One ResNet-18 Momentum step at B=4, 64 x 64, the same weights
+    and batch on the card and on the CPU (both the port): loss, logits,
+    every parameter after the step and every batch-norm buffer within
+    ``VIS_RTOL`` of each tensor's largest magnitude."""
+    from paddle_tpu_torch.models import state_from_numpy, state_to_numpy
+    from paddle_tpu_torch.vision import models
+    cpu_net = models.resnet18(num_classes=10, device="cpu", seed=5)
+    state = state_to_numpy(cpu_net, with_buffers=True)
+    gpu_net = state_from_numpy(state, models.resnet18, num_classes=10,
+                               device="cuda")
+    data = vision_dataset(torch, 4, 64, 10, 353)
+    x, y = data.tensors
+    got = {}
+    for dev, net in (("cpu", cpu_net), ("cuda", gpu_net)):
+        outs = []
+        hook = net.register_forward_hook(lambda m, i, o: outs.append(
+            o.detach()))
+        loss = vision_model(torch, net).train_batch(x, y)
+        hook.remove()
+        got[dev] = {"loss": loss.detach().reshape(1), "logits": outs[0]}
+        got[dev].update({n: p.detach() for n, p in net.named_parameters()})
+        got[dev].update({n: b for n, b in net.named_buffers()})
+        check(all(t.device.type == dev for t in got[dev].values()),
+              f"(c) a tensor of the {dev} run is not on {dev}")
+    worst, where = 0.0, None
+    for name, ref in got["cpu"].items():
+        ref = ref.double()
+        err = float((got["cuda"][name].cpu().double() - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    check(worst <= VIS_RTOL, f"(c) {where}: {worst:.3e} of its largest "
+          f"magnitude, over {VIS_RTOL}")
+    print(f"  (c) ResNet-18 step card vs CPU, {len(got['cpu'])} tensors "
+          f"(loss, logits, parameters, batch-norm buffers): worst "
+          f"{worst:.3e} of the tensor's largest magnitude ({where}), "
+          f"limit {VIS_RTOL}", flush=True)
+    return {"worst_rel": worst, "where": where, "tensors": len(got["cpu"])}
+
+
+def zoo_constructors():
+    """(name, constructor, input [C, H, W]) of every zoo model."""
+    from paddle_tpu_torch.vision import models as M
+    out = [("lenet", M.LeNet, (1, 28, 28)),
+           ("inception_v3", M.inception_v3, (3, 299, 299))]
+    for name in ("resnet18", "resnet34", "resnet50", "resnet101",
+                 "resnet152", "resnext50_32x4d", "resnext50_64x4d",
+                 "resnext101_32x4d", "resnext101_64x4d", "resnext152_32x4d",
+                 "resnext152_64x4d", "wide_resnet50_2", "wide_resnet101_2",
+                 "vgg11", "vgg13", "vgg16", "vgg19", "alexnet",
+                 "mobilenet_v1", "mobilenet_v2", "mobilenet_v3_small",
+                 "mobilenet_v3_large", "squeezenet1_0", "squeezenet1_1",
+                 "densenet121", "densenet161", "densenet169", "densenet201",
+                 "densenet264", "googlenet", "shufflenet_v2_x0_25",
+                 "shufflenet_v2_x0_33", "shufflenet_v2_x0_5",
+                 "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
+                 "shufflenet_v2_x2_0", "shufflenet_v2_swish"):
+        out.append((name, getattr(M, name), (3, 224, 224)))
+    out.append(("vgg16_bn", lambda **kw: M.vgg16(batch_norm=True, **kw),
+                (3, 224, 224)))
+    return out
+
+
+def vision_zoo(torch):
+    """(d) Every zoo constructor on the card, one bf16 eval forward at
+    B=8 and its own input size (weights and input in bf16): the shape
+    [8, classes] and finite values; ms of a second forward."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(354)
+    for name, build, chw in zoo_constructors():
+        classes = 10 if name == "lenet" else 1000
+        net = build(num_classes=classes, device="cuda", seed=1)
+        net = net.to(torch.bfloat16).eval()
+        x = torch.randn((ZOO_B,) + chw, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            out = net(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        check(tuple(out.shape) == (ZOO_B, classes)
+              and out.dtype == torch.bfloat16
+              and bool(torch.isfinite(out).all()),
+              f"(d) {name}: {tuple(out.shape)} {out.dtype}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        rows.append({"model": name, "input": list(chw), "ms": ms})
+        del net, out, x
+    torch.cuda.empty_cache()
+    print(f"  (d) {len(rows)} zoo models, bf16 eval forward B={ZOO_B}: "
+          + ", ".join(f"{r['model']} {r['ms']:.1f}" for r in rows)
+          + " ms", flush=True)
+    return rows
+
+
+def phase_vision(torch):
+    """Phase 35: the vision training path ((a)-(d)). Returns its stats."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats, secs = {}, {}
+    t0 = time.perf_counter()
+    model, stats["a"] = vision_fit(torch)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["b"] = vision_eval(torch, model)
+    secs["b"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    for part, fn in (("c", vision_card_vs_cpu), ("d", vision_zoo)):
+        t0 = time.perf_counter()
+        stats[part] = fn(torch)
+        secs[part] = time.perf_counter() - t0
+    stats["seconds"] = secs
+    print("  phase 35 seconds by part: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in secs.items()), flush=True)
+    return stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, main_case):
     main = next(r for r in rows if r["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source,
@@ -9578,6 +9884,11 @@ def main():
           "conditional UNet (head dims 16 and 32, cross-attention against "
           "77 rows), (e) K1 / K2 alone at their shapes", flush=True)
     family_rows, family_stats = phase_families(torch)
+    phase("phase 35: the vision training path: (a) ResNet-50 through "
+          "Model.fit, f32, B=64 at 224, (b) Model.evaluate under auto_cast "
+          "O1 bf16, (c) a ResNet-18 step on the card against the CPU, (d) "
+          "every zoo model's bf16 eval forward", flush=True)
+    vision_stats = phase_vision(torch)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -9636,6 +9947,10 @@ def main():
         "paddle_tpu/ops/pallas/quant_matmul.py:65",
         int8_stats["int8_launches"], int8_rows, f"M8_K{E}_N{2 * F}"))
     tier_launches = train_stats["tier_launches"]
+    # phase 35 (a)'s check of kernel C on ResNet-50's own logits joins
+    # phase 18's cases
+    for key in ("fwd", "bwd"):
+        tier_rows["ce_" + key].append(vision_stats["a"]["ce_rows"][key])
     for i, (name, source, replaces, key, case) in enumerate((
             ("fused_norm_fwd", "fused_norm", "nn/functional/norm.py:81",
              "norm_fwd", "flagship_r16384_h1024"),
@@ -9657,6 +9972,10 @@ def main():
             name, f"paddle_tpu_torch/csrc/{source}.cu",
             f"paddle_tpu/{replaces}", tier_launches[i], tier_rows[key],
             case))
+        if key in ("ce_fwd", "ce_bwd"):
+            # phase 35 (a)'s launches: ResNet-50's loss through Model.fit
+            kernels[-1]["vision_launches"] = \
+                vision_stats["a"]["ce_launches"][key == "ce_bwd"]
     # kernel D's telemetry instance: launch 2 with the group sums and the
     # packed vector (no pallas_call: the JAX step's _pack_telemetry is an
     # XLA fusion), counted in phase 22's telemetry run
@@ -9733,6 +10052,7 @@ def main():
           flush=True)
     print(f"card: {card}; model families: {json.dumps(family_stats)}",
           flush=True)
+    print(f"card: {card}; vision: {json.dumps(vision_stats)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

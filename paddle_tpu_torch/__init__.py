@@ -28,4 +28,22 @@ The next slice adds the serving autotuner on the port's kernel plans
 (``ops.autotune``, the engines' ``autotune_cache``) and ``amp``
 (``auto_cast``, ``decorate``, ``GradScaler``, ``debugging``;
 ``distributed.fleet.utils.mix_precision_utils``).
+
+Slice 28 adds the vision training path: the rest of ``nn`` that the
+model zoo builds from (pools, batch / instance norms, activations,
+containers, losses, 1-3D convolutions and their transposes,
+initializers), ``vision.models`` (the zoo), ``hapi`` (``Model`` with its
+callbacks, ``summary``, ``flops``; ``Model``, ``summary`` and ``flops``
+are also top-level names here), ``metric`` and ``framework``'s ``save``
+/ ``load``.
 """
+
+
+def __getattr__(name):
+    """``Model``, ``summary`` and ``flops`` at the top level, as paddle has
+    them (imported on first use: ``import paddle_tpu_torch`` stays
+    light)."""
+    if name in ("Model", "summary", "flops"):
+        from . import hapi
+        return getattr(hapi, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -156,7 +156,9 @@ class DataParallel(torch.nn.Module):
     ``comm_buffer_size`` MB, ``find_unused_parameters``). Each rank feeds
     its own batch; ``forward`` calls ``layers`` as it is. Building it
     broadcasts rank 0's parameters and buffers over ``group`` (every rank
-    builds it: a collective). ``state_dict`` and ``set_state_dict`` are
+    builds it: a collective). Each layer inside that defines
+    ``adopt_data_group`` (``SyncBatchNorm``) is handed ``group``.
+    ``state_dict`` and ``set_state_dict`` are
     the wrapped module's, without a prefix."""
 
     def __init__(self, layers, strategy=None, comm_buffer_size=25,
@@ -167,6 +169,10 @@ class DataParallel(torch.nn.Module):
         self.group = group if group is not None else _data_group()
         if self.group is not None and self.group.size() > 1:
             _sync_params_buffers(layers, self.group)
+        for m in layers.modules():
+            adopt = getattr(m, "adopt_data_group", None)
+            if adopt is not None:
+                adopt(self.group)
         self._reducer = EagerReducer(
             layers.parameters(), self.group,
             comm_buffer_size_mb=comm_buffer_size,

@@ -16,7 +16,7 @@ from ..core import random as _random
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from . import initializer as I
 
-__all__ = ["ParamAttr", "create_parameter", "model_init"]
+__all__ = ["ParamAttr", "create_parameter", "functional_layer", "model_init"]
 
 
 class ParamAttr:
@@ -69,3 +69,34 @@ def model_init(device=DEFAULT_DEVICE, seed=0, generator=None):
     dev = resolve_device(device)
     return dict(generator=generator if generator is not None
                 else _random.make_generator(seed, dev), device=dev)
+
+
+def functional_layer(name, fn, *args):
+    """A ``torch.nn.Module`` class ``name`` over the functional ``fn``:
+    its constructor takes ``args`` ((name, default) pairs, in order,
+    positionally or by keyword; paddle's ``name=`` is taken and dropped)
+    and keeps each as an attribute, and ``forward(*inputs)`` is
+    ``fn(*inputs, **those attributes)``, as the JAX layers that wrap one
+    functional read theirs."""
+    names = [n for n, _ in args]
+
+    def __init__(self, *values, **kw):
+        torch.nn.Module.__init__(self)
+        kw.pop("name", None)
+        given = dict(zip(names, values))
+        if len(values) > len(names) or set(kw) - set(names) \
+                or set(kw) & set(given):
+            raise TypeError(f"{name}: takes {names}, got {len(values)} "
+                            f"positional and {sorted(kw)}")
+        for n, default in args:
+            setattr(self, n, given.get(n, kw.get(n, default)))
+
+    def forward(self, *inputs):
+        return fn(*inputs, **{n: getattr(self, n) for n in names})
+
+    def extra_repr(self):
+        return ", ".join(f"{n}={getattr(self, n)}" for n in names)
+
+    return type(name, (torch.nn.Module,), {
+        "__init__": __init__, "forward": forward, "extra_repr": extra_repr,
+        "__doc__": f"``{fn.__module__}.{fn.__name__}`` as a layer."})

@@ -10,7 +10,14 @@ attributes while it runs. Each rank runs its torch operations on one
 intra-op thread (the count is restored at ``join``): ranks that share a
 process's intra-op pool would otherwise reduce in an order that depends
 on what the other ranks run at the same time, where a rank that is a
-process of its own does not."""
+process of its own does not.
+
+Each rank's group lives until ``join``: gloo's constructor returns on a
+rank once its own pairs are connected, while a peer may still be in its
+handshake with it, and a rank whose ``fn`` returns at once would
+otherwise drop its group and close those pairs under the peer (the peer
+then fails in ``connectFullMesh`` with "Connection closed by peer", or
+hangs in it)."""
 import threading
 
 __all__ = ["ThreadRankSet", "run_thread_ranks"]
@@ -29,12 +36,14 @@ class ThreadRankSet:
         self.world, self.timeout = world, timeout
         self.store = dist.HashStore()
         self.results, self.errors = {}, {}
+        self._groups = {}           # rank -> its group, kept until join()
         self._threads_before = torch.get_num_threads()
 
         def body(rank):
             try:
                 torch.set_num_threads(1)
-                self.results[rank] = fn(rank, self.group(rank))
+                group = self._groups[rank] = self.group(rank)
+                self.results[rank] = fn(rank, group)
             except BaseException as e:      # read by join()
                 self.errors[rank] = e
 
@@ -56,6 +65,7 @@ class ThreadRankSet:
         for t in self.threads:
             t.join(wait)
         torch.set_num_threads(self._threads_before)
+        self._groups.clear()
         alive = [t.name for t in self.threads if t.is_alive()]
         if alive:
             raise RuntimeError(f"thread ranks still running: {alive}")

@@ -2300,3 +2300,101 @@ def test_fused_moe_int8_experts_at_ragged_rows(dtype, glu):
     assert sw.swiglu_fwd.launches - nb == (3 if glu else 0)
     err = (got.cpu().float() - ref.float()).abs().max()
     assert float(err) <= 2 * _tol(ref, dtype), float(err)
+
+
+# -- the vision path (phase 35's shapes) --------------------------------------
+
+@pytest.mark.parametrize("b", [64, 3])
+def test_token_ce_at_the_vision_shape(b):
+    """Kernel C under ``nn.CrossEntropyLoss`` at ResNet's head: [B, 1000]
+    f32 logits against [B, 1] int64 labels, loss and dlogits against the
+    port's CPU result (the kernel's plain version), 1 + 1 launches."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import token_ce as tc
+    gen = torch.Generator().manual_seed(b)
+    x = 4 * torch.randn(b, 1000, generator=gen)
+    y = torch.randint(0, 1000, (b, 1), generator=gen)
+    xc = x.clone().requires_grad_(True)
+    ref = nn.CrossEntropyLoss()(xc, y)
+    ref.backward()
+    xg = x.cuda().requires_grad_(True)
+    before = (tc.token_ce_fwd.launches, tc.token_ce_bwd.launches)
+    got = nn.CrossEntropyLoss()(xg, y.cuda())
+    got.backward()
+    torch.cuda.synchronize()
+    assert (tc.token_ce_fwd.launches, tc.token_ce_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert abs(float(got.detach()) - float(ref.detach())) <= \
+        _tol(ref, torch.float32)
+    err = float((xg.grad.cpu() - xc.grad).abs().max())
+    assert err <= _tol(xc.grad, torch.float32), err
+
+
+@pytest.mark.parametrize("fn,args,kw", [
+    ("max_pool2d", (3, 2, 1), dict(ceil_mode=True)),
+    ("max_pool2d", (2, 2, 1), dict(ceil_mode=True, return_mask=True)),
+    ("avg_pool2d", (3, 2, 1), dict(ceil_mode=True)),
+    ("avg_pool2d", (3, 2, 1), dict(ceil_mode=True, exclusive=False)),
+    ("avg_pool2d", (2, 2, 1), dict()),
+    ("avg_pool1d", (2, 2, 1), dict(ceil_mode=True)),
+    ("adaptive_avg_pool2d", ((3, 5),), dict()),
+    ("adaptive_max_pool2d", ((3, 5),), dict(return_mask=True))])
+def test_pools_on_the_card_match_the_cpu(fn, args, kw):
+    """The pools' own padding (ceil mode, exclusive counts) and masks on
+    the card against the port's CPU result, f32 and bf16."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator().manual_seed(3)
+    shape = (2, 3, 11) if fn.endswith("1d") else (2, 3, 13, 14)
+    x = torch.randn(*shape, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        ref = getattr(F, fn)(xd, *args, **kw)
+        got = getattr(F, fn)(xd.cuda(), *args, **kw)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        for r, g in zip(ref, got):
+            assert g.shape == r.shape and g.dtype == r.dtype
+            if r.dtype == torch.int32:
+                assert torch.equal(g.cpu(), r)
+                continue
+            tol = _tol(r[torch.isfinite(r)], dtype)
+            same = torch.isfinite(r) == torch.isfinite(g.cpu())
+            assert bool(same.all())
+            fin = torch.isfinite(r)
+            err = float((g.cpu().float()[fin] - r.float()[fin]).abs().max())
+            assert err <= tol, (fn, dtype, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_and_transposed_convolutions_on_the_card(dtype):
+    """A depthwise 3 x 3 / 2 (MobileNet's) and a transposed convolution
+    with output padding and groups, forward and input / weight gradients
+    on the card against the port's CPU result (TF32 off)."""
+    from paddle_tpu_torch.nn import functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    cases = (
+        (F.conv2d, torch.randn(4, 32, 17, 17, generator=gen),
+         0.3 * torch.randn(32, 1, 3, 3, generator=gen),
+         dict(stride=2, padding=1, groups=32)),
+        (F.conv2d_transpose, torch.randn(2, 8, 9, 7, generator=gen),
+         0.3 * torch.randn(8, 3, 3, 3, generator=gen),
+         dict(stride=2, padding=1, output_padding=1, groups=2)),
+        (F.conv2d_transpose, torch.randn(2, 4, 5, 6, generator=gen),
+         0.3 * torch.randn(4, 6, 3, 3, generator=gen),
+         dict(stride=2, padding=[1, 0, 0, 1], output_size=(10, 12))))
+    for fn, x, w, kw in cases:
+        outs = []
+        for dev in ("cpu", "cuda"):
+            xd = x.to(dev, dtype, copy=True).requires_grad_(True)
+            wd = w.to(dev, dtype, copy=True).requires_grad_(True)
+            out = fn(xd, wd, **kw)
+            g = torch.ones_like(out)
+            out.backward(g)
+            outs.append([t.detach().cpu().float()
+                         for t in (out, xd.grad, wd.grad)])
+        for name, r, c in zip(("out", "dx", "dw"), *outs):
+            assert c.shape == r.shape
+            # bf16 rounds each product's sum once on each side
+            tol = 4 * _tol(r, dtype) * (1 if dtype == torch.float32 else 4)
+            assert float((c - r).abs().max()) <= tol, (fn.__name__, name)
